@@ -1,0 +1,31 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on CUDA unless the caller asks for the CPU. A request for
+CUDA on a machine without it raises: nothing carries on quietly on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
+    """"cuda" (the default), "cuda:N" or "cpu" -> torch.device; raises
+    RuntimeError when CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    return dev
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error every unported option raises, naming its ROADMAP item."""
+    return NotImplementedError(
+        f"{what} is not ported to fullsubnet_plus_torch yet "
+        f"(ROADMAP.md {item})"
+    )

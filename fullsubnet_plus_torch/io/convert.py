@@ -1,0 +1,93 @@
+"""The weight bridge: the JAX package's parameter tree <-> the port's state_dict.
+
+The port's modules are named after the reference's `state_dict` keys, so
+its state_dict is exactly what the JAX package's `export_fullsubnet_plus`
+(io/torch_convert.py:274-292 there) emits. The only layout change is a
+transpose of Linear and LSTM matrices (the JAX tree stores them [in, out]);
+conv weights keep torch's [O, I/g, K] layout in both.
+
+`key_table` lists every (JAX tree path, state_dict key, transposed) triple
+of the shipped FullSubNet+ (TSSE attention, TCN full-band models, 2-layer
+unidirectional LSTM sub-band model), in the reference's registration order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fullsubnet_plus_torch.io.checkpoint import nested_from_flat
+
+ATTENTIONS = ("channel_attention", "channel_attention_real", "channel_attention_imag")
+FB_MODELS = ("fb_model", "fb_model_real", "fb_model_imag")
+TCN_BLOCKS = 8
+
+
+def _linear(path, key):
+    return [(f"{path}/weight", f"{key}.weight", True), (f"{path}/bias", f"{key}.bias", False)]
+
+
+def _plain(path, key, names=("weight", "bias")):
+    return [(f"{path}/{n}", f"{key}.{n}", False) for n in names]
+
+
+def key_table(sb_num_layers: int = 2):
+    """[(jax "/"-path, state_dict key, transposed)] for FullSubNet+."""
+    table = []
+    for ca in ATTENTIONS:
+        for jax_name, ref_name in (("small_conv", "smallConv1d.0"),
+                                   ("middle_conv", "middleConv1d.0"),
+                                   ("large_conv", "largeConv1d.0")):
+            table += _plain(f"{ca}/{jax_name}", f"{ca}.{ref_name}")
+        for fc in ("feature_concate_fc", "fc1", "fc2"):
+            table += _linear(f"{ca}/{fc}", f"{ca}.{fc}")
+    for fb in FB_MODELS:
+        for i in range(TCN_BLOCKS):
+            src, dst = f"{fb}/seq/blocks/{i}", f"{fb}.sequence_model.{i}"
+            table += _plain(f"{src}/conv1x1", f"{dst}.conv1x1")
+            table.append((f"{src}/prelu1", f"{dst}.prelu1.weight", False))
+            table += _plain(f"{src}/norm1", f"{dst}.norm1")
+            table += _plain(f"{src}/depthwise", f"{dst}.depthwise_conv")
+            table.append((f"{src}/prelu2", f"{dst}.prelu2.weight", False))
+            table += _plain(f"{src}/norm2", f"{dst}.norm2")
+            table += _plain(f"{src}/sconv", f"{dst}.sconv")
+        table += _linear(f"{fb}/fc_output_layer", f"{fb}.fc_output_layer")
+    for layer in range(sb_num_layers):
+        src, dst = f"sb_model/seq/layers/{layer}", "sb_model.sequence_model"
+        table += [
+            (f"{src}/w_ih", f"{dst}.weight_ih_l{layer}", True),
+            (f"{src}/w_hh", f"{dst}.weight_hh_l{layer}", True),
+            (f"{src}/b_ih", f"{dst}.bias_ih_l{layer}", False),
+            (f"{src}/b_hh", f"{dst}.bias_hh_l{layer}", False),
+        ]
+    table += _linear("sb_model/fc_output_layer", "sb_model.fc_output_layer")
+    return table
+
+
+def _get(tree, path: str):
+    node = tree
+    for part in path.split("/"):
+        node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
+    return node
+
+
+def state_dict_from_jax(params) -> dict:
+    """JAX FullSubNet+ parameter tree (nested dicts/lists of arrays) ->
+    reference-layout state_dict of float32 torch tensors."""
+    out = {}
+    for path, key, transposed in key_table(len(params["sb_model"]["seq"]["layers"])):
+        value = np.array(_get(params, path), dtype=np.float32)
+        out[key] = torch.from_numpy(np.ascontiguousarray(value.T if transposed else value))
+    return out
+
+
+def jax_from_state_dict(state_dict) -> dict:
+    """Inverse of `state_dict_from_jax`: reference-layout state_dict ->
+    the JAX package's nested numpy parameter tree (for `.npz` checkpoints
+    that either package loads)."""
+    layers = sum(1 for k in state_dict if k.startswith("sb_model.sequence_model.weight_ih_l"))
+    flat = {}
+    for path, key, transposed in key_table(layers):
+        value = state_dict[key].detach().to("cpu", torch.float32).numpy()
+        flat[path] = np.ascontiguousarray(value.T if transposed else value)
+    return nested_from_flat(flat)

@@ -1,0 +1,100 @@
+"""Temporal convolutional network: the full-band extractor.
+
+Counterpart of fullsubnet_plus_tpu/nn/tcn.py:23-158, 275-296 (reference
+TCNBlock, causal_conv.py:67-117): 1x1 conv -> PReLU -> GroupNorm(1) ->
+depthwise dilated conv -> PReLU -> GroupNorm(1) -> 1x1 conv, plus the
+residual skip. The stack is 8 blocks with dilations (1, 2, 5, 9) x 2 and
+hidden width 512, hard-coded as in the reference.
+
+Float32 on the card: `conv1d` keeps the JAX package's two forms, a matmul
+for the 1x1 conv and shifted multiply-adds for the depthwise conv, so no
+convolution goes through cuDNN (whose float32 default is TF32), and a
+float32 matmul runs in full float32 under PyTorch's default precision.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from fullsubnet_plus_torch.dsp.norms import time_mask
+from fullsubnet_plus_torch.nn.layers import Conv1d, GroupNormParams, PReLU
+
+TCN_DILATIONS = (1, 2, 5, 9, 1, 2, 5, 9)
+TCN_HIDDEN = 512
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None, *,
+           dilation: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """torch.nn.functional.conv1d for the two forms the model uses.
+    x [B, C, T], weight [O, I/g, K]: depthwise (groups == C == O) or 1x1."""
+    out_c, in_per_group, k = weight.shape
+    in_c = x.shape[1]
+    if groups == in_c == out_c and in_per_group == 1:
+        xp = nn.functional.pad(x, (padding, padding)) if padding else x
+        t_out = xp.shape[-1] - dilation * (k - 1)
+        out = weight[None, :, 0, 0, None] * xp[:, :, :t_out]
+        for tap in range(1, k):
+            start = tap * dilation
+            out = out + weight[None, :, 0, tap, None] * xp[:, :, start:start + t_out]
+    elif k == 1 and groups == 1 and dilation == 1 and padding == 0:
+        out = torch.matmul(weight[:, :, 0], x)  # [O, C] @ [B, C, T]
+    else:
+        raise ValueError(
+            f"conv1d supports depthwise and 1x1 forms only, got weight "
+            f"{tuple(weight.shape)}, groups={groups}, for {in_c} input channels")
+    if bias is not None:
+        out = out + bias[None, :, None]
+    return out
+
+
+def group_norm1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                eps: float = 1e-8, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """nn.GroupNorm(1, C) over (C, T) per sample, x [B, C, T]. With `valid`
+    the statistics cover the first valid[b] frames and the rest is zeroed."""
+    if valid is None:
+        mu = x.mean(dim=(1, 2), keepdim=True)
+        var = ((x - mu) ** 2).mean(dim=(1, 2), keepdim=True)
+        return (x - mu) * torch.rsqrt(var + eps) * weight[None, :, None] + bias[None, :, None]
+    mask = time_mask(x.shape[-1], valid, x.dtype)[:, None, :]
+    count = (x.shape[1] * valid.to(x.dtype))[:, None, None]
+    mu = (x * mask).sum(dim=(1, 2), keepdim=True) / count
+    var = (((x - mu) * mask) ** 2).sum(dim=(1, 2), keepdim=True) / count
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight[None, :, None] + bias[None, :, None]) * mask
+
+
+class TCNBlock(nn.Module):
+    """Non-causal TCN block, x [B, C, T] -> [B, C, T]."""
+
+    def __init__(self, channels: int, hidden: int = TCN_HIDDEN, kernel_size: int = 3,
+                 dilation: int = 1):
+        super().__init__()
+        self.dilation = dilation
+        self.padding = dilation * (kernel_size - 1) // 2
+        self.conv1x1 = Conv1d(channels, hidden, 1)
+        self.prelu1 = PReLU()
+        self.norm1 = GroupNormParams(hidden)
+        self.depthwise_conv = Conv1d(hidden, hidden, kernel_size, groups=hidden)
+        self.prelu2 = PReLU()
+        self.norm2 = GroupNormParams(hidden)
+        self.sconv = Conv1d(hidden, channels, 1)
+
+    def forward(self, x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
+        y = conv1d(x, self.conv1x1.weight, self.conv1x1.bias)
+        y = group_norm1(self.prelu1(y), self.norm1.weight, self.norm1.bias, valid=valid)
+        y = conv1d(y, self.depthwise_conv.weight, self.depthwise_conv.bias,
+                   dilation=self.dilation, padding=self.padding,
+                   groups=self.depthwise_conv.weight.shape[0])
+        y = group_norm1(self.prelu2(y), self.norm2.weight, self.norm2.bias, valid=valid)
+        out = x + conv1d(y, self.sconv.weight, self.sconv.bias)
+        if valid is not None:
+            # keep "zero beyond valid": the sconv bias and the skip would
+            # otherwise put back values the next conv smears inward
+            out = out * time_mask(out.shape[-1], valid, out.dtype)[:, None, :]
+        return out
+
+
+def tcn_stack(channels: int) -> nn.ModuleList:
+    """The 8 shipped blocks; the stack's ReLU is applied by its caller."""
+    return nn.ModuleList(TCNBlock(channels, dilation=d) for d in TCN_DILATIONS)
