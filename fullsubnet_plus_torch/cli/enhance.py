@@ -2,7 +2,7 @@
 
     python -m fullsubnet_plus_torch.cli.enhance -C configs/inference.toml \
         -M checkpoint(.npz|.tar|.pth) -I noisy_dir -O out_dir \
-        [--batch N] [--dtype float32|bfloat16] [--device cuda|cpu]
+        [--batch N] [--dtype float32|bfloat16|int8] [--device cuda|cpu]
 
 Counterpart of fullsubnet_plus_tpu/cli/enhance.py:22-184. Takes the JAX
 package's `.npz` checkpoints and the reference's torch `.tar`/`.pth`.
@@ -37,8 +37,8 @@ def run_enhance(config: dict, checkpoint_path: str, output_dir: str, input_dirs=
                 batch_size: int = 8, compute_dtype: str | None = None,
                 device: str = "cuda") -> dict:
     """Enhance every wav under the input directories into `output_dir`.
-    compute_dtype: None (float32, the parity path) or "bfloat16"; the
-    config's [inferencer.args] compute_dtype applies when it is None."""
+    compute_dtype: None (float32, the parity path), "bfloat16" or "int8";
+    the config's [inferencer.args] compute_dtype applies when it is None."""
     from fullsubnet_plus_torch.data.datasets import InferenceDataset
     from fullsubnet_plus_torch.data.wav import write_wav
     from fullsubnet_plus_torch.enhance import Enhancer
@@ -104,8 +104,11 @@ def main(argv=None):
                         help="comma-separated noisy dirs (overrides config)")
     parser.add_argument("-O", "--output_dir", required=True)
     parser.add_argument("--batch", type=int, default=8)
-    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
-                        help="model compute dtype: float32 = parity path (default)")
+    parser.add_argument("--dtype", choices=["float32", "bfloat16", "int8"], default=None,
+                        help="model compute dtype: float32 = parity path (default); "
+                             "bfloat16 casts the model; int8 = bfloat16 with the "
+                             "sub-band LSTM's recurrent products in int8 (the "
+                             "serving default, not the parity path)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 

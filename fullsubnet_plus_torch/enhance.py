@@ -11,11 +11,16 @@ with each utterance's own window envelope.
 
 compute_dtype None or "float32" is the parity path. "bfloat16" casts the
 model's weights and inputs; the STFT, mask and iSTFT stay float32, as in
-the JAX package. Float32 matmuls must run in full float32 on the card, so
-the float32 path refuses to run with TF32 matmuls enabled.
+the JAX package. "int8" is the serving default: bfloat16, with the
+sub-band LSTM's recurrent products in int8 (ops/lstm2_int8.py), its
+weights quantized once here at construction (enhance.py:91-159 of the JAX
+package). Float32 matmuls must run in full float32 on the card, so the
+float32 path refuses to run with TF32 matmuls enabled.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -60,6 +65,10 @@ class Enhancer:
     Runs on `device` ("cuda" by default; "cpu" on request). Raises for what
     this slice has not ported."""
 
+    # modes that take per-utterance true lengths for bucket-padded batches
+    # (the serving engine's zero-padded tail chunks need them)
+    LENGTH_AWARE_MODES = ("mag_complex_full_band_crm_mask",)
+
     def __init__(self, model_def, model_config, state_dict, *,
                  inference_type="mag_complex_full_band_crm_mask", n_fft=512,
                  hop_length=256, win_length=512, sr=16000, mesh=None, compute_dtype=None,
@@ -70,12 +79,12 @@ class Enhancer:
             raise NotImplementedError(f"Unknown inference type {inference_type}")
         if mesh is not None:
             raise not_ported("mesh= (multi-device enhancement)", "Queue 1 item 10")
-        if compute_dtype == "int8":
-            raise not_ported("compute_dtype='int8'", "Queue 2 item 2")
-        if compute_dtype not in (None, "float32", "bfloat16"):
+        if compute_dtype not in (None, "float32", "bfloat16", "int8"):
             raise ValueError(f"compute_dtype {compute_dtype!r}")
         self.device = resolve_device(device)
-        self.dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+        self.dtype = torch.float32 if compute_dtype in (None, "float32") else torch.bfloat16
+        if compute_dtype == "int8":
+            model_config = dataclasses.replace(model_config, quantized_lstm=True)
         self.model_def = model_def
         self.model_config = model_config
         self.inference_type = inference_type
@@ -84,6 +93,8 @@ class Enhancer:
         model = model_def.module_cls(model_config)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
+        if compute_dtype == "int8":
+            self.model.prepare_int8()
 
     def enhance_batch(self, noisy: np.ndarray, lengths=None) -> np.ndarray:
         """[B, L] float32 -> [B, L] float32 (no rescale). `lengths`: each

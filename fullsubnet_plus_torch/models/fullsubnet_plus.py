@@ -48,6 +48,10 @@ class FullSubNetPlusConfig:
     output_size: int = 2
     subband_num: int = 1
     kersize: tuple = (3, 5, 10)
+    # serving only: the sub-band LSTM's recurrent products in int8
+    # (ops/lstm2_int8.py), set by Enhancer(compute_dtype="int8"); never
+    # used in training and not the checkpoint-parity path
+    quantized_lstm: bool = False
 
     @property
     def num_channels(self) -> int:
@@ -108,6 +112,12 @@ class FullSubNetPlus(nn.Module):
         self.load_state_dict(state_dict_from_jax(params), strict=True)
         return self
 
+    def prepare_int8(self) -> "FullSubNetPlus":
+        """Quantize the sub-band LSTM once for `quantized_lstm` (after the
+        model's final move and cast)."""
+        self.sb_model.prepare_int8()
+        return self
+
     def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
                 noisy_imag: torch.Tensor, valid_frames: torch.Tensor | None = None,
                 training: bool = False) -> torch.Tensor:
@@ -159,6 +169,7 @@ class FullSubNetPlus(nn.Module):
             [mag_unf, unfold_fb(fb_output), unfold_fb(fbr_output), unfold_fb(fbi_output)],
             dim=2)
         sb_input = self.norm(sb_input, valid=valid)  # [B, F, 34, T]
-        sb_mask = self.sb_model(sb_input.reshape(batch * num_freqs, cfg.sb_input_size, frames))
+        sb_mask = self.sb_model(sb_input.reshape(batch * num_freqs, cfg.sb_input_size, frames),
+                                quantized=cfg.quantized_lstm and not training)
         sb_mask = sb_mask.reshape(batch, num_freqs, cfg.output_size, frames).permute(0, 2, 1, 3)
         return sb_mask[:, :, :, la:]

@@ -6,7 +6,8 @@ i, f, g, o), so a reference state_dict loads with strict=True; the JAX tree
 stores the same matrices transposed. The forward is not here: the 2-layer
 sweep with the output Linear fused runs through ops/lstm2.py, whose
 `lstm2_fc_reference` is the plain scan and whose `lstm2_fc` launches the
-CUDA kernel on the card.
+CUDA kernel on the card; the int8-recurrent serving form through
+ops/lstm2_int8.py, with operands from `prepare_int8`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ from torch import nn
 
 from fullsubnet_plus_torch.nn.layers import Linear, uniform_
 from fullsubnet_plus_torch.ops.lstm2 import LSTM2Weights
+from fullsubnet_plus_torch.ops.lstm2_int8 import (
+    LSTM2Int8Weights,
+    pack_k_quads,
+    prepare_quantized_lstm,
+)
 
 
 class LSTM2(nn.Module):
@@ -57,4 +63,43 @@ class LSTM2(nn.Module):
             b2=(self.bias_ih_l1 + self.bias_hh_l1).detach().float(),
             fc_w=t(fc.weight).float(),
             fc_b=fc.bias.detach().float(),
+        )
+
+    def prepare_int8(self, fc: Linear) -> LSTM2Int8Weights:
+        """The int8-recurrent kernel's operands, built once (the counterpart
+        of the JAX Enhancer's `_attach_int8_prepared`): every weight is first
+        cast to bfloat16, as the JAX Enhancer casts its parameters before it
+        quantizes, then U1 and [W2; U2] are quantized per column
+        (`prepare_quantized_lstm`) and repacked for the kernel. Raises if a
+        prepared shape does not match the float weights it came from."""
+        def bf16(p):
+            return p.detach().to(torch.bfloat16)
+
+        def t(p):
+            return bf16(p).t().contiguous()
+
+        u1 = t(self.weight_hh_l0)
+        w2 = torch.cat([t(self.weight_ih_l1), t(self.weight_hh_l1)], dim=0)
+        q = prepare_quantized_lstm(u1.float().cpu().numpy(), w2.float().cpu().numpy())
+        gates = 4 * self.hidden_size
+        expect = {"u1q": tuple(u1.shape), "w2q": tuple(w2.shape), "s1": (gates,),
+                  "s2": (gates,)}
+        for name, shape in expect.items():
+            if q[name].shape != shape:
+                raise ValueError(f"prepare_int8: {name} is {q[name].shape}, the float "
+                                 f"weights give {shape}")
+        device = self.weight_hh_l0.device
+        u1q, w2q = (torch.from_numpy(q[k]).to(device) for k in ("u1q", "w2q"))
+        return LSTM2Int8Weights(
+            w1=t(self.weight_ih_l0),
+            u1q=u1q,
+            s1=torch.from_numpy(q["s1"]).to(device),
+            b1=(bf16(self.bias_ih_l0) + bf16(self.bias_hh_l0)).float(),
+            w2q=w2q,
+            s2=torch.from_numpy(q["s2"]).to(device),
+            b2=(bf16(self.bias_ih_l1) + bf16(self.bias_hh_l1)).float(),
+            fc_w=t(fc.weight).float(),
+            fc_b=bf16(fc.bias).float(),
+            u1q_packed=pack_k_quads(u1q),
+            w2q_packed=pack_k_quads(w2q),
         )

@@ -16,21 +16,18 @@ float32, and y is stored in x's dtype.
 `lstm2_fc` takes the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor, or raises; it never falls back. The kernel is
 compiled with nvcc from the package's sources at first use, into
-fullsubnet_plus_torch/_build/, and loaded with ctypes.
+fullsubnet_plus_torch/_build/, and loaded with ctypes (ops/nvcc.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
-import threading
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from fullsubnet_plus_torch.ops import nvcc
 
 LAUNCHES = 0  # kernel launches through lstm2_fc since import (or last reset)
 
@@ -38,11 +35,8 @@ ROWS_PER_CTA = 16  # R in csrc/lstm2_fwd.cu
 MAX_HIDDEN = 512  # the kernel's __launch_bounds__: one thread per hidden unit
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "lstm2_fwd.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
-_lib_lock = threading.Lock()
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 class LSTM2Weights(NamedTuple):
@@ -60,6 +54,13 @@ class LSTM2Weights(NamedTuple):
     fc_b: torch.Tensor
 
 
+def lstm_cell(gates: torch.Tensor, c: torch.Tensor):
+    """The LSTM cell on [.., 4H] gates in order i, f, g, o -> (h, c)."""
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
 def lstm2_fc_reference(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
     """The plain version: a Python loop over T with torch.matmul, the same
     cast points and float32 state as the kernel. x [N, D, T] -> [N, T, O]."""
@@ -74,16 +75,11 @@ def lstm2_fc_reference(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
     h1 = x.new_zeros(n, hidden, dtype=torch.float32)
     c1, h2, c2 = torch.zeros_like(h1), torch.zeros_like(h1), torch.zeros_like(h1)
 
-    def cell(gates, c):
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        return torch.sigmoid(o) * torch.tanh(c), c
-
     out = []
     for t in range(steps):
-        h1, c1 = cell(x[:, :, t].float() @ w1 + h1 @ u1 + w.b1, c1)
+        h1, c1 = lstm_cell(x[:, :, t].float() @ w1 + h1 @ u1 + w.b1, c1)
         h1 = rounded(h1)
-        h2, c2 = cell(torch.cat([h1, h2], dim=-1) @ w2 + w.b2, c2)
+        h2, c2 = lstm_cell(torch.cat([h1, h2], dim=-1) @ w2 + w.b2, c2)
         h2 = rounded(h2)
         out.append(h2 @ w.fc_w + w.fc_b)
     return torch.stack(out, dim=1).to(x.dtype)
@@ -157,36 +153,8 @@ def _launch(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
 def build() -> Path:
     """Compile csrc/lstm2_fwd.cu for sm_90a into the build directory (once
     per source version) and return the shared library's path."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:12]
-    lib_path = _BUILD_DIR / f"lstm2_fwd_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        (_BUILD_DIR / f"lstm2_fwd_{digest}.ptxas.txt").write_text(proc.stderr)
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path
+    return nvcc.build("lstm2_fwd")
 
 
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.lstm2_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            lib.lstm2_fwd.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    return nvcc.load("lstm2_fwd", "lstm2_fwd", _ARGTYPES)

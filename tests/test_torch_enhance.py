@@ -122,8 +122,17 @@ def test_run_enhance_end_to_end_on_cpu(tmp_path, params):
         assert abs(np.max(np.abs(y)) - 0.8) < 1e-3  # int16 quantization
 
 
+def test_int8_constructs_and_sets_quantized_lstm(params):
+    """compute_dtype="int8" (the serving default) builds a bf16 model with
+    the quantized sub-band LSTM and its int8 weights prepared once."""
+    e = Enhancer(FULLSUBNET_PLUS, FullSubNetPlusConfig(**TINY), state_dict_from_jax(params),
+                 compute_dtype="int8", device="cpu", **ACOUSTICS)
+    assert e.model.config.quantized_lstm and e.dtype == torch.bfloat16
+    assert e.model.sb_model.int8_weights.u1q.dtype == torch.int8
+
+
 @pytest.mark.parametrize("kwargs,match", [
-    ({"compute_dtype": "int8"}, "Queue 2 item 2"),
+    ({"inference_type": "overlapped_chunk"}, "Queue 1 item 7"),
     ({"mesh": object()}, "Queue 1 item 10"),
     ({"inference_type": "sub_band_crm_mask"}, "Queue 1 item 7"),
 ])
@@ -147,6 +156,8 @@ def test_port_imports_no_jax():
         "import fullsubnet_plus_torch, fullsubnet_plus_torch.cli.enhance\n"
         "import fullsubnet_plus_torch.enhance, fullsubnet_plus_torch.io.convert\n"
         "import fullsubnet_plus_torch.data.datasets, fullsubnet_plus_torch.utils.config\n"
+        "import fullsubnet_plus_torch.serve, fullsubnet_plus_torch.cli.serve\n"
+        "import fullsubnet_plus_torch.ops.lstm2_int8\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib',"
         " 'fullsubnet_plus_tpu'))]\n"
         "assert not bad, bad\n"
