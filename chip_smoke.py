@@ -3,16 +3,23 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure (exit code 1, no result line):
-  1. build both CUDA kernels from the checkout, in parallel:
-     csrc/lstm2_fwd.cu (K1, float) and csrc/lstm2_int8_fwd.cu (K5, int8);
+  1. build the five CUDA kernels from the checkout, in parallel:
+     csrc/lstm2_fwd.cu (K1, float forward), csrc/lstm2_int8_fwd.cu (K5, int8
+     forward) and the training step's csrc/lstm2_train_fwd.cu (K2, the
+     residual-saving forward), csrc/lstm2_bwd_wgrad.cu (K3, the backward
+     with the weight gradients inside) and csrc/lstm2_bwd.cu (K4, the
+     backward that keeps the dgates);
   2. hold each kernel against its plain PyTorch version on the card: K1 at
      the batch path's sub-band fold (fp32 >= 80 dB, bf16 >= 40 dB SNR), K5
-     at the serving fold and at the batch path's (>= 40 dB), both at a
-     ragged shape; check that the int8 weights K5 reads are the prepared
-     ones;
+     at the serving fold and at the batch path's (>= 40 dB), K2, K3 and K4
+     at the training fold (same floors; K2's y equal to K1's bit for bit,
+     K3 equal to itself on a repeat, the autograd Function's gradients
+     through K3 against those through K4), all at a ragged shape too; check
+     that the int8 weights K5 reads are the prepared ones;
   3. time each kernel, its plain version and a cuDNN LSTM + Linear (a
-     yardstick only; for K5 also K1 in bf16 at the same shape), with CUDA
-     events, beside the bound from the card's peaks;
+     yardstick only; forward for K1, K2 and K5, backward for K3 and K4; for
+     K5 also K1 in bf16 at the same shape), with CUDA events, beside the
+     bound from the card's peaks;
   4. drive the batch path, `fullsubnet_plus_torch.cli.enhance.run_enhance`,
      on 8 wavs of 3-10 s with a seeded full-width FullSubNet+ in float32,
      bfloat16 and int8; check every output, that the kernels were launched,
@@ -26,7 +33,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      each stream against the same stream drained offline through a
      StreamingEngine in int8 on the card (>= 60 dB); profile one serving
      batch;
-  6. print the kernels' JSON line, the card's name and power limit, and
+  6. drive the training path: `make_train_step` at the full width of
+     configs/train.toml (batch 18 of 3.072 s, drop_band 2) on seeded
+     waveforms and weights: a few steps in float32 and bfloat16 through
+     K2 + K3, the float32 steps again through K2 + K4 and through the plain
+     versions; every loss and gradient norm finite, nothing skipped, the
+     launch counts as expected, the kernel runs in agreement with the plain
+     run, a NaN batch skipped with the state unchanged bit for bit; then
+     `make_eval_step` (K1); profile one step;
+  7. print the kernels' JSON line, the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
 Imports nothing of JAX. Exits non-zero without CUDA.
@@ -59,7 +74,20 @@ N_RAGGED, T_RAGGED = 3 * 257, 37
 # N = 8 * 257, T = 1 + (64256 + 256) // 256 + 2 = 255.
 SLOTS, CHUNK_S = 8, 4
 N_SERVE, T_SERVE = SLOTS * 257, 1 + (CHUNK_S * SR + 256 + 256) // 256 + 2
+# The training fold (configs/train.toml): batch 18 of 3.072 s with 2 drop-band
+# groups leaves 18 * (257 // 2) rows; T = 49152 // 256 + 1 frames + 2 look-ahead.
+TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_STEPS = 18, 49152, 4
+N_TRAIN, T_TRAIN = TRAIN_BATCH * (257 // 2), TRAIN_SAMPLES // 256 + 1 + 2
+# Kernel against plain version. float32 differs by sum order and expf/tanhf
+# only (measured 95-140 dB); in bf16 single roundings of h, the residuals and
+# the dgates flip and carry through the recurrence, and a weight gradient
+# sums N * T = 449,280 such terms (measured 55-80 dB).
 SNR_FLOOR = {torch.float32: 80.0, torch.bfloat16: 40.0}
+# Training runs against the plain run over TRAIN_STEPS Adam steps from the same
+# state: float32 sum order moves the loss in the 6th digit; an early Adam step
+# is lr * g / |g|, so elements with round-off gradients may step either way.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL = 1e-3, 1e-2
+TRAIN_BF16_LOSS_RTOL = 0.1  # bf16 compute against the float32 plain run
 INT8_SNR_FLOOR = 40.0
 WAVE_SNR_FLOOR = 60.0
 INT8_WAVE_SNR_FLOOR = 40.0  # kernel against plain int8 LSTM, through the bf16 model
@@ -71,6 +99,10 @@ FEED_SPEEDUP = 10.0  # clients send audio this many times faster than real time
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+
+
+KERNEL_SOURCES = ("lstm2_fwd", "lstm2_int8_fwd", "lstm2_train_fwd", "lstm2_bwd_wgrad",
+                  "lstm2_bwd")  # csrc/<name>.cu
 
 
 def fail(msg: str):
@@ -152,15 +184,21 @@ def int8_operands(n: int, t: int, seed: int):
     return lstm_input(n, t, torch.bfloat16, g), lstm.prepare_int8(fc), lstm, fc
 
 
-def cudnn_lstm(lstm, fc, dtype: torch.dtype):
-    """cuDNN's 2-layer LSTM + Linear with the same weights, never called by
-    the port: float32 without TF32, so it computes at K1's precision."""
+def cudnn_modules(lstm, fc, dtype: torch.dtype):
+    """torch.nn.LSTM (cuDNN) and Linear with the same weights; yardsticks
+    that the port never calls."""
     ref = torch.nn.LSTM(D, H, num_layers=2, batch_first=True)
     ref.load_state_dict({k: v.float().cpu() for k, v in lstm.state_dict().items()})
     ref = ref.to("cuda", dtype)  # .to() packs the weights for cuDNN
     linear = torch.nn.Linear(H, O)
     linear.load_state_dict({k: v.float().cpu() for k, v in fc.state_dict().items()})
-    linear = linear.to("cuda", dtype)
+    return ref, linear.to("cuda", dtype)
+
+
+def cudnn_lstm(lstm, fc, dtype: torch.dtype):
+    """cuDNN's 2-layer LSTM + Linear forward: float32 without TF32, so it
+    computes at K1's precision."""
+    ref, linear = cudnn_modules(lstm, fc, dtype)
 
     def run(x):
         x_ntd = x.transpose(1, 2).contiguous()
@@ -172,11 +210,11 @@ def cudnn_lstm(lstm, fc, dtype: torch.dtype):
 
 
 def phase_build() -> None:
-    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
+    from fullsubnet_plus_torch.ops import nvcc
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        libs = list(pool.map(lambda m: m.build(), (lstm2, lstm2_int8)))
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, together
+        libs = list(pool.map(nvcc.build, KERNEL_SOURCES))
     print(f"[1] built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for lib in libs:
@@ -275,6 +313,304 @@ def phase_time() -> dict:
     return times
 
 
+def train_operands(n: int, t: int, dtype: torch.dtype, seed: int):
+    """Seeded operands of the training kernels: x [N, D, T], the cotangent
+    dy [N, T, O], the LSTM and its Linear."""
+    lstm, fc, g = lstm_modules(dtype, seed)
+    x = lstm_input(n, t, dtype, g)
+    dy = torch.randn(n, t, O, generator=g).to("cuda", dtype)
+    return x, dy, lstm, fc
+
+
+def worst(refs, outs) -> tuple[float, float]:
+    """(least SNR in dB, largest absolute error) over pairs of tensors."""
+    pairs = [(r.float(), o.float()) for r, o in zip(refs, outs)]
+    if not all(torch.isfinite(o).all() for _, o in pairs):
+        fail("a training kernel's output is not finite")
+    return (min(snr_db(r, o) for r, o in pairs),
+            max(float((o - r).abs().max()) for r, o in pairs))
+
+
+def phase_check_train() -> dict:
+    """K2, K3 and K4 against their plain versions at the training fold and
+    at a ragged one (N not a multiple of the row tile, T odd)."""
+    from fullsubnet_plus_torch.ops import lstm2, lstm2_train as lt
+
+    def function_grads(x, dy, lstm, fc, fused):
+        lt.FUSED_WGRAD = fused
+        try:
+            xg, tensors = x.detach().requires_grad_(), lstm.tensors(fc)
+            return torch.autograd.grad(lt.lstm2_fc_train(xg, *tensors), (xg, *tensors), dy)
+        finally:
+            lt.FUSED_WGRAD = True
+
+    errors = {}
+    for n, t in ((N_TRAIN, T_TRAIN), (N_RAGGED, T_RAGGED)):
+        for dtype in (torch.float32, torch.bfloat16):
+            floor, tag = SNR_FLOOR[dtype], f"N={n} T={t} {str(dtype)[6:]}"
+            x, dy, lstm, fc = train_operands(n, t, dtype, seed=n + t + 1)
+            w = lstm.packed(fc)
+            y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+            y, res = lt.lstm2_train_fwd(x, w)
+            torch.cuda.synchronize()
+            same_primal = torch.equal(y, lstm2.lstm2_fc(x, w))
+            k2 = worst((y_ref, *res_ref), (y, *res))
+            # the backward kernels read the plain forward's residuals, so
+            # only the backward differs from the plain backward
+            ref = lt.lstm2_bwd_reference(dy, x, w, res_ref)
+            sweep = lt.lstm2_bwd_sweep(dy, x, w, res_ref)
+            k4 = worst(ref[:3], sweep[:3])
+            want = lt.LSTM2Grads(ref.dx, *lt.weight_grads(x, res_ref, ref.dg1, ref.dg2)[:4],
+                                 ref.db1, ref.db2)
+            del ref, sweep
+            got = lt.lstm2_bwd(dy, x, w, res_ref, fused=True)
+            again = lt.lstm2_bwd(dy, x, w, res_ref, fused=True)
+            torch.cuda.synchronize()
+            k3 = worst(want, got)
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            del want, got, again, y_ref, res_ref, y, res
+            forms = worst(function_grads(x, dy, lstm, fc, False),
+                          function_grads(x, dy, lstm, fc, True))
+            print(f"[2] training kernels vs plain {tag} (floor {floor:.0f} dB): "
+                  f"lstm2_train_fwd {k2[0]:.1f} dB max_abs {k2[1]:.3e}, y equal to "
+                  f"lstm2_fwd's: {same_primal}; lstm2_bwd {k4[0]:.1f} dB max_abs {k4[1]:.3e}; "
+                  f"lstm2_bwd_wgrad {k3[0]:.1f} dB max_abs {k3[1]:.3e}, equal on a repeat: "
+                  f"{repeat}; Function's gradients through K3 vs through K4 {forms[0]:.1f} dB")
+            if not same_primal:
+                fail(f"lstm2_train_fwd's y differs from lstm2_fwd's at {tag}")
+            if not repeat:
+                fail(f"lstm2_bwd_wgrad is not deterministic at {tag}")
+            for name, (snr, _) in (("lstm2_train_fwd", k2), ("lstm2_bwd", k4),
+                                   ("lstm2_bwd_wgrad", k3), ("K3 vs K4 gradients", forms)):
+                if snr < floor:
+                    fail(f"{name} disagrees at {tag}: {snr:.1f} dB")
+            for name, (snr, err) in (("lstm2_train_fwd", k2), ("lstm2_bwd", k4),
+                                     ("lstm2_bwd_wgrad", k3)):
+                errors[(name, n, t, dtype)] = {"max_abs_err": err, "min_snr_db": snr}
+            torch.cuda.empty_cache()
+    return errors
+
+
+def train_bounds(dtype: torch.dtype) -> dict:
+    """Least ms of K2, K3 and K4 at the training fold: operations at the
+    peak rate of the type against bytes (each input read once, each output
+    written once; h_{t-1} and c_{t-1} are the arrays of h and c read again)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    rows = N_TRAIN * T_TRAIN
+    weights = (D + 3 * H) * 4 * H * size + H * O * 4
+    sweep_flops = 2 * rows * ((D + 3 * H) * 4 * H + H * O)  # forward and reverse sweep alike
+    wgrad_flops = 2 * rows * (D + 3 * H) * 4 * H
+    fwd_bytes = rows * (D + O + 12 * H) * size + weights + 2 * 4 * H * 4 + O * 4
+    bwd_bytes = rows * (O + 10 * H + 8 * H + D) * size + weights
+    wgrad_bytes = rows * (O + D + 12 * H + D) * size + weights + ((D + 3 * H) * 4 * H + 8 * H) * 4
+    peak = PEAK_FLOPS[dtype]
+    return {"lstm2_train_fwd": bound(sweep_flops / peak, fwd_bytes),
+            "lstm2_bwd": bound(sweep_flops / peak, bwd_bytes),
+            "lstm2_bwd_wgrad": bound((sweep_flops + wgrad_flops) / peak, wgrad_bytes)}
+
+
+def phase_time_train() -> dict:
+    """K2, K4 (its outside products apart) and K3 at the training fold,
+    beside their plain versions, their bounds and cuDNN's LSTM + Linear
+    forward and backward (never called by the port)."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy, lstm, fc = train_operands(N_TRAIN, T_TRAIN, dtype, seed=3)
+        w = lstm.packed(fc)
+        _, res = lt.lstm2_train_fwd(x, w)
+        sweep = lt.lstm2_bwd_sweep(dy, x, w, res)
+        ms = {
+            "lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd(x, w), reps=3),
+            "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res), reps=3),
+            "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True), reps=3),
+        }
+        outside_ms = cuda_ms(lambda: lt.weight_grads(x, res, sweep.dg1, sweep.dg2), reps=3)
+        del sweep
+        plain = {
+            "lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd_reference(x, w), reps=2),
+            "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res), reps=2),
+            "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd_plain(dy, x, w, res, True), reps=2),
+        }
+        del res
+        torch.cuda.empty_cache()
+
+        ref, linear = cudnn_modules(lstm, fc, dtype)
+        x_ntd = x.transpose(1, 2).contiguous().requires_grad_()
+        wrt = (x_ntd, *ref.parameters(), *linear.parameters())
+
+        def library_fwd():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return linear(ref(x_ntd)[0])
+
+        def library_bwd(y):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return torch.autograd.grad(y, wrt, dy, retain_graph=True)
+
+        fwd_ms = cuda_ms(library_fwd, reps=3)
+        y_lib = library_fwd()
+        bwd_ms = cuda_ms(lambda: library_bwd(y_lib), reps=3)
+        del y_lib
+        library = {"lstm2_train_fwd": fwd_ms, "lstm2_bwd": bwd_ms, "lstm2_bwd_wgrad": bwd_ms}
+        bounds = train_bounds(dtype)
+        for name in ms:
+            bound_ms, bound_by = bounds[name]
+            extra = (f" (+ {outside_ms:.3f} ms for the weight-gradient products outside)"
+                     if name == "lstm2_bwd" else "")
+            side = "forward" if name == "lstm2_train_fwd" else "backward"
+            print(f"[3] {name} {str(dtype)[6:]} N={N_TRAIN} T={T_TRAIN}: kernel {ms[name]:.3f} ms"
+                  f"{extra}  plain {plain[name]:.3f} ms  cuDNN LSTM+Linear {side} "
+                  f"{library[name]:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})")
+            times[(name, dtype)] = dict(ms=ms[name], plain_ms=plain[name],
+                                        library_ms=library[name], bound_ms=bound_ms,
+                                        bound_by=bound_by)
+        times[("lstm2_bwd", dtype)]["outside_products_ms"] = outside_ms
+        torch.cuda.empty_cache()
+    return times
+
+
+def train_pair(rng: np.random.Generator, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """(noisy, clean): a tone with a little noise, and the same under more noise."""
+    t = np.arange(n) / SR
+    clean = 0.3 * np.sin(2 * np.pi * rng.uniform(100.0, 400.0) * t) + 0.02 * rng.standard_normal(n)
+    return ((clean + 0.1 * rng.standard_normal(n)).astype(np.float32),
+            clean.astype(np.float32))
+
+
+def phase_train() -> dict:
+    """The training path: `make_train_step` at the full width of
+    configs/train.toml, through the kernels and through their plain
+    versions; then `make_eval_step`."""
+    from fullsubnet_plus_torch.models import get_model
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+    from fullsubnet_plus_torch.train import loss, step
+    from fullsubnet_plus_torch.utils.config import load_config
+
+    toml = load_config(os.path.join(REPO, "configs", "train.toml"))
+    model_def = get_model(toml["model"]["path"])
+    config = model_def.make_config(toml["model"]["args"])
+    acoustics = {k: toml["acoustics"][k] for k in ("n_fft", "hop_length", "win_length")}
+    data = toml["train_dataset"]
+    shape = (data["dataloader"]["batch_size"],
+             round(data["args"]["sub_sample_length"] * data["args"]["sr"]))
+    if shape != (TRAIN_BATCH, TRAIN_SAMPLES) or config.num_groups_in_drop_band != 2:
+        fail(f"configs/train.toml gives a batch of {shape}, not the training fold's")
+    optimizer = step.make_optimizer(
+        **toml["optimizer"], clip_grad_norm=toml["trainer"]["train"]["clip_grad_norm_value"])
+    loss_fn = loss.get_loss(toml["loss_function"]["name"])
+    rng = np.random.default_rng(4)
+    batches = [tuple(np.stack(rows) for rows in
+                     zip(*(train_pair(rng, TRAIN_SAMPLES) for _ in range(TRAIN_BATCH))))
+               for _ in range(TRAIN_STEPS)]
+    audio_s = TRAIN_BATCH * TRAIN_SAMPLES / SR
+
+    def make_step(dtype):
+        return step.make_train_step(model_def, config, optimizer, loss_fn, compute_dtype=dtype,
+                                    device="cuda", **acoustics)
+
+    def run(tag, dtype, fused, plain=False):
+        """TRAIN_STEPS steps from the seeded state; metrics, walls, launches."""
+        model = model_def.module_cls(config).init_weights(torch.Generator().manual_seed(42))
+        state = step.init_train_state(model, optimizer, device="cuda")
+        train_step = make_step(dtype)
+        kernels = (lt.lstm2_train_fwd, lt.lstm2_bwd)
+        lt.FUSED_WGRAD = fused
+        if plain:
+            lt.lstm2_train_fwd, lt.lstm2_bwd = lt.lstm2_train_fwd_reference, lt.lstm2_bwd_plain
+        reset_launches()
+        metrics, walls = [], []
+        try:
+            for noisy, clean in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = train_step(state, noisy, clean)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            lt.FUSED_WGRAD = True
+            lt.lstm2_train_fwd, lt.lstm2_bwd = kernels
+        launches = all_launches()
+        backward = "lstm2_bwd_wgrad" if fused else "lstm2_bwd"
+        expect = {k: 0 for k in launches}
+        if not plain:
+            expect.update({"lstm2_train_fwd": TRAIN_STEPS, backward: TRAIN_STEPS})
+        wall = statistics.median(walls[1:])  # the first step warms up cuBLAS and cuFFT plans
+        print(f"[6] train {tag}: loss {', '.join(f'{m['loss']:.6f}' for m in metrics)}; "
+              f"grad norm {', '.join(f'{m['grad_norm']:.4f}' for m in metrics)}; step wall "
+              f"median {wall:.1f} ms (each {', '.join(f'{w:.0f}' for w in walls)}), "
+              f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {launches}")
+        for m in metrics:
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+                fail(f"train {tag}: loss or gradient norm not finite: {m}")
+            if m["skipped"] != 0.0:
+                fail(f"train {tag}: a step was skipped")
+        if launches != expect:
+            fail(f"train {tag}: launches {launches}, expected {expect}")
+        if int(state.step) != TRAIN_STEPS or int(state.opt_state.count) != TRAIN_STEPS:
+            fail(f"train {tag}: step {int(state.step)}, Adam count {int(state.opt_state.count)}")
+        return {"state": state, "metrics": metrics, "wall_ms": wall, "launches": launches,
+                "audio_s_per_s": audio_s / wall * 1e3}
+
+    runs = {"float32_k3": run("float32 K2+K3", torch.float32, True),
+            "bfloat16_k3": run("bfloat16 K2+K3", torch.bfloat16, True),
+            "float32_k4": run("float32 K2+K4", torch.float32, False),
+            "float32_plain": run("float32 plain versions", torch.float32, True, plain=True)}
+    plain = runs["float32_plain"]["metrics"]
+    for tag, loss_rtol, norm_rtol in (("float32_k3", TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
+                                      ("float32_k4", TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
+                                      ("bfloat16_k3", TRAIN_BF16_LOSS_RTOL, None)):
+        gaps = [(abs(m["loss"] - p["loss"]) / abs(p["loss"]),
+                 abs(m["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"]))
+                for m, p in zip(runs[tag]["metrics"], plain)]
+        worst_loss, worst_norm = max(g[0] for g in gaps), max(g[1] for g in gaps)
+        print(f"[6] {tag} against the plain float32 run: loss within {worst_loss:.2e} "
+              f"(limit {loss_rtol:g}), gradient norm within {worst_norm:.2e} "
+              f"(limit {norm_rtol if norm_rtol else 'none'})")
+        if worst_loss > loss_rtol or (norm_rtol and worst_norm > norm_rtol):
+            fail(f"train {tag} disagrees with the plain run")
+
+    # a NaN in one noisy waveform: the update is rejected on the device
+    state = runs["float32_k3"]["state"]
+    before = [t.clone() for t in (*state.model.parameters(), state.opt_state.mu,
+                                  state.opt_state.nu)]
+    noisy, clean = batches[0]
+    bad = noisy.copy()
+    bad[3, 1000] = np.nan
+    train_step = make_step(torch.float32)
+    state, m = train_step(state, bad, clean)
+    after = (*state.model.parameters(), state.opt_state.mu, state.opt_state.nu)
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, after))
+    print(f"[6] NaN batch: skipped {float(m['skipped'])}, state unchanged bit for bit: "
+          f"{unchanged}, step {int(state.step)}, Adam count {int(state.opt_state.count)}")
+    if (float(m["skipped"]) != 1.0 or not unchanged or int(state.step) != TRAIN_STEPS + 1
+            or int(state.opt_state.count) != TRAIN_STEPS):
+        fail("the NaN batch was not skipped cleanly")
+
+    reset_launches()
+    eval_step = step.make_eval_step(model_def, config, loss_fn, device="cuda", **acoustics)
+    eval_loss, enhanced = eval_step(state.model, noisy, clean)
+    torch.cuda.synchronize()
+    eval_launches = all_launches()
+    print(f"[6] eval step: loss {float(eval_loss):.6f}, enhanced {tuple(enhanced.shape)}, "
+          f"launches {eval_launches}")
+    if (not np.isfinite(float(eval_loss)) or tuple(enhanced.shape) != noisy.shape
+            or not torch.isfinite(enhanced).all()):
+        fail("the eval step's loss or waveform is wrong")
+    if eval_launches["lstm2_fwd"] < 1 or eval_launches["lstm2_train_fwd"] != 0:
+        fail(f"the eval step's launches: {eval_launches}")
+
+    def one_step():
+        train_step(state, noisy, clean)
+        torch.cuda.synchronize()
+
+    profile_call(one_step, "[6] profile float32 train step (K2 + K3):")
+    return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s")}
+                     for k, v in runs.items()},
+            "eval_launches": eval_launches}
+
+
 def write_inputs(root: str) -> list[int]:
     from fullsubnet_plus_torch.data.wav import write_wav
     from fullsubnet_plus_torch.io.checkpoint import save_flat
@@ -297,9 +633,19 @@ def noisy_utterance(rng: np.random.Generator, n: int) -> np.ndarray:
 
 
 def reset_launches() -> None:
-    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
+    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8, lstm2_train
 
     lstm2.LAUNCHES = lstm2_int8.LAUNCHES = 0
+    for name in lstm2_train.LAUNCHES:
+        lstm2_train.LAUNCHES[name] = 0
+
+
+def all_launches() -> dict:
+    """The five kernels' launch counts since the last reset."""
+    from fullsubnet_plus_torch.cli.serve import kernel_launches
+    from fullsubnet_plus_torch.ops import lstm2_train
+
+    return {**kernel_launches(), **lstm2_train.LAUNCHES}
 
 
 def phase_batch_path(root: str, lengths: list[int]) -> dict:
@@ -364,21 +710,22 @@ def phase_batch_path(root: str, lengths: list[int]) -> dict:
     return {"launches": launches, "rates": rates}
 
 
-def profile_batch(enhancer, batch: np.ndarray, lengths, tag: str) -> None:
-    """Where one batch spends device time (torch.profiler), and the
-    device's idle share of the wall time. Reported only."""
+def profile_call(fn, tag: str) -> None:
+    """Where one call of `fn` (which must return synchronized) spends device
+    time (torch.profiler), and the device's idle share of the wall time.
+    Reported only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    enhancer.enhance_batch(batch, lengths=lengths)
+    fn()
     walls = []
     for _ in range(3):  # unprofiled: the profiler's own overhead inflates wall time
         t0 = time.perf_counter()
-        enhancer.enhance_batch(batch, lengths=lengths)  # returns numpy: synchronized
+        fn()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        enhancer.enhance_batch(batch, lengths=lengths)
+        fn()
     # device-side events only: an operator's own entry repeats its kernels' time
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -402,7 +749,9 @@ def phase_profile(root: str, lengths: list[int]) -> None:
     batch = np.zeros((len(lengths), -(-max(lengths) // SR) * SR), np.float32)
     for i, n in enumerate(lengths):
         batch[i, :n] = read_wav(os.path.join(root, "noisy", f"utt{i}.wav"))
-    profile_batch(enhancer, batch, lengths, "[4] profile float32 batch:")
+    # enhance_batch returns numpy: synchronized
+    profile_call(lambda: enhancer.enhance_batch(batch, lengths=lengths),
+                 "[4] profile float32 batch:")
 
 
 def free_port() -> int:
@@ -523,8 +872,8 @@ def profile_serving_batch(serve: dict) -> None:
     engine = serve["engine"]
     rng = np.random.default_rng(3)
     rows = np.stack([noisy_utterance(rng, engine.in_len) for _ in range(SLOTS)])
-    profile_batch(serve["enhancer"], rows, [engine.in_len] * SLOTS,
-                  "[5] profile int8 serving batch:")
+    profile_call(lambda: serve["enhancer"].enhance_batch(rows, lengths=[engine.in_len] * SLOTS),
+                 "[5] profile int8 serving batch:")
 
 
 def main() -> None:
@@ -547,7 +896,9 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_build()
     errors = phase_check()
+    train_errors = phase_check_train()
     times = phase_time()
+    train_times = phase_time_train()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         lengths = write_inputs(root)
         batch = phase_batch_path(root, lengths)
@@ -555,7 +906,8 @@ def main() -> None:
         serve = phase_serve(os.path.join(REPO, "configs", "inference.toml"),
                             os.path.join(root, "model.npz"))
         profile_serving_batch(serve)
-    print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s")
+    train = phase_train()
+    print(f"phases 1-6 took {time.perf_counter() - t_start:.1f} s")
 
     f32, bf16, int8 = times[torch.float32], times[torch.bfloat16], times["int8"]
     k1 = {
@@ -564,14 +916,15 @@ def main() -> None:
         "source": "fullsubnet_plus_torch/csrc/lstm2_fwd.cu",
         "replaces": "fullsubnet_plus_tpu/ops/lstm_pallas.py:98 (_make_kernel)",
         "launches": batch["launches"]["float32"]["lstm2_fwd"]
-        + batch["launches"]["bfloat16"]["lstm2_fwd"],
+        + batch["launches"]["bfloat16"]["lstm2_fwd"] + train["eval_launches"]["lstm2_fwd"],
         "max_abs_err": errors[("lstm2_fwd", N_FULL, T_FULL, torch.float32)],
         **f32,
         "shape": {"N": N_FULL, "D": D, "H": H, "O": O, "T": T_FULL, "dtype": "float32"},
         "bfloat16": {"max_abs_err": errors[("lstm2_fwd", N_FULL, T_FULL, torch.bfloat16)],
                      **bf16},
-        "launches_by_run": {tag: batch["launches"][tag]["lstm2_fwd"]
-                            for tag in ("float32", "bfloat16")},
+        "launches_by_run": {**{tag: batch["launches"][tag]["lstm2_fwd"]
+                               for tag in ("float32", "bfloat16")},
+                            "eval_step": train["eval_launches"]["lstm2_fwd"]},
         "audio_s_per_s": {tag: batch["rates"][tag] for tag in ("float32", "bfloat16")},
     }
     k5 = {
@@ -592,7 +945,33 @@ def main() -> None:
                           "serve_stream_median": serve["stream_audio_s_per_s_median"]},
         "serve_busy_tick_ms": serve["stats"]["busy_tick_ms"],
     }
-    print(json.dumps({"kernels": [k1, k5]}))
+    runs = train["runs"]
+
+    def train_kernel(name, source, replaces, launch_runs):
+        f32, bf16 = (train_times[(name, dt)] for dt in (torch.float32, torch.bfloat16))
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"fullsubnet_plus_torch/csrc/{source}",
+            "replaces": f"fullsubnet_plus_tpu/ops/lstm_pallas.py:{replaces}",
+            "launches": sum(runs[r]["launches"][name] for r in launch_runs),
+            **train_errors[(name, N_TRAIN, T_TRAIN, torch.float32)],
+            **f32,
+            "shape": {"N": N_TRAIN, "D": D, "H": H, "O": O, "T": T_TRAIN, "dtype": "float32"},
+            "bfloat16": {**train_errors[(name, N_TRAIN, T_TRAIN, torch.bfloat16)], **bf16},
+            "launches_by_run": {r: runs[r]["launches"][name] for r in launch_runs},
+            "library": "cuDNN LSTM + Linear, "
+                       + ("forward" if name == "lstm2_train_fwd" else "backward"),
+            "train_step": {r: {"wall_ms": runs[r]["wall_ms"],
+                               "audio_s_per_s": runs[r]["audio_s_per_s"]} for r in launch_runs},
+        }
+
+    k2 = train_kernel("lstm2_train_fwd", "lstm2_train_fwd.cu", "322 (_residual_kernel)",
+                      ("float32_k3", "bfloat16_k3", "float32_k4"))
+    k3 = train_kernel("lstm2_bwd_wgrad", "lstm2_bwd_wgrad.cu", "472 (_make_bwd_kernel_fused)",
+                      ("float32_k3", "bfloat16_k3"))
+    k4 = train_kernel("lstm2_bwd", "lstm2_bwd.cu", "415 (_make_bwd_kernel)", ("float32_k4",))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,82 @@
+// Reverse-sweep backward of the fused 2-layer LSTM that keeps the dgates,
+// for Hopper (sm_90a): the second, switchable backward of the training step.
+//
+// Replaces the TPU kernel `_make_bwd_kernel` launched by `_train_bwd` with
+// FUSED_WGRAD = False (fullsubnet_plus_tpu/ops/lstm_pallas.py:415, :695,
+// pallas_call at :828). One launch sweeps t = T-1 .. 0 for every row tile
+// and writes dgates1, dgates2 [T, N, 4H] and dx [T, N, D] in x's type; the
+// weight gradients are whole-sequence matrix products outside the kernel
+// (`weight_grads` in ops/lstm2_train.py), as in the JAX package.
+//
+// What bounds it on the H100. At the training fold (N = 2304, D = 34,
+// H = 384, O = 2, T = 195) the sweep does 1.64 TFLOP (the transposed
+// products contract over all 4H gate columns) and moves the residuals in
+// (10H elements per row and step: g and c of both layers; c_{t-1} is the
+// same array read again) and both dgates and dx out (8H + D): 12.5 GB in
+// float32, 6.3 GB in bf16. In float32 the FMA rate bounds it (24.4 ms at
+// 67 TFLOP/s against 3.7 ms of bytes); in bf16 the bytes do (1.9 ms against
+// 1.7 ms at the tensor cores' rate). The products here are float32 FMAs in
+// both types, so the kernel stays well above either bound.
+//
+// Design: the sweep of lstm2_bwd_sweep.cuh (one CTA per row tile for all T,
+// the tile's dgates in shared memory, a thread per output column of the
+// transposed weights), run once over all steps with the carries starting
+// from zero and kept inside the block.
+//
+// The C entry point launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError().
+
+#include "lstm2_bwd_sweep.cuh"
+
+namespace {
+
+template <typename T>
+int run(const void* dy, const void* g1, const void* c1, const void* g2, const void* c2,
+        const void* w2t, const void* u1t, const void* w1t, const void* fcw, void* dg1,
+        void* dg2, void* dx, int n_rows, int steps, int D, int H, int O, int rows,
+        cudaStream_t stream) {
+  bwd::SweepArgs<T> a;
+  a.dy = static_cast<const T*>(dy);
+  a.g1 = static_cast<const T*>(g1);
+  a.c1 = static_cast<const T*>(c1);
+  a.g2 = static_cast<const T*>(g2);
+  a.c2 = static_cast<const T*>(c2);
+  a.w2t = static_cast<const T*>(w2t);
+  a.u1t = static_cast<const T*>(u1t);
+  a.w1t = static_cast<const T*>(w1t);
+  a.fcw = static_cast<const float*>(fcw);
+  a.dg1 = static_cast<T*>(dg1);
+  a.dg2 = static_cast<T*>(dg2);
+  a.dx = static_cast<T*>(dx);
+  a.carry = nullptr;
+  a.db_part = nullptr;
+  a.n_rows = n_rows;
+  a.steps = steps;
+  a.D = D;
+  a.H = H;
+  a.O = O;
+  a.t_hi = steps - 1;
+  a.t_lo = 0;
+  a.t_base = 0;
+  a.resume = 0;
+  return bwd::launch_sweep<T>(a, rows, stream);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (dy, the residuals, the transposed
+// weights, dgates and dx; fcw is float32). rows: the row tile R, 16 or 20.
+extern "C" int lstm2_bwd(const void* dy, const void* g1, const void* c1, const void* g2,
+                         const void* c2, const void* w2t, const void* u1t, const void* w1t,
+                         const void* fcw, void* dg1, void* dg2, void* dx, int n_rows,
+                         int steps, int D, int H, int O, int rows, int dtype, void* stream) {
+  if (!bwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run<float>(dy, g1, c1, g2, c2, w2t, u1t, w1t, fcw, dg1, dg2, dx, n_rows, steps, D,
+                      H, O, rows, s);
+  if (dtype == 1)
+    return run<__nv_bfloat16>(dy, g1, c1, g2, c2, w2t, u1t, w1t, fcw, dg1, dg2, dx, n_rows,
+                              steps, D, H, O, rows, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,12 +1,15 @@
-"""Sub-band frequency unfold (reflect padding).
+"""Sub-band frequency unfold (reflect padding) and the training-time band
+dropout.
 
-Counterpart of fullsubnet_plus_tpu/dsp/unfold.py:22-66 with its default
+Counterpart of fullsubnet_plus_tpu/dsp/unfold.py:22-101 with its default
 pad mode: reflect-pad the frequency axis by `num_neighbors`, then slide a
-(2n+1)-wide window over it, as a gather with a precomputed index table.
-`drop_band` is training-only and waits for ROADMAP.md Queue 1 item 6.
+(2n+1)-wide window over it, as a gather with a precomputed index table;
+`drop_band` keeps every num_groups-th frequency, rotating with the sample.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -32,3 +35,34 @@ def freq_unfold(x: torch.Tensor, num_neighbors: int) -> torch.Tensor:
     idx = torch.from_numpy(_reflect_indices(num_freqs, num_neighbors)).to(x.device)
     gathered = x[:, :, idx, :]  # [B, C, F, W, T]
     return gathered.permute(0, 2, 1, 3, 4)
+
+
+@functools.lru_cache(maxsize=64)
+def _drop_band_indices(batch_size: int, num_freqs: int, num_groups: int):
+    """(batch_idx [B], freq_idx [B, F // G]) in the reference's order: the
+    output samples of group g are the inputs g, g + G, ..., each keeping
+    frequencies g, g + G, g + 2G, ... (reference feature.py:276-285)."""
+    kept = num_freqs - (num_freqs % num_groups)
+    batch_idx, freq_idx = [], []
+    for g in range(num_groups):
+        freqs = np.arange(g, kept, num_groups)
+        for s in range(g, batch_size, num_groups):
+            batch_idx.append(s)
+            freq_idx.append(freqs)
+    return np.asarray(batch_idx), np.stack(freq_idx, axis=0)
+
+
+def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
+    """[B, C, F, T] -> [B, C, F // num_groups, T]: the training-only
+    frequency subsample, coupling batch and frequency indices as the
+    reference does."""
+    batch_size, _, num_freqs, _ = x.shape
+    if batch_size <= num_groups:
+        raise ValueError(f"Batch size ({batch_size}) must exceed num_groups ({num_groups}).")
+    if num_groups <= 1:
+        return x
+    batch_idx, freq_idx = _drop_band_indices(batch_size, num_freqs, num_groups)
+    batch_idx = torch.from_numpy(batch_idx).to(x.device)[:, None]
+    freq_idx = torch.from_numpy(freq_idx).to(x.device)
+    # advanced indices split by a slice move to the front: [B, F // G, C, T]
+    return x[batch_idx, :, freq_idx, :].permute(0, 2, 1, 3)

@@ -6,6 +6,10 @@ its state_dict is exactly what the JAX package's `export_fullsubnet_plus`
 transpose of Linear and LSTM matrices (the JAX tree stores them [in, out]);
 conv weights keep torch's [O, I/g, K] layout in both.
 
+`train_state_from_jax` and `jax_from_train_state` carry a whole training
+state (parameters, Adam's moments and count, the step) the same way, so
+both packages can start from the same mid-run state.
+
 `key_table` lists every (JAX tree path, state_dict key, transposed) triple
 of the shipped FullSubNet+ (TSSE attention, TCN full-band models, 2-layer
 unidirectional LSTM sub-band model), in the reference's registration order.
@@ -91,3 +95,20 @@ def jax_from_state_dict(state_dict) -> dict:
         value = state_dict[key].detach().to("cpu", torch.float32).numpy()
         flat[path] = np.ascontiguousarray(value.T if transposed else value)
     return nested_from_flat(flat)
+
+
+def train_state_from_jax(params, mu, nu, count, step) -> dict:
+    """The JAX package's TrainState as numpy (parameter tree, Adam's `mu`
+    and `nu` trees of the same shape, its `count` and the `step`) -> the
+    dict that the port's `TrainState.load_state_dict` takes: the moments go
+    through the same `key_table` and transposes as the parameters."""
+    return {"params": state_dict_from_jax(params), "mu": state_dict_from_jax(mu),
+            "nu": state_dict_from_jax(nu), "count": int(count), "step": int(step)}
+
+
+def jax_from_train_state(state: dict) -> dict:
+    """Inverse of `train_state_from_jax`, from `TrainState.state_dict()`:
+    {"params", "mu", "nu"} as the JAX package's nested numpy trees, "count"
+    and "step" as ints."""
+    return {**{k: jax_from_state_dict(state[k]) for k in ("params", "mu", "nu")},
+            "count": int(state["count"]), "step": int(state["step"])}

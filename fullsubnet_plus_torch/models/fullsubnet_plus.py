@@ -23,7 +23,7 @@ from torch import nn
 
 from fullsubnet_plus_torch.device import not_ported
 from fullsubnet_plus_torch.dsp.norms import get_norm, time_mask
-from fullsubnet_plus_torch.dsp.unfold import freq_unfold
+from fullsubnet_plus_torch.dsp.unfold import drop_band, freq_unfold
 from fullsubnet_plus_torch.nn.attention import channel_attention
 from fullsubnet_plus_torch.nn.layers import reset_parameters
 from fullsubnet_plus_torch.nn.sequence import SequenceModel
@@ -121,14 +121,17 @@ class FullSubNetPlus(nn.Module):
     def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
                 noisy_imag: torch.Tensor, valid_frames: torch.Tensor | None = None,
                 training: bool = False) -> torch.Tensor:
-        """[B, 1, F, T] x 3 -> compressed cIRM [B, 2, F, T].
+        """[B, 1, F, T] x 3 -> compressed cIRM [B, 2, F, T], or
+        [B, 2, F // groups, T] with `training`, which applies `drop_band` to
+        the sub-band model's input (the reference gates it on batch size > 1,
+        fullsubnet_plus.py:192-196; here it is explicit).
 
         `valid_frames` ([B] int): per-utterance valid STFT frame counts of a
         bucket-padded batch; every statistic over time (norms, attention
         pooling, TCN GroupNorms) then sees exactly the exact-length run's
-        frames."""
-        if training:
-            raise not_ported("training=True (drop_band)", "Queue 1 item 6")
+        frames. It is a serving-path feature and excludes `training`."""
+        if training and valid_frames is not None:
+            raise ValueError("valid_frames is a serving-path feature")
         cfg = self.config
         la = cfg.look_ahead
         views = [nn.functional.pad(v, (0, la)) for v in (noisy_mag, noisy_real, noisy_imag)]
@@ -169,7 +172,11 @@ class FullSubNetPlus(nn.Module):
             [mag_unf, unfold_fb(fb_output), unfold_fb(fbr_output), unfold_fb(fbi_output)],
             dim=2)
         sb_input = self.norm(sb_input, valid=valid)  # [B, F, 34, T]
-        sb_mask = self.sb_model(sb_input.reshape(batch * num_freqs, cfg.sb_input_size, frames),
+        if training:
+            sb_input = drop_band(sb_input.permute(0, 2, 1, 3),
+                                 cfg.num_groups_in_drop_band).permute(0, 2, 1, 3)
+        freqs_out = sb_input.shape[1]
+        sb_mask = self.sb_model(sb_input.reshape(batch * freqs_out, cfg.sb_input_size, frames),
                                 quantized=cfg.quantized_lstm and not training)
-        sb_mask = sb_mask.reshape(batch, num_freqs, cfg.output_size, frames).permute(0, 2, 1, 3)
+        sb_mask = sb_mask.reshape(batch, freqs_out, cfg.output_size, frames).permute(0, 2, 1, 3)
         return sb_mask[:, :, :, la:]

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from fullsubnet_plus_torch.nn.layers import Linear, uniform_
-from fullsubnet_plus_torch.ops.lstm2 import LSTM2Weights
+from fullsubnet_plus_torch.ops.lstm2 import LSTM2Weights, pack_weights
 from fullsubnet_plus_torch.ops.lstm2_int8 import (
     LSTM2Int8Weights,
     pack_k_quads,
@@ -46,24 +46,18 @@ class LSTM2(nn.Module):
         for p in self.parameters(recurse=False):
             uniform_(p, bound, generator)
 
-    def packed(self, fc: Linear) -> LSTM2Weights:
-        """The kernel's operands: weights transposed to [K, 4H] row-major in
-        the parameters' dtype, layer 2's input and recurrent matrices stacked
-        into [W2; U2] ([2H, 4H]), b_ih + b_hh summed in the parameters' dtype
-        (as the TPU kernel's wrapper does) and then widened to float32, and
-        the output Linear as W_fc [H, O] and b_fc [O] in float32."""
-        def t(w):
-            return w.detach().t().contiguous()
+    def tensors(self, fc: Linear) -> tuple:
+        """torch.nn.LSTM's eight tensors, layer by layer, then the output
+        Linear's weight and bias: the arguments of `pack_weights` and of the
+        differentiable `lstm2_fc_train`."""
+        return (*(getattr(self, f"{kind}_l{layer}") for layer in (0, 1)
+                  for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")),
+                fc.weight, fc.bias)
 
-        return LSTM2Weights(
-            w1=t(self.weight_ih_l0),
-            u1=t(self.weight_hh_l0),
-            b1=(self.bias_ih_l0 + self.bias_hh_l0).detach().float(),
-            w2=torch.cat([t(self.weight_ih_l1), t(self.weight_hh_l1)], dim=0),
-            b2=(self.bias_ih_l1 + self.bias_hh_l1).detach().float(),
-            fc_w=t(fc.weight).float(),
-            fc_b=fc.bias.detach().float(),
-        )
+    def packed(self, fc: Linear) -> LSTM2Weights:
+        """The forward kernel's operands (`pack_weights`), detached: the
+        route without a gradient."""
+        return pack_weights(*(p.detach() for p in self.tensors(fc)))
 
     def prepare_int8(self, fc: Linear) -> LSTM2Int8Weights:
         """The int8-recurrent kernel's operands, built once (the counterpart

@@ -5,7 +5,8 @@ SequenceModel, sequence_model.py:5-123) for the two forms FullSubNet+ ships:
 the 8-block TCN (which ignores hidden_size and num_layers, as the reference
 does) and the unidirectional 2-layer LSTM, whose output Linear is fused
 into the sweep of ops/lstm2.py (or, on the quantized route, of
-ops/lstm2_int8.py, with weights prepared once by `prepare_int8`). GRU,
+ops/lstm2_int8.py, with weights prepared once by `prepare_int8`; or, where
+a gradient is asked, of ops/lstm2_train.py with its own backward). GRU,
 bidirectional and TCN-subband models are ROADMAP.md Queue 1 item 11.
 """
 
@@ -20,6 +21,7 @@ from fullsubnet_plus_torch.nn.lstm import LSTM2
 from fullsubnet_plus_torch.nn.tcn import tcn_stack
 from fullsubnet_plus_torch.ops.lstm2 import lstm2_fc
 from fullsubnet_plus_torch.ops.lstm2_int8 import lstm2_int8_fc
+from fullsubnet_plus_torch.ops.lstm2_train import lstm2_fc_train
 
 ACTIVATIONS = {
     "Tanh": torch.tanh,
@@ -65,7 +67,10 @@ class SequenceModel(nn.Module):
                 quantized: bool = False) -> torch.Tensor:
         """`valid` ([B] frame counts) masks the TCN's GroupNorm statistics;
         the LSTM is causal and needs no mask. `quantized` runs the LSTM
-        through the int8-recurrent kernel (forward only)."""
+        through the int8-recurrent kernel (forward only). Otherwise the LSTM
+        takes the forward-only sweep when no gradient is asked and the
+        differentiable one (residual-saving forward, reverse-sweep backward)
+        when one is, as the JAX package's custom VJP does."""
         if self.kind == "TCN":
             for block in self.sequence_model:
                 x = block(x, valid=valid)
@@ -75,7 +80,11 @@ class SequenceModel(nn.Module):
                 raise RuntimeError("the quantized route needs prepare_int8() first")
             o = lstm2_int8_fc(x, self.int8_weights)
         else:
-            o = lstm2_fc(x, self.sequence_model.packed(self.fc_output_layer))
+            tensors = self.sequence_model.tensors(self.fc_output_layer)
+            if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *tensors)):
+                o = lstm2_fc_train(x, *tensors)
+            else:
+                o = lstm2_fc(x, self.sequence_model.packed(self.fc_output_layer))
         if self.activation:
             o = ACTIVATIONS[self.activation](o)
         return o.transpose(1, 2)

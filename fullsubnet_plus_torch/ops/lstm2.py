@@ -22,7 +22,6 @@ fullsubnet_plus_torch/_build/, and loaded with ctypes (ops/nvcc.py).
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -52,6 +51,25 @@ class LSTM2Weights(NamedTuple):
     b2: torch.Tensor
     fc_w: torch.Tensor
     fc_b: torch.Tensor
+
+
+def pack_weights(w_ih0, w_hh0, b_ih0, b_hh0, w_ih1, w_hh1, b_ih1, b_hh1, fc_w,
+                 fc_b) -> LSTM2Weights:
+    """The kernels' operands from torch.nn.LSTM's eight tensors and the
+    output Linear's two: weights transposed to [K, 4H] row-major in their
+    own dtype, layer 2's input and recurrent matrices stacked into [W2; U2]
+    ([2H, 4H]), b_ih + b_hh summed in the parameters' dtype (as the TPU
+    kernel's wrapper does) and then widened to float32 (float64 stays), and
+    the Linear as W_fc [H, O] and b_fc [O] in float32."""
+    wide = torch.float64 if w_ih0.dtype == torch.float64 else torch.float32
+
+    def t(w):
+        return w.t().contiguous()
+
+    return LSTM2Weights(
+        w1=t(w_ih0), u1=t(w_hh0), b1=(b_ih0 + b_hh0).to(wide),
+        w2=torch.cat([t(w_ih1), t(w_hh1)], dim=0), b2=(b_ih1 + b_hh1).to(wide),
+        fc_w=t(fc_w).to(wide), fc_b=fc_b.to(wide))
 
 
 def lstm_cell(gates: torch.Tensor, c: torch.Tensor):
@@ -95,7 +113,7 @@ def lstm2_fc(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
 
 
 def shared_memory_bytes(d_in: int, hidden: int, out_dim: int) -> int:
-    """Dynamic shared memory of one block (the layout in lstm2_fwd.cu):
+    """Dynamic shared memory of one block (the layout in lstm2_fwd_sweep.cuh):
     x tile [D][R], h1 and h2 [H][R], c1 and c2 [R][H], fc partials
     [H/32][R][O], all float32."""
     floats = ROWS_PER_CTA * (d_in + 4 * hidden + (hidden // 32) * out_dim)
@@ -148,12 +166,6 @@ def _launch(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
         raise RuntimeError(f"lstm2_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
-
-
-def build() -> Path:
-    """Compile csrc/lstm2_fwd.cu for sm_90a into the build directory (once
-    per source version) and return the shared library's path."""
-    return nvcc.build("lstm2_fwd")
 
 
 def _library():

@@ -28,7 +28,6 @@ kernel is built with nvcc at first use (ops/nvcc.py).
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -204,12 +203,6 @@ def _launch(x: torch.Tensor, w: LSTM2Int8Weights) -> torch.Tensor:
         raise RuntimeError(f"lstm2_int8_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
-
-
-def build() -> Path:
-    """Compile csrc/lstm2_int8_fwd.cu for sm_90a into the build directory
-    (once per source version) and return the shared library's path."""
-    return nvcc.build("lstm2_int8_fwd")
 
 
 def _library():

@@ -2,7 +2,8 @@
 
 Each source is compiled by nvcc for sm_90a into a shared library under
 fullsubnet_plus_torch/_build/ (git-ignored), named after the source and a
-digest of its bytes, once per source version, at first use; the ptxas
+digest of its bytes and of the headers (csrc/*.cuh) it may include, once
+per source version, at first use; the ptxas
 report (`-Xptxas -v`: registers, spills) is kept beside it. The library is
 loaded with ctypes. Nothing here runs at import, so the CPU tests import the
 kernels' modules without nvcc.
@@ -31,7 +32,10 @@ def build(stem: str) -> Path:
     from torch.utils.cpp_extension import CUDA_HOME
 
     source = CSRC_DIR / f"{stem}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    sha = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    digest = sha.hexdigest()[:12]
     lib_path = BUILD_DIR / f"{stem}_{digest}.so"
     if lib_path.exists():
         return lib_path

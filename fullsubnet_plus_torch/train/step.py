@@ -1,0 +1,300 @@
+"""The training and evaluation steps (the reference trainer's hot loop).
+
+Counterpart of fullsubnet_plus_tpu/train/step.py:33-193 and :273-402
+(reference trainer.py:322-351, :364-427): STFT of both waveforms on the
+device, the compressed cIRM target with `drop_band`, the model forward with
+`training=True` (the matching `drop_band` inside), the loss, a clip of the
+gradients' global norm and an Adam update. On the card the sub-band LSTM's
+forward and backward run through the kernels of ops/lstm2_train.py.
+
+In PyTorch's idiom: the parameters are an nn.Module's float32 masters, the
+Adam moments lie beside them in the `TrainState` as one flat tensor each,
+and a step updates the state in place (the JAX step donates its state's
+buffers to the same end). The optimizer works on the flattened gradients
+and parameters, so its cost is a few dozen launches whatever the number of
+parameter tensors. Clip
+and Adam follow optax's arithmetic, since the port is held against the JAX
+step: the clip scales by max_norm / norm only when the norm reaches
+max_norm, and Adam divides by sqrt(nu_hat) + eps with both bias
+corrections. Steps run on CUDA unless the caller asks for the CPU.
+
+`make_joint_mask_train_step` and `make_residual_train_step` of the JAX
+module serve model variants the port does not have (ROADMAP.md Queue 1
+item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from fullsubnet_plus_torch.device import not_ported, resolve_device
+from fullsubnet_plus_torch.dsp.mask import build_complex_ideal_ratio_mask
+from fullsubnet_plus_torch.dsp.norms import time_mask
+from fullsubnet_plus_torch.dsp.stft import stft_split
+from fullsubnet_plus_torch.dsp.unfold import drop_band
+from fullsubnet_plus_torch.enhance import _crm_to_wave, _reflect_fix_tail
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam's step count (int32 scalar) and moments. Each moment is ONE flat
+    float32 tensor on the model's device, the parameters' moments laid end
+    to end in `named_parameters` order, so that a step updates all of them
+    with a handful of launches instead of a few per parameter."""
+
+    count: torch.Tensor
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+
+def _flatten(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
+
+
+def _unflatten(flat: torch.Tensor, like) -> list:
+    """Views of `flat`, one per tensor of `like`, in its shapes."""
+    like = list(like)
+    return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in like]), like)]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (float32 master parameters), the optimizer's state and the
+    number of steps taken (int32 scalar on the device; it also counts
+    skipped steps). `make_train_step`'s step updates it in place."""
+
+    model: nn.Module
+    opt_state: AdamState
+    step: torch.Tensor
+
+    def state_dict(self) -> dict:
+        """{"params", "mu", "nu": reference-layout dicts of CPU tensors;
+        "count", "step": ints}: the form io/convert.py carries to and from
+        the JAX package's TrainState."""
+        names, params = zip(*self.model.named_parameters())
+
+        def cpu(tensors):
+            return {k: v.detach().cpu().clone() for k, v in zip(names, tensors)}
+
+        return {"params": cpu(params), "mu": cpu(_unflatten(self.opt_state.mu, params)),
+                "nu": cpu(_unflatten(self.opt_state.nu, params)),
+                "count": int(self.opt_state.count), "step": int(self.step)}
+
+    def load_state_dict(self, state: dict) -> "TrainState":
+        self.model.load_state_dict(state["params"], strict=True)
+        names, params = zip(*self.model.named_parameters())
+        for key, flat in (("mu", self.opt_state.mu), ("nu", self.opt_state.nu)):
+            if set(state[key]) != set(names):
+                raise KeyError(f"{key} keys do not match the model's parameters")
+            for name, view in zip(names, _unflatten(flat, params)):
+                view.copy_(state[key][name])
+        self.opt_state.count.fill_(state["count"])
+        self.step.fill_(state["step"])
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """Adam behind a global-norm clip (config/train.toml:22-25), with the
+    arithmetic of optax.chain(clip_by_global_norm, adam), on flat tensors."""
+
+    lr: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    clip_grad_norm: float = 10.0
+    eps: float = 1e-8
+
+    def init(self, model: nn.Module) -> AdamState:
+        flat = _flatten(model.parameters())
+        return AdamState(count=torch.zeros((), dtype=torch.int32, device=flat.device),
+                         mu=torch.zeros_like(flat), nu=torch.zeros_like(flat))
+
+    def update(self, grads: torch.Tensor, grad_norm: torch.Tensor, state: AdamState):
+        """The flat float32 gradients and their global norm -> (updates, new
+        count, new mu, new nu), all new tensors: the caller decides whether
+        to keep them. Nothing here reads a value back to the host."""
+        clipped = torch.where(grad_norm < self.clip_grad_norm, grads,
+                              (grads / grad_norm) * self.clip_grad_norm)
+        mu = (1 - self.beta1) * clipped + self.beta1 * state.mu
+        nu = (1 - self.beta2) * (clipped * clipped) + self.beta2 * state.nu
+        count = state.count + 1
+        steps = count.to(torch.float32)
+        correction1 = 1 - torch.pow(torch.full_like(steps, self.beta1), steps)
+        correction2 = 1 - torch.pow(torch.full_like(steps, self.beta2), steps)
+        updates = -self.lr * ((mu / correction1) / (torch.sqrt(nu / correction2) + self.eps))
+        return updates, count, mu, nu
+
+
+def make_optimizer(lr: float = 1e-3, beta1: float = 0.9, beta2: float = 0.999,
+                   clip_grad_norm: float = 10.0) -> Optimizer:
+    return Optimizer(lr, beta1, beta2, clip_grad_norm)
+
+
+def init_train_state(model: nn.Module, optimizer: Optimizer, device="cuda") -> TrainState:
+    """Move `model` (float32) to `device` and start the optimizer on it."""
+    device = resolve_device(device)
+    model = model.to(device=device, dtype=torch.float32)
+    return TrainState(model, optimizer.init(model),
+                      torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _to_device(array, device, dtype=torch.float32) -> torch.Tensor:
+    if not isinstance(array, torch.Tensor):
+        array = np.asarray(array)
+    return torch.as_tensor(array, device=device).to(dtype)
+
+
+def _forward(model, mag, real, imag, training, compute_dtype=torch.float32,
+             valid_frames=None):
+    """The model on [B, F, T] views, with its parameters and inputs cast to
+    `compute_dtype` where that is not float32 (the masters stay float32 and
+    the cast is differentiated through, so gradients arrive in float32)."""
+    views = [v[:, None].to(compute_dtype) for v in (mag, real, imag)]
+    if compute_dtype == torch.float32:
+        return model(*views, valid_frames=valid_frames, training=training)
+    cast = {k: p.to(compute_dtype) for k, p in model.named_parameters()}
+    return torch.func.functional_call(
+        model, cast, tuple(views), {"valid_frames": valid_frames, "training": training})
+
+
+def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: int = 512,
+                    hop_length: int = 256, win_length: int = 512,
+                    compute_dtype=torch.float32, mesh=None, remat: bool = False,
+                    skip_nonfinite: bool = True, device="cuda"):
+    """Build the (state, noisy [B, L], clean [B, L]) -> (state, metrics) step.
+
+    `remat=True` recomputes the model forward in the backward
+    (torch.utils.checkpoint) to save activation memory.
+
+    `skip_nonfinite=True` (default): when the loss, the gradients' global
+    norm or the update's is NaN or Inf, the whole update (parameters and
+    moments and Adam's count) is rejected by a select on a device-side flag,
+    the step counter still advances and metrics["skipped"] is 1.0. Nothing
+    in the step reads a value back to the host; the metrics ("loss",
+    "grad_norm", "skipped") are device tensors.
+    """
+    if model_def.n_inputs != 3:
+        raise not_ported(f"a train step for {model_def.name!r}", "Queue 1 item 7")
+    if mesh is not None:
+        raise not_ported("mesh= (data-parallel training)", "Queue 1 item 10")
+    device = resolve_device(device)
+    num_groups = config.num_groups_in_drop_band
+
+    def loss_value(model, noisy, clean):
+        noisy_mag, noisy_real, noisy_imag = stft_split(noisy, n_fft, hop_length, win_length)
+        _, clean_real, clean_imag = stft_split(clean, n_fft, hop_length, win_length)
+        cirm = build_complex_ideal_ratio_mask(noisy_real, noisy_imag, clean_real, clean_imag)
+        cirm = drop_band(cirm.permute(0, 3, 1, 2), num_groups).permute(0, 2, 3, 1)
+
+        def forward(mag, real, imag):
+            return _forward(model, mag, real, imag, True, compute_dtype)
+
+        if remat:
+            crm = checkpoint(forward, noisy_mag, noisy_real, noisy_imag, use_reentrant=False)
+        else:
+            crm = forward(noisy_mag, noisy_real, noisy_imag)
+        return loss_fn(cirm, crm.permute(0, 2, 3, 1).float())
+
+    def train_step(state: TrainState, noisy, clean):
+        params = list(state.model.parameters())
+        if params[0].device.type != device.type:
+            raise ValueError(f"the state lies on {params[0].device}, the step on {device}")
+        noisy, clean = (_to_device(a, params[0].device) for a in (noisy, clean))
+        with torch.enable_grad():
+            loss = loss_value(state.model, noisy, clean)
+            grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            loss, opt = loss.detach(), state.opt_state
+            grads, old = _flatten(grads), _flatten(params)
+            grad_norm = torch.linalg.vector_norm(grads)
+            updates, count, mu, nu = optimizer.update(grads, grad_norm, opt)
+            new = old + updates
+            metrics = {"loss": loss, "grad_norm": grad_norm}
+            if skip_nonfinite:
+                # the update itself must be finite too: m / (sqrt(v) + eps)
+                # can overflow from finite gradients
+                ok = (torch.isfinite(loss) & torch.isfinite(grad_norm)
+                      & torch.isfinite(torch.linalg.vector_norm(updates)))
+                new, mu, nu = (torch.where(ok, a, b)
+                               for a, b in ((new, old), (mu, opt.mu), (nu, opt.nu)))
+                count = torch.where(ok, count, opt.count)
+                metrics["skipped"] = 1.0 - ok.to(torch.float32)
+            torch._foreach_copy_(params, _unflatten(new, params))
+            opt.mu, opt.nu, opt.count = mu, nu, count
+            state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(model_def, config, loss_fn, *, n_fft: int = 512, hop_length: int = 256,
+                   win_length: int = 512, device="cuda"):
+    """Validation: (model, noisy [B, L], clean [B, L]) -> (loss without
+    drop_band, enhanced waveform [B, L]) (reference trainer.py:364-427)."""
+    if model_def.n_inputs != 3:
+        raise not_ported(f"an eval step for {model_def.name!r}", "Queue 1 item 7")
+    device = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_step(model, noisy, clean):
+        noisy, clean = _to_device(noisy, device), _to_device(clean, device)
+        noisy_mag, noisy_real, noisy_imag = stft_split(noisy, n_fft, hop_length, win_length)
+        _, clean_real, clean_imag = stft_split(clean, n_fft, hop_length, win_length)
+        cirm = build_complex_ideal_ratio_mask(noisy_real, noisy_imag, clean_real, clean_imag)
+        crm = _forward(model, noisy_mag, noisy_real, noisy_imag, False)
+        crm = crm.permute(0, 2, 3, 1)
+        enhanced = _crm_to_wave(crm, noisy_real, noisy_imag, noisy.shape[-1], n_fft,
+                                hop_length, win_length)
+        return loss_fn(cirm, crm), enhanced
+
+    return eval_step
+
+
+def make_bucketed_eval_step(model_def, config, loss_fn, *, n_fft: int = 512,
+                            hop_length: int = 256, win_length: int = 512, mesh=None,
+                            device="cuda"):
+    """Batched, length-masked validation for bucket-padded utterances:
+    (model, noisy [B, Lp], clean [B, Lp], lengths [B]) -> (losses [B],
+    enhanced [B, Lp]); each row reproduces its exact-length batch-1 result
+    (callers slice each row to its true length).
+
+    The padded tail of both waveforms is rewritten with the reflection that
+    torch.stft's center padding gives the exact-length run, the model masks
+    its statistics over time to the valid frames, the loss is taken per row
+    over the valid frames (exact for a mean of a pointwise loss: the masked
+    region adds loss(0, 0) = 0, and the padded mean is rescaled by
+    T_padded / T_valid), and the iSTFT normalizes with each row's own window
+    envelope."""
+    if model_def.n_inputs != 3:
+        raise not_ported(f"an eval step for {model_def.name!r}", "Queue 1 item 7")
+    if mesh is not None:
+        raise not_ported("mesh= (sharded validation)", "Queue 1 item 10")
+    device = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_step(model, noisy, clean, lengths):
+        noisy, clean = _to_device(noisy, device), _to_device(clean, device)
+        lengths = _to_device(lengths, device, torch.int64)
+        length = noisy.shape[-1]  # before the reflect-fix extension
+        valid_frames = 1 + lengths // hop_length
+        noisy_e = _reflect_fix_tail(noisy, lengths, n_fft, hop_length)
+        clean_e = _reflect_fix_tail(clean, lengths, n_fft, hop_length)
+        noisy_mag, noisy_real, noisy_imag = stft_split(noisy_e, n_fft, hop_length, win_length)
+        _, clean_real, clean_imag = stft_split(clean_e, n_fft, hop_length, win_length)
+        cirm = build_complex_ideal_ratio_mask(noisy_real, noisy_imag, clean_real, clean_imag)
+        crm = _forward(model, noisy_mag, noisy_real, noisy_imag, False,
+                       valid_frames=valid_frames).permute(0, 2, 3, 1)  # [B, F, T, 2]
+        frames = crm.shape[2]
+        tmask = time_mask(frames, valid_frames, crm.dtype)[:, None, :, None]
+        losses = torch.stack([loss_fn(a, b) for a, b in zip(cirm * tmask, crm * tmask)])
+        losses = losses * (frames / valid_frames.to(crm.dtype))
+        enhanced = _crm_to_wave(crm, noisy_real, noisy_imag, length, n_fft, hop_length,
+                                win_length, valid_frames=valid_frames)
+        return losses, enhanced
+
+    return eval_step

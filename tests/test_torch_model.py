@@ -148,9 +148,11 @@ def test_registry_and_config():
      NotImplementedError, "Queue 1 item 11"),
     (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY, sequence_model="GRU")),
      NotImplementedError, "Queue 1 item 11"),
+    # training=True is ported (drop_band); with valid_frames it still refuses
     (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY))(
-        *(torch.ones(4, 1, 33, 5) for _ in range(3)), training=True),
-     NotImplementedError, "Queue 1 item 6"),
+        *(torch.ones(4, 1, 33, 5) for _ in range(3)), training=True,
+        valid_frames=torch.tensor([5, 5, 5, 5])),
+     ValueError, "serving-path feature"),
 ])
 def test_unported_options_raise(build, error, match):
     with pytest.raises(error, match=match):

@@ -1,0 +1,242 @@
+"""The port's differentiable fused LSTM (fullsubnet_plus_torch/ops/lstm2_train.py)
+against the JAX package's custom VJP, on the CPU: the same weights (JAX
+init, carried over as numpy), the same numpy inputs and cotangent. The JAX
+side runs as its own tests run it: `stacked_lstm2_train(..., interpret=True)`
+under HIGHEST matmul precision, with `FUSED_WGRAD` patched for the
+dgates-writing form. On the CPU the port takes its plain versions, which are
+what the CUDA kernels are held against on the card (chip_smoke.py).
+
+Tolerances: float32 atol 1e-4 / rtol 1e-4, the bound
+tests/test_pallas_lstm.py holds the TPU kernels to (sum order differs);
+bf16 gradients within 5 % of the float32 ones relative to their peak (that
+test's own bound) and within 3 % of JAX's bf16 gradients (both round
+residuals and dgates to bf16 at the same points; XLA's CPU bf16 products
+and torch's differ in sum order, which moves single roundings).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fullsubnet_plus_tpu.nn.init import linear_init
+from fullsubnet_plus_tpu.nn.lstm import lstm_init
+from fullsubnet_plus_tpu.ops import lstm_pallas as lp
+from fullsubnet_plus_torch.ops import lstm2 as ops_lstm2
+from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+SHAPES = [(20, 9, 10, 16, 3), (100, 17, 34, 64, 2), (96, 12, 34, 32, 2)]  # N, T, D, H, O
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions are loops of tiny CPU ops; intra-op threads only
+    add contention when several test workers share the machine."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _case(n, t, d, h, o, seed=0):
+    """JAX-initialized weights, x [N, D, T] and the cotangent dy [N, T, O]."""
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map(np.asarray, lstm_init(jax.random.PRNGKey(6), d, h, 2))
+    fc = jax.tree_util.tree_map(np.asarray, linear_init(jax.random.PRNGKey(7), h, o))
+    x = (rng.standard_normal((n, d, t)) * 0.5).astype(np.float32)
+    dy = rng.standard_normal((n, t, o)).astype(np.float32)
+    return params, fc, x, dy
+
+
+def _torch_tensors(params, fc, dtype=torch.float32, requires_grad=True):
+    """torch.nn.LSTM's eight tensors and the Linear's two, from the JAX trees
+    (stored [in, out]: transposed here)."""
+    out = []
+    for layer in params["layers"]:
+        out += [layer["w_ih"].T, layer["w_hh"].T, layer["b_ih"], layer["b_hh"]]
+    out += [fc["weight"].T, fc["bias"]]
+    return [torch.tensor(np.ascontiguousarray(a)).to(dtype).requires_grad_(requires_grad)
+            for a in out]
+
+
+def _jax_grads_as_torch_order(g_params, g_x, g_fc):
+    """JAX gradient trees -> [dx, then the ten tensors' gradients in torch layout]."""
+    out = [np.asarray(g_x, np.float32)]
+    for layer in g_params["layers"]:
+        out += [np.asarray(layer["w_ih"], np.float32).T, np.asarray(layer["w_hh"], np.float32).T,
+                np.asarray(layer["b_ih"], np.float32), np.asarray(layer["b_hh"], np.float32)]
+    out += [np.asarray(g_fc["weight"], np.float32).T, np.asarray(g_fc["bias"], np.float32)]
+    return out
+
+
+def _jax_value_and_grads(params, fc, x, dy, dtype=jnp.float32):
+    cast = lambda tree: jax.tree_util.tree_map(lambda p: jnp.asarray(p, dtype), tree)
+
+    def loss(p, xx, f):
+        y = lp.stacked_lstm2_train(p, xx, f, 256, True)
+        return jnp.sum(y.astype(jnp.float32) * dy)
+
+    with jax.default_matmul_precision("highest"):
+        value, grads = jax.value_and_grad(loss, argnums=(0, 1, 2))(
+            cast(params), jnp.asarray(x, dtype), cast(fc))
+    return float(value), grads
+
+
+def _port_value_and_grads(params, fc, x, dy, dtype=torch.float32):
+    tensors = _torch_tensors(params, fc, dtype)
+    xt = torch.tensor(x).to(dtype).requires_grad_()
+    y = lt.lstm2_fc_train(xt, *tensors)
+    value = (y.float() * torch.tensor(dy)).sum()
+    grads = torch.autograd.grad(value, (xt, *tensors))
+    return float(value.detach()), grads, y
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused_wgrad", "dgates"])
+@pytest.mark.parametrize("n,t,d,h,o", SHAPES)
+def test_function_matches_jax_vjp(monkeypatch, n, t, d, h, o, fused):
+    """Value and every gradient (x, eight LSTM tensors, fc) in both forms."""
+    params, fc, x, dy = _case(n, t, d, h, o)
+    monkeypatch.setattr(lp, "FUSED_WGRAD", fused)
+    monkeypatch.setattr(lt, "FUSED_WGRAD", fused)
+    v_ref, g_ref = _jax_value_and_grads(params, fc, x, dy)
+    v, grads, _ = _port_value_and_grads(params, fc, x, dy)
+    np.testing.assert_allclose(v, v_ref, rtol=1e-5)
+    for got, want in zip(grads, _jax_grads_as_torch_order(*g_ref)):
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,t,d,h,o", SHAPES)
+def test_plain_forward_residuals_match_jax_kernel(n, t, d, h, o):
+    """y and the six residuals of `lstm2_train_fwd_reference` against what
+    `_train_fwd(interpret=True)` returns (its rows [:n]; the rest is padding)."""
+    params, fc, x, _ = _case(n, t, d, h, o)
+    with jax.default_matmul_precision("highest"):
+        primal, saved = lp._train_fwd(
+            jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x),
+            jax.tree_util.tree_map(jnp.asarray, fc), 256, True)
+    w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, requires_grad=False))
+    y, res = lt.lstm2_train_fwd_reference(torch.tensor(x), w)
+    np.testing.assert_allclose(y.numpy(), np.asarray(primal), atol=3e-5, rtol=1e-4)
+    for name, got, want in zip(res._fields, res, saved[3:]):
+        assert got.shape == (t, n, 4 * h if name[0] == "g" else h)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :n], atol=3e-5, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused_wgrad", "dgates"])
+@pytest.mark.parametrize("n,t,d,h,o", SHAPES[:2])
+def test_plain_backward_matches_autograd_through_scan(monkeypatch, n, t, d, h, o, fused):
+    """An independent check: the hand-written reverse sweep against autograd
+    through `lstm2_fc_reference` (float32; only sum order differs)."""
+    params, fc, x, dy = _case(n, t, d, h, o, seed=1)
+    monkeypatch.setattr(lt, "FUSED_WGRAD", fused)
+    _, grads, y = _port_value_and_grads(params, fc, x, dy)
+    tensors = _torch_tensors(params, fc)
+    xt = torch.tensor(x, requires_grad=True)
+    y_scan = ops_lstm2.lstm2_fc_reference(xt, ops_lstm2.pack_weights(*tensors))
+    want = torch.autograd.grad((y_scan * torch.tensor(dy)).sum(), (xt, *tensors))
+    np.testing.assert_allclose(y.detach().numpy(), y_scan.detach().numpy(), atol=1e-6)
+    for a, b in zip(grads, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5, rtol=1e-4)
+
+
+def test_weight_grad_forms_differ_only_in_the_bias_rounding():
+    """In bf16 the fused form sums the unrounded dgates into db and the
+    dgates-writing form the rounded ones; every other gradient is the same
+    product of the same rounded operands."""
+    params, fc, x, dy = _case(24, 7, 10, 16, 2)
+    tensors = _torch_tensors(params, fc, torch.bfloat16, requires_grad=False)
+    w = ops_lstm2.pack_weights(*tensors)
+    xt, dyt = torch.tensor(x).bfloat16(), torch.tensor(dy)
+    _, res = lt.lstm2_train_fwd(xt, w)
+    fused = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    plain = lt.lstm2_bwd(dyt, xt, w, res, fused=False)
+    for name in ("dx", "dw1", "du1", "dw2", "du2"):
+        assert torch.equal(getattr(fused, name), getattr(plain, name)), name
+    sweep = lt.lstm2_bwd_reference(dyt, xt, w, res)
+    assert torch.equal(fused.db1, sweep.db1) and torch.equal(fused.db2, sweep.db2)
+    assert torch.equal(plain.db1, sweep.dg1.float().sum((0, 1)))
+    assert not torch.equal(fused.db1, plain.db1)
+    np.testing.assert_allclose(fused.db1.numpy(), plain.db1.numpy(), atol=2e-2, rtol=2e-2)
+
+
+def test_bf16_gradients_keep_dtype_and_stay_close():
+    """bf16: every gradient comes back in its tensor's dtype, within 5 % of
+    the float32 one relative to its peak, and within 3 % of JAX's bf16 one."""
+    n, t, d, h, o = 24, 7, 10, 16, 2
+    params, fc, x, dy = _case(n, t, d, h, o)
+    _, g32, _ = _port_value_and_grads(params, fc, x, dy)
+    v16, g16, y16 = _port_value_and_grads(params, fc, x, dy, torch.bfloat16)
+    assert y16.dtype == torch.bfloat16
+    v_jax, g_jax = _jax_value_and_grads(params, fc, x, dy, jnp.bfloat16)
+    np.testing.assert_allclose(v16, v_jax, rtol=2e-2)
+    for a, b, c in zip(g32, g16, _jax_grads_as_torch_order(*g_jax)):
+        assert b.dtype == torch.bfloat16
+        scale = float(a.abs().max()) + 1e-6
+        assert float((a - b.float()).abs().max()) / scale < 0.05
+        assert float((torch.tensor(c) - b.float()).abs().max()) / scale < 0.03
+
+
+def test_gradcheck_float64_on_the_plain_path():
+    """The plain versions admit float64: torch's numerical gradcheck holds
+    the hand-written backward to central differences."""
+    params, fc, _, _ = _case(3, 4, 5, 6, 2)
+    tensors = _torch_tensors(params, fc, torch.float64)
+    x = torch.tensor(np.random.default_rng(2).standard_normal((3, 5, 4)) * 0.5,
+                     dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(lt.lstm2_fc_train, (x, *tensors), eps=1e-6, atol=1e-6)
+
+
+def test_rows_per_cta_and_chunking():
+    """The launch geometry the wrappers compute: the row tile that covers
+    the fold in the fewest waves of one CTA per SM, the dx slices, and a
+    dgates scratch that does not grow with T."""
+    assert lt.rows_per_cta(2304, 132) == 20  # 144 tiles of 16 need two waves
+    assert lt.rows_per_cta(2056, 132) == 16  # 129 tiles of 16 fit in one
+    assert lt.rows_per_cta(771, 132) == 16
+    assert lt.dx_parts(34, 384) == 11 and lt.dx_parts(34, 512) == lt.DX_PARTS_MAX
+    assert lt.bwd_shared_memory_bytes(20, 34, 384, 2) <= ops_lstm2.SMEM_LIMIT
+    assert lt.fwd_shared_memory_bytes(20, 34, 384, 2) <= ops_lstm2.SMEM_LIMIT
+    for steps in (1, 195, 10_000):
+        chunk = lt.wgrad_chunk_steps(2304, 384, steps, 4)
+        assert chunk == 1 and 2 * chunk * 2304 * 1536 * 4 <= lt.WGRAD_SCRATCH_BYTES
+    assert lt.wgrad_chunk_steps(2304, 384, 195, 2) == 2
+    assert lt.wgrad_chunk_steps(20, 16, 9, 4) == 9  # never more than T
+
+
+def test_cuda_tensor_without_a_card_raises_not_falls_back():
+    """A non-CPU tensor never takes the plain version."""
+    params, fc, x, _ = _case(4, 3, 6, 32, 2)
+    w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, requires_grad=False))
+    meta = torch.tensor(x, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        lt.lstm2_train_fwd(meta, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,floor", [(torch.float32, 80.0), (torch.bfloat16, 40.0)])
+def test_kernels_match_plain_on_cuda(dtype, floor):
+    """Needs an NVIDIA GPU: the three kernels against their plain versions
+    at a ragged fold; chip_smoke.py makes the same comparison at the
+    training fold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    params, fc, x, dy = _case(50, 7, 34, 64, 2)
+    tensors = [p.cuda() for p in _torch_tensors(params, fc, dtype, requires_grad=False)]
+    w = ops_lstm2.pack_weights(*tensors)
+    xt, dyt = torch.tensor(x).to("cuda", dtype), torch.tensor(dy).cuda()
+
+    def snr(ref, out):
+        ref, out = ref.double(), out.double()
+        return float(10 * torch.log10(ref.pow(2).sum() / (out - ref).pow(2).sum().clamp_min(1e-300)))
+
+    y_ref, res_ref = lt.lstm2_train_fwd_reference(xt, w)
+    y, res = lt.lstm2_train_fwd(xt, w)
+    assert min(snr(a, b) for a, b in zip((y_ref, *res_ref), (y, *res))) >= floor
+    sweep = lt.lstm2_bwd_reference(dyt, xt, w, res_ref)
+    want = lt.LSTM2Grads(sweep.dx, *lt.weight_grads(xt, res_ref, sweep.dg1, sweep.dg2)[:4],
+                         sweep.db1, sweep.db2)
+    for fused in (True, False):
+        got = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=fused)
+        assert min(snr(a, b) for a, b in zip(want, got)) >= floor
