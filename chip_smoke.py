@@ -8,7 +8,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      forward) and the training step's csrc/lstm2_train_fwd.cu (K2, the
      residual-saving forward), csrc/lstm2_bwd_wgrad.cu (K3, the backward
      with the weight gradients inside) and csrc/lstm2_bwd.cu (K4, the
-     backward that keeps the dgates);
+     backward that keeps the dgates); count the tensor-core (HMMA)
+     instructions of K3's and K4's reverse sweeps (`cuobjdump -sass`): the
+     bf16 sweep must have them, and no bf16 FMA sweep may be compiled;
   2. hold each kernel against its plain PyTorch version on the card: K1 at
      the batch path's sub-band fold (fp32 >= 80 dB, bf16 >= 40 dB SNR), K5
      at the serving fold and at the batch path's (>= 40 dB), K2, K3 and K4
@@ -19,7 +21,8 @@ Phases, each fatal on failure (exit code 1, no result line):
   3. time each kernel, its plain version and a cuDNN LSTM + Linear (a
      yardstick only; forward for K1, K2 and K5, backward for K3 and K4; for
      K5 also K1 in bf16 at the same shape), with CUDA events, beside the
-     bound from the card's peaks;
+     bound from the card's peaks; split K3's and K4's device time into the
+     reverse sweep and the rest (torch.profiler);
   4. drive the batch path, `fullsubnet_plus_torch.cli.enhance.run_enhance`,
      on 8 wavs of 3-10 s with a seeded full-width FullSubNet+ in float32,
      bfloat16 and int8; check every output, that the kernels were launched,
@@ -209,7 +212,28 @@ def cudnn_lstm(lstm, fc, dtype: torch.dtype):
     return run
 
 
-def phase_build() -> None:
+def sass_instruction_counts(lib, opcode: str) -> dict:
+    """{kernel function: count of `opcode` instructions} in a built library
+    (`cuobjdump -sass`, from the CUDA toolkit nvcc came from)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else "cuobjdump"
+    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass {lib.name}: {proc.stderr.strip()[:200]}")
+    counts, function = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function : " in line:
+            function = line.split("Function : ", 1)[1].strip()
+            counts[function] = 0
+        elif function is not None and f" {opcode}" in line:
+            counts[function] += 1
+    return counts
+
+
+def phase_build() -> dict:
+    """Builds the kernels; returns the HMMA count of each reverse-sweep
+    function in K3's and K4's libraries."""
     from fullsubnet_plus_torch.ops import nvcc
 
     t0 = time.perf_counter()
@@ -222,6 +246,21 @@ def phase_build() -> None:
         for line in ptxas.read_text().splitlines() if ptxas.exists() else []:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    ptxas {lib.stem.rsplit('_', 1)[0]}:", line.strip()[:160])
+    hmma = {}
+    for lib in libs:
+        stem = lib.stem.rsplit("_", 1)[0]
+        if stem not in ("lstm2_bwd", "lstm2_bwd_wgrad"):
+            continue
+        sweeps = {f: n for f, n in sass_instruction_counts(lib, "HMMA").items() if "sweep" in f}
+        for function, n in sweeps.items():
+            print(f"[1] {stem}: {function} has {n} HMMA instructions")
+        mma = [n for f, n in sweeps.items() if "sweep_mma_kernel" in f]
+        if not mma or min(mma) == 0:
+            fail(f"{stem}: the bf16 reverse sweep has no tensor-core instructions")
+        if any("sweep_kernelI13__nv_bfloat16" in f for f in sweeps):
+            fail(f"{stem}: a bf16 instantiation of the FMA sweep was compiled")
+        hmma[stem] = sweeps
+    return hmma
 
 
 def phase_check() -> dict:
@@ -409,10 +448,26 @@ def train_bounds(dtype: torch.dtype) -> dict:
             "lstm2_bwd_wgrad": bound((sweep_flops + wgrad_flops) / peak, wgrad_bytes)}
 
 
+def device_ms_by_kernel(fn) -> dict:
+    """{kernel name: device ms} of one call of `fn` under torch.profiler,
+    after one unprofiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def phase_time_train() -> dict:
     """K2, K4 (its outside products apart) and K3 at the training fold,
     beside their plain versions, their bounds and cuDNN's LSTM + Linear
-    forward and backward (never called by the port)."""
+    forward and backward (never called by the port); K3's and K4's device
+    time split into the reverse sweep, `wgrad_kernel` and the rest."""
     from fullsubnet_plus_torch.ops import lstm2_train as lt
 
     times = {}
@@ -428,6 +483,19 @@ def phase_time_train() -> dict:
         }
         outside_ms = cuda_ms(lambda: lt.weight_grads(x, res, sweep.dg1, sweep.dg2), reps=3)
         del sweep
+        split = {}
+        for name, call in (("lstm2_bwd_wgrad", lambda: lt.lstm2_bwd(dy, x, w, res, fused=True)),
+                           ("lstm2_bwd", lambda: lt.lstm2_bwd_sweep(dy, x, w, res))):
+            kernels = device_ms_by_kernel(call)
+            sweep_ms = sum(v for k, v in kernels.items() if "sweep" in k)
+            wgrad_ms = sum(v for k, v in kernels.items() if "wgrad_kernel" in k)
+            split[name] = {"sweep_ms": sweep_ms, "wgrad_kernel_ms": wgrad_ms,
+                           "other_ms": sum(kernels.values()) - sweep_ms - wgrad_ms}
+        k3, k4 = split["lstm2_bwd_wgrad"], split["lstm2_bwd"]
+        print(f"[3] {str(dtype)[6:]} device time of one call (torch.profiler): lstm2_bwd_wgrad "
+              f"reverse sweep {k3['sweep_ms']:.3f} ms, wgrad_kernel {k3['wgrad_kernel_ms']:.3f} "
+              f"ms, other {k3['other_ms']:.3f} ms; lstm2_bwd reverse sweep "
+              f"{k4['sweep_ms']:.3f} ms, other {k4['other_ms']:.3f} ms")
         plain = {
             "lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd_reference(x, w), reps=2),
             "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res), reps=2),
@@ -465,6 +533,9 @@ def phase_time_train() -> dict:
             times[(name, dtype)] = dict(ms=ms[name], plain_ms=plain[name],
                                         library_ms=library[name], bound_ms=bound_ms,
                                         bound_by=bound_by)
+            if name in split:
+                times[(name, dtype)]["sweep_ms"] = split[name]["sweep_ms"]
+        times[("lstm2_bwd_wgrad", dtype)]["wgrad_kernel_ms"] = k3["wgrad_kernel_ms"]
         times[("lstm2_bwd", dtype)]["outside_products_ms"] = outside_ms
         torch.cuda.empty_cache()
     return times
@@ -894,7 +965,7 @@ def main() -> None:
         fail("float32 matmuls must run in full float32 (allow_tf32 is set)")
 
     t_start = time.perf_counter()
-    phase_build()
+    hmma = phase_build()
     errors = phase_check()
     train_errors = phase_check_train()
     times = phase_time()
@@ -949,6 +1020,7 @@ def main() -> None:
 
     def train_kernel(name, source, replaces, launch_runs):
         f32, bf16 = (train_times[(name, dt)] for dt in (torch.float32, torch.bfloat16))
+        extra = {"sweep_hmma": hmma[name]} if name in hmma else {}
         return {
             "name": name,
             "route": "cuda",
@@ -964,6 +1036,7 @@ def main() -> None:
                        + ("forward" if name == "lstm2_train_fwd" else "backward"),
             "train_step": {r: {"wall_ms": runs[r]["wall_ms"],
                                "audio_s_per_s": runs[r]["audio_s_per_s"]} for r in launch_runs},
+            **extra,
         }
 
     k2 = train_kernel("lstm2_train_fwd", "lstm2_train_fwd.cu", "322 (_residual_kernel)",

@@ -15,13 +15,18 @@
 // same array read again) and both dgates and dx out (8H + D): 12.5 GB in
 // float32, 6.3 GB in bf16. In float32 the FMA rate bounds it (24.4 ms at
 // 67 TFLOP/s against 3.7 ms of bytes); in bf16 the bytes do (1.9 ms against
-// 1.7 ms at the tensor cores' rate). The products here are float32 FMAs in
-// both types, so the kernel stays well above either bound.
+// 1.7 ms at the tensor cores' rate).
 //
 // Design: the sweep of lstm2_bwd_sweep.cuh (one CTA per row tile for all T,
-// the tile's dgates in shared memory, a thread per output column of the
-// transposed weights), run once over all steps with the carries starting
-// from zero and kept inside the block.
+// the tile's dgates in shared memory), run once over all steps with the
+// carries starting from zero and kept inside the block. In float32 its
+// products are FMAs (a thread per output column of the transposed
+// weights), well above the bound; in bf16 they run on the tensor cores
+// (mma.sync, the weights packed into fragment order by the wrapper), and
+// each CTA's step latency bounds it: the product loops' L2 round trips for
+// the weight fragments and the cell backward's loads (the header's note).
+// The bf16 sweep has 54 HMMA instructions in each of its two functions
+// (cuobjdump -sass of the built library; chip_smoke.py phase 1).
 //
 // The C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -32,9 +37,9 @@ namespace {
 
 template <typename T>
 int run(const void* dy, const void* g1, const void* c1, const void* g2, const void* c2,
-        const void* w2t, const void* u1t, const void* w1t, const void* fcw, void* dg1,
-        void* dg2, void* dx, int n_rows, int steps, int D, int H, int O, int rows,
-        cudaStream_t stream) {
+        const void* w2t, const void* u1t, const void* w1t, const void* w2p, const void* u1p,
+        const void* w1p, const void* fcw, void* dg1, void* dg2, void* dx, int n_rows,
+        int steps, int D, int H, int O, int rows, cudaStream_t stream) {
   bwd::SweepArgs<T> a;
   a.dy = static_cast<const T*>(dy);
   a.g1 = static_cast<const T*>(g1);
@@ -44,6 +49,9 @@ int run(const void* dy, const void* g1, const void* c1, const void* g2, const vo
   a.w2t = static_cast<const T*>(w2t);
   a.u1t = static_cast<const T*>(u1t);
   a.w1t = static_cast<const T*>(w1t);
+  a.w2p = static_cast<const uint4*>(w2p);
+  a.u1p = static_cast<const uint4*>(u1p);
+  a.w1p = static_cast<const uint4*>(w1p);
   a.fcw = static_cast<const float*>(fcw);
   a.dg1 = static_cast<T*>(dg1);
   a.dg2 = static_cast<T*>(dg2);
@@ -64,19 +72,23 @@ int run(const void* dy, const void* g1, const void* c1, const void* g2, const vo
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (dy, the residuals, the transposed
-// weights, dgates and dx; fcw is float32). rows: the row tile R, 16 or 20.
+// dtype: 0 = float32, 1 = bfloat16 (dy, the residuals, the weights, dgates
+// and dx; fcw is float32). float32 reads the transposed weights w2t, u1t,
+// w1t and rows is 16 or 20; bfloat16 reads the packed fragments w2p, u1p,
+// w1p (ops/lstm2_train.py::pack_mma_b) and rows is 16. The other three
+// weight pointers may be null.
 extern "C" int lstm2_bwd(const void* dy, const void* g1, const void* c1, const void* g2,
                          const void* c2, const void* w2t, const void* u1t, const void* w1t,
-                         const void* fcw, void* dg1, void* dg2, void* dx, int n_rows,
-                         int steps, int D, int H, int O, int rows, int dtype, void* stream) {
+                         const void* w2p, const void* u1p, const void* w1p, const void* fcw,
+                         void* dg1, void* dg2, void* dx, int n_rows, int steps, int D, int H,
+                         int O, int rows, int dtype, void* stream) {
   if (!bwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return run<float>(dy, g1, c1, g2, c2, w2t, u1t, w1t, fcw, dg1, dg2, dx, n_rows, steps, D,
-                      H, O, rows, s);
+    return run<float>(dy, g1, c1, g2, c2, w2t, u1t, w1t, w2p, u1p, w1p, fcw, dg1, dg2, dx,
+                      n_rows, steps, D, H, O, rows, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(dy, g1, c1, g2, c2, w2t, u1t, w1t, fcw, dg1, dg2, dx, n_rows,
-                              steps, D, H, O, rows, s);
+    return run<__nv_bfloat16>(dy, g1, c1, g2, c2, w2t, u1t, w1t, w2p, u1p, w1p, fcw, dg1, dg2,
+                              dx, n_rows, steps, D, H, O, rows, s);
   return (int)cudaErrorInvalidValue;
 }

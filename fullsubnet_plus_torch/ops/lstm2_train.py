@@ -19,7 +19,9 @@ kernels:
     inside the kernel file, so no [T, N, 4H] array of dgates is written.
 
 `FUSED_WGRAD` chooses between the last two, as the JAX module's switch of
-the same name does (:679). Cast points follow the TPU kernels: residuals
+the same name does (:679). Both share the reverse sweep; in bfloat16 its
+three products run on the tensor cores, reading the weights packed into
+mma.sync fragment order by `pack_mma_b`. Cast points follow the TPU kernels: residuals
 and dgates are rounded to x's dtype where a product or a store reads them,
 h, c and every carry stay float32, the bias gradient of the fused form sums
 the unrounded dgates and that of the other form the rounded ones.
@@ -31,6 +33,7 @@ kernels or raises. The plain versions also admit float64 (for gradcheck).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -46,14 +49,16 @@ FUSED_WGRAD = True
 LAUNCHES = {"lstm2_train_fwd": 0, "lstm2_bwd": 0, "lstm2_bwd_wgrad": 0}
 
 ROWS_PER_CTA = (16, 20)  # the row tiles the kernels are instantiated for
+MMA_ROWS_PER_CTA = 16  # the bf16 reverse sweep's row tile: one m16 tile (MMA_ROWS in the .cuh)
+MMA_PAD = 8  # bf16 pad of a dgates row in the bf16 sweep's shared memory (lstm2_bwd_sweep.cuh)
 DX_PARTS_MAX = 12  # k-slices of the dx product (DX_PARTS_MAX in lstm2_bwd_sweep.cuh)
 WGRAD_SCRATCH_BYTES = 32 << 20  # dgates scratch of the fused backward: a few steps, L2-sized
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_PTR] * 15 + [_INT] * 7 + [_PTR]
-_BWD_ARGTYPES = [_PTR] * 12 + [_INT] * 7 + [_PTR]
-_WGRAD_ARGTYPES = [_PTR] * 23 + [_INT] * 8 + [_PTR]
+_BWD_ARGTYPES = [_PTR] * 15 + [_INT] * 7 + [_PTR]
+_WGRAD_ARGTYPES = [_PTR] * 26 + [_INT] * 8 + [_PTR]
 
 
 class Residuals(NamedTuple):
@@ -299,6 +304,39 @@ def rows_per_cta(n: int, sm_count: int) -> int:
     return min(ROWS_PER_CTA, key=lambda rows: (cost(rows), rows))
 
 
+def mma_rows_per_cta(n: int, sm_count: int) -> int:
+    """The row tile R of the bf16 reverse sweep, whose products run on the
+    tensor cores in m-tiles of 16 rows: one m-tile at every fold. Two (R 32:
+    one wave at N 2304 and half the weight reads) measured slower at N 771
+    to 2304 on the H100, each step taking twice as long (PERF.md)."""
+    return MMA_ROWS_PER_CTA
+
+
+def pack_mma_b(w: torch.Tensor) -> torch.Tensor:
+    """A weight [n, K] whose row c holds the K products' weights of output
+    column c (k-contiguous: the "col" B operand of mma.sync m16n8k16) ->
+    its fragments [ceil(n / 8), K / 32, 32, 8] in the order the lanes read
+    them: n-tile nt, k-pair kp (k-steps 2kp and 2kp + 1 of 16), lane
+    4g + t holds, for each of the two k-steps ks, w[8nt + g, 16ks + 2t + {0, 1}]
+    and w[8nt + g, 16ks + 8 + 2t + {0, 1}]. So a warp reads 512 contiguous
+    bytes a k-pair, 16 a lane. Rows past n are zero."""
+    n, k = w.shape
+    if k % 32:
+        raise ValueError(f"pack_mma_b: K = {k} is not a multiple of 32")
+    tiles = -(-n // 8)
+    w = torch.nn.functional.pad(w, (0, 0, 0, 8 * tiles - n))
+    # (nt, g, kp, ks, half, t, pos) -> (nt, kp, g, t, ks, half, pos)
+    return (w.reshape(tiles, 8, k // 32, 2, 2, 4, 2).permute(0, 2, 1, 5, 3, 4, 6)
+            .reshape(tiles, k // 32, 32, 8).contiguous())
+
+
+def unpack_mma_b(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of `pack_mma_b`: [n, K]."""
+    tiles, kpairs = packed.shape[:2]
+    return (packed.reshape(tiles, kpairs, 8, 4, 2, 2, 2).permute(0, 2, 1, 4, 5, 3, 6)
+            .reshape(8 * tiles, 32 * kpairs)[:n])
+
+
 def dx_parts(d_in: int, hidden: int) -> int:
     """k-slices of the dx product in the reverse sweep: D x parts threads."""
     return min(hidden // d_in, DX_PARTS_MAX)
@@ -309,14 +347,24 @@ def fwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int) -> 
     return 4 * rows * (d_in + 4 * hidden + (hidden // 32) * out_dim)
 
 
-def bwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int) -> int:
-    """csrc/lstm2_bwd_sweep.cuh: dgates [4H][R], the dh1 and dh2 carries
-    [R][H], the dy tile [R][O] and the dx partials [parts][R][D] (float32)."""
+def bwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
+                            dtype: torch.dtype = torch.float32) -> int:
+    """csrc/lstm2_bwd_sweep.cuh. float32: dgates [4H][R], the dh1 and dh2
+    carries [R][H], the dy tile [R][O] and the dx partials [parts][R][D],
+    all float32. bfloat16: dgates bf16 [R][4H + MMA_PAD], then float32 the
+    carries, the dy tile and a dx partial per warp [H / 32][R][ceil(D / 8) * 8]."""
+    if dtype == torch.bfloat16:
+        dx_cols = -(-d_in // 8) * 8
+        return (2 * rows * (4 * hidden + MMA_PAD)
+                + 4 * rows * (2 * hidden + out_dim + (hidden // 32) * dx_cols))
     return 4 * rows * (4 * hidden + 2 * hidden + out_dim + dx_parts(d_in, hidden) * d_in)
 
 
-def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes) -> int:
-    """Raises on what the kernels do not take; returns the row tile R."""
+def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes,
+           row_tile=rows_per_cta) -> int:
+    """Raises on what the kernels do not take; returns the row tile R
+    (`row_tile(n, sm_count)`, or the smallest if that needs too much
+    shared memory)."""
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     if x.dtype not in _DTYPE_CODES:
@@ -341,7 +389,7 @@ def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes) -> int:
     if n == 0 or steps == 0:
         raise ValueError(f"{name}: empty fold")
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows = rows_per_cta(n, sm_count)
+    rows = row_tile(n, sm_count)
     if smem_bytes(rows, d, hidden, out_dim) > SMEM_LIMIT:
         rows = ROWS_PER_CTA[0]
     if smem_bytes(rows, d, hidden, out_dim) > SMEM_LIMIT:
@@ -391,9 +439,16 @@ def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
 
 def _bwd_operands(name: str, dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
                   res: Residuals):
-    """Checks, the row tile, dy [N, T, O] in x's dtype, and the weights
-    transposed for the sweep: [W2; U2]^T [4H, 2H], U1^T [4H, H], W1^T [4H, D]."""
-    rows = _check(name, x, w, bwd_shared_memory_bytes)
+    """Checks, the row tile, dy [N, T, O] in x's dtype, and the weights as
+    the sweep reads them: float32 transposed ([W2; U2]^T [4H, 2H], U1^T
+    [4H, H], W1^T [4H, D]) with null packed ones; bfloat16 null transposed
+    ones and the packed mma fragments of [W2; U2], U1 and W1 (`pack_mma_b`,
+    once per call: 3.7 MB at H 384)."""
+    if x.dtype == torch.bfloat16:
+        rows = _check(name, x, w, functools.partial(bwd_shared_memory_bytes, dtype=x.dtype),
+                      mma_rows_per_cta)
+    else:
+        rows = _check(name, x, w, bwd_shared_memory_bytes)
     n, _, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     _check_residuals(name, x, res, hidden)
@@ -401,16 +456,18 @@ def _bwd_operands(name: str, dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
         raise ValueError(f"{name}: dy is {tuple(dy.shape)} on {dy.device}, expected "
                          f"{(n, steps, out_dim)} on {x.device}")
     dy = dy.to(x.dtype).contiguous()
-    return rows, dy, w.w2.t().contiguous(), w.u1.t().contiguous(), w.w1.t().contiguous()
+    if x.dtype == torch.bfloat16:
+        return rows, dy, (None,) * 3 + tuple(pack_mma_b(m) for m in (w.w2, w.u1, w.w1))
+    return rows, dy, tuple(m.t().contiguous() for m in (w.w2, w.u1, w.w1)) + (None,) * 3
 
 
 def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Residuals) -> SweepGrads:
-    rows, dy, w2t, u1t, w1t = _bwd_operands("lstm2_bwd", dy, x, w, res)
+    rows, dy, weights = _bwd_operands("lstm2_bwd", dy, x, w, res)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     dg1, dg2 = torch.empty_like(res.g1), torch.empty_like(res.g2)
     dx_tnd = torch.empty(steps, n, d, dtype=x.dtype, device=x.device)
-    _call("lstm2_bwd", _BWD_ARGTYPES, x, dy, res.g1, res.c1, res.g2, res.c2, w2t, u1t, w1t,
+    _call("lstm2_bwd", _BWD_ARGTYPES, x, dy, res.g1, res.c1, res.g2, res.c2, *weights,
           w.fc_w, dg1, dg2, dx_tnd, n, steps, d, hidden, out_dim, rows, _DTYPE_CODES[x.dtype])
     # the bias sums of this form come from the rounded dgates (weight_grads)
     return SweepGrads(dx_tnd.permute(1, 2, 0), dg1, dg2, None, None)
@@ -423,7 +480,7 @@ def wgrad_chunk_steps(n: int, hidden: int, steps: int, itemsize: int) -> int:
 
 def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
                       res: Residuals) -> LSTM2Grads:
-    rows, dy, w2t, u1t, w1t = _bwd_operands("lstm2_bwd_wgrad", dy, x, w, res)
+    rows, dy, weights = _bwd_operands("lstm2_bwd_wgrad", dy, x, w, res)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     tiles = -(-n // rows)
@@ -443,7 +500,7 @@ def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
     carry = f32(4, tiles * rows, hidden)  # dh1, dc1, dh2, dc2 between chunks
     db_part = f32(tiles, 2, 4 * hidden)  # each row tile's bias sums
     _call("lstm2_bwd_wgrad", _WGRAD_ARGTYPES, x, dy, x_tnd, res.g1, res.c1, res.h1, res.g2,
-          res.c2, res.h2, w2t, u1t, w1t, w.fc_w, dx_tnd, dw1, du1, dw2, du2, db1, db2,
+          res.c2, res.h2, *weights, w.fc_w, dx_tnd, dw1, du1, dw2, du2, db1, db2,
           scratch_dg1, scratch_dg2, carry, db_part, n, steps, d, hidden, out_dim, rows, chunk,
           _DTYPE_CODES[x.dtype])
     return LSTM2Grads(dx_tnd.permute(1, 2, 0), dw1, du1, dw2, du2, db1, db2)

@@ -205,6 +205,80 @@ def test_rows_per_cta_and_chunking():
     assert lt.wgrad_chunk_steps(20, 16, 9, 4) == 9  # never more than T
 
 
+def _mma_weights(hidden, d_in, seed=3):
+    """[W2; U2] [2H, 4H], U1 [H, 4H] and W1 [D, 4H] in bf16, as the bf16
+    sweep's products read them (row c: the weights of output column c)."""
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randn(rows, 4 * hidden, generator=g) * 0.1).bfloat16()
+            for rows in (2 * hidden, hidden, d_in)]
+
+
+@pytest.mark.parametrize("which", ["w2", "u1", "w1"])
+def test_mma_packing_round_trips(which):
+    """Unpacking the packed fragments gives the weights back exactly; W1's
+    D = 5 rows are padded with zero rows to one n-tile of 8."""
+    w = dict(zip(("w2", "u1", "w1"), _mma_weights(32, 5)))[which]
+    packed = lt.pack_mma_b(w)
+    tiles = -(-w.shape[0] // 8)
+    assert packed.shape == (tiles, 4 * 32 // 32, 32, 8) and packed.dtype == torch.bfloat16
+    assert torch.equal(lt.unpack_mma_b(packed, w.shape[0]), w)
+    padded = lt.unpack_mma_b(packed, 8 * tiles)
+    assert not padded[w.shape[0]:].any()
+
+
+def _mma_emulate(a: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """a [M, K] (M a multiple of 16) times the packed B, walked as the bf16
+    sweep walks it: m16 x n8 x k16 tiles in k order, each B tile rebuilt from
+    the lanes' words (lane 4g + t, word e = 4 ks + 2 half + pos holds
+    B[k = 8 half + 2t + pos][n = g] of k-step ks), float32 sums."""
+    m = a.shape[0]
+    tiles, kpairs = packed.shape[:2]
+    out = torch.zeros(m, 8 * tiles)
+    for mt in range(m // 16):
+        rows = a[16 * mt:16 * mt + 16].float()
+        for nt in range(tiles):
+            acc = torch.zeros(16, 8)
+            for kp in range(kpairs):
+                words = packed[nt, kp].float()  # [32 lanes, 8]
+                for ks in range(2):
+                    b = torch.zeros(16, 8)
+                    for lane in range(32):
+                        g, t = divmod(lane, 4)
+                        for half in range(2):
+                            for pos in range(2):
+                                b[8 * half + 2 * t + pos, g] = words[lane, 4 * ks + 2 * half + pos]
+                    k0 = 32 * kp + 16 * ks
+                    acc += rows[:, k0:k0 + 16] @ b
+            out[16 * mt:16 * mt + 16, 8 * nt:8 * nt + 8] = acc
+    return out
+
+
+def test_mma_fragment_walk_matches_the_products():
+    """At H 32, D 5, R 16: the fragment-order walk of the packed weights
+    gives the sweep's three products dg @ [W2; U2]^T, dg @ U1^T and
+    dg @ W1^T (float32 sums, another order: within 1e-5)."""
+    hidden, d_in = 32, 5
+    dg = (torch.randn(16, 4 * hidden, generator=torch.Generator().manual_seed(4))).bfloat16()
+    for w in _mma_weights(hidden, d_in):
+        got = _mma_emulate(dg, lt.pack_mma_b(w))
+        want = dg.float() @ w.float().t()
+        np.testing.assert_allclose(got[:, :w.shape[0]].numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+        assert not got[:, w.shape[0]:].any()
+
+
+@pytest.mark.parametrize("n", [2304, 2056, 771])
+def test_bf16_sweep_tile_and_shared_memory(n):
+    """The bf16 sweep's row tile is one m16 tile at the training, serving
+    and ragged folds, and its shared memory (dgates bf16 [16][4H + 8], the
+    float32 carries, dy tile and 12 dx partials [16][40]) fits a block; the
+    float32 sweep's count is unchanged."""
+    assert lt.mma_rows_per_cta(n, 132) == 16
+    smem = lt.bwd_shared_memory_bytes(16, 34, 384, 2, torch.bfloat16)
+    assert smem == 2 * 16 * (1536 + lt.MMA_PAD) + 4 * 16 * (768 + 2 + 12 * 40) == 129_408
+    assert smem <= ops_lstm2.SMEM_LIMIT
+    assert lt.bwd_shared_memory_bytes(20, 34, 384, 2) == 4 * 20 * (1536 + 768 + 2 + 11 * 34)
+
+
 def test_cuda_tensor_without_a_card_raises_not_falls_back():
     """A non-CPU tensor never takes the plain version."""
     params, fc, x, _ = _case(4, 3, 6, 32, 2)
@@ -215,14 +289,17 @@ def test_cuda_tensor_without_a_card_raises_not_falls_back():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,t,hidden", [(50, 7, 64), (37, 9, 384)])
 @pytest.mark.parametrize("dtype,floor", [(torch.float32, 80.0), (torch.bfloat16, 40.0)])
-def test_kernels_match_plain_on_cuda(dtype, floor):
+def test_kernels_match_plain_on_cuda(dtype, floor, n, t, hidden):
     """Needs an NVIDIA GPU: the three kernels against their plain versions
-    at a ragged fold; chip_smoke.py makes the same comparison at the
-    training fold."""
+    at ragged folds (N not a multiple of the row tile, T odd; H 384 gives
+    the bf16 sweep its 12 warps): K2, K4's dx and dgates against the plain
+    sweep, K3 and K4 with their weight gradients, K3 equal to itself on a
+    repeat. chip_smoke.py makes the same comparisons at the training fold."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    params, fc, x, dy = _case(50, 7, 34, 64, 2)
+    params, fc, x, dy = _case(n, t, 34, hidden, 2)
     tensors = [p.cuda() for p in _torch_tensors(params, fc, dtype, requires_grad=False)]
     w = ops_lstm2.pack_weights(*tensors)
     xt, dyt = torch.tensor(x).to("cuda", dtype), torch.tensor(dy).cuda()
@@ -235,8 +312,13 @@ def test_kernels_match_plain_on_cuda(dtype, floor):
     y, res = lt.lstm2_train_fwd(xt, w)
     assert min(snr(a, b) for a, b in zip((y_ref, *res_ref), (y, *res))) >= floor
     sweep = lt.lstm2_bwd_reference(dyt, xt, w, res_ref)
+    got = lt.lstm2_bwd_sweep(dyt, xt, w, res_ref)
+    assert min(snr(a, b) for a, b in zip(sweep[:3], got[:3])) >= floor
     want = lt.LSTM2Grads(sweep.dx, *lt.weight_grads(xt, res_ref, sweep.dg1, sweep.dg2)[:4],
                          sweep.db1, sweep.db2)
     for fused in (True, False):
         got = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=fused)
         assert min(snr(a, b) for a, b in zip(want, got)) >= floor
+    again = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=True)
+    got = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
