@@ -9,9 +9,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      residual-saving forward), csrc/lstm2_bwd_wgrad.cu (K3, the backward
      with the weight gradients inside) and csrc/lstm2_bwd.cu (K4, the
      backward that keeps the dgates); count the tensor-core (HMMA)
-     instructions of K3's and K4's reverse sweeps (`cuobjdump -sass`): the
-     bf16 sweep must have them, and no bf16 FMA sweep may be compiled;
-  2. hold each kernel against its plain PyTorch version on the card: K1 at
+     instructions of the forward sweeps of K1 and K2 and the reverse sweeps
+     of K3 and K4 (`cuobjdump -sass`): each bf16 sweep must have them, and no
+     bf16 FMA sweep may be compiled;
+  2. hold each kernel against the JAX kernel's outputs (the committed
+     tests/fixtures/torch_kernel_fixture.npz, interpret mode on the CPU, at
+     small ragged shapes; same floors) and against its plain PyTorch version
+     on the card, printing the bf16 forward's row tile at each fold: K1 at
      the batch path's sub-band fold (fp32 >= 80 dB, bf16 >= 40 dB SNR), K5
      at the serving fold and at the batch path's (>= 40 dB), K2, K3 and K4
      at the training fold (same floors; K2's y equal to K1's bit for bit,
@@ -21,14 +25,16 @@ Phases, each fatal on failure (exit code 1, no result line):
   3. time each kernel, its plain version and a cuDNN LSTM + Linear (a
      yardstick only; forward for K1, K2 and K5, backward for K3 and K4; for
      K5 also K1 in bf16 at the same shape), with CUDA events, beside the
-     bound from the card's peaks; split K3's and K4's device time into the
-     reverse sweep and the rest (torch.profiler);
+     bound from the card's peaks; K1 and K2 in bf16 at both row tiles of the
+     tensor-core forward (R 16 and 32) and the weight packing alone; split
+     K3's and K4's device time into the reverse sweep and the rest
+     (torch.profiler);
   4. drive the batch path, `fullsubnet_plus_torch.cli.enhance.run_enhance`,
      on 8 wavs of 3-10 s with a seeded full-width FullSubNet+ in float32,
      bfloat16 and int8; check every output, that the kernels were launched,
      and the float32 and int8 waveforms against the same runs through the
      plain LSTMs (>= 60 dB and >= INT8_WAVE_SNR_FLOOR); profile one float32
-     batch;
+     and one bfloat16 batch, and the bf16 weight packing's device time;
   5. drive the serving path: the daemon of `fullsubnet_plus_torch.cli.serve`
      (its default dtype, int8; 8 slots; in this process on a free port)
      serves 12 concurrent seeded clients of 3-10 s fed faster than real
@@ -43,7 +49,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      versions; every loss and gradient norm finite, nothing skipped, the
      launch counts as expected, the kernel runs in agreement with the plain
      run, a NaN batch skipped with the state unchanged bit for bit; then
-     `make_eval_step` (K1); profile one step;
+     `make_eval_step` (K1); profile one float32 step, list its matrix
+     product and convolution kernels and fail on a TF32 one;
   7. print the kernels' JSON line, the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
@@ -52,8 +59,11 @@ Imports nothing of JAX. Exits non-zero without CUDA.
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -106,6 +116,11 @@ PEAK_BYTES = 3.35e12
 
 KERNEL_SOURCES = ("lstm2_fwd", "lstm2_int8_fwd", "lstm2_train_fwd", "lstm2_bwd_wgrad",
                   "lstm2_bwd")  # csrc/<name>.cu
+SWEEP_SOURCES = ("lstm2_fwd", "lstm2_train_fwd", "lstm2_bwd_wgrad", "lstm2_bwd")  # bf16 mma sweeps
+FIXTURE_GENERATOR = os.path.join(REPO, "tests", "fixtures", "gen_torch_kernel_fixture.py")
+# kernel names of a matrix product or convolution that computes in TF32 (CUTLASS's
+# s1688 / s16816 tensor-op GEMMs take float32 operands as TF32 unless named for bf16 / f16)
+TF32_KERNEL = re.compile(r"tf32|s1688gemm(?!_bf16|_f16)|s16816gemm(?!_bf16|_f16)", re.IGNORECASE)
 
 
 def fail(msg: str):
@@ -232,8 +247,8 @@ def sass_instruction_counts(lib, opcode: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Builds the kernels; returns the HMMA count of each reverse-sweep
-    function in K3's and K4's libraries."""
+    """Builds the kernels; returns the HMMA count of each sweep function in
+    the libraries of K1 and K2 (forward) and K3 and K4 (reverse)."""
     from fullsubnet_plus_torch.ops import nvcc
 
     t0 = time.perf_counter()
@@ -249,18 +264,76 @@ def phase_build() -> dict:
     hmma = {}
     for lib in libs:
         stem = lib.stem.rsplit("_", 1)[0]
-        if stem not in ("lstm2_bwd", "lstm2_bwd_wgrad"):
+        if stem not in SWEEP_SOURCES:
             continue
         sweeps = {f: n for f, n in sass_instruction_counts(lib, "HMMA").items() if "sweep" in f}
         for function, n in sweeps.items():
             print(f"[1] {stem}: {function} has {n} HMMA instructions")
         mma = [n for f, n in sweeps.items() if "sweep_mma_kernel" in f]
         if not mma or min(mma) == 0:
-            fail(f"{stem}: the bf16 reverse sweep has no tensor-core instructions")
+            fail(f"{stem}: the bf16 sweep has no tensor-core instructions")
         if any("sweep_kernelI13__nv_bfloat16" in f for f in sweeps):
             fail(f"{stem}: a bf16 instantiation of the FMA sweep was compiled")
         hmma[stem] = sweeps
     return hmma
+
+
+def fixture_generator():
+    """tests/fixtures/gen_torch_kernel_fixture.py, loaded by path (it
+    imports JAX only to make the fixture, never here)."""
+    spec = importlib.util.spec_from_file_location("gen_torch_kernel_fixture", FIXTURE_GENERATOR)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_check_fixture() -> dict:
+    """Each kernel through the port's entry points on the card against the
+    JAX kernel's outputs in the committed fixture; {(kernel, dtype): least SNR}."""
+    gen = fixture_generator()
+    fixture = gen.load_fixture()
+    least = {}
+    for name, (kernel, n, t, d, h, o, dtype, _, fused) in gen.CASES.items():
+        reset_launches()
+        got = gen.port_run(name, "cuda")
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in all_launches().items() if v}
+        snrs = {k: snr_db(torch.from_numpy(np.asarray(v)), torch.from_numpy(np.asarray(got[k])))
+                for k, v in fixture[name].items()}
+        floor = INT8_SNR_FLOOR if kernel == "k5" else SNR_FLOOR[getattr(torch, dtype)]
+        worst_key = min(snrs, key=snrs.get)
+        print(f"[2] {name} (N={n} T={t} H={h} O={o}) against the JAX fixture: least "
+              f"{snrs[worst_key]:.1f} dB ({worst_key}; floor {floor:.0f}); launches {launched}")
+        names = {"k1": ["lstm2_fwd"], "k5": ["lstm2_int8_fwd"],
+                 "train": ["lstm2_train_fwd", "lstm2_bwd_wgrad" if fused else "lstm2_bwd"]}[kernel]
+        if sorted(launched) != sorted(names):
+            fail(f"{name}: launches {launched}, expected one of each of {names}")
+        if snrs[worst_key] < floor:
+            fail(f"{name} disagrees with the JAX kernel: {snrs[worst_key]:.1f} dB at {worst_key}")
+        for k in names:
+            key = (k, dtype)
+            least[key] = min(least.get(key, np.inf), snrs[worst_key])
+    return least
+
+
+@contextlib.contextmanager
+def fwd_row_tile(rows: int):
+    """Force the bf16 forward sweep's row tile (K1 and K2 read the same rule)."""
+    from fullsubnet_plus_torch.ops import lstm2
+
+    rule = lstm2.fwd_mma_rows_per_cta
+    lstm2.fwd_mma_rows_per_cta = lambda *_: rows
+    try:
+        yield
+    finally:
+        lstm2.fwd_mma_rows_per_cta = rule
+
+
+def fwd_tile_at(n: int) -> int:
+    from fullsubnet_plus_torch.ops import lstm2
+
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    return lstm2.fwd_mma_row_tile(n, D, H, sm_count)
 
 
 def phase_check() -> dict:
@@ -276,7 +349,8 @@ def phase_check() -> dict:
             if not torch.isfinite(out).all():
                 fail(f"lstm2_fwd output not finite at N={n} T={t} {dtype}")
             snr, err = snr_db(ref, out), float((out - ref).abs().max())
-            print(f"[2] lstm2_fwd vs plain N={n} T={t} {str(dtype)[6:]}: "
+            tile = f" (row tile {fwd_tile_at(n)})" if dtype == torch.bfloat16 else ""
+            print(f"[2] lstm2_fwd vs plain N={n} T={t} {str(dtype)[6:]}{tile}: "
                   f"max_abs {err:.3e}  SNR {snr:.1f} dB (floor {SNR_FLOOR[dtype]:.0f})")
             if snr < SNR_FLOOR[dtype]:
                 fail(f"lstm2_fwd disagrees with the plain version: {snr:.1f} dB")
@@ -332,6 +406,13 @@ def phase_time() -> dict:
               f"bound {bound_ms:.3f} ms ({bound_by})")
         times[dtype] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by)
+        if dtype == torch.bfloat16:
+            times[dtype].update(row_tile_ms=time_row_tiles(lambda: lstm2.lstm2_fc(x, w)),
+                                row_tile=fwd_tile_at(N_FULL),
+                                pack_ms=cuda_ms(lambda: lstm2.pack_fwd_mma(w), reps=5))
+            print(f"[3] lstm2_fwd bfloat16 N={N_FULL} T={T_FULL} by row tile: "
+                  f"{times[dtype]['row_tile_ms']} ms (the rule takes {times[dtype]['row_tile']}); "
+                  f"weight packing alone {times[dtype]['pack_ms']:.3f} ms")
     # K5 at the serving fold; beside it K1 in bf16 and cuDNN's bf16 LSTM +
     # Linear on the same input and weights (yardsticks: neither computes
     # the int8-recurrent function, which no single PyTorch call does)
@@ -350,6 +431,17 @@ def phase_time() -> dict:
     times["int8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by, lstm2_fwd_bf16_ms=k1_ms)
     return times
+
+
+def time_row_tiles(fn) -> dict:
+    """{R: median ms of fn} at each row tile of the bf16 forward sweep."""
+    from fullsubnet_plus_torch.ops import lstm2
+
+    out = {}
+    for rows in lstm2.FWD_MMA_ROWS_PER_CTA:
+        with fwd_row_tile(rows):
+            out[rows] = round(cuda_ms(fn, reps=3), 3)
+    return out
 
 
 def train_operands(n: int, t: int, dtype: torch.dtype, seed: int):
@@ -410,6 +502,8 @@ def phase_check_train() -> dict:
             del want, got, again, y_ref, res_ref, y, res
             forms = worst(function_grads(x, dy, lstm, fc, False),
                           function_grads(x, dy, lstm, fc, True))
+            if dtype == torch.bfloat16:
+                tag += f" (forward row tile {fwd_tile_at(n)})"
             print(f"[2] training kernels vs plain {tag} (floor {floor:.0f} dB): "
                   f"lstm2_train_fwd {k2[0]:.1f} dB max_abs {k2[1]:.3e}, y equal to "
                   f"lstm2_fwd's: {same_primal}; lstm2_bwd {k4[0]:.1f} dB max_abs {k4[1]:.3e}; "
@@ -496,6 +590,10 @@ def phase_time_train() -> dict:
               f"reverse sweep {k3['sweep_ms']:.3f} ms, wgrad_kernel {k3['wgrad_kernel_ms']:.3f} "
               f"ms, other {k3['other_ms']:.3f} ms; lstm2_bwd reverse sweep "
               f"{k4['sweep_ms']:.3f} ms, other {k4['other_ms']:.3f} ms")
+        if dtype == torch.bfloat16:
+            tiles = time_row_tiles(lambda: lt.lstm2_train_fwd(x, w))
+            print(f"[3] lstm2_train_fwd bfloat16 N={N_TRAIN} T={T_TRAIN} by row tile: {tiles} ms "
+                  f"(the rule takes {fwd_tile_at(N_TRAIN)})")
         plain = {
             "lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd_reference(x, w), reps=2),
             "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res), reps=2),
@@ -535,6 +633,8 @@ def phase_time_train() -> dict:
                                         bound_by=bound_by)
             if name in split:
                 times[(name, dtype)]["sweep_ms"] = split[name]["sweep_ms"]
+            if name == "lstm2_train_fwd" and dtype == torch.bfloat16:
+                times[(name, dtype)].update(row_tile_ms=tiles, row_tile=fwd_tile_at(N_TRAIN))
         times[("lstm2_bwd_wgrad", dtype)]["wgrad_kernel_ms"] = k3["wgrad_kernel_ms"]
         times[("lstm2_bwd", dtype)]["outside_products_ms"] = outside_ms
         torch.cuda.empty_cache()
@@ -676,7 +776,14 @@ def phase_train() -> dict:
         train_step(state, noisy, clean)
         torch.cuda.synchronize()
 
-    profile_call(one_step, "[6] profile float32 train step (K2 + K3):")
+    kernels = profile_call(one_step, "[6] profile float32 train step (K2 + K3):")
+    products = [e for e in kernels if re.search(r"gemm|conv|cudnn|cutlass|xmma", e.key, re.I)]
+    for e in products:
+        print(f"[6] float32 step matrix product / convolution: "
+              f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:150]}")
+    tf32 = [e.key for e in products if TF32_KERNEL.search(e.key)]
+    if tf32:
+        fail(f"the float32 train step ran TF32 kernels: {tf32}")
     return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s")}
                      for k, v in runs.items()},
             "eval_launches": eval_launches}
@@ -781,10 +888,10 @@ def phase_batch_path(root: str, lengths: list[int]) -> dict:
     return {"launches": launches, "rates": rates}
 
 
-def profile_call(fn, tag: str) -> None:
+def profile_call(fn, tag: str) -> list:
     """Where one call of `fn` (which must return synchronized) spends device
     time (torch.profiler), and the device's idle share of the wall time.
-    Reported only."""
+    Reported only; returns the device-side events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -807,6 +914,7 @@ def profile_call(fn, tag: str) -> None:
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
         ms = e.self_device_time_total / 1e3
         print(f"    {ms:9.3f} ms {ms / max(busy_ms, 1e-9):6.1%} x{e.count:<4d} {e.key[:90]}")
+    return kernels
 
 
 def phase_profile(root: str, lengths: list[int]) -> None:
@@ -814,15 +922,23 @@ def phase_profile(root: str, lengths: list[int]) -> None:
     from fullsubnet_plus_torch.data.wav import read_wav
     from fullsubnet_plus_torch.enhance import Enhancer
     from fullsubnet_plus_torch.models import FULLSUBNET_PLUS
+    from fullsubnet_plus_torch.ops import lstm2
 
-    enhancer = Enhancer(FULLSUBNET_PLUS, FULLSUBNET_PLUS.make_config({}),
-                        load_state_dict(os.path.join(root, "model.npz")), device="cuda")
     batch = np.zeros((len(lengths), -(-max(lengths) // SR) * SR), np.float32)
     for i, n in enumerate(lengths):
         batch[i, :n] = read_wav(os.path.join(root, "noisy", f"utt{i}.wav"))
-    # enhance_batch returns numpy: synchronized
-    profile_call(lambda: enhancer.enhance_batch(batch, lengths=lengths),
-                 "[4] profile float32 batch:")
+    for dtype in ("float32", "bfloat16"):
+        enhancer = Enhancer(FULLSUBNET_PLUS, FULLSUBNET_PLUS.make_config({}),
+                            load_state_dict(os.path.join(root, "model.npz")), device="cuda",
+                            compute_dtype=dtype)
+        # enhance_batch returns numpy: synchronized
+        profile_call(lambda: enhancer.enhance_batch(batch, lengths=lengths),
+                     f"[4] profile {dtype} batch:")
+    sb = enhancer.model.sb_model  # the bf16 one: its K1 call packs the weights first
+    w = sb.sequence_model.packed(sb.fc_output_layer)
+    pack_ms = sum(device_ms_by_kernel(lambda: lstm2.pack_fwd_mma(w)).values())
+    print(f"[4] of the bfloat16 batch: the weight packing for K1 (pack_fwd_mma, once a "
+          f"batch) {pack_ms:.3f} ms of device time")
 
 
 def free_port() -> int:
@@ -966,6 +1082,7 @@ def main() -> None:
 
     t_start = time.perf_counter()
     hmma = phase_build()
+    fixture_snr = phase_check_fixture()
     errors = phase_check()
     train_errors = phase_check_train()
     times = phase_time()
@@ -997,6 +1114,9 @@ def main() -> None:
                                for tag in ("float32", "bfloat16")},
                             "eval_step": train["eval_launches"]["lstm2_fwd"]},
         "audio_s_per_s": {tag: batch["rates"][tag] for tag in ("float32", "bfloat16")},
+        "sweep_hmma": hmma["lstm2_fwd"],
+        "jax_fixture_min_snr_db": {dt: fixture_snr[("lstm2_fwd", dt)]
+                                   for dt in ("float32", "bfloat16")},
     }
     k5 = {
         "name": "lstm2_int8_fwd",
@@ -1015,6 +1135,7 @@ def main() -> None:
                           "serve_together": serve["audio_s_per_s"],
                           "serve_stream_median": serve["stream_audio_s_per_s_median"]},
         "serve_busy_tick_ms": serve["stats"]["busy_tick_ms"],
+        "jax_fixture_min_snr_db": fixture_snr[("lstm2_int8_fwd", "bfloat16")],
     }
     runs = train["runs"]
 
@@ -1036,6 +1157,8 @@ def main() -> None:
                        + ("forward" if name == "lstm2_train_fwd" else "backward"),
             "train_step": {r: {"wall_ms": runs[r]["wall_ms"],
                                "audio_s_per_s": runs[r]["audio_s_per_s"]} for r in launch_runs},
+            "jax_fixture_min_snr_db": {dt: fixture_snr[(name, dt)]
+                                       for dt in ("float32", "bfloat16")},
             **extra,
         }
 

@@ -72,6 +72,8 @@
 namespace bwd {
 
 using lstm2::from_f;
+using lstm2::ldmatrix_x4;
+using lstm2::mma_bf16;
 using lstm2::to_f;
 
 constexpr int DX_PARTS_MAX = 12;  // DX_PARTS_MAX in ops/lstm2_train.py
@@ -345,23 +347,6 @@ __host__ __device__ inline int dx_cols(int D) { return (D + 7) / 8 * 8; }
 inline size_t shared_bytes_mma(int D, int H, int O) {
   return sizeof(__nv_bfloat16) * (size_t)MMA_ROWS * (4 * H + MMA_PAD) +
          sizeof(float) * (size_t)MMA_ROWS * (2 * H + O + (H / 32) * dx_cols(D));
-}
-
-// Lane l gives the address of row l % 16, column 8 * (l / 16) of a 16 x 16
-// bf16 tile; a[0..3] come back as mma.sync's A fragment of that tile.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// d += A (16 x 16, row) B (16 x 8, col): bf16 products, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // acc[i] += dgates . B[n-tile i] over the k-pairs [kp0, kp1) (32 gate

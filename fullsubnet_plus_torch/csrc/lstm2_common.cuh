@@ -1,6 +1,6 @@
-// Conversions and activations shared by the float LSTM kernels
-// (lstm2_fwd_sweep.cuh, lstm2_bwd_sweep.cuh). T is the weight type, float
-// or __nv_bfloat16; arithmetic is float32 throughout.
+// Conversions, activations and the mma.sync helpers shared by the float
+// LSTM kernels (lstm2_fwd_sweep.cuh, lstm2_bwd_sweep.cuh). T is the weight
+// type, float or __nv_bfloat16; arithmetic is float32 throughout.
 
 #pragma once
 
@@ -39,5 +39,24 @@ template <> struct Bits<__nv_bfloat16> {
 };
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// The tensor-core sweeps' operand loads and products (mma.sync m16n8k16).
+
+// Lane l gives the address of row l % 16, column 8 * (l / 16) of a 16 x 16
+// bf16 tile; a[0..3] come back as mma.sync's A fragment of that tile.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// d += A (16 x 16, row) B (16 x 8, col): bf16 products, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 }  // namespace lstm2

@@ -13,10 +13,13 @@
 // work is bound by operations, and by latency: the T steps are sequential
 // and each step's products depend on the last step's h.
 //
-// Design (a simple kernel that is right; wgmma, clusters and persistent
-// CTAs are later work): the sweep of lstm2_fwd_sweep.cuh, which the training
-// forward (lstm2_train_fwd.cu) shares, with one CTA per tile of R = 16 rows
-// for all T steps and one thread per hidden unit, storing y only.
+// Design: the sweeps of lstm2_fwd_sweep.cuh, which the training forward
+// (lstm2_train_fwd.cu) shares, storing y only. One CTA per row tile runs all
+// T steps. float32 (`sweep_kernel`): R = 16 rows, one thread per hidden
+// unit, float32 FMA products from L2-resident weights. bfloat16
+// (`sweep_mma_kernel`): every product on mma.sync bf16 -> f32 from weights
+// packed into fragment order once per call, R = 16 or 32 rows (one or two m16
+// tiles sharing each weight fragment loaded from L2), chosen by the wrapper.
 //
 // Launch: grid ceil(N / R), block H threads, dynamic shared memory as in
 // shared_memory_bytes() of ops/lstm2.py. The C entry point launches on the
@@ -24,31 +27,26 @@
 
 #include "lstm2_fwd_sweep.cuh"
 
-namespace {
-
-constexpr int R = 16;  // rows per CTA; ROWS_PER_CTA in ops/lstm2.py
-
-template <typename T>
-int launch(const void* x, const void* w1, const void* u1, const void* b1, const void* w2,
-           const void* b2, const void* fcw, const void* fcb, void* out, int n_rows, int steps,
-           int D, int H, int O, cudaStream_t stream) {
-  return fwd::launch<T, R, false>(x, w1, u1, b1, w2, b2, fcw, fcb, out, fwd::Residuals<T>{},
-                                  n_rows, steps, D, H, O, stream);
-}
-
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (x, W1, U1, [W2; U2] and out).
+// dtype: 0 = float32 (x, W1, U1, [W2; U2] and out; rows 16), 1 = bfloat16
+// (x and out; the weights as the packed fragments w1p, w2p, fcp and the
+// gate-interleaved biases b1p, b2p; rows 16 or 32). The other dtype's weight
+// arguments are not read.
 extern "C" int lstm2_fwd(const void* x, const void* w1, const void* u1, const void* b1,
                          const void* w2, const void* b2, const void* fcw, const void* fcb,
-                         void* out, int n_rows, int steps, int D, int H, int O, int dtype,
-                         void* stream) {
+                         const void* w1p, const void* w2p, const void* fcp, const void* b1p,
+                         const void* b2p, void* out, int n_rows, int steps, int D, int H, int O,
+                         int rows, int dtype, void* stream) {
   if (!fwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, w1, u1, b1, w2, b2, fcw, fcb, out, n_rows, steps, D, H, O, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w1, u1, b1, w2, b2, fcw, fcb, out, n_rows, steps, D, H,
-                                 O, s);
+  if (dtype == 0 && rows == 16)
+    return fwd::launch<float, 16, false>(x, w1, u1, b1, w2, b2, fcw, fcb, out,
+                                         fwd::Residuals<float>{}, n_rows, steps, D, H, O, s);
+  if (dtype == 1) {
+    const fwd::MmaWeights wt{static_cast<const uint4*>(w1p), static_cast<const uint4*>(w2p),
+                             static_cast<const uint4*>(fcp), static_cast<const float*>(b1p),
+                             static_cast<const float*>(b2p)};
+    return fwd::launch_mma<false>(x, wt, fcb, out, fwd::Residuals<__nv_bfloat16>{}, n_rows,
+                                  steps, D, H, O, rows, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

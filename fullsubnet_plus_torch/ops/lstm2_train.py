@@ -7,7 +7,8 @@ Replaces the jax.custom_vjp `_stacked_lstm2_train`
 kernels:
 
   * `_residual_kernel` (:322, pallas_call at :638) -> csrc/lstm2_train_fwd.cu:
-    the forward sweep of ops/lstm2.py that also stores the activated gates
+    the forward sweep of ops/lstm2.py (in bfloat16 on the tensor cores, from
+    the weights `pack_fwd_mma` packs) that also stores the activated gates
     [sigma(i), sigma(f), tanh(g), sigma(o)] and c, h of both layers, in x's
     dtype, as [T, N, 4H] and [T, N, H];
   * `_make_bwd_kernel` (:415, pallas_call at :828) -> csrc/lstm2_bwd.cu: the
@@ -39,7 +40,17 @@ from typing import NamedTuple
 import torch
 
 from fullsubnet_plus_torch.ops import nvcc
-from fullsubnet_plus_torch.ops.lstm2 import MAX_HIDDEN, SMEM_LIMIT, LSTM2Weights, pack_weights
+from fullsubnet_plus_torch.ops.lstm2 import (
+    MAX_HIDDEN,
+    SMEM_LIMIT,
+    FwdMmaWeights,
+    LSTM2Weights,
+    fwd_mma_row_tile,
+    fwd_mma_shared_memory_bytes,
+    pack_fwd_mma,
+    pack_mma_b,
+    pack_weights,
+)
 
 # In-kernel weight-gradient accumulation (csrc/lstm2_bwd_wgrad.cu); False
 # takes the dgates-writing sweep (csrc/lstm2_bwd.cu) and `weight_grads`.
@@ -56,7 +67,7 @@ WGRAD_SCRATCH_BYTES = 32 << 20  # dgates scratch of the fused backward: a few st
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_PTR] * 15 + [_INT] * 7 + [_PTR]
+_FWD_ARGTYPES = [_PTR] * 20 + [_INT] * 7 + [_PTR]
 _BWD_ARGTYPES = [_PTR] * 15 + [_INT] * 7 + [_PTR]
 _WGRAD_ARGTYPES = [_PTR] * 26 + [_INT] * 8 + [_PTR]
 
@@ -312,38 +323,17 @@ def mma_rows_per_cta(n: int, sm_count: int) -> int:
     return MMA_ROWS_PER_CTA
 
 
-def pack_mma_b(w: torch.Tensor) -> torch.Tensor:
-    """A weight [n, K] whose row c holds the K products' weights of output
-    column c (k-contiguous: the "col" B operand of mma.sync m16n8k16) ->
-    its fragments [ceil(n / 8), K / 32, 32, 8] in the order the lanes read
-    them: n-tile nt, k-pair kp (k-steps 2kp and 2kp + 1 of 16), lane
-    4g + t holds, for each of the two k-steps ks, w[8nt + g, 16ks + 2t + {0, 1}]
-    and w[8nt + g, 16ks + 8 + 2t + {0, 1}]. So a warp reads 512 contiguous
-    bytes a k-pair, 16 a lane. Rows past n are zero."""
-    n, k = w.shape
-    if k % 32:
-        raise ValueError(f"pack_mma_b: K = {k} is not a multiple of 32")
-    tiles = -(-n // 8)
-    w = torch.nn.functional.pad(w, (0, 0, 0, 8 * tiles - n))
-    # (nt, g, kp, ks, half, t, pos) -> (nt, kp, g, t, ks, half, pos)
-    return (w.reshape(tiles, 8, k // 32, 2, 2, 4, 2).permute(0, 2, 1, 5, 3, 4, 6)
-            .reshape(tiles, k // 32, 32, 8).contiguous())
-
-
-def unpack_mma_b(packed: torch.Tensor, n: int) -> torch.Tensor:
-    """The inverse of `pack_mma_b`: [n, K]."""
-    tiles, kpairs = packed.shape[:2]
-    return (packed.reshape(tiles, kpairs, 8, 4, 2, 2, 2).permute(0, 2, 1, 4, 5, 3, 6)
-            .reshape(8 * tiles, 32 * kpairs)[:n])
-
-
 def dx_parts(d_in: int, hidden: int) -> int:
     """k-slices of the dx product in the reverse sweep: D x parts threads."""
     return min(hidden // d_in, DX_PARTS_MAX)
 
 
-def fwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int) -> int:
-    """csrc/lstm2_train_fwd.cu: x tile, h1, h2, c1, c2, fc partials (float32)."""
+def fwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
+                            dtype: torch.dtype = torch.float32) -> int:
+    """csrc/lstm2_train_fwd.cu. float32: x tile, h1, h2, c1, c2, fc partials
+    (float32); bfloat16: the tensor-core sweep's (`fwd_mma_shared_memory_bytes`)."""
+    if dtype == torch.bfloat16:
+        return fwd_mma_shared_memory_bytes(rows, d_in, hidden)
     return 4 * rows * (d_in + 4 * hidden + (hidden // 32) * out_dim)
 
 
@@ -421,9 +411,16 @@ def _call(name: str, argtypes: list, x: torch.Tensor, *args) -> None:
 
 
 def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
-    rows = _check("lstm2_train_fwd", x, w, fwd_shared_memory_bytes)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
+    if x.dtype == torch.bfloat16:  # K1's row tile at this N (`fwd_mma_row_tile`)
+        rows = _check("lstm2_train_fwd", x, w,
+                      functools.partial(fwd_shared_memory_bytes, dtype=x.dtype),
+                      lambda n_rows, sm_count: fwd_mma_row_tile(n_rows, d, hidden, sm_count))
+        packed = pack_fwd_mma(w)
+    else:
+        rows = _check("lstm2_train_fwd", x, w, fwd_shared_memory_bytes)
+        packed = (None,) * len(FwdMmaWeights._fields)
     x_tnd = x.permute(2, 0, 1).contiguous()  # [T, N, D]: a step's rows are contiguous
 
     def empty(*shape):
@@ -433,7 +430,7 @@ def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
     res = Residuals(*(empty(steps, n, 4 * hidden if f[0] == "g" else hidden)
                       for f in Residuals._fields))
     _call("lstm2_train_fwd", _FWD_ARGTYPES, x, x_tnd, w.w1, w.u1, w.b1, w.w2, w.b2, w.fc_w,
-          w.fc_b, out, *res, n, steps, d, hidden, out_dim, rows, _DTYPE_CODES[x.dtype])
+          w.fc_b, *packed, out, *res, n, steps, d, hidden, out_dim, rows, _DTYPE_CODES[x.dtype])
     return out, res
 
 

@@ -162,6 +162,15 @@ def _forward(model, mag, real, imag, training, compute_dtype=torch.float32,
         model, cast, tuple(views), {"valid_frames": valid_frames, "training": training})
 
 
+def _check_full_float32(compute_dtype, device: torch.device) -> None:
+    """The float32 step on the card runs its matmuls in full float32, as
+    the Enhancer's float32 path does; TF32 keeps about 3 digits."""
+    if (compute_dtype == torch.float32 and device.type == "cuda"
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError("the float32 train step needs full-precision matmuls: "
+                           "torch.backends.cuda.matmul.allow_tf32 is True")
+
+
 def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: int = 512,
                     hop_length: int = 256, win_length: int = 512,
                     compute_dtype=torch.float32, mesh=None, remat: bool = False,
@@ -170,6 +179,9 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
 
     `remat=True` recomputes the model forward in the backward
     (torch.utils.checkpoint) to save activation memory.
+
+    A float32 step on the card refuses to build or run while
+    `torch.backends.cuda.matmul.allow_tf32` is set.
 
     `skip_nonfinite=True` (default): when the loss, the gradients' global
     norm or the update's is NaN or Inf, the whole update (parameters and
@@ -183,6 +195,7 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
     if mesh is not None:
         raise not_ported("mesh= (data-parallel training)", "Queue 1 item 10")
     device = resolve_device(device)
+    _check_full_float32(compute_dtype, device)
     num_groups = config.num_groups_in_drop_band
 
     def loss_value(model, noisy, clean):
@@ -201,6 +214,7 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
         return loss_fn(cirm, crm.permute(0, 2, 3, 1).float())
 
     def train_step(state: TrainState, noisy, clean):
+        _check_full_float32(compute_dtype, device)
         params = list(state.model.parameters())
         if params[0].device.type != device.type:
             raise ValueError(f"the state lies on {params[0].device}, the step on {device}")

@@ -1,0 +1,182 @@
+"""The port's CUDA kernels K1-K5 on an NVIDIA GPU (every test skips without
+one). Imports nothing of JAX, so it runs on a machine that has a card and
+no JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
+
+Each kernel is held against its plain PyTorch version on the same inputs
+and against the JAX kernel's own outputs (interpret mode on the CPU),
+committed in tests/fixtures/torch_kernel_fixture.npz, whose generator also
+rebuilds the inputs and weights from numpy seeds. Floors: float32 80 dB,
+bf16 and int8 40 dB (float32 differs by sum order and expf / tanhf only; in
+bf16 single roundings of h, the residuals and the dgates flip and carry
+through the recurrence). K2's y equals K1's bit for bit, the bf16 forward
+sweep gives the same bits at both row tiles, and K3 equals itself on a
+repeat. chip_smoke.py repeats these checks at the model's folds.
+"""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from fullsubnet_plus_torch.nn.layers import Linear
+from fullsubnet_plus_torch.nn.lstm import LSTM2
+from fullsubnet_plus_torch.ops import lstm2 as ops_lstm2
+from fullsubnet_plus_torch.ops import lstm2_int8 as ops_int8
+from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+_GEN_PATH = os.path.join(os.path.dirname(__file__), "fixtures", "gen_torch_kernel_fixture.py")
+_spec = importlib.util.spec_from_file_location("gen_torch_kernel_fixture", _GEN_PATH)
+gen = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(gen)
+
+FLOOR = {torch.float32: 80.0, torch.bfloat16: 40.0}
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+
+
+def _snr(ref, out) -> float:
+    ref, out = torch.as_tensor(ref).double(), torch.as_tensor(out).double()
+    return float(10 * torch.log10(ref.pow(2).sum() / (out - ref).pow(2).sum().clamp_min(1e-300)))
+
+
+def _modules(d, h, o, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    lstm, linear = LSTM2(d, h), Linear(h, o)
+    lstm.reset_parameters(g)
+    linear.reset_parameters(g)
+    return lstm.to("cuda", dtype), linear.to("cuda", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm2_kernel_matches_plain_on_cuda(rng, dtype):
+    _need_card()
+    n, t, d, h, o = 3 * 257, 37, 34, 384, 2
+    lstm, linear = _modules(d, h, o, dtype)
+    x = torch.from_numpy((0.5 * rng.standard_normal((n, d, t))).astype(np.float32))
+    x = x.to("cuda", dtype)
+    w = lstm.packed(linear)
+    before = ops_lstm2.LAUNCHES
+    out = ops_lstm2.lstm2_fc(x, w).float()
+    torch.cuda.synchronize()
+    assert ops_lstm2.LAUNCHES == before + 1
+    ref = ops_lstm2.lstm2_fc_reference(x, w).float()
+    assert _snr(ref, out) > FLOOR[dtype], _snr(ref, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,h,o", [(3 * 257, 37, 384, 2), (50, 9, 64, 11)])
+def test_bf16_forward_row_tiles_agree_on_cuda(monkeypatch, n, t, h, o):
+    """The tensor-core forward sweep at R 16 and R 32 gives the same bits
+    (each row's sums run in the same order at either tile); O 11 takes two
+    n-tiles of the fc."""
+    _need_card()
+    lstm, linear = _modules(34, h, o, torch.bfloat16, seed=1)
+    x = torch.rand(n, 34, t, generator=torch.Generator().manual_seed(2)).mul(2).to(
+        "cuda", torch.bfloat16)
+    w = lstm.packed(linear)
+    outs = []
+    for rows in ops_lstm2.FWD_MMA_ROWS_PER_CTA:
+        monkeypatch.setattr(ops_lstm2, "fwd_mma_rows_per_cta", lambda *_, r=rows: r)
+        outs.append(ops_lstm2.lstm2_fc(x, w))
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], other) for other in outs[1:])
+    assert _snr(ops_lstm2.lstm2_fc_reference(x, w).float(), outs[0].float()) > 40.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(3 * 257, 37), (100, 9)])
+def test_int8_kernel_matches_plain_on_cuda(rng, n, t):
+    _need_card()
+    d, h, o = 34, 384, 2
+    g = torch.Generator().manual_seed(0)
+    lstm, linear = LSTM2(d, h), Linear(h, o)
+    lstm.reset_parameters(g)
+    linear.reset_parameters(g)
+    w = lstm.to("cuda", torch.bfloat16).prepare_int8(linear.to("cuda", torch.bfloat16))
+    x = torch.from_numpy((0.5 * rng.standard_normal((n, d, t))).astype(np.float32))
+    x = x.to("cuda", torch.bfloat16)
+    before = ops_int8.LAUNCHES
+    out = ops_int8.lstm2_int8_fc(x, w).float()
+    torch.cuda.synchronize()
+    assert ops_int8.LAUNCHES == before + 1
+    ref = ops_int8.lstm2_int8_fc_reference(x, w).float()
+    assert _snr(ref, out) >= 40.0, _snr(ref, out)
+
+
+def _case(n, t, d, h, o, seed=0):
+    """torch.nn.LSTM's eight tensors and the Linear's two (uniform in
+    +-1/sqrt(H), numpy seed), x [N, D, T] and the cotangent dy [N, T, O]."""
+    rng = np.random.default_rng(seed)
+    bound = 1.0 / np.sqrt(h)
+    shapes = [(4 * h, d), (4 * h, h), (4 * h,), (4 * h,), (4 * h, h), (4 * h, h), (4 * h,),
+              (4 * h,), (o, h), (o,)]
+    tensors = [torch.from_numpy(rng.uniform(-bound, bound, s).astype(np.float32))
+               for s in shapes]
+    x = (rng.standard_normal((n, d, t)) * 0.5).astype(np.float32)
+    dy = rng.standard_normal((n, t, o)).astype(np.float32)
+    return tensors, x, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,hidden", [(50, 7, 64), (37, 9, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_on_cuda(dtype, n, t, hidden):
+    """The three training kernels against their plain versions at ragged
+    folds (N not a multiple of the row tile, T odd; H 384 gives the sweeps
+    their 12 warps): K2 (and its y equal to K1's), K4's dx and dgates against
+    the plain sweep, K3 and K4 with their weight gradients, K3 equal to
+    itself on a repeat."""
+    _need_card()
+    floor = FLOOR[dtype]
+    tensors, x, dy = _case(n, t, 34, hidden, 2)
+    w = ops_lstm2.pack_weights(*(p.to("cuda", dtype) for p in tensors))
+    xt, dyt = torch.tensor(x).to("cuda", dtype), torch.tensor(dy).cuda()
+    y_ref, res_ref = lt.lstm2_train_fwd_reference(xt, w)
+    y, res = lt.lstm2_train_fwd(xt, w)
+    assert min(_snr(a, b) for a, b in zip((y_ref, *res_ref), (y, *res))) >= floor
+    assert torch.equal(y, ops_lstm2.lstm2_fc(xt, w))
+    sweep = lt.lstm2_bwd_reference(dyt, xt, w, res_ref)
+    got = lt.lstm2_bwd_sweep(dyt, xt, w, res_ref)
+    assert min(_snr(a, b) for a, b in zip(sweep[:3], got[:3])) >= floor
+    want = lt.LSTM2Grads(sweep.dx, *lt.weight_grads(xt, res_ref, sweep.dg1, sweep.dg2)[:4],
+                         sweep.db1, sweep.db2)
+    for fused in (True, False):
+        got = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=fused)
+        assert min(_snr(a, b) for a, b in zip(want, got)) >= floor
+    again = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=True)
+    got = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(gen.CASES))
+def test_kernel_matches_jax_fixture(name):
+    """Each kernel through the port's entry points against the JAX kernel's
+    outputs in the committed fixture: K1 (`lstm2_fc`), K5 (`lstm2_int8_fc`),
+    and K2 with K3 or K4 (`lstm2_fc_train` and autograd, by `FUSED_WGRAD`)."""
+    _need_card()
+    kernel, *_, dtype, _, fused = gen.CASES[name]
+    counts = {"k1": lambda: ops_lstm2.LAUNCHES, "k5": lambda: ops_int8.LAUNCHES,
+              "train": lambda: (lt.LAUNCHES["lstm2_train_fwd"],
+                                lt.LAUNCHES["lstm2_bwd_wgrad" if fused else "lstm2_bwd"])}[kernel]
+    before = counts()
+    got = gen.port_run(name, "cuda")
+    after = counts()
+    assert (np.asarray(after) - np.asarray(before) == 1).all(), (before, after)
+    want = gen.load_fixture()[name]
+    floor = FLOOR[getattr(torch, dtype)] if kernel != "k5" else 40.0
+    snrs = {key: _snr(want[key], got[key]) for key in want}
+    assert min(snrs.values()) >= floor, snrs

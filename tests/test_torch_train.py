@@ -337,6 +337,32 @@ def test_steps_refuse_what_is_not_ported_and_a_missing_card():
                 make()
 
 
+def test_float32_step_on_the_card_refuses_tf32(monkeypatch):
+    """A float32 step for the card refuses TF32 matmuls when built and when
+    run (the flag may be set later); bf16 and the CPU are unaffected."""
+    config, optimizer = FullSubNetPlusConfig(**TINY), step.make_optimizer()
+    monkeypatch.setattr(step, "resolve_device", lambda device: torch.device(device))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss, device="cuda")
+    step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss, device="cuda",
+                         compute_dtype=torch.bfloat16)
+    cpu_step = step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss,
+                                    device="cpu", **ACOUSTICS)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    card_step = step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss,
+                                     device="cuda", **ACOUSTICS)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    state = step.init_train_state(
+        FULLSUBNET_PLUS.module_cls(config).init_weights(torch.Generator().manual_seed(0)),
+        optimizer,
+        device="cpu")
+    noisy, clean = _batches(1)[0]
+    cpu_step(state, noisy, clean)  # the CPU has no TF32
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        card_step(state, noisy, clean)
+
+
 # ---------------------------------------------------------------------------
 # the evaluation steps
 # ---------------------------------------------------------------------------

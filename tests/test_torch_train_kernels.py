@@ -4,7 +4,8 @@ init, carried over as numpy), the same numpy inputs and cotangent. The JAX
 side runs as its own tests run it: `stacked_lstm2_train(..., interpret=True)`
 under HIGHEST matmul precision, with `FUSED_WGRAD` patched for the
 dgates-writing form. On the CPU the port takes its plain versions, which are
-what the CUDA kernels are held against on the card (chip_smoke.py).
+what the CUDA kernels are held against on the card
+(tests/test_torch_cuda_kernels.py, chip_smoke.py).
 
 Tolerances: float32 atol 1e-4 / rtol 1e-4, the bound
 tests/test_pallas_lstm.py holds the TPU kernels to (sum order differs);
@@ -218,11 +219,11 @@ def test_mma_packing_round_trips(which):
     """Unpacking the packed fragments gives the weights back exactly; W1's
     D = 5 rows are padded with zero rows to one n-tile of 8."""
     w = dict(zip(("w2", "u1", "w1"), _mma_weights(32, 5)))[which]
-    packed = lt.pack_mma_b(w)
+    packed = ops_lstm2.pack_mma_b(w)
     tiles = -(-w.shape[0] // 8)
     assert packed.shape == (tiles, 4 * 32 // 32, 32, 8) and packed.dtype == torch.bfloat16
-    assert torch.equal(lt.unpack_mma_b(packed, w.shape[0]), w)
-    padded = lt.unpack_mma_b(packed, 8 * tiles)
+    assert torch.equal(ops_lstm2.unpack_mma_b(packed, w.shape[0]), w)
+    padded = ops_lstm2.unpack_mma_b(packed, 8 * tiles)
     assert not padded[w.shape[0]:].any()
 
 
@@ -260,7 +261,7 @@ def test_mma_fragment_walk_matches_the_products():
     hidden, d_in = 32, 5
     dg = (torch.randn(16, 4 * hidden, generator=torch.Generator().manual_seed(4))).bfloat16()
     for w in _mma_weights(hidden, d_in):
-        got = _mma_emulate(dg, lt.pack_mma_b(w))
+        got = _mma_emulate(dg, ops_lstm2.pack_mma_b(w))
         want = dg.float() @ w.float().t()
         np.testing.assert_allclose(got[:, :w.shape[0]].numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
         assert not got[:, w.shape[0]:].any()
@@ -288,37 +289,166 @@ def test_cuda_tensor_without_a_card_raises_not_falls_back():
         lt.lstm2_train_fwd(meta, w)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,t,hidden", [(50, 7, 64), (37, 9, 384)])
-@pytest.mark.parametrize("dtype,floor", [(torch.float32, 80.0), (torch.bfloat16, 40.0)])
-def test_kernels_match_plain_on_cuda(dtype, floor, n, t, hidden):
-    """Needs an NVIDIA GPU: the three kernels against their plain versions
-    at ragged folds (N not a multiple of the row tile, T odd; H 384 gives
-    the bf16 sweep its 12 warps): K2, K4's dx and dgates against the plain
-    sweep, K3 and K4 with their weight gradients, K3 equal to itself on a
-    repeat. chip_smoke.py makes the same comparisons at the training fold."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    params, fc, x, dy = _case(n, t, 34, hidden, 2)
-    tensors = [p.cuda() for p in _torch_tensors(params, fc, dtype, requires_grad=False)]
-    w = ops_lstm2.pack_weights(*tensors)
-    xt, dyt = torch.tensor(x).to("cuda", dtype), torch.tensor(dy).cuda()
+# ---------------------------------------------------------------------------
+# the bf16 forward sweep's layout (csrc/lstm2_fwd_sweep.cuh, sweep_mma_kernel)
+# ---------------------------------------------------------------------------
 
-    def snr(ref, out):
-        ref, out = ref.double(), out.double()
-        return float(10 * torch.log10(ref.pow(2).sum() / (out - ref).pow(2).sum().clamp_min(1e-300)))
+def _fwd_case(n, t, d, h, o, seed=5):
+    """bf16 weights (as the sweep reads them: fc_w bf16-valued) and x [N, D, T]."""
+    params, fc, _, _ = _case(n, t, d, h, o, seed)
+    tensors = _torch_tensors(params, fc, torch.bfloat16, requires_grad=False)
+    x = torch.rand(n, d, t, generator=torch.Generator().manual_seed(seed)).mul(2).bfloat16()
+    return x, ops_lstm2.pack_weights(*tensors)
 
-    y_ref, res_ref = lt.lstm2_train_fwd_reference(xt, w)
-    y, res = lt.lstm2_train_fwd(xt, w)
-    assert min(snr(a, b) for a, b in zip((y_ref, *res_ref), (y, *res))) >= floor
-    sweep = lt.lstm2_bwd_reference(dyt, xt, w, res_ref)
-    got = lt.lstm2_bwd_sweep(dyt, xt, w, res_ref)
-    assert min(snr(a, b) for a, b in zip(sweep[:3], got[:3])) >= floor
-    want = lt.LSTM2Grads(sweep.dx, *lt.weight_grads(xt, res_ref, sweep.dg1, sweep.dg2)[:4],
-                         sweep.db1, sweep.db2)
-    for fused in (True, False):
-        got = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=fused)
-        assert min(snr(a, b) for a, b in zip(want, got)) >= floor
-    again = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=True)
-    got = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=True)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+def test_gate_interleave_round_trips():
+    """n-tile 4u + gate of the interleaved columns holds that gate of units
+    8u .. 8u + 7, and deinterleaving restores the order i, f, g, o."""
+    hidden = 32
+    cols = torch.arange(4 * hidden)  # gate * H + unit
+    inter = ops_lstm2.interleave_gates(cols)
+    for u in range(hidden // 8):
+        for gate in range(4):
+            tile = inter[8 * (4 * u + gate): 8 * (4 * u + gate) + 8]
+            assert torch.equal(tile, gate * hidden + 8 * u + torch.arange(8))
+    assert torch.equal(ops_lstm2.deinterleave_gates(inter), cols)
+    w = torch.randn(3, 5, 4 * hidden)
+    assert torch.equal(ops_lstm2.deinterleave_gates(ops_lstm2.interleave_gates(w)), w)
+
+
+def test_fwd_mma_packing_round_trips():
+    """Unpacked and deinterleaved, the fragments are [W1 (zero rows up to 64);
+    U1]^T, [W2; U2]^T and W_fc^T in bf16, the biases interleaved alike; O 3
+    pads to one n-tile of 8 with zero rows."""
+    _, w = _fwd_case(8, 2, 10, 32, 3)
+    p = ops_lstm2.pack_fwd_mma(w)
+    xc = ops_lstm2.x_cols(10)
+    assert xc == 32 and ops_lstm2.x_cols(34) == 64
+    assert p.w1.shape == (16, (xc + 32) // 32, 32, 8) and p.w1.dtype == torch.bfloat16
+    w1 = ops_lstm2.deinterleave_gates(ops_lstm2.unpack_mma_b(p.w1, 128).t())
+    assert torch.equal(w1[:10], w.w1) and not w1[10:xc].any() and torch.equal(w1[xc:], w.u1)
+    assert torch.equal(ops_lstm2.deinterleave_gates(ops_lstm2.unpack_mma_b(p.w2, 128).t()), w.w2)
+    assert torch.equal(ops_lstm2.unpack_mma_b(p.fc, 3).float(), w.fc_w.t())
+    assert not ops_lstm2.unpack_mma_b(p.fc, 8)[3:].any()
+    for packed, bias in ((p.b1, w.b1), (p.b2, w.b2)):
+        assert torch.equal(ops_lstm2.deinterleave_gates(packed), bias)
+
+
+def _fragment_matrix(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The B operand [K, n] rebuilt from the packed words as the lanes read
+    them: lane 4g + t, word 4 ks + 2 half + pos of n-tile nt, k-pair kp holds
+    B[32 kp + 16 ks + 8 half + 2t + pos][8 nt + g]."""
+    tiles, kpairs = packed.shape[:2]
+    b = torch.zeros(kpairs, 32, tiles, 8)
+    words = packed.float()
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for ks in range(2):
+            for half in range(2):
+                for pos in range(2):
+                    word = words[:, :, lane, 4 * ks + 2 * half + pos]  # [tiles, kpairs]
+                    b[:, 16 * ks + 8 * half + 2 * t + pos, :, g] = word.t()
+    return b.reshape(32 * kpairs, 8 * tiles)[:, :n]
+
+
+def _cell_from_accumulators(acc, c):
+    """The kernel's cell_mma over every lane: warp w, pass p (unit group
+    u = 4w + p), lane (g, q), accumulator word e of gate n-tile 4u + gate
+    holds row 16 mt + g + 8 (e / 2), unit 8u + 2q + e % 2, column 2q + e % 2
+    of its n-tile. Returns (h, c, activated gates in order i, f, g, o) and
+    checks that every (row, unit) is visited once."""
+    rows, hidden = c.shape
+    h, c, act = torch.zeros_like(c), c.clone(), torch.zeros(rows, 4 * hidden)
+    seen = torch.zeros(rows, hidden, dtype=torch.int64)
+    mts = torch.arange(rows // 16) * 16
+    for warp in range(hidden // 32):
+        for p in range(4):
+            u = 4 * warp + p
+            for lane in range(32):
+                g, q = divmod(lane, 4)
+                for e in range(4):
+                    r = mts + g + 8 * (e // 2)
+                    unit, col = 8 * u + 2 * q + e % 2, 2 * q + e % 2
+                    pre = [acc[r, 8 * (4 * u + gate) + col] for gate in range(4)]
+                    i, f, gg, o = (torch.sigmoid(pre[0]), torch.sigmoid(pre[1]),
+                                   torch.tanh(pre[2]), torch.sigmoid(pre[3]))
+                    c[r, unit] = f * c[r, unit] + i * gg
+                    h[r, unit] = o * torch.tanh(c[r, unit])
+                    for gate, a in enumerate((i, f, gg, o)):
+                        act[r, gate * hidden + unit] = a
+                    seen[r, unit] += 1
+    assert (seen == 1).all()
+    return h, c, act
+
+
+def _fwd_mma_emulate(x: torch.Tensor, w):
+    """The bf16 sweep walked as the kernel walks it: operand rows [x | h1 |
+    h2] (x padded to x_cols(D)), the packed fragments as B, float32 sums
+    from the interleaved biases, the cell from the accumulators, h rounded
+    to bf16 into the operand rows, the fc over the h2 columns. -> (y [N, T,
+    O], g1, c1, h1, g2, c2, h2 [T, N, .])."""
+    n, d, steps = x.shape
+    hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
+    p, xc = ops_lstm2.pack_fwd_mma(w), ops_lstm2.x_cols(d)
+    b1, b2 = (_fragment_matrix(m, 4 * hidden) for m in (p.w1, p.w2))
+    bfc = _fragment_matrix(p.fc, out_dim)
+    rows = -(-n // 16) * 16
+    ops = torch.zeros(rows, xc + 2 * hidden)
+    c1, c2 = torch.zeros(rows, hidden), torch.zeros(rows, hidden)
+    ys, saved = [], []
+    for t in range(steps):
+        ops[:n, :d] = x[:, :, t].float()
+        h1, c1, a1 = _cell_from_accumulators(p.b1 + ops[:, :xc + hidden] @ b1, c1)
+        ops[:, xc:xc + hidden] = h1.bfloat16().float()
+        h2, c2, a2 = _cell_from_accumulators(p.b2 + ops[:, xc:] @ b2, c2)
+        ops[:, xc + hidden:] = h2.bfloat16().float()
+        ys.append(ops[:n, xc + hidden:] @ bfc + w.fc_b)
+        saved.append([a[:n].bfloat16() for a in (a1, c1, ops[:, xc:xc + hidden], a2, c2,
+                                                 ops[:, xc + hidden:])])
+    return (torch.stack(ys, dim=1).bfloat16(),
+            *(torch.stack(s) for s in zip(*saved)))
+
+
+@pytest.mark.parametrize("n,t,d,h,o", [(37, 4, 34, 32, 2), (21, 3, 10, 64, 11)])
+def test_fwd_fragment_walk_matches_the_plain_forward(n, t, d, h, o):
+    """The fragment-order walk of the bf16 forward sweep (products, the cell
+    from the accumulators, the fc) gives `lstm2_fc_reference`'s y and
+    `lstm2_train_fwd_reference`'s residuals: the same bf16 operands, float32
+    sums in another order (a rare bf16 rounding of h may flip, hence the
+    bf16 bound of test_torch_nn.py)."""
+    x, w = _fwd_case(n, t, d, h, o)
+    y, *res = _fwd_mma_emulate(x, w)
+    y_plain = ops_lstm2.lstm2_fc_reference(x, w)
+    np.testing.assert_allclose(y.float().numpy(), y_plain.float().numpy(), atol=2e-2, rtol=2e-2)
+    y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+    assert torch.equal(y_ref, y_plain)
+    for name, got, want in zip(lt.Residuals._fields, res, res_ref):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=2e-2,
+                                   rtol=2e-2, err_msg=name)
+
+
+@pytest.mark.parametrize("n,rows", [(2304, 32), (2056, 16), (771, 16)])
+def test_fwd_mma_tile_and_shared_memory(n, rows):
+    """The bf16 forward's row tile at the training, batch and ragged folds
+    (fewest waves of one CTA per SM on 132 SMs, then the smaller tile: 2304
+    rows need two waves of 16 and one of 32), the one K2 and K1 both take,
+    and its shared memory (two operand buffers [R][64 + 768 + 8] bf16, c1
+    and c2 [R][384] float32) in a block at D 34, H 384."""
+    assert ops_lstm2.fwd_mma_rows_per_cta(n, 132) == rows
+    assert ops_lstm2.fwd_mma_row_tile(n, 34, 384, 132) == rows
+    smem = lt.fwd_shared_memory_bytes(rows, 34, 384, 2, torch.bfloat16)
+    assert smem == ops_lstm2.fwd_mma_shared_memory_bytes(rows, 34, 384)
+    assert smem == 4 * rows * 840 + 8 * rows * 384 <= ops_lstm2.SMEM_LIMIT
+    assert lt.fwd_shared_memory_bytes(20, 34, 384, 2) == 4 * 20 * (34 + 4 * 384 + 12 * 2)
+
+
+def test_fwd_mma_fits_the_fullsubnet_full_band_shape():
+    """FullSubNet's full-band LSTM (D 257, H 512, O 257; ROADMAP Queue 1 item
+    7): the bf16 forward fits a block at R 16, whose shared memory does not
+    grow with O, and falls back to it from R 32; the float32 forward's fc
+    partials [H/32][R][O] still do not fit."""
+    assert ops_lstm2.fwd_mma_shared_memory_bytes(16, 257, 512) == 150_016 <= ops_lstm2.SMEM_LIMIT
+    assert ops_lstm2.fwd_mma_shared_memory_bytes(32, 257, 512) > ops_lstm2.SMEM_LIMIT
+    assert ops_lstm2.fwd_mma_row_tile(4626, 257, 512, 132) == 16
+    assert ops_lstm2.shared_memory_bytes(257, 512, 257) == 410_688 > ops_lstm2.SMEM_LIMIT
