@@ -9,9 +9,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      residual-saving forward), csrc/lstm2_bwd_wgrad.cu (K3, the backward
      with the weight gradients inside) and csrc/lstm2_bwd.cu (K4, the
      backward that keeps the dgates); count the tensor-core (HMMA)
-     instructions of the forward sweeps of K1 and K2 and the reverse sweeps
-     of K3 and K4 (`cuobjdump -sass`): each bf16 sweep must have them, and no
-     bf16 FMA sweep may be compiled;
+     instructions of the forward sweeps of K1 and K2, the reverse sweeps of
+     K3 and K4 and K3's weight-gradient kernels (`cuobjdump -sass`): each
+     bf16 sweep and the bf16 `wgrad_mma_kernel` must have them, and no bf16
+     FMA sweep or FMA `wgrad_kernel` may be compiled; print the
+     weight-gradient kernels' registers and spills (ptxas);
   2. hold each kernel against the JAX kernel's outputs (the committed
      tests/fixtures/torch_kernel_fixture.npz, interpret mode on the CPU, at
      small ragged shapes; same floors) and against its plain PyTorch version
@@ -27,8 +29,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      K5 also K1 in bf16 at the same shape), with CUDA events, beside the
      bound from the card's peaks; K1 and K2 in bf16 at both row tiles of the
      tensor-core forward (R 16 and 32) and the weight packing alone; split
-     K3's and K4's device time into the reverse sweep and the rest
-     (torch.profiler);
+     K3's and K4's device time into the reverse sweep, K3's weight-gradient
+     kernel and the rest (torch.profiler); that kernel beside its own bound
+     and, in bf16, beside the same four products as bf16 cuBLAS GEMMs over
+     all T (a yardstick) and at each candidate tile of dU1, dW2, dU2; K3
+     against K4 plus `weight_grads` in both dtypes (`FUSED_WGRAD`);
   4. drive the batch path, `fullsubnet_plus_torch.cli.enhance.run_enhance`,
      on 8 wavs of 3-10 s with a seeded full-width FullSubNet+ in float32,
      bfloat16 and int8; check every output, that the kernels were launched,
@@ -118,6 +123,8 @@ KERNEL_SOURCES = ("lstm2_fwd", "lstm2_int8_fwd", "lstm2_train_fwd", "lstm2_bwd_w
                   "lstm2_bwd")  # csrc/<name>.cu
 SWEEP_SOURCES = ("lstm2_fwd", "lstm2_train_fwd", "lstm2_bwd_wgrad", "lstm2_bwd")  # bf16 mma sweeps
 FIXTURE_GENERATOR = os.path.join(REPO, "tests", "fixtures", "gen_torch_kernel_fixture.py")
+# K3's weight-gradient kernels: `wgrad_kernel` (float32, FMAs), `wgrad_mma_kernel` (bf16)
+WGRAD_KERNEL = re.compile(r"wgrad_(mma_)?kernel")
 # kernel names of a matrix product or convolution that computes in TF32 (CUTLASS's
 # s1688 / s16816 tensor-op GEMMs take float32 operands as TF32 unless named for bf16 / f16)
 TF32_KERNEL = re.compile(r"tf32|s1688gemm(?!_bf16|_f16)|s16816gemm(?!_bf16|_f16)", re.IGNORECASE)
@@ -246,9 +253,27 @@ def sass_instruction_counts(lib, opcode: str) -> dict:
     return counts
 
 
+def ptxas_functions(lib) -> dict:
+    """{kernel function: (registers, spill store bytes, spill load bytes)}
+    from the ptxas report (`-Xptxas -v`) that nvcc.build keeps beside `lib`."""
+    report = lib.with_name(lib.stem + ".ptxas.txt")
+    out, function = {}, None
+    for line in report.read_text().splitlines() if report.exists() else []:
+        if "Compiling entry function" in line:
+            function = line.split("'")[1]
+            out[function] = [0, 0, 0]
+        elif function is not None and (m := re.search(r"(\d+) bytes spill stores, "
+                                                      r"(\d+) bytes spill loads", line)):
+            out[function][1:] = [int(m[1]), int(m[2])]
+        elif function is not None and (m := re.search(r"Used (\d+) registers", line)):
+            out[function][0] = int(m[1])
+    return {f: tuple(v) for f, v in out.items()}
+
+
 def phase_build() -> dict:
     """Builds the kernels; returns the HMMA count of each sweep function in
-    the libraries of K1 and K2 (forward) and K3 and K4 (reverse)."""
+    the libraries of K1 and K2 (forward) and K3 and K4 (reverse), and of
+    K3's weight-gradient functions with their registers and spills."""
     from fullsubnet_plus_torch.ops import nvcc
 
     t0 = time.perf_counter()
@@ -275,7 +300,31 @@ def phase_build() -> dict:
         if any("sweep_kernelI13__nv_bfloat16" in f for f in sweeps):
             fail(f"{stem}: a bf16 instantiation of the FMA sweep was compiled")
         hmma[stem] = sweeps
+        if stem == "lstm2_bwd_wgrad":
+            hmma["wgrad"] = wgrad_functions(lib)
     return hmma
+
+
+def wgrad_functions(lib) -> dict:
+    """K3's weight-gradient functions: {function: {hmma, registers, spill
+    bytes}}; fails unless the bf16 tensor-core one has HMMA instructions and
+    no bf16 instantiation of the FMA `wgrad_kernel` was compiled."""
+    hmma = {f: n for f, n in sass_instruction_counts(lib, "HMMA").items()
+            if WGRAD_KERNEL.search(f)}
+    ptxas = ptxas_functions(lib)
+    out = {}
+    for function, n in hmma.items():
+        regs, spill_st, spill_ld = ptxas.get(function, (None, None, None))
+        print(f"[1] lstm2_bwd_wgrad: {function} has {n} HMMA instructions; ptxas: {regs} "
+              f"registers, {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+        out[function] = {"hmma": n, "registers": regs, "spill_store_bytes": spill_st,
+                         "spill_load_bytes": spill_ld}
+    mma = [n for f, n in hmma.items() if "wgrad_mma_kernel" in f]
+    if not mma or min(mma) == 0:
+        fail("lstm2_bwd_wgrad: the bf16 weight gradients have no tensor-core instructions")
+    if any("wgrad_kernelI13__nv_bfloat16" in f for f in hmma):
+        fail("lstm2_bwd_wgrad: a bf16 instantiation of the FMA wgrad_kernel was compiled")
+    return out
 
 
 def fixture_generator():
@@ -468,12 +517,12 @@ def phase_check_train() -> dict:
     from fullsubnet_plus_torch.ops import lstm2, lstm2_train as lt
 
     def function_grads(x, dy, lstm, fc, fused):
-        lt.FUSED_WGRAD = fused
+        before, lt.FUSED_WGRAD = lt.FUSED_WGRAD, fused
         try:
             xg, tensors = x.detach().requires_grad_(), lstm.tensors(fc)
             return torch.autograd.grad(lt.lstm2_fc_train(xg, *tensors), (xg, *tensors), dy)
         finally:
-            lt.FUSED_WGRAD = True
+            lt.FUSED_WGRAD = before
 
     errors = {}
     for n, t in ((N_TRAIN, T_TRAIN), (N_RAGGED, T_RAGGED)):
@@ -542,6 +591,51 @@ def train_bounds(dtype: torch.dtype) -> dict:
             "lstm2_bwd_wgrad": bound((sweep_flops + wgrad_flops) / peak, wgrad_bytes)}
 
 
+def wgrad_bound(dtype: torch.dtype) -> tuple[float, str]:
+    """Least ms of K3's weight-gradient kernel alone at the training fold:
+    its products 2 N T (D + 3H) 4H at the type's peak, against x, h1 and h2
+    read once and the float32 accumulators read and written once a chunk
+    (the chunk's dgates come from the sweep through the L2-sized scratch)."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    size = torch.tensor([], dtype=dtype).element_size()
+    rows = N_TRAIN * T_TRAIN
+    chunks = -(-T_TRAIN // lt.wgrad_chunk_steps(N_TRAIN, H, T_TRAIN, size))
+    flops = 2 * rows * (D + 3 * H) * 4 * H
+    nbytes = rows * (D + 2 * H) * size + chunks * 2 * (D + 3 * H) * 4 * H * 4
+    return bound(flops / PEAK_FLOPS[dtype], nbytes)
+
+
+def bf16_gemm_products(x, res, dg1, dg2):
+    """The four weight-gradient products over all T as bf16 cuBLAS GEMMs on
+    operands laid out beforehand (x [T N, D], h1, h2 and the shifted h1, h2
+    [T N, H], the dgates [T N, 4H]): a yardstick that the port never calls."""
+    steps, n, hidden = res.h1.shape
+    x_flat = x.permute(2, 0, 1).reshape(steps * n, -1).contiguous()
+    h1, h2 = res.h1.reshape(steps * n, hidden), res.h2.reshape(steps * n, hidden)
+    zero = h1.new_zeros(n, hidden)
+    h1p, h2p = torch.cat([zero, h1[:-n]]), torch.cat([zero, h2[:-n]])
+    g1, g2 = dg1.reshape(steps * n, -1), dg2.reshape(steps * n, -1)
+    return lambda: (x_flat.t() @ g1, h1p.t() @ g1, h1.t() @ g2, h2p.t() @ g2)
+
+
+def wgrad_ms_by_tile(call) -> dict:
+    """{tile of dU1, dW2, dU2: device ms of the bf16 weight-gradient kernel
+    in one call of `call`} for each candidate shape (torch.profiler)."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    out = {}
+    for shape, (rows, cols) in enumerate(lt.WGRAD_H_TILES):
+        lt.force_wgrad_tile(shape)
+        try:
+            kernels = device_ms_by_kernel(call)
+        finally:
+            lt.force_wgrad_tile(None)
+        out[f"{rows}x{cols}"] = round(sum(v for k, v in kernels.items()
+                                          if WGRAD_KERNEL.search(k)), 3)
+    return out
+
+
 def device_ms_by_kernel(fn) -> dict:
     """{kernel name: device ms} of one call of `fn` under torch.profiler,
     after one unprofiled call."""
@@ -561,7 +655,11 @@ def phase_time_train() -> dict:
     """K2, K4 (its outside products apart) and K3 at the training fold,
     beside their plain versions, their bounds and cuDNN's LSTM + Linear
     forward and backward (never called by the port); K3's and K4's device
-    time split into the reverse sweep, `wgrad_kernel` and the rest."""
+    time split into the reverse sweep, the weight-gradient kernel and the
+    rest, that kernel beside its own bound and, in bf16, beside the same
+    four products as bf16 cuBLAS GEMMs over all T (a yardstick) and at each
+    candidate tile; K3 against K4 plus `weight_grads`, the two forms
+    `FUSED_WGRAD` chooses between."""
     from fullsubnet_plus_torch.ops import lstm2_train as lt
 
     times = {}
@@ -576,13 +674,16 @@ def phase_time_train() -> dict:
             "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True), reps=3),
         }
         outside_ms = cuda_ms(lambda: lt.weight_grads(x, res, sweep.dg1, sweep.dg2), reps=3)
+        cublas_ms = (cuda_ms(bf16_gemm_products(x, res, sweep.dg1, sweep.dg2), reps=3)
+                     if dtype == torch.bfloat16 else None)
         del sweep
         split = {}
-        for name, call in (("lstm2_bwd_wgrad", lambda: lt.lstm2_bwd(dy, x, w, res, fused=True)),
+        k3_call = lambda: lt.lstm2_bwd(dy, x, w, res, fused=True)  # noqa: E731
+        for name, call in (("lstm2_bwd_wgrad", k3_call),
                            ("lstm2_bwd", lambda: lt.lstm2_bwd_sweep(dy, x, w, res))):
             kernels = device_ms_by_kernel(call)
             sweep_ms = sum(v for k, v in kernels.items() if "sweep" in k)
-            wgrad_ms = sum(v for k, v in kernels.items() if "wgrad_kernel" in k)
+            wgrad_ms = sum(v for k, v in kernels.items() if WGRAD_KERNEL.search(k))
             split[name] = {"sweep_ms": sweep_ms, "wgrad_kernel_ms": wgrad_ms,
                            "other_ms": sum(kernels.values()) - sweep_ms - wgrad_ms}
         k3, k4 = split["lstm2_bwd_wgrad"], split["lstm2_bwd"]
@@ -590,6 +691,16 @@ def phase_time_train() -> dict:
               f"reverse sweep {k3['sweep_ms']:.3f} ms, wgrad_kernel {k3['wgrad_kernel_ms']:.3f} "
               f"ms, other {k3['other_ms']:.3f} ms; lstm2_bwd reverse sweep "
               f"{k4['sweep_ms']:.3f} ms, other {k4['other_ms']:.3f} ms")
+        wgrad_bound_ms, wgrad_bound_by = wgrad_bound(dtype)
+        yardstick = (f"; the same four products as bf16 cuBLAS GEMMs over all T {cublas_ms:.3f} "
+                     f"ms (yardstick), float32 weight_grads {outside_ms:.3f} ms"
+                     if cublas_ms is not None else f"; weight_grads {outside_ms:.3f} ms")
+        print(f"[3] {str(dtype)[6:]} K3's weight-gradient kernel {k3['wgrad_kernel_ms']:.3f} ms, "
+              f"bound {wgrad_bound_ms:.3f} ms ({wgrad_bound_by}){yardstick}")
+        if dtype == torch.bfloat16:
+            tile_ms = wgrad_ms_by_tile(k3_call)
+            print(f"[3] bfloat16 weight-gradient kernel by tile of dU1, dW2, dU2 (device ms, one "
+                  f"call each): {tile_ms} (the rule takes {lt.wgrad_tiles(D, H)[1]})")
         if dtype == torch.bfloat16:
             tiles = time_row_tiles(lambda: lt.lstm2_train_fwd(x, w))
             print(f"[3] lstm2_train_fwd bfloat16 N={N_TRAIN} T={T_TRAIN} by row tile: {tiles} ms "
@@ -635,8 +746,17 @@ def phase_time_train() -> dict:
                 times[(name, dtype)]["sweep_ms"] = split[name]["sweep_ms"]
             if name == "lstm2_train_fwd" and dtype == torch.bfloat16:
                 times[(name, dtype)].update(row_tile_ms=tiles, row_tile=fwd_tile_at(N_TRAIN))
-        times[("lstm2_bwd_wgrad", dtype)]["wgrad_kernel_ms"] = k3["wgrad_kernel_ms"]
+        times[("lstm2_bwd_wgrad", dtype)].update(
+            wgrad_kernel_ms=k3["wgrad_kernel_ms"], wgrad_bound_ms=wgrad_bound_ms,
+            wgrad_bound_by=wgrad_bound_by)
+        if dtype == torch.bfloat16:
+            times[("lstm2_bwd_wgrad", dtype)].update(wgrad_tile_ms=tile_ms,
+                                                     bf16_gemm_products_ms=cublas_ms)
         times[("lstm2_bwd", dtype)]["outside_products_ms"] = outside_ms
+        fused_ms, unfused_ms = ms["lstm2_bwd_wgrad"], ms["lstm2_bwd"] + outside_ms
+        print(f"[3] {str(dtype)[6:]} backward forms: K3 {fused_ms:.3f} ms, K4 + weight_grads "
+              f"{unfused_ms:.3f} ms; FUSED_WGRAD's default takes "
+              f"{'K3' if lt.fused_wgrad(dtype) else 'K4'}")
         torch.cuda.empty_cache()
     return times
 
@@ -685,7 +805,7 @@ def phase_train() -> dict:
         model = model_def.module_cls(config).init_weights(torch.Generator().manual_seed(42))
         state = step.init_train_state(model, optimizer, device="cuda")
         train_step = make_step(dtype)
-        kernels = (lt.lstm2_train_fwd, lt.lstm2_bwd)
+        kernels, form = (lt.lstm2_train_fwd, lt.lstm2_bwd), lt.FUSED_WGRAD
         lt.FUSED_WGRAD = fused
         if plain:
             lt.lstm2_train_fwd, lt.lstm2_bwd = lt.lstm2_train_fwd_reference, lt.lstm2_bwd_plain
@@ -700,7 +820,7 @@ def phase_train() -> dict:
                 walls.append((time.perf_counter() - t0) * 1e3)
                 metrics.append({k: float(v) for k, v in m.items()})
         finally:
-            lt.FUSED_WGRAD = True
+            lt.FUSED_WGRAD = form
             lt.lstm2_train_fwd, lt.lstm2_bwd = kernels
         launches = all_launches()
         backward = "lstm2_bwd_wgrad" if fused else "lstm2_bwd"
@@ -776,7 +896,9 @@ def phase_train() -> dict:
         train_step(state, noisy, clean)
         torch.cuda.synchronize()
 
-    kernels = profile_call(one_step, "[6] profile float32 train step (K2 + K3):")
+    backward = "K3" if lt.fused_wgrad(torch.float32) else "K4 + weight_grads"
+    kernels = profile_call(one_step, f"[6] profile float32 train step (K2 + {backward}, "
+                                     f"the default form):")
     products = [e for e in kernels if re.search(r"gemm|conv|cudnn|cutlass|xmma", e.key, re.I)]
     for e in products:
         print(f"[6] float32 step matrix product / convolution: "
@@ -1142,6 +1264,8 @@ def main() -> None:
     def train_kernel(name, source, replaces, launch_runs):
         f32, bf16 = (train_times[(name, dt)] for dt in (torch.float32, torch.bfloat16))
         extra = {"sweep_hmma": hmma[name]} if name in hmma else {}
+        if name == "lstm2_bwd_wgrad":
+            extra["wgrad_functions"] = hmma["wgrad"]
         return {
             "name": name,
             "route": "cuda",

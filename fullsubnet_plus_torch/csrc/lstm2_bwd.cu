@@ -1,5 +1,5 @@
 // Reverse-sweep backward of the fused 2-layer LSTM that keeps the dgates,
-// for Hopper (sm_90a): the second, switchable backward of the training step.
+// for Hopper (sm_90a): the training step's default backward in float32.
 //
 // Replaces the TPU kernel `_make_bwd_kernel` launched by `_train_bwd` with
 // FUSED_WGRAD = False (fullsubnet_plus_tpu/ops/lstm_pallas.py:415, :695,

@@ -1,6 +1,6 @@
 // Reverse-sweep backward of the fused 2-layer LSTM with the weight
 // gradients summed inside, for Hopper (sm_90a): the training step's default
-// backward.
+// backward in bf16.
 //
 // Replaces the TPU kernel `_make_bwd_kernel_fused` launched by `_train_bwd`
 // with FUSED_WGRAD = True (fullsubnet_plus_tpu/ops/lstm_pallas.py:472, :695,
@@ -19,12 +19,10 @@
 // arrays read again) and write dx: 8.4 GB in float32, 4.2 GB in bf16.
 // Operations bound it in both types (48.8 ms at 67 TFLOP/s in float32
 // against 2.5 ms of bytes; 3.3 ms at the tensor cores' bf16 rate against
-// 1.3 ms). Tensor cores: the bf16 reverse sweep's three products run on
-// mma.sync (54 HMMA instructions in each bf16 sweep function, cuobjdump
-// -sass; lstm2_bwd_sweep.cuh says what bounds it now: each CTA's step
-// latency). FMA: the float32 sweep and `wgrad_kernel` in both types, so
-// they stay well above either bound; `wgrad_kernel` is most of the bf16
-// time now.
+// 1.3 ms). In bf16 every product runs on mma.sync: the reverse sweep's three
+// (lstm2_bwd_sweep.cuh says what bounds it: each CTA's step latency) and the
+// four weight-gradient products of `wgrad_mma_kernel` below. float32 keeps
+// FMAs in the sweep and in `wgrad_kernel`.
 //
 // Design. The TPU kernel keeps all 7.3 MB of float32 accumulators resident
 // and relies on its grid running in order; here CTAs run at once and have
@@ -37,11 +35,11 @@
 //      [chunk, N, 4H] x 2 (reused by every chunk: its size does not grow
 //      with T and is chosen to stay near the L2's size), and adds the tile's
 //      unrounded dgates into its own row of db_part;
-//   2. `wgrad_kernel` adds A^T dg of the chunk into the four weight
-//      gradients: a tiled product with both operands staged in shared
-//      memory (the next slice's loads in flight during the current one's
-//      products), each output element owned by one thread that reads it,
-//      adds the chunk's steps and rows in a fixed order, and writes it back.
+//   2. the weight-gradient kernel adds A^T dg of the chunk into the four
+//      weight gradients, each output element owned by one thread that reads
+//      it, adds the chunk's steps and rows in a fixed order, and writes it
+//      back: `wgrad_kernel` (float32, FMAs, operands widened in shared
+//      memory) or `wgrad_mma_kernel` (bf16, tensor cores; see below).
 // Then `db_reduce_kernel` sums the tiles' bias rows in tile order. Kernels
 // on one stream run in order and every sum has one owner and a fixed
 // order, so the result is the same bit for bit on every run: no atomics.
@@ -54,6 +52,10 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// float32: FMA products
+// ---------------------------------------------------------------------------
+
 constexpr int TILE = 128;  // output tile of wgrad_kernel: TILE x TILE
 constexpr int NB = 16;     // rows of the contraction staged at a time
 constexpr int MICRO = 8;   // each of the 16 x 16 threads owns MICRO x MICRO outputs:
@@ -62,7 +64,7 @@ constexpr int MICRO = 8;   // each of the 16 x 16 threads owns MICRO x MICRO out
 
 template <typename T>
 struct WgradArgs {
-  const T* x;     // [T, N, D]
+  const T* x;     // [T, N, D]; bf16: [T, N, dx_cols(D)], the pad columns zero
   const T* h1;    // [T, N, H]
   const T* h2;    // [T, N, H]
   const T* dg1;   // scratch [chunk, N, 4H]: step t at index t - t_lo
@@ -93,6 +95,7 @@ struct Staged {
 template <typename T>
 __global__ void __launch_bounds__(256)
 wgrad_kernel(const WgradArgs<T> a) {
+  static_assert(std::is_same_v<T, float>, "bf16 weight gradients run on wgrad_mma_kernel");
   using Raw = typename lstm2::Bits<T>::type;
   __shared__ __align__(16) float As[NB][TILE];
   __shared__ __align__(16) float Gs[NB][TILE];
@@ -180,6 +183,265 @@ wgrad_kernel(const WgradArgs<T> a) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the weight gradients on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// `wgrad_mma_kernel`: C[k][c] += sum over the chunk's steps t (t_hi first)
+// and rows n of A_t[n][k] G_t[n][c], every product on
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 (bf16 operands, float32 sums:
+// the TPU kernel's `tdot` with preferred_element_type=f32, lstm_pallas.py
+// :532-536, :555-556). At the training fold the four products are
+// 2 N T (D + 3H) 4H = 1.64 TFLOP, 1.66 ms at the bf16 peak; their bytes
+// (x, h1, h2 read once, the accumulators read and written once a chunk)
+// take about 0.65 ms, so operations bound it.
+//
+// A CTA owns a tile of one gradient: rows k (of D or H) x gate columns c.
+// The grid is one dimension: the tiles of dU1, dW2 and dU2 (shape SHAPE,
+// wgrad_tile below; WGRAD_H_TILES in ops/lstm2_train.py) first, then dW1's
+// tiles of W1_ROWS x W1_COLS (D = 34 padded to 48 = three m16 tiles, not to
+// a whole tile). At the training fold the rule's 64 x 128 tiles make 216 +
+// 24 = 240 CTAs, two resident on an SM (122 registers, 106 KB of shared
+// memory each): 16 warps an SM. The contraction
+// runs over slices of WG_BK rows n of one step (four k16 steps), t_hi first,
+// n in order: a fixed order, so each sum is the same bit for bit on a
+// repeat.
+//   Staging: both operands stay bf16 and n-major in shared memory, A as
+//   [n][k] and G as [n][c], copied by cp.async 16 bytes a thread into a ring
+//   of WG_STAGES slices, so the next three slices load while one multiplies.
+//   A row of the ring is padded by 8 bf16 (16 bytes), so the 8 rows an
+//   ldmatrix phase reads fall in 8 different bank groups. Tails are zero
+//   fill (cp.async with a source size of 0): rows n past N, columns past
+//   the row's end, and h_{-1} at t = 0. bf16 x arrives padded to
+//   dx_cols(D) columns, so its rows are 16-byte aligned like h's.
+//   Products: the contraction index is the row of both staged operands, so
+//   the A fragment (rows k, columns n) and the col B fragment (rows n,
+//   columns c) both come from ldmatrix .trans. Each warp owns a rectangle of
+//   MI m16 x NI n8 tiles of C, its float32 accumulators in registers from
+//   the read of C to the write back.
+// The bytes through L2 per product fall as 1 / BM + 1 / BN: the tile shape
+// trades them against the CTAs that fill the card's 132 SMs.
+//
+// What bounds it (H100, training fold; scripts/time_torch_wgrad_tiles.py on
+// edited copies, PERF.md): at 128 x 128 the loads alone take 6.7 ms (25.6 GB
+// of operand tiles through L2, 3.8 TB/s) and ldmatrix + mma alone 5.6 ms;
+// together 10.2 ms, so the L2 traffic of the operand tiles bounds it and
+// the products hide under it only in part. A deeper ring (6 slices) did not
+// help; slices of 64 rows (half the barriers) gained 14 %; 64 x 128, with
+// 50 % more L2 bytes but 16 warps an SM, was the fastest shape (9.0-9.4 ms),
+// and 128 x 256 (a quarter fewer bytes, 78 CTAs) the slowest (15-17 ms).
+
+constexpr int WG_THREADS = 256;  // 8 warps
+constexpr int WG_BK = 64;        // contraction rows staged a slice: four k16 steps
+constexpr int WG_STAGES = 4;     // slices in the cp.async ring
+constexpr int WG_PAD = 8;        // bf16 pad of a staged row
+constexpr int W1_ROWS = 48, W1_COLS = 64;  // dW1's tile (WGRAD_W1_TILE)
+
+// The tiles of dU1, dW2, dU2: BM rows x BN gate columns, WM x WN warps,
+// CTAs an SM must hold (WGRAD_H_TILES in ops/lstm2_train.py, same order).
+template <int SHAPE> struct HTile;
+template <> struct HTile<0> { static constexpr int BM = 64, BN = 128, WM = 2, WN = 4, CTAS = 2; };
+template <> struct HTile<1> { static constexpr int BM = 128, BN = 128, WM = 2, WN = 4, CTAS = 1; };
+constexpr int H_TILES = 2;
+
+// The tile of dU1, dW2 and dU2 at (D, H): `wgrad_tiles` in ops/lstm2_train.py.
+inline int wgrad_tile(int D, int H) {
+  (void)D, (void)H;
+  return 0;
+}
+
+// -1: the rule above; otherwise the shape every launch takes (timing only)
+int g_forced_tile = -1;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <int BM, int BN>
+constexpr int wgrad_smem_bytes() {
+  return WG_STAGES * WG_BK * (BM + WG_PAD + BN + WG_PAD) * 2;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(fill ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// C[k0 .. k0 + BM)[c0 .. c0 + BN) of gradient `which` (0 dW1, 1 dU1, 2 dW2,
+// 3 dU2) += the chunk's A^T G, as described above.
+template <int BM, int BN, int WM, int WN>
+__device__ __forceinline__ void wgrad_mma_tile(const WgradArgs<__nv_bfloat16>& a, int which,
+                                               int k0, int c0, uint32_t smem) {
+  using bf16 = __nv_bfloat16;
+  constexpr int MI = BM / WM / 16, NI = BN / WN / 8;  // a warp's m16 and n8 tiles
+  static_assert(MI >= 1 && NI % 2 == 0 && WM * WN <= WG_THREADS / 32, "warp tiling");
+  constexpr int LDA = BM + WG_PAD, LDG = BN + WG_PAD;  // staged row pitch, bf16
+  constexpr int STAGE_BYTES = WG_BK * (LDA + LDG) * 2;
+  constexpr int A_COPIES = WG_BK * BM / 8, G_COPIES = WG_BK * BN / 8;  // 16-byte copies a slice
+  const int G = 4 * a.H;
+  const int K = which == 0 ? a.D : a.H;                   // live rows of C
+  const int lda = which == 0 ? bwd::dx_cols(a.D) : a.H;  // row pitch of A in device memory
+  const bf16* A = which == 0 ? a.x : (which == 3 ? a.h2 : a.h1);
+  const int shift = (which == 1 || which == 3) ? 1 : 0;  // reads h of step t - 1
+  const bf16* Gm = which < 2 ? a.dg1 : a.dg2;
+  float* C = which == 0 ? a.dw1 : (which == 1 ? a.du1 : (which == 2 ? a.dw2 : a.du2));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / WN, wn = warp - (warp / WN) * WN;
+  const int m0 = wm * MI * 16, n0 = wn * NI * 8;  // the warp's rectangle in the tile
+  const bool live = warp < WM * WN && k0 + m0 < K && c0 + n0 < G;
+  const int fr = lane >> 2, fc = 2 * (lane & 3);  // accumulator rows fr, fr + 8; columns fc, fc + 1
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + m0 + 16 * i + fr + 8 * h, c = c0 + n0 + 8 * j + fc;
+        float2 v = make_float2(0.0f, 0.0f);
+        if (live && k < K && c < G) v = *reinterpret_cast<const float2*>(C + (size_t)k * G + c);
+        acc[i][j][2 * h] = v.x;
+        acc[i][j][2 * h + 1] = v.y;
+      }
+
+  const int row_slices = (a.n_rows + WG_BK - 1) / WG_BK;
+  const int slices = (a.t_hi - a.t_lo + 1) * row_slices;
+  auto load = [&](int slice) {
+    const int t = a.t_hi - slice / row_slices, nb = (slice % row_slices) * WG_BK;
+    const bool a_live = !(shift && t == 0);  // h_{-1} = 0
+    const bf16* At = A + (size_t)(a_live ? t - shift : 0) * a.n_rows * lda;
+    const bf16* Gt = Gm + (size_t)(t - a.t_lo) * a.n_rows * G;
+    const uint32_t as = smem + (slice % WG_STAGES) * STAGE_BYTES, gs = as + WG_BK * LDA * 2;
+#pragma unroll
+    for (int e = 0; e < cdiv(A_COPIES, WG_THREADS); ++e) {
+      const int idx = tid + e * WG_THREADS;
+      if (A_COPIES % WG_THREADS != 0 && idx >= A_COPIES) break;
+      const int r = idx / (BM / 8), kk = 8 * (idx % (BM / 8)), n = nb + r;
+      const bool ok = a_live && n < a.n_rows && k0 + kk < lda;
+      cp_async16(as + (r * LDA + kk) * 2, ok ? At + (size_t)n * lda + k0 + kk : A, ok);
+    }
+#pragma unroll
+    for (int e = 0; e < cdiv(G_COPIES, WG_THREADS); ++e) {
+      const int idx = tid + e * WG_THREADS;
+      if (G_COPIES % WG_THREADS != 0 && idx >= G_COPIES) break;
+      const int r = idx / (BN / 8), cc = 8 * (idx % (BN / 8)), n = nb + r;
+      const bool ok = n < a.n_rows && c0 + cc < G;
+      cp_async16(gs + (r * LDG + cc) * 2, ok ? Gt + (size_t)n * G + c0 + cc : Gm, ok);
+    }
+  };
+
+  // this lane's ldmatrix rows: A's matrices are (n 0-7 | 8-15) x (k 0-7 | 8-15)
+  // with n the slower; G's are (n 0-7 | 8-15) x (c 0-7 | 8-15) with c the slower
+  const int a_row = (lane & 7) + 8 * (lane >> 4), a_col = m0 + 8 * ((lane >> 3) & 1);
+  const int g_row = (lane & 7) + 8 * ((lane >> 3) & 1), g_col = n0 + 8 * (lane >> 4);
+
+#pragma unroll
+  for (int s = 0; s < WG_STAGES - 1; ++s) {
+    if (s < slices) load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slices; ++s) {
+    cp_async_wait<WG_STAGES - 2>();  // slice s has landed (this thread's copies)
+    __syncthreads();                 // ... everyone's; slice s - 1's buffer is free
+    if (s + WG_STAGES - 1 < slices) load(s + WG_STAGES - 1);
+    cp_async_commit();
+    if (!live) continue;
+    const uint32_t as = smem + (s % WG_STAGES) * STAGE_BYTES, gs = as + WG_BK * LDA * 2;
+#pragma unroll
+    for (int ks = 0; ks < WG_BK / 16; ++ks) {
+      uint32_t af[MI][4], bfr[NI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        lstm2::ldmatrix_x4_trans(af[i], as + ((16 * ks + a_row) * LDA + a_col + 16 * i) * 2);
+#pragma unroll
+      for (int j = 0; j < NI / 2; ++j) {
+        uint32_t r[4];
+        lstm2::ldmatrix_x4_trans(r, gs + ((16 * ks + g_row) * LDG + g_col + 16 * j) * 2);
+        bfr[2 * j][0] = r[0];
+        bfr[2 * j][1] = r[1];
+        bfr[2 * j + 1][0] = r[2];
+        bfr[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) lstm2::mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + m0 + 16 * i + fr + 8 * h, c = c0 + n0 + 8 * j + fc;
+        if (live && k < K && c < G)
+          *reinterpret_cast<float2*>(C + (size_t)k * G + c) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+}
+
+template <int SHAPE>
+__global__ void __launch_bounds__(WG_THREADS, HTile<SHAPE>::CTAS)
+wgrad_mma_kernel(const WgradArgs<__nv_bfloat16> a) {
+  using S = HTile<SHAPE>;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t smem = (uint32_t)__cvta_generic_to_shared(wg_smem);
+  const int G = 4 * a.H;
+  const int h_rows = cdiv(a.H, S::BM), h_cols = cdiv(G, S::BN), h_blocks = 3 * h_rows * h_cols;
+  int b = blockIdx.x;
+  if (b < h_blocks) {
+    const int which = 1 + b / (h_rows * h_cols);
+    b -= (which - 1) * h_rows * h_cols;
+    wgrad_mma_tile<S::BM, S::BN, S::WM, S::WN>(a, which, (b / h_cols) * S::BM,
+                                               (b % h_cols) * S::BN, smem);
+  } else {
+    b -= h_blocks;
+    const int w1_cols = cdiv(G, W1_COLS);
+    wgrad_mma_tile<W1_ROWS, W1_COLS, 3, 2>(a, 0, (b / w1_cols) * W1_ROWS, (b % w1_cols) * W1_COLS,
+                                           smem);
+  }
+}
+
+template <int SHAPE>
+int launch_wgrad_mma(const WgradArgs<__nv_bfloat16>& w, cudaStream_t stream) {
+  using S = HTile<SHAPE>;
+  constexpr int smem_h = wgrad_smem_bytes<S::BM, S::BN>();
+  constexpr int smem_w1 = wgrad_smem_bytes<W1_ROWS, W1_COLS>();
+  constexpr int smem = smem_h > smem_w1 ? smem_h : smem_w1;
+  const cudaError_t err = cudaFuncSetAttribute(
+      wgrad_mma_kernel<SHAPE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = 4 * w.H;
+  const int blocks = 3 * cdiv(w.H, S::BM) * cdiv(G, S::BN) + cdiv(w.D, W1_ROWS) * cdiv(G, W1_COLS);
+  wgrad_mma_kernel<SHAPE><<<blocks, WG_THREADS, smem, stream>>>(w);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wgrad(const WgradArgs<T>& w, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, float>) {
+    const int G = 4 * w.H;
+    const dim3 grid((G + TILE - 1) / TILE,
+                    (w.D + TILE - 1) / TILE + 3 * ((w.H + TILE - 1) / TILE));
+    wgrad_kernel<float><<<grid, 256, 0, stream>>>(w);
+    return (int)cudaGetLastError();
+  } else {
+    switch (g_forced_tile >= 0 ? g_forced_tile : wgrad_tile(w.D, w.H)) {
+      case 0: return launch_wgrad_mma<0>(w, stream);
+      case 1: return launch_wgrad_mma<1>(w, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+}
+
 // db1[c], db2[c] = sum over the row tiles, in tile order, of db_part[tile][layer][c]
 __global__ void db_reduce_kernel(const float* __restrict__ db_part, float* __restrict__ db1,
                                  float* __restrict__ db2, int tiles, int G) {
@@ -236,7 +498,6 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
   w.H = H;
 
   const int G = 4 * H;
-  const dim3 wgrid((G + TILE - 1) / TILE, (D + TILE - 1) / TILE + 3 * ((H + TILE - 1) / TILE));
   for (int t_hi = steps - 1; t_hi >= 0; t_hi -= chunk) {
     const int t_lo = t_hi - chunk + 1 > 0 ? t_hi - chunk + 1 : 0;
     s.t_hi = w.t_hi = t_hi;
@@ -244,8 +505,7 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
     s.resume = t_hi != steps - 1;
     int err = bwd::launch_sweep<T>(s, rows, stream);
     if (err != 0) return err;
-    wgrad_kernel<T><<<wgrid, 256, 0, stream>>>(w);
-    err = (int)cudaGetLastError();
+    err = launch_wgrad<T>(w, stream);
     if (err != 0) return err;
   }
   const int tiles = (n_rows + rows - 1) / rows;
@@ -263,7 +523,8 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
 // (ops/lstm2_train.py::pack_mma_b) and rows is 16; the other three weight
 // pointers may be null. chunk: the steps the scratch holds. dw1, du1, dw2,
 // du2 must arrive zeroed; carry is [4][ceil(N / rows) * rows][H] and
-// db_part [ceil(N / rows)][2][4H] float32.
+// db_part [ceil(N / rows)][2][4H] float32. bfloat16 x is [T, N, dx_cols(D)]
+// (D rounded up to 8), its pad columns zero.
 extern "C" int lstm2_bwd_wgrad(const void* dy, const void* x, const void* g1, const void* c1,
                                const void* h1, const void* g2, const void* c2, const void* h2,
                                const void* w2t, const void* u1t, const void* w1t,
@@ -280,4 +541,14 @@ extern "C" int lstm2_bwd_wgrad(const void* dy, const void* x, const void* g1, co
   if (dtype == 0) return run<float>(in, out, n_rows, steps, D, H, O, rows, chunk, s);
   if (dtype == 1) return run<__nv_bfloat16>(in, out, n_rows, steps, D, H, O, rows, chunk, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Forces the tile of dU1, dW2 and dU2 for later bf16 launches (0 .. H_TILES - 1,
+// WGRAD_H_TILES order; -1: the rule `wgrad_tile`), to time the candidates.
+// Returns the previous setting, or -2 for a shape there is not.
+extern "C" int lstm2_bwd_wgrad_force_tile(int shape) {
+  if (shape < -1 || shape >= H_TILES) return -2;
+  const int before = g_forced_tile;
+  g_forced_tile = shape;
+  return before;
 }

@@ -50,6 +50,17 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
                : "r"(addr));
 }
 
+// The same four 8 x 8 bf16 matrices, each transposed on the way: lane l
+// gives the address of row l % 8 of matrix l / 8, and a[i] comes back as
+// {M_i[2 (l % 4)][l / 4], M_i[2 (l % 4) + 1][l / 4]}. For operands stored
+// with the contraction index as the row (lstm2_bwd_wgrad.cu), this is
+// mma.sync's A fragment and the col B fragment.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
 // d += A (16 x 16, row) B (16 x 8, col): bf16 products, float32 sums
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {

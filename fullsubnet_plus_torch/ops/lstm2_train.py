@@ -17,12 +17,15 @@ kernels:
     package (:860-879);
   * `_make_bwd_kernel_fused` (:472, pallas_call at :752) ->
     csrc/lstm2_bwd_wgrad.cu: the same sweep with the weight gradients summed
-    inside the kernel file, so no [T, N, 4H] array of dgates is written.
+    inside the kernel file, so no [T, N, 4H] array of dgates is written; in
+    bfloat16 those products run on the tensor cores too, in tiles that
+    `wgrad_tiles` chooses.
 
 `FUSED_WGRAD` chooses between the last two, as the JAX module's switch of
-the same name does (:679). Both share the reverse sweep; in bfloat16 its
-three products run on the tensor cores, reading the weights packed into
-mma.sync fragment order by `pack_mma_b`. Cast points follow the TPU kernels: residuals
+the same name does (:679); left at None, the form follows x's dtype
+(`fused_wgrad`), as measured on the H100. Both share the reverse sweep; in
+bfloat16 its three products run on the tensor cores, reading the weights
+packed into mma.sync fragment order by `pack_mma_b`. Cast points follow the TPU kernels: residuals
 and dgates are rounded to x's dtype where a product or a store reads them,
 h, c and every carry stay float32, the bias gradient of the fused form sums
 the unrounded dgates and that of the other form the rounded ones.
@@ -52,9 +55,15 @@ from fullsubnet_plus_torch.ops.lstm2 import (
     pack_weights,
 )
 
-# In-kernel weight-gradient accumulation (csrc/lstm2_bwd_wgrad.cu); False
-# takes the dgates-writing sweep (csrc/lstm2_bwd.cu) and `weight_grads`.
-FUSED_WGRAD = True
+# The backward form: True the in-kernel weight-gradient accumulation
+# (csrc/lstm2_bwd_wgrad.cu), False the dgates-writing sweep (csrc/lstm2_bwd.cu)
+# and `weight_grads`, None the form FUSED_WGRAD_BY_DTYPE gives x's dtype.
+FUSED_WGRAD: bool | None = None
+# Measured on the H100 at the training fold (PERF.md): bf16 K3 55 ms against
+# K4 + `weight_grads` 81; float32 K3 220 ms against 185, whose FMA weight
+# gradients lose to cuBLAS's SGEMM. K4 holds the dgates of every step
+# (5.5 GB in float32 there), K3 an L2-sized scratch.
+FUSED_WGRAD_BY_DTYPE = {torch.float32: False, torch.bfloat16: True}
 
 # wrapper calls that launched their kernel, since import (or last reset)
 LAUNCHES = {"lstm2_train_fwd": 0, "lstm2_bwd": 0, "lstm2_bwd_wgrad": 0}
@@ -64,6 +73,11 @@ MMA_ROWS_PER_CTA = 16  # the bf16 reverse sweep's row tile: one m16 tile (MMA_RO
 MMA_PAD = 8  # bf16 pad of a dgates row in the bf16 sweep's shared memory (lstm2_bwd_sweep.cuh)
 DX_PARTS_MAX = 12  # k-slices of the dx product (DX_PARTS_MAX in lstm2_bwd_sweep.cuh)
 WGRAD_SCRATCH_BYTES = 32 << 20  # dgates scratch of the fused backward: a few steps, L2-sized
+# The bf16 weight-gradient kernel's tiles (csrc/lstm2_bwd_wgrad.cu, `HTile` and
+# W1_ROWS x W1_COLS): rows of the gradient x gate columns. dU1, dW2 and dU2
+# take one of WGRAD_H_TILES (`wgrad_tiles`); dW1 (D rows) takes WGRAD_W1_TILE.
+WGRAD_H_TILES = ((64, 128), (128, 128))
+WGRAD_W1_TILE = (48, 64)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -107,6 +121,13 @@ class LSTM2Grads(NamedTuple):
     du2: torch.Tensor
     db1: torch.Tensor
     db2: torch.Tensor
+
+
+def fused_wgrad(dtype: torch.dtype) -> bool:
+    """The backward form for x's dtype: FUSED_WGRAD when set, else the
+    measured default (the fused form, the JAX package's, for a dtype the
+    kernels do not take)."""
+    return FUSED_WGRAD if FUSED_WGRAD is not None else FUSED_WGRAD_BY_DTYPE.get(dtype, True)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -244,7 +265,7 @@ def lstm2_bwd_plain(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Res
     """The plain version of both backward forms: the reverse loop, then the
     weight gradients as matrix products over its dgates; `fused` only
     chooses which bias sums come back (see the module's note)."""
-    fused = FUSED_WGRAD if fused is None else fused
+    fused = fused_wgrad(x.dtype) if fused is None else fused
     sweep = lstm2_bwd_reference(dy, x, w, res)
     dw1, du1, dw2, du2, db1, db2 = weight_grads(x, res, sweep.dg1, sweep.dg2)
     if fused:
@@ -255,9 +276,9 @@ def lstm2_bwd_plain(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Res
 def lstm2_bwd(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Residuals,
               fused: bool | None = None) -> LSTM2Grads:
     """The backward of `lstm2_train_fwd` for the cotangent dy [N, T, O]:
-    with `fused` (default `FUSED_WGRAD`) the weight gradients come from the
-    sweep itself, else from `weight_grads` over the stored dgates."""
-    fused = FUSED_WGRAD if fused is None else fused
+    with `fused` (default `fused_wgrad(x.dtype)`) the weight gradients come
+    from the sweep itself, else from `weight_grads` over the stored dgates."""
+    fused = fused_wgrad(x.dtype) if fused is None else fused
     if x.device.type == "cpu":
         return lstm2_bwd_plain(dy, x, w, res, fused)
     if x.device.type != "cuda":
@@ -475,6 +496,29 @@ def wgrad_chunk_steps(n: int, hidden: int, steps: int, itemsize: int) -> int:
     return max(1, min(steps, WGRAD_SCRATCH_BYTES // (2 * n * 4 * hidden * itemsize)))
 
 
+def wgrad_tiles(d_in: int, hidden: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """(dW1's tile, the tile of dU1, dW2 and dU2) of the bf16 weight-gradient
+    kernel, each (rows, gate columns); `wgrad_tile` in csrc/lstm2_bwd_wgrad.cu
+    mirrors it. 64 x 128 (two CTAs an SM) was the fastest shape at the
+    training fold on the H100 in every run, 7-8 % ahead of 128 x 128 and 40 %
+    ahead of 128 x 256 (PERF.md); at H 64 it is also the one without padded
+    rows. dW1's D rows are padded to m16 tiles of 48, not to a whole tile."""
+    return WGRAD_W1_TILE, WGRAD_H_TILES[0]
+
+
+def force_wgrad_tile(shape: int | None) -> int | None:
+    """Make every later bf16 K3 launch take WGRAD_H_TILES[shape] for dU1, dW2
+    and dU2 (None: the rule again), to time the candidates on the card;
+    returns the previous setting."""
+    lib = nvcc.load("lstm2_bwd_wgrad", "lstm2_bwd_wgrad", _WGRAD_ARGTYPES)
+    fn = lib.lstm2_bwd_wgrad_force_tile
+    fn.argtypes, fn.restype = [_INT], _INT
+    before = fn(-1 if shape is None else shape)
+    if before < -1:
+        raise ValueError(f"force_wgrad_tile: no tile shape {shape}")
+    return None if before == -1 else before
+
+
 def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
                       res: Residuals) -> LSTM2Grads:
     rows, dy, weights = _bwd_operands("lstm2_bwd_wgrad", dy, x, w, res)
@@ -482,7 +526,11 @@ def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     tiles = -(-n // rows)
     chunk = wgrad_chunk_steps(n, hidden, steps, x.element_size())
-    x_tnd = x.permute(2, 0, 1).contiguous()
+    if x.dtype == torch.bfloat16:  # rows padded to 8 with zeros: 16-byte copies of whole rows
+        x_tnd = x.new_zeros(steps, n, -(-d // 8) * 8)
+        x_tnd[:, :, :d] = x.permute(2, 0, 1)
+    else:
+        x_tnd = x.permute(2, 0, 1).contiguous()
 
     def f32(*shape, zero=False):
         return (torch.zeros if zero else torch.empty)(*shape, dtype=torch.float32,

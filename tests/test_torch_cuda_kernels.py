@@ -12,7 +12,8 @@ bf16 and int8 40 dB (float32 differs by sum order and expf / tanhf only; in
 bf16 single roundings of h, the residuals and the dgates flip and carry
 through the recurrence). K2's y equals K1's bit for bit, the bf16 forward
 sweep gives the same bits at both row tiles, and K3 equals itself on a
-repeat. chip_smoke.py repeats these checks at the model's folds.
+repeat, also in bf16 over several chunks at every tile shape of its
+tensor-core weight gradients. chip_smoke.py repeats these checks at the model's folds.
 """
 
 import importlib.util
@@ -158,6 +159,36 @@ def test_kernels_match_plain_on_cuda(dtype, n, t, hidden):
         assert min(_snr(a, b) for a, b in zip(want, got)) >= floor
     again = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=True)
     got = lt.lstm2_bwd(dyt, xt, w, res_ref, fused=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [None, *range(len(lt.WGRAD_H_TILES))])
+@pytest.mark.parametrize("hidden", [64, 384])
+def test_bf16_wgrad_kernel_matches_plain_over_chunks(monkeypatch, hidden, tile):
+    """K3 in bf16, whose weight gradients run on the tensor cores, against
+    `lstm2_bwd_plain` with the scratch cut to 3 steps, so T = 7 runs chunks
+    of 3, 3 and 1: N = 150 is a multiple of no tile (16, 32, 48, 64, 128),
+    D = 34, at each tile shape of dU1, dW2, dU2 (None: the rule's); and
+    equal to itself on a repeat."""
+    _need_card()
+    n, t = 150, 7
+    tensors, x, dy = _case(n, t, 34, hidden, 2, seed=3)
+    w = ops_lstm2.pack_weights(*(p.to("cuda", torch.bfloat16) for p in tensors))
+    xt, dyt = torch.tensor(x).to("cuda", torch.bfloat16), torch.tensor(dy).cuda()
+    _, res = lt.lstm2_train_fwd_reference(xt, w)
+    monkeypatch.setattr(lt, "WGRAD_SCRATCH_BYTES", 3 * 2 * n * 4 * hidden * 2)
+    assert lt.wgrad_chunk_steps(n, hidden, t, 2) == 3
+    want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
+    before = lt.force_wgrad_tile(tile)
+    try:
+        got = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+        again = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+        torch.cuda.synchronize()
+    finally:
+        lt.force_wgrad_tile(before)
+    snrs = {name: _snr(a.float(), b.float()) for name, a, b in zip(want._fields, want, got)}
+    assert min(snrs.values()) >= FLOOR[torch.bfloat16], snrs
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

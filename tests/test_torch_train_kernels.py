@@ -162,6 +162,19 @@ def test_weight_grad_forms_differ_only_in_the_bias_rounding():
     np.testing.assert_allclose(fused.db1.numpy(), plain.db1.numpy(), atol=2e-2, rtol=2e-2)
 
 
+def test_backward_form_follows_the_dtype_unless_set(monkeypatch):
+    """FUSED_WGRAD None: bf16 takes the fused K3 and float32 K4 with
+    `weight_grads` (measured on the card); a dtype the kernels do not take
+    keeps the JAX package's fused form; True or False overrides both."""
+    assert lt.FUSED_WGRAD is None
+    assert lt.fused_wgrad(torch.bfloat16) and not lt.fused_wgrad(torch.float32)
+    assert lt.fused_wgrad(torch.float64)
+    for value in (True, False):
+        monkeypatch.setattr(lt, "FUSED_WGRAD", value)
+        assert all(lt.fused_wgrad(dt) is value
+                   for dt in (torch.float32, torch.bfloat16, torch.float64))
+
+
 def test_bf16_gradients_keep_dtype_and_stay_close():
     """bf16: every gradient comes back in its tensor's dtype, within 5 % of
     the float32 one relative to its peak, and within 3 % of JAX's bf16 one."""
@@ -452,3 +465,146 @@ def test_fwd_mma_fits_the_fullsubnet_full_band_shape():
     assert ops_lstm2.fwd_mma_shared_memory_bytes(32, 257, 512) > ops_lstm2.SMEM_LIMIT
     assert ops_lstm2.fwd_mma_row_tile(4626, 257, 512, 132) == 16
     assert ops_lstm2.shared_memory_bytes(257, 512, 257) == 410_688 > ops_lstm2.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# the bf16 weight-gradient kernel's layout (csrc/lstm2_bwd_wgrad.cu, wgrad_mma_kernel)
+# ---------------------------------------------------------------------------
+
+WG_BK, WG_PAD = 64, 8  # contraction rows a staged slice, bf16 pad of a staged row
+
+
+def _ldmatrix_x4_trans(smem: np.ndarray, addr: np.ndarray) -> np.ndarray:
+    """ldmatrix.m8n8.x4.trans over a warp: lane l gives the element index of
+    row l % 8 of matrix l / 8 (8 contiguous elements); lane t gets, from each
+    matrix M, {M[2 (t % 4)][t / 4], M[2 (t % 4) + 1][t / 4]}. -> [lane, reg, 2]."""
+    m = smem[addr[:, None] + np.arange(8)].reshape(4, 8, 8)  # [matrix, row, column]
+    t = np.arange(32)
+    return np.stack([m[:, 2 * (t % 4), t // 4], m[:, 2 * (t % 4) + 1, t // 4]], -1).transpose(1, 0, 2)
+
+
+def _mma_m16n8k16(acc: np.ndarray, a: np.ndarray, b: np.ndarray) -> None:
+    """acc [lane, 4] += A B from the lanes' fragments (PTX ISA, m16n8k16 bf16):
+    a [lane, 4 regs, 2] holds A[g + 8 (r % 2)][2q + 8 (r / 2) + e], b [lane, 2
+    regs, 2] holds B[2q + 8 r + e][g], acc[e'] is D[g + 8 (e' / 2)][2q + e' % 2],
+    for lane 4g + q."""
+    t = np.arange(32)
+    g, q = t // 4, t % 4
+    am, bm = np.zeros((16, 16)), np.zeros((16, 8))
+    for r in range(4):
+        for e in range(2):
+            am[g + 8 * (r % 2), 2 * q + 8 * (r // 2) + e] = a[:, r, e]
+    for r in range(2):
+        for e in range(2):
+            bm[2 * q + 8 * r + e, g] = b[:, r, e]
+    d = am @ bm
+    for e in range(4):
+        acc[:, e] += d[g + 8 * (e // 2), 2 * q + e % 2]
+
+
+def _wgrad_tile_walk(a_steps, g_steps, lda, k_live, bm, bn, wm, wn):
+    """One CTA tile (rows 0 .. bm, gate columns 0 .. bn) of the kernel's
+    contraction, walked as `wgrad_mma_tile` walks it: for each step (newest
+    first; None: h_{-1}) and slice of WG_BK rows, the staged ring slot filled
+    as its cp.async copies fill it (zero past N, past the row's lda columns,
+    and for h_{-1}), then each warp's ldmatrix.trans fragments and mma
+    products; the accumulators written back where row < k_live."""
+    n_rows = g_steps[0].shape[0]
+    lda_s, ldg_s = bm + WG_PAD, bn + WG_PAD
+    mi, ni = bm // wm // 16, bn // wn // 8
+    acc = np.zeros((wm * wn, mi, ni, 32, 4))
+    for a_t, g_t in zip(a_steps, g_steps):
+        for nb in range(0, n_rows, WG_BK):
+            smem = np.zeros(WG_BK * (lda_s + ldg_s))
+            for r in range(min(WG_BK, n_rows - nb)):
+                if a_t is not None:
+                    cols = min(bm, lda)
+                    smem[r * lda_s: r * lda_s + cols] = a_t[nb + r, :cols]
+                smem[WG_BK * lda_s + r * ldg_s: WG_BK * lda_s + r * ldg_s + bn] = g_t[nb + r, :bn]
+            lane = np.arange(32)
+            for warp in range(wm * wn):
+                m0, n0 = (warp // wn) * mi * 16, (warp % wn) * ni * 8
+                a_row, a_col = (lane & 7) + 8 * (lane >> 4), m0 + 8 * ((lane >> 3) & 1)
+                g_row, g_col = (lane & 7) + 8 * ((lane >> 3) & 1), n0 + 8 * (lane >> 4)
+                for ks in range(WG_BK // 16):
+                    af = [_ldmatrix_x4_trans(smem, (16 * ks + a_row) * lda_s + a_col + 16 * i)
+                          for i in range(mi)]
+                    bf = []
+                    for j in range(ni // 2):
+                        r = _ldmatrix_x4_trans(smem, WG_BK * lda_s + (16 * ks + g_row) * ldg_s
+                                               + g_col + 16 * j)
+                        bf += [r[:, 0:2], r[:, 2:4]]
+                    for i in range(mi):
+                        for j in range(ni):
+                            _mma_m16n8k16(acc[warp, i, j], af[i], bf[j])
+    out = np.full((bm, bn), np.nan)
+    fr, fc = np.arange(32) >> 2, 2 * (np.arange(32) & 3)
+    for warp in range(wm * wn):
+        m0, n0 = (warp // wn) * mi * 16, (warp % wn) * ni * 8
+        for i in range(mi):
+            for j in range(ni):
+                for e in range(4):
+                    rows = m0 + 16 * i + fr + 8 * (e >> 1)
+                    keep = rows < k_live
+                    out[rows[keep], (n0 + 8 * j + fc + (e & 1))[keep]] = acc[warp, i, j][keep, e]
+    return out[:k_live]
+
+
+@pytest.mark.parametrize("bm,bn,wm,wn,k_live,lda", [
+    (48, 64, 3, 2, 34, 40),     # dW1's tile: D = 34, x rows padded to 40
+    (64, 128, 2, 4, 64, 64),    # the rule's H tile
+    (128, 128, 2, 4, 96, 96),   # a candidate H tile with rows past H
+])
+def test_wgrad_fragment_walk_matches_the_products(bm, bn, wm, wn, k_live, lda):
+    """The transposed-ldmatrix and mma fragment walk of one weight-gradient
+    tile gives A^T G over two steps with N = 100 (a ragged second slice of
+    64 rows), the older step's A being h_{-1} = 0, and columns past the A
+    row's end zero-filled: the same bf16 operands, float64 sums here in
+    another order (within 1e-6)."""
+    rng = np.random.default_rng(11)
+    n_rows = 100
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16().float().numpy()
+
+    a1 = bf16(n_rows, lda)
+    a1[:, k_live:] = 0.0  # x's pad columns are zero (the wrapper's padding)
+    g1, g0 = bf16(n_rows, bn), bf16(n_rows, bn)
+    got = _wgrad_tile_walk([a1, None], [g1, g0], lda, k_live, bm, bn, wm, wn)
+    want = a1[:, :k_live].astype(np.float64).T @ g1.astype(np.float64)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+def _wgrad_blocks(d_in, hidden, h_tile, w1_tile):
+    """The CTAs of one weight-gradient launch as `wgrad_mma_kernel` maps
+    blockIdx.x: the tiles of dU1, dW2, dU2, each gradient row tile by row
+    tile, then dW1's; as (gradient, first row, first gate column, rows,
+    columns)."""
+    blocks = []
+    for name, k, (rows, cols) in (("du1", hidden, h_tile), ("dw2", hidden, h_tile),
+                                  ("du2", hidden, h_tile), ("dw1", d_in, w1_tile)):
+        blocks += [(name, r, c, rows, cols) for r in range(0, k, rows)
+                   for c in range(0, 4 * hidden, cols)]
+    return blocks
+
+
+@pytest.mark.parametrize("d,hidden", [(34, 384), (34, 64), (257, 512)])
+def test_wgrad_tiles_cover_each_gradient_once(d, hidden):
+    """The CTAs of a bf16 weight-gradient launch (the tiles `wgrad_tiles`
+    picks, and each candidate) cover every element of dW1 [D, 4H] and dU1,
+    dW2, dU2 [H, 4H] exactly once; dW1's tile has 48 rows (three m16 tiles),
+    and at the training shape the grid fills a wave of the H100's 132 SMs."""
+    w1_tile, h_tile = lt.wgrad_tiles(d, hidden)
+    assert w1_tile == (48, 64) and h_tile == lt.WGRAD_H_TILES[0] == (64, 128)
+    for shape in lt.WGRAD_H_TILES:
+        blocks = _wgrad_blocks(d, hidden, shape, w1_tile)
+        for name in ("dw1", "du1", "dw2", "du2"):
+            rows = d if name == "dw1" else hidden
+            count = np.zeros((rows, 4 * hidden), np.int64)
+            for grad, r0, c0, r, c in blocks:
+                if grad == name:
+                    assert r0 < rows and c0 < 4 * hidden  # no tile wholly outside
+                    count[r0:r0 + r, c0:c0 + c] += 1
+            assert (count == 1).all(), (shape, name)
+    if (d, hidden) == (34, 384):
+        assert len(_wgrad_blocks(d, hidden, h_tile, w1_tile)) >= 132
