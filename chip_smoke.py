@@ -11,13 +11,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      backward that keeps the dgates); count the tensor-core (HMMA)
      instructions of the forward sweeps of K1 and K2, the reverse sweeps of
      K3 and K4 and K3's weight-gradient kernels (`cuobjdump -sass`): each
-     bf16 sweep and the bf16 `wgrad_mma_kernel` must have them, and no bf16
-     FMA sweep or FMA `wgrad_kernel` may be compiled; print the
+     bf16 sweep and the bf16 `wgrad_mma_kernel` must have them, the float32
+     forward sweeps of K1 and K2 must have TF32 ones (HMMA.1688.F32.TF32:
+     each float32 product as three TF32 products), and no bf16 FMA sweep,
+     FMA forward sweep or bf16 FMA `wgrad_kernel` may be compiled; print the
      weight-gradient kernels' registers and spills (ptxas);
   2. hold each kernel against the JAX kernel's outputs (the committed
      tests/fixtures/torch_kernel_fixture.npz, interpret mode on the CPU, at
      small ragged shapes; same floors) and against its plain PyTorch version
-     on the card, printing the bf16 forward's row tile at each fold: K1 at
+     on the card, printing the forward's row tile at each fold: K1 at
      the batch path's sub-band fold (fp32 >= 80 dB, bf16 >= 40 dB SNR), K5
      at the serving fold and at the batch path's (>= 40 dB), K2, K3 and K4
      at the training fold (same floors; K2's y equal to K1's bit for bit,
@@ -27,8 +29,10 @@ Phases, each fatal on failure (exit code 1, no result line):
   3. time each kernel, its plain version and a cuDNN LSTM + Linear (a
      yardstick only; forward for K1, K2 and K5, backward for K3 and K4; for
      K5 also K1 in bf16 at the same shape), with CUDA events, beside the
-     bound from the card's peaks; K1 and K2 in bf16 at both row tiles of the
-     tensor-core forward (R 16 and 32) and the weight packing alone; split
+     bound from the card's peaks (for the float32 forward both: three TF32
+     products at the TF32 peak, and FMAs at the float32 peak); K1 and K2 at
+     each row tile of the tensor-core forward (bf16 R 16 and 32, float32 R
+     16) and the weight packing alone; split
      K3's and K4's device time into the reverse sweep, K3's weight-gradient
      kernel and the rest (torch.profiler); that kernel beside its own bound
      and, in bf16, beside the same four products as bf16 cuBLAS GEMMs over
@@ -115,6 +119,7 @@ FEED_SPEEDUP = 10.0  # clients send audio this many times faster than real time
 # H100 SXM published peaks (NVIDIA data sheet, dense): float32 outside the
 # tensor cores, bf16 and int8 tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 494.7e12  # the float32 forward's products: three TF32 products each
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -122,6 +127,8 @@ PEAK_BYTES = 3.35e12
 KERNEL_SOURCES = ("lstm2_fwd", "lstm2_int8_fwd", "lstm2_train_fwd", "lstm2_bwd_wgrad",
                   "lstm2_bwd")  # csrc/<name>.cu
 SWEEP_SOURCES = ("lstm2_fwd", "lstm2_train_fwd", "lstm2_bwd_wgrad", "lstm2_bwd")  # bf16 mma sweeps
+FWD_SOURCES = ("lstm2_fwd", "lstm2_train_fwd")  # K1, K2: the float32 sweep on mma.sync too
+TF32_HMMA = "HMMA.1688.F32.TF32"  # mma.sync m16n8k8 on TF32 operands, float32 sums
 FIXTURE_GENERATOR = os.path.join(REPO, "tests", "fixtures", "gen_torch_kernel_fixture.py")
 # K3's weight-gradient kernels: `wgrad_kernel` (float32, FMAs), `wgrad_mma_kernel` (bf16)
 WGRAD_KERNEL = re.compile(r"wgrad_(mma_)?kernel")
@@ -162,14 +169,23 @@ def bound(t_ops_s: float, nbytes: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def lstm_bound_ms(n: int, t: int, dtype: torch.dtype) -> tuple[float, str]:
+def lstm_bound_ms(n: int, t: int, dtype: torch.dtype, fma: bool = False) -> tuple[float, str]:
     """K1: its operations over the peak rate for its type, against its bytes
-    (inputs read once, output written once)."""
+    (inputs read once, output written once). float32 runs each product as
+    three TF32 products (TF32 peak); `fma` gives the FMA bound instead."""
     size = torch.tensor([], dtype=dtype).element_size()
     flops = 2 * n * t * (D + 3 * H) * 4 * H + 2 * n * t * H * O
     nbytes = (n * D * t * size + (D + 3 * H) * 4 * H * size + 2 * 4 * H * 4 + H * O * 4 + O * 4
               + n * t * O * size)
-    return bound(flops / PEAK_FLOPS[dtype], nbytes)
+    return bound(forward_ops_s(flops, dtype, fma), nbytes)
+
+
+def forward_ops_s(flops: float, dtype: torch.dtype, fma: bool = False) -> float:
+    """Seconds of the forward sweep's products at the card's peak: bf16 on
+    the tensor cores; float32 as three TF32 products each, or as FMAs."""
+    if dtype == torch.float32 and not fma:
+        return 3 * flops / PEAK_TF32
+    return flops / PEAK_FLOPS[dtype]
 
 
 def int8_bound_ms(n: int, t: int) -> tuple[float, str]:
@@ -294,15 +310,31 @@ def phase_build() -> dict:
         sweeps = {f: n for f, n in sass_instruction_counts(lib, "HMMA").items() if "sweep" in f}
         for function, n in sweeps.items():
             print(f"[1] {stem}: {function} has {n} HMMA instructions")
-        mma = [n for f, n in sweeps.items() if "sweep_mma_kernel" in f]
+        mma = [n for f, n in sweeps.items() if "sweep_mma_kernel" in f and "bfloat16" in f]
         if not mma or min(mma) == 0:
             fail(f"{stem}: the bf16 sweep has no tensor-core instructions")
         if any("sweep_kernelI13__nv_bfloat16" in f for f in sweeps):
             fail(f"{stem}: a bf16 instantiation of the FMA sweep was compiled")
+        if stem in FWD_SOURCES:
+            check_float32_forward(lib, stem, sweeps)
         hmma[stem] = sweeps
         if stem == "lstm2_bwd_wgrad":
             hmma["wgrad"] = wgrad_functions(lib)
     return hmma
+
+
+def check_float32_forward(lib, stem: str, sweeps: dict) -> None:
+    """K1's and K2's float32 sweep runs every product on the tensor cores
+    as TF32 products: each float32 instantiation of `sweep_mma_kernel` has
+    HMMA.1688.F32.TF32 instructions, and no FMA forward sweep is compiled."""
+    tf32 = {f: n for f, n in sass_instruction_counts(lib, TF32_HMMA).items()
+            if "sweep_mma_kernelIf" in f}
+    for function, n in tf32.items():
+        print(f"[1] {stem}: {function} has {n} {TF32_HMMA} instructions")
+    if not tf32 or min(tf32.values()) == 0:
+        fail(f"{stem}: the float32 forward sweep has no {TF32_HMMA} instructions")
+    if any(f.startswith("_ZN3fwd12sweep_kernel") for f in sweeps):
+        fail(f"{stem}: an FMA forward sweep was compiled")
 
 
 def wgrad_functions(lib) -> dict:
@@ -367,7 +399,7 @@ def phase_check_fixture() -> dict:
 
 @contextlib.contextmanager
 def fwd_row_tile(rows: int):
-    """Force the bf16 forward sweep's row tile (K1 and K2 read the same rule)."""
+    """Force the forward sweep's row tile (K1 and K2 read the same rule)."""
     from fullsubnet_plus_torch.ops import lstm2
 
     rule = lstm2.fwd_mma_rows_per_cta
@@ -378,11 +410,11 @@ def fwd_row_tile(rows: int):
         lstm2.fwd_mma_rows_per_cta = rule
 
 
-def fwd_tile_at(n: int) -> int:
+def fwd_tile_at(n: int, dtype: torch.dtype) -> int:
     from fullsubnet_plus_torch.ops import lstm2
 
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    return lstm2.fwd_mma_row_tile(n, D, H, sm_count)
+    return lstm2.fwd_mma_row_tile(n, D, H, sm_count, dtype)
 
 
 def phase_check() -> dict:
@@ -398,7 +430,7 @@ def phase_check() -> dict:
             if not torch.isfinite(out).all():
                 fail(f"lstm2_fwd output not finite at N={n} T={t} {dtype}")
             snr, err = snr_db(ref, out), float((out - ref).abs().max())
-            tile = f" (row tile {fwd_tile_at(n)})" if dtype == torch.bfloat16 else ""
+            tile = f" (row tile {fwd_tile_at(n, dtype)})"
             print(f"[2] lstm2_fwd vs plain N={n} T={t} {str(dtype)[6:]}{tile}: "
                   f"max_abs {err:.3e}  SNR {snr:.1f} dB (floor {SNR_FLOOR[dtype]:.0f})")
             if snr < SNR_FLOOR[dtype]:
@@ -450,18 +482,21 @@ def phase_time() -> dict:
         library = cudnn_lstm(lstm, fc, dtype)
         library_ms = cuda_ms(lambda: library(x), reps=5)
         bound_ms, bound_by = lstm_bound_ms(N_FULL, T_FULL, dtype)
+        fma_ms = lstm_bound_ms(N_FULL, T_FULL, dtype, fma=True)[0]
+        fma = f", as FMAs {fma_ms:.3f} ms" if dtype == torch.float32 else ""
         print(f"[3] lstm2_fwd {str(dtype)[6:]} N={N_FULL} T={T_FULL}: kernel {kernel_ms:.3f} ms  "
               f"plain {plain_ms:.3f} ms  cuDNN LSTM+Linear {library_ms:.3f} ms  "
-              f"bound {bound_ms:.3f} ms ({bound_by})")
+              f"bound {bound_ms:.3f} ms ({bound_by}{fma})")
         times[dtype] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by)
-        if dtype == torch.bfloat16:
-            times[dtype].update(row_tile_ms=time_row_tiles(lambda: lstm2.lstm2_fc(x, w)),
-                                row_tile=fwd_tile_at(N_FULL),
-                                pack_ms=cuda_ms(lambda: lstm2.pack_fwd_mma(w), reps=5))
-            print(f"[3] lstm2_fwd bfloat16 N={N_FULL} T={T_FULL} by row tile: "
-                  f"{times[dtype]['row_tile_ms']} ms (the rule takes {times[dtype]['row_tile']}); "
-                  f"weight packing alone {times[dtype]['pack_ms']:.3f} ms")
+        if dtype == torch.float32:
+            times[dtype]["bound_fma_ms"] = fma_ms
+        times[dtype].update(row_tile_ms=time_row_tiles(lambda: lstm2.lstm2_fc(x, w), dtype),
+                            row_tile=fwd_tile_at(N_FULL, dtype),
+                            pack_ms=cuda_ms(lambda: lstm2.pack_fwd_mma(w), reps=5))
+        print(f"[3] lstm2_fwd {str(dtype)[6:]} N={N_FULL} T={T_FULL} by row tile: "
+              f"{times[dtype]['row_tile_ms']} ms (the rule takes {times[dtype]['row_tile']}); "
+              f"weight packing alone {times[dtype]['pack_ms']:.3f} ms")
     # K5 at the serving fold; beside it K1 in bf16 and cuDNN's bf16 LSTM +
     # Linear on the same input and weights (yardsticks: neither computes
     # the int8-recurrent function, which no single PyTorch call does)
@@ -482,12 +517,12 @@ def phase_time() -> dict:
     return times
 
 
-def time_row_tiles(fn) -> dict:
-    """{R: median ms of fn} at each row tile of the bf16 forward sweep."""
+def time_row_tiles(fn, dtype: torch.dtype) -> dict:
+    """{R: median ms of fn} at each row tile of the forward sweep in `dtype`."""
     from fullsubnet_plus_torch.ops import lstm2
 
     out = {}
-    for rows in lstm2.FWD_MMA_ROWS_PER_CTA:
+    for rows in lstm2.FWD_MMA_ROWS_PER_CTA[dtype]:
         with fwd_row_tile(rows):
             out[rows] = round(cuda_ms(fn, reps=3), 3)
     return out
@@ -551,8 +586,7 @@ def phase_check_train() -> dict:
             del want, got, again, y_ref, res_ref, y, res
             forms = worst(function_grads(x, dy, lstm, fc, False),
                           function_grads(x, dy, lstm, fc, True))
-            if dtype == torch.bfloat16:
-                tag += f" (forward row tile {fwd_tile_at(n)})"
+            tag += f" (forward row tile {fwd_tile_at(n, dtype)})"
             print(f"[2] training kernels vs plain {tag} (floor {floor:.0f} dB): "
                   f"lstm2_train_fwd {k2[0]:.1f} dB max_abs {k2[1]:.3e}, y equal to "
                   f"lstm2_fwd's: {same_primal}; lstm2_bwd {k4[0]:.1f} dB max_abs {k4[1]:.3e}; "
@@ -573,10 +607,12 @@ def phase_check_train() -> dict:
     return errors
 
 
-def train_bounds(dtype: torch.dtype) -> dict:
+def train_bounds(dtype: torch.dtype, fma: bool = False) -> dict:
     """Least ms of K2, K3 and K4 at the training fold: operations at the
     peak rate of the type against bytes (each input read once, each output
-    written once; h_{t-1} and c_{t-1} are the arrays of h and c read again)."""
+    written once; h_{t-1} and c_{t-1} are the arrays of h and c read again).
+    K2 in float32 runs each product as three TF32 products (`fma`: as FMAs);
+    the float32 reverse sweeps run FMAs."""
     size = torch.tensor([], dtype=dtype).element_size()
     rows = N_TRAIN * T_TRAIN
     weights = (D + 3 * H) * 4 * H * size + H * O * 4
@@ -586,7 +622,7 @@ def train_bounds(dtype: torch.dtype) -> dict:
     bwd_bytes = rows * (O + 10 * H + 8 * H + D) * size + weights
     wgrad_bytes = rows * (O + D + 12 * H + D) * size + weights + ((D + 3 * H) * 4 * H + 8 * H) * 4
     peak = PEAK_FLOPS[dtype]
-    return {"lstm2_train_fwd": bound(sweep_flops / peak, fwd_bytes),
+    return {"lstm2_train_fwd": bound(forward_ops_s(sweep_flops, dtype, fma), fwd_bytes),
             "lstm2_bwd": bound(sweep_flops / peak, bwd_bytes),
             "lstm2_bwd_wgrad": bound((sweep_flops + wgrad_flops) / peak, wgrad_bytes)}
 
@@ -701,10 +737,9 @@ def phase_time_train() -> dict:
             tile_ms = wgrad_ms_by_tile(k3_call)
             print(f"[3] bfloat16 weight-gradient kernel by tile of dU1, dW2, dU2 (device ms, one "
                   f"call each): {tile_ms} (the rule takes {lt.wgrad_tiles(D, H)[1]})")
-        if dtype == torch.bfloat16:
-            tiles = time_row_tiles(lambda: lt.lstm2_train_fwd(x, w))
-            print(f"[3] lstm2_train_fwd bfloat16 N={N_TRAIN} T={T_TRAIN} by row tile: {tiles} ms "
-                  f"(the rule takes {fwd_tile_at(N_TRAIN)})")
+        tiles = time_row_tiles(lambda: lt.lstm2_train_fwd(x, w), dtype)
+        print(f"[3] lstm2_train_fwd {str(dtype)[6:]} N={N_TRAIN} T={T_TRAIN} by row tile: {tiles} "
+              f"ms (the rule takes {fwd_tile_at(N_TRAIN, dtype)})")
         plain = {
             "lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd_reference(x, w), reps=2),
             "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res), reps=2),
@@ -731,21 +766,26 @@ def phase_time_train() -> dict:
         del y_lib
         library = {"lstm2_train_fwd": fwd_ms, "lstm2_bwd": bwd_ms, "lstm2_bwd_wgrad": bwd_ms}
         bounds = train_bounds(dtype)
+        fma_ms = train_bounds(dtype, fma=True)["lstm2_train_fwd"][0]
         for name in ms:
             bound_ms, bound_by = bounds[name]
             extra = (f" (+ {outside_ms:.3f} ms for the weight-gradient products outside)"
                      if name == "lstm2_bwd" else "")
+            fma = (f", as FMAs {fma_ms:.3f} ms"
+                   if name == "lstm2_train_fwd" and dtype == torch.float32 else "")
             side = "forward" if name == "lstm2_train_fwd" else "backward"
             print(f"[3] {name} {str(dtype)[6:]} N={N_TRAIN} T={T_TRAIN}: kernel {ms[name]:.3f} ms"
                   f"{extra}  plain {plain[name]:.3f} ms  cuDNN LSTM+Linear {side} "
-                  f"{library[name]:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})")
+                  f"{library[name]:.3f} ms  bound {bound_ms:.3f} ms ({bound_by}{fma})")
             times[(name, dtype)] = dict(ms=ms[name], plain_ms=plain[name],
                                         library_ms=library[name], bound_ms=bound_ms,
                                         bound_by=bound_by)
             if name in split:
                 times[(name, dtype)]["sweep_ms"] = split[name]["sweep_ms"]
-            if name == "lstm2_train_fwd" and dtype == torch.bfloat16:
-                times[(name, dtype)].update(row_tile_ms=tiles, row_tile=fwd_tile_at(N_TRAIN))
+            if name == "lstm2_train_fwd":
+                times[(name, dtype)].update(row_tile_ms=tiles, row_tile=fwd_tile_at(N_TRAIN, dtype))
+                if dtype == torch.float32:
+                    times[(name, dtype)]["bound_fma_ms"] = fma_ms
         times[("lstm2_bwd_wgrad", dtype)].update(
             wgrad_kernel_ms=k3["wgrad_kernel_ms"], wgrad_bound_ms=wgrad_bound_ms,
             wgrad_bound_by=wgrad_bound_by)

@@ -40,10 +40,13 @@ template <> struct Bits<__nv_bfloat16> {
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-// The tensor-core sweeps' operand loads and products (mma.sync m16n8k16).
+// The tensor-core sweeps' operand loads and products (mma.sync m16n8k16 for
+// bf16, m16n8k8 for float32).
 
 // Lane l gives the address of row l % 16, column 8 * (l / 16) of a 16 x 16
-// bf16 tile; a[0..3] come back as mma.sync's A fragment of that tile.
+// bf16 tile; a[0..3] come back as mma.sync's A fragment of that tile. For a
+// 16 x 8 float32 tile the same byte addresses (row l % 16, column 4 (l / 16))
+// give m16n8k8's TF32 A fragment: each 8 x 8 b16 matrix is 8 x 4 float32.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
@@ -68,6 +71,48 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Float32 products on the tensor cores as three TF32 products of split
+// operands (mma.sync m16n8k8). TF32 keeps 10 of float32's 23 mantissa bits,
+// so one TF32 product loses the float32 agreement floors; a = big + small with
+// big = a rounded to TF32 and small the remainder carries 21 bits, and
+// small.big + big.small + big.big, each exact in float32, drops only
+// small.small (about 2^-22 relative).
+//
+// a = big + small: big is a rounded to TF32, to nearest with ties away from
+// zero (cvt.rna.tf32.f32's bits for every finite a: half of the 13 dropped
+// bits added to the magnitude, then cleared); small = a - big is exact in
+// float32, and the tensor core takes it at TF32 precision (its low 13 bits
+// do not count), within 2^-21 |a| of a - big. Two integer operations and a
+// FADD: cvt.rna.tf32.f32 compiles to a longer guarded sequence on sm_90, and
+// with it the float32 sweep took 126 ms instead of 92 at the batch fold on
+// an H100 (PERF.md).
+__device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& big, uint32_t& small) {
+  big = (a + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(__uint_as_float(a) - __uint_as_float(big));
+}
+
+// d += A (16 x 8, row) B (8 x 8, col): TF32 operands, float32 sums. Lane (g,
+// t) = (lane / 4, lane % 4) holds a = {A[g][t], A[g + 8][t], A[g][t + 4],
+// A[g + 8][t + 4]}, b0 = B[t][g], b1 = B[t + 4][g]; d as in mma_bf16.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B over one k-step of 8 from split operands: the small terms first,
+// then big.big, all into the float32 accumulators
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], uint32_t b0_big,
+                                           uint32_t b1_big, uint32_t b0_small,
+                                           uint32_t b1_small) {
+  mma_tf32(d, a_small, b0_big, b1_big);
+  mma_tf32(d, a_big, b0_small, b1_small);
+  mma_tf32(d, a_big, b0_big, b1_big);
 }
 
 }  // namespace lstm2

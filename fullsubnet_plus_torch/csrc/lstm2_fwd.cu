@@ -8,45 +8,35 @@
 // (the TPU kernel's h.astype(mm)); products accumulate in float32.
 //
 // What bounds it. The shipped sub-band fold at batch 8 x 10 s is N = 2056
-// rows, D = 34, H = 384, O = 2, T = 628: 2*N*T*(D + 3H)*4H + 2*N*T*H*O
+// rows, D = 34, H = 384, O = 2, T = 629: 2*N*T*(D + 3H)*4H + 2*N*T*H*O
 // = 4.7 TFLOP against about 0.19 GB of inputs, weights and outputs, so the
-// work is bound by operations, and by latency: the T steps are sequential
-// and each step's products depend on the last step's h.
+// work is bound by operations (float32: 28.6 ms as three TF32 products at the
+// tensor cores' 494.7 TFLOP/s, 70.4 ms as FMAs at 67; bf16: 4.8 ms), and by
+// latency: the T steps are sequential and each step's products depend on the
+// last step's h. In practice each SM's pull of the weights from L2 every step
+// (7.5 MB float32, 3.7 MB bf16) sets a step's time.
 //
-// Design: the sweeps of lstm2_fwd_sweep.cuh, which the training forward
-// (lstm2_train_fwd.cu) shares, storing y only. One CTA per row tile runs all
-// T steps. float32 (`sweep_kernel`): R = 16 rows, one thread per hidden
-// unit, float32 FMA products from L2-resident weights. bfloat16
-// (`sweep_mma_kernel`): every product on mma.sync bf16 -> f32 from weights
-// packed into fragment order once per call, R = 16 or 32 rows (one or two m16
-// tiles sharing each weight fragment loaded from L2), chosen by the wrapper.
+// Design: the tensor-core sweep of lstm2_fwd_sweep.cuh, which the training
+// forward (lstm2_train_fwd.cu) shares, storing y only. One CTA per row tile
+// runs all T steps; every product on mma.sync from weights packed into
+// fragment order once per call: bf16 m16n8k16, R = 16 or 32 rows (one or two
+// m16 tiles sharing each weight fragment loaded from L2); float32 m16n8k8 as
+// three TF32 products of split operands, R = 16. The wrapper chooses R.
 //
 // Launch: grid ceil(N / R), block H threads, dynamic shared memory as in
-// shared_memory_bytes() of ops/lstm2.py. The C entry point launches on the
-// caller's stream, allocates nothing and returns cudaGetLastError().
+// fwd_mma_shared_memory_bytes() of ops/lstm2.py. The C entry point launches
+// on the caller's stream, allocates nothing and returns cudaGetLastError().
 
 #include "lstm2_fwd_sweep.cuh"
 
-// dtype: 0 = float32 (x, W1, U1, [W2; U2] and out; rows 16), 1 = bfloat16
-// (x and out; the weights as the packed fragments w1p, w2p, fcp and the
-// gate-interleaved biases b1p, b2p; rows 16 or 32). The other dtype's weight
-// arguments are not read.
-extern "C" int lstm2_fwd(const void* x, const void* w1, const void* u1, const void* b1,
-                         const void* w2, const void* b2, const void* fcw, const void* fcb,
-                         const void* w1p, const void* w2p, const void* fcp, const void* b1p,
-                         const void* b2p, void* out, int n_rows, int steps, int D, int H, int O,
-                         int rows, int dtype, void* stream) {
+// dtype: 0 = float32 (rows 16), 1 = bfloat16 (rows 16 or 32): the type of x
+// and out. The weights come as the packed fragments w1p, w2p, fcp and the
+// gate-interleaved biases b1p, b2p (ops/lstm2.py::pack_fwd_mma), fcb as b_fc.
+extern "C" int lstm2_fwd(const void* x, const void* w1p, const void* w2p, const void* fcp,
+                         const void* b1p, const void* b2p, const void* fcb, void* out,
+                         int n_rows, int steps, int D, int H, int O, int rows, int dtype,
+                         void* stream) {
   if (!fwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && rows == 16)
-    return fwd::launch<float, 16, false>(x, w1, u1, b1, w2, b2, fcw, fcb, out,
-                                         fwd::Residuals<float>{}, n_rows, steps, D, H, O, s);
-  if (dtype == 1) {
-    const fwd::MmaWeights wt{static_cast<const uint4*>(w1p), static_cast<const uint4*>(w2p),
-                             static_cast<const uint4*>(fcp), static_cast<const float*>(b1p),
-                             static_cast<const float*>(b2p)};
-    return fwd::launch_mma<false>(x, wt, fcb, out, fwd::Residuals<__nv_bfloat16>{}, n_rows,
-                                  steps, D, H, O, rows, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return fwd::launch_dtype<false>(dtype, x, w1p, w2p, fcp, b1p, b2p, fcb, out, nullptr, n_rows,
+                                  steps, D, H, O, rows, static_cast<cudaStream_t>(stream));
 }

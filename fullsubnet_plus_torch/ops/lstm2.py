@@ -11,10 +11,13 @@ Per step t, for every row n of the [N, D, T] fold:
 
 h and c are carried in float32; h is rounded to the weight dtype before
 every product (the TPU kernel's `h.astype(mm)`), products accumulate in
-float32, and y is stored in x's dtype. In bfloat16 every product runs on the
-tensor cores (mma.sync), reading the weights packed into fragment order with
-the gate columns interleaved (`pack_fwd_mma`, once per call), and the fc
-reads W_fc rounded to bfloat16, as the TPU kernel's `fcw.astype(mm)`.
+float32, and y is stored in x's dtype. Every product runs on the tensor
+cores (mma.sync), reading the weights packed into fragment order with the
+gate columns interleaved (`pack_fwd_mma`, once per call). In bfloat16 the
+fc reads W_fc rounded to bfloat16, as the TPU kernel's `fcw.astype(mm)`. In
+float32 the kernel computes each product as three TF32 products of split
+operands (a = big + small, both TF32: small.big + big.small + big.big, float32
+sums), which holds the float32 agreement floors; a single TF32 product does not.
 
 `lstm2_fc` takes the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor, or raises; it never falls back. The kernel is
@@ -33,14 +36,16 @@ from fullsubnet_plus_torch.ops import nvcc
 
 LAUNCHES = 0  # kernel launches through lstm2_fc since import (or last reset)
 
-ROWS_PER_CTA = 16  # R of the float32 sweep in csrc/lstm2_fwd.cu
-FWD_MMA_ROWS_PER_CTA = (16, 32)  # the bf16 sweep's row tiles: one or two m16 tiles
-FWD_MMA_PAD = 8  # bf16 pad of an operand row (MMA_PAD in csrc/lstm2_fwd_sweep.cuh)
+# The sweep's row tiles by dtype: one or two m16 tiles in bf16; one in float32,
+# where two operand buffers of 32 rows do not fit a block (PERF.md: one buffer
+# with h held in registers measured slower than R 16 on the H100)
+FWD_MMA_ROWS_PER_CTA = {torch.bfloat16: (16, 32), torch.float32: (16,)}
+FWD_MMA_PAD_BYTES = 16  # pad of an operand row (operand_pitch in csrc/lstm2_fwd_sweep.cuh)
 MAX_HIDDEN = 512  # the kernel's __launch_bounds__: one thread per hidden unit
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 class LSTM2Weights(NamedTuple):
@@ -102,9 +107,34 @@ def unpack_mma_b(packed: torch.Tensor, n: int) -> torch.Tensor:
             .reshape(8 * tiles, 32 * kpairs)[:n])
 
 
+def pack_tf32_b(w: torch.Tensor) -> torch.Tensor:
+    """A float32 weight [n, K] whose row c holds the K products' weights of
+    output column c (the "col" B operand of mma.sync m16n8k8) -> its
+    fragments [ceil(n / 8), K / 16, 32, 4] in the order the lanes read them:
+    n-tile nt, k-chunk kc (k-steps 2kc and 2kc + 1 of 8), lane 4g + t holds,
+    for each k-step ks, b0 = w[8nt + g, 16kc + 8ks + t] and b1 = w[8nt + g,
+    16kc + 8ks + 4 + t]. So a warp reads 512 contiguous bytes a k-chunk, 16
+    a lane. Rows past n are zero."""
+    n, k = w.shape
+    if k % 16:
+        raise ValueError(f"pack_tf32_b: K = {k} is not a multiple of 16")
+    tiles = -(-n // 8)
+    w = torch.nn.functional.pad(w, (0, 0, 0, 8 * tiles - n))
+    # (nt, g, kc, ks, half, t) -> (nt, kc, g, t, ks, half)
+    return (w.reshape(tiles, 8, k // 16, 2, 2, 4).permute(0, 2, 1, 5, 3, 4)
+            .reshape(tiles, k // 16, 32, 4).contiguous())
+
+
+def unpack_tf32_b(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of `pack_tf32_b`: [n, K]."""
+    tiles, chunks = packed.shape[:2]
+    return (packed.reshape(tiles, chunks, 8, 4, 2, 2).permute(0, 2, 1, 4, 5, 3)
+            .reshape(8 * tiles, 16 * chunks)[:n])
+
+
 def interleave_gates(w: torch.Tensor) -> torch.Tensor:
     """[..., 4H] in gate order i, f, g, o (column gate * H + unit) -> the
-    bf16 sweep's order: column 32u + 8 gate + j holds unit 8u + j, so
+    sweep's order: column 32u + 8 gate + j holds unit 8u + j, so
     n-tiles 4u .. 4u + 3 hold the four gates of units 8u .. 8u + 7."""
     hidden = w.shape[-1] // 4
     return (w.reshape(*w.shape[:-1], 4, hidden // 8, 8).transpose(-3, -2)
@@ -119,15 +149,17 @@ def deinterleave_gates(w: torch.Tensor) -> torch.Tensor:
 
 
 def x_cols(d_in: int) -> int:
-    """x's columns in the bf16 sweep's operand rows: D padded to k-pairs of 32."""
+    """x's columns in the sweep's operand rows: D padded to a multiple of 32
+    (whole k-chunks of 32 bf16 or 16 float32)."""
     return -(-d_in // 32) * 32
 
 
 class FwdMmaWeights(NamedTuple):
-    """The bf16 forward sweep's operands (`pack_fwd_mma`): w1 = [W1 padded
-    with zero rows to x_cols(D); U1], w2 = [W2; U2] and fc = W_fc^T (O padded
-    to n-tiles of 8) as `pack_mma_b` fragments of their transposes, bf16,
-    the gate columns interleaved; b1, b2 [4H] float32, interleaved alike."""
+    """The forward sweep's operands (`pack_fwd_mma`): w1 = [W1 padded with
+    zero rows to x_cols(D); U1], w2 = [W2; U2] and fc = W_fc^T (O padded to
+    n-tiles of 8) as fragments of their transposes in the weight dtype
+    (`pack_mma_b` for bf16, `pack_tf32_b` for float32), the gate columns
+    interleaved; b1, b2 [4H] float32, interleaved alike."""
 
     w1: torch.Tensor
     w2: torch.Tensor
@@ -137,17 +169,18 @@ class FwdMmaWeights(NamedTuple):
 
 
 def pack_fwd_mma(w: LSTM2Weights) -> FwdMmaWeights:
-    """The bf16 sweep's operands from the fused forward's (3.7 MB at H 384;
-    a few device copies, once per call). fc_w is rounded to bf16, as the TPU
-    kernel's `fcw.astype(mm)` (exact for a bf16 module's weights)."""
-    d_in = w.w1.shape[0]
+    """The sweep's operands from the fused forward's, in the weights' dtype
+    (at H 384: 3.7 MB bf16, 7.5 MB float32; a few device copies, once per
+    call). In bf16 fc_w is rounded to bf16, as the TPU kernel's
+    `fcw.astype(mm)` (exact for a bf16 module's weights)."""
+    d_in, dtype = w.w1.shape[0], w.w1.dtype
+    pack = pack_tf32_b if dtype == torch.float32 else pack_mma_b
     w1 = torch.cat([torch.nn.functional.pad(w.w1, (0, 0, 0, x_cols(d_in) - d_in)), w.u1])
 
     def fragments(m):  # [K, 4H] -> the fragments of its interleaved transpose
-        return pack_mma_b(interleave_gates(m).t().to(torch.bfloat16))
+        return pack(interleave_gates(m).t().to(dtype))
 
-    return FwdMmaWeights(fragments(w1), fragments(w.w2),
-                         pack_mma_b(w.fc_w.t().to(torch.bfloat16)),
+    return FwdMmaWeights(fragments(w1), fragments(w.w2), pack(w.fc_w.t().to(dtype)),
                          interleave_gates(w.b1).contiguous(), interleave_gates(w.b2).contiguous())
 
 
@@ -191,44 +224,41 @@ def lstm2_fc(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
     return _launch(x, w)
 
 
-def shared_memory_bytes(d_in: int, hidden: int, out_dim: int) -> int:
-    """Dynamic shared memory of one block of the float32 sweep (the layout
-    in lstm2_fwd_sweep.cuh): x tile [D][R], h1 and h2 [H][R], c1 and c2
-    [R][H], fc partials [H/32][R][O], all float32."""
-    floats = ROWS_PER_CTA * (d_in + 4 * hidden + (hidden // 32) * out_dim)
-    return 4 * floats
+def fwd_mma_shared_memory_bytes(rows: int, d_in: int, hidden: int,
+                                dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one block of the sweep (shared_bytes_mma in
+    lstm2_fwd_sweep.cuh): two operand buffers [R][x | h1 | h2 | pad] in the
+    weight dtype, the pad 16 bytes, and c1, c2 [R * H] float32. Nothing grows
+    with O."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    pitch = x_cols(d_in) + 2 * hidden + FWD_MMA_PAD_BYTES // size
+    return 2 * size * rows * pitch + 2 * 4 * rows * hidden
 
 
-def fwd_mma_shared_memory_bytes(rows: int, d_in: int, hidden: int) -> int:
-    """Dynamic shared memory of one block of the bf16 sweep
-    (shared_bytes_mma in lstm2_fwd_sweep.cuh): two operand buffers [R][x |
-    h1 | h2 | pad] bf16 and c1, c2 [R * H] float32. Nothing grows with O."""
-    pitch = x_cols(d_in) + 2 * hidden + FWD_MMA_PAD
-    return 2 * 2 * rows * pitch + 2 * 4 * rows * hidden
-
-
-def fwd_mma_rows_per_cta(n: int, sm_count: int) -> int:
-    """The bf16 sweep's row tile R: the one that sweeps the fold in the
-    fewest waves of one CTA per SM, and of two that tie the smaller. Each
-    SM pulls every weight fragment from L2 once a step whatever R is, and
-    that sets a step's time; R 32 shares each fragment between two m-tiles
-    but takes a little longer a step (on the H100, K2 at N 2304, T 195: one
-    wave of R 32 17.3-17.7 ms, two waves of R 16 22.0-23.1; at N 771, one
-    wave either way, R 16 9.8-10.3 against 13.0-13.5; PERF.md,
-    scripts/time_torch_fwd_tiles.py)."""
+def fwd_mma_rows_per_cta(n: int, sm_count: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The sweep's row tile R for x's dtype: the one that sweeps the fold in
+    the fewest waves of one CTA per SM, and of two that tie the smaller.
+    Each SM pulls every weight fragment from L2 once a step whatever R is,
+    and that sets a step's time; R 32 shares each fragment between two
+    m-tiles but takes a little longer a step (on the H100, bf16 K2 at N
+    2304, T 195: one wave of R 32 17.3-17.7 ms, two waves of R 16 22.0-23.1;
+    at N 771, one wave either way, R 16 9.8-10.3 against 13.0-13.5; PERF.md,
+    scripts/time_torch_fwd_tiles.py). float32 has R 16 alone."""
     def waves(rows):
         return -(-(-(-n // rows)) // sm_count)
 
-    return min(FWD_MMA_ROWS_PER_CTA, key=lambda rows: (waves(rows), rows))
+    return min(FWD_MMA_ROWS_PER_CTA[dtype], key=lambda rows: (waves(rows), rows))
 
 
-def fwd_mma_row_tile(n: int, d_in: int, hidden: int, sm_count: int) -> int:
+def fwd_mma_row_tile(n: int, d_in: int, hidden: int, sm_count: int,
+                     dtype: torch.dtype = torch.bfloat16) -> int:
     """`fwd_mma_rows_per_cta`, or 16 where that tile needs more shared memory
-    than a block has; raises where 16 does too."""
-    rows = fwd_mma_rows_per_cta(n, sm_count)
-    if fwd_mma_shared_memory_bytes(rows, d_in, hidden) > SMEM_LIMIT:
-        rows = FWD_MMA_ROWS_PER_CTA[0]
-    if fwd_mma_shared_memory_bytes(rows, d_in, hidden) > SMEM_LIMIT:
+    than a block has; raises where 16 does too. K1 and K2 both take it, so
+    their y is equal bit for bit."""
+    rows = fwd_mma_rows_per_cta(n, sm_count, dtype)
+    if fwd_mma_shared_memory_bytes(rows, d_in, hidden, dtype) > SMEM_LIMIT:
+        rows = FWD_MMA_ROWS_PER_CTA[dtype][0]
+    if fwd_mma_shared_memory_bytes(rows, d_in, hidden, dtype) > SMEM_LIMIT:
         raise ValueError("D and H need more shared memory than a block has")
     return rows
 
@@ -254,8 +284,6 @@ def _check(x: torch.Tensor, w: LSTM2Weights) -> None:
             raise ValueError(f"lstm2_fc: {name} must be contiguous on {x.device}")
     if hidden % 32 or hidden > MAX_HIDDEN:
         raise ValueError(f"lstm2_fc: hidden {hidden} must be a multiple of 32, <= {MAX_HIDDEN}")
-    if x.dtype == torch.float32 and shared_memory_bytes(d, hidden, out_dim) > SMEM_LIMIT:
-        raise ValueError("lstm2_fc: D, H and O need more shared memory than a block has")
     if n == 0:
         raise ValueError("lstm2_fc: empty fold")
 
@@ -265,20 +293,17 @@ def _launch(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
     _check(x, w)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
-    if x.dtype == torch.bfloat16:
-        sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-        rows = fwd_mma_row_tile(n, d, hidden, sm_count)
-        packed = pack_fwd_mma(w)
-    else:
-        rows, packed = ROWS_PER_CTA, (None,) * len(FwdMmaWeights._fields)
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows = fwd_mma_row_tile(n, d, hidden, sm_count, x.dtype)
+    packed = pack_fwd_mma(w)
     x_tnd = x.permute(2, 0, 1).contiguous()  # [T, N, D]: a step's rows are contiguous
     out = torch.empty(n, steps, out_dim, dtype=x.dtype, device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x_tnd, w.w1, w.u1, w.b1, w.w2, w.b2, w.fc_w, w.fc_b, *packed, out)
+    args = (x_tnd, *packed, w.fc_b, out)
     with torch.cuda.device(x.device):
         err = lib.lstm2_fwd(
-            *(a.data_ptr() if a is not None else None for a in args),
+            *(a.data_ptr() for a in args),
             n, steps, d, hidden, out_dim, rows, _DTYPE_CODES[x.dtype], stream,
         )
     if err != 0:

@@ -7,8 +7,9 @@ Replaces the jax.custom_vjp `_stacked_lstm2_train`
 kernels:
 
   * `_residual_kernel` (:322, pallas_call at :638) -> csrc/lstm2_train_fwd.cu:
-    the forward sweep of ops/lstm2.py (in bfloat16 on the tensor cores, from
-    the weights `pack_fwd_mma` packs) that also stores the activated gates
+    the forward sweep of ops/lstm2.py (on the tensor cores, from the weights
+    `pack_fwd_mma` packs; in float32 as three TF32 products) that also
+    stores the activated gates
     [sigma(i), sigma(f), tanh(g), sigma(o)] and c, h of both layers, in x's
     dtype, as [T, N, 4H] and [T, N, H];
   * `_make_bwd_kernel` (:415, pallas_call at :828) -> csrc/lstm2_bwd.cu: the
@@ -46,7 +47,6 @@ from fullsubnet_plus_torch.ops import nvcc
 from fullsubnet_plus_torch.ops.lstm2 import (
     MAX_HIDDEN,
     SMEM_LIMIT,
-    FwdMmaWeights,
     LSTM2Weights,
     fwd_mma_row_tile,
     fwd_mma_shared_memory_bytes,
@@ -68,7 +68,7 @@ FUSED_WGRAD_BY_DTYPE = {torch.float32: False, torch.bfloat16: True}
 # wrapper calls that launched their kernel, since import (or last reset)
 LAUNCHES = {"lstm2_train_fwd": 0, "lstm2_bwd": 0, "lstm2_bwd_wgrad": 0}
 
-ROWS_PER_CTA = (16, 20)  # the row tiles the kernels are instantiated for
+ROWS_PER_CTA = (16, 20)  # the float32 reverse sweep's row tiles
 MMA_ROWS_PER_CTA = 16  # the bf16 reverse sweep's row tile: one m16 tile (MMA_ROWS in the .cuh)
 MMA_PAD = 8  # bf16 pad of a dgates row in the bf16 sweep's shared memory (lstm2_bwd_sweep.cuh)
 DX_PARTS_MAX = 12  # k-slices of the dx product (DX_PARTS_MAX in lstm2_bwd_sweep.cuh)
@@ -81,7 +81,7 @@ WGRAD_W1_TILE = (48, 64)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_PTR] * 20 + [_INT] * 7 + [_PTR]
+_FWD_ARGTYPES = [_PTR] * 14 + [_INT] * 7 + [_PTR]
 _BWD_ARGTYPES = [_PTR] * 15 + [_INT] * 7 + [_PTR]
 _WGRAD_ARGTYPES = [_PTR] * 26 + [_INT] * 8 + [_PTR]
 
@@ -351,11 +351,9 @@ def dx_parts(d_in: int, hidden: int) -> int:
 
 def fwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
                             dtype: torch.dtype = torch.float32) -> int:
-    """csrc/lstm2_train_fwd.cu. float32: x tile, h1, h2, c1, c2, fc partials
-    (float32); bfloat16: the tensor-core sweep's (`fwd_mma_shared_memory_bytes`)."""
-    if dtype == torch.bfloat16:
-        return fwd_mma_shared_memory_bytes(rows, d_in, hidden)
-    return 4 * rows * (d_in + 4 * hidden + (hidden // 32) * out_dim)
+    """csrc/lstm2_train_fwd.cu: K1's tensor-core sweep's
+    (`fwd_mma_shared_memory_bytes`), which does not grow with O."""
+    return fwd_mma_shared_memory_bytes(rows, d_in, hidden, dtype)
 
 
 def bwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
@@ -434,14 +432,11 @@ def _call(name: str, argtypes: list, x: torch.Tensor, *args) -> None:
 def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
-    if x.dtype == torch.bfloat16:  # K1's row tile at this N (`fwd_mma_row_tile`)
-        rows = _check("lstm2_train_fwd", x, w,
-                      functools.partial(fwd_shared_memory_bytes, dtype=x.dtype),
-                      lambda n_rows, sm_count: fwd_mma_row_tile(n_rows, d, hidden, sm_count))
-        packed = pack_fwd_mma(w)
-    else:
-        rows = _check("lstm2_train_fwd", x, w, fwd_shared_memory_bytes)
-        packed = (None,) * len(FwdMmaWeights._fields)
+    # K1's row tile at this N (`fwd_mma_row_tile`), so y is K1's bit for bit
+    rows = _check("lstm2_train_fwd", x, w,
+                  functools.partial(fwd_shared_memory_bytes, dtype=x.dtype),
+                  lambda n_rows, sm_count: fwd_mma_row_tile(n_rows, d, hidden, sm_count, x.dtype))
+    packed = pack_fwd_mma(w)
     x_tnd = x.permute(2, 0, 1).contiguous()  # [T, N, D]: a step's rows are contiguous
 
     def empty(*shape):
@@ -450,8 +445,8 @@ def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
     out = empty(n, steps, out_dim)
     res = Residuals(*(empty(steps, n, 4 * hidden if f[0] == "g" else hidden)
                       for f in Residuals._fields))
-    _call("lstm2_train_fwd", _FWD_ARGTYPES, x, x_tnd, w.w1, w.u1, w.b1, w.w2, w.b2, w.fc_w,
-          w.fc_b, *packed, out, *res, n, steps, d, hidden, out_dim, rows, _DTYPE_CODES[x.dtype])
+    _call("lstm2_train_fwd", _FWD_ARGTYPES, x, x_tnd, *packed, w.fc_b, out, *res, n, steps, d,
+          hidden, out_dim, rows, _DTYPE_CODES[x.dtype])
     return out, res
 
 

@@ -1,16 +1,17 @@
-"""Build-and-check of the port's bf16 forward sweep (K1 csrc/lstm2_fwd.cu and
-K2 csrc/lstm2_train_fwd.cu, `sweep_mma_kernel` in csrc/lstm2_fwd_sweep.cuh)
-and its time at both row tiles.
+"""Build-and-check of the port's forward sweep (K1 csrc/lstm2_fwd.cu and K2
+csrc/lstm2_train_fwd.cu, `sweep_mma_kernel` in csrc/lstm2_fwd_sweep.cuh) in
+float32 (three TF32 products a product) and bf16, and its time at each row
+tile.
 
     python3 scripts/time_torch_fwd_tiles.py        (from the repo's root)
 
 Needs an NVIDIA GPU. Builds the five kernels in parallel and prints the
-forward sweeps' registers and spills (ptxas); holds K1 and K2 in bf16 at R 16
-and R 32 against their plain versions at three ragged folds (H 384, 64 with
-O 11, 512), checks that both tiles give the same bits and that K2's y is
-K1's; then times K1 in float32 and bf16 at the batch fold (N 2056, T 629),
-the weight packing, and K2 and K1 in bf16 at N 2304 and 771, T 195, at each
-tile (one warm-up, median of 3, CUDA events). Imports nothing of JAX.
+forward sweeps' registers and spills (ptxas); in each dtype holds K1 and K2
+at every row tile against their plain versions at three ragged folds (H 384,
+64 with O 11, 512), checks that the tiles give the same bits and that K2's y
+is K1's; then times K1 at the batch fold (N 2056, T 629), the weight
+packing, and K2 and K1 at N 2304 and 771, T 195, at each tile (one warm-up,
+median of 3, CUDA events). Imports nothing of JAX.
 """
 
 import os
@@ -30,6 +31,7 @@ from fullsubnet_plus_torch.ops import lstm2, nvcc  # noqa: E402
 from fullsubnet_plus_torch.ops import lstm2_train as lt  # noqa: E402
 
 SOURCES = ("lstm2_fwd", "lstm2_train_fwd", "lstm2_bwd", "lstm2_bwd_wgrad", "lstm2_int8_fwd")
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def snr(ref, out):
@@ -76,53 +78,50 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  ", lib.stem[:16], line.strip()[:150])
     rule = lstm2.fwd_mma_rows_per_cta
-    for n, t, h, o in ((771, 37, 384, 2), (50, 9, 64, 11), (37, 5, 512, 3)):
-        lstm, fc, g = modules(torch.bfloat16, h, o)
-        x = torch.rand(n, 34, t, generator=g).mul(2).to("cuda", torch.bfloat16)
-        w = lstm.packed(fc)
-        ref = lstm2.lstm2_fc_reference(x, w).float()
-        ys = []
-        for rows in lstm2.FWD_MMA_ROWS_PER_CTA:
-            force(rows)
-            y = lstm2.lstm2_fc(x, w)
-            torch.cuda.synchronize()
-            ys.append(y)
-            print(f"K1 bf16 N{n} T{t} H{h} O{o} R{rows}: SNR {snr(ref, y.float()):.1f} "
-                  f"finite {bool(torch.isfinite(y.float()).all())}")
-        print("  R16==R32:", torch.equal(ys[0], ys[1]))
-        if h <= 384:
-            for rows in lstm2.FWD_MMA_ROWS_PER_CTA:
+    for dtype in DTYPES:
+        floor = 80.0 if dtype == torch.float32 else 40.0
+        for n, t, h, o in ((771, 37, 384, 2), (50, 9, 64, 11), (37, 5, 512, 3)):
+            lstm, fc, g = modules(dtype, h, o)
+            x = torch.rand(n, 34, t, generator=g).mul(2).to("cuda", dtype)
+            w = lstm.packed(fc)
+            ref = lstm2.lstm2_fc_reference(x, w).float()
+            ys = []
+            for rows in lstm2.FWD_MMA_ROWS_PER_CTA[dtype]:
                 force(rows)
+                y = lstm2.lstm2_fc(x, w)
+                torch.cuda.synchronize()
+                ys.append(y)
                 y2, res = lt.lstm2_train_fwd(x, w)
                 yr, rr = lt.lstm2_train_fwd_reference(x, w)
                 torch.cuda.synchronize()
                 worst = min(snr(a.float(), b.float()) for a, b in zip((yr, *rr), (y2, *res)))
-                print(f"K2 bf16 R{rows}: y==K1 {torch.equal(y2, ys[0])}, min SNR {worst:.1f}")
+                print(f"{str(dtype)[6:]} N{n} T{t} H{h} O{o} R{rows}: K1 SNR "
+                      f"{snr(ref, y.float()):.1f} finite {bool(torch.isfinite(y.float()).all())}; "
+                      f"K2 y==K1 {torch.equal(y2, y)}, min SNR {worst:.1f} (floor {floor:.0f})")
+            print("  tiles agree:", all(torch.equal(ys[0], y) for y in ys[1:]))
     lstm2.fwd_mma_rows_per_cta = rule
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         lstm, fc, g = modules(dtype)
         x = torch.rand(2056, 34, 629, generator=g).mul(2).to("cuda", dtype)
         w = lstm.packed(fc)
-        if dtype == torch.float32:
-            print(f"K1 f32 N2056 T629: {ms(lambda: lstm2.lstm2_fc(x, w)):.3f} ms")
-            continue
-        for rows in lstm2.FWD_MMA_ROWS_PER_CTA:
+        for rows in lstm2.FWD_MMA_ROWS_PER_CTA[dtype]:
             force(rows)
-            print(f"K1 bf16 N2056 T629 R{rows}: {ms(lambda: lstm2.lstm2_fc(x, w)):.3f} ms")
+            print(f"K1 {str(dtype)[6:]} N2056 T629 R{rows}: "
+                  f"{ms(lambda: lstm2.lstm2_fc(x, w)):.3f} ms")
         t0 = time.perf_counter()
         for _ in range(10):
             lstm2.pack_fwd_mma(w)
         torch.cuda.synchronize()
-        print(f"pack_fwd_mma: {(time.perf_counter() - t0) / 10 * 1e3:.3f} ms host+device")
+        print(f"pack_fwd_mma {str(dtype)[6:]}: {(time.perf_counter() - t0) / 10 * 1e3:.3f} ms "
+              f"host+device")
         del x
-    lstm, fc, g = modules(torch.bfloat16)
-    w = lstm.packed(fc)
-    for n in (2304, 771):
-        x = torch.rand(n, 34, 195, generator=g).mul(2).to("cuda", torch.bfloat16)
-        for rows in lstm2.FWD_MMA_ROWS_PER_CTA:
-            force(rows)
-            print(f"K2 bf16 N{n} T195 R{rows}: {ms(lambda: lt.lstm2_train_fwd(x, w)):.3f} ms; "
-                  f"K1 {ms(lambda: lstm2.lstm2_fc(x, w)):.3f} ms")
+        for n in (2304, 771):
+            x = torch.rand(n, 34, 195, generator=g).mul(2).to("cuda", dtype)
+            for rows in lstm2.FWD_MMA_ROWS_PER_CTA[dtype]:
+                force(rows)
+                print(f"K2 {str(dtype)[6:]} N{n} T195 R{rows}: "
+                      f"{ms(lambda: lt.lstm2_train_fwd(x, w)):.3f} ms; "
+                      f"K1 {ms(lambda: lstm2.lstm2_fc(x, w)):.3f} ms")
     lstm2.fwd_mma_rows_per_cta = rule
 
 

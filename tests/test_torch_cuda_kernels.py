@@ -10,8 +10,8 @@ committed in tests/fixtures/torch_kernel_fixture.npz, whose generator also
 rebuilds the inputs and weights from numpy seeds. Floors: float32 80 dB,
 bf16 and int8 40 dB (float32 differs by sum order and expf / tanhf only; in
 bf16 single roundings of h, the residuals and the dgates flip and carry
-through the recurrence). K2's y equals K1's bit for bit, the bf16 forward
-sweep gives the same bits at both row tiles, and K3 equals itself on a
+through the recurrence). K2's y equals K1's bit for bit, the forward sweep
+gives the same bits at both bf16 row tiles, and K3 equals itself on a
 repeat, also in bf16 over several chunks at every tile shape of its
 tensor-core weight gradients. chip_smoke.py repeats these checks at the model's folds.
 """
@@ -89,12 +89,34 @@ def test_bf16_forward_row_tiles_agree_on_cuda(monkeypatch, n, t, h, o):
         "cuda", torch.bfloat16)
     w = lstm.packed(linear)
     outs = []
-    for rows in ops_lstm2.FWD_MMA_ROWS_PER_CTA:
+    for rows in ops_lstm2.FWD_MMA_ROWS_PER_CTA[torch.bfloat16]:
         monkeypatch.setattr(ops_lstm2, "fwd_mma_rows_per_cta", lambda *_, r=rows: r)
         outs.append(ops_lstm2.lstm2_fc(x, w))
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], other) for other in outs[1:])
     assert _snr(ops_lstm2.lstm2_fc_reference(x, w).float(), outs[0].float()) > 40.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,h,o", [(3 * 257, 37, 384, 2), (50, 9, 64, 11), (37, 5, 512, 3)])
+def test_float32_forward_on_tensor_cores_on_cuda(monkeypatch, n, t, h, o):
+    """The float32 forward sweep, every product as three TF32 products on
+    mma.sync, against the plain float32 version at 80 dB at ragged folds (H
+    384; H 64 with O 11, two n-tiles of the fc; H 512, the 512-thread
+    build), and K2's y equal to K1's bit for bit at its tile."""
+    _need_card()
+    lstm, linear = _modules(34, h, o, torch.float32, seed=4)
+    x = torch.rand(n, 34, t, generator=torch.Generator().manual_seed(5)).mul(2).cuda()
+    w = lstm.packed(linear)
+    outs = []
+    for rows in ops_lstm2.FWD_MMA_ROWS_PER_CTA[torch.float32]:
+        monkeypatch.setattr(ops_lstm2, "fwd_mma_rows_per_cta", lambda *_, r=rows: r)
+        outs.append(ops_lstm2.lstm2_fc(x, w))
+        y2, _ = lt.lstm2_train_fwd(x, w)
+        assert torch.equal(y2, outs[-1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], other) for other in outs[1:])
+    assert _snr(ops_lstm2.lstm2_fc_reference(x, w), outs[0]) >= FLOOR[torch.float32]
 
 
 @pytest.mark.cuda

@@ -211,7 +211,7 @@ def test_rows_per_cta_and_chunking():
     assert lt.rows_per_cta(771, 132) == 16
     assert lt.dx_parts(34, 384) == 11 and lt.dx_parts(34, 512) == lt.DX_PARTS_MAX
     assert lt.bwd_shared_memory_bytes(20, 34, 384, 2) <= ops_lstm2.SMEM_LIMIT
-    assert lt.fwd_shared_memory_bytes(20, 34, 384, 2) <= ops_lstm2.SMEM_LIMIT
+    assert lt.fwd_shared_memory_bytes(16, 34, 384, 2) <= ops_lstm2.SMEM_LIMIT
     for steps in (1, 195, 10_000):
         chunk = lt.wgrad_chunk_steps(2304, 384, steps, 4)
         assert chunk == 1 and 2 * chunk * 2304 * 1536 * 4 <= lt.WGRAD_SCRATCH_BYTES
@@ -394,31 +394,34 @@ def _cell_from_accumulators(acc, c):
     return h, c, act
 
 
-def _fwd_mma_emulate(x: torch.Tensor, w):
-    """The bf16 sweep walked as the kernel walks it: operand rows [x | h1 |
-    h2] (x padded to x_cols(D)), the packed fragments as B, float32 sums
-    from the interleaved biases, the cell from the accumulators, h rounded
-    to bf16 into the operand rows, the fc over the h2 columns. -> (y [N, T,
-    O], g1, c1, h1, g2, c2, h2 [T, N, .])."""
+def _fwd_mma_emulate(x: torch.Tensor, w, product=torch.matmul):
+    """The sweep walked as the kernel walks it, in the weights' dtype:
+    operand rows [x | h1 | h2] (x padded to x_cols(D)), the packed fragments
+    as B (`_fragment_matrix` in bf16, `_tf32_fragment_matrix` in float32),
+    float32 sums (`product`) from the interleaved biases, the cell from the
+    accumulators, h into the operand rows (rounded to bf16 in bf16), the fc
+    over the h2 columns. -> (y [N, T, O], g1, c1, h1, g2, c2, h2 [T, N, .])."""
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
+    dtype = w.w1.dtype
     p, xc = ops_lstm2.pack_fwd_mma(w), ops_lstm2.x_cols(d)
-    b1, b2 = (_fragment_matrix(m, 4 * hidden) for m in (p.w1, p.w2))
-    bfc = _fragment_matrix(p.fc, out_dim)
+    walk = _fragment_matrix if dtype == torch.bfloat16 else _tf32_fragment_matrix
+    b1, b2 = (walk(m, 4 * hidden) for m in (p.w1, p.w2))
+    bfc = walk(p.fc, out_dim)
     rows = -(-n // 16) * 16
     ops = torch.zeros(rows, xc + 2 * hidden)
     c1, c2 = torch.zeros(rows, hidden), torch.zeros(rows, hidden)
     ys, saved = [], []
     for t in range(steps):
         ops[:n, :d] = x[:, :, t].float()
-        h1, c1, a1 = _cell_from_accumulators(p.b1 + ops[:, :xc + hidden] @ b1, c1)
-        ops[:, xc:xc + hidden] = h1.bfloat16().float()
-        h2, c2, a2 = _cell_from_accumulators(p.b2 + ops[:, xc:] @ b2, c2)
-        ops[:, xc + hidden:] = h2.bfloat16().float()
-        ys.append(ops[:n, xc + hidden:] @ bfc + w.fc_b)
-        saved.append([a[:n].bfloat16() for a in (a1, c1, ops[:, xc:xc + hidden], a2, c2,
-                                                 ops[:, xc + hidden:])])
-    return (torch.stack(ys, dim=1).bfloat16(),
+        h1, c1, a1 = _cell_from_accumulators(p.b1 + product(ops[:, :xc + hidden], b1), c1)
+        ops[:, xc:xc + hidden] = h1.to(dtype).float()
+        h2, c2, a2 = _cell_from_accumulators(p.b2 + product(ops[:, xc:], b2), c2)
+        ops[:, xc + hidden:] = h2.to(dtype).float()
+        ys.append(product(ops[:n, xc + hidden:], bfc) + w.fc_b)
+        saved.append([a[:n].to(dtype, copy=True) for a in (a1, c1, ops[:, xc:xc + hidden], a2,
+                                                           c2, ops[:, xc + hidden:])])
+    return (torch.stack(ys, dim=1).to(dtype),
             *(torch.stack(s) for s in zip(*saved)))
 
 
@@ -447,24 +450,172 @@ def test_fwd_mma_tile_and_shared_memory(n, rows):
     (fewest waves of one CTA per SM on 132 SMs, then the smaller tile: 2304
     rows need two waves of 16 and one of 32), the one K2 and K1 both take,
     and its shared memory (two operand buffers [R][64 + 768 + 8] bf16, c1
-    and c2 [R][384] float32) in a block at D 34, H 384."""
+    and c2 [R][384] float32) in a block at D 34, H 384. The float32 sweep
+    takes R 16 at every fold: two operand buffers [16][64 + 768 + 4]
+    float32 and c1, c2 fit; at R 32 they do not."""
     assert ops_lstm2.fwd_mma_rows_per_cta(n, 132) == rows
     assert ops_lstm2.fwd_mma_row_tile(n, 34, 384, 132) == rows
     smem = lt.fwd_shared_memory_bytes(rows, 34, 384, 2, torch.bfloat16)
     assert smem == ops_lstm2.fwd_mma_shared_memory_bytes(rows, 34, 384)
     assert smem == 4 * rows * 840 + 8 * rows * 384 <= ops_lstm2.SMEM_LIMIT
-    assert lt.fwd_shared_memory_bytes(20, 34, 384, 2) == 4 * 20 * (34 + 4 * 384 + 12 * 2)
+    assert ops_lstm2.fwd_mma_row_tile(n, 34, 384, 132, torch.float32) == 16
+    smem = lt.fwd_shared_memory_bytes(16, 34, 384, 2)
+    assert smem == ops_lstm2.fwd_mma_shared_memory_bytes(16, 34, 384, torch.float32)
+    assert smem == 8 * 16 * 836 + 8 * 16 * 384 == 156_160 <= ops_lstm2.SMEM_LIMIT
+    assert ops_lstm2.fwd_mma_shared_memory_bytes(32, 34, 384, torch.float32) > ops_lstm2.SMEM_LIMIT
 
 
 def test_fwd_mma_fits_the_fullsubnet_full_band_shape():
     """FullSubNet's full-band LSTM (D 257, H 512, O 257; ROADMAP Queue 1 item
     7): the bf16 forward fits a block at R 16, whose shared memory does not
-    grow with O, and falls back to it from R 32; the float32 forward's fc
-    partials [H/32][R][O] still do not fit."""
+    grow with O, and falls back to it from R 32; the float32 forward's two
+    operand buffers [16][288 + 1024 + 4] float32 and c1, c2 miss the limit by
+    1,536 bytes (one buffer would need 149,760), so its wrapper refuses the
+    shape."""
     assert ops_lstm2.fwd_mma_shared_memory_bytes(16, 257, 512) == 150_016 <= ops_lstm2.SMEM_LIMIT
     assert ops_lstm2.fwd_mma_shared_memory_bytes(32, 257, 512) > ops_lstm2.SMEM_LIMIT
     assert ops_lstm2.fwd_mma_row_tile(4626, 257, 512, 132) == 16
-    assert ops_lstm2.shared_memory_bytes(257, 512, 257) == 410_688 > ops_lstm2.SMEM_LIMIT
+    f32 = ops_lstm2.fwd_mma_shared_memory_bytes(16, 257, 512, torch.float32)
+    assert f32 == 233_984 == ops_lstm2.SMEM_LIMIT + 1_536
+    assert f32 - 4 * 16 * (288 + 1024 + 4) == 149_760  # with one operand buffer
+    with pytest.raises(ValueError, match="shared memory"):
+        ops_lstm2.fwd_mma_row_tile(4626, 257, 512, 132, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the float32 forward sweep (csrc/lstm2_fwd_sweep.cuh, sweep_mma_kernel<float>):
+# mma.sync m16n8k8 fragments and three TF32 products of split operands
+# ---------------------------------------------------------------------------
+
+def _fwd_f32_case(n, t, d, h, o, seed=5):
+    """float32 weights and x [N, D, T] (uniform in [0, 2), as after the norm)."""
+    params, fc, _, _ = _case(n, t, d, h, o, seed)
+    tensors = _torch_tensors(params, fc, torch.float32, requires_grad=False)
+    x = torch.rand(n, d, t, generator=torch.Generator().manual_seed(seed)).mul(2)
+    return x, ops_lstm2.pack_weights(*tensors)
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (cvt.rna.tf32.f32's bits), as lstm2::split_tf32 computes it: the
+    magnitude bits plus half of the dropped 13, which are then cleared."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(a: torch.Tensor):
+    """lstm2::split_tf32 as the tensor core reads it: big = a rounded to
+    TF32, small = a - big (exact in float32) with its low 13 bits dropped."""
+    big = _tf32(a)
+    return big, ((a - big).view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _three_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] b [K, N] as the kernel computes it: k-chunks of 16 in k order,
+    each summing its two k-steps of 8 (small.big, big.small and big.big of
+    the split operands, mma_3xtf32) into a zeroed partial that is then added
+    to the float32 sum."""
+    (a_big, a_small), (b_big, b_small) = _split_tf32(a), _split_tf32(b)
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for chunk in range(0, a.shape[1], 16):
+        part = torch.zeros_like(acc)
+        for k in (chunk, chunk + 8):
+            part += a_small[:, k:k + 8] @ b_big[k:k + 8]
+            part += a_big[:, k:k + 8] @ b_small[k:k + 8]
+            part += a_big[:, k:k + 8] @ b_big[k:k + 8]
+        acc += part
+    return acc
+
+
+def _one_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The same product from TF32 operands alone, float32 sums."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _tf32_fragment_matrix(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The B operand [K, n] rebuilt from `pack_tf32_b`'s words as the lanes of
+    mma.sync m16n8k8 read them: lane 4g + t, word 2 ks + half of n-tile nt,
+    k-chunk kc is b0 (half 0) or b1 (half 1) of k-step 2 kc + ks, B[16 kc +
+    8 ks + 4 half + t][8 nt + g]."""
+    words = packed.numpy()
+    tiles, chunks = words.shape[:2]
+    b = np.zeros((chunks, 16, tiles, 8), np.float32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for ks in range(2):
+            for half in range(2):
+                b[:, 8 * ks + 4 * half + t, :, g] = words[:, :, lane, 2 * ks + half].T
+    return torch.from_numpy(b.reshape(16 * chunks, 8 * tiles)[:, :n])
+
+
+def _snr_db(ref: torch.Tensor, out: torch.Tensor) -> float:
+    ref, out = ref.double(), out.double()
+    return float(10 * torch.log10(ref.pow(2).sum() / (out - ref).pow(2).sum().clamp_min(1e-300)))
+
+
+def test_tf32_packing_round_trips_and_walks_the_lanes():
+    """`pack_tf32_b` unpacks to the weight bit for bit, with zero rows past
+    n; its words, walked as m16n8k8's B fragments, rebuild B = w^T; and the
+    float32 sweep's operands (`pack_fwd_mma` of float32 weights) unpack and
+    deinterleave to [W1 (zero rows up to 32); U1]^T, [W2; U2]^T and W_fc^T,
+    O 3 padded to one n-tile of 8, with the biases interleaved alike."""
+    w = torch.randn(13, 48, generator=torch.Generator().manual_seed(8))
+    packed = ops_lstm2.pack_tf32_b(w)
+    assert packed.shape == (2, 3, 32, 4) and packed.dtype == torch.float32
+    assert torch.equal(ops_lstm2.unpack_tf32_b(packed, 13), w)
+    assert not ops_lstm2.unpack_tf32_b(packed, 16)[13:].any()
+    assert torch.equal(_tf32_fragment_matrix(packed, 13), w.t())
+    _, wf = _fwd_f32_case(8, 2, 10, 32, 3)
+    p = ops_lstm2.pack_fwd_mma(wf)
+    assert p.w1.shape == (16, (32 + 32) // 16, 32, 4) and p.w1.dtype == torch.float32
+    w1 = ops_lstm2.deinterleave_gates(ops_lstm2.unpack_tf32_b(p.w1, 128).t())
+    assert torch.equal(w1[:10], wf.w1) and not w1[10:32].any() and torch.equal(w1[32:], wf.u1)
+    w2 = ops_lstm2.deinterleave_gates(_tf32_fragment_matrix(p.w2, 128))
+    assert torch.equal(w2, wf.w2)
+    assert torch.equal(ops_lstm2.unpack_tf32_b(p.fc, 3), wf.fc_w.t())
+    assert not ops_lstm2.unpack_tf32_b(p.fc, 8)[3:].any()
+    for packed_bias, bias in ((p.b1, wf.b1), (p.b2, wf.b2)):
+        assert torch.equal(ops_lstm2.deinterleave_gates(packed_bias), bias)
+
+
+def test_tf32_split_keeps_21_bits():
+    """On seeded normal values scaled by 1e-30 .. 1e30, and zeros, both
+    halves as the tensor core reads them are TF32 (the low 13 bits zero)
+    and a - big - small is within 2^-21 |a|; big + small is exact in float32."""
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal(20_000) * 10.0 ** rng.uniform(-30, 30, 20_000)
+    a = torch.from_numpy(np.concatenate([a, np.zeros(16)]).astype(np.float32))
+    big, small = _split_tf32(a)
+    for half in (big, small):
+        assert not (half.view(torch.int32) & 0x1FFF).any()
+    err = (a.double() - big.double() - small.double()).abs()
+    assert (err <= 2.0 ** -21 * a.double().abs()).all()
+    assert torch.equal((big + small).double(), big.double() + small.double())
+
+
+@pytest.mark.parametrize("n,t,d,h,o", [(37, 4, 34, 32, 2), (21, 3, 10, 64, 11)])
+def test_fwd_three_tf32_walk_holds_the_float32_floors(n, t, d, h, o):
+    """The float32 sweep walked as the kernel walks it (the m16n8k8
+    fragments, three TF32 products of split operands in k-steps of 8, summed
+    a k-chunk at a time into float32 sums, the cell from the accumulators, h
+    not rounded) gives
+    `lstm2_fc_reference`'s y and `lstm2_train_fwd_reference`'s residuals at
+    100 dB or more (136-151 dB); the same walk with one TF32 product falls
+    under the 80 dB floor that K2 is held to over y and its residuals (c1 and
+    h1 at 71-72 dB here; y alone at 72 and 81 dB at these few steps), which
+    is why the kernel takes three."""
+    x, w = _fwd_f32_case(n, t, d, h, o)
+    y_plain = ops_lstm2.lstm2_fc_reference(x, w)
+    y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+    assert torch.equal(y_ref, y_plain)
+    snrs = {}
+    for name, product in (("3xtf32", _three_tf32), ("1xtf32", _one_tf32)):
+        y, *res = _fwd_mma_emulate(x, w, product)
+        assert y.dtype == torch.float32 and all(r.shape == e.shape for r, e in zip(res, res_ref))
+        snrs[name] = {"y": _snr_db(y_plain, y),
+                      **{f: _snr_db(e, r) for f, r, e in zip(lt.Residuals._fields, res, res_ref)}}
+    assert min(snrs["3xtf32"].values()) >= 100.0, snrs
+    assert min(snrs["1xtf32"].values()) < 80.0, snrs
 
 
 # ---------------------------------------------------------------------------
