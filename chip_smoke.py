@@ -12,10 +12,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      instructions of the forward sweeps of K1 and K2, the reverse sweeps of
      K3 and K4 and K3's weight-gradient kernels (`cuobjdump -sass`): each
      bf16 sweep and the bf16 `wgrad_mma_kernel` must have them, the float32
-     forward sweeps of K1 and K2 must have TF32 ones (HMMA.1688.F32.TF32:
-     each float32 product as three TF32 products), and no bf16 FMA sweep,
-     FMA forward sweep or bf16 FMA `wgrad_kernel` may be compiled; print the
-     weight-gradient kernels' registers and spills (ptxas);
+     forward sweeps of K1 and K2 and the float32 reverse sweeps of K3 and K4
+     must have TF32 ones (HMMA.1688.F32.TF32: each float32 product as three
+     TF32 products), and no bf16 FMA sweep, FMA forward or reverse sweep or
+     bf16 FMA `wgrad_kernel` may be compiled; print the float32 reverse
+     sweeps' and the weight-gradient kernels' registers and spills (ptxas);
   2. hold each kernel against the JAX kernel's outputs (the committed
      tests/fixtures/torch_kernel_fixture.npz, interpret mode on the CPU, at
      small ragged shapes; same floors) and against its plain PyTorch version
@@ -29,11 +30,12 @@ Phases, each fatal on failure (exit code 1, no result line):
   3. time each kernel, its plain version and a cuDNN LSTM + Linear (a
      yardstick only; forward for K1, K2 and K5, backward for K3 and K4; for
      K5 also K1 in bf16 at the same shape), with CUDA events, beside the
-     bound from the card's peaks (for the float32 forward both: three TF32
-     products at the TF32 peak, and FMAs at the float32 peak); K1 and K2 at
-     each row tile of the tensor-core forward (bf16 R 16 and 32, float32 R
-     16) and the weight packing alone; split
-     K3's and K4's device time into the reverse sweep, K3's weight-gradient
+     bound from the card's peaks (for the float32 sweeps, forward and
+     reverse, both: three TF32 products at the TF32 peak, and FMAs at the
+     float32 peak; K3's float32 weight gradients at the float32 peak); K1
+     and K2 at each row tile of the tensor-core forward (bf16 R 16 and 32,
+     float32 R 16) and the weight packing alone; split K3's and K4's device
+     time into the reverse sweep, K3's weight-gradient
      kernel and the rest (torch.profiler); that kernel beside its own bound
      and, in bf16, beside the same four products as bf16 cuBLAS GEMMs over
      all T (a yardstick) and at each candidate tile of dU1, dW2, dU2; K3
@@ -119,7 +121,7 @@ FEED_SPEEDUP = 10.0  # clients send audio this many times faster than real time
 # H100 SXM published peaks (NVIDIA data sheet, dense): float32 outside the
 # tensor cores, bf16 and int8 tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-PEAK_TF32 = 494.7e12  # the float32 forward's products: three TF32 products each
+PEAK_TF32 = 494.7e12  # the float32 sweeps' products: three TF32 products each
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -128,6 +130,7 @@ KERNEL_SOURCES = ("lstm2_fwd", "lstm2_int8_fwd", "lstm2_train_fwd", "lstm2_bwd_w
                   "lstm2_bwd")  # csrc/<name>.cu
 SWEEP_SOURCES = ("lstm2_fwd", "lstm2_train_fwd", "lstm2_bwd_wgrad", "lstm2_bwd")  # bf16 mma sweeps
 FWD_SOURCES = ("lstm2_fwd", "lstm2_train_fwd")  # K1, K2: the float32 sweep on mma.sync too
+BWD_SOURCES = ("lstm2_bwd_wgrad", "lstm2_bwd")  # K3, K4: the float32 reverse sweep likewise
 TF32_HMMA = "HMMA.1688.F32.TF32"  # mma.sync m16n8k8 on TF32 operands, float32 sums
 FIXTURE_GENERATOR = os.path.join(REPO, "tests", "fixtures", "gen_torch_kernel_fixture.py")
 # K3's weight-gradient kernels: `wgrad_kernel` (float32, FMAs), `wgrad_mma_kernel` (bf16)
@@ -177,12 +180,13 @@ def lstm_bound_ms(n: int, t: int, dtype: torch.dtype, fma: bool = False) -> tupl
     flops = 2 * n * t * (D + 3 * H) * 4 * H + 2 * n * t * H * O
     nbytes = (n * D * t * size + (D + 3 * H) * 4 * H * size + 2 * 4 * H * 4 + H * O * 4 + O * 4
               + n * t * O * size)
-    return bound(forward_ops_s(flops, dtype, fma), nbytes)
+    return bound(sweep_ops_s(flops, dtype, fma), nbytes)
 
 
-def forward_ops_s(flops: float, dtype: torch.dtype, fma: bool = False) -> float:
-    """Seconds of the forward sweep's products at the card's peak: bf16 on
-    the tensor cores; float32 as three TF32 products each, or as FMAs."""
+def sweep_ops_s(flops: float, dtype: torch.dtype, fma: bool = False) -> float:
+    """Seconds of a sweep's products (forward or reverse) at the card's
+    peak: bf16 on the tensor cores; float32 as three TF32 products each, or
+    as FMAs."""
     if dtype == torch.float32 and not fma:
         return 3 * flops / PEAK_TF32
     return flops / PEAK_FLOPS[dtype]
@@ -317,6 +321,8 @@ def phase_build() -> dict:
             fail(f"{stem}: a bf16 instantiation of the FMA sweep was compiled")
         if stem in FWD_SOURCES:
             check_float32_forward(lib, stem, sweeps)
+        if stem in BWD_SOURCES:
+            hmma[f"{stem}_float32_sweep"] = check_float32_reverse(lib, stem, sweeps)
         hmma[stem] = sweeps
         if stem == "lstm2_bwd_wgrad":
             hmma["wgrad"] = wgrad_functions(lib)
@@ -335,6 +341,29 @@ def check_float32_forward(lib, stem: str, sweeps: dict) -> None:
         fail(f"{stem}: the float32 forward sweep has no {TF32_HMMA} instructions")
     if any(f.startswith("_ZN3fwd12sweep_kernel") for f in sweeps):
         fail(f"{stem}: an FMA forward sweep was compiled")
+
+
+def check_float32_reverse(lib, stem: str, sweeps: dict) -> dict:
+    """K3's and K4's float32 reverse sweep runs its three products on the
+    tensor cores as TF32 products: each float32 instantiation of
+    `bwd::sweep_mma_kernel` has HMMA.1688.F32.TF32 instructions, and no FMA
+    reverse sweep (`bwd::sweep_kernel`) is compiled. Returns {function:
+    {tf32_hmma, registers, spill bytes}} and prints them."""
+    tf32 = {f: n for f, n in sass_instruction_counts(lib, TF32_HMMA).items()
+            if f.startswith("_ZN3bwd16sweep_mma_kernelIf")}
+    ptxas = ptxas_functions(lib)
+    out = {}
+    for function, n in tf32.items():
+        regs, spill_st, spill_ld = ptxas.get(function, (None, None, None))
+        print(f"[1] {stem}: {function} has {n} {TF32_HMMA} instructions; ptxas: {regs} "
+              f"registers, {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+        out[function] = {"tf32_hmma": n, "registers": regs, "spill_store_bytes": spill_st,
+                         "spill_load_bytes": spill_ld}
+    if not tf32 or min(tf32.values()) == 0:
+        fail(f"{stem}: the float32 reverse sweep has no {TF32_HMMA} instructions")
+    if any(f.startswith("_ZN3bwd12sweep_kernel") for f in sweeps):
+        fail(f"{stem}: an FMA reverse sweep was compiled")
+    return out
 
 
 def wgrad_functions(lib) -> dict:
@@ -611,8 +640,8 @@ def train_bounds(dtype: torch.dtype, fma: bool = False) -> dict:
     """Least ms of K2, K3 and K4 at the training fold: operations at the
     peak rate of the type against bytes (each input read once, each output
     written once; h_{t-1} and c_{t-1} are the arrays of h and c read again).
-    K2 in float32 runs each product as three TF32 products (`fma`: as FMAs);
-    the float32 reverse sweeps run FMAs."""
+    In float32 the forward and reverse sweeps run each product as three TF32
+    products (`fma`: as FMAs), and K3's weight gradients run FMAs."""
     size = torch.tensor([], dtype=dtype).element_size()
     rows = N_TRAIN * T_TRAIN
     weights = (D + 3 * H) * 4 * H * size + H * O * 4
@@ -621,10 +650,10 @@ def train_bounds(dtype: torch.dtype, fma: bool = False) -> dict:
     fwd_bytes = rows * (D + O + 12 * H) * size + weights + 2 * 4 * H * 4 + O * 4
     bwd_bytes = rows * (O + 10 * H + 8 * H + D) * size + weights
     wgrad_bytes = rows * (O + D + 12 * H + D) * size + weights + ((D + 3 * H) * 4 * H + 8 * H) * 4
-    peak = PEAK_FLOPS[dtype]
-    return {"lstm2_train_fwd": bound(forward_ops_s(sweep_flops, dtype, fma), fwd_bytes),
-            "lstm2_bwd": bound(sweep_flops / peak, bwd_bytes),
-            "lstm2_bwd_wgrad": bound((sweep_flops + wgrad_flops) / peak, wgrad_bytes)}
+    sweep_s = sweep_ops_s(sweep_flops, dtype, fma)
+    return {"lstm2_train_fwd": bound(sweep_s, fwd_bytes),
+            "lstm2_bwd": bound(sweep_s, bwd_bytes),
+            "lstm2_bwd_wgrad": bound(sweep_s + wgrad_flops / PEAK_FLOPS[dtype], wgrad_bytes)}
 
 
 def wgrad_bound(dtype: torch.dtype) -> tuple[float, str]:
@@ -765,14 +794,13 @@ def phase_time_train() -> dict:
         bwd_ms = cuda_ms(lambda: library_bwd(y_lib), reps=3)
         del y_lib
         library = {"lstm2_train_fwd": fwd_ms, "lstm2_bwd": bwd_ms, "lstm2_bwd_wgrad": bwd_ms}
-        bounds = train_bounds(dtype)
-        fma_ms = train_bounds(dtype, fma=True)["lstm2_train_fwd"][0]
+        bounds, fma_bounds = train_bounds(dtype), train_bounds(dtype, fma=True)
         for name in ms:
             bound_ms, bound_by = bounds[name]
             extra = (f" (+ {outside_ms:.3f} ms for the weight-gradient products outside)"
                      if name == "lstm2_bwd" else "")
-            fma = (f", as FMAs {fma_ms:.3f} ms"
-                   if name == "lstm2_train_fwd" and dtype == torch.float32 else "")
+            fma_ms = fma_bounds[name][0]
+            fma = f", as FMAs {fma_ms:.3f} ms" if dtype == torch.float32 else ""
             side = "forward" if name == "lstm2_train_fwd" else "backward"
             print(f"[3] {name} {str(dtype)[6:]} N={N_TRAIN} T={T_TRAIN}: kernel {ms[name]:.3f} ms"
                   f"{extra}  plain {plain[name]:.3f} ms  cuDNN LSTM+Linear {side} "
@@ -782,10 +810,10 @@ def phase_time_train() -> dict:
                                         bound_by=bound_by)
             if name in split:
                 times[(name, dtype)]["sweep_ms"] = split[name]["sweep_ms"]
+            if dtype == torch.float32:
+                times[(name, dtype)]["bound_fma_ms"] = fma_ms
             if name == "lstm2_train_fwd":
                 times[(name, dtype)].update(row_tile_ms=tiles, row_tile=fwd_tile_at(N_TRAIN, dtype))
-                if dtype == torch.float32:
-                    times[(name, dtype)]["bound_fma_ms"] = fma_ms
         times[("lstm2_bwd_wgrad", dtype)].update(
             wgrad_kernel_ms=k3["wgrad_kernel_ms"], wgrad_bound_ms=wgrad_bound_ms,
             wgrad_bound_by=wgrad_bound_by)
@@ -1304,6 +1332,8 @@ def main() -> None:
     def train_kernel(name, source, replaces, launch_runs):
         f32, bf16 = (train_times[(name, dt)] for dt in (torch.float32, torch.bfloat16))
         extra = {"sweep_hmma": hmma[name]} if name in hmma else {}
+        if f"{name}_float32_sweep" in hmma:
+            extra["float32_sweep_functions"] = hmma[f"{name}_float32_sweep"]
         if name == "lstm2_bwd_wgrad":
             extra["wgrad_functions"] = hmma["wgrad"]
         return {

@@ -13,20 +13,21 @@
 // products contract over all 4H gate columns) and moves the residuals in
 // (10H elements per row and step: g and c of both layers; c_{t-1} is the
 // same array read again) and both dgates and dx out (8H + D): 12.5 GB in
-// float32, 6.3 GB in bf16. In float32 the FMA rate bounds it (24.4 ms at
-// 67 TFLOP/s against 3.7 ms of bytes); in bf16 the bytes do (1.9 ms against
+// float32, 6.3 GB in bf16. In float32 the operations bound it: 9.9 ms as
+// three TF32 products a product at 494.7 TFLOP/s (24.4 ms as FMAs at 67
+// TFLOP/s) against 3.7 ms of bytes; in bf16 the bytes do (1.9 ms against
 // 1.7 ms at the tensor cores' rate).
 //
-// Design: the sweep of lstm2_bwd_sweep.cuh (one CTA per row tile for all T,
-// the tile's dgates in shared memory), run once over all steps with the
-// carries starting from zero and kept inside the block. In float32 its
-// products are FMAs (a thread per output column of the transposed
-// weights), well above the bound; in bf16 they run on the tensor cores
-// (mma.sync, the weights packed into fragment order by the wrapper), and
+// Design: the sweep of lstm2_bwd_sweep.cuh (one CTA per row tile of 16 for
+// all T, the tile's dgates in shared memory), run once over all steps with
+// the carries starting from zero and kept inside the block. Its products
+// run on the tensor cores (mma.sync, the weights packed into fragment order
+// by the wrapper; float32 as three TF32 products of split operands), and
 // each CTA's step latency bounds it: the product loops' L2 round trips for
 // the weight fragments and the cell backward's loads (the header's note).
-// The bf16 sweep has 54 HMMA instructions in each of its two functions
-// (cuobjdump -sass of the built library; chip_smoke.py phase 1).
+// The bf16 sweep has 54 HMMA instructions in each of its two functions, the
+// float32 one HMMA.1688.F32.TF32 (cuobjdump -sass of the built library;
+// chip_smoke.py phase 1).
 //
 // The C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -37,18 +38,15 @@ namespace {
 
 template <typename T>
 int run(const void* dy, const void* g1, const void* c1, const void* g2, const void* c2,
-        const void* w2t, const void* u1t, const void* w1t, const void* w2p, const void* u1p,
-        const void* w1p, const void* fcw, void* dg1, void* dg2, void* dx, int n_rows,
-        int steps, int D, int H, int O, int rows, cudaStream_t stream) {
+        const void* w2p, const void* u1p, const void* w1p, const void* fcw, void* dg1,
+        void* dg2, void* dx, int n_rows, int steps, int D, int H, int O, int rows,
+        cudaStream_t stream) {
   bwd::SweepArgs<T> a;
   a.dy = static_cast<const T*>(dy);
   a.g1 = static_cast<const T*>(g1);
   a.c1 = static_cast<const T*>(c1);
   a.g2 = static_cast<const T*>(g2);
   a.c2 = static_cast<const T*>(c2);
-  a.w2t = static_cast<const T*>(w2t);
-  a.u1t = static_cast<const T*>(u1t);
-  a.w1t = static_cast<const T*>(w1t);
   a.w2p = static_cast<const uint4*>(w2p);
   a.u1p = static_cast<const uint4*>(u1p);
   a.w1p = static_cast<const uint4*>(w1p);
@@ -73,22 +71,20 @@ int run(const void* dy, const void* g1, const void* c1, const void* g2, const vo
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (dy, the residuals, the weights, dgates
-// and dx; fcw is float32). float32 reads the transposed weights w2t, u1t,
-// w1t and rows is 16 or 20; bfloat16 reads the packed fragments w2p, u1p,
-// w1p (ops/lstm2_train.py::pack_mma_b) and rows is 16. The other three
-// weight pointers may be null.
+// and dx; fcw is float32). w2p, u1p, w1p: [W2; U2], U1 and W1 packed into
+// mma fragments (ops/lstm2.py: pack_tf32_b for float32, pack_mma_b for
+// bfloat16); rows is 16.
 extern "C" int lstm2_bwd(const void* dy, const void* g1, const void* c1, const void* g2,
-                         const void* c2, const void* w2t, const void* u1t, const void* w1t,
-                         const void* w2p, const void* u1p, const void* w1p, const void* fcw,
-                         void* dg1, void* dg2, void* dx, int n_rows, int steps, int D, int H,
-                         int O, int rows, int dtype, void* stream) {
+                         const void* c2, const void* w2p, const void* u1p, const void* w1p,
+                         const void* fcw, void* dg1, void* dg2, void* dx, int n_rows, int steps,
+                         int D, int H, int O, int rows, int dtype, void* stream) {
   if (!bwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return run<float>(dy, g1, c1, g2, c2, w2t, u1t, w1t, w2p, u1p, w1p, fcw, dg1, dg2, dx,
-                      n_rows, steps, D, H, O, rows, s);
+    return run<float>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, n_rows, steps, D,
+                      H, O, rows, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(dy, g1, c1, g2, c2, w2t, u1t, w1t, w2p, u1p, w1p, fcw, dg1, dg2,
-                              dx, n_rows, steps, D, H, O, rows, s);
+    return run<__nv_bfloat16>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, n_rows,
+                              steps, D, H, O, rows, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,17 +19,18 @@
 // arrays read again) and write dx: 8.4 GB in float32, 4.2 GB in bf16.
 // Operations bound it in both types (48.8 ms at 67 TFLOP/s in float32
 // against 2.5 ms of bytes; 3.3 ms at the tensor cores' bf16 rate against
-// 1.3 ms). In bf16 every product runs on mma.sync: the reverse sweep's three
-// (lstm2_bwd_sweep.cuh says what bounds it: each CTA's step latency) and the
-// four weight-gradient products of `wgrad_mma_kernel` below. float32 keeps
-// FMAs in the sweep and in `wgrad_kernel`.
+// 1.3 ms). The reverse sweep's three products run on mma.sync in both
+// types (in float32 as three TF32 products of split operands;
+// lstm2_bwd_sweep.cuh says what bounds it: each CTA's step latency); in
+// bf16 so do the four weight-gradient products of `wgrad_mma_kernel` below,
+// while float32 keeps FMAs in `wgrad_kernel`.
 //
 // Design. The TPU kernel keeps all 7.3 MB of float32 accumulators resident
 // and relies on its grid running in order; here CTAs run at once and have
 // 227 KB each. So the work is cut in time, not in rows: the steps are swept
 // in chunks of `chunk` steps, newest first. For each chunk
-//   1. the sweep (lstm2_bwd_sweep.cuh: `sweep_kernel` in float32,
-//      `sweep_mma_kernel` in bf16; one CTA per row tile) runs the
+//   1. the sweep (lstm2_bwd_sweep.cuh, `sweep_mma_kernel`; one CTA per
+//      row tile of 16) runs the
 //      chunk's steps, reads and leaves the four carries in a [4][N][H]
 //      float32 array, writes the chunk's rounded dgates into a scratch
 //      [chunk, N, 4H] x 2 (reused by every chunk: its size does not grow
@@ -465,13 +466,10 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
   s.c1 = static_cast<const T*>(in[3]);
   s.g2 = static_cast<const T*>(in[5]);
   s.c2 = static_cast<const T*>(in[6]);
-  s.w2t = static_cast<const T*>(in[8]);
-  s.u1t = static_cast<const T*>(in[9]);
-  s.w1t = static_cast<const T*>(in[10]);
-  s.w2p = static_cast<const uint4*>(in[11]);
-  s.u1p = static_cast<const uint4*>(in[12]);
-  s.w1p = static_cast<const uint4*>(in[13]);
-  s.fcw = static_cast<const float*>(in[14]);
+  s.w2p = static_cast<const uint4*>(in[8]);
+  s.u1p = static_cast<const uint4*>(in[9]);
+  s.w1p = static_cast<const uint4*>(in[10]);
+  s.fcw = static_cast<const float*>(in[11]);
   s.dx = static_cast<T*>(out[0]);
   s.dg1 = static_cast<T*>(out[7]);
   s.dg2 = static_cast<T*>(out[8]);
@@ -517,17 +515,15 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (dy, x, the residuals, the weights, dx
-// and the dgates scratch; fcw and every gradient sum are float32). float32
-// reads the transposed weights w2t, u1t, w1t and rows is 16 or 20;
-// bfloat16 reads the packed fragments w2p, u1p, w1p
-// (ops/lstm2_train.py::pack_mma_b) and rows is 16; the other three weight
-// pointers may be null. chunk: the steps the scratch holds. dw1, du1, dw2,
+// and the dgates scratch; fcw and every gradient sum are float32). w2p,
+// u1p, w1p: [W2; U2], U1 and W1 packed into mma fragments
+// (ops/lstm2.py: pack_tf32_b for float32, pack_mma_b for bfloat16); rows
+// is 16. chunk: the steps the scratch holds. dw1, du1, dw2,
 // du2 must arrive zeroed; carry is [4][ceil(N / rows) * rows][H] and
 // db_part [ceil(N / rows)][2][4H] float32. bfloat16 x is [T, N, dx_cols(D)]
 // (D rounded up to 8), its pad columns zero.
 extern "C" int lstm2_bwd_wgrad(const void* dy, const void* x, const void* g1, const void* c1,
                                const void* h1, const void* g2, const void* c2, const void* h2,
-                               const void* w2t, const void* u1t, const void* w1t,
                                const void* w2p, const void* u1p, const void* w1p,
                                const void* fcw, void* dx, void* dw1, void* du1, void* dw2,
                                void* du2, void* db1, void* db2, void* scratch_dg1,
@@ -535,7 +531,7 @@ extern "C" int lstm2_bwd_wgrad(const void* dy, const void* x, const void* g1, co
                                int steps, int D, int H, int O, int rows, int chunk, int dtype,
                                void* stream) {
   if (!bwd::valid_shape(n_rows, steps, D, H, O) || chunk < 1) return (int)cudaErrorInvalidValue;
-  const void* in[15] = {dy, x, g1, c1, h1, g2, c2, h2, w2t, u1t, w1t, w2p, u1p, w1p, fcw};
+  const void* in[12] = {dy, x, g1, c1, h1, g2, c2, h2, w2p, u1p, w1p, fcw};
   void* out[11] = {dx, dw1, du1, dw2, du2, db1, db2, scratch_dg1, scratch_dg2, carry, db_part};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return run<float>(in, out, n_rows, steps, D, H, O, rows, chunk, s);

@@ -1,6 +1,6 @@
 // Conversions, activations and the mma.sync helpers shared by the float
-// LSTM kernels (lstm2_fwd_sweep.cuh, lstm2_bwd_sweep.cuh). T is the weight
-// type, float or __nv_bfloat16; arithmetic is float32 throughout.
+// LSTM kernels' sweeps (lstm2_fwd_sweep.cuh, lstm2_bwd_sweep.cuh). T is the
+// weight type, float or __nv_bfloat16; arithmetic is float32 throughout.
 
 #pragma once
 
@@ -76,21 +76,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 // Float32 products on the tensor cores as three TF32 products of split
 // operands (mma.sync m16n8k8). TF32 keeps 10 of float32's 23 mantissa bits,
 // so one TF32 product loses the float32 agreement floors; a = big + small with
-// big = a rounded to TF32 and small the remainder carries 21 bits, and
+// big = a rounded to TF32 and small the remainder carries 22 bits, and
 // small.big + big.small + big.big, each exact in float32, drops only
 // small.small (about 2^-22 relative).
 //
 // a = big + small: big is a rounded to TF32, to nearest with ties away from
 // zero (cvt.rna.tf32.f32's bits for every finite a: half of the 13 dropped
-// bits added to the magnitude, then cleared); small = a - big is exact in
-// float32, and the tensor core takes it at TF32 precision (its low 13 bits
-// do not count), within 2^-21 |a| of a - big. Two integer operations and a
-// FADD: cvt.rna.tf32.f32 compiles to a longer guarded sequence on sm_90, and
-// with it the float32 sweep took 126 ms instead of 92 at the batch fold on
-// an H100 (PERF.md).
+// bits added to the magnitude, then cleared); small, a - big (exact in
+// float32), is rounded to TF32 the same way, as CUTLASS's 3xTF32 rounds both
+// halves: half of its 13 dropped bits are added here, and the tensor core,
+// which ignores a TF32 operand's low 13 bits, drops them. So the tensor
+// core's small is within 2^-22 |a| of a - big, without bias (left for it to
+// truncate, within 2^-21 and always toward zero; with that split the float32
+// training check of chip_smoke.py phase 6 took the other branch, PERF.md).
+// Three integer operations and a FADD: cvt.rna.tf32.f32 compiles to a longer
+// guarded sequence on sm_90, and with it the float32 sweep took 126 ms
+// instead of 92 at the batch fold on an H100 (PERF.md).
 __device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& big, uint32_t& small) {
   big = (a + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(__uint_as_float(a) - __uint_as_float(big));
+  small = __float_as_uint(__uint_as_float(a) - __uint_as_float(big)) + 0x1000u;
 }
 
 // d += A (16 x 8, row) B (8 x 8, col): TF32 operands, float32 sums. Lane (g,
@@ -114,5 +118,63 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big
   mma_tf32(d, a_big, b0_small, b1_small);
   mma_tf32(d, a_big, b0_big, b1_big);
 }
+
+// A k-chunk: the 64 bytes of an operand row that one 16-byte B word a lane
+// covers, two k-steps (of 16 bf16, of 8 float32). Both sweeps pack their
+// weights in this unit (ops/lstm2.py: pack_mma_b, pack_tf32_b).
+constexpr int CHUNK_BYTES = 64;
+
+// elements of a k-chunk
+template <typename T> __host__ __device__ constexpr int k_chunk() {
+  return CHUNK_BYTES / (int)sizeof(T);
+}
+
+// One k-chunk of an m-tile's A operand, as the products read it (lane l
+// gives the ldmatrix address of row l % 16, byte 16 (l / 16) of the chunk),
+// and its products with one n-tile's B word (b: this lane's 16 bytes of the
+// chunk).
+template <typename T> struct AFrag;
+
+template <> struct AFrag<__nv_bfloat16> {
+  uint32_t r[2][4];  // k-steps of 16
+  __device__ __forceinline__ void load(uint32_t addr) {
+    ldmatrix_x4(r[0], addr);
+    ldmatrix_x4(r[1], addr + 32);
+  }
+  __device__ __forceinline__ void mma(float (&d)[4], const uint4& b) const {
+    mma_bf16(d, r[0], b.x, b.y);
+    mma_bf16(d, r[1], b.z, b.w);
+  }
+};
+
+template <> struct AFrag<float> {
+  uint32_t big[2][4], small[2][4];  // k-steps of 8, split once for every n-tile
+  __device__ __forceinline__ void load(uint32_t addr) {
+    uint32_t r[2][4];
+    ldmatrix_x4(r[0], addr);
+    ldmatrix_x4(r[1], addr + 32);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(r[ks][i], big[ks][i], small[ks][i]);
+  }
+  // b = {b0, b1} of k-step 0, then of k-step 1. The chunk's six products
+  // sum into a zeroed partial that one round-to-nearest FADD adds to d: the
+  // tensor core truncates each sum at its accumulator's scale, and over the
+  // 456 products of the forward's K 1216 sums that bias alone cost about
+  // 25 dB (PERF.md).
+  __device__ __forceinline__ void mma(float (&d)[4], const uint4& b) const {
+    uint32_t bb[4], bs[4];
+    split_tf32(b.x, bb[0], bs[0]);
+    split_tf32(b.y, bb[1], bs[1]);
+    split_tf32(b.z, bb[2], bs[2]);
+    split_tf32(b.w, bb[3], bs[3]);
+    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_3xtf32(p, big[0], small[0], bb[0], bb[1], bs[0], bs[1]);
+    mma_3xtf32(p, big[1], small[1], bb[2], bb[3], bs[2], bs[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += p[e];
+  }
+};
 
 }  // namespace lstm2

@@ -49,12 +49,11 @@
 
 namespace fwd {
 
+using lstm2::AFrag;
+using lstm2::CHUNK_BYTES;
 using lstm2::from_f;
-using lstm2::ldmatrix_x4;
-using lstm2::mma_3xtf32;
-using lstm2::mma_bf16;
+using lstm2::k_chunk;
 using lstm2::sigm;
-using lstm2::split_tf32;
 
 // Where the training forward stores what the backward reads, all in the
 // weight type: activated gates g1, g2 [T, N, 4H]; c1, h1, c2, h2 [T, N, H].
@@ -69,12 +68,6 @@ struct Residuals {
 };
 
 constexpr int MMA_PASSES = 4;  // unit groups of 8 a warp owns: H / 32 warps x 4 x 8 = H
-constexpr int CHUNK_BYTES = 64;  // of an operand row per k-chunk: one 16-byte B word a lane
-
-// elements of a k-chunk: two k-steps (of 16 bf16, of 8 float32)
-template <typename T> __host__ __device__ constexpr int k_chunk() {
-  return CHUNK_BYTES / (int)sizeof(T);
-}
 
 // x's columns in an operand row, zero-padded to whole k-chunks of either type
 __host__ __device__ inline int x_cols(int D) { return (D + 31) / 32 * 32; }
@@ -102,51 +95,6 @@ struct MmaWeights {
   const uint4* fc;  // W_fc^T, O zero-padded to n-tiles of 8: [ceil(O/8)][H/k_chunk][32]
   const float* b1;  // [4H], gate-interleaved
   const float* b2;
-};
-
-// One k-chunk of an m-tile's A operand, as the products read it, and its
-// products with one n-tile's B word (b: this lane's 16 bytes of the chunk).
-template <typename T> struct AFrag;
-
-template <> struct AFrag<__nv_bfloat16> {
-  uint32_t r[2][4];  // k-steps of 16
-  __device__ __forceinline__ void load(uint32_t addr) {
-    ldmatrix_x4(r[0], addr);
-    ldmatrix_x4(r[1], addr + 32);
-  }
-  __device__ __forceinline__ void mma(float (&d)[4], const uint4& b) const {
-    mma_bf16(d, r[0], b.x, b.y);
-    mma_bf16(d, r[1], b.z, b.w);
-  }
-};
-
-template <> struct AFrag<float> {
-  uint32_t big[2][4], small[2][4];  // k-steps of 8, split once for every n-tile
-  __device__ __forceinline__ void load(uint32_t addr) {
-    uint32_t r[2][4];
-    ldmatrix_x4(r[0], addr);
-    ldmatrix_x4(r[1], addr + 32);
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(r[ks][i], big[ks][i], small[ks][i]);
-  }
-  // b = {b0, b1} of k-step 0, then of k-step 1. The chunk's six products
-  // sum into a zeroed partial that one round-to-nearest FADD adds to d: the
-  // tensor core truncates each sum at its accumulator's scale, and over the
-  // 456 products of a K 1216 sum that bias alone cost about 25 dB (PERF.md).
-  __device__ __forceinline__ void mma(float (&d)[4], const uint4& b) const {
-    uint32_t bb[4], bs[4];
-    split_tf32(b.x, bb[0], bs[0]);
-    split_tf32(b.y, bb[1], bs[1]);
-    split_tf32(b.z, bb[2], bs[2]);
-    split_tf32(b.w, bb[3], bs[3]);
-    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_3xtf32(p, big[0], small[0], bb[0], bb[1], bs[0], bs[1]);
-    mma_3xtf32(p, big[1], small[1], bb[2], bb[3], bs[2], bs[3]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[e] += p[e];
-  }
 };
 
 // two values of adjacent columns as T (8 or 4 aligned bytes)

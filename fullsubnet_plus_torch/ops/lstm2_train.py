@@ -24,12 +24,14 @@ kernels:
 
 `FUSED_WGRAD` chooses between the last two, as the JAX module's switch of
 the same name does (:679); left at None, the form follows x's dtype
-(`fused_wgrad`), as measured on the H100. Both share the reverse sweep; in
-bfloat16 its three products run on the tensor cores, reading the weights
-packed into mma.sync fragment order by `pack_mma_b`. Cast points follow the TPU kernels: residuals
-and dgates are rounded to x's dtype where a product or a store reads them,
-h, c and every carry stay float32, the bias gradient of the fused form sums
-the unrounded dgates and that of the other form the rounded ones.
+(`fused_wgrad`), as measured on the H100. Both share the reverse sweep,
+whose three products run on the tensor cores (in float32 as three TF32
+products of split operands), reading the weights packed into mma.sync
+fragment order (`pack_mma_b` in bfloat16, `pack_tf32_b` in float32). Cast
+points follow the TPU kernels: residuals and dgates are rounded to x's
+dtype where a product or a store reads them, h, c and every carry stay
+float32, the bias gradient of the fused form sums the unrounded dgates and
+that of the other form the rounded ones.
 
 A tensor on the CPU takes the plain versions; a CUDA tensor launches the
 kernels or raises. The plain versions also admit float64 (for gradcheck).
@@ -52,6 +54,7 @@ from fullsubnet_plus_torch.ops.lstm2 import (
     fwd_mma_shared_memory_bytes,
     pack_fwd_mma,
     pack_mma_b,
+    pack_tf32_b,
     pack_weights,
 )
 
@@ -60,18 +63,17 @@ from fullsubnet_plus_torch.ops.lstm2 import (
 # and `weight_grads`, None the form FUSED_WGRAD_BY_DTYPE gives x's dtype.
 FUSED_WGRAD: bool | None = None
 # Measured on the H100 at the training fold (PERF.md): bf16 K3 55 ms against
-# K4 + `weight_grads` 81; float32 K3 220 ms against 185, whose FMA weight
-# gradients lose to cuBLAS's SGEMM. K4 holds the dgates of every step
-# (5.5 GB in float32 there), K3 an L2-sized scratch.
+# K4 + `weight_grads` 80; float32, with the reverse sweep on the tensor cores
+# in both, K3 166 ms against 120, whose FMA weight gradients (67 ms) lose to
+# cuBLAS's SGEMM (36 ms). K4 holds the dgates of every step (5.5 GB in
+# float32 there), K3 an L2-sized scratch.
 FUSED_WGRAD_BY_DTYPE = {torch.float32: False, torch.bfloat16: True}
 
 # wrapper calls that launched their kernel, since import (or last reset)
 LAUNCHES = {"lstm2_train_fwd": 0, "lstm2_bwd": 0, "lstm2_bwd_wgrad": 0}
 
-ROWS_PER_CTA = (16, 20)  # the float32 reverse sweep's row tiles
-MMA_ROWS_PER_CTA = 16  # the bf16 reverse sweep's row tile: one m16 tile (MMA_ROWS in the .cuh)
-MMA_PAD = 8  # bf16 pad of a dgates row in the bf16 sweep's shared memory (lstm2_bwd_sweep.cuh)
-DX_PARTS_MAX = 12  # k-slices of the dx product (DX_PARTS_MAX in lstm2_bwd_sweep.cuh)
+MMA_ROWS_PER_CTA = 16  # the reverse sweep's row tile: one m16 tile (MMA_ROWS in the .cuh)
+MMA_PAD_BYTES = 16  # pad of a dgates row in the reverse sweep's shared memory (lstm2_bwd_sweep.cuh)
 WGRAD_SCRATCH_BYTES = 32 << 20  # dgates scratch of the fused backward: a few steps, L2-sized
 # The bf16 weight-gradient kernel's tiles (csrc/lstm2_bwd_wgrad.cu, `HTile` and
 # W1_ROWS x W1_COLS): rows of the gradient x gate columns. dU1, dW2 and dU2
@@ -82,8 +84,8 @@ WGRAD_W1_TILE = (48, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_PTR] * 14 + [_INT] * 7 + [_PTR]
-_BWD_ARGTYPES = [_PTR] * 15 + [_INT] * 7 + [_PTR]
-_WGRAD_ARGTYPES = [_PTR] * 26 + [_INT] * 8 + [_PTR]
+_BWD_ARGTYPES = [_PTR] * 12 + [_INT] * 7 + [_PTR]
+_WGRAD_ARGTYPES = [_PTR] * 23 + [_INT] * 8 + [_PTR]
 
 
 class Residuals(NamedTuple):
@@ -326,27 +328,13 @@ def lstm2_fc_train(x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def rows_per_cta(n: int, sm_count: int) -> int:
-    """The row tile R: the instantiated size that sweeps the fold in the
-    fewest waves of one CTA per SM, weighted by the tile's own length."""
-    def cost(rows):
-        tiles = -(-n // rows)
-        return -(-tiles // sm_count) * rows
-
-    return min(ROWS_PER_CTA, key=lambda rows: (cost(rows), rows))
-
-
 def mma_rows_per_cta(n: int, sm_count: int) -> int:
-    """The row tile R of the bf16 reverse sweep, whose products run on the
-    tensor cores in m-tiles of 16 rows: one m-tile at every fold. Two (R 32:
-    one wave at N 2304 and half the weight reads) measured slower at N 771
-    to 2304 on the H100, each step taking twice as long (PERF.md)."""
+    """The row tile R of the reverse sweep, whose products run on the
+    tensor cores in m-tiles of 16 rows: one m-tile at every fold and in both
+    types. Two (R 32: one wave at N 2304 and half the weight reads) measured
+    slower in bf16 at N 771 to 2304 on the H100, each step taking twice as
+    long, and do not fit a block in float32 (PERF.md)."""
     return MMA_ROWS_PER_CTA
-
-
-def dx_parts(d_in: int, hidden: int) -> int:
-    """k-slices of the dx product in the reverse sweep: D x parts threads."""
-    return min(hidden // d_in, DX_PARTS_MAX)
 
 
 def fwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
@@ -358,22 +346,18 @@ def fwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
 
 def bwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
                             dtype: torch.dtype = torch.float32) -> int:
-    """csrc/lstm2_bwd_sweep.cuh. float32: dgates [4H][R], the dh1 and dh2
-    carries [R][H], the dy tile [R][O] and the dx partials [parts][R][D],
-    all float32. bfloat16: dgates bf16 [R][4H + MMA_PAD], then float32 the
-    carries, the dy tile and a dx partial per warp [H / 32][R][ceil(D / 8) * 8]."""
-    if dtype == torch.bfloat16:
-        dx_cols = -(-d_in // 8) * 8
-        return (2 * rows * (4 * hidden + MMA_PAD)
-                + 4 * rows * (2 * hidden + out_dim + (hidden // 32) * dx_cols))
-    return 4 * rows * (4 * hidden + 2 * hidden + out_dim + dx_parts(d_in, hidden) * d_in)
+    """csrc/lstm2_bwd_sweep.cuh: the dgates in x's dtype [R][4H + pad]
+    (MMA_PAD_BYTES of pad), then float32 the dh1 and dh2 carries [R][H], the
+    dy tile [R][O] and a dx partial per warp [H / 32][R][ceil(D / 8) * 8]."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    dx_cols = -(-d_in // 8) * 8
+    return (size * rows * (4 * hidden + MMA_PAD_BYTES // size)
+            + 4 * rows * (2 * hidden + out_dim + (hidden // 32) * dx_cols))
 
 
-def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes,
-           row_tile=rows_per_cta) -> int:
-    """Raises on what the kernels do not take; returns the row tile R
-    (`row_tile(n, sm_count)`, or the smallest if that needs too much
-    shared memory)."""
+def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes, row_tile) -> int:
+    """Raises on what the kernels do not take; returns the row tile R,
+    `row_tile(n, sm_count)`."""
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     if x.dtype not in _DTYPE_CODES:
@@ -399,8 +383,6 @@ def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes,
         raise ValueError(f"{name}: empty fold")
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
     rows = row_tile(n, sm_count)
-    if smem_bytes(rows, d, hidden, out_dim) > SMEM_LIMIT:
-        rows = ROWS_PER_CTA[0]
     if smem_bytes(rows, d, hidden, out_dim) > SMEM_LIMIT:
         raise ValueError(f"{name}: D, H and O need more shared memory than a block has")
     return rows
@@ -453,15 +435,11 @@ def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
 def _bwd_operands(name: str, dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
                   res: Residuals):
     """Checks, the row tile, dy [N, T, O] in x's dtype, and the weights as
-    the sweep reads them: float32 transposed ([W2; U2]^T [4H, 2H], U1^T
-    [4H, H], W1^T [4H, D]) with null packed ones; bfloat16 null transposed
-    ones and the packed mma fragments of [W2; U2], U1 and W1 (`pack_mma_b`,
-    once per call: 3.7 MB at H 384)."""
-    if x.dtype == torch.bfloat16:
-        rows = _check(name, x, w, functools.partial(bwd_shared_memory_bytes, dtype=x.dtype),
-                      mma_rows_per_cta)
-    else:
-        rows = _check(name, x, w, bwd_shared_memory_bytes)
+    the sweep reads them: the packed mma fragments of [W2; U2], U1 and W1
+    (`pack_mma_b` in bfloat16, `pack_tf32_b` in float32; once per call:
+    3.7 MB and 7.4 MB at H 384)."""
+    rows = _check(name, x, w, functools.partial(bwd_shared_memory_bytes, dtype=x.dtype),
+                  mma_rows_per_cta)
     n, _, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     _check_residuals(name, x, res, hidden)
@@ -469,9 +447,8 @@ def _bwd_operands(name: str, dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
         raise ValueError(f"{name}: dy is {tuple(dy.shape)} on {dy.device}, expected "
                          f"{(n, steps, out_dim)} on {x.device}")
     dy = dy.to(x.dtype).contiguous()
-    if x.dtype == torch.bfloat16:
-        return rows, dy, (None,) * 3 + tuple(pack_mma_b(m) for m in (w.w2, w.u1, w.w1))
-    return rows, dy, tuple(m.t().contiguous() for m in (w.w2, w.u1, w.w1)) + (None,) * 3
+    pack = pack_mma_b if x.dtype == torch.bfloat16 else pack_tf32_b
+    return rows, dy, tuple(pack(m) for m in (w.w2, w.u1, w.w1))
 
 
 def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Residuals) -> SweepGrads:

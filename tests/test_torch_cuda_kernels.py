@@ -12,8 +12,9 @@ bf16 and int8 40 dB (float32 differs by sum order and expf / tanhf only; in
 bf16 single roundings of h, the residuals and the dgates flip and carry
 through the recurrence). K2's y equals K1's bit for bit, the forward sweep
 gives the same bits at both bf16 row tiles, and K3 equals itself on a
-repeat, also in bf16 over several chunks at every tile shape of its
-tensor-core weight gradients. chip_smoke.py repeats these checks at the model's folds.
+repeat, also over several chunks: in bf16 at every tile shape of its
+tensor-core weight gradients, and in float32. chip_smoke.py repeats these
+checks at the model's folds.
 """
 
 import importlib.util
@@ -211,6 +212,37 @@ def test_bf16_wgrad_kernel_matches_plain_over_chunks(monkeypatch, hidden, tile):
         lt.force_wgrad_tile(before)
     snrs = {name: _snr(a.float(), b.float()) for name, a, b in zip(want._fields, want, got)}
     assert min(snrs.values()) >= FLOOR[torch.bfloat16], snrs
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,hidden", [(34, 64), (34, 384), (32, 512)])
+def test_float32_wgrad_sweep_matches_plain_over_chunks(monkeypatch, d, hidden):
+    """K3 in float32, whose reverse sweep runs its three products on the
+    tensor cores as three TF32 products of split operands, against
+    `lstm2_bwd_plain` with the scratch cut to 3 steps, so T = 7 runs chunks
+    of 3, 3 and 1 (the sweep resumes twice from the carries in device
+    memory): N = 150 is a multiple of no row tile; H 512 takes the
+    512-thread build (D 32: at D 34 its dx partials no longer fit a block).
+    K4's sweep against the plain one too; K3 equal to itself on a repeat."""
+    _need_card()
+    n, t = 150, 7
+    tensors, x, dy = _case(n, t, d, hidden, 2, seed=3)
+    w = ops_lstm2.pack_weights(*(p.cuda() for p in tensors))
+    xt, dyt = torch.tensor(x).cuda(), torch.tensor(dy).cuda()
+    _, res = lt.lstm2_train_fwd_reference(xt, w)
+    monkeypatch.setattr(lt, "WGRAD_SCRATCH_BYTES", 3 * 2 * n * 4 * hidden * 4)
+    assert lt.wgrad_chunk_steps(n, hidden, t, 4) == 3
+    want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
+    got = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    again = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    sweep = lt.lstm2_bwd_sweep(dyt, xt, w, res)
+    sweep_ref = lt.lstm2_bwd_reference(dyt, xt, w, res)
+    torch.cuda.synchronize()
+    snrs = {name: _snr(a, b) for name, a, b in zip(want._fields, want, got)}
+    snrs.update({f"k4_{name}": _snr(a, b) for name, a, b in
+                 zip(("dx", "dg1", "dg2"), sweep_ref[:3], sweep[:3])})
+    assert min(snrs.values()) >= FLOOR[torch.float32], snrs
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

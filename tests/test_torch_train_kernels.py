@@ -203,14 +203,14 @@ def test_gradcheck_float64_on_the_plain_path():
 
 
 def test_rows_per_cta_and_chunking():
-    """The launch geometry the wrappers compute: the row tile that covers
-    the fold in the fewest waves of one CTA per SM, the dx slices, and a
-    dgates scratch that does not grow with T."""
-    assert lt.rows_per_cta(2304, 132) == 20  # 144 tiles of 16 need two waves
-    assert lt.rows_per_cta(2056, 132) == 16  # 129 tiles of 16 fit in one
-    assert lt.rows_per_cta(771, 132) == 16
-    assert lt.dx_parts(34, 384) == 11 and lt.dx_parts(34, 512) == lt.DX_PARTS_MAX
-    assert lt.bwd_shared_memory_bytes(20, 34, 384, 2) <= ops_lstm2.SMEM_LIMIT
+    """The launch geometry the wrappers compute: the reverse sweep's row
+    tile, one m16 tile in both types at every fold (at N 2304 its 144 tiles
+    take two waves of 132 SMs), the forward's and the reverse sweep's shared
+    memory in a block, and a dgates scratch that does not grow with T."""
+    for n in (2304, 2056, 771):
+        assert lt.mma_rows_per_cta(n, 132) == lt.MMA_ROWS_PER_CTA == 16
+    for dtype in (torch.float32, torch.bfloat16):
+        assert lt.bwd_shared_memory_bytes(16, 34, 384, 2, dtype) <= ops_lstm2.SMEM_LIMIT
     assert lt.fwd_shared_memory_bytes(16, 34, 384, 2) <= ops_lstm2.SMEM_LIMIT
     for steps in (1, 195, 10_000):
         chunk = lt.wgrad_chunk_steps(2304, 384, steps, 4)
@@ -285,12 +285,13 @@ def test_bf16_sweep_tile_and_shared_memory(n):
     """The bf16 sweep's row tile is one m16 tile at the training, serving
     and ragged folds, and its shared memory (dgates bf16 [16][4H + 8], the
     float32 carries, dy tile and 12 dx partials [16][40]) fits a block; the
-    float32 sweep's count is unchanged."""
+    float32 sweep takes the same tile and layout with float32 dgates
+    [16][4H + 4] (`test_f32_bwd_sweep_shared_memory`)."""
     assert lt.mma_rows_per_cta(n, 132) == 16
     smem = lt.bwd_shared_memory_bytes(16, 34, 384, 2, torch.bfloat16)
-    assert smem == 2 * 16 * (1536 + lt.MMA_PAD) + 4 * 16 * (768 + 2 + 12 * 40) == 129_408
+    assert smem == 2 * 16 * (1536 + lt.MMA_PAD_BYTES // 2) + 4 * 16 * (768 + 2 + 12 * 40) == 129_408
     assert smem <= ops_lstm2.SMEM_LIMIT
-    assert lt.bwd_shared_memory_bytes(20, 34, 384, 2) == 4 * 20 * (1536 + 768 + 2 + 11 * 34)
+    assert lt.bwd_shared_memory_bytes(16, 34, 384, 2) == smem - 2 * 16 * 1544 + 4 * 16 * 1540
 
 
 def test_cuda_tensor_without_a_card_raises_not_falls_back():
@@ -505,9 +506,10 @@ def _tf32(a: torch.Tensor) -> torch.Tensor:
 
 def _split_tf32(a: torch.Tensor):
     """lstm2::split_tf32 as the tensor core reads it: big = a rounded to
-    TF32, small = a - big (exact in float32) with its low 13 bits dropped."""
+    TF32, small = a - big (exact in float32) rounded to TF32 the same way
+    (split_tf32 adds half of the 13 low bits, the tensor core drops them)."""
     big = _tf32(a)
-    return big, ((a - big).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return big, _tf32(a - big)
 
 
 def _three_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -581,7 +583,8 @@ def test_tf32_packing_round_trips_and_walks_the_lanes():
 def test_tf32_split_keeps_21_bits():
     """On seeded normal values scaled by 1e-30 .. 1e30, and zeros, both
     halves as the tensor core reads them are TF32 (the low 13 bits zero)
-    and a - big - small is within 2^-21 |a|; big + small is exact in float32."""
+    and a - big - small is within 2^-22 |a| (both halves rounded to
+    nearest: 22 bits); big + small is exact in float32."""
     rng = np.random.default_rng(9)
     a = rng.standard_normal(20_000) * 10.0 ** rng.uniform(-30, 30, 20_000)
     a = torch.from_numpy(np.concatenate([a, np.zeros(16)]).astype(np.float32))
@@ -589,7 +592,7 @@ def test_tf32_split_keeps_21_bits():
     for half in (big, small):
         assert not (half.view(torch.int32) & 0x1FFF).any()
     err = (a.double() - big.double() - small.double()).abs()
-    assert (err <= 2.0 ** -21 * a.double().abs()).all()
+    assert (err <= 2.0 ** -22 * a.double().abs()).all()
     assert torch.equal((big + small).double(), big.double() + small.double())
 
 
@@ -616,6 +619,96 @@ def test_fwd_three_tf32_walk_holds_the_float32_floors(n, t, d, h, o):
                       **{f: _snr_db(e, r) for f, r, e in zip(lt.Residuals._fields, res, res_ref)}}
     assert min(snrs["3xtf32"].values()) >= 100.0, snrs
     assert min(snrs["1xtf32"].values()) < 80.0, snrs
+
+
+# ---------------------------------------------------------------------------
+# the float32 reverse sweep (csrc/lstm2_bwd_sweep.cuh, sweep_mma_kernel<float>):
+# the three transposed products as three TF32 products of split operands
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("which", ["w2", "u1", "w1"])
+def test_bwd_tf32_packing_round_trips_and_walks_the_lanes(which):
+    """The float32 reverse sweep's B operands, `pack_tf32_b` of [W2; U2]
+    [2H, 4H], U1 [H, 4H] and W1 [D, 4H] (row c: the weights of output column
+    c), unpack bit for bit, W1's D 34 rows padded with zero rows to five
+    n-tiles (40 columns of dx), and walked as m16n8k8's B fragments rebuild
+    the transposed weight."""
+    hidden, d_in = 32, 34
+    rows = {"w2": 2 * hidden, "u1": hidden, "w1": d_in}[which]
+    w = torch.randn(rows, 4 * hidden, generator=torch.Generator().manual_seed(12)) * 0.1
+    packed = ops_lstm2.pack_tf32_b(w)
+    tiles = -(-rows // 8)
+    assert packed.shape == (tiles, 4 * hidden // 16, 32, 4) and packed.dtype == torch.float32
+    assert torch.equal(ops_lstm2.unpack_tf32_b(packed, rows), w)
+    assert not ops_lstm2.unpack_tf32_b(packed, 8 * tiles)[rows:].any()
+    assert torch.equal(_tf32_fragment_matrix(packed, rows), w.t())
+    if which == "w1":
+        assert 8 * tiles == 40
+
+
+def _bwd_three_tf32_walk(dy, x, w, res):
+    """The float32 reverse sweep walked as the kernel walks it: per step the
+    cell backward (no rounding in float32), then the three products from
+    the packed fragments (`_tf32_fragment_matrix` of `pack_tf32_b`), each as
+    three TF32 products of split operands summed a k-chunk of 16 at a time
+    into the float32 sums (`_three_tf32`): [dh1' | dh2_carry] over all 4H
+    with dh1' added to the dh1 carry, dh1_carry, and dx as H / 32 k-parts,
+    one a warp, each over its own run of k-chunks, added in warp order from
+    zero. -> (dx [N, D, T], dg1, dg2 [T, N, 4H])."""
+    n, _, steps = x.shape
+    hidden = w.u1.shape[0]
+    warps, chunks = hidden // 32, 4 * hidden // 16
+    b_w2, b_u1, b_w1 = (_tf32_fragment_matrix(ops_lstm2.pack_tf32_b(m), m.shape[0])
+                        for m in (w.w2, w.u1, w.w1))
+    zeros = torch.zeros(n, hidden)
+    dh1, dc1, dh2, dc2 = zeros, zeros, zeros, zeros
+    dx, dg1, dg2 = [None] * steps, [None] * steps, [None] * steps
+    for t in range(steps - 1, -1, -1):
+        c2_prev = res.c2[t - 1] if t else zeros
+        dg2[t], dc2 = lt._cell_bwd(dy[:, t] @ w.fc_w.t() + dh2, res.g2[t], res.c2[t], c2_prev, dc2)
+        dinp2 = _three_tf32(dg2[t], b_w2)
+        dh2 = dinp2[:, hidden:]
+        c1_prev = res.c1[t - 1] if t else zeros
+        dg1[t], dc1 = lt._cell_bwd(dinp2[:, :hidden] + dh1, res.g1[t], res.c1[t], c1_prev, dc1)
+        dh1 = _three_tf32(dg1[t], b_u1)
+        s = torch.zeros(n, b_w1.shape[1])
+        for part in range(warps):
+            k0, k1 = 16 * (part * chunks // warps), 16 * ((part + 1) * chunks // warps)
+            s = s + _three_tf32(dg1[t][:, k0:k1], b_w1[k0:k1])
+        dx[t] = s
+    return torch.stack(dx, dim=2), torch.stack(dg1), torch.stack(dg2)
+
+
+@pytest.mark.parametrize("n,t,d,h,o", [(37, 4, 34, 64, 2), (21, 3, 10, 96, 11)])
+def test_bwd_three_tf32_walk_holds_the_float32_floors(n, t, d, h, o):
+    """The float32 reverse sweep walked in the kernel's fragment order (split
+    operands with the tensor core's 13-bit truncation of small, per-chunk
+    partials, dx k-parts added in warp order: 2 and 3 warps here, D 10
+    padded to two n-tiles) gives `lstm2_bwd_reference`'s dx and dgates at
+    the 80 dB floor K3 and K4 are held to on the card, at two ragged folds."""
+    x, w = _fwd_f32_case(n, t, d, h, o)
+    _, res = lt.lstm2_train_fwd_reference(x, w)
+    dy = torch.randn(n, t, o, generator=torch.Generator().manual_seed(13))
+    want = lt.lstm2_bwd_reference(dy, x, w, res)
+    got = _bwd_three_tf32_walk(dy, x, w, res)
+    snrs = {name: _snr_db(a, b) for name, a, b in zip(("dx", "dg1", "dg2"), want[:3], got)}
+    assert all(a.shape == b.shape for a, b in zip(want[:3], got))
+    assert min(snrs.values()) >= 80.0, snrs
+
+
+def test_f32_bwd_sweep_shared_memory():
+    """The float32 reverse sweep at D 34, H 384, O 2: dgates float32
+    [16][4H + 4] (98,560 bytes), the dh1 and dh2 carries (49,152), the dy
+    tile (128) and 12 dx partials [16][40] (30,720): 178,560 bytes, one CTA
+    an SM. FullSubNet's full-band shape (D 257, H 512, O 257; ROADMAP Queue 1
+    item 7) fits neither type: the 16 per-warp dx partials [16][264] alone
+    take 270,336 bytes."""
+    smem = lt.bwd_shared_memory_bytes(16, 34, 384, 2, torch.float32)
+    assert smem == 4 * 16 * 1540 + 4 * 16 * 768 + 4 * 16 * 2 + 4 * 12 * 16 * 40 == 178_560
+    assert smem <= ops_lstm2.SMEM_LIMIT < 2 * smem
+    assert lt.bwd_shared_memory_bytes(16, 257, 512, 257, torch.float32) == 483_648
+    assert lt.bwd_shared_memory_bytes(16, 257, 512, 257, torch.bfloat16) == 418_112
+    assert 4 * 16 * 16 * 264 == 270_336 > ops_lstm2.SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
