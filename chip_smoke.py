@@ -17,6 +17,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      TF32 products), and no bf16 FMA sweep, FMA forward or reverse sweep or
      bf16 FMA `wgrad_kernel` may be compiled; print the float32 reverse
      sweeps' and the weight-gradient kernels' registers and spills (ptxas);
+     K5's sweep `int8_sweep_kernel` must have IMMA (s8) and HMMA (bf16)
+     tensor-core instructions and no IDP (`__dp4a`) one, with its registers
+     and spills printed;
   2. hold each kernel against the JAX kernel's outputs (the committed
      tests/fixtures/torch_kernel_fixture.npz, interpret mode on the CPU, at
      small ragged shapes; same floors) and against its plain PyTorch version
@@ -25,8 +28,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      at the serving fold and at the batch path's (>= 40 dB), K2, K3 and K4
      at the training fold (same floors; K2's y equal to K1's bit for bit,
      K3 equal to itself on a repeat, the autograd Function's gradients
-     through K3 against those through K4), all at a ragged shape too; check
-     that the int8 weights K5 reads are the prepared ones;
+     through K3 against those through K4), all at a ragged shape too; K5
+     equal to itself on a repeat at each fold; check that the fragments K5
+     reads unpack to the prepared int8 weights;
   3. time each kernel, its plain version and a cuDNN LSTM + Linear (a
      yardstick only; forward for K1, K2 and K5, backward for K3 and K4; for
      K5 also K1 in bf16 at the same shape), with CUDA events, beside the
@@ -34,7 +38,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      reverse, both: three TF32 products at the TF32 peak, and FMAs at the
      float32 peak; K3's float32 weight gradients at the float32 peak); K1
      and K2 at each row tile of the tensor-core forward (bf16 R 16 and 32,
-     float32 R 16) and the weight packing alone; split K3's and K4's device
+     float32 R 16) and the weight packing alone, K5 at each of its row
+     tiles (R 16 and 32) at the serving fold; split K3's and K4's device
      time into the reverse sweep, K3's weight-gradient
      kernel and the rest (torch.profiler); that kernel beside its own bound
      and, in bf16, beside the same four products as bf16 cuBLAS GEMMs over
@@ -309,6 +314,8 @@ def phase_build() -> dict:
     hmma = {}
     for lib in libs:
         stem = lib.stem.rsplit("_", 1)[0]
+        if stem == "lstm2_int8_fwd":
+            hmma[stem] = int8_functions(lib)
         if stem not in SWEEP_SOURCES:
             continue
         sweeps = {f: n for f, n in sass_instruction_counts(lib, "HMMA").items() if "sweep" in f}
@@ -327,6 +334,29 @@ def phase_build() -> dict:
         if stem == "lstm2_bwd_wgrad":
             hmma["wgrad"] = wgrad_functions(lib)
     return hmma
+
+
+def int8_functions(lib) -> dict:
+    """K5's sweep runs every product on the tensor cores: each instantiation
+    of `int8_sweep_kernel` has IMMA (the s8 products) and HMMA (x W1 and the
+    fc in bf16) instructions, and the library has no IDP (`__dp4a`) one.
+    Returns {function: {imma, hmma, registers, spill bytes}} and prints them."""
+    counts = {op: sass_instruction_counts(lib, op) for op in ("IMMA", "HMMA", "IDP")}
+    ptxas = ptxas_functions(lib)
+    out = {}
+    for function in (f for f in counts["IMMA"] if "int8_sweep_kernel" in f):
+        regs, spill_st, spill_ld = ptxas.get(function, (None, None, None))
+        imma, hmma = counts["IMMA"][function], counts["HMMA"][function]
+        print(f"[1] lstm2_int8_fwd: {function} has {imma} IMMA, {hmma} HMMA, "
+              f"{counts['IDP'][function]} IDP instructions; ptxas: {regs} registers, "
+              f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+        out[function] = {"imma": imma, "hmma": hmma, "registers": regs,
+                         "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
+    if not out or min(min(v["imma"], v["hmma"]) for v in out.values()) == 0:
+        fail("lstm2_int8_fwd: the int8 sweep lacks IMMA or HMMA instructions")
+    if any(counts["IDP"].values()):
+        fail("lstm2_int8_fwd: __dp4a (IDP) instructions were compiled")
+    return out
 
 
 def check_float32_forward(lib, stem: str, sweeps: dict) -> None:
@@ -427,16 +457,16 @@ def phase_check_fixture() -> dict:
 
 
 @contextlib.contextmanager
-def fwd_row_tile(rows: int):
-    """Force the forward sweep's row tile (K1 and K2 read the same rule)."""
-    from fullsubnet_plus_torch.ops import lstm2
-
-    rule = lstm2.fwd_mma_rows_per_cta
-    lstm2.fwd_mma_rows_per_cta = lambda *_: rows
+def forced_row_tile(module, rule: str, rows: int):
+    """Force a wrapper's row-tile rule, which it reads at call time: the
+    forward sweep's (`lstm2.fwd_mma_rows_per_cta`, read by K1 and K2) or
+    K5's (`lstm2_int8.int8_rows_per_cta`)."""
+    saved = getattr(module, rule)
+    setattr(module, rule, lambda *_: rows)
     try:
         yield
     finally:
-        lstm2.fwd_mma_rows_per_cta = rule
+        setattr(module, rule, saved)
 
 
 def fwd_tile_at(n: int, dtype: torch.dtype) -> int:
@@ -468,36 +498,57 @@ def phase_check() -> dict:
     for n, t in ((N_SERVE, T_SERVE), (N_FULL, T_FULL), (N_RAGGED, T_RAGGED)):
         x, w, lstm, _ = int8_operands(n, t, seed=n + t)
         check_prepared(lstm, w)
-        out = lstm2_int8.lstm2_int8_fc(x, w).float()
+        out = lstm2_int8.lstm2_int8_fc(x, w)
+        again = lstm2_int8.lstm2_int8_fc(x, w)
         torch.cuda.synchronize()
         ref = lstm2_int8.lstm2_int8_fc_reference(x, w).float()
+        out, repeat = out.float(), torch.equal(out, again)
         if not torch.isfinite(out).all():
             fail(f"lstm2_int8_fwd output not finite at N={n} T={t}")
         snr, err = snr_db(ref, out), float((out - ref).abs().max())
-        print(f"[2] lstm2_int8_fwd vs plain N={n} T={t}: max_abs {err:.3e}  "
-              f"SNR {snr:.1f} dB (floor {INT8_SNR_FLOOR:.0f})")
+        print(f"[2] lstm2_int8_fwd vs plain N={n} T={t} (row tile {int8_tile_at(n)}): "
+              f"max_abs {err:.3e}  SNR {snr:.1f} dB (floor {INT8_SNR_FLOOR:.0f}); "
+              f"equal on a repeat: {repeat}")
         if snr < INT8_SNR_FLOOR:
             fail(f"lstm2_int8_fwd disagrees with the plain version: {snr:.1f} dB")
+        if not repeat:
+            fail(f"lstm2_int8_fwd is not bit-equal on a repeat at N={n} T={t}")
         errors[("lstm2_int8_fwd", n, t)] = err
     return errors
 
 
 def check_prepared(lstm, w) -> None:
-    """The packed words K5 reads unpack to the int8 weights, which are the
-    numpy quantization of the module's bf16 weights."""
-    from fullsubnet_plus_torch.ops.lstm2_int8 import prepare_quantized_lstm, unpack_k_quads
+    """The fragments K5 reads (packed once by prepare_int8) unpack to the
+    int8 weights, W1 with zero padding rows, W_fc and the scales and
+    biases; the int8 weights are the numpy quantization of the module's
+    bf16 weights."""
+    from fullsubnet_plus_torch.ops.lstm2 import deinterleave_gates, unpack_mma_b
+    from fullsubnet_plus_torch.ops.lstm2_int8 import prepare_quantized_lstm, unpack_s8_b
 
     def kq(p):
         return p.detach().to(torch.bfloat16).float().t().cpu().numpy()
 
     q = prepare_quantized_lstm(kq(lstm.weight_hh_l0),
                                np.concatenate([kq(lstm.weight_ih_l1), kq(lstm.weight_hh_l1)]))
-    same = (torch.equal(unpack_k_quads(w.u1q_packed), w.u1q)
-            and torch.equal(unpack_k_quads(w.w2q_packed), w.w2q)
+    m, g = w.mma, 4 * H
+    w1 = deinterleave_gates(unpack_mma_b(m.w1, g).t())
+    same = (torch.equal(deinterleave_gates(unpack_s8_b(m.u1q, g, H).t()), w.u1q)
+            and torch.equal(deinterleave_gates(unpack_s8_b(m.w2q, g, 2 * H).t()), w.w2q)
+            and torch.equal(w1[:D], w.w1) and not w1[D:].any()
+            and torch.equal(unpack_mma_b(m.fc, O).t().float(), w.fc_w)
+            and all(torch.equal(deinterleave_gates(getattr(m, k)), getattr(w, k))
+                    for k in ("s1", "b1", "s2", "b2"))
             and all(np.array_equal(getattr(w, k).cpu().numpy(), q[k])
                     for k in ("u1q", "w2q", "s1", "s2")))
     if not same:
-        fail("the int8 weights lstm2_int8_fwd reads are not the prepared ones")
+        fail("the weights lstm2_int8_fwd reads are not the prepared ones")
+
+
+def int8_tile_at(n: int) -> int:
+    from fullsubnet_plus_torch.ops import lstm2_int8
+
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    return lstm2_int8.int8_row_tile(n, D, H, sm_count)
 
 
 def phase_time() -> dict:
@@ -541,8 +592,15 @@ def phase_time() -> dict:
           f"plain {plain_ms:.3f} ms  lstm2_fwd bf16 {k1_ms:.3f} ms  "
           f"cuDNN bf16 LSTM+Linear {library_ms:.3f} ms (yardstick)  "
           f"bound {bound_ms:.3f} ms ({bound_by})")
+    row_tile_ms = {}
+    for rows in lstm2_int8.INT8_ROWS_PER_CTA:
+        with forced_row_tile(lstm2_int8, "int8_rows_per_cta", rows):
+            row_tile_ms[rows] = round(cuda_ms(lambda: lstm2_int8.lstm2_int8_fc(x, w), reps=3), 3)
+    print(f"[3] lstm2_int8_fwd N={N_SERVE} T={T_SERVE} by row tile: {row_tile_ms} ms "
+          f"(the rule takes {int8_tile_at(N_SERVE)})")
     times["int8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, lstm2_fwd_bf16_ms=k1_ms)
+                         bound_ms=bound_ms, bound_by=bound_by, lstm2_fwd_bf16_ms=k1_ms,
+                         row_tile_ms=row_tile_ms, row_tile=int8_tile_at(N_SERVE))
     return times
 
 
@@ -552,7 +610,7 @@ def time_row_tiles(fn, dtype: torch.dtype) -> dict:
 
     out = {}
     for rows in lstm2.FWD_MMA_ROWS_PER_CTA[dtype]:
-        with fwd_row_tile(rows):
+        with forced_row_tile(lstm2, "fwd_mma_rows_per_cta", rows):
             out[rows] = round(cuda_ms(fn, reps=3), 3)
     return out
 
@@ -1326,6 +1384,7 @@ def main() -> None:
                           "serve_stream_median": serve["stream_audio_s_per_s_median"]},
         "serve_busy_tick_ms": serve["stats"]["busy_tick_ms"],
         "jax_fixture_min_snr_db": fixture_snr[("lstm2_int8_fwd", "bfloat16")],
+        "sweep_functions": hmma["lstm2_int8_fwd"],
     }
     runs = train["runs"]
 

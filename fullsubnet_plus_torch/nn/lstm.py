@@ -21,7 +21,7 @@ from fullsubnet_plus_torch.nn.layers import Linear, uniform_
 from fullsubnet_plus_torch.ops.lstm2 import LSTM2Weights, pack_weights
 from fullsubnet_plus_torch.ops.lstm2_int8 import (
     LSTM2Int8Weights,
-    pack_k_quads,
+    pack_int8_mma,
     prepare_quantized_lstm,
 )
 
@@ -64,7 +64,8 @@ class LSTM2(nn.Module):
         of the JAX Enhancer's `_attach_int8_prepared`): every weight is first
         cast to bfloat16, as the JAX Enhancer casts its parameters before it
         quantizes, then U1 and [W2; U2] are quantized per column
-        (`prepare_quantized_lstm`) and repacked for the kernel. Raises if a
+        (`prepare_quantized_lstm`) and packed for the kernel into
+        fragment order (`pack_int8_mma`), here and not per call. Raises if a
         prepared shape does not match the float weights it came from."""
         def bf16(p):
             return p.detach().to(torch.bfloat16)
@@ -83,17 +84,14 @@ class LSTM2(nn.Module):
                 raise ValueError(f"prepare_int8: {name} is {q[name].shape}, the float "
                                  f"weights give {shape}")
         device = self.weight_hh_l0.device
-        u1q, w2q = (torch.from_numpy(q[k]).to(device) for k in ("u1q", "w2q"))
-        return LSTM2Int8Weights(
+        plain = dict(
             w1=t(self.weight_ih_l0),
-            u1q=u1q,
+            u1q=torch.from_numpy(q["u1q"]).to(device),
             s1=torch.from_numpy(q["s1"]).to(device),
             b1=(bf16(self.bias_ih_l0) + bf16(self.bias_hh_l0)).float(),
-            w2q=w2q,
+            w2q=torch.from_numpy(q["w2q"]).to(device),
             s2=torch.from_numpy(q["s2"]).to(device),
             b2=(bf16(self.bias_ih_l1) + bf16(self.bias_hh_l1)).float(),
             fc_w=t(fc.weight).float(),
-            fc_b=bf16(fc.bias).float(),
-            u1q_packed=pack_k_quads(u1q),
-            w2q_packed=pack_k_quads(w2q),
         )
+        return LSTM2Int8Weights(**plain, fc_b=bf16(fc.bias).float(), mma=pack_int8_mma(**plain))

@@ -244,10 +244,16 @@ def fwd_mma_rows_per_cta(n: int, sm_count: int, dtype: torch.dtype = torch.bfloa
     2304, T 195: one wave of R 32 17.3-17.7 ms, two waves of R 16 22.0-23.1;
     at N 771, one wave either way, R 16 9.8-10.3 against 13.0-13.5; PERF.md,
     scripts/time_torch_fwd_tiles.py). float32 has R 16 alone."""
+    return fewest_waves_tile(n, sm_count, FWD_MMA_ROWS_PER_CTA[dtype])
+
+
+def fewest_waves_tile(n: int, sm_count: int, tiles) -> int:
+    """Of `tiles` (rows per CTA), the one that covers n rows in the fewest
+    waves of one CTA per SM, and of two that tie the smaller."""
     def waves(rows):
         return -(-(-(-n // rows)) // sm_count)
 
-    return min(FWD_MMA_ROWS_PER_CTA[dtype], key=lambda rows: (waves(rows), rows))
+    return min(tiles, key=lambda rows: (waves(rows), rows))
 
 
 def fwd_mma_row_tile(n: int, d_in: int, hidden: int, sm_count: int,

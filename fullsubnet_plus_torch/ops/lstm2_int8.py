@@ -20,6 +20,11 @@ as int8 at the fixed scale 127 (it lies in (-1, 1)); c and the cell run in
 float32; the fc reads h2 before quantization, rounded to bf16. Rounding is
 half to even throughout, as jnp.round.
 
+The kernel runs every product on the tensor cores (mma.sync: s8 m16n8k32
+with int32 sums for the int8 products, bf16 m16n8k16 with float32 sums for
+x W1 and the fc), from weights packed once into fragment order with the
+gate columns interleaved (`pack_int8_mma`, called by `LSTM2.prepare_int8`).
+
 `lstm2_int8_fc` takes the plain version for a tensor on the CPU and
 launches the kernel for a CUDA tensor, or raises; it never falls back. The
 kernel is built with nvcc at first use (ops/nvcc.py).
@@ -34,14 +39,41 @@ import numpy as np
 import torch
 
 from fullsubnet_plus_torch.ops import nvcc
-from fullsubnet_plus_torch.ops.lstm2 import SMEM_LIMIT, lstm_cell
+from fullsubnet_plus_torch.ops.lstm2 import (
+    SMEM_LIMIT,
+    fewest_waves_tile,
+    interleave_gates,
+    lstm_cell,
+    pack_mma_b,
+    x_cols,
+)
 
 H_QUANT_SCALE = 127.0
 LAUNCHES = 0  # kernel launches through lstm2_int8_fc since import (or last reset)
 
-ROWS_PER_CTA = 16  # R in csrc/lstm2_int8_fwd.cu
+INT8_ROWS_PER_CTA = (16, 32)  # the sweep's row tiles: one or two m16 tiles
+MAX_ROWS_32_HIDDEN = 384  # R 32 is built for blocks of up to 384 threads only
+PAD_BYTES = 16  # pad of an operand row (PAD_BYTES in csrc/lstm2_int8_fwd.cu)
 MAX_HIDDEN = 512  # the kernel's __launch_bounds__: one thread per hidden unit
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+class Int8MmaWeights(NamedTuple):
+    """The sweep's operands (`pack_int8_mma`): u1q = U1q^T and w2q =
+    [W2q; U2q]^T as s8 fragments (`pack_s8_b`), w1 = (W1 padded with zero
+    rows to x_cols(D))^T and fc = W_fc^T (O padded to n-tiles of 8) as bf16
+    fragments (`pack_mma_b`), the gate columns interleaved
+    (`interleave_gates`; the fc has none); s1, b1, s2, b2 [4H] float32,
+    interleaved alike."""
+
+    u1q: torch.Tensor
+    w1: torch.Tensor
+    w2q: torch.Tensor
+    fc: torch.Tensor
+    s1: torch.Tensor
+    b1: torch.Tensor
+    s2: torch.Tensor
+    b2: torch.Tensor
 
 
 class LSTM2Int8Weights(NamedTuple):
@@ -49,10 +81,8 @@ class LSTM2Int8Weights(NamedTuple):
 
     w1 [D, 4H] bfloat16; u1q [H, 4H] and w2q [2H, 4H] ([W2; U2]) int8 with
     column scales s1, s2 [4H] float32 (1/127 of h included); b1, b2 [4H],
-    fc_w [H, O] and fc_b [O] float32 (bf16 values). u1q_packed [H/4, 4H] and
-    w2q_packed [H/2, 4H] int32 are u1q and w2q repacked k-quad-major, four
-    consecutive k of one column in one word (byte i = row 4q + i), the
-    kernel's __dp4a operands; the plain version reads u1q and w2q."""
+    fc_w [H, O] and fc_b [O] float32 (bf16 values): what the plain version
+    reads. mma: the same weights packed once for the kernel."""
 
     w1: torch.Tensor
     u1q: torch.Tensor
@@ -63,8 +93,7 @@ class LSTM2Int8Weights(NamedTuple):
     b2: torch.Tensor
     fc_w: torch.Tensor
     fc_b: torch.Tensor
-    u1q_packed: torch.Tensor
-    w2q_packed: torch.Tensor
+    mma: Int8MmaWeights
 
 
 def _quantize_columns(w):
@@ -89,18 +118,49 @@ def prepare_quantized_lstm(u1, w2) -> dict:
     return {"u1q": u1q, "s1": s1, "w2q": w2q, "s2": s2}
 
 
-def pack_k_quads(wq: torch.Tensor) -> torch.Tensor:
-    """int8 [K, M] -> int32 [K/4, M]: word (q, m) holds wq[4q + i, m] in
-    byte i (little-endian, as __dp4a reads it)."""
-    k, m = wq.shape
-    quads = wq.reshape(k // 4, 4, m).transpose(1, 2).contiguous()  # [K/4, M, 4]
-    return quads.view(torch.int32).reshape(k // 4, m)
+def pack_s8_b(w: torch.Tensor) -> torch.Tensor:
+    """An int8 weight [n, K] whose row c holds the K products' weights of
+    output column c (the "col" B operand of mma.sync m16n8k32) -> its
+    fragments [ceil(n / 8), ceil(K / 64), 32, 16] in the order the lanes read
+    them: n-tile nt, chunk kp (k-steps 2kp and 2kp + 1 of 32), lane 4g + t
+    holds, for each k-step ks, w[8nt + g, 32(2kp + ks) + 4t + 0..3] and
+    w[8nt + g, 32(2kp + ks) + 16 + 4t + 0..3]. So a warp reads 512
+    contiguous bytes a chunk, 16 a lane, as `pack_mma_b`'s bf16 fragments.
+    Rows past n and columns past K are zero, so any K packs."""
+    n, k = w.shape
+    tiles, chunks = -(-n // 8), -(-k // 64)
+    w = torch.nn.functional.pad(w, (0, 64 * chunks - k, 0, 8 * tiles - n))
+    # (nt, g, kp, ks, half, t, pos) -> (nt, kp, g, t, ks, half, pos)
+    return (w.reshape(tiles, 8, chunks, 2, 2, 4, 4).permute(0, 2, 1, 5, 3, 4, 6)
+            .reshape(tiles, chunks, 32, 16).contiguous())
 
 
-def unpack_k_quads(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of `pack_k_quads`."""
-    q, m = packed.shape
-    return packed.contiguous().view(torch.int8).reshape(q, m, 4).transpose(1, 2).reshape(4 * q, m)
+def unpack_s8_b(packed: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The inverse of `pack_s8_b`: [n, K]."""
+    tiles, chunks = packed.shape[:2]
+    return (packed.reshape(tiles, chunks, 8, 4, 2, 2, 4).permute(0, 2, 1, 4, 5, 3, 6)
+            .reshape(8 * tiles, 64 * chunks)[:n, :k])
+
+
+def pack_int8_mma(w1, u1q, s1, b1, w2q, s2, b2, fc_w) -> Int8MmaWeights:
+    """The kernel's operands from the plain ones (`LSTM2Int8Weights`'
+    fields), on their device: once per prepared model, never per call (1.77
+    MB of s8 and 0.2 MB of bf16 fragments at D 34, H 384). W_fc^T is
+    rounded to bf16, exact for the bf16 values it holds, and its K (H) is
+    padded with zero columns to whole chunks, so any H packs."""
+    d_in, hidden = w1.shape[0], u1q.shape[0]
+    w1 = torch.nn.functional.pad(w1, (0, 0, 0, x_cols(d_in) - d_in))
+    fc = torch.nn.functional.pad(fc_w.t().to(torch.bfloat16), (0, -hidden % 32))
+
+    def fragments(m, pack):  # [K, 4H] -> the fragments of its interleaved transpose
+        return pack(interleave_gates(m).t())
+
+    def gates(v):
+        return interleave_gates(v).contiguous()
+
+    return Int8MmaWeights(fragments(u1q, pack_s8_b), fragments(w1, pack_mma_b),
+                          fragments(w2q, pack_s8_b), pack_mma_b(fc), gates(s1), gates(b1),
+                          gates(s2), gates(b2))
 
 
 def _quantize_h(h):
@@ -144,11 +204,38 @@ def lstm2_int8_fc(x: torch.Tensor, w: LSTM2Int8Weights) -> torch.Tensor:
     return _launch(x, w)
 
 
-def shared_memory_bytes(d_in: int, hidden: int, out_dim: int) -> int:
-    """Dynamic shared memory of one block (the layout in lstm2_int8_fwd.cu):
-    x tile [D][R] float32, h1q and h2q [H/4][R] packed int8, c1 and c2
-    [R][H] float32, fc partials [H/32][R][O] float32."""
-    return 4 * ROWS_PER_CTA * (d_in + hidden // 2 + 2 * hidden + (hidden // 32) * out_dim)
+def shared_memory_bytes(rows: int, d_in: int, hidden: int) -> int:
+    """Dynamic shared memory of one block of R = rows (shared_bytes in
+    lstm2_int8_fwd.cu): two operand buffers of R int8 rows [h1q | h2q | pad]
+    and R bf16 rows [x (x_cols(D)) | bf16(h2) | pad], the pads 16 bytes, and
+    c1, c2 [R * H] float32. Nothing grows with O."""
+    q_pitch = 2 * hidden + PAD_BYTES
+    x_pitch = 2 * (x_cols(d_in) + hidden) + PAD_BYTES
+    return 2 * rows * (q_pitch + x_pitch) + 2 * 4 * rows * hidden
+
+
+def int8_rows_per_cta(n: int, sm_count: int) -> int:
+    """The sweep's row tile R: the one that sweeps the fold in the fewest
+    waves of one CTA per SM, and of two that tie the smaller. A step's time
+    grows with the CTA's m-tiles (each SM pulls every weight fragment from
+    L2 once a step whatever R is, but R 32 runs twice the products and
+    cells on one SM): on the H100 at N 2056, one wave either way, R 16 took
+    8.90 ms at T 255 and 22.0 at T 629 (35 µs a step), R 32 11.8 and 28.2
+    (45-46 µs; PERF.md, scripts/time_torch_int8.py). So R 32 pays only
+    where it saves a wave."""
+    return fewest_waves_tile(n, sm_count, INT8_ROWS_PER_CTA)
+
+
+def int8_row_tile(n: int, d_in: int, hidden: int, sm_count: int) -> int:
+    """`int8_rows_per_cta`, or 16 where 32 needs more shared memory than a
+    block has or H > 384; raises where 16 does not fit either."""
+    rows = int8_rows_per_cta(n, sm_count)
+    if rows != 16 and (hidden > MAX_ROWS_32_HIDDEN
+                       or shared_memory_bytes(rows, d_in, hidden) > SMEM_LIMIT):
+        rows = 16
+    if shared_memory_bytes(rows, d_in, hidden) > SMEM_LIMIT:
+        raise ValueError("lstm2_int8_fc: D and H need more shared memory than a block has")
+    return rows
 
 
 def _check(x: torch.Tensor, w: LSTM2Int8Weights) -> None:
@@ -158,22 +245,27 @@ def _check(x: torch.Tensor, w: LSTM2Int8Weights) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"lstm2_int8_fc: x dtype {x.dtype} (bfloat16)")
     g = 4 * hidden
+    vec = ((g,), torch.float32)
     expect = {
-        "w1": ((d, g), torch.bfloat16), "u1q": ((hidden, g), torch.int8),
-        "s1": ((g,), torch.float32), "b1": ((g,), torch.float32),
-        "w2q": ((2 * hidden, g), torch.int8), "s2": ((g,), torch.float32),
-        "b2": ((g,), torch.float32),
+        "w1": ((d, g), torch.bfloat16), "u1q": ((hidden, g), torch.int8), "s1": vec,
+        "b1": vec, "w2q": ((2 * hidden, g), torch.int8), "s2": vec, "b2": vec,
         "fc_w": ((hidden, out_dim), torch.float32), "fc_b": ((out_dim,), torch.float32),
-        "u1q_packed": ((hidden // 4, g), torch.int32),
-        "w2q_packed": ((hidden // 2, g), torch.int32),
     }
-    for name, (shape, dtype) in expect.items():
-        t = getattr(w, name)
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"lstm2_int8_fc: {name} is {tuple(t.shape)} {t.dtype}, "
-                             f"expected {shape} {dtype}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"lstm2_int8_fc: {name} must be contiguous on {x.device}")
+    expect_mma = {
+        "u1q": ((g // 8, -(-hidden // 64), 32, 16), torch.int8),
+        "w1": ((g // 8, x_cols(d) // 32, 32, 8), torch.bfloat16),
+        "w2q": ((g // 8, -(-2 * hidden // 64), 32, 16), torch.int8),
+        "fc": ((-(-out_dim // 8), -(-hidden // 32), 32, 8), torch.bfloat16),
+        "s1": vec, "b1": vec, "s2": vec, "b2": vec,
+    }
+    for where, fields, prefix in ((w, expect, ""), (w.mma, expect_mma, "mma.")):
+        for name, (shape, dtype) in fields.items():
+            t = getattr(where, name)
+            if tuple(t.shape) != shape or t.dtype != dtype:
+                raise ValueError(f"lstm2_int8_fc: {prefix}{name} is {tuple(t.shape)} {t.dtype}, "
+                                 f"expected {shape} {dtype}")
+            if t.device != x.device or not t.is_contiguous():
+                raise ValueError(f"lstm2_int8_fc: {prefix}{name} must be contiguous on {x.device}")
     if n == 0:
         raise ValueError("lstm2_int8_fc: empty fold")
 
@@ -186,19 +278,16 @@ def _launch(x: torch.Tensor, w: LSTM2Int8Weights) -> torch.Tensor:
     if hidden % 32 or hidden > MAX_HIDDEN:
         raise ValueError(f"lstm2_int8_fc: hidden {hidden} must be a multiple of 32, "
                          f"<= {MAX_HIDDEN}")
-    if shared_memory_bytes(d, hidden, out_dim) > SMEM_LIMIT:
-        raise ValueError("lstm2_int8_fc: D, H and O need more shared memory than a block has")
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows = int8_row_tile(n, d, hidden, sm_count)
     x_tnd = x.permute(2, 0, 1).contiguous()  # [T, N, D]: a step's rows are contiguous
     out = torch.empty(n, steps, out_dim, dtype=torch.bfloat16, device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x_tnd, *w.mma, w.fc_b, out)
     with torch.cuda.device(x.device):
-        err = lib.lstm2_int8_fwd(
-            x_tnd.data_ptr(), w.w1.data_ptr(), w.u1q_packed.data_ptr(), w.s1.data_ptr(),
-            w.b1.data_ptr(), w.w2q_packed.data_ptr(), w.s2.data_ptr(), w.b2.data_ptr(),
-            w.fc_w.data_ptr(), w.fc_b.data_ptr(), out.data_ptr(),
-            n, steps, d, hidden, out_dim, stream,
-        )
+        err = lib.lstm2_int8_fwd(*(a.data_ptr() for a in args),
+                                 n, steps, d, hidden, out_dim, rows, stream)
     if err != 0:
         raise RuntimeError(f"lstm2_int8_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1

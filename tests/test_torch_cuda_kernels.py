@@ -13,8 +13,9 @@ bf16 single roundings of h, the residuals and the dgates flip and carry
 through the recurrence). K2's y equals K1's bit for bit, the forward sweep
 gives the same bits at both bf16 row tiles, and K3 equals itself on a
 repeat, also over several chunks: in bf16 at every tile shape of its
-tensor-core weight gradients, and in float32. chip_smoke.py repeats these
-checks at the model's folds.
+tensor-core weight gradients, and in float32; K5 equals itself on a repeat
+at both of its row tiles and runs FullSubNet's full-band shape (D 257, H
+512, O 257). chip_smoke.py repeats these checks at the model's folds.
 """
 
 import importlib.util
@@ -120,22 +121,45 @@ def test_float32_forward_on_tensor_cores_on_cuda(monkeypatch, n, t, h, o):
     assert _snr(ops_lstm2.lstm2_fc_reference(x, w), outs[0]) >= FLOOR[torch.float32]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,t", [(3 * 257, 37), (100, 9)])
-def test_int8_kernel_matches_plain_on_cuda(rng, n, t):
-    _need_card()
-    d, h, o = 34, 384, 2
+def _int8_case(rng, n, t, d, h, o):
     g = torch.Generator().manual_seed(0)
     lstm, linear = LSTM2(d, h), Linear(h, o)
     lstm.reset_parameters(g)
     linear.reset_parameters(g)
     w = lstm.to("cuda", torch.bfloat16).prepare_int8(linear.to("cuda", torch.bfloat16))
     x = torch.from_numpy((0.5 * rng.standard_normal((n, d, t))).astype(np.float32))
-    x = x.to("cuda", torch.bfloat16)
+    return x.to("cuda", torch.bfloat16), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,rows", [(3 * 257, 37, 16), (100, 9, 16), (3 * 257, 37, 32),
+                                      (45, 9, 32)])
+def test_int8_kernel_matches_plain_on_cuda(rng, monkeypatch, n, t, rows):
+    """K5 at each row tile (forced) against the plain version (40 dB), and
+    equal to itself bit for bit on a repeat."""
+    _need_card()
+    x, w = _int8_case(rng, n, t, 34, 384, 2)
+    monkeypatch.setattr(ops_int8, "int8_rows_per_cta", lambda *_: rows)
     before = ops_int8.LAUNCHES
+    out = ops_int8.lstm2_int8_fc(x, w)
+    again = ops_int8.lstm2_int8_fc(x, w)
+    torch.cuda.synchronize()
+    assert ops_int8.LAUNCHES == before + 2
+    assert torch.equal(out, again)
+    ref = ops_int8.lstm2_int8_fc_reference(x, w).float()
+    assert _snr(ref, out.float()) >= 40.0, _snr(ref, out.float())
+
+
+@pytest.mark.cuda
+def test_int8_kernel_runs_the_fullsubnet_full_band_shape(rng):
+    """FullSubNet's full-band LSTM shape (D 257, H 512, O 257: 33 n-tiles of
+    the fc over 16 warps) at R 16, on a small ragged fold, against the plain
+    version (40 dB)."""
+    _need_card()
+    x, w = _int8_case(rng, 37, 7, 257, 512, 257)
     out = ops_int8.lstm2_int8_fc(x, w).float()
     torch.cuda.synchronize()
-    assert ops_int8.LAUNCHES == before + 1
+    assert out.shape == (37, 7, 257) and torch.isfinite(out).all()
     ref = ops_int8.lstm2_int8_fc_reference(x, w).float()
     assert _snr(ref, out) >= 40.0, _snr(ref, out)
 

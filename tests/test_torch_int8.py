@@ -9,7 +9,9 @@ mode, the int8 Enhancer against float32 and against the JAX int8 Enhancer,
 each with the floor stated in the test.
 
 The CUDA kernel's tests are in tests/test_torch_cuda_kernels.py, which
-imports no JAX and so runs on the card's machine.
+imports no JAX and so runs on the card's machine. Here, on the CPU, its
+operands are: the fragments `prepare_int8` packs, and a numpy walk of the
+kernel's sweep over them, held to the plain version.
 """
 
 import jax
@@ -124,16 +126,177 @@ def test_prepare_int8_rejects_mismatched_shapes(monkeypatch):
         lstm.prepare_int8(linear)
 
 
-def test_pack_k_quads_layout():
-    """Word (q, m) holds rows 4q..4q+3 of column m, little-endian, and
-    unpacking restores the int8 matrix."""
-    wq = torch.from_numpy(np.random.default_rng(0).integers(-127, 128, (8, 5)).astype(np.int8))
-    packed = ops_int8.pack_k_quads(wq)
-    assert packed.shape == (2, 5) and packed.dtype == torch.int32
-    b = wq.numpy().astype(np.int64) & 0xFF
-    word = b[4] | (b[5] << 8) | (b[6] << 16) | (b[7] << 24)
-    assert np.array_equal(packed[1].numpy().astype(np.int64) & 0xFFFFFFFF, word)
-    assert torch.equal(ops_int8.unpack_k_quads(packed), wq)
+def test_pack_s8_b_layout():
+    """Lane 4g + t of n-tile nt, chunk kp holds, for k-steps ks = 0, 1, the
+    bytes w[8nt + g, 64kp + 32ks + 4t + 0..3] then w[.., + 16 + 4t + 0..3]
+    (mma.sync m16n8k32's b0, b1); unpacking restores the matrix; K and n are
+    padded with zeros to whole chunks and n-tiles, so the TINY models' H 16
+    and 32 pack without raising."""
+    rng = np.random.default_rng(0)
+    wq = torch.from_numpy(rng.integers(-127, 128, (20, 192)).astype(np.int8))
+    packed = ops_int8.pack_s8_b(wq)
+    assert packed.shape == (3, 3, 32, 16) and packed.dtype == torch.int8
+    nt, kp, g, t = 1, 2, 5, 3
+    lane = packed[nt, kp, 4 * g + t].numpy()
+    for ks in range(2):
+        k0 = 64 * kp + 32 * ks + 4 * t
+        for byte in range(4):
+            assert lane[8 * ks + byte] == wq[8 * nt + g, k0 + byte]
+            assert lane[8 * ks + 4 + byte] == wq[8 * nt + g, k0 + 16 + byte]
+    assert torch.equal(ops_int8.unpack_s8_b(packed, 20, 192), wq)
+    assert not ops_int8.unpack_s8_b(packed, 24, 192)[20:].any()
+    for hidden in (16, 32):
+        wq = torch.from_numpy(rng.integers(-127, 128, (4 * hidden, hidden)).astype(np.int8))
+        packed = ops_int8.pack_s8_b(wq)
+        assert packed.shape == (hidden // 2, 1, 32, 16)
+        assert torch.equal(ops_int8.unpack_s8_b(packed, 4 * hidden, hidden), wq)
+        assert not ops_int8.unpack_s8_b(packed, 4 * hidden, 64)[:, hidden:].any()
+
+
+def _bf16_round(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _s8_operand(packed, n):
+    """The int8 B operand [K', n] (K' = 64 chunks) rebuilt from the packed
+    bytes as the lanes hand them to mma.sync m16n8k32: lane 4g + t, byte
+    8 ks + 4 half + pos of n-tile nt, chunk kp is B[64kp + 32ks + 16half +
+    4t + pos][8nt + g]."""
+    p = packed.numpy().astype(np.int64)
+    tiles, chunks = p.shape[:2]
+    b = np.zeros((64 * chunks, 8 * tiles), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for ks in range(2):
+            for half in range(2):
+                for pos in range(4):
+                    k = 64 * np.arange(chunks)[None, :] + 32 * ks + 16 * half + 4 * t + pos
+                    col = 8 * np.arange(tiles)[:, None] + g
+                    b[k, col] = p[:, :, lane, 8 * ks + 4 * half + pos]
+    return b[:, :n]
+
+
+def _bf16_operand(packed, n):
+    """The bf16 B operand [K, n] as the lanes hand it to mma.sync m16n8k16:
+    lane 4g + t, element 4 ks + 2 half + pos of n-tile nt, chunk kp is
+    B[32kp + 16ks + 8half + 2t + pos][8nt + g]."""
+    p = packed.float().numpy()
+    tiles, chunks = p.shape[:2]
+    b = np.zeros((32 * chunks, 8 * tiles), np.float32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for ks in range(2):
+            for half in range(2):
+                for pos in range(2):
+                    k = 32 * np.arange(chunks)[None, :] + 16 * ks + 8 * half + 2 * t + pos
+                    col = 8 * np.arange(tiles)[:, None] + g
+                    b[k, col] = p[:, :, lane, 4 * ks + 2 * half + pos]
+    return b[:, :n]
+
+
+def _k_steps(a, b, width):
+    """a [M, K] @ b [K, n] in float32, summed k-step by k-step of `width`."""
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], width):
+        acc += a[:, k0:k0 + width] @ b[k0:k0 + width]
+    return acc
+
+
+def _lanes(rows, hidden):
+    """Every (row, unit) a lane holds in the sweep's accumulators: warp w,
+    pass p (unit group u = 4w + p), lane (g, q), m-tile mt, word e -> row
+    16 mt + g + 8 (e / 2), unit 8u + 2q + e % 2, and its gate columns
+    32u + 8 gate + 2q + e % 2 of the interleaved product."""
+    u, g, q, mt, e = np.meshgrid(np.arange(hidden // 8), np.arange(8), np.arange(4),
+                                 np.arange(rows // 16), np.arange(4), indexing="ij")
+    row = (16 * mt + g + 8 * (e // 2)).ravel()
+    unit = (8 * u + 2 * q + e % 2).ravel()
+    col = (32 * u + 2 * q + e % 2).ravel()
+    return row, unit, col
+
+
+def _cell_walk(acc, c, lanes):
+    """The kernel's cell over every lane, from the interleaved gate
+    pre-activations acc [R, 4H] (float32): -> (h, c) [R, H]."""
+    row, unit, col = lanes
+    sig = lambda v: np.float32(1) / (np.float32(1) + np.exp(-v))  # noqa: E731
+    i, f = sig(acc[row, col]), sig(acc[row, col + 8])
+    gg, o = np.tanh(acc[row, col + 16]), sig(acc[row, col + 24])
+    c, h = c.copy(), np.zeros_like(c)
+    seen = np.zeros(c.shape, np.int64)
+    np.add.at(seen, (row, unit), 1)
+    assert (seen == 1).all()
+    c[row, unit] = f * c[row, unit] + i * gg
+    h[row, unit] = o * np.tanh(c[row, unit])
+    return h, c
+
+
+def _int8_sweep_walk(x, w, rows):
+    """The int8 sweep walked as the kernel walks it, tile of `rows` by tile:
+    int8 rows [h1q | h2q] and bf16 rows [x (x_cols(D)) | bf16(h2)], the
+    packed fragments as B, int32 sums in 64-byte chunks (s8), float32 sums
+    k-step by k-step of 16 (bf16), gates = (facc + f32(iacc) s1) + b1 and
+    iacc s2 + b2 from the interleaved scales and biases, the cell from the
+    accumulators, h quantized half to even into the int8 rows, the fc on the
+    bf16 h2. Returns y [N, T, O] bf16 and each step's int32 sums of both
+    layers, deinterleaved, with the plain products of the same int8 rows."""
+    n, d, steps = x.shape
+    hidden, out_dim = w.u1q.shape[0], w.fc_w.shape[1]
+    m = w.mma
+    xc = ops_lstm2.x_cols(d)
+    deint = lambda a: ops_lstm2.deinterleave_gates(torch.from_numpy(a)).numpy()  # noqa: E731
+    bu1, bw2 = _s8_operand(m.u1q, 4 * hidden), _s8_operand(m.w2q, 4 * hidden)
+    bw1, bfc = _bf16_operand(m.w1, 4 * hidden), _bf16_operand(m.fc, out_dim)
+    s1, b1, s2, b2 = (v.numpy() for v in (m.s1, m.b1, m.s2, m.b2))
+    u1q, w2q = w.u1q.numpy().astype(np.int64), w.w2q.numpy().astype(np.int64)
+    lanes = _lanes(rows, hidden)
+    y = np.zeros((n, steps, out_dim), np.float32)
+    sums = []
+    for n0 in range(0, n, rows):
+        live = min(rows, n - n0)
+        q = np.zeros((rows, 2 * hidden + 64), np.int64)  # past 2H: the pad and beyond
+        xr = np.zeros((rows, xc + hidden), np.float32)
+        c1, c2 = np.zeros((rows, hidden), np.float32), np.zeros((rows, hidden), np.float32)
+        for t in range(steps):
+            xr[:live, :d] = x[n0:n0 + live, :, t].float().numpy()
+            i1 = q[:, :bu1.shape[0]] @ bu1
+            facc = _k_steps(xr[:, :xc], bw1, 16)
+            g1 = (facc + i1.astype(np.float32) * s1) + b1
+            plain1 = q[:, :hidden] @ u1q
+            h1, c1 = _cell_walk(g1, c1, lanes)
+            q[:, :hidden] = np.clip(np.rint(h1 * np.float32(127)), -127, 127)
+            i2 = q[:, :bw2.shape[0]] @ bw2
+            plain2 = q[:, :2 * hidden] @ w2q
+            h2, c2 = _cell_walk(i2.astype(np.float32) * s2 + b2, c2, lanes)
+            q[:, hidden:2 * hidden] = np.clip(np.rint(h2 * np.float32(127)), -127, 127)
+            xr[:, xc:] = _bf16_round(h2)
+            y[n0:n0 + live, t] = (_k_steps(xr[:live, xc:], bfc, 16) + w.fc_b.numpy())
+            sums.append((deint(i1), plain1, deint(i2), plain2))
+    return _bf16_round(y), sums
+
+
+@pytest.mark.parametrize("n,t,d,h,o,rows", [(37, 5, 34, 64, 3, 16), (45, 4, 10, 32, 2, 32)])
+def test_int8_fragment_walk_matches_the_plain_version(rng, n, t, d, h, o, rows):
+    """The fragment-order walk of the int8 sweep (`_int8_sweep_walk`, from
+    the fields `prepare_int8` packs) at two ragged folds: at H 64, and at H
+    32, R 32, where layer 1's one chunk runs past h1q into h2q against zero
+    weights. Its int32 gate sums equal the plain products of the same int8
+    rows at every step, and its y agrees with `lstm2_int8_fc_reference` at
+    >= 40 dB (the floor chip_smoke.py holds the kernel to; measured on an
+    x86 CPU: the bf16 outputs are identical, max-abs 0, SNR 296.8 dB at H
+    64 and 308.6 dB at H 32; only x W1's and the fc's float32 sum order and
+    numpy's exp / tanh could differ)."""
+    params, fc = _lstm_case(n + t + h, d, h, o)
+    lstm, linear = _port_lstm(_bf16(params), _bf16(fc))
+    w = lstm.prepare_int8(linear)
+    x = torch.from_numpy((0.5 * rng.standard_normal((n, d, t))).astype(np.float32)).bfloat16()
+    y, sums = _int8_sweep_walk(x, w, rows)
+    for i1, plain1, i2, plain2 in sums:
+        np.testing.assert_array_equal(i1, plain1)
+        np.testing.assert_array_equal(i2, plain2)
+    ref = ops_int8.lstm2_int8_fc_reference(x, w).float().numpy()
+    assert y.shape == ref.shape
+    assert _snr(ref, y) >= 40.0, _snr(ref, y)
 
 
 @pytest.mark.parametrize("n,t,d,h,o", [(100, 17, 34, 64, 2), (20, 9, 10, 16, 3)])
@@ -195,8 +358,33 @@ def test_quantized_route_needs_prepared_weights():
     assert model(x, quantized=True).shape == (3, 2, 4)
 
 
-def test_int8_shared_memory_fits_the_shipped_shape():
-    assert ops_int8.shared_memory_bytes(34, 384, 2) <= ops_int8.SMEM_LIMIT
+@pytest.mark.parametrize("rows,smem", [(16, 103_424), (32, 206_848)])
+def test_int8_shared_memory_fits_the_shipped_shape(rows, smem):
+    """Two operand buffers of R int8 rows [h1q | h2q | 16] (784 bytes) and R
+    bf16 rows [x 64 | h2 384 | 8] (912 bytes), c1 and c2 [R][384] float32,
+    at D 34, H 384: both row tiles fit a block."""
+    assert ops_int8.shared_memory_bytes(rows, 34, 384) == 2 * rows * (784 + 912) + 8 * rows * 384
+    assert ops_int8.shared_memory_bytes(rows, 34, 384) == smem <= ops_int8.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,rows", [(2056, 16), (2313, 32), (771, 16)])
+def test_int8_row_tile_rule(n, rows):
+    """The row tile by waves on 132 SMs, then the smaller: the serving and
+    batch folds (N 2056) and a ragged one take R 16 in one wave; 9
+    utterances (N 2313) take R 32, one wave where R 16 needs two (on the
+    H100 at T 255: R 32 11.8 ms, R 16 16.4; scripts/time_torch_int8.py)."""
+    assert ops_int8.int8_rows_per_cta(n, 132) == rows
+    assert ops_int8.int8_row_tile(n, 34, 384, 132) == rows
+
+
+def test_int8_shared_memory_fits_the_fullsubnet_full_band_shape():
+    """FullSubNet's full-band LSTM (D 257, H 512, O 257; ROADMAP Queue 1 item
+    7) fits at R 16, since the fc runs on the tensor cores and nothing in
+    shared memory grows with O; R 32 does not, and the tile rule falls back
+    to 16."""
+    assert ops_int8.shared_memory_bytes(16, 257, 512) == 150_528 <= ops_int8.SMEM_LIMIT
+    assert ops_int8.shared_memory_bytes(32, 257, 512) > ops_int8.SMEM_LIMIT
+    assert ops_int8.int8_row_tile(4626, 257, 512, 132) == 16
 
 
 @pytest.fixture(scope="module")
