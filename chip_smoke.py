@@ -61,13 +61,31 @@ Phases, each fatal on failure (exit code 1, no result line):
   6. drive the training path: `make_train_step` at the full width of
      configs/train.toml (batch 18 of 3.072 s, drop_band 2) on seeded
      waveforms and weights: a few steps in float32 and bfloat16 through
-     K2 + K3, the float32 steps again through K2 + K4 and through the plain
-     versions; every loss and gradient norm finite, nothing skipped, the
-     launch counts as expected, the kernel runs in agreement with the plain
-     run, a NaN batch skipped with the state unchanged bit for bit; then
-     `make_eval_step` (K1); profile one float32 step, list its matrix
-     product and convolution kernels and fail on a TF32 one;
-  7. print the kernels' JSON line, the card's name and power limit, and
+     K2 + K3 and in float32 through K2 + K4; every loss and gradient norm
+     finite, nothing skipped, the launch counts as expected; then the plain
+     versions' float32 run, and at each of its steps the same step from a
+     copy of its state through the kernels (float32 K2 + K3 and K2 + K4,
+     bf16 K2 + K3), loss and gradient norm held to the plain step's, each
+     trial launching its two kernels once and the plain step none; a NaN
+     batch skipped with the state unchanged bit for bit; `make_eval_step`
+     (K1); profile one float32 step, list its matrix product and
+     convolution kernels and fail on a TF32 one;
+  7. FullSubNet (the baseline) at full width (257 bins, full-band LSTM
+     H 512, sub-band H 384, seed 42): K1 in float32 (>= 80 dB) and bf16
+     (>= 40 dB) and K5 (>= 40 dB) at its full-band shape (D 257, H 512, O
+     257) on the fold of a batch of 8 padded to 10 s (N 8, T 629) against
+     their plain versions, timed beside them, cuDNN and the bound, and the
+     three at its sub-band shape (D 32, H 384, O 2; N 2056, T 629) against
+     their plain versions at the same floors, equal on a repeat; the
+     batch of 8 wavs through `run_enhance` with a FullSubNet config
+     (`full_band_crm_mask`, written into the temporary directory) in
+     float32, bfloat16 and int8, two launches a batch (the full-band and
+     the sub-band LSTM), the waveforms of each dtype against the same run
+     through the plain LSTMs (float32 >= 60 dB, bf16 and int8 >= 40 dB), a
+     profile of each batch; one 30 s utterance through
+     `overlapped_chunk`; the daemon serving a few streams of it in int8
+     (zero tick failures, against the offline engine >= 60 dB);
+  8. print the kernels' JSON line, the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
 Imports nothing of JAX. Exits non-zero without CUDA.
@@ -76,6 +94,7 @@ Imports nothing of JAX. Exits non-zero without CUDA.
 from __future__ import annotations
 
 import contextlib
+import copy
 import importlib.util
 import json
 import os
@@ -98,6 +117,19 @@ BATCH = 8
 # rows; T = 1 + (160000 + 256) // 256 STFT frames (the length-aware path
 # extends the bucket by one hop) + 2 look-ahead frames = 629.
 N_FULL, D, H, O, T_FULL = BATCH * 257, 34, 384, 2, 629
+SB = (D, H, O)  # FullSubNet+'s sub-band LSTM: (D, H, O)
+# FullSubNet's full-band LSTM (its `fb_model`): 257 bins in and out, H 512. Its
+# fold of a batch of 8 padded to 10 s is N 8 rows, T 629.
+FB = (257, 512, 257)
+N_FB = BATCH
+# FullSubNet's sub-band LSTM (its `sb_model`: 31 magnitude neighbours + 1
+# full-band output in, H 384, O 2) on the batch's sub-band fold, N_FULL rows
+FSN_SB = (32, 384, 2)
+# FullSubNet's batch runs: (tag, run_enhance's compute_dtype, the kernel of both LSTMs)
+FSN_DTYPES = (("float32", None, "lstm2_fwd"), ("bfloat16", "bfloat16", "lstm2_fwd"),
+              ("int8", "int8", "lstm2_int8_fwd"))
+FSN_STREAMS = 4  # serving clients of the FullSubNet daemon
+FSN_LONG_S = 30  # seconds of the utterance through `overlapped_chunk`
 N_RAGGED, T_RAGGED = 3 * 257, 37
 # The serving fold: 8 slots of 4 s chunks with 256 samples of pre-context,
 # N = 8 * 257, T = 1 + (64256 + 256) // 256 + 2 = 255.
@@ -112,14 +144,18 @@ N_TRAIN, T_TRAIN = TRAIN_BATCH * (257 // 2), TRAIN_SAMPLES // 256 + 1 + 2
 # the dgates flip and carry through the recurrence, and a weight gradient
 # sums N * T = 449,280 such terms (measured 55-80 dB).
 SNR_FLOOR = {torch.float32: 80.0, torch.bfloat16: 40.0}
-# Training runs against the plain run over TRAIN_STEPS Adam steps from the same
-# state: float32 sum order moves the loss in the 6th digit; an early Adam step
-# is lr * g / |g|, so elements with round-off gradients may step either way.
-TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL = 1e-3, 1e-2
+# Training through the kernels against the plain versions, step by step from
+# the same state (the plain run's, at each of its TRAIN_STEPS steps): the loss
+# and the gradient's global norm of one step from one state, where only sum
+# order and expf / tanhf differ (a free-running trajectory is no measure: an
+# early Adam step is lr * g / |g|, and an element whose gradient sits at
+# Adam's eps takes either sign; scripts/train_divergence.py).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL = 1e-4, 1e-3
 TRAIN_BF16_LOSS_RTOL = 0.1  # bf16 compute against the float32 plain run
 INT8_SNR_FLOOR = 40.0
 WAVE_SNR_FLOOR = 60.0
 INT8_WAVE_SNR_FLOOR = 40.0  # kernel against plain int8 LSTM, through the bf16 model
+BF16_WAVE_SNR_FLOOR = 40.0  # kernels against plain bf16 LSTMs, through the bf16 model
 MAIN_PATH_RUNS = 3  # run_enhance calls per dtype; the host clock of one batch is noisy
 STREAMS = 12  # concurrent serving clients
 FEED_SPEEDUP = 10.0  # clients send audio this many times faster than real time
@@ -177,14 +213,17 @@ def bound(t_ops_s: float, nbytes: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def lstm_bound_ms(n: int, t: int, dtype: torch.dtype, fma: bool = False) -> tuple[float, str]:
-    """K1: its operations over the peak rate for its type, against its bytes
-    (inputs read once, output written once). float32 runs each product as
-    three TF32 products (TF32 peak); `fma` gives the FMA bound instead."""
+def lstm_bound_ms(n: int, t: int, dtype: torch.dtype, fma: bool = False,
+                  shape=SB) -> tuple[float, str]:
+    """K1 at `shape` (D, H, O): its operations over the peak rate for its
+    type, against its bytes (inputs read once, output written once). float32
+    runs each product as three TF32 products (TF32 peak); `fma` gives the FMA
+    bound instead."""
+    d, h, o = shape
     size = torch.tensor([], dtype=dtype).element_size()
-    flops = 2 * n * t * (D + 3 * H) * 4 * H + 2 * n * t * H * O
-    nbytes = (n * D * t * size + (D + 3 * H) * 4 * H * size + 2 * 4 * H * 4 + H * O * 4 + O * 4
-              + n * t * O * size)
+    flops = 2 * n * t * (d + 3 * h) * 4 * h + 2 * n * t * h * o
+    nbytes = (n * d * t * size + (d + 3 * h) * 4 * h * size + 2 * 4 * h * 4 + h * o * 4 + o * 4
+              + n * t * o * size)
     return bound(sweep_ops_s(flops, dtype, fma), nbytes)
 
 
@@ -197,50 +236,53 @@ def sweep_ops_s(flops: float, dtype: torch.dtype, fma: bool = False) -> float:
     return flops / PEAK_FLOPS[dtype]
 
 
-def int8_bound_ms(n: int, t: int) -> tuple[float, str]:
-    """K5: the int8 products (h1q U1q, [h1q|h2q][W2q;U2q]) at the int8 peak
-    plus the bf16 ones (x W1, the fc) at the bf16 peak, against the bytes of
-    x, the weights, scales, biases and the output."""
-    t_ops = (2 * n * t * 3 * H * 4 * H / PEAK_INT8_OPS
-             + 2 * n * t * (D * 4 * H + H * O) / PEAK_FLOPS[torch.bfloat16])
-    nbytes = (n * D * t * 2 + D * 4 * H * 2 + 3 * H * 4 * H + 4 * 4 * H * 4 + H * O * 4 + O * 4
-              + n * t * O * 2)
+def int8_bound_ms(n: int, t: int, shape=SB) -> tuple[float, str]:
+    """K5 at `shape` (D, H, O): the int8 products (h1q U1q, [h1q|h2q][W2q;U2q])
+    at the int8 peak plus the bf16 ones (x W1, the fc) at the bf16 peak,
+    against the bytes of x, the weights, scales, biases and the output."""
+    d, h, o = shape
+    t_ops = (2 * n * t * 3 * h * 4 * h / PEAK_INT8_OPS
+             + 2 * n * t * (d * 4 * h + h * o) / PEAK_FLOPS[torch.bfloat16])
+    nbytes = (n * d * t * 2 + d * 4 * h * 2 + 3 * h * 4 * h + 4 * 4 * h * 4 + h * o * 4 + o * 4
+              + n * t * o * 2)
     return bound(t_ops, nbytes)
 
 
-def lstm_modules(dtype: torch.dtype, seed: int):
+def lstm_modules(dtype: torch.dtype, seed: int, shape=SB):
     from fullsubnet_plus_torch.nn.layers import Linear
     from fullsubnet_plus_torch.nn.lstm import LSTM2
 
+    d, h, o = shape
     g = torch.Generator().manual_seed(seed)
-    lstm, fc = LSTM2(D, H), Linear(H, O)
+    lstm, fc = LSTM2(d, h), Linear(h, o)
     lstm.reset_parameters(g)
     fc.reset_parameters(g)
     return lstm.to("cuda", dtype), fc.to("cuda", dtype), g
 
 
-def lstm_input(n: int, t: int, dtype: torch.dtype, g: torch.Generator) -> torch.Tensor:
-    # a normalized sub-band input is positive with mean 1 (offline Laplace norm)
-    return torch.rand(n, D, t, generator=g).mul_(2.0).to("cuda", dtype)
+def lstm_input(n: int, t: int, dtype: torch.dtype, g: torch.Generator, d: int = D) -> torch.Tensor:
+    # a normalized input is positive with mean 1 (offline Laplace norm)
+    return torch.rand(n, d, t, generator=g).mul_(2.0).to("cuda", dtype)
 
 
-def lstm_operands(n: int, t: int, dtype: torch.dtype, seed: int):
-    lstm, fc, g = lstm_modules(dtype, seed)
-    return lstm_input(n, t, dtype, g), lstm.packed(fc), lstm, fc
+def lstm_operands(n: int, t: int, dtype: torch.dtype, seed: int, shape=SB):
+    lstm, fc, g = lstm_modules(dtype, seed, shape)
+    return lstm_input(n, t, dtype, g, shape[0]), lstm.packed(fc), lstm, fc
 
 
-def int8_operands(n: int, t: int, seed: int):
-    lstm, fc, g = lstm_modules(torch.bfloat16, seed)
-    return lstm_input(n, t, torch.bfloat16, g), lstm.prepare_int8(fc), lstm, fc
+def int8_operands(n: int, t: int, seed: int, shape=SB):
+    lstm, fc, g = lstm_modules(torch.bfloat16, seed, shape)
+    return lstm_input(n, t, torch.bfloat16, g, shape[0]), lstm.prepare_int8(fc), lstm, fc
 
 
 def cudnn_modules(lstm, fc, dtype: torch.dtype):
     """torch.nn.LSTM (cuDNN) and Linear with the same weights; yardsticks
     that the port never calls."""
-    ref = torch.nn.LSTM(D, H, num_layers=2, batch_first=True)
+    ref = torch.nn.LSTM(lstm.weight_ih_l0.shape[1], lstm.hidden_size, num_layers=2,
+                        batch_first=True)
     ref.load_state_dict({k: v.float().cpu() for k, v in lstm.state_dict().items()})
     ref = ref.to("cuda", dtype)  # .to() packs the weights for cuDNN
-    linear = torch.nn.Linear(H, O)
+    linear = torch.nn.Linear(*reversed(fc.weight.shape))
     linear.load_state_dict({k: v.float().cpu() for k, v in fc.state_dict().items()})
     return ref, linear.to("cuda", dtype)
 
@@ -895,6 +937,73 @@ def train_pair(rng: np.random.Generator, n: int) -> tuple[np.ndarray, np.ndarray
             clean.astype(np.float32))
 
 
+@contextlib.contextmanager
+def training_kernels(fused: bool, plain: bool = False):
+    """The training step's LSTM backward form for the duration: K2 + K3
+    (`fused`) or K2 + K4, or with `plain` the plain versions of both."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    kernels, form = (lt.lstm2_train_fwd, lt.lstm2_bwd), lt.FUSED_WGRAD
+    lt.FUSED_WGRAD = fused
+    if plain:
+        lt.lstm2_train_fwd, lt.lstm2_bwd = lt.lstm2_train_fwd_reference, lt.lstm2_bwd_plain
+    try:
+        yield
+    finally:
+        lt.FUSED_WGRAD = form
+        lt.lstm2_train_fwd, lt.lstm2_bwd = kernels
+
+
+def same_state_check(state, make_step, batches) -> None:
+    """Phase 6's agreement check, well posed: the plain float32 run takes its
+    TRAIN_STEPS steps, and before each one the same step from a copy of its
+    state runs through the kernels (float32 K2 + K3, float32 K2 + K4, bf16
+    K2 + K3). Each kernel step's loss and gradient norm are held to the
+    plain step's from the same state: float32 within TRAIN_LOSS_RTOL and
+    TRAIN_GRAD_NORM_RTOL, bf16's loss within TRAIN_BF16_LOSS_RTOL."""
+    forms = (("float32_k3", torch.float32, True), ("float32_k4", torch.float32, False),
+             ("bfloat16_k3", torch.bfloat16, True))
+    steps = {dtype: make_step(dtype) for dtype in (torch.float32, torch.bfloat16)}
+    gaps = {tag: [] for tag, _, _ in forms}
+    for i, (noisy, clean) in enumerate(batches):
+        trials = {}
+        for tag, dtype, fused in forms:
+            reset_launches()
+            with training_kernels(fused):
+                _, m = steps[dtype](copy.deepcopy(state), noisy, clean)
+            launches = all_launches()
+            expect = {k: 0 for k in launches}
+            expect.update({"lstm2_train_fwd": 1, "lstm2_bwd_wgrad" if fused else "lstm2_bwd": 1})
+            if launches != expect:
+                fail(f"train {tag} step {i} from the plain run's state: launches {launches}, "
+                     f"expected {expect}")
+            trials[tag] = {k: float(v) for k, v in m.items()}
+        reset_launches()
+        with training_kernels(True, plain=True):
+            state, m = steps[torch.float32](state, noisy, clean)
+        if any(all_launches().values()):
+            fail(f"the plain step {i} launched kernels: {all_launches()}")
+        plain = {k: float(v) for k, v in m.items()}
+        for tag, m in trials.items():
+            gaps[tag].append((abs(m["loss"] - plain["loss"]) / abs(plain["loss"]),
+                              abs(m["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"])))
+        print(f"[6] step {i} from the plain run's state: plain loss {plain['loss']:.6f}, "
+              f"grad norm {plain['grad_norm']:.6f}; "
+              + "; ".join(f"{tag} {trials[tag]['loss']:.6f} / {trials[tag]['grad_norm']:.6f}"
+                          for tag in trials))
+    for tag, dtype, _ in forms:
+        worst_loss = max(g[0] for g in gaps[tag])
+        worst_norm = max(g[1] for g in gaps[tag])
+        f32 = dtype == torch.float32
+        loss_rtol, norm_rtol = ((TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL) if f32
+                                else (TRAIN_BF16_LOSS_RTOL, None))
+        print(f"[6] {tag} against the plain float32 step from the same state, over "
+              f"{len(gaps[tag])} steps: loss within {worst_loss:.2e} (limit {loss_rtol:g}), "
+              f"gradient norm within {worst_norm:.2e} (limit {norm_rtol or 'none'})")
+        if worst_loss > loss_rtol or (norm_rtol and worst_norm > norm_rtol):
+            fail(f"train {tag} disagrees with the plain step from the same state")
+
+
 def phase_train() -> dict:
     """The training path: `make_train_step` at the full width of
     configs/train.toml, through the kernels and through their plain
@@ -926,18 +1035,17 @@ def phase_train() -> dict:
         return step.make_train_step(model_def, config, optimizer, loss_fn, compute_dtype=dtype,
                                     device="cuda", **acoustics)
 
-    def run(tag, dtype, fused, plain=False):
-        """TRAIN_STEPS steps from the seeded state; metrics, walls, launches."""
+    def seeded_state():
         model = model_def.module_cls(config).init_weights(torch.Generator().manual_seed(42))
-        state = step.init_train_state(model, optimizer, device="cuda")
+        return step.init_train_state(model, optimizer, device="cuda")
+
+    def run(tag, dtype, fused):
+        """TRAIN_STEPS steps from the seeded state; metrics, walls, launches."""
+        state = seeded_state()
         train_step = make_step(dtype)
-        kernels, form = (lt.lstm2_train_fwd, lt.lstm2_bwd), lt.FUSED_WGRAD
-        lt.FUSED_WGRAD = fused
-        if plain:
-            lt.lstm2_train_fwd, lt.lstm2_bwd = lt.lstm2_train_fwd_reference, lt.lstm2_bwd_plain
         reset_launches()
         metrics, walls = [], []
-        try:
+        with training_kernels(fused):
             for noisy, clean in batches:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -945,14 +1053,10 @@ def phase_train() -> dict:
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
                 metrics.append({k: float(v) for k, v in m.items()})
-        finally:
-            lt.FUSED_WGRAD = form
-            lt.lstm2_train_fwd, lt.lstm2_bwd = kernels
         launches = all_launches()
         backward = "lstm2_bwd_wgrad" if fused else "lstm2_bwd"
         expect = {k: 0 for k in launches}
-        if not plain:
-            expect.update({"lstm2_train_fwd": TRAIN_STEPS, backward: TRAIN_STEPS})
+        expect.update({"lstm2_train_fwd": TRAIN_STEPS, backward: TRAIN_STEPS})
         wall = statistics.median(walls[1:])  # the first step warms up cuBLAS and cuFFT plans
         print(f"[6] train {tag}: loss {', '.join(f'{m['loss']:.6f}' for m in metrics)}; "
               f"grad norm {', '.join(f'{m['grad_norm']:.4f}' for m in metrics)}; step wall "
@@ -972,21 +1076,8 @@ def phase_train() -> dict:
 
     runs = {"float32_k3": run("float32 K2+K3", torch.float32, True),
             "bfloat16_k3": run("bfloat16 K2+K3", torch.bfloat16, True),
-            "float32_k4": run("float32 K2+K4", torch.float32, False),
-            "float32_plain": run("float32 plain versions", torch.float32, True, plain=True)}
-    plain = runs["float32_plain"]["metrics"]
-    for tag, loss_rtol, norm_rtol in (("float32_k3", TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
-                                      ("float32_k4", TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
-                                      ("bfloat16_k3", TRAIN_BF16_LOSS_RTOL, None)):
-        gaps = [(abs(m["loss"] - p["loss"]) / abs(p["loss"]),
-                 abs(m["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"]))
-                for m, p in zip(runs[tag]["metrics"], plain)]
-        worst_loss, worst_norm = max(g[0] for g in gaps), max(g[1] for g in gaps)
-        print(f"[6] {tag} against the plain float32 run: loss within {worst_loss:.2e} "
-              f"(limit {loss_rtol:g}), gradient norm within {worst_norm:.2e} "
-              f"(limit {norm_rtol if norm_rtol else 'none'})")
-        if worst_loss > loss_rtol or (norm_rtol and worst_norm > norm_rtol):
-            fail(f"train {tag} disagrees with the plain run")
+            "float32_k4": run("float32 K2+K4", torch.float32, False)}
+    same_state_check(seeded_state(), make_step, batches)
 
     # a NaN in one noisy waveform: the update is rejected on the device
     state = runs["float32_k3"]["state"]
@@ -1039,8 +1130,8 @@ def phase_train() -> dict:
 
 def write_inputs(root: str) -> list[int]:
     from fullsubnet_plus_torch.data.wav import write_wav
+    from fullsubnet_plus_torch.io import convert
     from fullsubnet_plus_torch.io.checkpoint import save_flat
-    from fullsubnet_plus_torch.io.convert import jax_from_state_dict
     from fullsubnet_plus_torch.models.fullsubnet_plus import FullSubNetPlus
 
     rng = np.random.default_rng(0)
@@ -1048,8 +1139,8 @@ def write_inputs(root: str) -> list[int]:
     for i, n in enumerate(lengths):
         write_wav(os.path.join(root, "noisy", f"utt{i}.wav"), noisy_utterance(rng, n), SR)
     model = FullSubNetPlus().init_weights(torch.Generator().manual_seed(42))
-    save_flat(os.path.join(root, "model.npz"), {"params": jax_from_state_dict(model.state_dict())},
-              {"seed": 42})
+    save_flat(os.path.join(root, "model.npz"),
+              {"params": convert.jax_from_state_dict(model.state_dict())}, {"seed": 42})
     return lengths
 
 
@@ -1136,10 +1227,13 @@ def phase_batch_path(root: str, lengths: list[int]) -> dict:
     return {"launches": launches, "rates": rates}
 
 
+PROFILES = {}  # profile_call's tag: wall ms, device busy ms, idle share
+
+
 def profile_call(fn, tag: str) -> list:
     """Where one call of `fn` (which must return synchronized) spends device
     time (torch.profiler), and the device's idle share of the wall time.
-    Reported only; returns the device-side events."""
+    Reported only (and kept in PROFILES); returns the device-side events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1156,6 +1250,8 @@ def profile_call(fn, tag: str) -> list:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    PROFILES[tag] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                     "idle_share": max(0.0, 1 - busy_ms / wall_ms)}
     print(f"{tag} wall {wall_ms:.1f} ms (median of 3, unprofiled), "
           f"device busy {busy_ms:.1f} ms (profiled), "
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
@@ -1226,9 +1322,10 @@ def stream_client(port: int, audio: np.ndarray, sr: int, results: dict, idx: int
         conn.close()
 
 
-def phase_serve(config_path: str, checkpoint: str) -> dict:
+def phase_serve(config_path: str, checkpoint: str, streams: int = STREAMS,
+                tag: str = "[5]") -> dict:
     """The serving path: the daemon on the card with its default dtype,
-    driven by STREAMS concurrent clients; then the same streams drained
+    driven by `streams` concurrent clients; then the same streams drained
     offline through a StreamingEngine on the same enhancer."""
     from fullsubnet_plus_torch.cli import serve as serve_cli
     from fullsubnet_plus_torch.serve import StreamingEngine
@@ -1241,7 +1338,7 @@ def phase_serve(config_path: str, checkpoint: str) -> dict:
         fail(f"the daemon's default dtype is {args.dtype}, expected int8")
     sr = server.engine.enhancer.sr
     rng = np.random.default_rng(1)
-    utts = [noisy_utterance(rng, int(s * sr)) for s in rng.uniform(3.0, 10.0, STREAMS)]
+    utts = [noisy_utterance(rng, int(s * sr)) for s in rng.uniform(3.0, 10.0, streams)]
     rc = {}
     runner = threading.Thread(target=lambda: rc.setdefault("rc", server.serve_forever()))
     reset_launches()
@@ -1261,8 +1358,8 @@ def phase_serve(config_path: str, checkpoint: str) -> dict:
     runner.join(timeout=60)
     if runner.is_alive() or rc.get("rc") != 0:
         fail(f"the daemon did not shut down cleanly (exit code {rc.get('rc')})")
-    if sorted(results) != list(range(STREAMS)):
-        fail(f"clients without a reply: {sorted(set(range(STREAMS)) - set(results))}")
+    if sorted(results) != list(range(streams)):
+        fail(f"clients without a reply: {sorted(set(range(streams)) - set(results))}")
     for i, y in enumerate(utts):
         out, completed, _ = results[i]
         if not completed or out.shape != y.shape or not np.isfinite(out).all():
@@ -1284,15 +1381,15 @@ def phase_serve(config_path: str, checkpoint: str) -> dict:
     audio_s = sum(len(y) for y in utts) / sr
     rates = [len(y) / sr / results[i][2] for i, y in enumerate(utts)]
     lat = stats["busy_tick_ms"]
-    print(f"[5] serving {STREAMS} streams ({audio_s:.2f} audio-s, fed at {FEED_SPEEDUP:g}x real "
+    print(f"{tag} serving {streams} streams ({audio_s:.2f} audio-s, fed at {FEED_SPEEDUP:g}x real "
           f"time) on {stats['device']}: all complete in {wall:.2f} s, {audio_s / wall:.1f} "
           f"audio-s/s together; per stream median {statistics.median(rates):.1f} audio-s/s "
           f"(min {min(rates):.1f}, max {max(rates):.1f})")
-    print(f"[5] stats: busy-tick ms p50 {lat['p50']} p90 {lat['p90']} p99 {lat['p99']} "
+    print(f"{tag} stats: busy-tick ms p50 {lat['p50']} p90 {lat['p90']} p99 {lat['p99']} "
           f"over {lat['window']} busy ticks of {stats['ticks']}; chunks "
           f"{stats['chunks_enhanced']}; tick failures {stats['tick_failures']}; "
           f"launches {launches}")
-    print(f"[5] served against offline int8 engine: min {min(snrs):.1f} dB, median "
+    print(f"{tag} served against offline int8 engine: min {min(snrs):.1f} dB, median "
           f"{statistics.median(snrs):.1f} dB (floor {WAVE_SNR_FLOOR:.0f})")
     if min(snrs) < WAVE_SNR_FLOOR:
         fail(f"served audio disagrees with the offline engine: {min(snrs):.1f} dB")
@@ -1309,6 +1406,254 @@ def profile_serving_batch(serve: dict) -> None:
     rows = np.stack([noisy_utterance(rng, engine.in_len) for _ in range(SLOTS)])
     profile_call(lambda: serve["enhancer"].enhance_batch(rows, lengths=[engine.in_len] * SLOTS),
                  "[5] profile int8 serving batch:")
+
+
+FSN_TOML = """\
+# FullSubNet (the baseline), the reference's fullsubnet inference settings
+[acoustics]
+n_fft = 512
+win_length = 512
+sr = 16000
+hop_length = 256
+
+[inferencer]
+type = "full_band_crm_mask"
+
+[inferencer.args]
+n_neighbor = 15
+
+[model]
+path = "fullsubnet.model.fullsubnet.Model"
+
+[model.args]
+num_freqs = 257
+look_ahead = 2
+sequence_model = "LSTM"
+fb_num_neighbors = 0
+sb_num_neighbors = 15
+fb_output_activate_function = "ReLU"
+sb_output_activate_function = false
+fb_model_hidden_size = 512
+sb_model_hidden_size = 384
+weight_init = false
+norm_type = "offline_laplace_norm"
+num_groups_in_drop_band = 2
+"""
+
+
+def write_fullsubnet_inputs(root: str) -> tuple[str, str]:
+    """(config path, checkpoint path): FSN_TOML and a seeded full-width
+    FullSubNet (seed 42) as a JAX-format .npz, in `root`."""
+    from fullsubnet_plus_torch.io import convert
+    from fullsubnet_plus_torch.io.checkpoint import save_flat
+    from fullsubnet_plus_torch.models.fullsubnet import FullSubNet
+
+    config_path, checkpoint = os.path.join(root, "fullsubnet.toml"), os.path.join(root, "fsn.npz")
+    with open(config_path, "w") as f:
+        f.write(FSN_TOML)
+    model = FullSubNet().init_weights(torch.Generator().manual_seed(42))
+    save_flat(checkpoint, {"params": convert.jax_from_state_dict(model.state_dict())}, {"seed": 42})
+    return config_path, checkpoint
+
+
+def check_fullsubnet_sub_band() -> dict:
+    """K1 in float32 and bf16 and K5 at FullSubNet's sub-band shape (D 32,
+    H 384, O 2) on the fold of a batch of 8 padded to 10 s (N 2056, T 629),
+    each against its plain version (K1 and K5 equal on a repeat); the
+    kernel's time beside it."""
+    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
+
+    out = {}
+    for tag, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16), ("int8", None)):
+        if dtype is None:
+            x, w, _, _ = int8_operands(N_FULL, T_FULL, seed=10, shape=FSN_SB)
+            name, kernel, plain, floor = ("lstm2_int8_fwd", lstm2_int8.lstm2_int8_fc,
+                                          lstm2_int8.lstm2_int8_fc_reference, INT8_SNR_FLOOR)
+        else:
+            x, w, _, _ = lstm_operands(N_FULL, T_FULL, dtype, seed=9, shape=FSN_SB)
+            name, kernel, plain, floor = ("lstm2_fwd", lstm2.lstm2_fc, lstm2.lstm2_fc_reference,
+                                          SNR_FLOOR[dtype])
+        y, again = kernel(x, w), kernel(x, w)
+        torch.cuda.synchronize()
+        ref = plain(x, w).float()
+        snr, err = snr_db(ref, y.float()), float((y.float() - ref).abs().max())
+        repeat = torch.equal(y, again)
+        out[tag] = dict(ms=cuda_ms(lambda: kernel(x, w), reps=3), max_abs_err=err, snr_db=snr)
+        print(f"[7] {name} {tag} at the sb_model shape N={N_FULL} T={T_FULL} "
+              f"D={FSN_SB[0]} H={FSN_SB[1]} O={FSN_SB[2]}: SNR {snr:.1f} dB (floor "
+              f"{floor:.0f}), max_abs {err:.3e}, equal on a repeat {repeat}; kernel "
+              f"{out[tag]['ms']:.3f} ms")
+        if not torch.isfinite(y.float()).all() or snr < floor or not repeat:
+            fail(f"{name} {tag} at the sb_model shape: {snr:.1f} dB, equal on a "
+                 f"repeat {repeat}")
+    return out
+
+
+def phase_fullsubnet_kernels() -> dict:
+    """K1 in float32 and bf16 and K5 at FullSubNet's full-band shape (D 257,
+    H 512, O 257) on the fold of a batch of 8 padded to 10 s (N 8, T 629):
+    each against its plain version (K5 equal on a repeat), timed beside the
+    plain version, cuDNN's LSTM(257, 512, 2) + Linear(512, 257) and the bound;
+    then the three at the sub-band shape (`check_fullsubnet_sub_band`)."""
+    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, lstm, fc = lstm_operands(N_FB, T_FULL, dtype, seed=7, shape=FB)
+        y = lstm2.lstm2_fc(x, w).float()
+        torch.cuda.synchronize()
+        ref = lstm2.lstm2_fc_reference(x, w).float()
+        snr, err = snr_db(ref, y), float((y - ref).abs().max())
+        if not torch.isfinite(y).all() or snr < SNR_FLOOR[dtype]:
+            fail(f"lstm2_fwd at the fb_model shape {dtype}: {snr:.1f} dB or not finite")
+        library = cudnn_lstm(lstm, fc, dtype)
+        bound_ms, bound_by = lstm_bound_ms(N_FB, T_FULL, dtype, shape=FB)
+        out[dtype] = dict(ms=cuda_ms(lambda: lstm2.lstm2_fc(x, w), reps=5),
+                          plain_ms=cuda_ms(lambda: lstm2.lstm2_fc_reference(x, w), reps=3),
+                          library_ms=cuda_ms(lambda: library(x), reps=5), bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=err, snr_db=snr)
+        print(f"[7] lstm2_fwd {str(dtype)[6:]} at the fb_model shape N={N_FB} T={T_FULL} "
+              f"D={FB[0]} H={FB[1]} O={FB[2]}: SNR {snr:.1f} dB (floor "
+              f"{SNR_FLOOR[dtype]:.0f}), max_abs {err:.3e}; kernel {out[dtype]['ms']:.3f} ms  "
+              f"plain {out[dtype]['plain_ms']:.3f} ms  cuDNN LSTM+Linear "
+              f"{out[dtype]['library_ms']:.3f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+    x, w, lstm, fc = int8_operands(N_FB, T_FULL, seed=8, shape=FB)
+    y, again = lstm2_int8.lstm2_int8_fc(x, w), lstm2_int8.lstm2_int8_fc(x, w)
+    torch.cuda.synchronize()
+    ref = lstm2_int8.lstm2_int8_fc_reference(x, w).float()
+    snr, err, repeat = snr_db(ref, y.float()), float((y.float() - ref).abs().max()), \
+        torch.equal(y, again)
+    if not torch.isfinite(y.float()).all() or snr < INT8_SNR_FLOOR or not repeat:
+        fail(f"lstm2_int8_fwd at the fb_model shape: {snr:.1f} dB, equal on a repeat {repeat}")
+    library = cudnn_lstm(lstm, fc, torch.bfloat16)
+    bound_ms, bound_by = int8_bound_ms(N_FB, T_FULL, shape=FB)
+    out["int8"] = dict(ms=cuda_ms(lambda: lstm2_int8.lstm2_int8_fc(x, w), reps=5),
+                       plain_ms=cuda_ms(lambda: lstm2_int8.lstm2_int8_fc_reference(x, w), reps=3),
+                       library_ms=cuda_ms(lambda: library(x), reps=5), bound_ms=bound_ms,
+                       bound_by=bound_by, max_abs_err=err, snr_db=snr)
+    print(f"[7] lstm2_int8_fwd at the fb_model shape N={N_FB} T={T_FULL}: SNR {snr:.1f} dB "
+          f"(floor {INT8_SNR_FLOOR:.0f}), max_abs {err:.3e}, equal on a repeat; kernel "
+          f"{out['int8']['ms']:.3f} ms  plain {out['int8']['plain_ms']:.3f} ms  cuDNN bf16 "
+          f"LSTM+Linear {out['int8']['library_ms']:.3f} ms (yardstick)  bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    out["sub_band"] = check_fullsubnet_sub_band()
+    return out
+
+
+def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
+    """FullSubNet at full width (257 bins, fb H 512, sb H 384, seed 42)
+    through its entry points: the batch of 8 wavs through `run_enhance` with
+    a FullSubNet config in float32, bf16 and int8 (each batch launches K1,
+    or K5 in int8, once per LSTM), the float32 waveforms against the same
+    runs through the plain LSTMs, a profile of each batch, one 30 s
+    utterance through `overlapped_chunk`, and the daemon serving a few
+    streams (int8)."""
+    from fullsubnet_plus_torch.cli import enhance as cli
+    from fullsubnet_plus_torch.cli.serve import kernel_launches
+    from fullsubnet_plus_torch.data.wav import read_wav
+    from fullsubnet_plus_torch.enhance import Enhancer
+    from fullsubnet_plus_torch.models import FULLSUBNET
+    from fullsubnet_plus_torch.nn import sequence
+    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
+    from fullsubnet_plus_torch.utils.config import load_config
+
+    config_path, checkpoint = write_fullsubnet_inputs(root)
+    config = load_config(config_path)
+    model_def = FULLSUBNET
+    model_config = model_def.make_config(config["model"]["args"])
+    state_dict = cli.load_state_dict(checkpoint)
+
+    def run(tag, dtype):
+        return cli.run_enhance(config, checkpoint, os.path.join(root, tag),
+                               input_dirs=[os.path.join(root, "noisy")], batch_size=BATCH,
+                               compute_dtype=dtype, device="cuda")
+
+    def outputs(tag):
+        return [read_wav(os.path.join(root, tag, f"utt{i}.wav")) for i in range(len(lengths))]
+
+    run("fsn_warmup", None)
+    run("fsn_warmup_int8", "int8")
+    launches, rates, walls = {}, {}, {}
+    for tag, dtype, kernel in FSN_DTYPES:
+        reset_launches()
+        runs = [run(f"fsn_{tag}", dtype) for _ in range(MAIN_PATH_RUNS)]
+        launches[tag] = kernel_launches()
+        each = [r["throughput_audio_s_per_s"] for r in runs]
+        rates[tag] = statistics.median(each)
+        walls[tag] = statistics.median(r["wall_seconds"] for r in runs)
+        print(f"[7] FullSubNet batch {tag}: {runs[0]['files']} files, "
+              f"{runs[0]['audio_seconds']:.2f} audio-s a run, {MAIN_PATH_RUNS} runs: median "
+              f"{rates[tag]:.1f} audio-s/s (each {', '.join(f'{r:.1f}' for r in each)}), "
+              f"wall {walls[tag] * 1e3:.1f} ms; launches {launches[tag]}")
+        # one batch a run, and each batch runs both LSTMs through the kernel
+        want = {k: 0 for k in launches[tag]}
+        want[kernel] = 2 * MAIN_PATH_RUNS
+        if launches[tag] != want:
+            fail(f"the FullSubNet {tag} batch launched {launches[tag]}, expected {want}")
+        for i, (y, n) in enumerate(zip(outputs(f"fsn_{tag}"), lengths)):
+            if y.shape != (n,) or not np.isfinite(y).all():
+                fail(f"FullSubNet {tag} output {i}: shape {y.shape}, expected ({n},)")
+            if abs(np.max(np.abs(y)) - 0.8) > 1e-3:
+                fail(f"FullSubNet {tag} output {i}: peak {np.max(np.abs(y)):.4f}")
+
+    # the same runs with the plain LSTMs in place of the kernels, both LSTMs
+    sequence.lstm2_fc = lstm2.lstm2_fc_reference
+    sequence.lstm2_int8_fc = lstm2_int8.lstm2_int8_fc_reference
+    try:
+        for tag, dtype, _ in FSN_DTYPES:
+            run(f"fsn_{tag}_plain", dtype)
+    finally:
+        sequence.lstm2_fc = lstm2.lstm2_fc
+        sequence.lstm2_int8_fc = lstm2_int8.lstm2_int8_fc
+    wave_snr = {}
+    for tag, floor in (("float32", WAVE_SNR_FLOOR), ("bfloat16", BF16_WAVE_SNR_FLOOR),
+                       ("int8", INT8_WAVE_SNR_FLOOR)):
+        wave_snr[tag] = snr_db(torch.from_numpy(np.concatenate(outputs(f"fsn_{tag}_plain"))),
+                               torch.from_numpy(np.concatenate(outputs(f"fsn_{tag}"))))
+        print(f"[7] FullSubNet {tag} waveforms, kernels vs plain LSTMs: {wave_snr[tag]:.1f} dB "
+              f"(floor {floor:.0f})")
+        if wave_snr[tag] < floor:
+            fail(f"FullSubNet {tag} waveforms disagree: {wave_snr[tag]:.1f} dB")
+
+    batch = np.zeros((len(lengths), -(-max(lengths) // SR) * SR), np.float32)
+    for i, n in enumerate(lengths):
+        batch[i, :n] = read_wav(os.path.join(root, "noisy", f"utt{i}.wav"))
+    profiles = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        enhancer = Enhancer(model_def, model_config, state_dict, device="cuda",
+                            inference_type="full_band_crm_mask", compute_dtype=dtype)
+        tag = f"[7] profile FullSubNet {dtype} batch:"
+        profile_call(lambda: enhancer.enhance_batch(batch, lengths=lengths), tag)
+        profiles[dtype] = PROFILES[tag]
+
+    enhancer = Enhancer(model_def, model_config, state_dict, device="cuda",
+                        inference_type="overlapped_chunk")
+    rng = np.random.default_rng(5)
+    long = noisy_utterance(rng, FSN_LONG_S * SR)
+    enhancer.enhance_batch(long[None])  # warm up the chunk batch's shapes
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    long_out = enhancer.enhance_batch(long[None])
+    long_wall = time.perf_counter() - t0
+    long_launches = kernel_launches()
+    print(f"[7] FullSubNet overlapped_chunk on one {FSN_LONG_S} s utterance: wall "
+          f"{long_wall * 1e3:.1f} ms, {FSN_LONG_S / long_wall:.1f} audio-s/s; launches "
+          f"{long_launches}")
+    if (long_out.shape != (1, len(long)) or not np.isfinite(long_out).all()
+            or long_launches["lstm2_fwd"] < 2):
+        fail("FullSubNet overlapped_chunk: wrong output or no K1 launch")
+
+    serve = phase_serve(config_path, checkpoint, streams=FSN_STREAMS, tag="[7] FullSubNet")
+    if serve["launches"]["lstm2_int8_fwd"] % 2:
+        fail(f"the FullSubNet daemon's launches {serve['launches']}: not two a batch")
+    return {"launches": launches, "rates": rates, "walls": walls, "wave_snr_db": wave_snr,
+            "profiles": profiles, "overlapped_chunk": {"wall_ms": long_wall * 1e3,
+                                                       "launches": long_launches},
+            "serve": {k: serve[k] for k in ("launches", "audio_s_per_s",
+                                            "stream_audio_s_per_s_median", "min_snr_db")}
+            | {"tick_failures": serve["stats"]["tick_failures"],
+               "busy_tick_ms": serve["stats"]["busy_tick_ms"]}}
 
 
 def main() -> None:
@@ -1342,8 +1687,10 @@ def main() -> None:
         serve = phase_serve(os.path.join(REPO, "configs", "inference.toml"),
                             os.path.join(root, "model.npz"))
         profile_serving_batch(serve)
-    train = phase_train()
-    print(f"phases 1-6 took {time.perf_counter() - t_start:.1f} s")
+        train = phase_train()
+        fb_kernels = phase_fullsubnet_kernels()
+        fsn = phase_fullsubnet(root, lengths)
+    print(f"phases 1-7 took {time.perf_counter() - t_start:.1f} s")
 
     f32, bf16, int8 = times[torch.float32], times[torch.bfloat16], times["int8"]
     k1 = {
@@ -1352,7 +1699,9 @@ def main() -> None:
         "source": "fullsubnet_plus_torch/csrc/lstm2_fwd.cu",
         "replaces": "fullsubnet_plus_tpu/ops/lstm_pallas.py:98 (_make_kernel)",
         "launches": batch["launches"]["float32"]["lstm2_fwd"]
-        + batch["launches"]["bfloat16"]["lstm2_fwd"] + train["eval_launches"]["lstm2_fwd"],
+        + batch["launches"]["bfloat16"]["lstm2_fwd"] + train["eval_launches"]["lstm2_fwd"]
+        + fsn["launches"]["float32"]["lstm2_fwd"] + fsn["launches"]["bfloat16"]["lstm2_fwd"]
+        + fsn["overlapped_chunk"]["launches"]["lstm2_fwd"],
         "max_abs_err": errors[("lstm2_fwd", N_FULL, T_FULL, torch.float32)],
         **f32,
         "shape": {"N": N_FULL, "D": D, "H": H, "O": O, "T": T_FULL, "dtype": "float32"},
@@ -1360,7 +1709,25 @@ def main() -> None:
                      **bf16},
         "launches_by_run": {**{tag: batch["launches"][tag]["lstm2_fwd"]
                                for tag in ("float32", "bfloat16")},
-                            "eval_step": train["eval_launches"]["lstm2_fwd"]},
+                            "eval_step": train["eval_launches"]["lstm2_fwd"],
+                            **{f"fullsubnet_{tag}": fsn["launches"][tag]["lstm2_fwd"]
+                               for tag in ("float32", "bfloat16")},
+                            "fullsubnet_overlapped_chunk":
+                                fsn["overlapped_chunk"]["launches"]["lstm2_fwd"]},
+        "fullsubnet_fb": {
+            "shape": {"N": N_FB, "D": FB[0], "H": FB[1], "O": FB[2], "T": T_FULL},
+            "float32": fb_kernels[torch.float32], "bfloat16": fb_kernels[torch.bfloat16],
+            "launches_per_batch": {tag: fsn["launches"][tag]["lstm2_fwd"] // MAIN_PATH_RUNS
+                                   for tag in ("float32", "bfloat16")},
+            "batch": {tag: {"audio_s_per_s": fsn["rates"][tag], "wall_ms": fsn["walls"][tag] * 1e3,
+                            **fsn["profiles"][tag]} for tag in ("float32", "bfloat16")},
+            "wave_snr_db_vs_plain": {tag: fsn["wave_snr_db"][tag]
+                                     for tag in ("float32", "bfloat16")},
+        },
+        "fullsubnet_sb": {
+            "shape": {"N": N_FULL, "D": FSN_SB[0], "H": FSN_SB[1], "O": FSN_SB[2], "T": T_FULL},
+            **{tag: fb_kernels["sub_band"][tag] for tag in ("float32", "bfloat16")},
+        },
         "audio_s_per_s": {tag: batch["rates"][tag] for tag in ("float32", "bfloat16")},
         "sweep_hmma": hmma["lstm2_fwd"],
         "jax_fixture_min_snr_db": {dt: fixture_snr[("lstm2_fwd", dt)]
@@ -1371,14 +1738,30 @@ def main() -> None:
         "route": "cuda",
         "source": "fullsubnet_plus_torch/csrc/lstm2_int8_fwd.cu",
         "replaces": "fullsubnet_plus_tpu/ops/lstm_pallas.py:1022 (_make_quant_kernel)",
-        "launches": serve["launches"]["lstm2_int8_fwd"],
+        "launches": serve["launches"]["lstm2_int8_fwd"]
+        + fsn["launches"]["int8"]["lstm2_int8_fwd"] + fsn["serve"]["launches"]["lstm2_int8_fwd"],
         "max_abs_err": errors[("lstm2_int8_fwd", N_SERVE, T_SERVE)],
         **int8,
         "max_abs_err_batch_fold": errors[("lstm2_int8_fwd", N_FULL, T_FULL)],
         "library": "cuDNN bf16 LSTM + Linear (a yardstick, not the int8 function)",
         "shape": {"N": N_SERVE, "D": D, "H": H, "O": O, "T": T_SERVE, "dtype": "bf16/int8"},
         "launches_by_run": {"serve": serve["launches"]["lstm2_int8_fwd"],
-                            "batch_int8": batch["launches"]["int8"]["lstm2_int8_fwd"]},
+                            "batch_int8": batch["launches"]["int8"]["lstm2_int8_fwd"],
+                            "fullsubnet_batch_int8": fsn["launches"]["int8"]["lstm2_int8_fwd"],
+                            "fullsubnet_serve": fsn["serve"]["launches"]["lstm2_int8_fwd"]},
+        "fullsubnet_fb": {
+            "shape": {"N": N_FB, "D": FB[0], "H": FB[1], "O": FB[2], "T": T_FULL},
+            **fb_kernels["int8"],
+            "launches_per_batch": fsn["launches"]["int8"]["lstm2_int8_fwd"] // MAIN_PATH_RUNS,
+            "batch_int8": {"audio_s_per_s": fsn["rates"]["int8"],
+                           "wall_ms": fsn["walls"]["int8"] * 1e3, **fsn["profiles"]["int8"]},
+            "wave_snr_db_vs_plain": fsn["wave_snr_db"]["int8"],
+            "serve": fsn["serve"],
+        },
+        "fullsubnet_sb": {
+            "shape": {"N": N_FULL, "D": FSN_SB[0], "H": FSN_SB[1], "O": FSN_SB[2], "T": T_FULL},
+            **fb_kernels["sub_band"]["int8"],
+        },
         "audio_s_per_s": {"batch_int8": batch["rates"]["int8"],
                           "serve_together": serve["audio_s_per_s"],
                           "serve_stream_median": serve["stream_audio_s_per_s_median"]},

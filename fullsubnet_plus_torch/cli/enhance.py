@@ -5,10 +5,13 @@
         [--batch N] [--dtype float32|bfloat16|int8] [--device cuda|cpu]
 
 Counterpart of fullsubnet_plus_tpu/cli/enhance.py:22-184. Takes the JAX
-package's `.npz` checkpoints and the reference's torch `.tar`/`.pth`.
+package's `.npz` checkpoints and the reference's torch `.tar`/`.pth`, of
+FullSubNet+ or FullSubNet ([model] path), and any inference mode
+([inferencer] type, with n_neighbor and the rest of [inferencer.args]).
 Utterances are sorted by length and enhanced in batches padded to a whole
-second, with their true lengths passed so padding changes no output; each
-output is rescaled to 0.8 of its peak (base_inferencer.py:151-152).
+second; a length-aware mode gets their true lengths, so padding changes no
+output. Each output is rescaled to 0.8 of its peak
+(base_inferencer.py:151-152).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def run_enhance(config: dict, checkpoint_path: str, output_dir: str, input_dirs=
     from fullsubnet_plus_torch.models import get_model
 
     model_def = get_model(config["model"]["path"])
-    model_config = model_def.make_config(config["model"]["args"])
+    model_config = model_def.make_config(config["model"].get("args", {}))
     acoustics = config.get("acoustics", {})
     inferencer_args = config.get("inferencer", {}).get("args", {})
     enhancer = Enhancer(
@@ -56,9 +59,12 @@ def run_enhance(config: dict, checkpoint_path: str, output_dir: str, input_dirs=
         hop_length=acoustics.get("hop_length", 256),
         win_length=acoustics.get("win_length", 512),
         sr=acoustics.get("sr", 16000),
+        n_neighbor=inferencer_args.get("n_neighbor", 15),
         compute_dtype=compute_dtype or inferencer_args.get("compute_dtype"),
+        inference_args=inferencer_args,
         device=device,
     )
+    length_aware = enhancer.inference_type in Enhancer.LENGTH_AWARE_MODES
 
     sr = enhancer.sr
     dataset = InferenceDataset(input_dirs or config["dataset"]["args"]["dataset_dir_list"],
@@ -75,7 +81,7 @@ def run_enhance(config: dict, checkpoint_path: str, output_dir: str, input_dirs=
         stacked = np.zeros((len(batch), padded_len), np.float32)
         for j, (w, _) in enumerate(batch):
             stacked[j, :len(w)] = w
-        enhanced = enhancer.enhance_batch(stacked, lengths=lengths)
+        enhanced = enhancer.enhance_batch(stacked, lengths=lengths if length_aware else None)
         for j, (w, name) in enumerate(batch):
             y = enhanced[j, :len(w)]
             peak = np.max(np.abs(y)) + 1e-12

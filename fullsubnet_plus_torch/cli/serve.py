@@ -13,8 +13,9 @@ no daemon; its closest surface is the offline overlapped_chunk loop,
 inferencer.py:191-250): N concurrent client streams, one fixed-shape
 length-masked batch on the card, the reference's Hann-OLA per stream
 (serve.py StreamingEngine). One server per card. With no --dtype and no
-compute_dtype in the config, it serves int8 (the sub-band LSTM's recurrent
-products in int8, ops/lstm2_int8.py).
+compute_dtype in the config, it serves int8 (the LSTMs' recurrent products
+in int8, ops/lstm2_int8.py). FullSubNet+ is served through
+mag_complex_full_band_crm_mask, FullSubNet through full_band_crm_mask.
 
 Wire protocol (stdlib only, length-prefixed frames `[u32 big-endian
 len][payload]`):
@@ -52,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ipaddress
 import json
 import os
 import socket
@@ -86,6 +88,23 @@ def _recv_exact(conn: socket.socket, n: int):
             return None
         buf += part
     return buf
+
+
+def is_loopback(host: str) -> bool:
+    """Whether every address `host` resolves to is a loopback one
+    (127.0.0.0/8, ::1, or IPv4-mapped loopback such as ::ffff:127.0.0.1).
+    A host that does not resolve, or the wildcard, is not."""
+    try:
+        infos = socket.getaddrinfo(host, None)
+    except (OSError, UnicodeError):
+        return False
+    addresses = {ipaddress.ip_address(info[4][0].split("%", 1)[0]) for info in infos}
+
+    def loopback(address):
+        mapped = getattr(address, "ipv4_mapped", None)
+        return (mapped or address).is_loopback
+
+    return bool(addresses) and all(loopback(a) for a in addresses)
 
 
 def _abort_conn(conn: socket.socket) -> None:
@@ -146,8 +165,7 @@ class StreamServer:
         # The reload header is an unauthenticated control plane. On a
         # non-loopback bind, reloads are restricted to the -M checkpoint's
         # directory unless the operator passes --allow-remote-reload.
-        self._reload_restricted = (
-            not allow_remote_reload and host not in ("127.0.0.1", "localhost", "::1"))
+        self._reload_restricted = not allow_remote_reload and not is_loopback(host)
         self.exit_code = 0
         self._lock = threading.Lock()
         self._conns: dict[int, socket.socket] = {}  # sid -> client conn
@@ -262,10 +280,9 @@ class StreamServer:
         if not ticker_dead or not self._lock.acquire(timeout=join_timeout):
             self.log("[serve] ticker wedged during shutdown: aborting "
                      "streams without drain")
-            conns = list(self._conns.items())
-            self._conns.clear()
-            for _sid, conn in conns:
-                _abort_conn(conn)
+            # the reader threads still add and remove connections under the
+            # lock: snapshot under it too, unless a wedged ticker holds it
+            self._disconnect_all(lock_timeout=join_timeout)
             return
         try:
             try:
@@ -579,7 +596,9 @@ def build_engine(config: dict, checkpoint_path: str, slots: int,
         hop_length=acoustics.get("hop_length", 256),
         win_length=acoustics.get("win_length", 512),
         sr=acoustics.get("sr", 16000),
+        n_neighbor=inferencer_cfg.get("args", {}).get("n_neighbor", 15),
         compute_dtype=compute_dtype,
+        inference_args=inferencer_cfg.get("args", {}),
         device=device,
     )
     # Honor the config's inferencer type when it names a length-aware
@@ -636,9 +655,12 @@ def supervise_serve(child_argv, max_restarts: int = 3, log=print, launcher=None)
 
     attempt = 0
     prefix = launcher or [sys.executable, "-m", "fullsubnet_plus_torch.cli.serve"]
-    live = {"child": None}
+    live = {"child": None, "stop": False}
 
     def _forward(signum, frame):
+        # a SIGTERM between a child's exit and the next launch finds no live
+        # child: the flag keeps it from being lost to a relaunch
+        live["stop"] = True
         c = live["child"]
         if c is not None and c.poll() is None:
             c.send_signal(signal.SIGTERM)  # exact pid only
@@ -655,6 +677,9 @@ def supervise_serve(child_argv, max_restarts: int = 3, log=print, launcher=None)
             if rc == 0:
                 log("[serve-supervisor] clean shutdown")
                 return 0
+            if live["stop"]:
+                log(f"[serve-supervisor] stop requested after exit {rc}: no relaunch")
+                return rc
             if attempt >= max_restarts:
                 log(f"[serve-supervisor] giving up after {attempt} restart(s) (exit {rc})")
                 return rc

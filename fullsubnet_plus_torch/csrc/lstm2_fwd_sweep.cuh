@@ -24,9 +24,9 @@
 // A: the tile's operand rows [x | h1 | h2] of type T in shared memory, read by
 // ldmatrix (the same byte addresses give bf16's m16n8k16 fragment and
 // float32's m16n8k8 one); layer 1 is one product over [x | h1] against [W1;
-// U1] (x zero-padded from D 34 to 64 columns), layer 2 one over [h1 | h2]
-// against [W2; U2]. In float32 each k-step of A is split once and serves the
-// four gate n-tiles of a pass. B: the weights packed once per call by
+// U1] (x zero-padded from D 34 to 64 bf16 or 48 float32 columns), layer 2
+// one over [h1 | h2] against [W2; U2]. In float32 each k-step of A is split
+// once and serves the four gate n-tiles of a pass. B: the weights packed once per call by
 // ops/lstm2.py::pack_fwd_mma into lane order (16 bytes a lane: two k-steps)
 // with the gate columns interleaved (n-tiles 4u .. 4u + 3 = gates i, f, g, o
 // of units 8u .. 8u + 7), so a lane's accumulators hold all four gates of its
@@ -38,9 +38,10 @@
 // CTA, so R 32 reads the weights half as often per row as R 16. The fc is a
 // product over the h2 tile with W_fc^T packed to T and O padded to n-tiles of
 // 8; warps own whole n-tiles, so no shared-memory partial grows with O.
-// Shared memory at D 34, H 384: 2 R operand rows of 840 bf16 or 836 float32
-// and 2 R x 384 float32 c words: 102,912 bytes (bf16) and 156,160 (float32)
-// at R 16, 205,824 (bf16) at R 32. Launch: grid ceil(N / R), block H threads,
+// Shared memory at D 34, H 384: 2 R operand rows of 840 bf16 or 820 float32
+// and 2 R x 384 float32 c words: 102,912 bytes (bf16) and 154,112 (float32)
+// at R 16, 205,824 (bf16) at R 32; at FullSubNet's full-band shape (D 257,
+// H 512) 150,016 (bf16) and 231,936 (float32) at R 16. Launch: grid ceil(N / R), block H threads,
 // dynamic shared memory shared_bytes_mma<T>(R, D, H).
 
 #pragma once
@@ -69,14 +70,18 @@ struct Residuals {
 
 constexpr int MMA_PASSES = 4;  // unit groups of 8 a warp owns: H / 32 warps x 4 x 8 = H
 
-// x's columns in an operand row, zero-padded to whole k-chunks of either type
-__host__ __device__ inline int x_cols(int D) { return (D + 31) / 32 * 32; }
+// x's columns in an operand row, zero-padded to whole k-chunks of T (32 bf16,
+// 16 float32: 64 bytes either way). At D 257, H 512 the float32 rows then
+// take 272 x columns, not 288, and the float32 sweep fits a block at R 16.
+template <typename T> __host__ __device__ inline int x_cols(int D) {
+  return (D + k_chunk<T>() - 1) / k_chunk<T>() * k_chunk<T>();
+}
 
 // elements of an operand row [x | h1 | h2 | pad]; the 16-byte pad (FWD_MMA_PAD
 // in ops/lstm2.py) makes the row pitch an odd multiple of 16 bytes, so
 // ldmatrix is free of bank conflicts
 template <typename T> __host__ __device__ inline int operand_pitch(int D, int H) {
-  return x_cols(D) + 2 * H + 16 / (int)sizeof(T);
+  return x_cols<T>(D) + 2 * H + 16 / (int)sizeof(T);
 }
 
 // two operand buffers [R][pitch] of T, then c1 and c2 (R * H float32 each)
@@ -90,7 +95,8 @@ template <typename T> __host__ __device__ inline size_t shared_bytes_mma(int R, 
 // columns interleaved: n-tiles 4u .. 4u + 3 hold gates i, f, g, o of units
 // 8u .. 8u + 7.
 struct MmaWeights {
-  const uint4* w1;  // [W1 (zero rows up to x_cols(D)); U1]: [4H/8][(x_cols(D) + H)/k_chunk][32]
+  // [W1 (zero rows up to x_cols<T>(D)); U1]: [4H/8][(x_cols<T>(D) + H)/k_chunk][32]
+  const uint4* w1;
   const uint4* w2;  // [W2; U2]: [4H/8][2H/k_chunk][32]
   const uint4* fc;  // W_fc^T, O zero-padded to n-tiles of 8: [ceil(O/8)][H/k_chunk][32]
   const float* b1;  // [4H], gate-interleaved
@@ -262,7 +268,7 @@ sweep_mma_kernel(const T* __restrict__ x,  // [T, N, D]
                  const Residuals<T> res, int n_rows, int steps, int D, int H, int O) {
   constexpr int R = 16 * MT, KC = k_chunk<T>();
   extern __shared__ __align__(16) unsigned char smem_mma[];
-  const int xc = x_cols(D), ld = operand_pitch<T>(D, H);
+  const int xc = x_cols<T>(D), ld = operand_pitch<T>(D, H);
   T* ops = reinterpret_cast<T*>(smem_mma);                          // [2][R][ld]
   float* c1s = reinterpret_cast<float*>(ops + 2 * (size_t)R * ld);  // [R * H]
   float* c2s = c1s + (size_t)R * H;                                 // [R * H]

@@ -1,11 +1,13 @@
 """STFT / iSTFT with the reference's `torch.stft` / `torch.istft` semantics.
 
-Counterpart of fullsubnet_plus_tpu/dsp/stft.py:35-255: center=True with
+Counterpart of fullsubnet_plus_tpu/dsp/stft.py:35-260: center=True with
 reflect padding, periodic Hann window, onesided, unnormalized; least-squares
 iSTFT (overlap-add over the squared-window envelope, center-trimmed, cut to
-`length`). The forward transform is `torch.stft` itself. The inverse runs
-its own overlap-add because `istft(valid_frames=...)` normalizes each
-utterance by its own window envelope, which `torch.istft` cannot do.
+`length`), from real and imaginary parts or, with `use_mag_phase`, from
+magnitude and phase (`mag_phase` splits a complex spectrum so). The forward
+transform is `torch.stft` itself. The inverse runs its own overlap-add
+because `istft(valid_frames=...)` normalizes each utterance by its own
+window envelope, which `torch.istft` cannot do.
 """
 
 from __future__ import annotations
@@ -57,14 +59,22 @@ def overlap_add(frames_time: torch.Tensor, n_fft: int, hop_length: int) -> torch
     return out.reshape(batch, -1)
 
 
+def mag_phase(spec: torch.Tensor):
+    """Complex [.., F, T] -> (magnitude, phase)."""
+    return spec.abs(), spec.angle()
+
+
 def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int = 512,
           hop_length: int = 256, win_length: int = 512, length: int | None = None,
-          valid_frames: torch.Tensor | None = None) -> torch.Tensor:
-    """[B, F, T] real and imaginary parts -> [B, length] waveform.
+          valid_frames: torch.Tensor | None = None, use_mag_phase: bool = False) -> torch.Tensor:
+    """[B, F, T] real and imaginary parts (with `use_mag_phase`: magnitude
+    and phase) -> [B, length] waveform.
 
     `valid_frames` ([B] int): per-utterance frame counts for bucket-padded
     batches; the window envelope then counts only each utterance's own
     frames, as its exact-length iSTFT would."""
+    if use_mag_phase:
+        real, imag = real * torch.cos(imag), real * torch.sin(imag)
     batch, _, frames = real.shape
     window = hann_window(win_length, n_fft, device=real.device)
     spec = torch.complex(real.float(), imag.float()).transpose(1, 2)  # [B, T, F]

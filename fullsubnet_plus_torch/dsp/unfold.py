@@ -1,8 +1,8 @@
-"""Sub-band frequency unfold (reflect padding) and the training-time band
-dropout.
+"""Sub-band frequency unfold and the training-time band dropout.
 
-Counterpart of fullsubnet_plus_tpu/dsp/unfold.py:22-101 with its default
-pad mode: reflect-pad the frequency axis by `num_neighbors`, then slide a
+Counterpart of fullsubnet_plus_tpu/dsp/unfold.py:22-101: pad the frequency
+axis by `num_neighbors` (reflect by default; replicate, circular or
+constant zeros as the reference inferencer's `pad_mode`), then slide a
 (2n+1)-wide window over it, as a gather with a precomputed index table;
 `drop_band` keeps every num_groups-th frequency, rotating with the sample.
 """
@@ -14,25 +14,42 @@ import functools
 import numpy as np
 import torch
 
+PAD_MODES = ("reflect", "replicate", "circular", "constant")
 
-def _reflect_indices(num_freqs: int, num_neighbors: int) -> np.ndarray:
-    """[F, 2n+1] indices into the unpadded frequency axis (torch F.pad
-    reflect semantics: no edge repeat)."""
-    idx = np.abs(np.arange(-num_neighbors, num_freqs + num_neighbors))
-    over = idx > num_freqs - 1
-    idx[over] = 2 * (num_freqs - 1) - idx[over]
+
+@functools.lru_cache(maxsize=64)
+def _unfold_indices(num_freqs: int, num_neighbors: int, pad_mode: str = "reflect") -> np.ndarray:
+    """[F, 2n+1] indices into the unpadded frequency axis with torch F.pad's
+    edge semantics for `pad_mode` (reflect: no edge repeat). "constant" maps
+    out-of-range taps to index `num_freqs`, where the caller appends a row
+    of zeros."""
+    idx = np.arange(-num_neighbors, num_freqs + num_neighbors)
+    if pad_mode == "reflect":
+        idx = np.abs(idx)
+        over = idx > num_freqs - 1
+        idx[over] = 2 * (num_freqs - 1) - idx[over]
+    elif pad_mode == "replicate":
+        idx = np.clip(idx, 0, num_freqs - 1)
+    elif pad_mode == "circular":
+        idx = idx % num_freqs
+    elif pad_mode == "constant":
+        idx = np.where((idx < 0) | (idx > num_freqs - 1), num_freqs, idx)
+    else:
+        raise ValueError(f"unknown pad_mode {pad_mode!r}; one of {PAD_MODES}")
     window = 2 * num_neighbors + 1
     return np.stack([idx[f:f + window] for f in range(num_freqs)])
 
 
-def freq_unfold(x: torch.Tensor, num_neighbors: int) -> torch.Tensor:
+def freq_unfold(x: torch.Tensor, num_neighbors: int, pad_mode: str = "reflect") -> torch.Tensor:
     """[B, C, F, T] -> [B, F, C, 2n+1, T] overlapping frequency sub-bands."""
     if x.ndim != 4:
         raise ValueError(f"freq_unfold expects [B, C, F, T], got {tuple(x.shape)}")
     batch, channels, num_freqs, frames = x.shape
     if num_neighbors < 1:
         return x.permute(0, 2, 1, 3).reshape(batch, num_freqs, channels, 1, frames)
-    idx = torch.from_numpy(_reflect_indices(num_freqs, num_neighbors)).to(x.device)
+    idx = torch.from_numpy(_unfold_indices(num_freqs, num_neighbors, pad_mode)).to(x.device)
+    if pad_mode == "constant":  # the zero row the out-of-range taps read
+        x = torch.nn.functional.pad(x, (0, 0, 0, 1))
     gathered = x[:, :, idx, :]  # [B, C, F, W, T]
     return gathered.permute(0, 2, 1, 3, 4)
 

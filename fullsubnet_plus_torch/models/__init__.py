@@ -1,12 +1,12 @@
 """Model registry: the reference TOMLs' dotted paths and the short names.
 
-Counterpart of fullsubnet_plus_tpu/models/__init__.py:13-59. The baseline
-FullSubNet is ROADMAP.md Queue 1 item 7; its names raise until then.
+Counterpart of fullsubnet_plus_tpu/models/__init__.py:13-59: FullSubNet+
+(three spectrogram views) and the FullSubNet baseline (the magnitude alone).
 """
 
 from __future__ import annotations
 
-from fullsubnet_plus_torch.device import not_ported
+from fullsubnet_plus_torch.models.fullsubnet import FullSubNet, FullSubNetConfig
 from fullsubnet_plus_torch.models.fullsubnet_plus import FullSubNetPlus, FullSubNetPlusConfig
 
 
@@ -29,17 +29,19 @@ class ModelDef:
 
 
 FULLSUBNET_PLUS = ModelDef("fullsubnet_plus", FullSubNetPlusConfig, FullSubNetPlus, n_inputs=3)
+FULLSUBNET = ModelDef("fullsubnet", FullSubNetConfig, FullSubNet, n_inputs=1)
 
+# the reference's dotted paths (config/train.toml:74, inference.toml:27-28)
+# and the short names
 MODEL_REGISTRY = {
     "fullsubnet_plus": FULLSUBNET_PLUS,
+    "fullsubnet": FULLSUBNET,
     "fullsubnet_plus.model.fullsubnet_plus.FullSubNet_Plus": FULLSUBNET_PLUS,
+    "fullsubnet.model.fullsubnet.Model": FULLSUBNET,
 }
-_NOT_PORTED = ("fullsubnet", "fullsubnet.model.fullsubnet.Model")
 
 
 def get_model(name: str) -> ModelDef:
-    if name in _NOT_PORTED:
-        raise not_ported(f"model {name!r}", "Queue 1 item 7")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"Unknown model {name!r}; known: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name]

@@ -1,13 +1,14 @@
-"""SequenceModel: the TCN full-band model and the LSTM sub-band model.
+"""SequenceModel: the TCN and 2-layer LSTM sequence models.
 
 Counterpart of fullsubnet_plus_tpu/nn/sequence.py:48-188 (reference
-SequenceModel, sequence_model.py:5-123) for the two forms FullSubNet+ ships:
-the 8-block TCN (which ignores hidden_size and num_layers, as the reference
-does) and the unidirectional 2-layer LSTM, whose output Linear is fused
-into the sweep of ops/lstm2.py (or, on the quantized route, of
-ops/lstm2_int8.py, with weights prepared once by `prepare_int8`; or, where
-a gradient is asked, of ops/lstm2_train.py with its own backward). GRU,
-bidirectional and TCN-subband models are ROADMAP.md Queue 1 item 11.
+SequenceModel, sequence_model.py:5-123) for the two forms the shipped models
+use: the 8-block TCN (FullSubNet+'s full-band models; it ignores hidden_size
+and num_layers, as the reference does) and the unidirectional 2-layer LSTM
+(both models' sub-band model, FullSubNet's full-band one), whose output
+Linear is fused into the sweep of ops/lstm2.py (or, on the quantized route,
+of ops/lstm2_int8.py, with weights prepared once by `prepare_int8`; or,
+where a gradient is asked, of ops/lstm2_train.py with its own backward).
+GRU, bidirectional and TCN-subband models are ROADMAP.md Queue 1 item 11.
 """
 
 from __future__ import annotations

@@ -148,15 +148,16 @@ def deinterleave_gates(w: torch.Tensor) -> torch.Tensor:
             .reshape(*w.shape[:-1], 4 * hidden))
 
 
-def x_cols(d_in: int) -> int:
-    """x's columns in the sweep's operand rows: D padded to a multiple of 32
-    (whole k-chunks of 32 bf16 or 16 float32)."""
-    return -(-d_in // 32) * 32
+def x_cols(d_in: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """x's columns in the sweep's operand rows: D padded to whole k-chunks of
+    the weight dtype (32 bf16 or 16 float32, 64 bytes either way)."""
+    chunk = 64 // torch.tensor([], dtype=dtype).element_size()
+    return -(-d_in // chunk) * chunk
 
 
 class FwdMmaWeights(NamedTuple):
     """The forward sweep's operands (`pack_fwd_mma`): w1 = [W1 padded with
-    zero rows to x_cols(D); U1], w2 = [W2; U2] and fc = W_fc^T (O padded to
+    zero rows to x_cols(D, dtype); U1], w2 = [W2; U2] and fc = W_fc^T (O padded to
     n-tiles of 8) as fragments of their transposes in the weight dtype
     (`pack_mma_b` for bf16, `pack_tf32_b` for float32), the gate columns
     interleaved; b1, b2 [4H] float32, interleaved alike."""
@@ -170,12 +171,14 @@ class FwdMmaWeights(NamedTuple):
 
 def pack_fwd_mma(w: LSTM2Weights) -> FwdMmaWeights:
     """The sweep's operands from the fused forward's, in the weights' dtype
-    (at H 384: 3.7 MB bf16, 7.5 MB float32; a few device copies, once per
-    call). In bf16 fc_w is rounded to bf16, as the TPU kernel's
+    (at H 384: 3.7 MB bf16, 7.4 MB float32; at FullSubNet's full-band
+    shape, D 257, H 512, O 257: 7.7 MB bf16, 15.4 MB float32; a few device
+    copies, once per call). In bf16 fc_w is rounded to bf16, as the TPU kernel's
     `fcw.astype(mm)` (exact for a bf16 module's weights)."""
     d_in, dtype = w.w1.shape[0], w.w1.dtype
     pack = pack_tf32_b if dtype == torch.float32 else pack_mma_b
-    w1 = torch.cat([torch.nn.functional.pad(w.w1, (0, 0, 0, x_cols(d_in) - d_in)), w.u1])
+    w1 = torch.cat([torch.nn.functional.pad(w.w1, (0, 0, 0, x_cols(d_in, dtype) - d_in)),
+                    w.u1])
 
     def fragments(m):  # [K, 4H] -> the fragments of its interleaved transpose
         return pack(interleave_gates(m).t().to(dtype))
@@ -228,10 +231,11 @@ def fwd_mma_shared_memory_bytes(rows: int, d_in: int, hidden: int,
                                 dtype: torch.dtype = torch.bfloat16) -> int:
     """Dynamic shared memory of one block of the sweep (shared_bytes_mma in
     lstm2_fwd_sweep.cuh): two operand buffers [R][x | h1 | h2 | pad] in the
-    weight dtype, the pad 16 bytes, and c1, c2 [R * H] float32. Nothing grows
-    with O."""
+    weight dtype (x padded to `x_cols`), the pad 16 bytes, and c1, c2 [R * H]
+    float32. Nothing grows with O. At D 257, H 512, R 16: 150,016 bytes in
+    bf16 and 231,936 in float32, within a block."""
     size = torch.tensor([], dtype=dtype).element_size()
-    pitch = x_cols(d_in) + 2 * hidden + FWD_MMA_PAD_BYTES // size
+    pitch = x_cols(d_in, dtype) + 2 * hidden + FWD_MMA_PAD_BYTES // size
     return 2 * size * rows * pitch + 2 * 4 * rows * hidden
 
 

@@ -18,6 +18,10 @@ step: the clip scales by max_norm / norm only when the norm reaches
 max_norm, and Adam divides by sqrt(nu_hat) + eps with both bias
 corrections. Steps run on CUDA unless the caller asks for the CPU.
 
+The eval steps take FullSubNet+ (three spectrogram views) and FullSubNet
+(the magnitude alone, `_forward_fullsubnet` of the JAX module). The train
+step takes FullSubNet+ only: FullSubNet's full-band LSTM (D 257, H 512)
+does not fit the reverse sweep's block (ROADMAP.md Queue 2 R6).
 `make_joint_mask_train_step` and `make_residual_train_step` of the JAX
 module serve model variants the port does not have (ROADMAP.md Queue 1
 item 11).
@@ -150,11 +154,12 @@ def _to_device(array, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def _forward(model, mag, real, imag, training, compute_dtype=torch.float32,
-             valid_frames=None):
-    """The model on [B, F, T] views, with its parameters and inputs cast to
+             valid_frames=None, n_inputs=3):
+    """The model on [B, F, T] views (the magnitude alone for a one-view
+    model, `n_inputs` 1), with its parameters and inputs cast to
     `compute_dtype` where that is not float32 (the masters stay float32 and
     the cast is differentiated through, so gradients arrive in float32)."""
-    views = [v[:, None].to(compute_dtype) for v in (mag, real, imag)]
+    views = [v[:, None].to(compute_dtype) for v in (mag, real, imag)[:n_inputs]]
     if compute_dtype == torch.float32:
         return model(*views, valid_frames=valid_frames, training=training)
     cast = {k: p.to(compute_dtype) for k, p in model.named_parameters()}
@@ -191,7 +196,8 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
     "grad_norm", "skipped") are device tensors.
     """
     if model_def.n_inputs != 3:
-        raise not_ported(f"a train step for {model_def.name!r}", "Queue 1 item 7")
+        raise not_ported(f"a train step for {model_def.name!r}",
+                         "Queue 2 R6, the reverse sweep at the fb_model shape")
     if mesh is not None:
         raise not_ported("mesh= (data-parallel training)", "Queue 1 item 10")
     device = resolve_device(device)
@@ -250,9 +256,8 @@ def make_eval_step(model_def, config, loss_fn, *, n_fft: int = 512, hop_length: 
                    win_length: int = 512, device="cuda"):
     """Validation: (model, noisy [B, L], clean [B, L]) -> (loss without
     drop_band, enhanced waveform [B, L]) (reference trainer.py:364-427)."""
-    if model_def.n_inputs != 3:
-        raise not_ported(f"an eval step for {model_def.name!r}", "Queue 1 item 7")
     device = resolve_device(device)
+    n_inputs = model_def.n_inputs
 
     @torch.no_grad()
     def eval_step(model, noisy, clean):
@@ -260,7 +265,7 @@ def make_eval_step(model_def, config, loss_fn, *, n_fft: int = 512, hop_length: 
         noisy_mag, noisy_real, noisy_imag = stft_split(noisy, n_fft, hop_length, win_length)
         _, clean_real, clean_imag = stft_split(clean, n_fft, hop_length, win_length)
         cirm = build_complex_ideal_ratio_mask(noisy_real, noisy_imag, clean_real, clean_imag)
-        crm = _forward(model, noisy_mag, noisy_real, noisy_imag, False)
+        crm = _forward(model, noisy_mag, noisy_real, noisy_imag, False, n_inputs=n_inputs)
         crm = crm.permute(0, 2, 3, 1)
         enhanced = _crm_to_wave(crm, noisy_real, noisy_imag, noisy.shape[-1], n_fft,
                                 hop_length, win_length)
@@ -284,11 +289,10 @@ def make_bucketed_eval_step(model_def, config, loss_fn, *, n_fft: int = 512,
     region adds loss(0, 0) = 0, and the padded mean is rescaled by
     T_padded / T_valid), and the iSTFT normalizes with each row's own window
     envelope."""
-    if model_def.n_inputs != 3:
-        raise not_ported(f"an eval step for {model_def.name!r}", "Queue 1 item 7")
     if mesh is not None:
         raise not_ported("mesh= (sharded validation)", "Queue 1 item 10")
     device = resolve_device(device)
+    n_inputs = model_def.n_inputs
 
     @torch.no_grad()
     def eval_step(model, noisy, clean, lengths):
@@ -301,8 +305,8 @@ def make_bucketed_eval_step(model_def, config, loss_fn, *, n_fft: int = 512,
         noisy_mag, noisy_real, noisy_imag = stft_split(noisy_e, n_fft, hop_length, win_length)
         _, clean_real, clean_imag = stft_split(clean_e, n_fft, hop_length, win_length)
         cirm = build_complex_ideal_ratio_mask(noisy_real, noisy_imag, clean_real, clean_imag)
-        crm = _forward(model, noisy_mag, noisy_real, noisy_imag, False,
-                       valid_frames=valid_frames).permute(0, 2, 3, 1)  # [B, F, T, 2]
+        crm = _forward(model, noisy_mag, noisy_real, noisy_imag, False, valid_frames=valid_frames,
+                       n_inputs=n_inputs).permute(0, 2, 3, 1)  # [B, F, T, 2]
         frames = crm.shape[2]
         tmask = time_mask(frames, valid_frames, crm.dtype)[:, None, :, None]
         losses = torch.stack([loss_fn(a, b) for a, b in zip(cirm * tmask, crm * tmask)])

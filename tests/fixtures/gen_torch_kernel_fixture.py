@@ -1,7 +1,9 @@
 """Generate the committed kernel fixture (tests/fixtures/torch_kernel_fixture.npz):
 the outputs of the JAX package's fused-LSTM kernels, run in interpret mode
 on the CPU as the JAX package's own tests run them, at small ragged shapes
-(N not a multiple of 16 or 32, odd T).
+(N not a multiple of 16 or 32, odd T): FullSubNet+'s sub-band shape (D 34,
+H 384, O 2) at T 7-9 and at the serving length T 255, a narrow one (H 64),
+and FullSubNet's full-band shape (D 257, H 512, O 257).
 
   * K1, `stacked_lstm2(..., interpret=True)` (fullsubnet_plus_tpu/ops/
     lstm_pallas.py:210), float32 and bfloat16: y [N, T, O];
@@ -13,8 +15,9 @@ on the CPU as the JAX package's own tests run them, at small ragged shapes
     torch.nn.LSTM's order and layout (weight_ih_l0, weight_hh_l0, bias_ih_l0,
     bias_hh_l0, the same of layer 1, the Linear's weight and bias).
 
-No weights are stored: `case_arrays` rebuilds them and the inputs from the
-case's seed with numpy alone (every weight uniform in +-1/sqrt(H), drawn in
+Only outputs are stored (the full-band cases' weights alone would add about
+15 MB): `case_arrays` rebuilds the weights and the inputs from the case's
+seed with numpy alone (every weight uniform in +-1/sqrt(H), drawn in
 a fixed order; x uniform in [0, 2), positive with mean 1 as after the
 Laplace norm; dy standard normal), so a test without JAX can make the same
 operands: `port_operands` builds them for fullsubnet_plus_torch, and
@@ -23,7 +26,8 @@ arrays to bfloat16 (nearest even) on both sides. This module imports JAX
 only inside `run_case`, and torch only inside `port_operands`, so the card's
 tests and chip_smoke.py load it by path where JAX is absent.
 
-Run from the repo root (CPU, about 20 s):
+Run from the repo root (CPU, a few minutes: the T 255 cases loop in
+interpret mode):
 
     JAX_PLATFORMS=cpu python tests/fixtures/gen_torch_kernel_fixture.py
 """
@@ -50,6 +54,14 @@ CASES = {
     "train_float32_dgates": ("train", 50, 7, 34, 64, 2, "float32", 5, False),
     "train_bfloat16_fused": ("train", 50, 7, 34, 64, 2, "bfloat16", 6, True),
     "train_bfloat16_dgates": ("train", 50, 7, 34, 64, 2, "bfloat16", 6, False),
+    # serving length: T 255, as the serving fold, on a small fold
+    "k1_float32_t255": ("k1", 5, 255, 34, 384, 2, "float32", 7, None),
+    "k1_bfloat16_t255": ("k1", 5, 255, 34, 384, 2, "bfloat16", 7, None),
+    "k5_t255": ("k5", 5, 255, 34, 384, 2, "bfloat16", 8, None),
+    # FullSubNet's full-band LSTM (D 257, H 512, O 257) on a small fold
+    "k1_float32_fb": ("k1", 7, 9, 257, 512, 257, "float32", 9, None),
+    "k1_bfloat16_fb": ("k1", 7, 9, 257, 512, 257, "bfloat16", 9, None),
+    "k5_fb": ("k5", 7, 9, 257, 512, 257, "bfloat16", 10, None),
 }
 GRAD_NAMES = ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0", "weight_ih_l1",
               "weight_hh_l1", "bias_ih_l1", "bias_hh_l1", "fc_weight", "fc_bias")

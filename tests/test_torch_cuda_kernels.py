@@ -121,6 +121,51 @@ def test_float32_forward_on_tensor_cores_on_cuda(monkeypatch, n, t, h, o):
     assert _snr(ops_lstm2.lstm2_fc_reference(x, w), outs[0]) >= FLOOR[torch.float32]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_runs_the_fullsubnet_full_band_shape(dtype):
+    """FullSubNet's full-band LSTM shape (D 257, H 512, O 257: x padded to
+    272 float32 or 288 bf16 columns, the 512-thread build, 33 n-tiles of the
+    fc over 16 warps) at R 16 on a small ragged fold, against the plain
+    version (float32 80 dB, bf16 40 dB), and K2's y equal to K1's."""
+    _need_card()
+    lstm, linear = _modules(257, 512, 257, dtype, seed=6)
+    x = torch.rand(11, 257, 9, generator=torch.Generator().manual_seed(7)).mul(2).to("cuda", dtype)
+    w = lstm.packed(linear)
+    out = ops_lstm2.lstm2_fc(x, w)
+    y2, _ = lt.lstm2_train_fwd(x, w)
+    torch.cuda.synchronize()
+    assert out.shape == (11, 9, 257) and torch.isfinite(out.float()).all()
+    assert torch.equal(y2, out)
+    ref = ops_lstm2.lstm2_fc_reference(x, w).float()
+    assert _snr(ref, out.float()) >= FLOOR[dtype], _snr(ref, out.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, None])
+def test_forward_runs_the_fullsubnet_sub_band_shape(dtype):
+    """FullSubNet's sub-band LSTM shape (D 32 = 31 neighbours + the
+    full-band output, H 384, O 2: x padded to 32 columns in every dtype, so
+    its k-loop takes a count FullSubNet+'s D 34 never gives) on a ragged fold:
+    K1 in float32 (80 dB) and bf16 (40 dB) and K5 (dtype None, 40 dB)
+    against the plain version, each equal to itself on a repeat."""
+    _need_card()
+    lstm, linear = _modules(32, 384, 2, dtype or torch.bfloat16, seed=8)
+    x = torch.rand(3 * 257, 32, 37, generator=torch.Generator().manual_seed(9)).mul(2).to(
+        "cuda", dtype or torch.bfloat16)
+    if dtype is None:
+        w, kernel, plain, floor = (lstm.prepare_int8(linear), ops_int8.lstm2_int8_fc,
+                                   ops_int8.lstm2_int8_fc_reference, 40.0)
+    else:
+        w, kernel, plain, floor = (lstm.packed(linear), ops_lstm2.lstm2_fc,
+                                   ops_lstm2.lstm2_fc_reference, FLOOR[dtype])
+    out, again = kernel(x, w), kernel(x, w)
+    torch.cuda.synchronize()
+    assert out.shape == (3 * 257, 37, 2) and torch.equal(out, again)
+    ref = plain(x, w).float()
+    assert _snr(ref, out.float()) >= floor, _snr(ref, out.float())
+
+
 def _int8_case(rng, n, t, d, h, o):
     g = torch.Generator().manual_seed(0)
     lstm, linear = LSTM2(d, h), Linear(h, o)

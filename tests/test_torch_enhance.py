@@ -132,9 +132,8 @@ def test_int8_constructs_and_sets_quantized_lstm(params):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"inference_type": "overlapped_chunk"}, "Queue 1 item 7"),
     ({"mesh": object()}, "Queue 1 item 10"),
-    ({"inference_type": "sub_band_crm_mask"}, "Queue 1 item 7"),
+    ({"inference_type": "no_such_mode"}, "Unknown inference type"),
 ])
 def test_unported_enhancer_options_raise(params, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -157,7 +156,7 @@ def test_port_imports_no_jax():
         "import fullsubnet_plus_torch.enhance, fullsubnet_plus_torch.io.convert\n"
         "import fullsubnet_plus_torch.data.datasets, fullsubnet_plus_torch.utils.config\n"
         "import fullsubnet_plus_torch.serve, fullsubnet_plus_torch.cli.serve\n"
-        "import fullsubnet_plus_torch.ops.lstm2_int8\n"
+        "import fullsubnet_plus_torch.ops.lstm2_int8, fullsubnet_plus_torch.models.fullsubnet\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib',"
         " 'fullsubnet_plus_tpu'))]\n"
         "assert not bad, bad\n"

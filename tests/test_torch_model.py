@@ -136,7 +136,6 @@ def test_registry_and_config():
 
 
 @pytest.mark.parametrize("build,error,match", [
-    (lambda: get_model("fullsubnet"), NotImplementedError, "Queue 1 item 7"),
     (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY, subband_num=2)), ValueError,
      "reference"),
     (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY, subband_num=2,

@@ -266,7 +266,8 @@ def test_engine_finalize_failure_aborts_stream(enhancer):
 def test_engine_mode_selection(enhancer):
     assert StreamingEngine(enhancer, chunk_samples=CHUNK).mode == \
         "mag_complex_full_band_crm_mask"
-    assert Enhancer.LENGTH_AWARE_MODES == ("mag_complex_full_band_crm_mask",)
+    assert Enhancer.LENGTH_AWARE_MODES == ("mag_complex_full_band_crm_mask",
+                                           "full_band_crm_mask", "sub_band_crm_mask")
     with pytest.raises(ValueError, match="length-aware"):
         StreamingEngine(enhancer, chunk_samples=CHUNK, mode="overlapped_chunk")
     with pytest.raises(ValueError, match="even"):
@@ -673,3 +674,86 @@ def test_serve_cli_daemon_end_to_end(tmp_path, params):
         if child.poll() is None:
             child.kill()
             child.wait()
+
+
+def test_graceful_drain_wedged_ticker_snapshots_under_the_lock(enhancer):
+    """The wedged-ticker branch of a shutdown takes its snapshot of the
+    connections under the serving lock (with a timeout, as the stall
+    watchdog does): a reader thread that registers a client under the lock
+    while the drain gives up on the ticker is still aborted, and nothing is
+    left behind."""
+    engine = StreamingEngine(enhancer, slots=SLOTS, chunk_samples=CHUNK)
+    server = StreamServer(engine, port=0, tick_interval=0.01, log=lambda *_: None,
+                          stall_timeout=0)
+    wedge = threading.Event()
+    ticker = threading.Thread(target=wedge.wait, args=(30,), daemon=True)  # alive, lock-free
+    ticker.start()
+    server._threads = [ticker]
+    ours, theirs = socket.socketpair()
+    held = threading.Event()
+
+    def reader():  # holds the lock past the ticker's join, then registers a client
+        with server._lock:
+            held.set()
+            time.sleep(0.8)
+            server._conns[7] = ours
+
+    t = threading.Thread(target=reader)
+    t.start()
+    try:
+        held.wait(10)
+        server._graceful_drain(join_timeout=0.5)
+        t.join(10)
+        assert server._conns == {}
+        theirs.settimeout(10)
+        assert theirs.recv(1) == b""  # aborted: EOF
+    finally:
+        wedge.set()
+        ours.close()
+        theirs.close()
+        server.stop()
+
+
+def test_supervise_serve_keeps_a_sigterm_that_lands_between_launches(tmp_path):
+    """A SIGTERM that reaches the supervisor while its child is exiting
+    non-zero (no live child to forward it to) stops the supervision instead
+    of being lost to a relaunch. Run in a subprocess, whose supervisor the
+    stub child signals before it exits 1."""
+    stub = tmp_path / "stub.py"
+    stub.write_text("import os, signal, sys\n"
+                    "open(sys.argv[1], 'a').write('launch\\n')\n"
+                    "os.kill(os.getppid(), signal.SIGTERM)\n"
+                    "sys.exit(1)\n")
+    launches = tmp_path / "launches"
+    code = ("import sys\n"
+            "from fullsubnet_plus_torch.cli.serve import supervise_serve\n"
+            f"rc = supervise_serve([{str(launches)!r}], max_restarts=2, log=print,\n"
+            f"                     launcher=[sys.executable, {str(stub)!r}])\n"
+            "print('rc', rc)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
+    assert launches.read_text().count("launch") == 1, proc.stdout + proc.stderr
+    assert "no relaunch" in proc.stdout and "relaunching" not in proc.stdout
+
+
+@pytest.mark.parametrize("host,restricted", [
+    ("127.0.0.1", False), ("127.0.0.2", False), ("localhost", False), ("::1", False),
+    ("::ffff:127.0.0.1", False), ("0.0.0.0", True), ("", True), ("::", True),
+])
+def test_reload_restriction_reads_loopback_from_the_address(host, restricted):
+    """The reload restriction follows whether the bound host resolves to a
+    loopback address, not a literal list: all of 127.0.0.0/8 and the
+    IPv4-mapped form are loopback; the wildcards are not."""
+    assert cli.is_loopback(host) is not restricted
+
+
+def test_reload_unrestricted_on_another_loopback_address(enhancer):
+    """A daemon bound to 127.0.0.2 (loopback, but not 127.0.0.1) takes
+    reloads from anywhere on the machine, as one bound to 127.0.0.1 does."""
+    engine = StreamingEngine(enhancer, slots=SLOTS, chunk_samples=CHUNK)
+    server = StreamServer(engine, host="127.0.0.2", port=0, tick_interval=0.02,
+                          log=lambda *_: None)
+    try:
+        assert not server._reload_restricted
+    finally:
+        server.stop()

@@ -150,8 +150,8 @@ def test_losses_match_jax(rng, name):
 def test_get_loss_and_get_model_reject_unknown():
     with pytest.raises(KeyError, match="Unknown loss"):
         loss.get_loss("nope")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        get_model("fullsubnet")
+    with pytest.raises(KeyError, match="Unknown model"):
+        get_model("nope")
 
 
 # ---------------------------------------------------------------------------

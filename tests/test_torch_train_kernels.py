@@ -397,7 +397,7 @@ def _cell_from_accumulators(acc, c):
 
 def _fwd_mma_emulate(x: torch.Tensor, w, product=torch.matmul):
     """The sweep walked as the kernel walks it, in the weights' dtype:
-    operand rows [x | h1 | h2] (x padded to x_cols(D)), the packed fragments
+    operand rows [x | h1 | h2] (x padded to x_cols(D, dtype)), the packed fragments
     as B (`_fragment_matrix` in bf16, `_tf32_fragment_matrix` in float32),
     float32 sums (`product`) from the interleaved biases, the cell from the
     accumulators, h into the operand rows (rounded to bf16 in bf16), the fc
@@ -405,7 +405,7 @@ def _fwd_mma_emulate(x: torch.Tensor, w, product=torch.matmul):
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     dtype = w.w1.dtype
-    p, xc = ops_lstm2.pack_fwd_mma(w), ops_lstm2.x_cols(d)
+    p, xc = ops_lstm2.pack_fwd_mma(w), ops_lstm2.x_cols(d, dtype)
     walk = _fragment_matrix if dtype == torch.bfloat16 else _tf32_fragment_matrix
     b1, b2 = (walk(m, 4 * hidden) for m in (p.w1, p.w2))
     bfc = walk(p.fc, out_dim)
@@ -452,8 +452,9 @@ def test_fwd_mma_tile_and_shared_memory(n, rows):
     rows need two waves of 16 and one of 32), the one K2 and K1 both take,
     and its shared memory (two operand buffers [R][64 + 768 + 8] bf16, c1
     and c2 [R][384] float32) in a block at D 34, H 384. The float32 sweep
-    takes R 16 at every fold: two operand buffers [16][64 + 768 + 4]
-    float32 and c1, c2 fit; at R 32 they do not."""
+    takes R 16 at every fold: two operand buffers [16][48 + 768 + 4]
+    float32 (x padded to whole float32 k-chunks of 16) and c1, c2 fit; at R
+    32 they do not."""
     assert ops_lstm2.fwd_mma_rows_per_cta(n, 132) == rows
     assert ops_lstm2.fwd_mma_row_tile(n, 34, 384, 132) == rows
     smem = lt.fwd_shared_memory_bytes(rows, 34, 384, 2, torch.bfloat16)
@@ -462,25 +463,31 @@ def test_fwd_mma_tile_and_shared_memory(n, rows):
     assert ops_lstm2.fwd_mma_row_tile(n, 34, 384, 132, torch.float32) == 16
     smem = lt.fwd_shared_memory_bytes(16, 34, 384, 2)
     assert smem == ops_lstm2.fwd_mma_shared_memory_bytes(16, 34, 384, torch.float32)
-    assert smem == 8 * 16 * 836 + 8 * 16 * 384 == 156_160 <= ops_lstm2.SMEM_LIMIT
+    assert smem == 8 * 16 * 820 + 8 * 16 * 384 == 154_112 <= ops_lstm2.SMEM_LIMIT
     assert ops_lstm2.fwd_mma_shared_memory_bytes(32, 34, 384, torch.float32) > ops_lstm2.SMEM_LIMIT
 
 
 def test_fwd_mma_fits_the_fullsubnet_full_band_shape():
-    """FullSubNet's full-band LSTM (D 257, H 512, O 257; ROADMAP Queue 1 item
-    7): the bf16 forward fits a block at R 16, whose shared memory does not
-    grow with O, and falls back to it from R 32; the float32 forward's two
-    operand buffers [16][288 + 1024 + 4] float32 and c1, c2 miss the limit by
-    1,536 bytes (one buffer would need 149,760), so its wrapper refuses the
-    shape."""
+    """FullSubNet's full-band LSTM (D 257, H 512, O 257): the bf16 forward fits
+    a block at R 16, whose shared memory does not grow with O, and falls back
+    to it from R 32; the float32 forward, with x padded to whole float32
+    k-chunks (272 columns, not the 288 of bf16's k-chunks of 32), fits at R
+    16 too: two operand buffers [16][272 + 1024 + 4] float32 and c1, c2, 512
+    bytes under the limit, the row pitch an odd multiple of 16 bytes (5,200 =
+    325 x 16), so ldmatrix stays free of bank conflicts."""
     assert ops_lstm2.fwd_mma_shared_memory_bytes(16, 257, 512) == 150_016 <= ops_lstm2.SMEM_LIMIT
     assert ops_lstm2.fwd_mma_shared_memory_bytes(32, 257, 512) > ops_lstm2.SMEM_LIMIT
     assert ops_lstm2.fwd_mma_row_tile(4626, 257, 512, 132) == 16
+    assert ops_lstm2.x_cols(257, torch.float32) == 272 and ops_lstm2.x_cols(257) == 288
     f32 = ops_lstm2.fwd_mma_shared_memory_bytes(16, 257, 512, torch.float32)
-    assert f32 == 233_984 == ops_lstm2.SMEM_LIMIT + 1_536
-    assert f32 - 4 * 16 * (288 + 1024 + 4) == 149_760  # with one operand buffer
-    with pytest.raises(ValueError, match="shared memory"):
-        ops_lstm2.fwd_mma_row_tile(4626, 257, 512, 132, torch.float32)
+    assert f32 == 8 * 16 * (272 + 1024 + 4) + 8 * 16 * 512 == 231_936
+    assert f32 == ops_lstm2.SMEM_LIMIT - 512
+    assert (4 * (272 + 1024 + 4)) % 32 == 16
+    for n in (8, 4626):
+        assert ops_lstm2.fwd_mma_row_tile(n, 257, 512, 132, torch.float32) == 16
+    p = ops_lstm2.pack_fwd_mma(_fwd_f32_case(3, 2, 257, 512, 257)[1])
+    assert p.w1.shape == (256, (272 + 512) // 16, 32, 4)
+    assert p.fc.shape == (33, 512 // 16, 32, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +566,7 @@ def test_tf32_packing_round_trips_and_walks_the_lanes():
     """`pack_tf32_b` unpacks to the weight bit for bit, with zero rows past
     n; its words, walked as m16n8k8's B fragments, rebuild B = w^T; and the
     float32 sweep's operands (`pack_fwd_mma` of float32 weights) unpack and
-    deinterleave to [W1 (zero rows up to 32); U1]^T, [W2; U2]^T and W_fc^T,
+    deinterleave to [W1 (zero rows up to 16, a float32 k-chunk); U1]^T, [W2; U2]^T and W_fc^T,
     O 3 padded to one n-tile of 8, with the biases interleaved alike."""
     w = torch.randn(13, 48, generator=torch.Generator().manual_seed(8))
     packed = ops_lstm2.pack_tf32_b(w)
@@ -569,9 +576,9 @@ def test_tf32_packing_round_trips_and_walks_the_lanes():
     assert torch.equal(_tf32_fragment_matrix(packed, 13), w.t())
     _, wf = _fwd_f32_case(8, 2, 10, 32, 3)
     p = ops_lstm2.pack_fwd_mma(wf)
-    assert p.w1.shape == (16, (32 + 32) // 16, 32, 4) and p.w1.dtype == torch.float32
+    assert p.w1.shape == (16, (16 + 32) // 16, 32, 4) and p.w1.dtype == torch.float32
     w1 = ops_lstm2.deinterleave_gates(ops_lstm2.unpack_tf32_b(p.w1, 128).t())
-    assert torch.equal(w1[:10], wf.w1) and not w1[10:32].any() and torch.equal(w1[32:], wf.u1)
+    assert torch.equal(w1[:10], wf.w1) and not w1[10:16].any() and torch.equal(w1[16:], wf.u1)
     w2 = ops_lstm2.deinterleave_gates(_tf32_fragment_matrix(p.w2, 128))
     assert torch.equal(w2, wf.w2)
     assert torch.equal(ops_lstm2.unpack_tf32_b(p.fc, 3), wf.fc_w.t())
