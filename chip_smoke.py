@@ -85,7 +85,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      profile of each batch; one 30 s utterance through
      `overlapped_chunk`; the daemon serving a few streams of it in int8
      (zero tick failures, against the offline engine >= 60 dB);
-  8. print the kernels' JSON line, the card's name and power limit, and
+  8. drive the training driver, `fullsubnet_plus_torch.cli.train` (its
+     parse_args and build_trainer in this process), at the full width of
+     configs/train.toml on a seeded synthetic corpus in the DNS layout
+     written into the temporary directory (72 clean utterances of 3.5-5 s,
+     4 steps an epoch at batch 18, dynamic mixing with noise files and
+     RIRs; with_reverb/ and no_reverb/ validation pairs of 3-10 s): float32
+     for 2 epochs, then -R for the third, the same 3 epochs unbroken (both
+     with deterministic algorithms), bf16 for 1 epoch. Each float32 step
+     launches K2 and K4 once and K3 never, each bf16 step K2 and K3 once,
+     each validation batch K1 once; every loss finite, no step skipped; the
+     state -R resumed equal to the saved one bit for bit and epoch 3's train
+     loss to the unbroken run's within TRAINER_RESUME_RTOL; best_model.npz
+     at the epoch the gate last passed; every checkpoint read by the port's
+     `.npz` reader with the JAX package's key set. Prints the `trainer` JSON
+     line: per run the steps, the median step wall, the trainer's audio-s/s
+     over the epochs' training wall, the loader-wait share, validation's
+     eval and metric time, and a profile of one more epoch in each dtype;
+  9. print the kernels' JSON line, the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
 Imports nothing of JAX. Exits non-zero without CUDA.
@@ -1656,6 +1673,314 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
                "busy_tick_ms": serve["stats"]["busy_tick_ms"]}}
 
 
+# Phase 8: the training driver. A seeded synthetic corpus in the DNS layout
+# (numpy, nothing downloaded): TRAINER_CLEAN clean utterances of 3.5-5 s, enough
+# for 4 steps an epoch at batch 18; noise files of 10 s; RIRs of 0.3-0.5 s; the
+# three list files; with_reverb/ and no_reverb/ validation sets of noisy/clean
+# pairs of 3-10 s.
+TRAINER_CLEAN, TRAINER_NOISES, TRAINER_RIRS, TRAINER_VALID = 72, 8, 6, 6
+TRAINER_STEPS = TRAINER_CLEAN // TRAIN_BATCH  # an epoch's steps
+TRAINER_EPOCHS = 3  # the float32 runs: 2 epochs then -R for the third, and 3 unbroken
+TRAINER_RESUME_RTOL = 1e-6  # epoch 3's train loss after -R against the unbroken run's
+
+
+def speech_like(rng: np.random.Generator, n: int) -> np.ndarray:
+    """A voiced, syllable-modulated harmonic series with a gliding pitch and
+    pauses: something the metrics and the mixing's loudness steps can work on."""
+    t = np.arange(n) / SR
+    f0 = rng.uniform(100.0, 220.0) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.3, 1.0) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / SR
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 9))
+    syllables = np.clip(np.sin(2 * np.pi * rng.uniform(3.0, 5.0) * t), 0.0, None) ** 0.5
+    pauses = (np.sin(2 * np.pi * rng.uniform(0.2, 0.4) * t + rng.uniform(0, np.pi)) > -0.7)
+    y = voiced * syllables * pauses + 0.003 * rng.standard_normal(n)
+    return (0.3 * y / np.max(np.abs(y))).astype(np.float32)
+
+
+def write_trainer_corpus(root: str) -> dict:
+    """The corpus under root/corpus; returns the paths the TOML needs."""
+    from scipy.signal import lfilter
+
+    from fullsubnet_plus_torch.data.wav import write_wav
+
+    rng = np.random.default_rng(8)
+    base = os.path.join(root, "corpus")
+    lists = {"clean": [], "noise": [], "rir": []}
+    for i in range(TRAINER_CLEAN):
+        path = os.path.join(base, "clean", f"clean_{i:03d}.wav")
+        write_wav(path, speech_like(rng, int(rng.uniform(3.5, 5.0) * SR)), SR)
+        lists["clean"].append(path)
+    for i in range(TRAINER_NOISES):
+        # white, then progressively redder noise (a one-pole low-pass)
+        noise = lfilter([1.0], [1.0, -0.12 * i], rng.standard_normal(10 * SR))
+        path = os.path.join(base, "noise", f"noise_{i}.wav")
+        write_wav(path, (0.2 * noise / np.max(np.abs(noise))).astype(np.float32), SR)
+        lists["noise"].append(path)
+    for i in range(TRAINER_RIRS):
+        n = int(rng.uniform(0.3, 0.5) * SR)
+        rir = rng.standard_normal(n) * np.exp(-np.arange(n) / (rng.uniform(0.03, 0.08) * SR))
+        rir[0] = 1.0
+        path = os.path.join(base, "rir", f"rir_{i}.wav")
+        write_wav(path, (rir / np.max(np.abs(rir))).astype(np.float32), SR, subtype="FLOAT")
+        lists["rir"].append(path)
+    for kind, paths in lists.items():
+        with open(os.path.join(base, f"{kind}.txt"), "w") as f:
+            f.write("\n".join(paths) + "\n")
+    valid_dirs = []
+    for split in ("with_reverb", "no_reverb"):
+        d = os.path.join(base, "test_set", split)
+        for i in range(TRAINER_VALID):
+            n = int(rng.uniform(3.0, 10.0) * SR)
+            clean = speech_like(rng, n)
+            noisy = clean + 0.05 * rng.standard_normal(n).astype(np.float32)
+            write_wav(os.path.join(d, "clean", f"clean_fileid_{i}.wav"), clean, SR)
+            write_wav(os.path.join(d, "noisy", f"book_snr{i}_fileid_{i}.wav"), noisy, SR)
+        valid_dirs.append(d)
+    return {"lists": {k: os.path.join(base, f"{k}.txt") for k in lists}, "valid": valid_dirs}
+
+
+def trainer_toml(root: str, corpus: dict, name: str) -> str:
+    """configs/train.toml with the corpus paths, a save_dir under root and
+    TRAINER_EPOCHS epochs; returns its path."""
+    from fullsubnet_plus_torch.utils.config import dump_config, load_config
+
+    config = load_config(os.path.join(REPO, "configs", "train.toml"))
+    config["meta"]["save_dir"] = os.path.join(root, "runs", name)
+    args = config["train_dataset"]["args"]
+    for kind in ("clean", "noise", "rir"):
+        args[f"{kind}_dataset"] = corpus["lists"][kind]
+    config["validation_dataset"]["args"]["dataset_dir_list"] = corpus["valid"]
+    config["trainer"]["train"]["epochs"] = TRAINER_EPOCHS
+    path = os.path.join(root, f"train_{name}.toml")
+    dump_config(config, path)
+    return path
+
+
+def jax_checkpoint_keys() -> set:
+    """The keys of the JAX package's latest_model.npz for `model`: the
+    parameter tree's paths (io/convert.py's key table, held equal to JAX's
+    by tests/test_torch_checkpoint.py) under params/ and Adam's mu/ and nu/,
+    Adam's count and the step."""
+    from fullsubnet_plus_torch.io.checkpoint import ADAM_PREFIX
+    from fullsubnet_plus_torch.io.convert import key_table
+
+    paths = [p for p, _, _ in key_table()]
+    return ({f"params/{p}" for p in paths} | {f"{ADAM_PREFIX}/{m}/{p}" for m in ("mu", "nu")
+                                               for p in paths}
+            | {f"{ADAM_PREFIX}/count", "step"})
+
+
+class MemoryLoader:
+    """One epoch's batches of a BatchLoader, synthesized once and then
+    yielded from memory for every epoch."""
+
+    def __init__(self, loader, epoch: int):
+        self.batches = list(loader.epoch(epoch))
+
+    def epoch(self, epoch: int):
+        yield from self.batches
+
+
+def build_trainer(config_path: str, *flags: str):
+    """The CLI's own path in this process (parse_args, then build_trainer);
+    `.train()` is the rest of its main."""
+    from fullsubnet_plus_torch.cli import train as cli
+    from fullsubnet_plus_torch.utils.config import load_config
+
+    args = cli.parse_args(["-C", config_path, "--device", "cuda", *flags])
+    return cli.build_trainer(load_config(config_path), args)
+
+
+def run_trainer(trainer) -> dict:
+    """Train; the kernels' launches during the run."""
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    print(f"[8] {len(trainer.history)} epoch(s) trained and validated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return all_launches()
+
+
+def check_trainer_run(tag: str, trainer, launches: dict, bf16: bool,
+                      prior_scores: tuple = ()) -> dict:
+    """The run's launches, losses and files (after `prior_scores`, the
+    (epoch, score) pairs of the runs it resumed); its figures."""
+    from fullsubnet_plus_torch.io.checkpoint import load_flat
+
+    epochs = [r for r in trainer.history if "train_loss" in r]
+    steps = sum(r["steps"] for r in epochs)
+    valid = [r["validation"] for r in epochs]
+    valid_batches = sum(v["batches"] for v in valid)
+    backward = "lstm2_bwd_wgrad" if bf16 else "lstm2_bwd"
+    want = {k: 0 for k in launches}
+    want.update({"lstm2_train_fwd": steps, backward: steps, "lstm2_fwd": valid_batches})
+    if launches != want:
+        fail(f"trainer {tag}: launches {launches}, expected {want} ({steps} steps, "
+             f"{valid_batches} validation batches)")
+    if steps != len(epochs) * TRAINER_STEPS or len(valid) != len(epochs):
+        fail(f"trainer {tag}: {steps} steps and {len(valid)} validations in "
+             f"{len(epochs)} epochs")
+    for r in epochs:
+        if (r["skipped"] or not np.isfinite(r["train_loss"])
+                or not all(np.isfinite(v) for v in r["validation"]["losses"].values())):
+            fail(f"trainer {tag} epoch {r['epoch']}: {r}")
+    ckpt_dir = trainer.ckpt.ckpt_dir
+    keys = jax_checkpoint_keys()
+    params = {k for k in keys if k.startswith("params/")}
+    for name in ["latest_model.npz", "best_model.npz"] + [f"model_{r['epoch']:04d}.npz"
+                                                         for r in epochs]:
+        path = os.path.join(ckpt_dir, name)
+        if not os.path.exists(path):
+            fail(f"trainer {tag}: no {name}")
+        flat, meta = load_flat(path)
+        want_keys = params if name.startswith("model_") else keys
+        if set(flat) != want_keys or not {"epoch", "best_score", "lr"} <= set(meta):
+            fail(f"trainer {tag}: {name} holds {len(flat)} keys (want {len(want_keys)}: "
+                 f"missing {sorted(want_keys - set(flat))[:3]}, extra "
+                 f"{sorted(set(flat) - want_keys)[:3]}), meta {meta}")
+    # best_model.npz is the last epoch whose score reached the best so far
+    scores = [*prior_scores, *((r["epoch"], r["validation"]["score"]) for r in epochs)]
+    best, gated = -np.inf, None
+    for epoch, score in scores:
+        if score >= best:
+            best, gated = score, epoch
+    _, best_meta = load_flat(os.path.join(ckpt_dir, "best_model.npz"))
+    if best_meta["epoch"] != gated or best_meta["best_score"] != best:
+        fail(f"trainer {tag}: best_model.npz {best_meta}, the gate passed last at epoch "
+             f"{gated} (scores {scores})")
+    wall = sum(r["wall_s"] for r in epochs)
+    walls = [w for r in epochs for w in r["step_walls_ms"][1:]]
+    out = {"epochs": [r["epoch"] for r in epochs], "steps": steps,
+           "train_loss": [r["train_loss"] for r in epochs],
+           "median_step_wall_ms": statistics.median(walls) if walls else None,
+           "audio_s_per_s": steps * TRAIN_BATCH * TRAIN_SAMPLES / SR / wall,
+           "loader_wait_share": sum(r["loader_wait_s"] for r in epochs) / wall,
+           "validation": {"scores": scores, "best_epoch": best_meta["epoch"],
+                          "batches": valid_batches, "eval_s": [v["eval_s"] for v in valid],
+                          "metrics_s": [v["metrics_s"] for v in valid],
+                          "metric_means": valid[-1]["metrics"]},
+           "launches": launches}
+    print(f"[8] trainer {tag}: epochs {out['epochs']}, {steps} steps, train loss "
+          f"{', '.join(f'{v:.6f}' for v in out['train_loss'])}; median step wall "
+          f"{out['median_step_wall_ms']} ms, {out['audio_s_per_s']:.1f} audio-s/s over the "
+          f"epochs' training wall, loader-wait share {out['loader_wait_share']:.3f}; "
+          f"validation scores {scores}, eval {out['validation']['eval_s']} s, metrics "
+          f"{out['validation']['metrics_s']} s; best_model.npz epoch {best_meta['epoch']}; "
+          f"launches {launches}")
+    return out
+
+
+def phase_trainer(root: str) -> dict:
+    """The training CLI at the full width of configs/train.toml on a seeded
+    corpus: float32 2 epochs, then -R for the third; the same 3 epochs
+    unbroken; bf16 1 epoch. The float32 runs use deterministic algorithms
+    (torch.use_deterministic_algorithms, deterministic cuDNN), so the -R run
+    can be held to the unbroken one; each dtype's default is profiled over
+    one more epoch."""
+    from fullsubnet_plus_torch.data import native
+    from fullsubnet_plus_torch.io.checkpoint import flat_from_train_state, load_flat
+
+    t0 = time.perf_counter()
+    others = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())
+    corpus = write_trainer_corpus(root)
+    paths = {name: trainer_toml(root, corpus, name) for name in ("resumed", "unbroken", "bf16")}
+    t1 = time.perf_counter()
+    native_mixing = native.available()  # g++ builds the library here, not in an epoch
+    print(f"[8] corpus written in {t1 - t0:.1f} s; native mixing {native_mixing} (ready in "
+          f"{time.perf_counter() - t1:.1f} s); threads besides the main one: {others}")
+    runs = {}
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = build_trainer(paths["resumed"], "--epochs", "2")
+        runs["float32_epochs_1_2"] = check_trainer_run("float32 epochs 1-2", first,
+                                                       run_trainer(first), False)
+        saved, _ = load_flat(first.ckpt.latest_path)
+        live = flat_from_train_state(first.state)
+        resumed = build_trainer(paths["resumed"], "-R")
+        restored = flat_from_train_state(resumed.state)
+        runs["float32_resumed_epoch_3"] = check_trainer_run(
+            "float32 -R epoch 3", resumed, run_trainer(resumed), False,
+            prior_scores=tuple(runs["float32_epochs_1_2"]["validation"]["scores"]))
+        unbroken = build_trainer(paths["unbroken"])
+        runs["float32_unbroken"] = check_trainer_run("float32 unbroken", unbroken,
+                                                     run_trainer(unbroken), False)
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic = before[2]
+
+    # -R resumed the saved state (which is the live one) bit for bit
+    equal = (set(saved) == set(restored) == set(live)
+             and all(saved[k].dtype == restored[k].dtype == live[k].dtype
+                     and np.array_equal(saved[k], restored[k])
+                     and np.array_equal(saved[k], live[k]) for k in saved))
+    after = runs["float32_resumed_epoch_3"]["train_loss"][-1]
+    straight = runs["float32_unbroken"]["train_loss"][TRAINER_EPOCHS - 1]
+    rel = abs(after - straight) / abs(straight)
+    print(f"[8] -R resumed the saved state bit for bit: {equal}; epoch {TRAINER_EPOCHS} "
+          f"train loss after -R {after:.9f}, unbroken {straight:.9f}, relative {rel:.2e} "
+          f"(limit {TRAINER_RESUME_RTOL:g})")
+    if not equal:
+        fail("the state -R resumed differs from the saved one")
+    if rel > TRAINER_RESUME_RTOL or runs["float32_resumed_epoch_3"]["epochs"] != [3]:
+        fail(f"epoch {TRAINER_EPOCHS} after -R differs from the unbroken run's")
+
+    bf16 = build_trainer(paths["bf16"], "--bf16", "--epochs", "1")
+    runs["bfloat16"] = check_trainer_run("bf16", bf16, run_trainer(bf16), True)
+
+    # the device's busy and idle share over one more epoch of each dtype
+    # (each dtype's default algorithms) fed by the loader (profiled), then
+    # the wall of the same epoch's batches kept in memory: what the host's
+    # mixing costs (its idle share from the profiled epoch's busy time)
+    profiles = {}
+    for tag, trainer in (("float32", unbroken), ("bfloat16", bf16)):
+        epoch = trainer.history[-1]["epoch"] + 1
+
+        def one_epoch(trainer=trainer, epoch=epoch):
+            trainer._train_epoch(epoch)
+            torch.cuda.synchronize()
+
+        def summary_of(records, wall_ms, busy_ms):
+            return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                    "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+                    "audio_s_per_s": TRAINER_STEPS * TRAIN_BATCH * TRAIN_SAMPLES / SR
+                    / wall_ms * 1e3,
+                    "loader_wait_share": sum(r["loader_wait_s"] for r in records)
+                    / sum(r["wall_s"] for r in records),
+                    "median_step_wall_ms": statistics.median(
+                        w for r in records for w in r["step_walls_ms"][1:])}
+
+        label = f"[8] profile trainer {tag} epoch ({TRAINER_STEPS} steps, fed by the loader):"
+        start = len(trainer.history)
+        profile_call(one_epoch, label)
+        busy = PROFILES[label]["device_busy_ms"]
+        profiles[tag] = {"loader": summary_of(trainer.history[start:],
+                                              PROFILES[label]["wall_ms"], busy)}
+        loader, trainer.train_loader = trainer.train_loader, MemoryLoader(trainer.train_loader,
+                                                                           epoch)
+        one_epoch()
+        start, walls = len(trainer.history), []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one_epoch()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        trainer.train_loader = loader
+        profiles[tag]["in_memory"] = summary_of(trainer.history[start:],
+                                                statistics.median(walls), busy)
+        for feed, figures in profiles[tag].items():
+            print(f"[8] trainer {tag} epoch fed by {feed}: "
+                  + ", ".join(f"{k} {v:.4g}" for k, v in figures.items()))
+    summary = {"runs": runs, "profile_epoch": profiles, "native_mixing": native_mixing,
+               "float32_runs_deterministic": True, "resume_bit_equal": equal,
+               "epoch3_rel_diff": rel}
+    print(json.dumps({"trainer": summary}))
+    return summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -1690,7 +2015,22 @@ def main() -> None:
         train = phase_train()
         fb_kernels = phase_fullsubnet_kernels()
         fsn = phase_fullsubnet(root, lengths)
-    print(f"phases 1-7 took {time.perf_counter() - t_start:.1f} s")
+        t_trainer = time.perf_counter()
+        trainer = phase_trainer(root)
+        print(f"phase 8 took {time.perf_counter() - t_trainer:.1f} s")
+    print(f"phases 1-8 took {time.perf_counter() - t_start:.1f} s")
+
+    t_runs = trainer["runs"]
+
+    def trainer_launches(name: str) -> dict:
+        """Phase 8's launches of a kernel: K1 in validation alone, K2-K4 in
+        the train steps alone (check_trainer_run holds each run to that)."""
+        if name == "lstm2_fwd":
+            return {"trainer_float32": 0, "trainer_bf16": 0,
+                    "trainer_validation": sum(r["launches"][name] for r in t_runs.values())}
+        return {"trainer_float32": sum(r["launches"][name] for tag, r in t_runs.items()
+                                       if tag.startswith("float32")),
+                "trainer_bf16": t_runs["bfloat16"]["launches"][name], "trainer_validation": 0}
 
     f32, bf16, int8 = times[torch.float32], times[torch.bfloat16], times["int8"]
     k1 = {
@@ -1701,7 +2041,8 @@ def main() -> None:
         "launches": batch["launches"]["float32"]["lstm2_fwd"]
         + batch["launches"]["bfloat16"]["lstm2_fwd"] + train["eval_launches"]["lstm2_fwd"]
         + fsn["launches"]["float32"]["lstm2_fwd"] + fsn["launches"]["bfloat16"]["lstm2_fwd"]
-        + fsn["overlapped_chunk"]["launches"]["lstm2_fwd"],
+        + fsn["overlapped_chunk"]["launches"]["lstm2_fwd"]
+        + sum(trainer_launches("lstm2_fwd").values()),
         "max_abs_err": errors[("lstm2_fwd", N_FULL, T_FULL, torch.float32)],
         **f32,
         "shape": {"N": N_FULL, "D": D, "H": H, "O": O, "T": T_FULL, "dtype": "float32"},
@@ -1713,7 +2054,8 @@ def main() -> None:
                             **{f"fullsubnet_{tag}": fsn["launches"][tag]["lstm2_fwd"]
                                for tag in ("float32", "bfloat16")},
                             "fullsubnet_overlapped_chunk":
-                                fsn["overlapped_chunk"]["launches"]["lstm2_fwd"]},
+                                fsn["overlapped_chunk"]["launches"]["lstm2_fwd"],
+                            **trainer_launches("lstm2_fwd")},
         "fullsubnet_fb": {
             "shape": {"N": N_FB, "D": FB[0], "H": FB[1], "O": FB[2], "T": T_FULL},
             "float32": fb_kernels[torch.float32], "bfloat16": fb_kernels[torch.bfloat16],
@@ -1783,12 +2125,14 @@ def main() -> None:
             "route": "cuda",
             "source": f"fullsubnet_plus_torch/csrc/{source}",
             "replaces": f"fullsubnet_plus_tpu/ops/lstm_pallas.py:{replaces}",
-            "launches": sum(runs[r]["launches"][name] for r in launch_runs),
+            "launches": sum(runs[r]["launches"][name] for r in launch_runs)
+            + sum(trainer_launches(name).values()),
             **train_errors[(name, N_TRAIN, T_TRAIN, torch.float32)],
             **f32,
             "shape": {"N": N_TRAIN, "D": D, "H": H, "O": O, "T": T_TRAIN, "dtype": "float32"},
             "bfloat16": {**train_errors[(name, N_TRAIN, T_TRAIN, torch.bfloat16)], **bf16},
-            "launches_by_run": {r: runs[r]["launches"][name] for r in launch_runs},
+            "launches_by_run": {**{r: runs[r]["launches"][name] for r in launch_runs},
+                                **trainer_launches(name)},
             "library": "cuDNN LSTM + Linear, "
                        + ("forward" if name == "lstm2_train_fwd" else "backward"),
             "train_step": {r: {"wall_ms": runs[r]["wall_ms"],

@@ -9,9 +9,12 @@ inference mode of the Enhancer (enhance.py; the shipped
 `mag_complex_full_band_crm_mask` on FullSubNet+, `full_band_crm_mask` on
 FullSubNet) in float32, bfloat16 and int8, the streaming engine (serve.py)
 and its TCP daemon (cli/serve.py), FullSubNet+'s training step and both
-models' evaluation steps (train/step.py). The fused 2-layer LSTMs (the
-sub-band model of both, FullSubNet's full-band model) run through
-hand-written CUDA kernels: the float forward (ops/lstm2.py,
+models' evaluation steps (train/step.py), and the training driver: the CLI
+(cli/train.py), the Trainer with validation metrics and checkpoints in the
+JAX package's `.npz` layout (train/trainer.py, eval/, io/checkpoint.py),
+the supervisor and the dynamic-mixing input pipeline (data/). The fused
+2-layer LSTMs (the sub-band model of both, FullSubNet's full-band model)
+run through hand-written CUDA kernels: the float forward (ops/lstm2.py,
 csrc/lstm2_fwd.cu), the int8-recurrent forward, the serving default
 (ops/lstm2_int8.py, csrc/lstm2_int8_fwd.cu), and for training the
 residual-saving forward and the two reverse-sweep backwards behind a

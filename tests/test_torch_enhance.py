@@ -157,6 +157,16 @@ def test_port_imports_no_jax():
         "import fullsubnet_plus_torch.data.datasets, fullsubnet_plus_torch.utils.config\n"
         "import fullsubnet_plus_torch.serve, fullsubnet_plus_torch.cli.serve\n"
         "import fullsubnet_plus_torch.ops.lstm2_int8, fullsubnet_plus_torch.models.fullsubnet\n"
+        "import fullsubnet_plus_torch.utils.logger, fullsubnet_plus_torch.utils.tb_events\n"
+        "import fullsubnet_plus_torch.dsp.audio, fullsubnet_plus_torch.data.native\n"
+        "import fullsubnet_plus_torch.data.mixing, fullsubnet_plus_torch.data.loader\n"
+        "import fullsubnet_plus_torch.eval.stoi, fullsubnet_plus_torch.eval.pesq_estimator\n"
+        "import fullsubnet_plus_torch.eval.metrics, fullsubnet_plus_torch.io.checkpoint\n"
+        "import fullsubnet_plus_torch.train.trainer, fullsubnet_plus_torch.train.supervisor\n"
+        "import fullsubnet_plus_torch.cli.train\n"
+        "from fullsubnet_plus_torch.utils.config import dump_config, merge_config\n"
+        "from fullsubnet_plus_torch.data.datasets import TrainDataset, ValidationDataset\n"
+        "from fullsubnet_plus_torch.io.checkpoint import CheckpointManager, load_torch_checkpoint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib',"
         " 'fullsubnet_plus_tpu'))]\n"
         "assert not bad, bad\n"
