@@ -49,8 +49,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      on 8 wavs of 3-10 s with a seeded full-width FullSubNet+ in float32,
      bfloat16 and int8; check every output, that the kernels were launched,
      and the float32 and int8 waveforms against the same runs through the
-     plain LSTMs (>= 60 dB and >= INT8_WAVE_SNR_FLOOR); profile one float32
-     and one bfloat16 batch, and the bf16 weight packing's device time;
+     plain LSTMs (>= 60 dB and >= INT8_WAVE_SNR_FLOOR); the pipelined CLI
+     (a writer thread, batches in flight) over 4 copies of the 8 wavs, 4
+     batches: its wavs equal a window of 1's byte for byte, and each
+     dtype's audio-s/s and device idle share of the loop; profile one
+     float32 and one bfloat16 batch, and the bf16 weight packing's device
+     time;
   5. drive the serving path: the daemon of `fullsubnet_plus_torch.cli.serve`
      (its default dtype, int8; 8 slots; in this process on a free port)
      serves 12 concurrent seeded clients of 3-10 s fed faster than real
@@ -102,10 +106,28 @@ Phases, each fatal on failure (exit code 1, no result line):
      line: per run the steps, the median step wall, the trainer's audio-s/s
      over the epochs' training wall, the loader-wait share, validation's
      eval and metric time, and a profile of one more epoch in each dtype;
-  9. print the kernels' JSON line, the card's name and power limit, and
+  9. multi-device (parallel/mesh.py), each rank a process of this script in
+     worker mode: (a) the data-parallel `make_train_step(mesh=)` at the width
+     of configs/train.toml, 2 ranks of 9 rows over NCCL on 2 cards, or with
+     one card 2 ranks sharing it (gloo, as `initialize_distributed` picks
+     where ranks outnumber cards) and a 1-rank NCCL group of 18 rows,
+     from a copy of phase 6's state: each rank's loss and gradient norm
+     against the 1-rank step at batch 18 (float32 K2 + K4 within phase 6's
+     limits, bf16 K2 + K3 within DP_BF16_*), K2 and K4 / K3 once a step on
+     every rank, the parameters bit-equal across ranks after 4 steps, the
+     step walls beside the 1-rank ones; (b) `cli.train` through its rank
+     flags as 2 ranks for 1 float32 epoch on phase 8's corpus: every rank
+     finishes with the same loss, rank 0 alone writes files and validates
+     (K1); (c) `Enhancer(mesh=)` on phase 4's batch in float32, bf16 and
+     int8, rows over 'data' and the fold over 'freq', on 2 cards (with one,
+     a mesh naming it twice), against the 1-card Enhancer at phase 4's
+     floors with K1 / K5 once a shard on its card; prints the
+     `multi_device` JSON line;
+ 10. print the kernels' JSON line, the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
-Imports nothing of JAX. Exits non-zero without CUDA.
+Imports nothing of JAX. Exits non-zero without CUDA. `python3 chip_smoke.py
+--dp-rank|--cli-rank JOB RANK` is phase 9's worker, started by the script.
 """
 
 from __future__ import annotations
@@ -128,6 +150,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+SCRIPT = os.path.abspath(__file__)  # phase 9 starts its ranks as this script's workers
 SR = 16000
 BATCH = 8
 # The batch path's sub-band fold for a batch of 8 padded to 10 s: N = 8 * 257
@@ -169,6 +192,13 @@ SNR_FLOOR = {torch.float32: 80.0, torch.bfloat16: 40.0}
 # Adam's eps takes either sign; scripts/train_divergence.py).
 TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL = 1e-4, 1e-3
 TRAIN_BF16_LOSS_RTOL = 0.1  # bf16 compute against the float32 plain run
+# Phase 9: the 2-rank data-parallel step (9 rows a rank) against the 1-rank
+# step at batch 18 from the same state: float32 within phase 6's limits;
+# bf16, where the two batch sizes round differently in bf16 outside the LSTM
+# (the convolutions' and products' algorithms by batch size), within these
+DP_RANKS, DP_ROWS = 2, TRAIN_BATCH // 2
+DP_BF16_LOSS_RTOL, DP_BF16_GRAD_NORM_RTOL = 1e-2, 0.1
+PIPELINE_COPIES = 4  # phase 4's pipelined run: each of the 8 wavs 4 times, 4 batches
 INT8_SNR_FLOOR = 40.0
 WAVE_SNR_FLOOR = 60.0
 INT8_WAVE_SNR_FLOOR = 40.0  # kernel against plain int8 LSTM, through the bf16 model
@@ -1142,7 +1172,11 @@ def phase_train() -> dict:
         fail(f"the float32 train step ran TF32 kernels: {tf32}")
     return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s")}
                      for k, v in runs.items()},
-            "eval_launches": eval_launches}
+            "eval_launches": eval_launches,
+            # phase 9 starts from a copy of the float32 K2 + K4 run's state
+            "state": runs["float32_k4"]["state"].state_dict(),
+            "batches": {"noisy": np.stack([b[0] for b in batches]),
+                        "clean": np.stack([b[1] for b in batches])}}
 
 
 def write_inputs(root: str) -> list[int]:
@@ -1169,7 +1203,8 @@ def noisy_utterance(rng: np.random.Generator, n: int) -> np.ndarray:
 def reset_launches() -> None:
     from fullsubnet_plus_torch.ops import lstm2, lstm2_int8, lstm2_train
 
-    lstm2.LAUNCHES = lstm2_int8.LAUNCHES = 0
+    lstm2.LAUNCHES.clear()
+    lstm2_int8.LAUNCHES.clear()
     for name in lstm2_train.LAUNCHES:
         lstm2_train.LAUNCHES[name] = 0
 
@@ -1242,6 +1277,121 @@ def phase_batch_path(root: str, lengths: list[int]) -> dict:
         snr = snr_db(torch.from_numpy(kernel), torch.from_numpy(np.concatenate(outputs(tag))))
         print(f"[4] {tag} against float32 waveforms: {snr:.1f} dB (reported, no floor)")
     return {"launches": launches, "rates": rates}
+
+
+def loop_device_time(fn, span: str) -> tuple:
+    """(device busy ms, span wall ms) of one profiled call of `fn`, both
+    within the CPU span named `span`: the device's kernels and copies that
+    start inside the span, and the span's own length, on the profiler's
+    one clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = [e for e in events if e.name == span and e.device_type == DeviceType.CPU]
+    if len(spans) != 1:
+        fail(f"the trace holds {len(spans)} spans named {span!r}, not 1")
+    t0, t1 = spans[0].time_range.start, spans[0].time_range.end
+    busy_us = sum(e.time_range.elapsed_us() for e in events
+                  if e.device_type == DeviceType.CUDA and e.name != span
+                  and not getattr(e, "is_user_annotation", False)
+                  and t0 <= e.time_range.start < t1)
+    return busy_us / 1e3, (t1 - t0) / 1e3
+
+
+def phase_pipelined(root: str, lengths: list[int]) -> dict:
+    """Phase 4's pipelined batch CLI: `run_enhance` over PIPELINE_COPIES
+    copies of the 8 wavs (4 batches of 8, as many as it keeps in flight) in
+    each dtype, with the CLI's window of batches in flight (IN_FLIGHT) and,
+    in turns, with a window of 1 (each batch written before the next is
+    dispatched: the serial loop the pipelining replaced), each into its own
+    directory. Every wav of the window's run must equal the serial run's
+    byte for byte. For each: the audio-s/s of `run_enhance`'s loop (median
+    of MAIN_PATH_RUNS) and the device's idle share of that loop (device
+    time inside the loop's span over the span's wall, both from one
+    profiled call; the Enhancer's set-up lies outside the span); the
+    kernel launched once a batch."""
+    import shutil
+
+    from fullsubnet_plus_torch.cli import enhance as cli
+    from fullsubnet_plus_torch.cli.serve import kernel_launches
+    from fullsubnet_plus_torch.data.wav import read_wav
+    from fullsubnet_plus_torch.utils.config import load_config
+
+    config = load_config(os.path.join(REPO, "configs", "inference.toml"))
+    many = os.path.join(root, "noisy_pipelined")
+    os.makedirs(many, exist_ok=True)
+    names = [f"copy{c}_utt{i}" for c in range(PIPELINE_COPIES) for i in range(len(lengths))]
+    for c in range(PIPELINE_COPIES):
+        for i in range(len(lengths)):
+            shutil.copy(os.path.join(root, "noisy", f"utt{i}.wav"),
+                        os.path.join(many, f"copy{c}_utt{i}.wav"))
+    batches = PIPELINE_COPIES * len(lengths) // BATCH
+    window = cli.IN_FLIGHT
+
+    def out_dir(tag, in_flight):
+        return os.path.join(root, f"pipelined_{tag}_window{in_flight}")
+
+    def run(tag, dtype, in_flight):
+        cli.IN_FLIGHT = in_flight
+        try:
+            return cli.run_enhance(config, os.path.join(root, "model.npz"),
+                                   out_dir(tag, in_flight), input_dirs=[many],
+                                   batch_size=BATCH, compute_dtype=dtype, device="cuda")
+        finally:
+            cli.IN_FLIGHT = window
+
+    out = {}
+    for tag, dtype, kernel in (("float32", None, "lstm2_fwd"),
+                               ("bfloat16", "bfloat16", "lstm2_fwd"),
+                               ("int8", "int8", "lstm2_int8_fwd")):
+        run(tag, dtype, window)  # warm
+        rates = {window: [], 1: []}
+        reset_launches()
+        for _ in range(MAIN_PATH_RUNS):  # in turns: the window, then serial
+            for in_flight in (window, 1):
+                rates[in_flight].append(run(tag, dtype, in_flight))
+        launches = kernel_launches()
+        if launches[kernel] != 2 * MAIN_PATH_RUNS * batches:
+            fail(f"the pipelined {tag} batch path launched {launches}, not {kernel} "
+                 f"{2 * MAIN_PATH_RUNS * batches} times")
+        differ = []
+        for name, n in zip(names, lengths * PIPELINE_COPIES):
+            paths = [os.path.join(out_dir(tag, w), f"{name}.wav") for w in (window, 1)]
+            y = read_wav(paths[0])
+            if y.shape != (n,) or not np.isfinite(y).all():
+                fail(f"pipelined {tag} output {name}: shape {y.shape} or not finite")
+            with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+                if a.read() != b.read():
+                    differ.append(name)
+        print(f"[4] pipelined {tag}: {len(names) - len(differ)} of {len(names)} wavs of the "
+              f"window-{window} run equal the window-1 run's byte for byte")
+        if differ:
+            fail(f"the pipelined {tag} batch path wrote other bytes than the serial one: "
+                 f"{differ}")
+        out[tag] = {"launches": launches[kernel], "bytes_equal_to_serial": True}
+        for in_flight, label in ((window, "pipelined"), (1, "serial")):
+            each = [r["throughput_audio_s_per_s"] for r in rates[in_flight]]
+            wall_ms = statistics.median(r["wall_seconds"] for r in rates[in_flight]) * 1e3
+            busy_ms, span_ms = loop_device_time(lambda: run(tag, dtype, in_flight),
+                                                cli.LOOP_SPAN)
+            if busy_ms > span_ms:
+                fail(f"[4] {label} {tag}: device busy {busy_ms:.3f} ms exceeds the loop's "
+                     f"wall {span_ms:.3f} ms in one trace")
+            idle = 1 - busy_ms / span_ms
+            out[tag][label] = {"in_flight": in_flight, "audio_s_per_s": statistics.median(each),
+                               "each": each, "loop_wall_ms": wall_ms,
+                               "profiled_loop_wall_ms": span_ms, "device_busy_ms": busy_ms,
+                               "idle_share": idle}
+            print(f"[4] {label} batch path {tag} ({in_flight} in flight; {batches} batches of "
+                  f"{BATCH}): median {out[tag][label]['audio_s_per_s']:.1f} audio-s/s (each "
+                  f"{', '.join(f'{r:.1f}' for r in each)}), loop wall {wall_ms:.1f} ms; in one "
+                  f"profiled loop: wall {span_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+                  f"share {idle:.3f}")
+    return out
 
 
 PROFILES = {}  # profile_call's tag: wall ms, device busy ms, idle share
@@ -1981,6 +2131,360 @@ def phase_trainer(root: str) -> dict:
     return summary
 
 
+# Phase 9: multi-device. Ranks run as this script in worker mode
+# (`--dp-rank` / `--cli-rank JOB RANK`), each its own process, one card each.
+
+def jax_modules() -> list:
+    import sys
+
+    return [m for m in sys.modules
+            if m == "jax" or m.startswith(("jax.", "jaxlib", "fullsubnet_plus_tpu"))]
+
+
+def rank_group(job: dict, rank: int):
+    """This worker's process group and its 1 x 1 mesh part (its card)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from fullsubnet_plus_torch.parallel import mesh as pmesh
+
+    device = torch.device(job["devices"][rank])
+    pmesh.TIMEOUT_S = 300  # a rank whose peer died fails the phase soon
+    if job["world"] > 1:
+        pmesh.initialize_distributed(job["coordinator"], job["world"], rank, device=device)
+    else:  # a 1-rank group: initialize_distributed leaves one process alone
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", init_method=f"tcp://{job['coordinator']}",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=pmesh.TIMEOUT_S))
+    return device, pmesh.make_mesh(job["world"], 1, devices=[device])
+
+
+def train_setup():
+    """(model_def, config, optimizer, loss_fn, acoustics) of configs/train.toml."""
+    from fullsubnet_plus_torch.models import get_model
+    from fullsubnet_plus_torch.train import loss, step
+    from fullsubnet_plus_torch.utils.config import load_config
+
+    toml = load_config(os.path.join(REPO, "configs", "train.toml"))
+    model_def = get_model(toml["model"]["path"])
+    config = model_def.make_config(toml["model"]["args"])
+    optimizer = step.make_optimizer(
+        **toml["optimizer"], clip_grad_norm=toml["trainer"]["train"]["clip_grad_norm_value"])
+    acoustics = {k: toml["acoustics"][k] for k in ("n_fft", "hop_length", "win_length")}
+    return model_def, config, optimizer, loss.get_loss(toml["loss_function"]["name"]), acoustics
+
+
+def state_from(saved: dict, device):
+    """A TrainState on `device` holding `saved` (TrainState.state_dict())."""
+    from fullsubnet_plus_torch.train import step
+
+    model_def, config, optimizer, _, _ = train_setup()
+    state = step.init_train_state(model_def.module_cls(config), optimizer, device=device)
+    return state.load_state_dict(saved)
+
+
+def dp_step_runs(state_of, make_step, batches, rows) -> dict:
+    """One step of each dtype from the saved state on batch 0's `rows`
+    (metrics and launches), then TRAIN_STEPS float32 steps (walls, launches,
+    the parameters' digest)."""
+    import hashlib
+
+    out = {}
+    for tag, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        train_step = make_step(dtype)
+        state = state_of()
+        reset_launches()
+        _, m = train_step(state, batches["noisy"][0][rows], batches["clean"][0][rows])
+        torch.cuda.synchronize()
+        out[tag] = {"metrics": {k: float(v) for k, v in m.items()}, "launches": all_launches()}
+    train_step, state, walls = make_step(torch.float32), state_of(), []
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batches["noisy"][i][rows], batches["clean"][i][rows])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    digest = hashlib.sha256()
+    for p in state.model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    out["steps"] = {"walls_ms": walls, "median_wall_ms": statistics.median(walls[1:]),
+                    "launches": all_launches(), "params_sha256": digest.hexdigest(),
+                    "last": {k: float(v) for k, v in m.items()}}
+    return out
+
+
+def dp_rank_main(job_path: str, rank: str) -> None:
+    """Worker: one rank of phase 9's data-parallel step check."""
+    import torch.distributed as dist
+
+    from fullsubnet_plus_torch.train import step
+
+    job, rank = json.load(open(job_path)), int(rank)
+    device, mesh = rank_group(job, rank)
+    model_def, config, optimizer, loss_fn, acoustics = train_setup()
+    saved = torch.load(job["state"])
+    batches = np.load(job["batches"])
+    rows = slice(rank * job["rows"], (rank + 1) * job["rows"])
+
+    def make_step(dtype):
+        return step.make_train_step(model_def, config, optimizer, loss_fn, compute_dtype=dtype,
+                                    mesh=mesh, **acoustics)
+
+    out = dp_step_runs(lambda: state_from(saved, device), make_step, batches, rows)
+    out.update(rank=rank, world=job["world"], backend=dist.get_backend(), device=str(device),
+               card=torch.cuda.get_device_name(device), mesh=mesh.shape,
+               jax_modules=jax_modules())
+    print("DP_RESULT " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def cli_rank_main(job_path: str, rank: str) -> None:
+    """Worker: one rank of the training CLI, through its flags (parse_args
+    and build_trainer, then train, as its main does)."""
+    import torch.distributed as dist
+
+    from fullsubnet_plus_torch.cli import train as cli
+    from fullsubnet_plus_torch.utils.config import load_config
+
+    job, rank = json.load(open(job_path)), int(rank)
+    flags = ["-C", job["configs"][rank], "--device", job["devices"][rank], "--epochs", "1",
+             "--coordinator", job["coordinator"], "--num-hosts", str(job["world"]),
+             "--host-id", str(rank)]
+    args = cli.parse_args(flags)
+    trainer = cli.build_trainer(load_config(args.configuration), args)
+    reset_launches()
+    trainer.train()
+    torch.cuda.synchronize()
+    epochs = [r for r in trainer.history if "train_loss" in r]
+    out = {"rank": rank, "backend": dist.get_backend(), "primary": trainer.is_primary,
+           "launches": all_launches(),
+           "train_loss": [r["train_loss"] for r in epochs],
+           "steps": sum(r["steps"] for r in epochs), "wall_s": sum(r["wall_s"] for r in epochs),
+           "median_step_wall_ms": statistics.median(
+               w for r in epochs for w in r["step_walls_ms"][1:]),
+           "loader_wait_s": sum(r["loader_wait_s"] for r in epochs),
+           "validation_batches": sum(r.get("validation", {}).get("batches", 0)
+                                     for r in trainer.history),
+           "jax_modules": jax_modules()}
+    print("DP_RESULT " + json.dumps(out), flush=True)
+
+
+def run_ranks(mode: str, job: dict, root: str, tag: str) -> list:
+    """Start `job["world"]` workers of `mode` together; their results."""
+    job = {**job, "coordinator": f"127.0.0.1:{free_port()}"}
+    path = os.path.join(root, f"job_{tag}.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    procs = [subprocess.Popen(["python3", SCRIPT, mode, path, str(r)], cwd=REPO,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(job["world"])]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        lines = [ln for ln in log.splitlines() if ln.startswith("DP_RESULT ")]
+        if p.returncode != 0 or len(lines) != 1:
+            fail(f"[9] {tag} rank {r} exited {p.returncode}:\n{log[-4000:]}")
+        results.append(json.loads(lines[0][len("DP_RESULT "):]))
+    return results
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def phase_data_parallel(root: str, saved: dict, batches: dict, cards: list) -> dict:
+    """(a) The data-parallel step at configs/train.toml's width: DP_RANKS
+    ranks of DP_ROWS rows on two cards over NCCL, or with one card two
+    ranks sharing it (gloo: `initialize_distributed` picks it where the ranks
+    outnumber the cards) and then a 1-rank NCCL group of all TRAIN_BATCH rows;
+    each against the 1-rank step at TRAIN_BATCH from the same state (a copy
+    of phase 6's), launches per step per rank, parameters bit-equal across
+    ranks after TRAIN_STEPS steps, the step walls beside the 1-rank ones."""
+    from fullsubnet_plus_torch.train import step
+
+    torch.cuda.empty_cache()  # the ranks' processes share the card with this one
+    model_def, config, optimizer, loss_fn, acoustics = train_setup()
+    state_path = os.path.join(root, "dp_state.pt")
+    torch.save(saved, state_path)
+    batch_path = os.path.join(root, "dp_batches.npz")
+    np.savez(batch_path, **batches)
+
+    def make_step(dtype):
+        return step.make_train_step(model_def, config, optimizer, loss_fn, compute_dtype=dtype,
+                                    device=cards[0], **acoustics)
+
+    one = dp_step_runs(lambda: state_from(saved, cards[0]), make_step, batches, slice(None))
+    print(f"[9] 1 rank, batch {TRAIN_BATCH}: float32 loss "
+          f"{one['float32']['metrics']['loss']:.6f} grad norm "
+          f"{one['float32']['metrics']['grad_norm']:.6f}; bf16 "
+          f"{one['bfloat16']['metrics']['loss']:.6f} / "
+          f"{one['bfloat16']['metrics']['grad_norm']:.6f}; float32 step wall median "
+          f"{one['steps']['median_wall_ms']:.1f} ms")
+    nccl = "nccl" if cards[0].startswith("cuda") else "gloo"
+    groups = ([(nccl, DP_RANKS, cards[:2])] if len(cards) >= 2 else
+              [("gloo", DP_RANKS, cards * 2), (nccl, 1, cards)])
+    out = {"one_rank": one, "runs": {}}
+    for backend, world, devices in groups:
+        tag = f"{backend}_{world}"
+        ranks = run_ranks("--dp-rank", {"world": world, "devices": devices,
+                                        "rows": TRAIN_BATCH // world, "state": state_path,
+                                        "batches": batch_path}, root, tag)
+        print(f"[9] data-parallel {tag}: backend {[r['backend'] for r in ranks]}, {world} "
+              f"rank(s) on {[r['device'] for r in ranks]} ({ranks[0]['card']}), mesh "
+              f"{ranks[0]['mesh']}")
+        if any(r["backend"] != backend for r in ranks):
+            fail(f"[9] {tag}: the ranks' process group is not {backend}")
+        for r in ranks:
+            if r["jax_modules"]:
+                fail(f"[9] rank {r['rank']} imported {r['jax_modules']}")
+            for form, backward, loss_rtol, norm_rtol in (
+                    ("float32", "lstm2_bwd", TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
+                    ("bfloat16", "lstm2_bwd_wgrad", DP_BF16_LOSS_RTOL, DP_BF16_GRAD_NORM_RTOL)):
+                m, ref = r[form]["metrics"], one[form]["metrics"]
+                gaps = (rel(m["loss"], ref["loss"]), rel(m["grad_norm"], ref["grad_norm"]))
+                print(f"[9] {tag} rank {r['rank']} {form}: loss {m['loss']:.6f} grad norm "
+                      f"{m['grad_norm']:.6f}, against 1 rank {gaps[0]:.2e} / {gaps[1]:.2e} "
+                      f"(limits {loss_rtol:g} / {norm_rtol:g}); launches {r[form]['launches']}")
+                if gaps[0] > loss_rtol or gaps[1] > norm_rtol or m["skipped"] != 0.0:
+                    fail(f"[9] {tag} rank {r['rank']} {form} disagrees with the 1-rank step")
+                want = {k: 0 for k in r[form]["launches"]}
+                want.update({"lstm2_train_fwd": 1, backward: 1})
+                if r[form]["launches"] != want:
+                    fail(f"[9] {tag} rank {r['rank']} {form} launches {r[form]['launches']}")
+            want = {k: 0 for k in r["steps"]["launches"]}
+            want.update({"lstm2_train_fwd": TRAIN_STEPS, "lstm2_bwd": TRAIN_STEPS})
+            if r["steps"]["launches"] != want:
+                fail(f"[9] {tag} rank {r['rank']} float32 steps launched {r['steps']['launches']}")
+        digests = {r["steps"]["params_sha256"] for r in ranks}
+        print(f"[9] {tag}: after {TRAIN_STEPS} float32 steps parameters bit-equal across "
+              f"ranks: {len(digests) == 1}; step wall median "
+              f"{[round(r['steps']['median_wall_ms'], 1) for r in ranks]} ms (each "
+              f"{[[round(w) for w in r['steps']['walls_ms']] for r in ranks]}) against "
+              f"{one['steps']['median_wall_ms']:.1f} on 1 rank; global batch "
+              f"{TRAIN_BATCH} at {TRAIN_BATCH * TRAIN_SAMPLES / SR / max(r['steps']['median_wall_ms'] for r in ranks) * 1e3:.1f} audio-s/s "
+              f"against {TRAIN_BATCH * TRAIN_SAMPLES / SR / one['steps']['median_wall_ms'] * 1e3:.1f}")
+        if len(digests) != 1:
+            fail(f"[9] {tag}: parameters differ across ranks after {TRAIN_STEPS} steps")
+        out["runs"][tag] = ranks
+    return out
+
+
+def phase_cli_ranks(root: str, cards: list, one_rank: float | None = None) -> dict:
+    """(b) `cli.train` as the same ranks through its flags for 1 float32
+    epoch on phase 8's corpus (each rank its own save_dir in its config, so
+    rank 1's shows what it wrote): every rank finishes, only rank 0 wrote
+    files, the losses are equal, K2 + K4 once a step on every rank and K1
+    once a validation batch on rank 0 alone. `one_rank`: phase 8's 1-rank
+    trainer audio-s/s, printed beside the ranks'."""
+    corpus = {"lists": {k: os.path.join(root, "corpus", f"{k}.txt")
+                        for k in ("clean", "noise", "rir")},
+              "valid": [os.path.join(root, "corpus", "test_set", s)
+                        for s in ("with_reverb", "no_reverb")]}
+    torch.cuda.empty_cache()
+    backend, devices = (("nccl", cards[:2]) if len(cards) >= 2 and cards[0].startswith("cuda")
+                        else ("gloo", (cards * 2)[:2]))
+    configs = [trainer_toml(root, corpus, f"dp_rank{r}") for r in range(DP_RANKS)]
+    save_dirs = [os.path.join(root, "runs", f"dp_rank{r}") for r in range(DP_RANKS)]
+    ranks = run_ranks("--cli-rank", {"world": DP_RANKS, "devices": devices,
+                                     "configs": configs}, root, "cli")
+    if any(r["backend"] != backend for r in ranks):
+        fail(f"[9] the CLI's ranks chose {[r['backend'] for r in ranks]}, not {backend}")
+    audio = [r["steps"] * TRAIN_BATCH * DP_RANKS * TRAIN_SAMPLES / SR / r["wall_s"] for r in ranks]
+    written = sorted(os.path.relpath(os.path.join(d, f), save_dirs[0])
+                     for d, _, files in os.walk(save_dirs[0]) for f in files)
+    print(f"[9] cli.train as {DP_RANKS} {backend} ranks on {devices}, 1 float32 epoch: losses "
+          f"{[r['train_loss'] for r in ranks]}, {ranks[0]['steps']} steps a rank at batch "
+          f"{TRAIN_BATCH} a rank, median step wall {[round(r['median_step_wall_ms'], 1) for r in ranks]} ms, "
+          f"trainer {[round(a, 1) for a in audio]} audio-s/s (global batch "
+          f"{TRAIN_BATCH * DP_RANKS}; 1 rank in phase 8: {one_rank}); launches {[r['launches'] for r in ranks]}; rank 0 wrote "
+          f"{written}; rank 1's save_dir exists: {os.path.exists(save_dirs[1])}")
+    if ranks[0]["train_loss"] != ranks[1]["train_loss"] or not ranks[0]["steps"]:
+        fail("[9] the CLI's ranks disagree on the epoch's loss")
+    if os.path.exists(save_dirs[1]) or not {"train.log", "config.toml", "run_complete.json",
+                                            "checkpoints/latest_model.npz"} <= set(written):
+        fail("[9] not rank 0 alone wrote the run's files")
+    for r in ranks:
+        want = {k: 0 for k in r["launches"]}
+        want.update({"lstm2_train_fwd": r["steps"], "lstm2_bwd": r["steps"],
+                     "lstm2_fwd": r["validation_batches"]})
+        if (r["launches"] != want or r["primary"] != (r["rank"] == 0) or r["jax_modules"]
+                or (r["rank"] == 0) != (r["validation_batches"] > 0)):
+            fail(f"[9] CLI rank {r['rank']}: launches {r['launches']}, validation batches "
+                 f"{r['validation_batches']}, primary {r['primary']}")
+    return {"backend": backend, "devices": devices, "ranks": ranks, "audio_s_per_s": audio}
+
+
+def phase_mesh_enhancer(root: str, lengths: list[int], cards: list) -> dict:
+    """(c) `Enhancer(mesh=)` on phase 4's batch of 8 in float32, bf16 and
+    int8: rows over 'data' (2 x 1), and the fold over 'freq' (1 x 2,
+    fold_sharding ("data", "freq")), on 2 cards, or with one card on a mesh
+    that names it twice (the two shards, or the fold's two halves, then
+    share it: the mesh path through the kernels, no scaling figure); each
+    against the 1-card Enhancer at phase 4's floors, K1 / K5 launched once
+    for each shard or fold half on its card; the batch's audio-s/s on the
+    mesh and on 1 card."""
+    from fullsubnet_plus_torch.cli.enhance import load_state_dict
+    from fullsubnet_plus_torch.data.wav import read_wav
+    from fullsubnet_plus_torch.enhance import Enhancer
+    from fullsubnet_plus_torch.models import FULLSUBNET_PLUS
+    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
+    from fullsubnet_plus_torch.parallel import make_mesh
+
+    devices = (cards * 2)[:2]
+    batch = np.zeros((len(lengths), -(-max(lengths) // SR) * SR), np.float32)
+    for i, n in enumerate(lengths):
+        batch[i, :n] = read_wav(os.path.join(root, "noisy", f"utt{i}.wav"))
+    audio_s = sum(lengths) / SR
+    state = load_state_dict(os.path.join(root, "model.npz"))
+    out = {"devices": devices}
+    for tag, dtype, floor, counts in (("float32", None, WAVE_SNR_FLOOR, lstm2),
+                                      ("bfloat16", "bfloat16", BF16_WAVE_SNR_FLOOR, lstm2),
+                                      ("int8", "int8", INT8_WAVE_SNR_FLOOR, lstm2_int8)):
+        def timed(enhancer):
+            enhancer.enhance_batch(batch, lengths=lengths)  # warm
+            walls = []
+            for _ in range(MAIN_PATH_RUNS):
+                t0 = time.perf_counter()
+                y = enhancer.enhance_batch(batch, lengths=lengths)
+                walls.append(time.perf_counter() - t0)
+            return y, audio_s / statistics.median(walls)
+
+        ref, rate1 = timed(Enhancer(FULLSUBNET_PLUS, FULLSUBNET_PLUS.make_config({}), state,
+                                    compute_dtype=dtype, device=devices[0]))
+        out[tag] = {"one_card_audio_s_per_s": rate1}
+        for name, shape, fold in (("data", (2, 1), None), ("fold", (1, 2), ["data", "freq"])):
+            config = FULLSUBNET_PLUS.make_config({"fold_sharding": fold} if fold else {})
+            enhancer = Enhancer(FULLSUBNET_PLUS, config, state, compute_dtype=dtype,
+                                mesh=make_mesh(*shape, devices=devices))
+            reset_launches()
+            y = enhancer.enhance_batch(batch, lengths=lengths)
+            by_card = dict(counts.LAUNCHES)
+            _, rate2 = timed(enhancer)
+            snr = snr_db(torch.from_numpy(ref), torch.from_numpy(y))
+            out[tag][name] = {"snr_db": snr, "launches_by_card": by_card,
+                              "audio_s_per_s": rate2}
+            print(f"[9] Enhancer(mesh={shape[0]}x{shape[1]} on {devices}, fold {fold}) {tag}: "
+                  f"against 1 card {snr:.1f} dB (floor {floor:.0f}); launches by card "
+                  f"{by_card}; {rate2:.1f} audio-s/s on the mesh against {rate1:.1f} on 1 card")
+            want = {d: devices.count(d) for d in devices}
+            if snr < floor or by_card != want:
+                fail(f"[9] Enhancer(mesh=) {name} {tag}: {snr:.1f} dB, launches {by_card}, "
+                     f"expected {want}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -2008,6 +2512,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         lengths = write_inputs(root)
         batch = phase_batch_path(root, lengths)
+        pipelined = phase_pipelined(root, lengths)
         phase_profile(root, lengths)
         serve = phase_serve(os.path.join(REPO, "configs", "inference.toml"),
                             os.path.join(root, "model.npz"))
@@ -2018,7 +2523,45 @@ def main() -> None:
         t_trainer = time.perf_counter()
         trainer = phase_trainer(root)
         print(f"phase 8 took {time.perf_counter() - t_trainer:.1f} s")
-    print(f"phases 1-8 took {time.perf_counter() - t_start:.1f} s")
+        t_multi = time.perf_counter()
+        cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        dp = phase_data_parallel(root, train["state"], train["batches"], cards)
+        dp_cli = phase_cli_ranks(root, cards,
+                                 trainer["runs"]["float32_unbroken"]["audio_s_per_s"])
+        mesh = phase_mesh_enhancer(root, lengths, cards)
+        multi = {"data_parallel": {tag: [{k: r[k] for k in ("rank", "device", "backend")}
+                                         | {"float32": r["float32"]["metrics"],
+                                            "bfloat16": r["bfloat16"]["metrics"],
+                                            "median_step_wall_ms": r["steps"]["median_wall_ms"]}
+                                         for r in ranks] for tag, ranks in dp["runs"].items()},
+                 "one_rank": {"float32": dp["one_rank"]["float32"]["metrics"],
+                              "bfloat16": dp["one_rank"]["bfloat16"]["metrics"],
+                              "median_step_wall_ms": dp["one_rank"]["steps"]["median_wall_ms"]},
+                 "cli": {k: dp_cli[k] for k in ("backend", "devices", "audio_s_per_s")}
+                 | {"train_loss": dp_cli["ranks"][0]["train_loss"],
+                    "median_step_wall_ms": [r["median_step_wall_ms"] for r in dp_cli["ranks"]]},
+                 "mesh_enhancer": mesh,
+                 "pipelined_batch": pipelined}
+        print(json.dumps({"multi_device": multi}))
+        print(f"phase 9 took {time.perf_counter() - t_multi:.1f} s")
+    print(f"phases 1-9 took {time.perf_counter() - t_start:.1f} s")
+
+    def multi_launches(name: str) -> dict:
+        """Phase 9's and phase 4's pipelined runs' launches of a kernel."""
+        out = {}
+        for tag, ranks in dp["runs"].items():
+            for r in ranks:
+                for form in ("float32", "bfloat16"):
+                    out[f"dp_{tag}_rank{r['rank']}_{form}_step"] = r[form]["launches"][name]
+                out[f"dp_{tag}_rank{r['rank']}_float32_steps"] = r["steps"]["launches"][name]
+        for r in dp_cli["ranks"]:
+            out[f"cli_{dp_cli['backend']}_rank{r['rank']}"] = r["launches"][name]
+        forward = {"lstm2_fwd": ("float32", "bfloat16"), "lstm2_int8_fwd": ("int8",)}
+        for tag in forward.get(name, ()):
+            for layout in ("data", "fold"):
+                out[f"mesh_{layout}_{tag}"] = sum(mesh[tag][layout]["launches_by_card"].values())
+            out[f"batch_pipelined_and_serial_{tag}"] = pipelined[tag]["launches"]
+        return {k: v for k, v in out.items() if v}
 
     t_runs = trainer["runs"]
 
@@ -2042,7 +2585,7 @@ def main() -> None:
         + batch["launches"]["bfloat16"]["lstm2_fwd"] + train["eval_launches"]["lstm2_fwd"]
         + fsn["launches"]["float32"]["lstm2_fwd"] + fsn["launches"]["bfloat16"]["lstm2_fwd"]
         + fsn["overlapped_chunk"]["launches"]["lstm2_fwd"]
-        + sum(trainer_launches("lstm2_fwd").values()),
+        + sum(trainer_launches("lstm2_fwd").values()) + sum(multi_launches("lstm2_fwd").values()),
         "max_abs_err": errors[("lstm2_fwd", N_FULL, T_FULL, torch.float32)],
         **f32,
         "shape": {"N": N_FULL, "D": D, "H": H, "O": O, "T": T_FULL, "dtype": "float32"},
@@ -2055,7 +2598,7 @@ def main() -> None:
                                for tag in ("float32", "bfloat16")},
                             "fullsubnet_overlapped_chunk":
                                 fsn["overlapped_chunk"]["launches"]["lstm2_fwd"],
-                            **trainer_launches("lstm2_fwd")},
+                            **trainer_launches("lstm2_fwd"), **multi_launches("lstm2_fwd")},
         "fullsubnet_fb": {
             "shape": {"N": N_FB, "D": FB[0], "H": FB[1], "O": FB[2], "T": T_FULL},
             "float32": fb_kernels[torch.float32], "bfloat16": fb_kernels[torch.bfloat16],
@@ -2081,7 +2624,8 @@ def main() -> None:
         "source": "fullsubnet_plus_torch/csrc/lstm2_int8_fwd.cu",
         "replaces": "fullsubnet_plus_tpu/ops/lstm_pallas.py:1022 (_make_quant_kernel)",
         "launches": serve["launches"]["lstm2_int8_fwd"]
-        + fsn["launches"]["int8"]["lstm2_int8_fwd"] + fsn["serve"]["launches"]["lstm2_int8_fwd"],
+        + fsn["launches"]["int8"]["lstm2_int8_fwd"] + fsn["serve"]["launches"]["lstm2_int8_fwd"]
+        + sum(multi_launches("lstm2_int8_fwd").values()),
         "max_abs_err": errors[("lstm2_int8_fwd", N_SERVE, T_SERVE)],
         **int8,
         "max_abs_err_batch_fold": errors[("lstm2_int8_fwd", N_FULL, T_FULL)],
@@ -2090,7 +2634,8 @@ def main() -> None:
         "launches_by_run": {"serve": serve["launches"]["lstm2_int8_fwd"],
                             "batch_int8": batch["launches"]["int8"]["lstm2_int8_fwd"],
                             "fullsubnet_batch_int8": fsn["launches"]["int8"]["lstm2_int8_fwd"],
-                            "fullsubnet_serve": fsn["serve"]["launches"]["lstm2_int8_fwd"]},
+                            "fullsubnet_serve": fsn["serve"]["launches"]["lstm2_int8_fwd"],
+                            **multi_launches("lstm2_int8_fwd")},
         "fullsubnet_fb": {
             "shape": {"N": N_FB, "D": FB[0], "H": FB[1], "O": FB[2], "T": T_FULL},
             **fb_kernels["int8"],
@@ -2126,13 +2671,13 @@ def main() -> None:
             "source": f"fullsubnet_plus_torch/csrc/{source}",
             "replaces": f"fullsubnet_plus_tpu/ops/lstm_pallas.py:{replaces}",
             "launches": sum(runs[r]["launches"][name] for r in launch_runs)
-            + sum(trainer_launches(name).values()),
+            + sum(trainer_launches(name).values()) + sum(multi_launches(name).values()),
             **train_errors[(name, N_TRAIN, T_TRAIN, torch.float32)],
             **f32,
             "shape": {"N": N_TRAIN, "D": D, "H": H, "O": O, "T": T_TRAIN, "dtype": "float32"},
             "bfloat16": {**train_errors[(name, N_TRAIN, T_TRAIN, torch.bfloat16)], **bf16},
             "launches_by_run": {**{r: runs[r]["launches"][name] for r in launch_runs},
-                                **trainer_launches(name)},
+                                **trainer_launches(name), **multi_launches(name)},
             "library": "cuDNN LSTM + Linear, "
                        + ("forward" if name == "lstm2_train_fwd" else "backward"),
             "train_step": {r: {"wall_ms": runs[r]["wall_ms"],
@@ -2155,4 +2700,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if len(sys.argv) == 4 and sys.argv[1] in ("--dp-rank", "--cli-rank"):
+        (dp_rank_main if sys.argv[1] == "--dp-rank" else cli_rank_main)(*sys.argv[2:])
+    else:
+        main()

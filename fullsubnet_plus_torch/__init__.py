@@ -12,7 +12,9 @@ and its TCP daemon (cli/serve.py), FullSubNet+'s training step and both
 models' evaluation steps (train/step.py), and the training driver: the CLI
 (cli/train.py), the Trainer with validation metrics and checkpoints in the
 JAX package's `.npz` layout (train/trainer.py, eval/, io/checkpoint.py),
-the supervisor and the dynamic-mixing input pipeline (data/). The fused
+the supervisor and the dynamic-mixing input pipeline (data/), and
+multi-device runs (parallel/: data-parallel training one rank per card, a
+mesh of a process's cards for enhancement and validation). The fused
 2-layer LSTMs (the sub-band model of both, FullSubNet's full-band model)
 run through hand-written CUDA kernels: the float forward (ops/lstm2.py,
 csrc/lstm2_fwd.cu), the int8-recurrent forward, the serving default

@@ -12,6 +12,13 @@ Utterances are sorted by length and enhanced in batches padded to a whole
 second; a length-aware mode gets their true lengths, so padding changes no
 output. Each output is rescaled to 0.8 of its peak
 (base_inferencer.py:151-152).
+
+The loop is pipelined as the JAX CLI's (cli/enhance.py:83-138 there): this
+thread pads and dispatches batches (`enhance_batch(blocking=False)`), one
+writer thread waits for each batch's copy to the host and writes its wavs,
+and at most IN_FLIGHT batches are dispatched and not yet written. A failed
+write raises out of `run_enhance`. The loop is one torch.profiler span,
+LOOP_SPAN, so that a trace can read the device's busy time within it.
 """
 
 from __future__ import annotations
@@ -20,10 +27,14 @@ import argparse
 import logging
 import os
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 log = logging.getLogger(__name__)
+IN_FLIGHT = 4  # batches dispatched and not yet written
+LOOP_SPAN = "run_enhance loop"  # the profiler span of the timed loop
 
 
 def load_state_dict(checkpoint_path: str) -> dict:
@@ -42,6 +53,8 @@ def run_enhance(config: dict, checkpoint_path: str, output_dir: str, input_dirs=
     """Enhance every wav under the input directories into `output_dir`.
     compute_dtype: None (float32, the parity path), "bfloat16" or "int8";
     the config's [inferencer.args] compute_dtype applies when it is None."""
+    from torch.profiler import record_function
+
     from fullsubnet_plus_torch.data.datasets import InferenceDataset
     from fullsubnet_plus_torch.data.wav import write_wav
     from fullsubnet_plus_torch.enhance import Enhancer
@@ -72,23 +85,40 @@ def run_enhance(config: dict, checkpoint_path: str, output_dir: str, input_dirs=
     items = sorted((dataset[i] for i in range(len(dataset))), key=lambda kv: len(kv[0]))
     os.makedirs(output_dir, exist_ok=True)
 
-    t_start = time.perf_counter()
-    total_audio_s = 0.0
-    for i in range(0, len(items), batch_size):
-        batch = items[i:i + batch_size]
-        lengths = np.asarray([len(w) for w, _ in batch])
-        padded_len = -(-int(lengths.max()) // sr) * sr  # bucket: whole seconds
-        stacked = np.zeros((len(batch), padded_len), np.float32)
-        for j, (w, _) in enumerate(batch):
-            stacked[j, :len(w)] = w
-        enhanced = enhancer.enhance_batch(stacked, lengths=lengths if length_aware else None)
+    def finish(pending, batch) -> float:
+        """On the writer thread: wait for the batch, rescale, write."""
+        enhanced = pending.result()
         for j, (w, name) in enumerate(batch):
             y = enhanced[j, :len(w)]
             peak = np.max(np.abs(y)) + 1e-12
             if peak > 1.0:
                 log.warning("enhanced %s exceeds 1 before the rescale", name)
             write_wav(os.path.join(output_dir, f"{name}.wav"), y / peak * 0.8, sr)
-        total_audio_s += float(lengths.sum()) / sr
+        return sum(len(w) for w, _ in batch) / sr
+
+    t_start = time.perf_counter()
+    total_audio_s = 0.0
+    futures: deque = deque()
+    with record_function(LOOP_SPAN), \
+            ThreadPoolExecutor(max_workers=1, thread_name_prefix="enhance-writer") as writer:
+        try:
+            for i in range(0, len(items), batch_size):
+                batch = items[i:i + batch_size]
+                lengths = np.asarray([len(w) for w, _ in batch])
+                padded_len = -(-int(lengths.max()) // sr) * sr  # bucket: whole seconds
+                stacked = np.zeros((len(batch), padded_len), np.float32)
+                for j, (w, _) in enumerate(batch):
+                    stacked[j, :len(w)] = w
+                pending = enhancer.enhance_batch(
+                    stacked, lengths=lengths if length_aware else None, blocking=False)
+                futures.append(writer.submit(finish, pending, batch))
+                if len(futures) >= IN_FLIGHT:
+                    total_audio_s += futures.popleft().result()
+            while futures:
+                total_audio_s += futures.popleft().result()
+        finally:
+            for future in futures:  # after a failure: write nothing more
+                future.cancel()
     wall = time.perf_counter() - t_start
     stats = {
         "files": len(items),

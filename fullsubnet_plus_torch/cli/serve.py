@@ -125,7 +125,8 @@ def kernel_launches() -> dict:
     """Launch counts of the port's CUDA kernels in this process."""
     from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
 
-    return {"lstm2_fwd": lstm2.LAUNCHES, "lstm2_int8_fwd": lstm2_int8.LAUNCHES}
+    return {"lstm2_fwd": sum(lstm2.LAUNCHES.values()),
+            "lstm2_int8_fwd": sum(lstm2_int8.LAUNCHES.values())}
 
 
 class StreamServer:

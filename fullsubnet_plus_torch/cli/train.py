@@ -8,8 +8,23 @@ Counterpart of fullsubnet_plus_tpu/cli/train.py with the same flags and
 files (checkpoints in the JAX package's `.npz` layout, so a run resumes in
 either package). One process trains on one device: CUDA unless `--device
 cpu` is given; a request for CUDA where there is none raises.
-Multi-process training (`--coordinator`, `--num-hosts`, `--host-id`) is
-not ported yet.
+
+Data-parallel training runs one process (rank) per card, each started
+with the same flags plus its rank, the JAX package's multi-host flags:
+
+    python -m fullsubnet_plus_torch.cli.train -C cfg.toml \
+        --coordinator HOST:PORT --num-hosts N --host-id R [--device cuda|cpu]
+
+`--coordinator` is rank 0's rendezvous address, `--num-hosts` the number
+of ranks, `--host-id` this rank. Rank R trains on `cuda:{R % cards}` (or
+the card `--device cuda:N` names, or the CPU), over NCCL where each rank
+has a card of its own and gloo on the CPU or where the ranks outnumber the
+cards (parallel/mesh.py `initialize_distributed`). Each rank
+reads its shard of the clean list (`host_id::num_hosts`) at the config's
+batch size, so the global batch is that times the ranks. Only rank 0 makes
+the save directory and writes train.log, config.toml, checkpoints, events
+and the heartbeat, and validates; `--supervise` supervises each rank's
+own process.
 """
 
 from __future__ import annotations
@@ -22,7 +37,7 @@ import sys
 import numpy as np
 import torch
 
-from fullsubnet_plus_torch.device import not_ported, resolve_device
+from fullsubnet_plus_torch.device import resolve_device
 from fullsubnet_plus_torch.utils import logger
 from fullsubnet_plus_torch.utils.config import dump_config, load_config
 
@@ -37,30 +52,34 @@ def build_trainer(config: dict, args):
     from fullsubnet_plus_torch.data.datasets import TrainDataset, ValidationDataset
     from fullsubnet_plus_torch.data.loader import BatchLoader
     from fullsubnet_plus_torch.models import get_model
+    from fullsubnet_plus_torch.parallel import mesh as parallel
     from fullsubnet_plus_torch.train.loss import get_loss
     from fullsubnet_plus_torch.train.step import make_optimizer
     from fullsubnet_plus_torch.train.trainer import Trainer
 
-    if any(v is not None for v in (args.coordinator, args.num_hosts, args.host_id)):
-        raise not_ported("multi-process training (--coordinator/--num-hosts/--host-id)",
-                         "Queue 1 item 10")
+    device = parallel.rank_device(args.device, args.host_id or 0)
+    parallel.initialize_distributed(args.coordinator, args.num_hosts, args.host_id,
+                                    device=device)
+    is_primary = parallel.is_primary()
     seed = config.get("meta", {}).get("seed", 0)
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
 
     save_dir = save_dir_of(config)
-    os.makedirs(save_dir, exist_ok=True)
-    logger.init(os.path.join(save_dir, "train.log"))
-    dump_config(config, os.path.join(save_dir, "config.toml"))
+    if is_primary:
+        os.makedirs(save_dir, exist_ok=True)
+        logger.init(os.path.join(save_dir, "train.log"))
+        dump_config(config, os.path.join(save_dir, "config.toml"))
 
     model_def = get_model(config["model"]["path"])
     model_config = model_def.make_config(config["model"]["args"])
     train_args = dict(config["train_dataset"]["args"])
     train_args.pop("num_workers", None)
     dl_cfg = config["train_dataset"].get("dataloader", {})
-    train_loader = BatchLoader(TrainDataset(**train_args, seed=seed),
-                               batch_size=dl_cfg.get("batch_size", 18),
+    dataset = TrainDataset(**train_args, seed=seed, host_id=parallel.process_index(),
+                           num_hosts=parallel.process_count())
+    train_loader = BatchLoader(dataset, batch_size=dl_cfg.get("batch_size", 18),
                                num_workers=dl_cfg.get("num_workers", 4),
                                drop_last=dl_cfg.get("drop_last", True), seed=seed)
     valid_dataset = None
@@ -89,7 +108,9 @@ def build_trainer(config: dict, args):
         valid_batch_size=valid_cfg.get("batch_size", 8),
         valid_num_buckets=valid_cfg.get("num_buckets", 2),
         lr=opt_cfg.get("lr", 1e-3), compute_dtype="bfloat16" if args.bf16 else None,
-        remat=args.remat or train_cfg.get("remat", False), seed=seed, device=args.device)
+        remat=args.remat or train_cfg.get("remat", False), seed=seed, device=device,
+        mesh=parallel.auto_mesh(dl_cfg.get("batch_size", 18), devices=[device]),
+        is_primary=is_primary)
     if args.resume:
         trainer.resume()
     if args.from_torch:
@@ -118,9 +139,10 @@ def parse_args(argv=None):
                         help="recompute the model forward in the backward (activation "
                              "memory for FLOPs)")
     parser.add_argument("--epochs", type=int, default=None)
-    parser.add_argument("--coordinator", default=None)
-    parser.add_argument("--num-hosts", type=int, default=None)
-    parser.add_argument("--host-id", type=int, default=None)
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="rank 0's rendezvous address of a multi-rank run")
+    parser.add_argument("--num-hosts", type=int, default=None, help="the number of ranks")
+    parser.add_argument("--host-id", type=int, default=None, help="this rank")
     parser.add_argument("--supervise", type=int, default=None, metavar="N",
                         help="run under the supervisor (train/supervisor.py): relaunch with "
                              "-R up to N times on an abnormal exit or a stalled heartbeat")
@@ -145,15 +167,20 @@ def child_argv(argv) -> list:
 
 
 def main(argv=None):
+    from fullsubnet_plus_torch.parallel.mesh import check_distributed_args
+
     args = parse_args(argv)
-    resolve_device(args.device)  # raises before anything is launched or written
+    # both raise before anything is launched or written
+    check_distributed_args(args.coordinator, args.num_hosts, args.host_id)
+    resolve_device(args.device)
     config = load_config(args.configuration)
     if args.supervise is not None:
         from fullsubnet_plus_torch.train.supervisor import supervise
 
         raise SystemExit(supervise(
             child_argv(sys.argv[1:] if argv is None else argv), save_dir_of(config),
-            max_restarts=args.supervise, heartbeat_timeout=args.heartbeat_timeout))
+            max_restarts=args.supervise, heartbeat_timeout=args.heartbeat_timeout,
+            is_primary=not args.host_id))
     build_trainer(config, args).train(only_validation=args.only_validation)
 
 

@@ -55,30 +55,47 @@ def freq_unfold(x: torch.Tensor, num_neighbors: int, pad_mode: str = "reflect") 
 
 
 @functools.lru_cache(maxsize=64)
-def _drop_band_indices(batch_size: int, num_freqs: int, num_groups: int):
+def _drop_band_indices(batch_size: int, num_freqs: int, num_groups: int, row_offset: int = 0):
     """(batch_idx [B], freq_idx [B, F // G]) in the reference's order: the
-    output samples of group g are the inputs g, g + G, ..., each keeping
-    frequencies g, g + G, g + 2G, ... (reference feature.py:276-285)."""
+    output samples of group g are the inputs whose global index s (the
+    local index plus `row_offset`) has s % G == g, in order, each keeping
+    frequencies g, g + G, g + 2G, ... (reference feature.py:276-285). With
+    an offset these are exactly the rows of the global batch's drop_band
+    that belong to this slice of it, in the same relative order."""
     kept = num_freqs - (num_freqs % num_groups)
     batch_idx, freq_idx = [], []
     for g in range(num_groups):
         freqs = np.arange(g, kept, num_groups)
-        for s in range(g, batch_size, num_groups):
-            batch_idx.append(s)
-            freq_idx.append(freqs)
+        for s in range(batch_size):
+            if (row_offset + s) % num_groups == g:
+                batch_idx.append(s)
+                freq_idx.append(freqs)
     return np.asarray(batch_idx), np.stack(freq_idx, axis=0)
 
 
-def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
+def drop_band(x: torch.Tensor, num_groups: int = 2, row_offset: int = 0,
+              global_batch: int | None = None) -> torch.Tensor:
     """[B, C, F, T] -> [B, C, F // num_groups, T]: the training-only
     frequency subsample, coupling batch and frequency indices as the
-    reference does."""
+    reference does.
+
+    Under data parallelism x is one rank's (or one card's) rows of a global
+    batch of `global_batch` rows, starting at global row `row_offset`: the
+    coupling follows the global index, so the rows equal the global
+    batch's drop_band restricted to them (a local index would keep the
+    wrong bins wherever the offset is not a multiple of num_groups). The
+    batch-size check is on the global batch."""
     batch_size, _, num_freqs, _ = x.shape
-    if batch_size <= num_groups:
-        raise ValueError(f"Batch size ({batch_size}) must exceed num_groups ({num_groups}).")
+    total = batch_size if global_batch is None else global_batch
+    if total <= num_groups:
+        raise ValueError(f"Batch size ({total}) must exceed num_groups ({num_groups}).")
+    if not 0 <= row_offset <= total - batch_size:
+        raise ValueError(f"rows {row_offset}..{row_offset + batch_size - 1} are not in a "
+                         f"batch of {total}")
     if num_groups <= 1:
         return x
-    batch_idx, freq_idx = _drop_band_indices(batch_size, num_freqs, num_groups)
+    batch_idx, freq_idx = _drop_band_indices(batch_size, num_freqs, num_groups,
+                                             row_offset % num_groups)
     batch_idx = torch.from_numpy(batch_idx).to(x.device)[:, None]
     freq_idx = torch.from_numpy(freq_idx).to(x.device)
     # advanced indices split by a slice move to the front: [B, F // G, C, T]

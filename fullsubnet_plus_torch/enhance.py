@@ -23,6 +23,15 @@ recurrent products in int8 (ops/lstm2_int8.py), their weights quantized
 once here at construction (enhance.py:91-159 of the JAX package). Float32
 matmuls must run in full float32 on the card, so the float32 path refuses
 to run with TF32 matmuls enabled.
+
+`mesh=` (a parallel.Mesh of this process's cards) splits each batch's rows
+over the 'data' cards, one copy of the model on each, and with the model
+config's `fold_sharding` naming 'freq' splits each shard's sub-band fold
+over its 'freq' cards (JAX enhance.py:138, :225-243). `enhance_batch`
+dispatches every shard before it waits on any: the batch goes up from
+pinned host memory and comes back into it without blocking, with an event
+on each shard's card; `blocking=False` returns that pending result, so a
+caller can prepare the next batch while the cards run (cli/enhance.py).
 """
 
 from __future__ import annotations
@@ -32,11 +41,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from fullsubnet_plus_torch.device import not_ported, resolve_device
+from fullsubnet_plus_torch.device import resolve_device
 from fullsubnet_plus_torch.dsp.mask import complex_mul, decompress_cirm
 from fullsubnet_plus_torch.dsp.norms import time_mask
 from fullsubnet_plus_torch.dsp.stft import istft, mag_phase, stft_split
 from fullsubnet_plus_torch.dsp.unfold import freq_unfold
+from fullsubnet_plus_torch.parallel.mesh import check_mesh, data_sharding, replicated
 
 
 def _crm_to_wave(crm, noisy_real, noisy_imag, length, n_fft, hop, win, valid_frames=None):
@@ -48,6 +58,45 @@ def _crm_to_wave(crm, noisy_real, noisy_imag, length, n_fft, hop, win, valid_fra
         mask = time_mask(real.shape[-1], valid_frames, real.dtype)[:, None, :]
         real, imag = real * mask, imag * mask
     return istft(real, imag, n_fft, hop, win, length=length, valid_frames=valid_frames)
+
+
+def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`; to a card through pinned memory without
+    blocking the host (a pageable copy would wait for the card's queue)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class PendingBatch:
+    """An enhanced batch on its way to the host: each shard's output copied
+    into pinned host memory behind its card's queue, with an event recorded
+    on that card's stream. `result()` waits for them and returns the [B, L]
+    float32 array (the shards' rows in order)."""
+
+    def __init__(self):
+        self._parts = []
+        self._result = None
+
+    def add(self, y: torch.Tensor) -> None:
+        if y.device.type != "cuda":
+            self._parts.append((y.float(), None))
+            return
+        host = torch.empty(y.shape, dtype=torch.float32, pin_memory=True)
+        host.copy_(y.float(), non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(y.device))
+        self._parts.append((host, event))
+
+    def result(self) -> np.ndarray:
+        if self._result is None:
+            for _, event in self._parts:
+                if event is not None:
+                    event.synchronize()
+            self._result = np.concatenate([host.numpy() for host, _ in self._parts])
+            self._parts = []
+        return self._result
 
 
 def _reflect_fix_tail(noisy: torch.Tensor, lengths: torch.Tensor, n_fft: int, hop: int):
@@ -71,7 +120,7 @@ class Enhancer:
     unfold width and `inference_args` the config's [inferencer.args] table
     (`pad_mode` of `sub_band_crm_mask`, `chunk_length` in seconds of
     `overlapped_chunk`). Runs on `device` ("cuda" by default; "cpu" on
-    request)."""
+    request), or on the cards of `mesh`."""
 
     MODES = ("mag_complex_full_band_crm_mask", "full_band_crm_mask", "sub_band_crm_mask",
              "complex_full_band_crm_mask", "mag", "scaled_mask", "overlapped_chunk",
@@ -87,10 +136,17 @@ class Enhancer:
                  compute_dtype=None, inference_args=None, device="cuda"):
         if inference_type not in self.MODES:
             raise NotImplementedError(f"Unknown inference type {inference_type}")
-        if mesh is not None:
-            raise not_ported("mesh= (multi-device enhancement)", "Queue 1 item 10")
         if compute_dtype not in (None, "float32", "bfloat16", "int8"):
             raise ValueError(f"compute_dtype {compute_dtype!r}")
+        if mesh is not None:
+            check_mesh(mesh)
+            if mesh.process_count > 1:
+                raise ValueError("the Enhancer takes a mesh of this process's own cards, "
+                                 f"not one across {mesh.process_count} ranks")
+            for dev in mesh.devices.ravel():
+                resolve_device(dev)
+            device = mesh.data_devices[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.dtype = torch.float32 if compute_dtype in (None, "float32") else torch.bfloat16
         if compute_dtype == "int8":
@@ -105,25 +161,47 @@ class Enhancer:
         model = model_def.module_cls(model_config)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
-        if compute_dtype == "int8":
-            self.model.prepare_int8()
+        # one copy of the model per 'data' card; `_shard` picks the one the
+        # mode functions run (0 without a mesh)
+        self.replicas = [self.model] if mesh is None else replicated(mesh, self.model)
+        self._shard = 0
+        fold = getattr(model_config, "fold_sharding", None)
+        for i, replica in enumerate(self.replicas):
+            if fold and mesh is not None:
+                replica.shard_fold(mesh.fold_devices(i, fold))
+            if compute_dtype == "int8":
+                replica.prepare_int8()
 
-    def enhance_batch(self, noisy: np.ndarray, lengths=None) -> np.ndarray:
+    def enhance_batch(self, noisy: np.ndarray, lengths=None, *, blocking: bool = True):
         """[B, L] float32 -> [B, L] float32 (no rescale). `lengths`: each
         utterance's true sample count in a zero-padded batch; a mode that
         cannot honor them raises rather than return padding-contaminated
-        output."""
-        x = torch.as_tensor(np.asarray(noisy, np.float32), device=self.device)
+        output. Under a mesh the rows split over its 'data' cards (they must
+        divide). `blocking=False` returns a `PendingBatch` at once: every
+        shard is queued, and its `result()` waits for the cards."""
+        noisy = np.asarray(noisy, np.float32)
         mode = getattr(self, self.inference_type)
-        if lengths is None:
-            return mode(x).cpu().numpy()
-        if self.inference_type not in self.LENGTH_AWARE_MODES:
-            raise ValueError(f"inference type {self.inference_type!r} cannot honor `lengths` "
-                             f"(only {self.LENGTH_AWARE_MODES})")
-        lengths = np.asarray(lengths, np.int64)
-        if lengths.shape != x.shape[:1] or lengths.min() < 1 or lengths.max() > x.shape[1]:
-            raise ValueError(f"lengths must be [B] counts in 1..{x.shape[1]}")
-        return mode(x, torch.as_tensor(lengths, device=self.device)).cpu().numpy()
+        if lengths is not None:
+            if self.inference_type not in self.LENGTH_AWARE_MODES:
+                raise ValueError(f"inference type {self.inference_type!r} cannot honor "
+                                 f"`lengths` (only {self.LENGTH_AWARE_MODES})")
+            lengths = np.asarray(lengths, np.int64)
+            if (lengths.shape != noisy.shape[:1] or lengths.min() < 1
+                    or lengths.max() > noisy.shape[1]):
+                raise ValueError(f"lengths must be [B] counts in 1..{noisy.shape[1]}")
+        shards = ([(self.device, slice(None))] if self.mesh is None
+                  else data_sharding(self.mesh, noisy.shape[0]))
+        pending = PendingBatch()
+        try:
+            for i, (device, rows) in enumerate(shards):
+                self._shard = i
+                args = [_upload(noisy[rows], device)]
+                if lengths is not None:
+                    args.append(_upload(lengths[rows], device))
+                pending.add(mode(*args))
+        finally:
+            self._shard = 0
+        return pending.result() if blocking else pending
 
     def enhance(self, noisy: np.ndarray) -> np.ndarray:
         """[L] -> [L], rescaled to 0.8 of peak (base_inferencer.py:148-152)."""
@@ -141,7 +219,8 @@ class Enhancer:
     def _model(self, *inputs, **kwargs) -> torch.Tensor:
         """The model on float32 inputs cast to the compute dtype; float32 out."""
         self._check_precision()
-        return self.model(*(x.to(self.dtype) for x in inputs), **kwargs).float()
+        model = self.replicas[self._shard]
+        return model(*(x.to(self.dtype) for x in inputs), **kwargs).float()
 
     def _spectrum(self, noisy: torch.Tensor, lengths: torch.Tensor | None):
         """(mag, real, imag, valid_frames) of a batch; with `lengths`, of the

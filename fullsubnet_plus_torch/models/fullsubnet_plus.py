@@ -48,6 +48,11 @@ class FullSubNetPlusConfig:
     output_size: int = 2
     subband_num: int = 1
     kersize: tuple = (3, 5, 10)
+    # the mesh axes the folded (B*F) sub-band batch is split over, e.g.
+    # ("data", "freq") (JAX models/fullsubnet_plus.py:73-78); the Enhancer
+    # and the eval step resolve them to cards (parallel/mesh.py
+    # Mesh.fold_devices) and hand those to `shard_fold`
+    fold_sharding: tuple | None = None
     # serving only: the sub-band LSTM's recurrent products in int8
     # (ops/lstm2_int8.py), set by Enhancer(compute_dtype="int8"); never
     # used in training and not the checkpoint-parity path
@@ -114,13 +119,21 @@ class FullSubNetPlus(nn.Module):
 
     def prepare_int8(self) -> "FullSubNetPlus":
         """Quantize the sub-band LSTM once for `quantized_lstm` (after the
-        model's final move and cast)."""
+        model's final move and cast, and after `shard_fold`)."""
         self.sb_model.prepare_int8()
+        return self
+
+    def shard_fold(self, devices) -> "FullSubNetPlus":
+        """Split the sub-band fold's rows over `devices` in the forward
+        without a gradient (the first is the model's own card): the
+        counterpart of the fold sharded over `config.fold_sharding`."""
+        self.sb_model.shard_fold(devices)
         return self
 
     def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
                 noisy_imag: torch.Tensor, valid_frames: torch.Tensor | None = None,
-                training: bool = False) -> torch.Tensor:
+                training: bool = False, row_offset: int = 0,
+                global_batch: int | None = None) -> torch.Tensor:
         """[B, 1, F, T] x 3 -> compressed cIRM [B, 2, F, T], or
         [B, 2, F // groups, T] with `training`, which applies `drop_band` to
         the sub-band model's input (the reference gates it on batch size > 1,
@@ -129,7 +142,11 @@ class FullSubNetPlus(nn.Module):
         `valid_frames` ([B] int): per-utterance valid STFT frame counts of a
         bucket-padded batch; every statistic over time (norms, attention
         pooling, TCN GroupNorms) then sees exactly the exact-length run's
-        frames. It is a serving-path feature and excludes `training`."""
+        frames. It is a serving-path feature and excludes `training`.
+
+        `row_offset` and `global_batch`: under data parallelism the batch is
+        the rows from `row_offset` of a global batch of `global_batch` rows,
+        and `drop_band` couples each row's kept bins to its global index."""
         if training and valid_frames is not None:
             raise ValueError("valid_frames is a serving-path feature")
         cfg = self.config
@@ -173,8 +190,8 @@ class FullSubNetPlus(nn.Module):
             dim=2)
         sb_input = self.norm(sb_input, valid=valid)  # [B, F, 34, T]
         if training:
-            sb_input = drop_band(sb_input.permute(0, 2, 1, 3),
-                                 cfg.num_groups_in_drop_band).permute(0, 2, 1, 3)
+            sb_input = drop_band(sb_input.permute(0, 2, 1, 3), cfg.num_groups_in_drop_band,
+                                 row_offset, global_batch).permute(0, 2, 1, 3)
         freqs_out = sb_input.shape[1]
         sb_mask = self.sb_model(sb_input.reshape(batch * freqs_out, cfg.sb_input_size, frames),
                                 quantized=cfg.quantized_lstm and not training)

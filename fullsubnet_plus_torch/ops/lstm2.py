@@ -20,7 +20,9 @@ operands (a = big + small, both TF32: small.big + big.small + big.big, float32
 sums), which holds the float32 agreement floors; a single TF32 product does not.
 
 `lstm2_fc` takes the plain version for a tensor on the CPU and launches the
-kernel for a CUDA tensor, or raises; it never falls back. The kernel is
+kernel for a CUDA tensor, or raises; it never falls back. `lstm2_fc_split`
+runs it over the fold's rows split across several cards (`fold_split`, the
+counterpart of `_fold_sharded`, lstm_pallas.py:893-945). The kernel is
 compiled with nvcc from the package's sources at first use, into
 fullsubnet_plus_torch/_build/, and loaded with ctypes (ops/nvcc.py).
 """
@@ -28,13 +30,17 @@ fullsubnet_plus_torch/_build/, and loaded with ctypes (ops/nvcc.py).
 from __future__ import annotations
 
 import ctypes
+import warnings
+from collections import Counter
 from typing import NamedTuple
 
 import torch
 
 from fullsubnet_plus_torch.ops import nvcc
 
-LAUNCHES = 0  # kernel launches through lstm2_fc since import (or last reset)
+# kernel launches through lstm2_fc by card ("cuda:0", ...) since import (or last
+# clear); the total is sum(LAUNCHES.values())
+LAUNCHES: Counter = Counter()
 
 # The sweep's row tiles by dtype: one or two m16 tiles in bf16; one in float32,
 # where two operand buffers of 32 rows do not fit a block (PERF.md: one buffer
@@ -227,6 +233,47 @@ def lstm2_fc(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
     return _launch(x, w)
 
 
+def to_device(weights, device):
+    """A weights NamedTuple (nested ones too) with every tensor on `device`."""
+    return type(weights)(*(to_device(v, device) if isinstance(v, tuple) else v.to(device)
+                           for v in weights))
+
+
+def fold_split(fn, x: torch.Tensor, weights, devices) -> torch.Tensor:
+    """`fn(x_part, weights[i])` on `devices[i]` over an even split of the
+    fold's rows, the outputs gathered in order on x's device.
+
+    The fold's rows are independent sequences, so the split needs no
+    communication but the copies in and out; every part is dispatched
+    before any is waited on (each launch uses its own card's stream). Where
+    the rows do not divide over the cards the whole fold runs on x's card
+    with a warning, as the JAX wrapper does (lstm_pallas.py:918-932);
+    `weights[0]` must then lie on x's device."""
+    parts = len(devices)
+    if parts != len(weights) or parts == 0:
+        raise ValueError(f"fold_split: {len(weights)} weights for {parts} devices")
+    if parts == 1 or x.shape[0] % parts:
+        if parts > 1:
+            warnings.warn(f"fold of {x.shape[0]} rows does not divide over {parts} cards; "
+                          "running the LSTM kernel on one card (the whole fold)",
+                          stacklevel=3)
+        return fn(x, weights[0])
+    rows = x.shape[0] // parts
+    # every part is copied out before any kernel is queued: a copy between
+    # cards waits for both cards' streams, so a copy queued after the first
+    # part's kernel would wait for that kernel
+    xs = [x[i * rows:(i + 1) * rows].to(dev, non_blocking=True)
+          for i, dev in enumerate(devices)]
+    outs = [fn(part, w) for part, w in zip(xs, weights)]
+    return torch.cat([o.to(x.device, non_blocking=True) for o in outs])
+
+
+def lstm2_fc_split(x: torch.Tensor, weights, devices) -> torch.Tensor:
+    """`lstm2_fc` over the fold split across `devices` (`fold_split`), with
+    `weights[i]` the operands on `devices[i]`."""
+    return fold_split(lstm2_fc, x, weights, devices)
+
+
 def fwd_mma_shared_memory_bytes(rows: int, d_in: int, hidden: int,
                                 dtype: torch.dtype = torch.bfloat16) -> int:
     """Dynamic shared memory of one block of the sweep (shared_bytes_mma in
@@ -299,7 +346,6 @@ def _check(x: torch.Tensor, w: LSTM2Weights) -> None:
 
 
 def _launch(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
-    global LAUNCHES
     _check(x, w)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
@@ -318,7 +364,7 @@ def _launch(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"lstm2_fwd launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    LAUNCHES[str(x.device)] += 1
     return out
 
 

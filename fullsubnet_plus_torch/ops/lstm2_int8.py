@@ -26,13 +26,17 @@ x W1 and the fc), from weights packed once into fragment order with the
 gate columns interleaved (`pack_int8_mma`, called by `LSTM2.prepare_int8`).
 
 `lstm2_int8_fc` takes the plain version for a tensor on the CPU and
-launches the kernel for a CUDA tensor, or raises; it never falls back. The
-kernel is built with nvcc at first use (ops/nvcc.py).
+launches the kernel for a CUDA tensor, or raises; it never falls back.
+`lstm2_int8_fc_split` runs it over the fold's rows split across several
+cards, each with its own copy of the prepared weights (the counterpart of
+`stacked_lstm2_quantized_sharded`, lstm_pallas.py:1163-1168). The kernel is
+built with nvcc at first use (ops/nvcc.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -42,6 +46,7 @@ from fullsubnet_plus_torch.ops import nvcc
 from fullsubnet_plus_torch.ops.lstm2 import (
     SMEM_LIMIT,
     fewest_waves_tile,
+    fold_split,
     interleave_gates,
     lstm_cell,
     pack_mma_b,
@@ -49,7 +54,9 @@ from fullsubnet_plus_torch.ops.lstm2 import (
 )
 
 H_QUANT_SCALE = 127.0
-LAUNCHES = 0  # kernel launches through lstm2_int8_fc since import (or last reset)
+# kernel launches through lstm2_int8_fc by card ("cuda:0", ...) since import (or last
+# clear); the total is sum(LAUNCHES.values())
+LAUNCHES: Counter = Counter()
 
 INT8_ROWS_PER_CTA = (16, 32)  # the sweep's row tiles: one or two m16 tiles
 MAX_ROWS_32_HIDDEN = 384  # R 32 is built for blocks of up to 384 threads only
@@ -204,6 +211,12 @@ def lstm2_int8_fc(x: torch.Tensor, w: LSTM2Int8Weights) -> torch.Tensor:
     return _launch(x, w)
 
 
+def lstm2_int8_fc_split(x: torch.Tensor, weights, devices) -> torch.Tensor:
+    """`lstm2_int8_fc` over the fold split across `devices` (ops/lstm2.py
+    `fold_split`), with `weights[i]` the prepared operands on `devices[i]`."""
+    return fold_split(lstm2_int8_fc, x, weights, devices)
+
+
 def shared_memory_bytes(rows: int, d_in: int, hidden: int) -> int:
     """Dynamic shared memory of one block of R = rows (shared_bytes in
     lstm2_int8_fwd.cu): two operand buffers of R int8 rows [h1q | h2q | pad]
@@ -271,7 +284,6 @@ def _check(x: torch.Tensor, w: LSTM2Int8Weights) -> None:
 
 
 def _launch(x: torch.Tensor, w: LSTM2Int8Weights) -> torch.Tensor:
-    global LAUNCHES
     _check(x, w)
     n, d, steps = x.shape
     hidden, out_dim = w.u1q.shape[0], w.fc_w.shape[1]
@@ -290,7 +302,7 @@ def _launch(x: torch.Tensor, w: LSTM2Int8Weights) -> torch.Tensor:
                                  n, steps, d, hidden, out_dim, rows, stream)
     if err != 0:
         raise RuntimeError(f"lstm2_int8_fwd launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    LAUNCHES[str(x.device)] += 1
     return out
 
 

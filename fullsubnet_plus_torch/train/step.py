@@ -25,6 +25,19 @@ does not fit the reverse sweep's block (ROADMAP.md Queue 2 R6).
 `make_joint_mask_train_step` and `make_residual_train_step` of the JAX
 module serve model variants the port does not have (ROADMAP.md Queue 1
 item 11).
+
+Under a mesh (parallel/mesh.py) the train step is data-parallel with JAX's
+multi-process batch semantics, one card a rank: each rank feeds its own
+rows; the loss is the mean over the global batch and the gradient the mean
+of the ranks'. Each rank's rows keep their global row offset for
+`drop_band`. The ranks agree through ONE all_reduce of the flat gradient with the loss
+and a stop flag appended, before the norm, the clip and Adam, so the
+non-finite select decides alike and the parameters stay bit-identical on
+every rank. The counterpart of `stacked_lstm2_train_sharded` is this step:
+each rank sweeps only its own fold rows, and the all_reduce sums the
+weight gradients. A training mesh of several cards in one process, or with
+a 'freq' axis, is not ported (ROADMAP.md Queue 1 item 12). `make_bucketed_eval_step(mesh=)` splits the
+rows over this process's cards.
 """
 
 from __future__ import annotations
@@ -42,6 +55,14 @@ from fullsubnet_plus_torch.dsp.norms import time_mask
 from fullsubnet_plus_torch.dsp.stft import stft_split
 from fullsubnet_plus_torch.dsp.unfold import drop_band
 from fullsubnet_plus_torch.enhance import _crm_to_wave, _reflect_fix_tail
+from fullsubnet_plus_torch.parallel.mesh import (
+    all_reduce_sum_,
+    check_mesh,
+    data_sharding,
+    replicated,
+    row_offset,
+    sync_replicas,
+)
 
 
 @dataclasses.dataclass
@@ -154,17 +175,47 @@ def _to_device(array, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def _forward(model, mag, real, imag, training, compute_dtype=torch.float32,
-             valid_frames=None, n_inputs=3):
+             valid_frames=None, n_inputs=3, rows=None):
     """The model on [B, F, T] views (the magnitude alone for a one-view
     model, `n_inputs` 1), with its parameters and inputs cast to
     `compute_dtype` where that is not float32 (the masters stay float32 and
-    the cast is differentiated through, so gradients arrive in float32)."""
+    the cast is differentiated through, so gradients arrive in float32).
+    `rows` (row_offset, global_batch) places a training batch in the
+    global one, for `drop_band`."""
     views = [v[:, None].to(compute_dtype) for v in (mag, real, imag)[:n_inputs]]
+    kwargs = {"valid_frames": valid_frames, "training": training}
+    if rows is not None:
+        kwargs["row_offset"], kwargs["global_batch"] = rows
     if compute_dtype == torch.float32:
-        return model(*views, valid_frames=valid_frames, training=training)
+        return model(*views, **kwargs)
     cast = {k: p.to(compute_dtype) for k, p in model.named_parameters()}
-    return torch.func.functional_call(
-        model, cast, tuple(views), {"valid_frames": valid_frames, "training": training})
+    return torch.func.functional_call(model, cast, tuple(views), kwargs)
+
+
+def _mesh_devices(mesh) -> list:
+    """The cards of a mesh, each resolved (a CUDA mesh without CUDA raises)."""
+    check_mesh(mesh)
+    for dev in mesh.devices.ravel():
+        resolve_device(dev)
+    return mesh.data_devices
+
+
+def _model_replicas(mesh, fold=None):
+    """A function model -> [one copy per 'data' card of `mesh`], made once
+    per model (each copy's fold split over the cards of the `fold` axes)
+    and synced from the model at every call."""
+    cache = {}
+
+    def replicas(model):
+        if cache.get("model") is not model:
+            cache["model"], cache["replicas"] = model, replicated(mesh, model)
+            if fold:
+                for i, replica in enumerate(cache["replicas"]):
+                    replica.shard_fold(mesh.fold_devices(i, fold))
+        sync_replicas(cache["replicas"])
+        return cache["replicas"]
+
+    return replicas
 
 
 def _check_full_float32(compute_dtype, device: torch.device) -> None:
@@ -194,24 +245,40 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
     the step counter still advances and metrics["skipped"] is 1.0. Nothing
     in the step reads a value back to the host; the metrics ("loss",
     "grad_norm", "skipped") are device tensors.
+
+    `mesh=` (parallel.Mesh, one card a rank) makes the step data-parallel
+    across the ranks: (state, noisy, clean, stop=False) with this rank's
+    rows of the global batch; the state lies on the mesh's card and
+    `device` is not used. `stop` (this rank's preemption flag) rides in the
+    gradient all_reduce, and under a process group metrics["stop"] is the
+    number of ranks that set it, the same on every rank. A mesh of several
+    cards in one process raises NotImplementedError (ROADMAP.md Queue 1
+    item 12).
     """
     if model_def.n_inputs != 3:
         raise not_ported(f"a train step for {model_def.name!r}",
                          "Queue 2 R6, the reverse sweep at the fb_model shape")
     if mesh is not None:
-        raise not_ported("mesh= (data-parallel training)", "Queue 1 item 10")
+        data_devices = _mesh_devices(mesh)
+        if mesh.local_data > 1 or mesh.shape["freq"] > 1:
+            raise not_ported(f"a training mesh of {mesh.devices.size} cards in one process "
+                             "(training runs one rank per card)", "Queue 1 item 12")
+        device = data_devices[0]
     device = resolve_device(device)
     _check_full_float32(compute_dtype, device)
     num_groups = config.num_groups_in_drop_band
 
-    def loss_value(model, noisy, clean):
+    def loss_value(model, noisy, clean, rows=None):
+        """The loss of `model` on a batch; `rows` (row_offset, global_batch)
+        places it in the global batch."""
+        offset, total = rows if rows is not None else (0, None)
         noisy_mag, noisy_real, noisy_imag = stft_split(noisy, n_fft, hop_length, win_length)
         _, clean_real, clean_imag = stft_split(clean, n_fft, hop_length, win_length)
         cirm = build_complex_ideal_ratio_mask(noisy_real, noisy_imag, clean_real, clean_imag)
-        cirm = drop_band(cirm.permute(0, 3, 1, 2), num_groups).permute(0, 2, 3, 1)
+        cirm = drop_band(cirm.permute(0, 3, 1, 2), num_groups, offset, total).permute(0, 2, 3, 1)
 
         def forward(mag, real, imag):
-            return _forward(model, mag, real, imag, True, compute_dtype)
+            return _forward(model, mag, real, imag, True, compute_dtype, rows=rows)
 
         if remat:
             crm = checkpoint(forward, noisy_mag, noisy_real, noisy_imag, use_reentrant=False)
@@ -219,22 +286,42 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
             crm = forward(noisy_mag, noisy_real, noisy_imag)
         return loss_fn(cirm, crm.permute(0, 2, 3, 1).float())
 
-    def train_step(state: TrainState, noisy, clean):
+    def data_parallel_grads(model, noisy, clean, stop):
+        """(mean flat gradient, mean loss, stop count) over the global
+        batch: this rank's gradient, then one all_reduce of [gradient |
+        loss | stop] over the ranks."""
+        rows = noisy.shape[0]
+        noisy, clean = (_to_device(a, device) for a in (noisy, clean))
+        with torch.enable_grad():
+            loss = loss_value(model, noisy, clean,
+                              rows=(row_offset(mesh, rows), rows * mesh.process_count))
+            grads = _flatten(torch.autograd.grad(loss, list(model.parameters())))
+        flag = torch.full((1,), float(bool(stop)), device=device)
+        buffer = all_reduce_sum_(torch.cat([grads, loss.detach().reshape(1), flag]), mesh)
+        return buffer[:-2] / mesh.process_count, buffer[-2] / mesh.process_count, buffer[-1]
+
+    def train_step(state: TrainState, noisy, clean, stop: bool = False):
         _check_full_float32(compute_dtype, device)
         params = list(state.model.parameters())
         if params[0].device.type != device.type:
             raise ValueError(f"the state lies on {params[0].device}, the step on {device}")
-        noisy, clean = (_to_device(a, params[0].device) for a in (noisy, clean))
-        with torch.enable_grad():
-            loss = loss_value(state.model, noisy, clean)
-            grads = torch.autograd.grad(loss, params)
+        metrics = {}
+        if mesh is None:
+            noisy, clean = (_to_device(a, params[0].device) for a in (noisy, clean))
+            with torch.enable_grad():
+                loss = loss_value(state.model, noisy, clean)
+                grads = _flatten(torch.autograd.grad(loss, params))
+        else:
+            grads, loss, stops = data_parallel_grads(state.model, noisy, clean, stop)
+            if mesh.group is not None:
+                metrics["stop"] = stops
         with torch.no_grad():
             loss, opt = loss.detach(), state.opt_state
-            grads, old = _flatten(grads), _flatten(params)
+            old = _flatten(params)
             grad_norm = torch.linalg.vector_norm(grads)
             updates, count, mu, nu = optimizer.update(grads, grad_norm, opt)
             new = old + updates
-            metrics = {"loss": loss, "grad_norm": grad_norm}
+            metrics.update(loss=loss, grad_norm=grad_norm)
             if skip_nonfinite:
                 # the update itself must be finite too: m / (sqrt(v) + eps)
                 # can overflow from finite gradients
@@ -288,10 +375,32 @@ def make_bucketed_eval_step(model_def, config, loss_fn, *, n_fft: int = 512,
     over the valid frames (exact for a mean of a pointwise loss: the masked
     region adds loss(0, 0) = 0, and the padded mean is rescaled by
     T_padded / T_valid), and the iSTFT normalizes with each row's own window
-    envelope."""
-    if mesh is not None:
-        raise not_ported("mesh= (sharded validation)", "Queue 1 item 10")
-    device = resolve_device(device)
+    envelope.
+
+    `mesh=` (parallel.Mesh of this process's cards) splits the rows over
+    its 'data' cards (they must divide), one copy of the model on each,
+    synced from `model` at every call; with the config's `fold_sharding`
+    naming 'freq' each shard's fold splits over its 'freq' cards. The
+    results are gathered on the mesh's first card, where `model` lies."""
+    if mesh is None:
+        return _bucketed_eval(model_def, loss_fn, n_fft, hop_length, win_length,
+                              resolve_device(device))
+    data_devices = _mesh_devices(mesh)
+    steps = [_bucketed_eval(model_def, loss_fn, n_fft, hop_length, win_length, dev)
+             for dev in data_devices]
+    replicas = _model_replicas(mesh, getattr(config, "fold_sharding", None))
+
+    def mesh_eval_step(model, noisy, clean, lengths):
+        outs = [step(replica, noisy[part], clean[part], np.asarray(lengths)[part])
+                for step, replica, (_, part) in zip(steps, replicas(model),
+                                                    data_sharding(mesh, len(noisy)))]
+        return tuple(torch.cat([o[k].to(data_devices[0]) for o in outs]) for k in range(2))
+
+    return mesh_eval_step
+
+
+def _bucketed_eval(model_def, loss_fn, n_fft, hop_length, win_length, device):
+    """`make_bucketed_eval_step`'s step on one device."""
     n_inputs = model_def.n_inputs
 
     @torch.no_grad()

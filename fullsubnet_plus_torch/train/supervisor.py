@@ -14,6 +14,12 @@ Entry point: `python -m fullsubnet_plus_torch.cli.train -C cfg.toml
 `run_complete.json` marker the trainer writes after its last epoch: exit
 codes cannot tell it from "checkpointed and exited for resume", since the
 recovery paths return normally.
+
+In a multi-rank run each rank's process has its own supervisor, all on the
+same save directory: rank 0's writes `supervisor.json` and clears a stale
+marker; the others write nothing and read rank 0's heartbeat and marker
+(every rank steps together, and none exits before rank 0's files are
+written, train/trainer.py).
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ def _heartbeat_age(save_dir: str):
 def supervise(train_argv, save_dir: str, max_restarts: int = 3,
               heartbeat_timeout: float = 1800.0, grace: float = 60.0,
               poll: float = 0.5, env=None, log=print,
-              launcher=None) -> int:
+              launcher=None, is_primary: bool = True) -> int:
     """Drive `cli.train <train_argv>` to completion; returns an exit code.
 
     * Child exits and `run_complete.json` exists -> success (0).
@@ -61,15 +67,21 @@ def supervise(train_argv, save_dir: str, max_restarts: int = 3,
     Only the exact child pid is ever signaled, never a pattern.
 
     `supervisor.json` in `save_dir` records {pid, attempt, phase} for
-    external monitoring (and the tests). `launcher` overrides the child
+    external monitoring (and the tests); a non-primary rank's supervisor
+    (`is_primary` False) writes it not, nor clears the marker. `launcher` overrides the child
     command prefix (default: `python -m fullsubnet_plus_torch.cli.train`).
     """
-    os.makedirs(save_dir, exist_ok=True)
     done_marker = os.path.join(save_dir, "run_complete.json")
     ckpt = os.path.join(save_dir, "checkpoints", "latest_model.npz")
     status_path = os.path.join(save_dir, "supervisor.json")
-    if os.path.exists(done_marker):
-        os.unlink(done_marker)  # stale marker from a previous completed run
+    if is_primary:
+        os.makedirs(save_dir, exist_ok=True)
+        if os.path.exists(done_marker):
+            os.unlink(done_marker)  # stale marker from a previous completed run
+
+    def write_status(payload: dict) -> None:
+        if is_primary:
+            _write_status(status_path, payload)
 
     attempt = 0
     while True:
@@ -81,7 +93,7 @@ def supervise(train_argv, save_dir: str, max_restarts: int = 3,
         cmd = list(prefix) + argv
         child = subprocess.Popen(cmd, env=env)
         log(f"[supervisor] attempt {attempt}: launched pid {child.pid}")
-        _write_status(status_path, {
+        write_status({
             "pid": child.pid, "attempt": attempt, "phase": "running",
             "cmd": cmd, "time": time.time(),
         })
@@ -112,7 +124,7 @@ def supervise(train_argv, save_dir: str, max_restarts: int = 3,
 
         if os.path.exists(done_marker):
             log(f"[supervisor] run complete after {attempt} restart(s)")
-            _write_status(status_path, {
+            write_status({
                 "pid": child.pid, "attempt": attempt, "phase": "complete",
                 "time": time.time(),
             })
@@ -121,7 +133,7 @@ def supervise(train_argv, save_dir: str, max_restarts: int = 3,
                   f"exit code {rc} without completion marker")
         if attempt >= max_restarts:
             log(f"[supervisor] giving up after {attempt} restart(s): {reason}")
-            _write_status(status_path, {
+            write_status({
                 "pid": child.pid, "attempt": attempt, "phase": "failed",
                 "reason": reason, "time": time.time(),
             })

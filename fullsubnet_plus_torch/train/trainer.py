@@ -17,6 +17,15 @@ and training goes on; `heartbeat.json` is rewritten every
 train/supervisor.py. `history` keeps each epoch's losses, scores and host
 timings (the epoch's wall, the time spent waiting on the loader, each
 step's wall, validation's eval and metric time).
+
+Under a mesh across ranks (parallel/mesh.py; one rank per card, each fed
+its own shard of the clean list) the step is data-parallel and the ranks
+keep in step: they agree each epoch's step count (the least of theirs)
+before it starts, and a SIGTERM on any rank rides in the step's gradient
+all_reduce, so every rank stops after the same step. Only the primary
+rank (`is_primary`) writes checkpoints, TensorBoard events, the heartbeat
+and `run_complete.json`, and only it validates; the score is broadcast, a
+failure there as NaN, on which every rank raises (JAX trainer.py:350-377).
 """
 
 from __future__ import annotations
@@ -34,9 +43,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from fullsubnet_plus_torch.device import not_ported, resolve_device
+from fullsubnet_plus_torch.device import resolve_device
 from fullsubnet_plus_torch.eval.metrics import compute_metric, metric_available, validation_score
 from fullsubnet_plus_torch.io.checkpoint import CheckpointManager, load_torch_checkpoint
+from fullsubnet_plus_torch.parallel.mesh import agreed_min, barrier, broadcast_float, check_mesh
 from fullsubnet_plus_torch.train.loss import mse_loss
 from fullsubnet_plus_torch.train.step import (
     init_train_state,
@@ -71,11 +81,19 @@ class Trainer:
                  save_max_metric_score: bool = True, mesh=None, compute_dtype=None,
                  remat: bool = False, seed: int = 0, use_tensorboard: bool = True,
                  handle_preemption: bool = True, heartbeat_interval: int = 50,
-                 lr: float | None = None, device="cuda"):
-        if mesh is not None:
-            raise not_ported("mesh= (data-parallel training)", "Queue 1 item 10")
+                 lr: float | None = None, device="cuda", is_primary: bool | None = None):
+        """`mesh` (parallel.Mesh, one card a rank): data-parallel training
+        over its ranks; the model lies on its card and `device` is not used.
+        `is_primary` (default: rank 0 of the mesh, or True) writes the
+        files and validates."""
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or bfloat16")
+        if mesh is not None:
+            device = check_mesh(mesh).data_devices[0]
+        if is_primary is None:
+            is_primary = mesh is None or mesh.process_index == 0
+        self.mesh = mesh
+        self.is_primary = is_primary
         self.device = resolve_device(device)
         self.train_loader = train_loader
         self.valid_dataset = valid_dataset
@@ -98,14 +116,15 @@ class Trainer:
         self.valid_num_buckets = max(1, valid_num_buckets)
         self.save_max_metric_score = save_max_metric_score
 
-        self.ckpt = CheckpointManager(save_dir, lr=lr)
+        self.ckpt = CheckpointManager(save_dir, is_primary=is_primary, lr=lr)
         self.start_epoch = 1
         self.best_score = -np.inf if save_max_metric_score else np.inf
         self.heartbeat_interval = max(1, heartbeat_interval)
         self.skipped_steps = 0
         self.history: list[dict] = []
         self._global_step = 0
-        self._preempted = False
+        self._preempted = False  # this process's signal
+        self._stop_agreed = False  # some rank's signal, read from a step's all_reduce
         self._prev_handlers = {}
         # installed by train() alone, so a Trainer built for resume() or
         # inspection never takes Ctrl+C
@@ -113,8 +132,8 @@ class Trainer:
 
         self.train_step = make_train_step(
             model_def, model_config, self.optimizer, self.loss_fn,
-            compute_dtype=COMPUTE_DTYPES[compute_dtype], remat=remat, device=self.device,
-            **self.acoustics)
+            compute_dtype=COMPUTE_DTYPES[compute_dtype], mesh=mesh, remat=remat,
+            device=self.device, **self.acoustics)
         self.eval_step = make_eval_step(model_def, model_config, self.loss_fn,
                                         device=self.device, **self.acoustics)
         self.bucketed_eval_step = make_bucketed_eval_step(
@@ -125,7 +144,7 @@ class Trainer:
 
         self.writer = None
         self.visualization_n_samples = 3
-        if use_tensorboard:
+        if use_tensorboard and is_primary:
             from fullsubnet_plus_torch.utils.tb_events import EventWriter
 
             self.writer = EventWriter(os.path.join(save_dir, "logs"))
@@ -195,6 +214,8 @@ class Trainer:
                    "boundary")
 
     def _write_heartbeat(self, epoch: int, loss: float):
+        if not self.is_primary:
+            return
         beat = {"epoch": epoch, "global_step": self._global_step,
                 # strict JSON: a bare NaN would break JSON readers of other languages
                 "loss": loss if np.isfinite(loss) else None,
@@ -219,6 +240,8 @@ class Trainer:
         """The marker train/supervisor.py reads: the recovery paths return
         normally too, so an exit code cannot tell "finished" from
         "checkpointed for -R"."""
+        if not self.is_primary:
+            return
         path = os.path.join(self.ckpt.save_dir, "run_complete.json")
         with open(path + ".tmp", "w") as f:
             json.dump({"epochs": self.epochs, "time": time.time()}, f)
@@ -226,27 +249,54 @@ class Trainer:
 
     # -- the loop ----------------------------------------------------------------
 
+    @property
+    def _distributed(self) -> bool:
+        return self.mesh is not None and self.mesh.group is not None
+
     def train(self, only_validation: bool = False):
-        self._preempted = False
-        try:  # a marker of an earlier finished run
-            os.unlink(os.path.join(self.ckpt.save_dir, "run_complete.json"))
-        except FileNotFoundError:
-            pass
+        self._preempted = self._stop_agreed = False
+        if self.is_primary:
+            try:  # a marker of an earlier finished run
+                os.unlink(os.path.join(self.ckpt.save_dir, "run_complete.json"))
+            except FileNotFoundError:
+                pass
         if self._handle_preemption and threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGTERM, signal.SIGINT):
                 self._prev_handlers[sig] = signal.signal(sig, self._on_preempt)
         try:
             self._train_loop(only_validation)
+            # no rank leaves before the primary's files are written: a
+            # supervisor relaunching a rank reads them
+            barrier(self.mesh)
         finally:
             for sig, handler in self._prev_handlers.items():
                 signal.signal(sig, handler)
             self._prev_handlers = {}
 
+    def _validation_score(self, epoch: int) -> float:
+        """The validation epoch's gate score. Across ranks only the primary
+        validates (the reference's rank-0 pattern, base_trainer.py:328-339)
+        and broadcasts the score; a failure there is logged and broadcast as
+        NaN, and every rank raises."""
+        if not self._distributed:
+            return self._validation_epoch(epoch)
+        score = float("nan")
+        if self.is_primary:
+            try:
+                score = self._validation_epoch(epoch)
+            except Exception:  # noqa: BLE001 - logged; every rank raises below
+                logger.log(f"[Val] epoch {epoch} failed on the primary rank:\n"
+                           f"{traceback.format_exc()}")
+        score = broadcast_float(score, self.mesh)
+        if np.isnan(score):
+            raise RuntimeError(f"validation epoch {epoch} failed on the primary rank")
+        return score
+
     def _train_loop(self, only_validation: bool = False):
         for epoch in range(self.start_epoch, self.epochs + 1):
             if only_validation:
                 # _is_best first: it updates the best score the save records
-                is_best = self._is_best(self._validation_epoch(epoch))
+                is_best = self._is_best(self._validation_score(epoch))
                 self.ckpt.save(self.state, epoch, self.best_score, is_best)
                 self._mark_complete()
                 return
@@ -268,7 +318,9 @@ class Trainer:
             if self.writer:
                 self.writer.add_scalar("Loss/Train", train_loss, epoch)
 
-            if self._preempted:
+            # across ranks the flag every rank read from the all_reduce, so
+            # that all of them stop here or none
+            if self._stop_agreed if self._distributed else self._preempted:
                 # the interrupted epoch is saved as epoch - 1, so -R runs it again
                 self.ckpt.save(self.state, epoch - 1, self.best_score, latest_only=True)
                 self._write_heartbeat(epoch, train_loss)
@@ -282,7 +334,7 @@ class Trainer:
                 # the epoch's checkpoint is on disk: a failed validation
                 # skips this round's gate and training goes on
                 try:
-                    score = self._validation_epoch(epoch)
+                    score = self._validation_score(epoch)
                 except Exception:  # noqa: BLE001 - logged; the run continues
                     logger.log(f"[Val] epoch {epoch} FAILED, continuing training:\n"
                                f"{traceback.format_exc()}")
@@ -293,16 +345,25 @@ class Trainer:
 
     def _train_epoch(self, epoch: int) -> float:
         """One epoch's steps. Losses are fetched LOSS_WINDOW steps late, so
-        the host queues steps ahead of the card."""
+        the host queues steps ahead of the card. Across ranks the epoch runs
+        the least of the ranks' batch counts, and this rank's preemption
+        flag goes into each step's all_reduce: every rank reads the
+        reduced flag at the same fetch and stops after the same step."""
+        distributed = self._distributed
+        steps = agreed_min(len(self.train_loader), self.mesh) if distributed else None
         pending: deque = deque()
         loss_total, n_counted, last_loss = 0.0, 0, 0.0
+        stop_seen = False
         record = {"epoch": epoch, "steps": 0, "skipped": 0, "loader_wait_s": 0.0,
                   "step_walls_ms": []}
         self.history.append(record)
 
         def fetch():
-            nonlocal loss_total, n_counted, last_loss
-            loss, skipped = (float(v) for v in pending.popleft())
+            nonlocal loss_total, n_counted, last_loss, stop_seen
+            metrics = pending.popleft()
+            loss, skipped = float(metrics["loss"]), float(metrics["skipped"])
+            if float(metrics.get("stop", 0.0)) > 0:
+                stop_seen = self._stop_agreed = True
             if skipped > 0:  # a rejected step's loss stays out of the mean
                 self.skipped_steps += 1
                 record["skipped"] += 1
@@ -316,14 +377,18 @@ class Trainer:
         t_epoch = t_step = time.perf_counter()
         batches = self.train_loader.epoch(epoch)
         try:
-            while True:
+            while steps is None or record["steps"] < steps:
                 t_wait = time.perf_counter()
                 batch = next(batches, None)
                 record["loader_wait_s"] += time.perf_counter() - t_wait
                 if batch is None:
                     break
-                self.state, metrics = self.train_step(self.state, *batch)
-                pending.append((metrics["loss"], metrics["skipped"]))
+                if distributed:
+                    self.state, metrics = self.train_step(self.state, *batch,
+                                                          stop=self._preempted)
+                else:
+                    self.state, metrics = self.train_step(self.state, *batch)
+                pending.append(metrics)
                 record["steps"] += 1
                 self._global_step += 1
                 if len(pending) > LOSS_WINDOW:
@@ -333,7 +398,9 @@ class Trainer:
                 now = time.perf_counter()
                 record["step_walls_ms"].append((now - t_step) * 1e3)
                 t_step = now
-                if self._preempted:
+                # across ranks a local flag stops nothing until the reduced
+                # one is fetched, the same step on every rank
+                if stop_seen if distributed else self._preempted:
                     break
         finally:
             batches.close()  # stops the loader's producer when the loop leaves early
@@ -345,9 +412,8 @@ class Trainer:
 
     def _validation_epoch(self, epoch: int) -> float:
         """Validation split by speech type (trainer.py:364-444); the No_reverb
-        gate score. Bucketed unless valid_batch_size is 0. One process
-        validates: the JAX package's multi-host broadcast of the score waits
-        for multi-device training (ROADMAP Queue 1 item 10)."""
+        gate score. Bucketed unless valid_batch_size is 0. Across ranks
+        `_validation_score` runs it on the primary alone."""
         if self.valid_batch_size:
             return self._validation_epoch_bucketed(epoch)
         return self._validation_epoch_per_utterance(epoch)

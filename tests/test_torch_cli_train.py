@@ -195,8 +195,13 @@ def test_supervise_recovers_a_killed_child(corpus, tmp_path):
 def test_cuda_by_default_and_refuses_without_it(corpus, tmp_path):
     save_dir = str(tmp_path / "run")
     config = _toml(corpus, save_dir)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cli.main(["-C", config, "--coordinator", "localhost:1", "--device", "cpu"])
+    # malformed rank flags raise before anything is launched or written
+    for flags in (["--num-hosts", "2", "--host-id", "0"],
+                  ["--coordinator", "localhost:1", "--num-hosts", "2", "--host-id", "2"],
+                  ["--host-id", "1"]):
+        with pytest.raises(ValueError, match="process id|coordinator"):
+            cli.main(["-C", config, "--device", "cpu", *flags])
+    assert not os.path.exists(save_dir)
     if torch.cuda.is_available():
         return  # the default device is there: nothing to refuse
     with pytest.raises(RuntimeError, match="CUDA is not available"):

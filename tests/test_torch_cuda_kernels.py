@@ -71,10 +71,10 @@ def test_lstm2_kernel_matches_plain_on_cuda(rng, dtype):
     x = torch.from_numpy((0.5 * rng.standard_normal((n, d, t))).astype(np.float32))
     x = x.to("cuda", dtype)
     w = lstm.packed(linear)
-    before = ops_lstm2.LAUNCHES
+    before = sum(ops_lstm2.LAUNCHES.values())
     out = ops_lstm2.lstm2_fc(x, w).float()
     torch.cuda.synchronize()
-    assert ops_lstm2.LAUNCHES == before + 1
+    assert sum(ops_lstm2.LAUNCHES.values()) == before + 1
     ref = ops_lstm2.lstm2_fc_reference(x, w).float()
     assert _snr(ref, out) > FLOOR[dtype], _snr(ref, out)
 
@@ -185,11 +185,11 @@ def test_int8_kernel_matches_plain_on_cuda(rng, monkeypatch, n, t, rows):
     _need_card()
     x, w = _int8_case(rng, n, t, 34, 384, 2)
     monkeypatch.setattr(ops_int8, "int8_rows_per_cta", lambda *_: rows)
-    before = ops_int8.LAUNCHES
+    before = sum(ops_int8.LAUNCHES.values())
     out = ops_int8.lstm2_int8_fc(x, w)
     again = ops_int8.lstm2_int8_fc(x, w)
     torch.cuda.synchronize()
-    assert ops_int8.LAUNCHES == before + 2
+    assert sum(ops_int8.LAUNCHES.values()) == before + 2
     assert torch.equal(out, again)
     ref = ops_int8.lstm2_int8_fc_reference(x, w).float()
     assert _snr(ref, out.float()) >= 40.0, _snr(ref, out.float())
@@ -323,7 +323,8 @@ def test_kernel_matches_jax_fixture(name):
     and K2 with K3 or K4 (`lstm2_fc_train` and autograd, by `FUSED_WGRAD`)."""
     _need_card()
     kernel, *_, dtype, _, fused = gen.CASES[name]
-    counts = {"k1": lambda: ops_lstm2.LAUNCHES, "k5": lambda: ops_int8.LAUNCHES,
+    counts = {"k1": lambda: sum(ops_lstm2.LAUNCHES.values()),
+              "k5": lambda: sum(ops_int8.LAUNCHES.values()),
               "train": lambda: (lt.LAUNCHES["lstm2_train_fwd"],
                                 lt.LAUNCHES["lstm2_bwd_wgrad" if fused else "lstm2_bwd"])}[kernel]
     before = counts()

@@ -131,12 +131,14 @@ def test_int8_constructs_and_sets_quantized_lstm(params):
     assert e.model.sb_model.int8_weights.u1q.dtype == torch.int8
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"mesh": object()}, "Queue 1 item 10"),
-    ({"inference_type": "no_such_mode"}, "Unknown inference type"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"mesh": object()}, TypeError, "must be a fullsubnet_plus_torch.parallel.Mesh"),
+    ({"inference_type": "no_such_mode"}, NotImplementedError, "Unknown inference type"),
 ])
-def test_unported_enhancer_options_raise(params, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_enhancer_options_raise(params, kwargs, error, match):
+    """A malformed mesh and an unknown mode raise (`mesh=` itself works:
+    tests/test_torch_parallel.py)."""
+    with pytest.raises(error, match=match):
         Enhancer(FULLSUBNET_PLUS, FullSubNetPlusConfig(**TINY), state_dict_from_jax(params),
                  device="cpu", **{**ACOUSTICS, **kwargs})
 

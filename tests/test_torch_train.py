@@ -35,6 +35,7 @@ from fullsubnet_plus_torch.io.convert import (
 )
 from fullsubnet_plus_torch.models import FULLSUBNET_PLUS, get_model
 from fullsubnet_plus_torch.models.fullsubnet_plus import FullSubNetPlusConfig
+from fullsubnet_plus_torch.parallel import make_mesh
 from fullsubnet_plus_torch.train import loss, step
 
 TINY = dict(num_freqs=33, sb_num_neighbors=4, fb_model_hidden_size=16, sb_model_hidden_size=16)
@@ -321,12 +322,17 @@ def test_bf16_and_remat_keep_float32_masters(params):
 
 def test_steps_refuse_what_is_not_ported_and_a_missing_card():
     config, optimizer = FullSubNetPlusConfig(**TINY), step.make_optimizer()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # a malformed mesh raises; a training mesh with a 'freq' axis is not ported
+    # (`mesh=` itself works: tests/test_torch_parallel.py, test_torch_multiprocess.py)
+    with pytest.raises(TypeError, match="Mesh"):
         step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss, mesh=object(),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         step.make_bucketed_eval_step(FULLSUBNET_PLUS, config, loss.mse_loss, mesh=object(),
                                      device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss,
+                             mesh=make_mesh(2, 2, devices=["cpu"] * 4))
     if not torch.cuda.is_available():  # the default device is the card
         for make in (lambda: step.make_train_step(FULLSUBNET_PLUS, config, optimizer,
                                                   loss.mse_loss),
