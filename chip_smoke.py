@@ -123,7 +123,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      a mesh naming it twice), against the 1-card Enhancer at phase 4's
      floors with K1 / K5 once a shard on its card; prints the
      `multi_device` JSON line;
- 10. print the kernels' JSON line, the card's name and power limit, and
+ 10. the model variants at full width (FullSubNet+ of configs/*.toml, seed
+     42): (a) the SE, ECA, CBAM, DeepTSSE and TSSE_ATT attentions, (b)
+     subband_num 2 with ECA and (c) the offline Gaussian and cumulative
+     Laplace norms, each one float32 batch of 8 through
+     `Enhancer.enhance_batch` (phase 4's wavs with their lengths; DeepTSSE,
+     TSSE_ATT and subband_num 2, which JAX refuses to mask, 8 wavs of 10 s
+     without), K1 once a batch and the waveforms against the same batch
+     through the plain LSTM (>= 60 dB); CBAM also in bf16 (K1) and int8
+     (K5), their model output (the compressed cIRM) against the plain
+     LSTM's >= 40 dB, the waveforms printed beside it; (d) a GRU sub-band
+     model's batch,
+     finite and with no LSTM kernel launched, timed beside SE's, and the
+     loop norms (forgetting, hybrid, sub-band forgetting) timed at the
+     batch's shape; (e) the CBAM and TSSE_ATT train steps at
+     configs/train.toml's batch through K2 + K4, K2 + K3 and bf16 K2 + K3
+     from a copy of the plain step's state, held to phase 6's limits, and
+     one float32 TSSE_ATT step profiled (no TF32 product); (f) the
+     joint-mask and residual train steps through K2 + K4 against the plain
+     step (loss 1e-4, gradient norm 1e-3); prints the `variants` JSON line;
+ 11. print the kernels' JSON line, the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
 Imports nothing of JAX. Exits non-zero without CUDA. `python3 chip_smoke.py
@@ -132,6 +151,7 @@ Imports nothing of JAX. Exits non-zero without CUDA. `python3 chip_smoke.py
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import importlib.util
@@ -1001,17 +1021,20 @@ def training_kernels(fused: bool, plain: bool = False):
         lt.lstm2_train_fwd, lt.lstm2_bwd = kernels
 
 
-def same_state_check(state, make_step, batches) -> None:
+def same_state_check(state, make_step, batches, phase: str = "[6]") -> tuple:
     """Phase 6's agreement check, well posed: the plain float32 run takes its
     TRAIN_STEPS steps, and before each one the same step from a copy of its
     state runs through the kernels (float32 K2 + K3, float32 K2 + K4, bf16
     K2 + K3). Each kernel step's loss and gradient norm are held to the
     plain step's from the same state: float32 within TRAIN_LOSS_RTOL and
-    TRAIN_GRAD_NORM_RTOL, bf16's loss within TRAIN_BF16_LOSS_RTOL."""
+    TRAIN_GRAD_NORM_RTOL, bf16's loss within TRAIN_BF16_LOSS_RTOL. Returns
+    (each form's worst loss and gradient-norm gaps, the kernel steps'
+    launches summed); `phase` tags the lines."""
     forms = (("float32_k3", torch.float32, True), ("float32_k4", torch.float32, False),
              ("bfloat16_k3", torch.bfloat16, True))
     steps = {dtype: make_step(dtype) for dtype in (torch.float32, torch.bfloat16)}
     gaps = {tag: [] for tag, _, _ in forms}
+    counted = collections.Counter()
     for i, (noisy, clean) in enumerate(batches):
         trials = {}
         for tag, dtype, fused in forms:
@@ -1019,36 +1042,38 @@ def same_state_check(state, make_step, batches) -> None:
             with training_kernels(fused):
                 _, m = steps[dtype](copy.deepcopy(state), noisy, clean)
             launches = all_launches()
+            counted.update(launches)
             expect = {k: 0 for k in launches}
             expect.update({"lstm2_train_fwd": 1, "lstm2_bwd_wgrad" if fused else "lstm2_bwd": 1})
             if launches != expect:
-                fail(f"train {tag} step {i} from the plain run's state: launches {launches}, "
-                     f"expected {expect}")
+                fail(f"{phase} train {tag} step {i} from the plain run's state: launches "
+                     f"{launches}, expected {expect}")
             trials[tag] = {k: float(v) for k, v in m.items()}
         reset_launches()
         with training_kernels(True, plain=True):
             state, m = steps[torch.float32](state, noisy, clean)
         if any(all_launches().values()):
-            fail(f"the plain step {i} launched kernels: {all_launches()}")
+            fail(f"{phase} the plain step {i} launched kernels: {all_launches()}")
         plain = {k: float(v) for k, v in m.items()}
         for tag, m in trials.items():
             gaps[tag].append((abs(m["loss"] - plain["loss"]) / abs(plain["loss"]),
                               abs(m["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"])))
-        print(f"[6] step {i} from the plain run's state: plain loss {plain['loss']:.6f}, "
+        print(f"{phase} step {i} from the plain run's state: plain loss {plain['loss']:.6f}, "
               f"grad norm {plain['grad_norm']:.6f}; "
               + "; ".join(f"{tag} {trials[tag]['loss']:.6f} / {trials[tag]['grad_norm']:.6f}"
                           for tag in trials))
+    worst = {}
     for tag, dtype, _ in forms:
-        worst_loss = max(g[0] for g in gaps[tag])
-        worst_norm = max(g[1] for g in gaps[tag])
+        worst[tag] = (max(g[0] for g in gaps[tag]), max(g[1] for g in gaps[tag]))
         f32 = dtype == torch.float32
         loss_rtol, norm_rtol = ((TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL) if f32
                                 else (TRAIN_BF16_LOSS_RTOL, None))
-        print(f"[6] {tag} against the plain float32 step from the same state, over "
-              f"{len(gaps[tag])} steps: loss within {worst_loss:.2e} (limit {loss_rtol:g}), "
-              f"gradient norm within {worst_norm:.2e} (limit {norm_rtol or 'none'})")
-        if worst_loss > loss_rtol or (norm_rtol and worst_norm > norm_rtol):
-            fail(f"train {tag} disagrees with the plain step from the same state")
+        print(f"{phase} {tag} against the plain float32 step from the same state, over "
+              f"{len(gaps[tag])} steps: loss within {worst[tag][0]:.2e} (limit {loss_rtol:g}), "
+              f"gradient norm within {worst[tag][1]:.2e} (limit {norm_rtol or 'none'})")
+        if worst[tag][0] > loss_rtol or (norm_rtol and worst[tag][1] > norm_rtol):
+            fail(f"{phase} train {tag} disagrees with the plain step from the same state")
+    return worst, counted
 
 
 def phase_train() -> dict:
@@ -1163,13 +1188,7 @@ def phase_train() -> dict:
     backward = "K3" if lt.fused_wgrad(torch.float32) else "K4 + weight_grads"
     kernels = profile_call(one_step, f"[6] profile float32 train step (K2 + {backward}, "
                                      f"the default form):")
-    products = [e for e in kernels if re.search(r"gemm|conv|cudnn|cutlass|xmma", e.key, re.I)]
-    for e in products:
-        print(f"[6] float32 step matrix product / convolution: "
-              f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:150]}")
-    tf32 = [e.key for e in products if TF32_KERNEL.search(e.key)]
-    if tf32:
-        fail(f"the float32 train step ran TF32 kernels: {tf32}")
+    check_no_tf32(kernels, "[6] the float32 train step")
     return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s")}
                      for k, v in runs.items()},
             "eval_launches": eval_launches,
@@ -1221,8 +1240,6 @@ def phase_batch_path(root: str, lengths: list[int]) -> dict:
     from fullsubnet_plus_torch.cli import enhance as cli
     from fullsubnet_plus_torch.cli.serve import kernel_launches
     from fullsubnet_plus_torch.data.wav import read_wav
-    from fullsubnet_plus_torch.nn import sequence
-    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
     from fullsubnet_plus_torch.utils.config import load_config
 
     config = load_config(os.path.join(REPO, "configs", "inference.toml"))
@@ -1258,14 +1275,9 @@ def phase_batch_path(root: str, lengths: list[int]) -> dict:
                 fail(f"{tag} output {i}: peak {np.max(np.abs(y)):.4f}, expected 0.8")
 
     # the same float32 and int8 runs with the plain LSTMs in place of the kernels
-    sequence.lstm2_fc = lstm2.lstm2_fc_reference
-    sequence.lstm2_int8_fc = lstm2_int8.lstm2_int8_fc_reference
-    try:
+    with plain_lstms():
         run("float32_plain", None)
         run("int8_plain", "int8")
-    finally:
-        sequence.lstm2_fc = lstm2.lstm2_fc
-        sequence.lstm2_int8_fc = lstm2_int8.lstm2_int8_fc
     for tag, floor in (("float32", WAVE_SNR_FLOOR), ("int8", INT8_WAVE_SNR_FLOOR)):
         wave_snr = snr_db(torch.from_numpy(np.concatenate(outputs(f"{tag}_plain"))),
                           torch.from_numpy(np.concatenate(outputs(tag))))
@@ -1720,8 +1732,6 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
     from fullsubnet_plus_torch.data.wav import read_wav
     from fullsubnet_plus_torch.enhance import Enhancer
     from fullsubnet_plus_torch.models import FULLSUBNET
-    from fullsubnet_plus_torch.nn import sequence
-    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
     from fullsubnet_plus_torch.utils.config import load_config
 
     config_path, checkpoint = write_fullsubnet_inputs(root)
@@ -1764,14 +1774,9 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
                 fail(f"FullSubNet {tag} output {i}: peak {np.max(np.abs(y)):.4f}")
 
     # the same runs with the plain LSTMs in place of the kernels, both LSTMs
-    sequence.lstm2_fc = lstm2.lstm2_fc_reference
-    sequence.lstm2_int8_fc = lstm2_int8.lstm2_int8_fc_reference
-    try:
+    with plain_lstms():
         for tag, dtype, _ in FSN_DTYPES:
             run(f"fsn_{tag}_plain", dtype)
-    finally:
-        sequence.lstm2_fc = lstm2.lstm2_fc
-        sequence.lstm2_int8_fc = lstm2_int8.lstm2_int8_fc
     wave_snr = {}
     for tag, floor in (("float32", WAVE_SNR_FLOOR), ("bfloat16", BF16_WAVE_SNR_FLOOR),
                        ("int8", INT8_WAVE_SNR_FLOOR)):
@@ -2485,6 +2490,281 @@ def phase_mesh_enhancer(root: str, lengths: list[int], cards: list) -> dict:
     return out
 
 
+# Phase 10: the model variants at full width (FullSubNet+ of configs/*.toml, seed
+# 42): (tag, config overrides, masked). Masked runs take phase 4's 8 wavs with
+# their lengths; the rest, whose attention or sub-band grouping JAX refuses to
+# mask, 8 wavs of 10 s without lengths (N 2056, T 629 either way).
+VARIANT_RUNS = (
+    ("SE", {"channel_attention_model": "SE"}, True),
+    ("ECA", {"channel_attention_model": "ECA"}, True),
+    ("CBAM", {"channel_attention_model": "CBAM"}, True),
+    ("DeepTSSE", {"channel_attention_model": "DeepTSSE"}, False),
+    ("TSSE_ATT", {"channel_attention_model": "TSSE_ATT"}, False),
+    ("subband2_ECA", {"subband_num": 2, "channel_attention_model": "ECA"}, False),
+    ("offline_gaussian_norm", {"norm_type": "offline_gaussian_norm"}, True),
+    ("cumulative_laplace_norm", {"norm_type": "cumulative_laplace_norm"}, True),
+)
+VARIANT_TRAIN = ("CBAM", "TSSE_ATT")  # (e): their train steps through K2 + K4 and K2 + K3
+LOOP_NORMS = ("forgetting_norm", "hybrid_norm", "sband_forgetting_norm")
+JOINT_ALPHA = 0.5  # (f): both steps' blend of their two losses
+# bf16 and int8 batches against the plain LSTMs', over 3 seeds x 3 attentions
+# on an H100 (scripts/variant_snr_seeds.py): the model's output (compressed
+# cIRM) 52-60 dB, the waveform 35.6-57.7 dB
+VARIANT_CIRM_SNR_FLOOR = 40.0
+VARIANT_WAVE_SNR_FLOOR = 30.0
+
+
+@contextlib.contextmanager
+def plain_lstms():
+    """The batch path's LSTMs through their plain versions for the duration."""
+    from fullsubnet_plus_torch.nn import sequence
+    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
+
+    sequence.lstm2_fc = lstm2.lstm2_fc_reference
+    sequence.lstm2_int8_fc = lstm2_int8.lstm2_int8_fc_reference
+    try:
+        yield
+    finally:
+        sequence.lstm2_fc = lstm2.lstm2_fc
+        sequence.lstm2_int8_fc = lstm2_int8.lstm2_int8_fc
+
+
+def check_no_tf32(kernels: list, what: str) -> None:
+    """List the matrix products and convolutions among profiled kernels and
+    fail on a TF32 one."""
+    products = [e for e in kernels if re.search(r"gemm|conv|cudnn|cutlass|xmma", e.key, re.I)]
+    for e in products:
+        print(f"{what}: matrix product / convolution "
+              f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:150]}")
+    tf32 = [e.key for e in products if TF32_KERNEL.search(e.key)]
+    if tf32:
+        fail(f"{what} ran TF32 kernels: {tf32}")
+
+
+def variant_batch(model_config, batch, lengths, dtype, kernel, floors, tag) -> dict:
+    """One batch of a variant through `Enhancer.enhance_batch` on the card
+    (a warm-up, then the timed run whose launches are counted: `kernel` once
+    and nothing else, or nothing with `kernel` None), and the same batch
+    through the plain LSTMs: the waveforms and the model's output (the
+    compressed cIRM, which the LSTM kernel feeds through its Linear) against
+    the plain run's. `floors` maps "snr_db_vs_plain" (the waveform) and
+    "cirm_snr_db_vs_plain" to the floors they are held to (None: no
+    comparison). The waveform of an untrained model in bf16 or int8 is
+    ill-conditioned (its small mask crosses zero at the loud bins;
+    scripts/variant_snr_seeds.py measures both), so there the cIRM is held
+    to the tighter floor."""
+    from fullsubnet_plus_torch.enhance import Enhancer
+    from fullsubnet_plus_torch.models import FULLSUBNET_PLUS
+    from fullsubnet_plus_torch.models.fullsubnet_plus import FullSubNetPlus
+
+    model = FullSubNetPlus(model_config).init_weights(torch.Generator().manual_seed(42))
+    enhancer = Enhancer(FULLSUBNET_PLUS, model_config, model.state_dict(), device="cuda",
+                        compute_dtype=dtype)
+    enhancer.enhance_batch(batch, lengths=lengths)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = enhancer.enhance_batch(batch, lengths=lengths)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launches().items() if v}
+    audio_s = (sum(lengths) if lengths is not None else batch.size) / SR
+    out = {"launches": launches, "wall_ms": wall * 1e3, "audio_s_per_s": audio_s / wall}
+    if y.shape != batch.shape or not np.isfinite(y).all():
+        fail(f"[10] {tag}: output {y.shape} not finite or not {batch.shape}")
+    if launches != ({kernel: 1} if kernel else {}):
+        fail(f"[10] {tag}: launches {launches}, expected {kernel} once")
+    if floors is None:
+        print(f"[10] {tag}: wall {out['wall_ms']:.1f} ms, {out['audio_s_per_s']:.1f} audio-s/s, "
+              f"launches {launches}")
+        return out
+
+    @torch.inference_mode()
+    def cirm():
+        noisy = torch.from_numpy(batch).cuda()
+        lens = None if lengths is None else torch.as_tensor(lengths, device="cuda")
+        mag, real, imag, valid = enhancer._spectrum(noisy, lens)
+        return enhancer._model(mag[:, None], real[:, None], imag[:, None], valid_frames=valid)
+
+    crm = cirm()
+    with plain_lstms():
+        plain = enhancer.enhance_batch(batch, lengths=lengths)
+        plain_crm = cirm()
+    out["snr_db_vs_plain"] = snr_db(torch.from_numpy(plain), torch.from_numpy(y))
+    out["cirm_snr_db_vs_plain"] = snr_db(plain_crm, crm)
+    print(f"[10] {tag}: wall {out['wall_ms']:.1f} ms, {out['audio_s_per_s']:.1f} audio-s/s, "
+          f"launches {launches}; against the plain LSTM: waveform "
+          f"{out['snr_db_vs_plain']:.1f} dB, cIRM {out['cirm_snr_db_vs_plain']:.1f} dB "
+          f"(floors {floors})")
+    for key, floor in floors.items():
+        if out[key] < floor:
+            fail(f"[10] {tag}: {key} {out[key]:.1f} dB (floor {floor:.0f})")
+    return out
+
+
+def variant_train_setup(overrides: dict):
+    """(model_def, config, optimizer, loss_fn, acoustics, one training batch)
+    at configs/train.toml's width and batch, the model config overridden."""
+    import dataclasses as dc
+
+    from fullsubnet_plus_torch.models import get_model
+    from fullsubnet_plus_torch.train import loss, step
+    from fullsubnet_plus_torch.utils.config import load_config
+
+    toml = load_config(os.path.join(REPO, "configs", "train.toml"))
+    model_def = get_model(toml["model"]["path"])
+    config = dc.replace(model_def.make_config(toml["model"]["args"]), **overrides)
+    acoustics = {k: toml["acoustics"][k] for k in ("n_fft", "hop_length", "win_length")}
+    optimizer = step.make_optimizer(
+        **toml["optimizer"], clip_grad_norm=toml["trainer"]["train"]["clip_grad_norm_value"])
+    rng = np.random.default_rng(4)
+    batch = tuple(np.stack(rows) for rows in
+                  zip(*(train_pair(rng, TRAIN_SAMPLES) for _ in range(TRAIN_BATCH))))
+    return model_def, config, optimizer, loss.get_loss(toml["loss_function"]["name"]), \
+        acoustics, batch
+
+
+def seeded_train_state(model_def, config, optimizer):
+    from fullsubnet_plus_torch.train import step
+
+    model = model_def.module_cls(config).init_weights(torch.Generator().manual_seed(42))
+    return step.init_train_state(model, optimizer, device="cuda")
+
+
+def joint_and_residual_steps() -> dict:
+    """(f) `make_joint_mask_train_step` and `make_residual_train_step` on
+    FullSubNet+ at configs/train.toml's batch: the joint step's cRM is the
+    model's training forward (drop_band inside) and its RM the noisy
+    magnitude's sigmoid; the residual step's cIRM the model's forward
+    without drop_band and its enhanced spectrum the noisy one times the
+    decompressed cIRM. One step each through K2 + K4 from a copy of the
+    state, against the plain step from the same state."""
+    from fullsubnet_plus_torch.dsp.mask import complex_mul, decompress_cirm
+    from fullsubnet_plus_torch.train import step
+
+    model_def, config, optimizer, loss_fn, acoustics, (noisy, clean) = variant_train_setup({})
+
+    def joint_forward(model, mag, real, imag):
+        crm = model(mag[:, None], real[:, None], imag[:, None], training=True)
+        return torch.sigmoid(mag)[:, None], crm
+
+    def residual_forward(model, mag, real, imag):
+        cirm = model(mag[:, None], real[:, None], imag[:, None])
+        d = decompress_cirm(cirm.permute(0, 2, 3, 1))
+        r, i = complex_mul(real, imag, d[..., 0], d[..., 1])
+        return cirm, torch.stack([r, i], dim=1)
+
+    out = {}
+    for tag, make, forward, kw in (
+            ("joint_mask", step.make_joint_mask_train_step, joint_forward,
+             {"num_groups": config.num_groups_in_drop_band}),
+            ("residual", step.make_residual_train_step, residual_forward, {})):
+        run = make(forward, optimizer, loss_fn, alpha=JOINT_ALPHA, device="cuda", **kw,
+                   **acoustics)
+        state = seeded_train_state(model_def, config, optimizer)
+        reset_launches()
+        with training_kernels(False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = run(copy.deepcopy(state), noisy, clean)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in all_launches().items() if v}
+        reset_launches()
+        with training_kernels(True, plain=True):
+            _, plain = run(state, noisy, clean)
+        if any(all_launches().values()):
+            fail(f"[10] the plain {tag} step launched kernels: {all_launches()}")
+        m, plain = ({k: float(v) for k, v in d.items()} for d in (m, plain))
+        gaps = (abs(m["loss"] - plain["loss"]) / abs(plain["loss"]),
+                abs(m["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"]))
+        out[tag] = {"loss": m["loss"], "grad_norm": m["grad_norm"], "plain": plain,
+                    "rel_gap": gaps, "launches": launches, "wall_ms": wall * 1e3}
+        print(f"[10] {tag} step K2 + K4: loss {m['loss']:.6f} / grad norm {m['grad_norm']:.6f} "
+              f"against plain {plain['loss']:.6f} / {plain['grad_norm']:.6f} (gaps "
+              f"{gaps[0]:.2e} / {gaps[1]:.2e}, limits {TRAIN_LOSS_RTOL:g} / "
+              f"{TRAIN_GRAD_NORM_RTOL:g}); wall {wall * 1e3:.1f} ms; launches {launches}")
+        if launches != {"lstm2_train_fwd": 1, "lstm2_bwd": 1}:
+            fail(f"[10] the {tag} step launched {launches}, expected K2 and K4 once")
+        if not (np.isfinite(m["loss"]) and gaps[0] <= TRAIN_LOSS_RTOL
+                and gaps[1] <= TRAIN_GRAD_NORM_RTOL):
+            fail(f"[10] the {tag} step disagrees with the plain step")
+    return out
+
+
+def phase_variants(root: str, lengths: list[int]) -> dict:
+    """Phase 10: the model zoo on the card at full width. (a) the five other
+    attentions, (b) subband_num 2 with ECA and (c) two norms, each one
+    float32 batch through K1 against the plain LSTM; CBAM also in bf16 (K1)
+    and int8 (K5); (d) a GRU sub-band model (no LSTM kernel), timed beside
+    (a)'s SE batch, and the loop norms timed at the batch's shape; (e) the
+    CBAM and TSSE_ATT train steps through K2 + K4 and K2 + K3 against the
+    plain step from the same state; (f) the joint-mask and residual steps."""
+    import dataclasses as dc
+
+    from fullsubnet_plus_torch.data.wav import read_wav
+    from fullsubnet_plus_torch.dsp import norms
+    from fullsubnet_plus_torch.models import FULLSUBNET_PLUS
+    from fullsubnet_plus_torch.train import step
+
+    t_start = time.perf_counter()
+    base = FULLSUBNET_PLUS.make_config({})
+    padded = np.zeros((len(lengths), -(-max(lengths) // SR) * SR), np.float32)
+    for i, n in enumerate(lengths):
+        padded[i, :n] = read_wav(os.path.join(root, "noisy", f"utt{i}.wav"))
+    rng = np.random.default_rng(10)
+    even = np.stack([noisy_utterance(rng, 10 * SR) for _ in range(BATCH)])
+    runs = {}
+    for tag, overrides, masked in VARIANT_RUNS:
+        batch, lens = (padded, lengths) if masked else (even, None)
+        runs[tag] = variant_batch(dc.replace(base, **overrides), batch, lens, None, "lstm2_fwd",
+                                  {"snr_db_vs_plain": WAVE_SNR_FLOOR}, f"{tag} float32")
+    cbam = dc.replace(base, channel_attention_model="CBAM")
+    low = {"snr_db_vs_plain": VARIANT_WAVE_SNR_FLOOR,
+           "cirm_snr_db_vs_plain": VARIANT_CIRM_SNR_FLOOR}
+    runs["CBAM_bfloat16"] = variant_batch(cbam, padded, lengths, "bfloat16", "lstm2_fwd", low,
+                                          "CBAM bfloat16")
+    runs["CBAM_int8"] = variant_batch(cbam, padded, lengths, "int8", "lstm2_int8_fwd", low,
+                                      "CBAM int8")
+    runs["GRU"] = variant_batch(dc.replace(base, sequence_model="GRU"), padded, lengths, None,
+                                None, None, "GRU sub-band model float32")
+    print(f"[10] the GRU sub-band batch {runs['GRU']['wall_ms']:.1f} ms against SE's LSTM "
+          f"batch through K1 {runs['SE']['wall_ms']:.1f} ms")
+    x = torch.rand(BATCH, 257, T_FULL, device="cuda") + 0.1
+    loop_norms = {name: cuda_ms(lambda: getattr(norms, name)(x), reps=3)
+                  for name in LOOP_NORMS}
+    print(f"[10] the loop norms on [{BATCH}, 257, {T_FULL}] (a loop over frames): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in loop_norms.items()))
+
+    train = {}
+    for name in VARIANT_TRAIN:
+        model_def, config, optimizer, loss_fn, acoustics, batch = variant_train_setup(
+            {"channel_attention_model": name})
+
+        def make_step(dtype):
+            return step.make_train_step(model_def, config, optimizer, loss_fn,
+                                        compute_dtype=dtype, device="cuda", **acoustics)
+
+        gaps, launches = same_state_check(seeded_train_state(model_def, config, optimizer),
+                                          make_step, [batch], phase=f"[10] {name}")
+        train[name] = {"rel_gaps": gaps, "launches": {k: v for k, v in launches.items() if v}}
+        if name == "TSSE_ATT":  # what the new paths reach in float32: no TF32 product
+            float32_step, state = make_step(torch.float32), seeded_train_state(
+                model_def, config, optimizer)
+
+            def one_step():
+                float32_step(state, *batch)
+                torch.cuda.synchronize()
+
+            check_no_tf32(profile_call(one_step, "[10] profile TSSE_ATT float32 train step:"),
+                          "[10] the TSSE_ATT float32 train step")
+            train[name]["profile"] = PROFILES["[10] profile TSSE_ATT float32 train step:"]
+    steps = joint_and_residual_steps()
+    wall = time.perf_counter() - t_start
+    print(f"phase 10 took {wall:.1f} s")
+    return {"runs": runs, "loop_norms_ms": loop_norms, "train": train, "steps": steps,
+            "wall_s": wall}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -2544,7 +2824,8 @@ def main() -> None:
                  "pipelined_batch": pipelined}
         print(json.dumps({"multi_device": multi}))
         print(f"phase 9 took {time.perf_counter() - t_multi:.1f} s")
-    print(f"phases 1-9 took {time.perf_counter() - t_start:.1f} s")
+        print(f"phases 1-9 took {time.perf_counter() - t_start:.1f} s")
+        variants = phase_variants(root, lengths)
 
     def multi_launches(name: str) -> dict:
         """Phase 9's and phase 4's pipelined runs' launches of a kernel."""
@@ -2575,6 +2856,25 @@ def main() -> None:
                                        if tag.startswith("float32")),
                 "trainer_bf16": t_runs["bfloat16"]["launches"][name], "trainer_validation": 0}
 
+    v_runs = variants["runs"]
+
+    def variant_launches(name: str) -> dict:
+        """Phase 10's launches of a kernel, by run."""
+        out = {f"variants_{tag}": r["launches"].get(name, 0) for tag, r in v_runs.items()}
+        out.update({f"variants_train_{v}": r["launches"].get(name, 0)
+                    for v, r in variants["train"].items()})
+        out.update({f"variants_{tag}_step": r["launches"].get(name, 0)
+                    for tag, r in variants["steps"].items()})
+        return {k: v for k, v in out.items() if v}
+
+    print(json.dumps({"variants": {
+        "runs": {tag: {k: r[k] for k in ("snr_db_vs_plain", "cirm_snr_db_vs_plain",
+                                         "launches", "wall_ms", "audio_s_per_s") if k in r}
+                 for tag, r in v_runs.items()},
+        "loop_norms_ms": variants["loop_norms_ms"],
+        "train": variants["train"],
+        "steps": variants["steps"], "wall_s": variants["wall_s"]}}))
+
     f32, bf16, int8 = times[torch.float32], times[torch.bfloat16], times["int8"]
     k1 = {
         "name": "lstm2_fwd",
@@ -2585,7 +2885,8 @@ def main() -> None:
         + batch["launches"]["bfloat16"]["lstm2_fwd"] + train["eval_launches"]["lstm2_fwd"]
         + fsn["launches"]["float32"]["lstm2_fwd"] + fsn["launches"]["bfloat16"]["lstm2_fwd"]
         + fsn["overlapped_chunk"]["launches"]["lstm2_fwd"]
-        + sum(trainer_launches("lstm2_fwd").values()) + sum(multi_launches("lstm2_fwd").values()),
+        + sum(trainer_launches("lstm2_fwd").values()) + sum(multi_launches("lstm2_fwd").values())
+        + sum(variant_launches("lstm2_fwd").values()),
         "max_abs_err": errors[("lstm2_fwd", N_FULL, T_FULL, torch.float32)],
         **f32,
         "shape": {"N": N_FULL, "D": D, "H": H, "O": O, "T": T_FULL, "dtype": "float32"},
@@ -2598,7 +2899,8 @@ def main() -> None:
                                for tag in ("float32", "bfloat16")},
                             "fullsubnet_overlapped_chunk":
                                 fsn["overlapped_chunk"]["launches"]["lstm2_fwd"],
-                            **trainer_launches("lstm2_fwd"), **multi_launches("lstm2_fwd")},
+                            **trainer_launches("lstm2_fwd"), **multi_launches("lstm2_fwd"),
+                            **variant_launches("lstm2_fwd")},
         "fullsubnet_fb": {
             "shape": {"N": N_FB, "D": FB[0], "H": FB[1], "O": FB[2], "T": T_FULL},
             "float32": fb_kernels[torch.float32], "bfloat16": fb_kernels[torch.bfloat16],
@@ -2625,7 +2927,8 @@ def main() -> None:
         "replaces": "fullsubnet_plus_tpu/ops/lstm_pallas.py:1022 (_make_quant_kernel)",
         "launches": serve["launches"]["lstm2_int8_fwd"]
         + fsn["launches"]["int8"]["lstm2_int8_fwd"] + fsn["serve"]["launches"]["lstm2_int8_fwd"]
-        + sum(multi_launches("lstm2_int8_fwd").values()),
+        + sum(multi_launches("lstm2_int8_fwd").values())
+        + sum(variant_launches("lstm2_int8_fwd").values()),
         "max_abs_err": errors[("lstm2_int8_fwd", N_SERVE, T_SERVE)],
         **int8,
         "max_abs_err_batch_fold": errors[("lstm2_int8_fwd", N_FULL, T_FULL)],
@@ -2635,7 +2938,8 @@ def main() -> None:
                             "batch_int8": batch["launches"]["int8"]["lstm2_int8_fwd"],
                             "fullsubnet_batch_int8": fsn["launches"]["int8"]["lstm2_int8_fwd"],
                             "fullsubnet_serve": fsn["serve"]["launches"]["lstm2_int8_fwd"],
-                            **multi_launches("lstm2_int8_fwd")},
+                            **multi_launches("lstm2_int8_fwd"),
+                            **variant_launches("lstm2_int8_fwd")},
         "fullsubnet_fb": {
             "shape": {"N": N_FB, "D": FB[0], "H": FB[1], "O": FB[2], "T": T_FULL},
             **fb_kernels["int8"],
@@ -2671,13 +2975,15 @@ def main() -> None:
             "source": f"fullsubnet_plus_torch/csrc/{source}",
             "replaces": f"fullsubnet_plus_tpu/ops/lstm_pallas.py:{replaces}",
             "launches": sum(runs[r]["launches"][name] for r in launch_runs)
-            + sum(trainer_launches(name).values()) + sum(multi_launches(name).values()),
+            + sum(trainer_launches(name).values()) + sum(multi_launches(name).values())
+            + sum(variant_launches(name).values()),
             **train_errors[(name, N_TRAIN, T_TRAIN, torch.float32)],
             **f32,
             "shape": {"N": N_TRAIN, "D": D, "H": H, "O": O, "T": T_TRAIN, "dtype": "float32"},
             "bfloat16": {**train_errors[(name, N_TRAIN, T_TRAIN, torch.bfloat16)], **bf16},
             "launches_by_run": {**{r: runs[r]["launches"][name] for r in launch_runs},
-                                **trainer_launches(name), **multi_launches(name)},
+                                **trainer_launches(name), **multi_launches(name),
+                                **variant_launches(name)},
             "library": "cuDNN LSTM + Linear, "
                        + ("forward" if name == "lstm2_train_fwd" else "backward"),
             "train_step": {r: {"wall_ms": runs[r]["wall_ms"],

@@ -21,6 +21,10 @@ csrc/lstm2_fwd.cu), the int8-recurrent forward, the serving default
 (ops/lstm2_int8.py, csrc/lstm2_int8_fwd.cu), and for training the
 residual-saving forward and the two reverse-sweep backwards behind a
 torch.autograd.Function (ops/lstm2_train.py, csrc/lstm2_train_fwd.cu,
-csrc/lstm2_bwd_wgrad.cu, csrc/lstm2_bwd.cu). What is not ported yet raises
-NotImplementedError naming its ROADMAP.md item.
+csrc/lstm2_bwd_wgrad.cu, csrc/lstm2_bwd.cu). Every model variant the
+configs can name runs too (the six channel attentions, the norm zoo, GRU,
+bidirectional, N-layer and TCN sequence models, the complex sequence model,
+`subband_num` > 1; nn/, dsp/), with the joint-mask and residual train
+steps (train/step.py) and the multi-channel DSP (dsp/multichannel.py). What
+is not ported yet raises NotImplementedError naming its ROADMAP.md item.
 """

@@ -1,8 +1,8 @@
-"""Complex ideal ratio mask: construction, compression, decompression and
-application.
+"""Ideal ratio masks: the (real) IRM and the complex cIRM, their
+compression, decompression and application.
 
-Counterpart of fullsubnet_plus_tpu/dsp/mask.py:23-66 (reference
-audio_zen/acoustics/mask.py:27-69).
+Counterpart of fullsubnet_plus_tpu/dsp/mask.py:14-66 (reference
+audio_zen/acoustics/mask.py:10-69).
 """
 
 from __future__ import annotations
@@ -10,6 +10,11 @@ from __future__ import annotations
 import torch
 
 from fullsubnet_plus_torch.constants import EPSILON
+
+
+def build_ideal_ratio_mask(noisy_mag: torch.Tensor, clean_mag: torch.Tensor) -> torch.Tensor:
+    """Compressed IRM = compress(|clean| / (|noisy| + eps)). [B, F, T] -> [B, F, T, 1]."""
+    return compress_cirm((clean_mag / (noisy_mag + EPSILON))[..., None], k=10.0, c=0.1)
 
 
 def build_complex_ideal_ratio_mask(noisy_real: torch.Tensor, noisy_imag: torch.Tensor,

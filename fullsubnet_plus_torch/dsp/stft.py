@@ -29,16 +29,22 @@ def hann_window(win_length: int, n_fft: int | None = None, device=None) -> torch
     return window
 
 
-def stft_split(y: torch.Tensor, n_fft: int = 512, hop_length: int = 256,
-               win_length: int = 512):
-    """[B, L] waveform -> (mag, real, imag), each [B, F, T] float32."""
+def stft(y: torch.Tensor, n_fft: int = 512, hop_length: int = 256,
+         win_length: int = 512) -> torch.Tensor:
+    """[B, L] waveform -> [B, F, T] complex64 spectrum."""
     if y.ndim != 2:
-        raise ValueError(f"stft_split expects [B, L], got {tuple(y.shape)}")
-    spec = torch.stft(
+        raise ValueError(f"stft expects [B, L], got {tuple(y.shape)}")
+    return torch.stft(
         y.float(), n_fft, hop_length, win_length,
         window=hann_window(win_length, device=y.device), center=True,
         pad_mode="reflect", normalized=False, onesided=True, return_complex=True,
     )
+
+
+def stft_split(y: torch.Tensor, n_fft: int = 512, hop_length: int = 256,
+               win_length: int = 512):
+    """[B, L] waveform -> (mag, real, imag), each [B, F, T] float32."""
+    spec = stft(y, n_fft, hop_length, win_length)
     real, imag = spec.real.contiguous(), spec.imag.contiguous()
     return torch.sqrt(real * real + imag * imag), real, imag
 

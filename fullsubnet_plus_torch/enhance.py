@@ -18,9 +18,13 @@ through the length-aware base mode at one fixed batch shape.
 
 compute_dtype None or "float32" is the parity path. "bfloat16" casts the
 model's weights and inputs; the STFT, mask and iSTFT stay float32, as in
-the JAX package. "int8" is the serving default: bfloat16, with the LSTMs'
-recurrent products in int8 (ops/lstm2_int8.py), their weights quantized
-once here at construction (enhance.py:91-159 of the JAX package). Float32
+the JAX package. "int8" is the serving default: bfloat16, with the 2-layer
+LSTMs' recurrent products in int8 (ops/lstm2_int8.py), their weights
+quantized once here at construction (enhance.py:91-159 of the JAX
+package); a GRU or TCN sub-band model has none and runs in bfloat16. Every
+model variant runs here; with `lengths`, those whose attention or sub-band
+grouping has no masked form (DeepTSSE, TSSE_ATT, subband_num > 1) raise,
+as the JAX package refuses them. Float32
 matmuls must run in full float32 on the card, so the float32 path refuses
 to run with TF32 matmuls enabled.
 

@@ -190,14 +190,12 @@ class CheckpointManager:
         """Weights-only warm start (`-P`): every parameter the file holds
         (as `params/<path>` or a bare tree path) is loaded into `model`;
         the others keep their values. Returns the number loaded."""
-        from fullsubnet_plus_torch.io.convert import key_table, model_of_state_dict
+        from fullsubnet_plus_torch.io.convert import key_table, layout_of_state_dict
 
         flat, _ = load_flat(path)
         flat = {k.removeprefix("params/"): v for k, v in flat.items()}
-        own = model.state_dict()
-        layers = sum(1 for k in own if k.startswith("sb_model.sequence_model.weight_ih_l"))
         found = {key: torch.from_numpy(np.ascontiguousarray(flat[p].T if transposed else flat[p]))
-                 for p, key, transposed in key_table(layers, model_of_state_dict(own))
+                 for p, key, transposed in key_table(**layout_of_state_dict(model.state_dict()))
                  if p in flat}
         model.load_state_dict(found, strict=False)
         return len(found)

@@ -12,7 +12,8 @@ sub-band 2-layer LSTM(384) with its Linear(2), giving the compressed cIRM
 [B, 2, F, T] with the look-ahead frames sliced off. Both LSTMs run through
 the fused forward kernel of ops/lstm2.py on the card (the full-band one at
 D 257, H 512, O 257), or through the int8-recurrent kernel of
-ops/lstm2_int8.py with `quantized_lstm`.
+ops/lstm2_int8.py with `quantized_lstm`. With `sequence_model="GRU"` both
+models are 2-layer GRUs and run plain (nn/lstm.py).
 
 Attribute names follow the reference state_dict, so a reference-layout
 state_dict (or the JAX tree through io/convert.py) loads with strict=True.
@@ -25,8 +26,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from fullsubnet_plus_torch.device import not_ported
-from fullsubnet_plus_torch.dsp.norms import get_norm, time_mask
+from fullsubnet_plus_torch.dsp.norms import model_norm, time_mask
 from fullsubnet_plus_torch.dsp.unfold import drop_band, freq_unfold
 from fullsubnet_plus_torch.nn.layers import reset_parameters
 from fullsubnet_plus_torch.nn.sequence import SequenceModel
@@ -60,10 +60,11 @@ class FullSubNetConfig:
 class FullSubNet(nn.Module):
     def __init__(self, config: FullSubNetConfig = FullSubNetConfig()):
         super().__init__()
-        if config.sequence_model != "LSTM":
-            raise not_ported(f"sequence_model={config.sequence_model!r}", "Queue 1 item 11")
+        if config.sequence_model not in ("GRU", "LSTM"):
+            raise ValueError(f"sequence_model={config.sequence_model!r}: FullSubNet's models "
+                             "are GRU or LSTM")
         self.config = config
-        self.norm = get_norm(config.norm_type)
+        self.norm = model_norm(config.norm_type)
         self.fb_model = SequenceModel(
             config.num_freqs, config.num_freqs, config.fb_model_hidden_size,
             sequence_model=config.sequence_model,
@@ -79,18 +80,25 @@ class FullSubNet(nn.Module):
         return self
 
     def load_jax_params(self, params) -> "FullSubNet":
-        """Load the JAX package's parameter tree (nested numpy), strict."""
-        from fullsubnet_plus_torch.io.convert import state_dict_from_jax
+        """Load the JAX package's parameter tree (nested numpy) of this
+        model's variant (the key table of its config), strict."""
+        from fullsubnet_plus_torch.io.convert import (
+            key_table,
+            layout_of_config,
+            state_dict_from_table,
+        )
 
-        self.load_state_dict(state_dict_from_jax(params, "fullsubnet"), strict=True)
+        table = key_table(**layout_of_config(self.config))
+        self.load_state_dict(state_dict_from_table(params, table), strict=True)
         return self
 
     def prepare_int8(self) -> "FullSubNet":
         """Quantize both LSTMs once for `quantized_lstm` (after the model's
         final move and cast), as the JAX Enhancer's `_attach_int8_prepared`
-        walks both."""
-        self.fb_model.prepare_int8()
-        self.sb_model.prepare_int8()
+        walks both; GRUs run in float."""
+        for model in (self.fb_model, self.sb_model):
+            if model.fused:
+                model.prepare_int8()
         return self
 
     def forward(self, noisy_mag: torch.Tensor, valid_frames: torch.Tensor | None = None,

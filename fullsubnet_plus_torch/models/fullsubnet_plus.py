@@ -2,13 +2,21 @@
 
 Counterpart of fullsubnet_plus_tpu/models/fullsubnet_plus.py:54-311
 (reference fullsubnet_plus/model/fullsubnet_plus.py:16-209): three
-spectrogram views (magnitude, real, imag), each normalized, gated by TSSE
-channel attention and passed through an 8-block TCN over all bins; the
-attended magnitude and the three full-band outputs are unfolded into
-sub-bands (15 neighbours a side, 34 features), normalized again, folded to
-[B*F, 34, T] and run through the 2-layer LSTM(384) with its Linear(2),
-giving the compressed cIRM [B, 2, F, T]. Inputs are right-padded by
-`look_ahead` frames and the output sliced by as many.
+spectrogram views (magnitude, real, imag), each normalized, gated by a
+channel attention (TSSE by default; `channel_attention_model`) and passed
+through an 8-block TCN over all bins; the attended magnitude and the three
+full-band outputs are unfolded into sub-bands (15 neighbours a side, 34
+features), normalized again, folded to [B*F, 34, T] and run through the
+sub-band model (the 2-layer LSTM(384) with its Linear(2) by default, through
+the kernels; a GRU or a TCN runs plain), giving the compressed cIRM [B, 2, F,
+T]. Inputs are right-padded by `look_ahead` frames and the output sliced by
+as many.
+
+`subband_num > 1` (with ECA, the one attention the reference can run so):
+the magnitude branch reflect-pads its bins by subband_num - F % subband_num
+(a whole subband_num where it divides, the reference's quirk) and folds
+subband_num bins into time for the attention, then unfolds; the real and
+imag branches run as before (JAX models/fullsubnet_plus.py:229-254).
 
 Attribute names follow the reference state_dict, so a reference-layout
 state_dict (or the JAX tree through io/convert.py) loads with strict=True.
@@ -21,8 +29,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from fullsubnet_plus_torch.device import not_ported
-from fullsubnet_plus_torch.dsp.norms import get_norm, time_mask
+from fullsubnet_plus_torch.dsp.norms import model_norm, time_mask
 from fullsubnet_plus_torch.dsp.unfold import drop_band, freq_unfold
 from fullsubnet_plus_torch.nn.attention import channel_attention
 from fullsubnet_plus_torch.nn.layers import reset_parameters
@@ -80,10 +87,11 @@ class FullSubNetPlus(nn.Module):
                 f"{config.channel_attention_model!r} cannot run: the reference "
                 "architecture itself crashes on the real/imag branches "
                 "(fullsubnet_plus.py:157-164); only 'ECA' works with subband_num > 1")
-        if config.subband_num > 1:
-            raise not_ported("subband_num > 1", "Queue 1 item 11")
+        if config.sequence_model not in ("GRU", "LSTM", "TCN"):
+            raise ValueError(f"sequence_model={config.sequence_model!r}: the sub-band model "
+                             "is GRU, LSTM or TCN")
         self.config = config
-        self.norm = get_norm(config.norm_type)
+        self.norm = model_norm(config.norm_type)
 
         def attention():
             return channel_attention(config.channel_attention_model, config.num_channels,
@@ -111,16 +119,25 @@ class FullSubNetPlus(nn.Module):
         return self
 
     def load_jax_params(self, params) -> "FullSubNetPlus":
-        """Load the JAX package's parameter tree (nested numpy), strict."""
-        from fullsubnet_plus_torch.io.convert import state_dict_from_jax
+        """Load the JAX package's parameter tree (nested numpy) of this
+        model's variant (the key table of its config), strict."""
+        from fullsubnet_plus_torch.io.convert import (
+            key_table,
+            layout_of_config,
+            state_dict_from_table,
+        )
 
-        self.load_state_dict(state_dict_from_jax(params), strict=True)
+        table = key_table(**layout_of_config(self.config))
+        self.load_state_dict(state_dict_from_table(params, table), strict=True)
         return self
 
     def prepare_int8(self) -> "FullSubNetPlus":
         """Quantize the sub-band LSTM once for `quantized_lstm` (after the
-        model's final move and cast, and after `shard_fold`)."""
-        self.sb_model.prepare_int8()
+        model's final move and cast, and after `shard_fold`). A GRU or TCN
+        sub-band model has nothing to quantize and runs in float, as in the
+        JAX package."""
+        if self.sb_model.fused:
+            self.sb_model.prepare_int8()
         return self
 
     def shard_fold(self, devices) -> "FullSubNetPlus":
@@ -173,7 +190,18 @@ class FullSubNetPlus(nn.Module):
             fb_out = full_band(fb_in, valid=valid)
             return fb_in, fb_out.reshape(batch, 1, num_freqs, frames)
 
-        fb_input, fb_output = branch(self.channel_attention, self.fb_model, views[0])
+        if cfg.subband_num == 1:
+            fb_input, fb_output = branch(self.channel_attention, self.fb_model, views[0])
+        else:
+            if valid is not None:
+                raise ValueError("valid_frames masking needs subband_num == 1")
+            group = cfg.subband_num
+            pad = group - num_freqs % group
+            padded = nn.functional.pad(self.norm(views[0]), (0, 0, 0, pad), mode="reflect")
+            grouped = self.channel_attention(
+                padded.reshape(batch, (num_freqs + pad) // group, frames * group))
+            fb_input = grouped.reshape(batch, num_freqs + pad, frames)[:, :num_freqs]
+            fb_output = self.fb_model(fb_input).reshape(batch, 1, num_freqs, frames)
         _, fbr_output = branch(self.channel_attention_real, self.fb_model_real, views[1])
         _, fbi_output = branch(self.channel_attention_imag, self.fb_model_imag, views[2])
 

@@ -40,20 +40,22 @@ class Linear(nn.Module):
 
 
 class Conv1d(nn.Module):
-    """Holds a torch-layout conv weight [out, in/groups, k] and bias [out]."""
+    """Holds a torch-layout conv weight [out, in/groups, k] and, unless
+    `bias` is False, a bias [out] (None otherwise)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 groups: int = 1):
+                 groups: int = 1, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kernel_size))
-        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         fan_in = self.weight.shape[1] * self.weight.shape[2]
         bound = 1.0 / math.sqrt(fan_in)
         uniform_(self.weight, bound, generator)
-        uniform_(self.bias, bound, generator)
+        if self.bias is not None:
+            uniform_(self.bias, bound, generator)
 
 
 class PReLU(nn.Module):

@@ -4,7 +4,8 @@ Counterpart of fullsubnet_plus_tpu/nn/tcn.py:23-158, 275-296 (reference
 TCNBlock, causal_conv.py:67-117): 1x1 conv -> PReLU -> GroupNorm(1) ->
 depthwise dilated conv -> PReLU -> GroupNorm(1) -> 1x1 conv, plus the
 residual skip. The stack is 8 blocks with dilations (1, 2, 5, 9) x 2 and
-hidden width 512, hard-coded as in the reference.
+hidden width 512, hard-coded as in the reference (the sub-band variant's
+widths are `tcn_stack`'s options).
 
 Float32 on the card: `conv1d` keeps the JAX package's two forms, a matmul
 for the 1x1 conv and shifted multiply-adds for the depthwise conv, so no
@@ -95,6 +96,14 @@ class TCNBlock(nn.Module):
         return out
 
 
-def tcn_stack(channels: int) -> nn.ModuleList:
-    """The 8 shipped blocks; the stack's ReLU is applied by its caller."""
-    return nn.ModuleList(TCNBlock(channels, dilation=d) for d in TCN_DILATIONS)
+def tcn_stack(channels: int, hidden: int = TCN_HIDDEN,
+              last_hidden: int | None = None) -> nn.ModuleList:
+    """The 8 blocks; the stack's ReLU is applied by its caller. The shipped
+    stack has hidden width 512 throughout; SequenceModel's "TCN-subband"
+    (reference sequence_model.py:59-70, JAX nn/tcn.py:274-289) has
+    `hidden` for blocks 1-7 and `last_hidden` (384) for block 8."""
+    hiddens = [hidden] * len(TCN_DILATIONS)
+    if last_hidden is not None:
+        hiddens[-1] = last_hidden
+    return nn.ModuleList(TCNBlock(channels, h, dilation=d)
+                         for h, d in zip(hiddens, TCN_DILATIONS))

@@ -22,9 +22,10 @@ The eval steps take FullSubNet+ (three spectrogram views) and FullSubNet
 (the magnitude alone, `_forward_fullsubnet` of the JAX module). The train
 step takes FullSubNet+ only: FullSubNet's full-band LSTM (D 257, H 512)
 does not fit the reverse sweep's block (ROADMAP.md Queue 2 R6).
-`make_joint_mask_train_step` and `make_residual_train_step` of the JAX
-module serve model variants the port does not have (ROADMAP.md Queue 1
-item 11).
+`make_joint_mask_train_step` and `make_residual_train_step` (the
+reference's `Trainer` and `Residual_Trainer` losses, JAX train/step.py:
+195-270) take the forward as a function of the module; like JAX's they
+have no non-finite select.
 
 Under a mesh (parallel/mesh.py) the train step is data-parallel with JAX's
 multi-process batch semantics, one card a rank: each rank feeds its own
@@ -50,7 +51,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fullsubnet_plus_torch.device import not_ported, resolve_device
-from fullsubnet_plus_torch.dsp.mask import build_complex_ideal_ratio_mask
+from fullsubnet_plus_torch.dsp.mask import (
+    build_complex_ideal_ratio_mask,
+    build_ideal_ratio_mask,
+)
 from fullsubnet_plus_torch.dsp.norms import time_mask
 from fullsubnet_plus_torch.dsp.stft import stft_split
 from fullsubnet_plus_torch.dsp.unfold import drop_band
@@ -220,7 +224,11 @@ def _model_replicas(mesh, fold=None):
 
 def _check_full_float32(compute_dtype, device: torch.device) -> None:
     """The float32 step on the card runs its matmuls in full float32, as
-    the Enhancer's float32 path does; TF32 keeps about 3 digits."""
+    the Enhancer's float32 path does; TF32 keeps about 3 digits. Every model
+    variant's float32 work outside the kernels is matmuls and elementwise
+    ops (the convolutions are matmuls and shifted multiply-adds, the plain
+    recurrences and TSSE_ATT's attention matmuls): no cuDNN call, so the
+    matmul flag is the one to hold."""
     if (compute_dtype == torch.float32 and device.type == "cuda"
             and torch.backends.cuda.matmul.allow_tf32):
         raise RuntimeError("the float32 train step needs full-precision matmuls: "
@@ -315,28 +323,102 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
             grads, loss, stops = data_parallel_grads(state.model, noisy, clean, stop)
             if mesh.group is not None:
                 metrics["stop"] = stops
-        with torch.no_grad():
-            loss, opt = loss.detach(), state.opt_state
-            old = _flatten(params)
-            grad_norm = torch.linalg.vector_norm(grads)
-            updates, count, mu, nu = optimizer.update(grads, grad_norm, opt)
-            new = old + updates
-            metrics.update(loss=loss, grad_norm=grad_norm)
-            if skip_nonfinite:
-                # the update itself must be finite too: m / (sqrt(v) + eps)
-                # can overflow from finite gradients
-                ok = (torch.isfinite(loss) & torch.isfinite(grad_norm)
-                      & torch.isfinite(torch.linalg.vector_norm(updates)))
-                new, mu, nu = (torch.where(ok, a, b)
-                               for a, b in ((new, old), (mu, opt.mu), (nu, opt.nu)))
-                count = torch.where(ok, count, opt.count)
-                metrics["skipped"] = 1.0 - ok.to(torch.float32)
-            torch._foreach_copy_(params, _unflatten(new, params))
-            opt.mu, opt.nu, opt.count = mu, nu, count
-            state.step += 1
+        metrics.update(_apply_update(state, params, grads, loss, optimizer, skip_nonfinite))
         return state, metrics
 
     return train_step
+
+
+@torch.no_grad()
+def _apply_update(state: TrainState, params, grads, loss, optimizer: Optimizer,
+                  skip_nonfinite: bool) -> dict:
+    """One clipped-Adam update of `params` (the state's model) from the flat
+    gradient `grads`, in place, and step += 1; returns {"loss", "grad_norm"}
+    and, with `skip_nonfinite`, "skipped" (the update rejected by a select
+    on a device-side flag when the loss, the gradient norm or the update is
+    NaN or Inf; the step counter still advances)."""
+    loss, opt = loss.detach(), state.opt_state
+    old = _flatten(params)
+    grad_norm = torch.linalg.vector_norm(grads)
+    updates, count, mu, nu = optimizer.update(grads, grad_norm, opt)
+    new = old + updates
+    metrics = {"loss": loss, "grad_norm": grad_norm}
+    if skip_nonfinite:
+        # the update itself must be finite too: m / (sqrt(v) + eps)
+        # can overflow from finite gradients
+        ok = (torch.isfinite(loss) & torch.isfinite(grad_norm)
+              & torch.isfinite(torch.linalg.vector_norm(updates)))
+        new, mu, nu = (torch.where(ok, a, b)
+                       for a, b in ((new, old), (mu, opt.mu), (nu, opt.nu)))
+        count = torch.where(ok, count, opt.count)
+        metrics["skipped"] = 1.0 - ok.to(torch.float32)
+    torch._foreach_copy_(params, _unflatten(new, params))
+    opt.mu, opt.nu, opt.count = mu, nu, count
+    state.step += 1
+    return metrics
+
+
+def _make_loss_step(loss_value, optimizer: Optimizer, device):
+    """(state, noisy, clean) -> (state, {"loss", "grad_norm"}): the gradient
+    of `loss_value(model, noisy, clean)` through `_apply_update`, with no
+    non-finite select."""
+    device = resolve_device(device)
+
+    def train_step(state: TrainState, noisy, clean):
+        _check_full_float32(torch.float32, device)
+        params = list(state.model.parameters())
+        noisy, clean = (_to_device(a, params[0].device) for a in (noisy, clean))
+        with torch.enable_grad():
+            loss = loss_value(state.model, noisy, clean)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = _flatten(torch.zeros_like(p) if g is None else g
+                         for g, p in zip(grads, params))
+        return state, _apply_update(state, params, grads, loss, optimizer, False)
+
+    return train_step
+
+
+def make_joint_mask_train_step(forward_fn, optimizer: Optimizer, loss_fn, *, alpha: float = 1.0,
+                               num_groups: int = 2, n_fft: int = 512, hop_length: int = 256,
+                               win_length: int = 512, device="cuda"):
+    """The reference `Trainer`'s step (fullsubnet_plus/trainer/trainer.py:
+    14-73): loss alpha MSE(cIRM, cRM) + (1 - alpha) MSE(IRM, RM), the cIRM
+    target `drop_band`ed, the IRM target full-band, for a forward that
+    returns the pair. `forward_fn(model, noisy_mag, noisy_real, noisy_imag)`
+    ([B, F, T] each) -> (RM [B, 1, F, T], cRM [B, 2, F', T])."""
+
+    def loss_value(model, noisy, clean):
+        noisy_mag, noisy_real, noisy_imag = stft_split(noisy, n_fft, hop_length, win_length)
+        clean_mag, clean_real, clean_imag = stft_split(clean, n_fft, hop_length, win_length)
+        irm = build_ideal_ratio_mask(noisy_mag, clean_mag)  # [B, F, T, 1]
+        cirm = build_complex_ideal_ratio_mask(noisy_real, noisy_imag, clean_real, clean_imag)
+        cirm = drop_band(cirm.permute(0, 3, 1, 2), num_groups).permute(0, 2, 3, 1)
+        rm, crm = forward_fn(model, noisy_mag, noisy_real, noisy_imag)
+        return (alpha * loss_fn(cirm, crm.permute(0, 2, 3, 1))
+                + (1.0 - alpha) * loss_fn(irm, rm.permute(0, 2, 3, 1)))
+
+    return _make_loss_step(loss_value, optimizer, device)
+
+
+def make_residual_train_step(forward_fn, optimizer: Optimizer, loss_fn, *, alpha: float = 1.0,
+                             n_fft: int = 512, hop_length: int = 256, win_length: int = 512,
+                             device="cuda"):
+    """The reference `Residual_Trainer`'s step (trainer.py:160-225): loss
+    alpha MSE(clean spectrum, enhanced) + (1 - alpha) MSE(cIRM, cIRM-hat),
+    both complex as [.., 2], with no `drop_band` (the reference comments it
+    out). `forward_fn(model, noisy_mag, noisy_real, noisy_imag)` -> (cIRM
+    [B, 2, F, T], enhanced spectrum [B, 2, F, T])."""
+
+    def loss_value(model, noisy, clean):
+        noisy_mag, noisy_real, noisy_imag = stft_split(noisy, n_fft, hop_length, win_length)
+        _, clean_real, clean_imag = stft_split(clean, n_fft, hop_length, win_length)
+        cirm = build_complex_ideal_ratio_mask(noisy_real, noisy_imag, clean_real, clean_imag)
+        clean_complex = torch.stack([clean_real, clean_imag], dim=-1)  # [B, F, T, 2]
+        cirm_hat, enhanced = forward_fn(model, noisy_mag, noisy_real, noisy_imag)
+        return (alpha * loss_fn(clean_complex, enhanced.permute(0, 2, 3, 1))
+                + (1.0 - alpha) * loss_fn(cirm, cirm_hat.permute(0, 2, 3, 1)))
+
+    return _make_loss_step(loss_value, optimizer, device)
 
 
 def make_eval_step(model_def, config, loss_fn, *, n_fft: int = 512, hop_length: int = 256,

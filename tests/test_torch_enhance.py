@@ -165,7 +165,8 @@ def test_port_imports_no_jax():
         "import fullsubnet_plus_torch.eval.stoi, fullsubnet_plus_torch.eval.pesq_estimator\n"
         "import fullsubnet_plus_torch.eval.metrics, fullsubnet_plus_torch.io.checkpoint\n"
         "import fullsubnet_plus_torch.train.trainer, fullsubnet_plus_torch.train.supervisor\n"
-        "import fullsubnet_plus_torch.cli.train\n"
+        "import fullsubnet_plus_torch.cli.train, fullsubnet_plus_torch.nn.init\n"
+        "import fullsubnet_plus_torch.nn.feature_norm, fullsubnet_plus_torch.dsp.multichannel\n"
         "from fullsubnet_plus_torch.utils.config import dump_config, merge_config\n"
         "from fullsubnet_plus_torch.data.datasets import TrainDataset, ValidationDataset\n"
         "from fullsubnet_plus_torch.io.checkpoint import CheckpointManager, load_torch_checkpoint\n"

@@ -135,18 +135,33 @@ def test_registry_and_config():
     assert {f.name for f in dataclasses.fields(cfg)} <= {f.name for f in dataclasses.fields(JConfig)}
 
 
+def _forward(config, **kwargs):
+    views = (torch.ones(2, 1, 33, 5) for _ in range(3))
+    return FullSubNetPlus(config)(*views, **kwargs)
+
+
+def _fullsubnet_train_step():
+    from fullsubnet_plus_torch.models import FULLSUBNET
+    from fullsubnet_plus_torch.models.fullsubnet import FullSubNetConfig
+    from fullsubnet_plus_torch.train import loss, step
+
+    return step.make_train_step(FULLSUBNET, FullSubNetConfig(), step.make_optimizer(),
+                                loss.mse_loss, device="cpu")
+
+
 @pytest.mark.parametrize("build,error,match", [
     (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY, subband_num=2)), ValueError,
      "reference"),
-    (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY, subband_num=2,
-                                                 channel_attention_model="ECA")),
-     NotImplementedError, "Queue 1 item 11"),
-    (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY, norm_type="cumulative_laplace_norm")),
-     NotImplementedError, "Queue 1 item 11"),
-    (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY, channel_attention_model="SE")),
-     NotImplementedError, "Queue 1 item 11"),
-    (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY, sequence_model="GRU")),
-     NotImplementedError, "Queue 1 item 11"),
+    # the options ported since are held where they still refuse, as JAX does
+    (lambda: _forward(FullSubNetPlusConfig(**TINY, subband_num=2, channel_attention_model="ECA"),
+                      valid_frames=torch.tensor([5, 4])),
+     ValueError, "subband_num == 1"),
+    (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY, norm_type="forgetting_norm")),
+     ValueError, r"takes \[B, F, T\] only"),
+    (lambda: _forward(FullSubNetPlusConfig(**TINY, channel_attention_model="DeepTSSE"),
+                      valid_frames=torch.tensor([5, 4])),
+     ValueError, "masked pooling is not wired for DeepTSSE"),
+    (_fullsubnet_train_step, NotImplementedError, "Queue 2 R6"),
     # training=True is ported (drop_band); with valid_frames it still refuses
     (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY))(
         *(torch.ones(4, 1, 33, 5) for _ in range(3)), training=True,
