@@ -142,7 +142,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      one float32 TSSE_ATT step profiled (no TF32 product); (f) the
      joint-mask and residual train steps through K2 + K4 against the plain
      step (loss 1e-4, gradient norm 1e-3); prints the `variants` JSON line;
- 11. print the kernels' JSON line, the card's name and power limit, and
+ 11. FullSubNet's training at full width (FSN_TOML's [model], seed 42, the
+     batch of configs/train.toml: the full-band LSTM at N 18, D 257, H 512,
+     O 257, T 195, where the reverse sweep's dx is output-stationary):
+     (a) K2, K3 and K4 in float32 and bf16 against their plain versions
+     (dx, every weight and bias gradient; >= 80 / 40 dB), K3 equal on a
+     repeat, with the reverse sweep's shared memory in both forms; (b) the
+     JAX fixture's full-band training cases; (c) the FullSubNet train step
+     from the plain step's state through float32 K2 + K4, float32 K2 + K3
+     and bf16 K2 + K3 (phase 6's limits; each step launching K2 and its
+     backward twice: the full-band and the sub-band LSTM), the float32
+     default timed and profiled (no TF32 product); (d) one float32 epoch of
+     the trainer (the CLI's functions) on phase 8's corpus, its checkpoints
+     in the JAX package's FullSubNet keys, and one more epoch profiled;
+     (e) K2, K3, K4 timed beside their plain versions, bounds and cuDNN;
+ 12. print the kernels' JSON line, the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
 Imports nothing of JAX. Exits non-zero without CUDA. `python3 chip_smoke.py
@@ -536,13 +550,17 @@ def fixture_generator():
     return module
 
 
-def phase_check_fixture() -> dict:
+def phase_check_fixture(probed: bool = False, phase: str = "[2]") -> dict:
     """Each kernel through the port's entry points on the card against the
-    JAX kernel's outputs in the committed fixture; {(kernel, dtype): least SNR}."""
+    JAX kernel's outputs in the committed fixture; {(kernel, dtype): least
+    SNR}. `probed`: the full-band training cases (their weight gradients
+    stored through probes; phase 11) instead of the others."""
     gen = fixture_generator()
     fixture = gen.load_fixture()
     least = {}
     for name, (kernel, n, t, d, h, o, dtype, _, fused) in gen.CASES.items():
+        if gen.probed(name) != probed:
+            continue
         reset_launches()
         got = gen.port_run(name, "cuda")
         torch.cuda.synchronize()
@@ -551,7 +569,7 @@ def phase_check_fixture() -> dict:
                 for k, v in fixture[name].items()}
         floor = INT8_SNR_FLOOR if kernel == "k5" else SNR_FLOOR[getattr(torch, dtype)]
         worst_key = min(snrs, key=snrs.get)
-        print(f"[2] {name} (N={n} T={t} H={h} O={o}) against the JAX fixture: least "
+        print(f"{phase} {name} (N={n} T={t} H={h} O={o}) against the JAX fixture: least "
               f"{snrs[worst_key]:.1f} dB ({worst_key}; floor {floor:.0f}); launches {launched}")
         names = {"k1": ["lstm2_fwd"], "k5": ["lstm2_int8_fwd"],
                  "train": ["lstm2_train_fwd", "lstm2_bwd_wgrad" if fused else "lstm2_bwd"]}[kernel]
@@ -724,12 +742,12 @@ def time_row_tiles(fn, dtype: torch.dtype) -> dict:
     return out
 
 
-def train_operands(n: int, t: int, dtype: torch.dtype, seed: int):
-    """Seeded operands of the training kernels: x [N, D, T], the cotangent
-    dy [N, T, O], the LSTM and its Linear."""
-    lstm, fc, g = lstm_modules(dtype, seed)
-    x = lstm_input(n, t, dtype, g)
-    dy = torch.randn(n, t, O, generator=g).to("cuda", dtype)
+def train_operands(n: int, t: int, dtype: torch.dtype, seed: int, shape=SB):
+    """Seeded operands of the training kernels at `shape` (D, H, O): x [N,
+    D, T], the cotangent dy [N, T, O], the LSTM and its Linear."""
+    lstm, fc, g = lstm_modules(dtype, seed, shape)
+    x = lstm_input(n, t, dtype, g, shape[0])
+    dy = torch.randn(n, t, shape[2], generator=g).to("cuda", dtype)
     return x, dy, lstm, fc
 
 
@@ -803,14 +821,17 @@ def phase_check_train() -> dict:
     return errors
 
 
-def train_bounds(dtype: torch.dtype, fma: bool = False) -> dict:
-    """Least ms of K2, K3 and K4 at the training fold: operations at the
-    peak rate of the type against bytes (each input read once, each output
-    written once; h_{t-1} and c_{t-1} are the arrays of h and c read again).
-    In float32 the forward and reverse sweeps run each product as three TF32
-    products (`fma`: as FMAs), and K3's weight gradients run FMAs."""
+def train_bounds(dtype: torch.dtype, fma: bool = False, shape=SB, n: int = N_TRAIN,
+                 t: int = T_TRAIN) -> dict:
+    """Least ms of K2, K3 and K4 at `shape` (D, H, O) on the fold N x T
+    (default: the training fold): operations at the peak rate of the type
+    against bytes (each input read once, each output written once; h_{t-1}
+    and c_{t-1} are the arrays of h and c read again). In float32 the
+    forward and reverse sweeps run each product as three TF32 products
+    (`fma`: as FMAs), and K3's weight gradients run FMAs."""
+    D, H, O = shape  # noqa: N806 - the module's names for the shape
     size = torch.tensor([], dtype=dtype).element_size()
-    rows = N_TRAIN * T_TRAIN
+    rows = n * t
     weights = (D + 3 * H) * 4 * H * size + H * O * 4
     sweep_flops = 2 * rows * ((D + 3 * H) * 4 * H + H * O)  # forward and reverse sweep alike
     wgrad_flops = 2 * rows * (D + 3 * H) * 4 * H
@@ -1021,7 +1042,7 @@ def training_kernels(fused: bool, plain: bool = False):
         lt.lstm2_train_fwd, lt.lstm2_bwd = kernels
 
 
-def same_state_check(state, make_step, batches, phase: str = "[6]") -> tuple:
+def same_state_check(state, make_step, batches, phase: str = "[6]", per_step: int = 1) -> tuple:
     """Phase 6's agreement check, well posed: the plain float32 run takes its
     TRAIN_STEPS steps, and before each one the same step from a copy of its
     state runs through the kernels (float32 K2 + K3, float32 K2 + K4, bf16
@@ -1029,7 +1050,9 @@ def same_state_check(state, make_step, batches, phase: str = "[6]") -> tuple:
     plain step's from the same state: float32 within TRAIN_LOSS_RTOL and
     TRAIN_GRAD_NORM_RTOL, bf16's loss within TRAIN_BF16_LOSS_RTOL. Returns
     (each form's worst loss and gradient-norm gaps, the kernel steps'
-    launches summed); `phase` tags the lines."""
+    launches summed); `phase` tags the lines. A step launches the forward
+    and the backward kernel `per_step` times each (FullSubNet: 2, its
+    full-band and sub-band LSTMs)."""
     forms = (("float32_k3", torch.float32, True), ("float32_k4", torch.float32, False),
              ("bfloat16_k3", torch.bfloat16, True))
     steps = {dtype: make_step(dtype) for dtype in (torch.float32, torch.bfloat16)}
@@ -1044,7 +1067,8 @@ def same_state_check(state, make_step, batches, phase: str = "[6]") -> tuple:
             launches = all_launches()
             counted.update(launches)
             expect = {k: 0 for k in launches}
-            expect.update({"lstm2_train_fwd": 1, "lstm2_bwd_wgrad" if fused else "lstm2_bwd": 1})
+            expect.update({"lstm2_train_fwd": per_step,
+                           "lstm2_bwd_wgrad" if fused else "lstm2_bwd": per_step})
             if launches != expect:
                 fail(f"{phase} train {tag} step {i} from the plain run's state: launches "
                      f"{launches}, expected {expect}")
@@ -1894,12 +1918,15 @@ def write_trainer_corpus(root: str) -> dict:
     return {"lists": {k: os.path.join(base, f"{k}.txt") for k in lists}, "valid": valid_dirs}
 
 
-def trainer_toml(root: str, corpus: dict, name: str) -> str:
+def trainer_toml(root: str, corpus: dict, name: str, model: dict | None = None) -> str:
     """configs/train.toml with the corpus paths, a save_dir under root and
-    TRAINER_EPOCHS epochs; returns its path."""
+    TRAINER_EPOCHS epochs (and `model` for its [model] table); returns its
+    path."""
     from fullsubnet_plus_torch.utils.config import dump_config, load_config
 
     config = load_config(os.path.join(REPO, "configs", "train.toml"))
+    if model is not None:
+        config["model"] = model
     config["meta"]["save_dir"] = os.path.join(root, "runs", name)
     args = config["train_dataset"]["args"]
     for kind in ("clean", "noise", "rir"):
@@ -1911,7 +1938,7 @@ def trainer_toml(root: str, corpus: dict, name: str) -> str:
     return path
 
 
-def jax_checkpoint_keys() -> set:
+def jax_checkpoint_keys(model: str = "fullsubnet_plus") -> set:
     """The keys of the JAX package's latest_model.npz for `model`: the
     parameter tree's paths (io/convert.py's key table, held equal to JAX's
     by tests/test_torch_checkpoint.py) under params/ and Adam's mu/ and nu/,
@@ -1919,7 +1946,7 @@ def jax_checkpoint_keys() -> set:
     from fullsubnet_plus_torch.io.checkpoint import ADAM_PREFIX
     from fullsubnet_plus_torch.io.convert import key_table
 
-    paths = [p for p, _, _ in key_table()]
+    paths = [p for p, _, _ in key_table(model=model)]
     return ({f"params/{p}" for p in paths} | {f"{ADAM_PREFIX}/{m}/{p}" for m in ("mu", "nu")
                                                for p in paths}
             | {f"{ADAM_PREFIX}/count", "step"})
@@ -1946,21 +1973,24 @@ def build_trainer(config_path: str, *flags: str):
     return cli.build_trainer(load_config(config_path), args)
 
 
-def run_trainer(trainer) -> dict:
+def run_trainer(trainer, phase: str = "[8]") -> dict:
     """Train; the kernels' launches during the run."""
     reset_launches()
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
-    print(f"[8] {len(trainer.history)} epoch(s) trained and validated in "
+    print(f"{phase} {len(trainer.history)} epoch(s) trained and validated in "
           f"{time.perf_counter() - t0:.1f} s")
     return all_launches()
 
 
 def check_trainer_run(tag: str, trainer, launches: dict, bf16: bool,
-                      prior_scores: tuple = ()) -> dict:
+                      prior_scores: tuple = (), model: str = "fullsubnet_plus",
+                      per_step: int = 1, phase: str = "[8]") -> dict:
     """The run's launches, losses and files (after `prior_scores`, the
-    (epoch, score) pairs of the runs it resumed); its figures."""
+    (epoch, score) pairs of the runs it resumed); its figures. A train step
+    launches the forward and the backward kernel, and a validation batch K1,
+    `per_step` times each (FullSubNet: 2, its two LSTMs)."""
     from fullsubnet_plus_torch.io.checkpoint import load_flat
 
     epochs = [r for r in trainer.history if "train_loss" in r]
@@ -1969,7 +1999,8 @@ def check_trainer_run(tag: str, trainer, launches: dict, bf16: bool,
     valid_batches = sum(v["batches"] for v in valid)
     backward = "lstm2_bwd_wgrad" if bf16 else "lstm2_bwd"
     want = {k: 0 for k in launches}
-    want.update({"lstm2_train_fwd": steps, backward: steps, "lstm2_fwd": valid_batches})
+    want.update({"lstm2_train_fwd": per_step * steps, backward: per_step * steps,
+                 "lstm2_fwd": per_step * valid_batches})
     if launches != want:
         fail(f"trainer {tag}: launches {launches}, expected {want} ({steps} steps, "
              f"{valid_batches} validation batches)")
@@ -1981,7 +2012,7 @@ def check_trainer_run(tag: str, trainer, launches: dict, bf16: bool,
                 or not all(np.isfinite(v) for v in r["validation"]["losses"].values())):
             fail(f"trainer {tag} epoch {r['epoch']}: {r}")
     ckpt_dir = trainer.ckpt.ckpt_dir
-    keys = jax_checkpoint_keys()
+    keys = jax_checkpoint_keys(model)
     params = {k for k in keys if k.startswith("params/")}
     for name in ["latest_model.npz", "best_model.npz"] + [f"model_{r['epoch']:04d}.npz"
                                                          for r in epochs]:
@@ -2016,7 +2047,7 @@ def check_trainer_run(tag: str, trainer, launches: dict, bf16: bool,
                           "metrics_s": [v["metrics_s"] for v in valid],
                           "metric_means": valid[-1]["metrics"]},
            "launches": launches}
-    print(f"[8] trainer {tag}: epochs {out['epochs']}, {steps} steps, train loss "
+    print(f"{phase} trainer {tag}: epochs {out['epochs']}, {steps} steps, train loss "
           f"{', '.join(f'{v:.6f}' for v in out['train_loss'])}; median step wall "
           f"{out['median_step_wall_ms']} ms, {out['audio_s_per_s']:.1f} audio-s/s over the "
           f"epochs' training wall, loader-wait share {out['loader_wait_share']:.3f}; "
@@ -2133,7 +2164,7 @@ def phase_trainer(root: str) -> dict:
                "float32_runs_deterministic": True, "resume_bit_equal": equal,
                "epoch3_rel_diff": rel}
     print(json.dumps({"trainer": summary}))
-    return summary
+    return {**summary, "corpus": corpus}  # phase 11 trains FullSubNet on the same corpus
 
 
 # Phase 9: multi-device. Ranks run as this script in worker mode
@@ -2765,6 +2796,225 @@ def phase_variants(root: str, lengths: list[int]) -> dict:
             "wall_s": wall}
 
 
+# Phase 11: FullSubNet's training step at full width: FSN_TOML's [model] at
+# configs/train.toml's batch (18 of 3.072 s, T 195), both LSTMs through the
+# training kernels: the full-band one at N 18 (a row a batch item), D 257,
+# H 512, O 257, where the reverse sweep's dx is output-stationary, and the
+# sub-band one after drop_band at N 18 * 128, D 32, H 384, O 2.
+N_FB_TRAIN = TRAIN_BATCH
+
+
+def fsn_model_table() -> dict:
+    """FSN_TOML's [model] table (path and args)."""
+    import tomllib
+
+    return tomllib.loads(FSN_TOML)["model"]
+
+
+def check_fsn_train_kernels() -> tuple[dict, dict]:
+    """(a) and (e): K2, K3 and K4 at the full-band fold of FullSubNet's train
+    step (N 18, T 195) in float32 and bf16 against their plain versions on
+    the same operands (y and the residuals; dx, every weight gradient and
+    both bias gradients; K4's dgates too), K3 equal to itself on a repeat;
+    then each timed beside its plain version, its bound and cuDNN's
+    LSTM(257, 512, 2) + Linear forward or backward (TF32 off; a yardstick).
+    Returns ({(kernel, dtype): {"max_abs_err", "min_snr_db"}}, {(kernel,
+    dtype): times})."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    n, t = N_FB_TRAIN, T_TRAIN
+    for dtype in (torch.float32, torch.bfloat16):
+        forms = {form: lt.bwd_shared_memory_bytes(16, *FB, dtype, ksplit=form == "k-split")
+                 for form in ("k-split", "output-stationary")}
+        print(f"[11] reverse sweep's shared memory at D {FB[0]}, H {FB[1]}, O {FB[2]}, "
+              f"{str(dtype)[6:]}: " + ", ".join(f"{k} {v:,} bytes" for k, v in forms.items())
+              + f"; the rule takes {'k-split' if lt.bwd_dx_ksplit(16, *FB, dtype) else 'output-stationary'}")
+        if lt.bwd_dx_ksplit(16, *FB, dtype) or forms["output-stationary"] > 232448:
+            fail("the full-band reverse sweep does not take the output-stationary dx that fits")
+    errors, times = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        floor, tag = SNR_FLOOR[dtype], f"N={n} T={t} {str(dtype)[6:]}"
+        x, dy, lstm, fc = train_operands(n, t, dtype, seed=11, shape=FB)
+        w = lstm.packed(fc)
+        y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+        y, res = lt.lstm2_train_fwd(x, w)
+        k2 = worst((y_ref, *res_ref), (y, *res))
+        sweep_ref = lt.lstm2_bwd_reference(dy, x, w, res_ref)
+        sweep = lt.lstm2_bwd_sweep(dy, x, w, res_ref)
+        dgates = worst(sweep_ref[1:3], sweep[1:3])
+        del sweep_ref, sweep
+        k4 = worst(lt.lstm2_bwd_plain(dy, x, w, res_ref, fused=False),
+                   lt.lstm2_bwd(dy, x, w, res_ref, fused=False))
+        got = lt.lstm2_bwd(dy, x, w, res_ref, fused=True)
+        again = lt.lstm2_bwd(dy, x, w, res_ref, fused=True)
+        torch.cuda.synchronize()
+        k3 = worst(lt.lstm2_bwd_plain(dy, x, w, res_ref, fused=True), got)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again, y_ref, res_ref, y
+        print(f"[11] full-band training kernels vs plain {tag} (floor {floor:.0f} dB): "
+              f"lstm2_train_fwd {k2[0]:.1f} dB max_abs {k2[1]:.3e}; lstm2_bwd (dx, the weight "
+              f"gradients from its dgates, db) {k4[0]:.1f} dB max_abs {k4[1]:.3e}, its dgates "
+              f"{dgates[0]:.1f} dB; lstm2_bwd_wgrad {k3[0]:.1f} dB max_abs {k3[1]:.3e}, equal "
+              f"on a repeat: {repeat}")
+        if not repeat:
+            fail(f"lstm2_bwd_wgrad is not deterministic at the full-band {tag}")
+        for name, (snr, _) in (("lstm2_train_fwd", k2), ("lstm2_bwd", k4),
+                               ("lstm2_bwd dgates", dgates), ("lstm2_bwd_wgrad", k3)):
+            if snr < floor:
+                fail(f"{name} disagrees at the full-band {tag}: {snr:.1f} dB")
+        for name, (snr, err) in (("lstm2_train_fwd", k2), ("lstm2_bwd", k4),
+                                 ("lstm2_bwd_wgrad", k3)):
+            errors[(name, dtype)] = {"max_abs_err": err, "min_snr_db": snr}
+
+        ms = {"lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd(x, w), reps=3),
+              "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res), reps=3),
+              "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True),
+                                         reps=3)}
+        plain = {"lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd_reference(x, w), reps=2),
+                 "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res), reps=2),
+                 "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd_plain(dy, x, w, res, True),
+                                            reps=2)}
+        del res
+        ref, linear = cudnn_modules(lstm, fc, dtype)
+        x_ntd = x.transpose(1, 2).contiguous().requires_grad_()
+        wrt = (x_ntd, *ref.parameters(), *linear.parameters())
+
+        def library_fwd():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return linear(ref(x_ntd)[0])
+
+        fwd_ms = cuda_ms(library_fwd, reps=3)
+        y_lib = library_fwd()
+
+        def library_bwd():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return torch.autograd.grad(y_lib, wrt, dy, retain_graph=True)
+
+        bwd_ms = cuda_ms(library_bwd, reps=3)
+        del y_lib
+        library = {"lstm2_train_fwd": fwd_ms, "lstm2_bwd": bwd_ms, "lstm2_bwd_wgrad": bwd_ms}
+        bounds = train_bounds(dtype, shape=FB, n=n, t=t)
+        for name in ms:
+            side = "forward" if name == "lstm2_train_fwd" else "backward"
+            print(f"[11] {name} {str(dtype)[6:]} full-band N={n} T={t}: kernel {ms[name]:.3f} ms"
+                  f"  plain {plain[name]:.3f} ms  cuDNN LSTM+Linear {side} "
+                  f"{library[name]:.3f} ms  bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+            times[(name, dtype)] = dict(ms=ms[name], plain_ms=plain[name],
+                                        library_ms=library[name], bound_ms=bounds[name][0],
+                                        bound_by=bounds[name][1])
+        torch.cuda.empty_cache()
+    return errors, times
+
+
+def fsn_train_setup():
+    """FullSubNet (FSN_TOML's [model]) with configs/train.toml's optimizer,
+    loss and acoustics, and TRAIN_STEPS seeded batches of its shape."""
+    from fullsubnet_plus_torch.models import get_model
+    from fullsubnet_plus_torch.train import loss, step
+    from fullsubnet_plus_torch.utils.config import load_config
+
+    toml = load_config(os.path.join(REPO, "configs", "train.toml"))
+    table = fsn_model_table()
+    model_def = get_model(table["path"])
+    config = model_def.make_config(table["args"])
+    acoustics = {k: toml["acoustics"][k] for k in ("n_fft", "hop_length", "win_length")}
+    optimizer = step.make_optimizer(
+        **toml["optimizer"], clip_grad_norm=toml["trainer"]["train"]["clip_grad_norm_value"])
+    rng = np.random.default_rng(11)
+    batches = [tuple(np.stack(rows) for rows in
+                     zip(*(train_pair(rng, TRAIN_SAMPLES) for _ in range(TRAIN_BATCH))))
+               for _ in range(TRAIN_STEPS)]
+    return model_def, config, optimizer, loss.get_loss(toml["loss_function"]["name"]), \
+        acoustics, batches
+
+
+def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
+    """Phase 11: FullSubNet's training at full width. (a) and (e)
+    `check_fsn_train_kernels`; (b) the full-band training cases of the JAX
+    fixture; (c) the train step from the plain step's state, through
+    float32 K2 + K4, float32 K2 + K3 and bf16 K2 + K3 (phase 6's limits,
+    each step launching its two kernels twice), then the float32 default
+    form timed and profiled (no TF32 product); (d) one float32 trainer
+    epoch through the CLI's functions on phase 8's corpus, and one more
+    profiled."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+    from fullsubnet_plus_torch.train import step
+
+    t_start = time.perf_counter()
+    errors, times = check_fsn_train_kernels()
+    fixture_snr = phase_check_fixture(probed=True, phase="[11]")
+
+    model_def, config, optimizer, loss_fn, acoustics, batches = fsn_train_setup()
+
+    def make_step(dtype):
+        return step.make_train_step(model_def, config, optimizer, loss_fn, compute_dtype=dtype,
+                                    device="cuda", **acoustics)
+
+    def seeded_state():
+        model = model_def.module_cls(config).init_weights(torch.Generator().manual_seed(42))
+        return step.init_train_state(model, optimizer, device="cuda")
+
+    gaps, step_launches = same_state_check(seeded_state(), make_step, batches,
+                                           phase="[11] FullSubNet", per_step=2)
+    state, train_step = seeded_state(), make_step(torch.float32)
+    noisy, clean = batches[0]
+    reset_launches()
+    walls = []
+    for noisy, clean in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, noisy, clean)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if not (np.isfinite(float(m["loss"])) and float(m["skipped"]) == 0.0):
+            fail(f"[11] FullSubNet float32 step: {m}")
+    default_launches = all_launches()
+    backward = "lstm2_bwd_wgrad" if lt.fused_wgrad(torch.float32) else "lstm2_bwd"
+    want = {k: 0 for k in default_launches}
+    want.update({"lstm2_train_fwd": 2 * TRAIN_STEPS, backward: 2 * TRAIN_STEPS})
+    if default_launches != want:
+        fail(f"[11] FullSubNet float32 steps: launches {default_launches}, expected {want}")
+    wall = statistics.median(walls[1:])
+    audio_s = TRAIN_BATCH * TRAIN_SAMPLES / SR
+    print(f"[11] FullSubNet float32 train step (the default form, K2 + "
+          f"{'K3' if backward == 'lstm2_bwd_wgrad' else 'K4 + weight_grads'}): wall median "
+          f"{wall:.1f} ms (each {', '.join(f'{w:.0f}' for w in walls)}), "
+          f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {default_launches}")
+
+    def one_step():
+        train_step(state, noisy, clean)
+        torch.cuda.synchronize()
+
+    label = "[11] profile FullSubNet float32 train step:"
+    check_no_tf32(profile_call(one_step, label), "[11] the FullSubNet float32 train step")
+
+    path = trainer_toml(root, corpus, "fullsubnet", model=fsn_model_table())
+    trainer = build_trainer(path, "--epochs", "1")
+    trainer_run = check_trainer_run("FullSubNet float32", trainer,
+                                    run_trainer(trainer, phase="[11]"), False,
+                                    model="fullsubnet", per_step=2, phase="[11]")
+    epoch = trainer.history[-1]["epoch"] + 1
+
+    def one_epoch():
+        trainer._train_epoch(epoch)
+        torch.cuda.synchronize()
+
+    epoch_label = f"[11] profile FullSubNet trainer float32 epoch ({TRAINER_STEPS} steps):"
+    profile_call(one_epoch, epoch_label)
+    trainer_run["profile_epoch"] = PROFILES[epoch_label]
+    took = time.perf_counter() - t_start
+    print(f"[11] FullSubNet trainer float32: {trainer_run['audio_s_per_s']:.1f} audio-s/s over "
+          f"the epoch's training wall, idle share {PROFILES[epoch_label]['idle_share']:.3f} of "
+          f"a profiled epoch, launches {trainer_run['launches']}")
+    print(f"phase 11 took {took:.1f} s")
+    return {"errors": errors, "times": times, "fixture_snr": fixture_snr,
+            "steps": {"rel_gaps": gaps, "launches": {k: v for k, v in step_launches.items() if v},
+                      "float32_default": {"wall_ms": wall, "audio_s_per_s": audio_s / wall * 1e3,
+                                          "launches": default_launches,
+                                          "profile": PROFILES[label]}},
+            "trainer": trainer_run, "wall_s": took}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -2826,6 +3076,7 @@ def main() -> None:
         print(f"phase 9 took {time.perf_counter() - t_multi:.1f} s")
         print(f"phases 1-9 took {time.perf_counter() - t_start:.1f} s")
         variants = phase_variants(root, lengths)
+        fsn_train = phase_fullsubnet_train(root, trainer["corpus"])
 
     def multi_launches(name: str) -> dict:
         """Phase 9's and phase 4's pipelined runs' launches of a kernel."""
@@ -2845,6 +3096,15 @@ def main() -> None:
         return {k: v for k, v in out.items() if v}
 
     t_runs = trainer["runs"]
+
+    def fsn_train_launches(name: str) -> dict:
+        """Phase 11's launches of a kernel: the same-state steps, the
+        default float32 steps, the trainer epoch (with its validation)."""
+        steps = fsn_train["steps"]
+        out = {"fullsubnet_steps_same_state": steps["launches"].get(name, 0),
+               "fullsubnet_steps_float32": steps["float32_default"]["launches"].get(name, 0),
+               "fullsubnet_trainer": fsn_train["trainer"]["launches"].get(name, 0)}
+        return {k: v for k, v in out.items() if v}
 
     def trainer_launches(name: str) -> dict:
         """Phase 8's launches of a kernel: K1 in validation alone, K2-K4 in
@@ -2886,7 +3146,8 @@ def main() -> None:
         + fsn["launches"]["float32"]["lstm2_fwd"] + fsn["launches"]["bfloat16"]["lstm2_fwd"]
         + fsn["overlapped_chunk"]["launches"]["lstm2_fwd"]
         + sum(trainer_launches("lstm2_fwd").values()) + sum(multi_launches("lstm2_fwd").values())
-        + sum(variant_launches("lstm2_fwd").values()),
+        + sum(variant_launches("lstm2_fwd").values())
+        + sum(fsn_train_launches("lstm2_fwd").values()),
         "max_abs_err": errors[("lstm2_fwd", N_FULL, T_FULL, torch.float32)],
         **f32,
         "shape": {"N": N_FULL, "D": D, "H": H, "O": O, "T": T_FULL, "dtype": "float32"},
@@ -2900,7 +3161,7 @@ def main() -> None:
                             "fullsubnet_overlapped_chunk":
                                 fsn["overlapped_chunk"]["launches"]["lstm2_fwd"],
                             **trainer_launches("lstm2_fwd"), **multi_launches("lstm2_fwd"),
-                            **variant_launches("lstm2_fwd")},
+                            **variant_launches("lstm2_fwd"), **fsn_train_launches("lstm2_fwd")},
         "fullsubnet_fb": {
             "shape": {"N": N_FB, "D": FB[0], "H": FB[1], "O": FB[2], "T": T_FULL},
             "float32": fb_kernels[torch.float32], "bfloat16": fb_kernels[torch.bfloat16],
@@ -2969,6 +3230,8 @@ def main() -> None:
             extra["float32_sweep_functions"] = hmma[f"{name}_float32_sweep"]
         if name == "lstm2_bwd_wgrad":
             extra["wgrad_functions"] = hmma["wgrad"]
+        fb = {tag: {**fsn_train["errors"][(name, dt)], **fsn_train["times"][(name, dt)]}
+              for tag, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
         return {
             "name": name,
             "route": "cuda",
@@ -2976,20 +3239,27 @@ def main() -> None:
             "replaces": f"fullsubnet_plus_tpu/ops/lstm_pallas.py:{replaces}",
             "launches": sum(runs[r]["launches"][name] for r in launch_runs)
             + sum(trainer_launches(name).values()) + sum(multi_launches(name).values())
-            + sum(variant_launches(name).values()),
+            + sum(variant_launches(name).values()) + sum(fsn_train_launches(name).values()),
             **train_errors[(name, N_TRAIN, T_TRAIN, torch.float32)],
             **f32,
             "shape": {"N": N_TRAIN, "D": D, "H": H, "O": O, "T": T_TRAIN, "dtype": "float32"},
             "bfloat16": {**train_errors[(name, N_TRAIN, T_TRAIN, torch.bfloat16)], **bf16},
             "launches_by_run": {**{r: runs[r]["launches"][name] for r in launch_runs},
                                 **trainer_launches(name), **multi_launches(name),
-                                **variant_launches(name)},
+                                **variant_launches(name), **fsn_train_launches(name)},
             "library": "cuDNN LSTM + Linear, "
                        + ("forward" if name == "lstm2_train_fwd" else "backward"),
             "train_step": {r: {"wall_ms": runs[r]["wall_ms"],
                                "audio_s_per_s": runs[r]["audio_s_per_s"]} for r in launch_runs},
             "jax_fixture_min_snr_db": {dt: fixture_snr[(name, dt)]
                                        for dt in ("float32", "bfloat16")},
+            "fullsubnet_fb_train": {
+                "shape": {"N": N_FB_TRAIN, "D": FB[0], "H": FB[1], "O": FB[2], "T": T_TRAIN},
+                **fb,
+                "launches_per_step": "1 a FullSubNet train step (and 1 at the sub-band shape)",
+                "jax_fixture_min_snr_db": {dt: fsn_train["fixture_snr"].get((name, dt))
+                                           for dt in ("float32", "bfloat16")},
+                "train_step_float32": fsn_train["steps"]["float32_default"]["wall_ms"]},
             **extra,
         }
 

@@ -39,14 +39,27 @@
 // warp reads 512 contiguous bytes a k-chunk; a float32 word is split in
 // registers after its load, so L2 traffic stays 4 bytes a weight. Warp w
 // takes n-tiles 8w .. 8w + 7 of [dh1' | dh2_carry] and 4w .. 4w + 3 of U1^T
-// over all k, in passes of 4 n-tiles (float32 accumulators in registers),
-// and every n-tile of dx over its own 1 / (H / 32) of the k-chunks (its
-// k-part: 128 of the 4H gate columns), into a partial that the
-// threads add in warp order. The epilogues add into or overwrite dh1s /
-// dh2s (each word one writer) between barriers; no atomics, so the result
-// is the same bit for bit on every run. Shared memory at H 384, D 34, O 2:
-// 129,408 bytes in bf16 and 178,560 in float32 (dgates 49.4 / 98.6 KB, dh1
-// and dh2 24.6 KB each, dx partials [12][16][40] 30.7 KB).
+// over all k, in passes of 4 n-tiles (float32 accumulators in registers).
+// dx takes one of two forms, by `dx_ksplit` (the same rule as
+// ops/lstm2_train.py's `bwd_dx_ksplit`):
+//   k-split, where its partials fit a block: every n-tile of dx over the
+//     warp's own 1 / (H / 32) of the k-chunks (its k-part: 128 of the 4H
+//     gate columns), into a partial [16][dx_cols(D)] that the threads add
+//     in warp order. At D 34 (5 n-tiles) every one of 12 warps has work.
+//   output-stationary, where they do not (FullSubNet's full-band LSTM, D
+//     257, H 512, O 257: 16 partials [16][264] alone would take 270,336
+//     bytes): warp w owns n-tiles w, w + H / 32, ... of dx (33 n-tiles over
+//     16 warps: 3 for warp 0, 2 for the others), multiplies them together
+//     over all the k-chunks and stores them from its accumulators straight
+//     to dx.
+// The epilogues add into or overwrite dh1s / dh2s (each word one writer)
+// between barriers, each dx word has one writer and a fixed summation
+// order; no atomics, so the result is the same bit for bit on every run.
+// Shared memory at H 384, D 34, O 2 (k-split): 129,408 bytes in bf16 and
+// 178,560 in float32 (dgates 49.4 / 98.6 KB, dh1 and dh2 24.6 KB each, dx
+// partials [12][16][40] 30.7 KB); at H 512, D 257, O 257
+// (output-stationary): 147,776 and 213,312 (dgates 65.8 / 131.3 KB, dh1 and
+// dh2 32.8 KB each, the dy tile 16.4 KB).
 // cuobjdump -sass: 54 HMMA instructions in each of the two bf16 functions
 // (H <= 384 and <= 512), 162 HMMA.1688.F32.TF32 in each float32 one
 // (chip_smoke.py phase 1).
@@ -96,11 +109,24 @@ template <typename T> __host__ __device__ inline int dgates_pitch(int H) {
   return 4 * H + MMA_PAD_BYTES / (int)sizeof(T);
 }
 
+constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use (sm_90)
+
 // the dgates [16][pitch] of T, then float32 the dh1 and dh2 carries [16][H],
-// the dy tile [16][O] and a dx partial per warp [H / 32][16][dx_cols(D)]
-template <typename T> inline size_t shared_bytes(int D, int H, int O) {
+// the dy tile [16][O] and, in the k-split form, a dx partial per warp
+// [H / 32][16][dx_cols(D)]
+template <typename T> inline size_t shared_bytes_form(int D, int H, int O, bool ksplit) {
   return sizeof(T) * (size_t)MMA_ROWS * dgates_pitch<T>(H) +
-         sizeof(float) * (size_t)MMA_ROWS * (2 * H + O + (H / 32) * dx_cols(D));
+         sizeof(float) * (size_t)MMA_ROWS * (2 * H + O + (ksplit ? (H / 32) * dx_cols(D) : 0));
+}
+
+// dx's form: the k-split wherever its partials fit a block, else
+// output-stationary (`bwd_dx_ksplit` in ops/lstm2_train.py)
+template <typename T> inline bool dx_ksplit(int D, int H, int O) {
+  return shared_bytes_form<T>(D, H, O, true) <= SMEM_LIMIT;
+}
+
+template <typename T> inline size_t shared_bytes(int D, int H, int O) {
+  return shared_bytes_form<T>(D, H, O, dx_ksplit<T>(D, H, O));
 }
 
 template <typename T>
@@ -122,6 +148,7 @@ struct SweepArgs {
   int n_rows, steps, D, H, O;
   int t_hi, t_lo, t_base;
   int resume;      // 0: carries and bias sums start from zero; 1: read them
+  int dx_ksplit;   // dx's form (set by launch_mma from dx_ksplit<T>)
 };
 
 // The cell backward of unit j for the tile's rows: rounds the dgates to T,
@@ -164,19 +191,19 @@ __device__ __forceinline__ void cell_bwd(const float (&dh)[R], float (&dc)[R], f
   }
 }
 
-// acc[i] += dgates . B[n-tile i] over the k-chunks [kc0, kc1) (64 bytes of
-// a dgates row each, two k-steps), in k order. a_addr: this lane's ldmatrix
-// address in the dgates; B: this lane's 16 bytes of n-tile 0 and k-chunk 0;
-// n-tile i, k-chunk kc are at B[(i * chunks + kc) * 32].
+// acc[i] += dgates . B[n-tile i * stride] over the k-chunks [kc0, kc1) (64
+// bytes of a dgates row each, two k-steps), in k order. a_addr: this lane's
+// ldmatrix address in the dgates; B: this lane's 16 bytes of n-tile 0 and
+// k-chunk 0; n-tile i, k-chunk kc are at B[(i * chunks + kc) * 32].
 template <typename T, int NT>
 __device__ __forceinline__ void mma_tiles(float (&acc)[NT][4], uint32_t a_addr,
                                           const uint4* __restrict__ B, int chunks, int kc0,
-                                          int kc1) {
+                                          int kc1, int stride = 1) {
 #pragma unroll 2
   for (int kc = kc0; kc < kc1; ++kc) {
     uint4 b[NT];
 #pragma unroll
-    for (int i = 0; i < NT; ++i) b[i] = __ldg(B + ((size_t)i * chunks + kc) * 32);
+    for (int i = 0; i < NT; ++i) b[i] = __ldg(B + ((size_t)i * stride * chunks + kc) * 32);
     AFrag<T> a;
     a.load(a_addr + kc * CHUNK_BYTES);
 #pragma unroll
@@ -199,15 +226,42 @@ __device__ __forceinline__ void store_acc(const float (&acc)[NT][4], float* out,
     }
 }
 
+// This lane's accumulator words of dx n-tile `nt` into the step's dx rows
+// (row pitch D), rounded to T: rows past rows_here and columns past D are
+// not stored.
+template <typename T>
+__device__ __forceinline__ void store_dx(const float (&acc)[4], T* __restrict__ dx_t, int D,
+                                         int nt, int rows_here, int lane) {
+  const int fr = lane >> 2, fc = 8 * nt + 2 * (lane & 3);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = fr + 8 * (e >> 1), c = fc + (e & 1);
+    if (r < rows_here && c < D) dx_t[(size_t)r * D + c] = from_f<T>(acc[e]);
+  }
+}
+
+// Output-stationary dx: NT of this warp's n-tiles, nt0, nt0 + warps, ...,
+// each over all the k-chunks, stored to the step's dx rows.
+template <typename T, int NT>
+__device__ __forceinline__ void dx_tiles(uint32_t a_addr, const uint4* __restrict__ w1p,
+                                         T* __restrict__ dx_t, int chunks, int nt0, int warps,
+                                         int D, int rows_here, int lane) {
+  float acc[NT][4] = {};
+  mma_tiles<T, NT>(acc, a_addr, w1p + (size_t)nt0 * chunks * 32 + lane, chunks, 0, chunks, warps);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) store_dx<T>(acc[i], dx_t, D, nt0 + i * warps, rows_here, lane);
+}
+
 // The sweep for a tile of 16 rows. The tile's dgates sit in shared memory
 // as T [16][4H + pad], and warp w of the H / 32 computes, in passes of 4
 // n-tiles of 8 columns:
 //   [dh1' | dh2_carry]: n-tiles 8w .. 8w + 7 of the 2H columns over all k,
 //     the first H columns added into dh1s, the last H written to dh2s;
 //   dh1_carry: n-tiles 4w .. 4w + 3 of the H columns over all k, into dh1s;
-//   dx: every n-tile of the D columns over its own share of the k-chunks
-//     (its k-part), into its own partial, which 16 x D threads then add in
-//     warp order.
+//   dx, k-split: every n-tile of the D columns over its own share of the
+//     k-chunks (its k-part), into its own partial, which 16 x D threads then
+//     add in warp order; output-stationary: n-tiles w, w + H / 32, ... over
+//     all the k-chunks, stored straight to dx.
 // Each output word has one writer and each sum a fixed order.
 template <typename T, int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
@@ -220,7 +274,7 @@ sweep_mma_kernel(const SweepArgs<T> a) {
   float* dh1s = reinterpret_cast<float*>(dgs + (size_t)R * ld);  // [R][H]
   float* dh2s = dh1s + R * H;                                    // [R][H]
   float* dys = dh2s + R * H;                                     // [R][O]
-  float* dxp = dys + R * O;                                      // [warps][R][dxc]
+  float* dxp = dys + R * O;  // k-split: [warps][R][dxc]; output-stationary: not there
 
   const int j = threadIdx.x, warp = j >> 5, lane = j & 31;
   const int n0 = blockIdx.x * R;
@@ -291,18 +345,33 @@ sweep_mma_kernel(const SweepArgs<T> a) {
                       chunks);
       store_acc(acc, dh1s + warp * 32, H, lane, false);  // d h1_{t-1}
     }
-    for (int nt = 0; nt < dxc / 8; ++nt) {
-      float acc[1][4] = {};
-      mma_tiles<T, 1>(acc, a_addr, a.w1p + (size_t)nt * chunks * 32 + lane, chunks,
-                      warp * chunks / warps, (warp + 1) * chunks / warps);
-      store_acc(acc, dxp + (size_t)warp * R * dxc + 8 * nt, dxc, lane, false);
-    }
-    __syncthreads();  // dx partials complete
-    for (int idx = j; idx < R * D; idx += H) {
-      const int r = idx / D, d = idx - r * D;
-      float s = 0.0f;
-      for (int p = 0; p < warps; ++p) s += dxp[((size_t)p * R + r) * dxc + d];
-      if (r < rows_here) a.dx[row0 * D + idx] = from_f<T>(s);
+    if (a.dx_ksplit) {
+      for (int nt = 0; nt < dxc / 8; ++nt) {
+        float acc[1][4] = {};
+        mma_tiles<T, 1>(acc, a_addr, a.w1p + (size_t)nt * chunks * 32 + lane, chunks,
+                        warp * chunks / warps, (warp + 1) * chunks / warps);
+        store_acc(acc, dxp + (size_t)warp * R * dxc + 8 * nt, dxc, lane, false);
+      }
+      __syncthreads();  // dx partials complete
+      for (int idx = j; idx < R * D; idx += H) {
+        const int r = idx / D, d = idx - r * D;
+        float s = 0.0f;
+        for (int p = 0; p < warps; ++p) s += dxp[((size_t)p * R + r) * dxc + d];
+        if (r < rows_here) a.dx[row0 * D + idx] = from_f<T>(s);
+      }
+    } else {
+      // output-stationary, up to 4 of the warp's n-tiles a pass (D <= H
+      // gives each warp at most 4); the next step's first barrier orders
+      // these reads of the dgates before its cell backward overwrites them
+      T* dx_t = a.dx + row0 * D;
+      for (int nt = warp; nt < dxc / 8; nt += 4 * warps) {
+        switch (min(4, (dxc / 8 - nt + warps - 1) / warps)) {
+          case 4: dx_tiles<T, 4>(a_addr, a.w1p, dx_t, chunks, nt, warps, D, rows_here, lane); break;
+          case 3: dx_tiles<T, 3>(a_addr, a.w1p, dx_t, chunks, nt, warps, D, rows_here, lane); break;
+          case 2: dx_tiles<T, 2>(a_addr, a.w1p, dx_t, chunks, nt, warps, D, rows_here, lane); break;
+          default: dx_tiles<T, 1>(a_addr, a.w1p, dx_t, chunks, nt, warps, D, rows_here, lane);
+        }
+      }
     }
   }
 
@@ -327,11 +396,14 @@ sweep_mma_kernel(const SweepArgs<T> a) {
 
 template <typename T, int MAX_THREADS>
 int launch_mma(const SweepArgs<T>& a, cudaStream_t stream) {
+  SweepArgs<T> b = a;
+  b.dx_ksplit = dx_ksplit<T>(a.D, a.H, a.O);
   const size_t smem = shared_bytes<T>(a.D, a.H, a.O);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       sweep_mma_kernel<T, MAX_THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sweep_mma_kernel<T, MAX_THREADS><<<(a.n_rows + MMA_ROWS - 1) / MMA_ROWS, a.H, smem, stream>>>(a);
+  sweep_mma_kernel<T, MAX_THREADS><<<(a.n_rows + MMA_ROWS - 1) / MMA_ROWS, a.H, smem, stream>>>(b);
   return (int)cudaGetLastError();
 }
 

@@ -233,3 +233,52 @@ def load_torch_checkpoint(path: str) -> tuple[dict, dict]:
         count = counts.pop()
     meta = {k: cast(blob[k]) for k, cast in (("epoch", int), ("best_score", float)) if k in blob}
     return {"params": params, "mu": mu, "nu": nu, "count": count, "step": count}, meta
+
+
+# torch.cuda.amp.GradScaler().state_dict() defaults: the reference's resume
+# calls scaler.load_state_dict(checkpoint["scaler"])
+_SCALER_STATE = {"scale": 65536.0, "growth_factor": 2.0, "backoff_factor": 0.5,
+                 "growth_interval": 2000, "_growth_tracker": 0}
+
+
+def save_torch_checkpoint(path: str, params: dict, *, mu: dict | None = None,
+                          nu: dict | None = None, count: int = 0, epoch: int = 0,
+                          best_score: float = 0.0, lr: float = 1e-3) -> None:
+    """Write a reference-format PyTorch checkpoint (the inverse of
+    `load_torch_checkpoint`; fullsubnet_plus_tpu/io/checkpoint.py:283-362).
+
+    `params` is a reference-layout state_dict. `.pth` gets it bare
+    (base_trainer.py:192); `.tar` gets the reference trainer's artifact
+    {"epoch", "best_score", "optimizer", "scaler", "model"}
+    (base_trainer.py:159-190), whose optimizer state_dict carries Adam's
+    moments `mu`, `nu` (state_dicts of the same keys) and step `count`
+    indexed in the state_dict's order, which is the model's parameter
+    order, so the reference's resume continues the run; without moments
+    it is a fresh Adam's. `lr` fills the param_group."""
+    model = {k: torch.as_tensor(v).detach().to("cpu", torch.float32).contiguous()
+             for k, v in params.items()}
+    if path.endswith(".pth"):
+        blob = model
+    else:
+        state = {}
+        if mu is not None:
+            state = {i: {"step": torch.tensor(float(count)),
+                         "exp_avg": torch.as_tensor(mu[k]).to("cpu", torch.float32).contiguous(),
+                         "exp_avg_sq": torch.as_tensor(nu[k]).to("cpu", torch.float32).contiguous()}
+                     for i, k in enumerate(model)}
+        group = {"lr": lr, "betas": [0.9, 0.999], "eps": 1e-8, "weight_decay": 0.0,
+                 "amsgrad": False, "maximize": False, "foreach": None, "capturable": False,
+                 "differentiable": False, "fused": None, "params": list(range(len(model)))}
+        blob = {"epoch": epoch, "best_score": best_score,
+                "optimizer": {"state": state, "param_groups": [group]},
+                "scaler": dict(_SCALER_STATE), "model": model}
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    os.close(fd)
+    try:
+        torch.save(blob, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)

@@ -102,13 +102,20 @@ class FullSubNet(nn.Module):
         return self
 
     def forward(self, noisy_mag: torch.Tensor, valid_frames: torch.Tensor | None = None,
-                training: bool = False) -> torch.Tensor:
+                training: bool = False, row_offset: int = 0,
+                global_batch: int | None = None) -> torch.Tensor:
         """[B, 1, F, T] -> compressed cIRM [B, 2, F, T], or [B, 2, F //
-        groups, T] with `training` (`drop_band` on the sub-band input).
+        groups, T] with `training` (`drop_band` on the sub-band input). In
+        training both LSTMs run through the training kernels
+        (ops/lstm2_train.py) on the card.
 
         `valid_frames` ([B] int, serving only): per-utterance valid frame
         counts of a bucket-padded batch; the LSTMs are causal, so only the
-        two norms' statistics need the mask."""
+        two norms' statistics need the mask.
+
+        `row_offset` and `global_batch`: under data parallelism the batch is
+        the rows from `row_offset` of a global batch of `global_batch` rows,
+        and `drop_band` couples each row's kept bins to its global index."""
         if training and valid_frames is not None:
             raise ValueError("valid_frames is a serving-path feature")
         cfg = self.config
@@ -140,8 +147,8 @@ class FullSubNet(nn.Module):
             batch, num_freqs, sb_w, frames)
         sb_input = self.norm(torch.cat([mag_unf, fb_unf], dim=2), valid=valid)
         if training:
-            sb_input = drop_band(sb_input.permute(0, 2, 1, 3),
-                                 cfg.num_groups_in_drop_band).permute(0, 2, 1, 3)
+            sb_input = drop_band(sb_input.permute(0, 2, 1, 3), cfg.num_groups_in_drop_band,
+                                 row_offset, global_batch).permute(0, 2, 1, 3)
         freqs_out = sb_input.shape[1]
         sb_mask = self.sb_model(sb_input.reshape(batch * freqs_out, cfg.sb_input_size, frames),
                                 quantized=quantized)

@@ -344,15 +344,36 @@ def fwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
     return fwd_mma_shared_memory_bytes(rows, d_in, hidden, dtype)
 
 
+def _bwd_bytes(rows: int, d_in: int, hidden: int, out_dim: int, dtype: torch.dtype,
+               ksplit: bool) -> int:
+    size = torch.tensor([], dtype=dtype).element_size()
+    partials = (hidden // 32) * (-(-d_in // 8) * 8) if ksplit else 0
+    return (size * rows * (4 * hidden + MMA_PAD_BYTES // size)
+            + 4 * rows * (2 * hidden + out_dim + partials))
+
+
+def bwd_dx_ksplit(rows: int, d_in: int, hidden: int, out_dim: int,
+                  dtype: torch.dtype = torch.float32) -> bool:
+    """The reverse sweep's form of dx (`dx_ksplit` in csrc/lstm2_bwd_sweep.cuh):
+    True, each warp sums every dx n-tile over its share of the 4H gate
+    columns into a partial of its own, where those partials fit a block (the
+    shipped sub-band shape, D 34, H 384); False, each warp owns whole dx
+    n-tiles over all 4H and stores them straight from its accumulators
+    (FullSubNet's full-band LSTM, D 257, H 512, O 257)."""
+    return _bwd_bytes(rows, d_in, hidden, out_dim, dtype, True) <= SMEM_LIMIT
+
+
 def bwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
-                            dtype: torch.dtype = torch.float32) -> int:
+                            dtype: torch.dtype = torch.float32,
+                            ksplit: bool | None = None) -> int:
     """csrc/lstm2_bwd_sweep.cuh: the dgates in x's dtype [R][4H + pad]
     (MMA_PAD_BYTES of pad), then float32 the dh1 and dh2 carries [R][H], the
-    dy tile [R][O] and a dx partial per warp [H / 32][R][ceil(D / 8) * 8]."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    dx_cols = -(-d_in // 8) * 8
-    return (size * rows * (4 * hidden + MMA_PAD_BYTES // size)
-            + 4 * rows * (2 * hidden + out_dim + (hidden // 32) * dx_cols))
+    dy tile [R][O] and, in the k-split form of dx, a dx partial per warp
+    [H / 32][R][ceil(D / 8) * 8]; in the form `bwd_dx_ksplit` takes, or in
+    the one `ksplit` names."""
+    if ksplit is None:
+        ksplit = bwd_dx_ksplit(rows, d_in, hidden, out_dim, dtype)
+    return _bwd_bytes(rows, d_in, hidden, out_dim, dtype, ksplit)
 
 
 def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes, row_tile) -> int:

@@ -146,19 +146,21 @@ def check_distributed_args(coordinator: str | None, num_processes: int | None,
 
 
 def initialize_distributed(coordinator: str | None = None, num_processes: int | None = None,
-                           process_id: int | None = None, *, device="cpu") -> None:
+                           process_id: int | None = None, *, device="cuda") -> None:
     """The process group of a multi-rank run; a no-op for one process.
 
     `coordinator` is rank 0's "host:port" rendezvous, `num_processes` the
-    number of ranks, `process_id` this rank. The backend is NCCL where each
-    rank has a card of its own, and gloo for a CPU `device` or where the
-    ranks outnumber the visible cards, so that some share one (gloo carries
-    CUDA tensors through the host; NCCL refuses two ranks on one card). A
-    CUDA rank's card becomes its current device. Collectives wait TIMEOUT_S
-    for a peer."""
+    number of ranks, `process_id` this rank, `device` the rank's device: the
+    card unless the caller asks for the CPU (a card where there is none
+    raises RuntimeError; nothing falls back to gloo on the CPU). The backend
+    is NCCL where each rank has a card of its own, and gloo for a CPU
+    `device` or where the ranks outnumber the visible cards, so that some
+    share one (gloo carries CUDA tensors through the host; NCCL refuses two
+    ranks on one card). A CUDA rank's card becomes its current device.
+    Collectives wait TIMEOUT_S for a peer."""
     if not check_distributed_args(coordinator, num_processes, process_id):
         return
-    device = torch.device(device)
+    device = resolve_device(device)
     own_card = device.type == "cuda" and num_processes <= torch.cuda.device_count()
     if device.type == "cuda":
         torch.cuda.set_device(device)

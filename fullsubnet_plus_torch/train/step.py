@@ -18,10 +18,11 @@ step: the clip scales by max_norm / norm only when the norm reaches
 max_norm, and Adam divides by sqrt(nu_hat) + eps with both bias
 corrections. Steps run on CUDA unless the caller asks for the CPU.
 
-The eval steps take FullSubNet+ (three spectrogram views) and FullSubNet
-(the magnitude alone, `_forward_fullsubnet` of the JAX module). The train
-step takes FullSubNet+ only: FullSubNet's full-band LSTM (D 257, H 512)
-does not fit the reverse sweep's block (ROADMAP.md Queue 2 R6).
+Every step takes FullSubNet+ (three spectrogram views) and FullSubNet
+(the magnitude alone, `_forward_fullsubnet` of the JAX module). FullSubNet
+trains both its LSTMs through the kernels, as the JAX model's `fast=True`
+does: the full-band one at N = B, D 257, H 512, O 257 and the sub-band one
+after `drop_band` at N = B F / 2, D 32, H 384, O 2.
 `make_joint_mask_train_step` and `make_residual_train_step` (the
 reference's `Trainer` and `Residual_Trainer` losses, JAX train/step.py:
 195-270) take the forward as a function of the module; like JAX's they
@@ -263,9 +264,6 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
     cards in one process raises NotImplementedError (ROADMAP.md Queue 1
     item 12).
     """
-    if model_def.n_inputs != 3:
-        raise not_ported(f"a train step for {model_def.name!r}",
-                         "Queue 2 R6, the reverse sweep at the fb_model shape")
     if mesh is not None:
         data_devices = _mesh_devices(mesh)
         if mesh.local_data > 1 or mesh.shape["freq"] > 1:
@@ -275,6 +273,7 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
     device = resolve_device(device)
     _check_full_float32(compute_dtype, device)
     num_groups = config.num_groups_in_drop_band
+    n_inputs = model_def.n_inputs
 
     def loss_value(model, noisy, clean, rows=None):
         """The loss of `model` on a batch; `rows` (row_offset, global_batch)
@@ -286,7 +285,8 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
         cirm = drop_band(cirm.permute(0, 3, 1, 2), num_groups, offset, total).permute(0, 2, 3, 1)
 
         def forward(mag, real, imag):
-            return _forward(model, mag, real, imag, True, compute_dtype, rows=rows)
+            return _forward(model, mag, real, imag, True, compute_dtype, n_inputs=n_inputs,
+                            rows=rows)
 
         if remat:
             crm = checkpoint(forward, noisy_mag, noisy_real, noisy_imag, use_reentrant=False)

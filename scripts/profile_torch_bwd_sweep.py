@@ -2,6 +2,7 @@
 fullsubnet_plus_torch/csrc/lstm2_bwd_sweep.cuh), in float32 and bf16.
 
     python3 scripts/profile_torch_bwd_sweep.py [float32] [bfloat16]   (from the repo's root)
+    python3 scripts/profile_torch_bwd_sweep.py --fb [float32] [bfloat16]
 
 Needs an NVIDIA GPU and nvcc. Copies the package into a temporary directory
 once per variant and edits the copy: as it is, without the three products,
@@ -18,8 +19,13 @@ K4 (`lstm2_bwd_sweep`) at T 195 with CUDA events (median of 3) at N 192
 wave on 132 SMs) and 2304 (the training fold: two waves), and prints
 microseconds per step. The residuals come from the plain forward. The
 variants that take work out compute wrong gradients; they only time.
+With `--fb`, at FullSubNet's full-band shape (D 257, H 512, O 257; dx
+output-stationary) at N 18 (two CTAs), the variants: as it is, without the
+dy W_fc^T loop (257 FMAs a row and step), without dx's products, without
+the three products and without the two cell backwards, with the
+512-thread functions' registers and spills.
 Imports nothing of JAX.
-With no argument it runs both dtypes.
+With no dtype it runs both.
 """
 
 import os
@@ -34,9 +40,16 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 SWEEP = "csrc/lstm2_bwd_sweep.cuh"
 COMMON = "csrc/lstm2_common.cuh"
-D, H, O, T = 34, 384, 2, 195
-FOLDS = (192, 2112, 2304)
+T = 195
+# (D, H, O), the folds timed, the sweep function's thread count: the
+# shipped sub-band shape, and with --fb FullSubNet's full-band one at the
+# fold of configs/train.toml's batch (N 18: two CTAs)
+SHAPES = {"shipped": ((34, 384, 2), (192, 2112, 2304), 384), "fb": ((257, 512, 257), (18,), 512)}
 DTYPES = ("float32", "bfloat16")
+CELLS_OUT = [
+    (SWEEP, "    cell_bwd<T, R>(dh, dc2, db[1]", "    if (t < -1) cell_bwd<T, R>(dh, dc2, db[1]"),
+    (SWEEP, "    cell_bwd<T, R>(dh, dc1, db[0]", "    if (t < -1) cell_bwd<T, R>(dh, dc1, db[0]"),
+]
 # variant: (the dtypes it is timed in, [(file, text, its replacement), ...])
 VARIANTS = {
     "as committed": (DTYPES, []),
@@ -46,7 +59,7 @@ VARIANTS = {
         (SWEEP, "mma_tiles<T, 1>(acc, a_addr, a.w1p", "if (0) mma_tiles<T, 1>(acc, a_addr, a.w1p"),
     ]),
     "without the weight loads": (DTYPES, [
-        (SWEEP, "b[i] = __ldg(B + ((size_t)i * chunks + kc) * 32);",
+        (SWEEP, "b[i] = __ldg(B + ((size_t)i * stride * chunks + kc) * 32);",
          "b[i] = make_uint4(kc * 0x10001u, i * 0x10001u + 0x3c003c00u, kc, i);"),
     ]),
     "without the TF32 splits": (("float32",), [
@@ -71,20 +84,20 @@ VARIANTS = {
   for (int kc = kc0; kc < kc1; ++kc) {
     uint4 b[NT];
 #pragma unroll
-    for (int i = 0; i < NT; ++i) b[i] = __ldg(B + ((size_t)i * chunks + kc) * 32);
+    for (int i = 0; i < NT; ++i) b[i] = __ldg(B + ((size_t)i * stride * chunks + kc) * 32);
     AFrag<T> a;
     a.load(a_addr + kc * CHUNK_BYTES);
 #pragma unroll
     for (int i = 0; i < NT; ++i) a.mma(acc[i], b[i]);
   }""", """uint4 b[NT];
 #pragma unroll
-  for (int i = 0; i < NT; ++i) b[i] = __ldg(B + ((size_t)i * chunks + kc0) * 32);
+  for (int i = 0; i < NT; ++i) b[i] = __ldg(B + ((size_t)i * stride * chunks + kc0) * 32);
 #pragma unroll 2
   for (int kc = kc0; kc < kc1; ++kc) {
     const int next = kc + 1 < kc1 ? kc + 1 : kc;
     uint4 nb[NT];
 #pragma unroll
-    for (int i = 0; i < NT; ++i) nb[i] = __ldg(B + ((size_t)i * chunks + next) * 32);
+    for (int i = 0; i < NT; ++i) nb[i] = __ldg(B + ((size_t)i * stride * chunks + next) * 32);
     AFrag<T> a;
     a.load(a_addr + kc * CHUNK_BYTES);
 #pragma unroll
@@ -93,10 +106,22 @@ VARIANTS = {
     for (int i = 0; i < NT; ++i) b[i] = nb[i];
   }"""),
     ]),
-    "without the two cell backwards": (DTYPES, [
-        (SWEEP, "    cell_bwd<T, R>(dh, dc2, db[1]", "    if (t < -1) cell_bwd<T, R>(dh, dc2, db[1]"),
-        (SWEEP, "    cell_bwd<T, R>(dh, dc1, db[0]", "    if (t < -1) cell_bwd<T, R>(dh, dc1, db[0]"),
+    "without the two cell backwards": (DTYPES, CELLS_OUT),
+}
+# FullSubNet's full-band LSTM (--fb): dx output-stationary, O 257
+FB_PRODUCTS_OUT = [
+    (SWEEP, "mma_tiles<T, 4>(acc, a_addr, a.w2p", "if (0) mma_tiles<T, 4>(acc, a_addr, a.w2p"),
+    (SWEEP, "mma_tiles<T, 4>(acc, a_addr, a.u1p", "if (0) mma_tiles<T, 4>(acc, a_addr, a.u1p"),
+]
+FB_DX_OUT = [(SWEEP, "mma_tiles<T, NT>(acc, a_addr, w1p", "if (0) mma_tiles<T, NT>(acc, a_addr, w1p")]
+FB_VARIANTS = {
+    "as committed": (DTYPES, []),
+    "without the dy W_fc^T loop": (DTYPES, [
+        (SWEEP, "for (int o = 0; o < O; ++o) s = fmaf", "for (int o = 0; o < 0; ++o) s = fmaf"),
     ]),
+    "without dx's products": (DTYPES, FB_DX_OUT),
+    "without the three products": (DTYPES, FB_PRODUCTS_OUT + FB_DX_OUT),
+    "without the two cell backwards": (DTYPES, CELLS_OUT),
 }
 
 
@@ -115,15 +140,15 @@ def make_variant(root: Path, edits) -> Path:
     return root
 
 
-def registers_and_spills(root: Path) -> str:
-    """The 384-thread sweep functions' registers and spill stores in the
-    ptxas report (`-Xptxas -v`) that the variant's build kept."""
+def registers_and_spills(root: Path, threads: int) -> str:
+    """The sweep functions' registers and spill stores at `threads` threads
+    in the ptxas report (`-Xptxas -v`) that the variant's build kept."""
     report = next((root / "fullsubnet_plus_torch" / "_build").glob("lstm2_bwd_*.ptxas.txt"))
     out, function = [], None
     for line in report.read_text().splitlines():
         if "Compiling entry function" in line:
             function = line.split("'")[1]
-        elif function and "sweep_mma_kernel" in function and "Li384" in function:
+        elif function and "sweep_mma_kernel" in function and f"Li{threads}" in function:
             dtype = "bf16" if "bfloat16" in function else "float32"
             if m := re.search(r"(\d+) bytes spill stores", line):
                 out.append(f"{dtype} {m[1]} B spill stores")
@@ -132,7 +157,7 @@ def registers_and_spills(root: Path) -> str:
     return ", ".join(out)
 
 
-def time_here(dtype_name: str) -> None:
+def time_here(dtype_name: str, shape: str) -> None:
     """Run inside a variant's copy: K4's sweep time at each fold."""
     import torch
 
@@ -155,8 +180,9 @@ def time_here(dtype_name: str) -> None:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    (D, H, O), folds, _ = SHAPES[shape]
     cells = []
-    for n in FOLDS:
+    for n in folds:
         g = torch.Generator().manual_seed(n)
         lstm, fc = LSTM2(D, H), Linear(H, O)
         lstm.reset_parameters(g)
@@ -173,7 +199,7 @@ def time_here(dtype_name: str) -> None:
     print(" | ".join(cells), flush=True)
 
 
-def main(dtypes) -> None:
+def main(dtypes, shape) -> None:
     import torch
 
     if not torch.cuda.is_available():
@@ -181,7 +207,8 @@ def main(dtypes) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip())
-    variants = {name: edits for name, (where, edits) in VARIANTS.items()
+    table = FB_VARIANTS if shape == "fb" else VARIANTS
+    variants = {name: edits for name, (where, edits) in table.items()
                 if any(dt in where for dt in dtypes)}
     with tempfile.TemporaryDirectory(prefix="sweep_variants_") as tmp:
         roots = {name: make_variant(Path(tmp) / str(i), edits)
@@ -196,21 +223,22 @@ def main(dtypes) -> None:
         if [b.wait() for b in builds] != [0] * len(builds):
             raise SystemExit("a variant did not build")
         for name, root in roots.items():
-            print(f"{name}: ptxas {registers_and_spills(root)}")
+            print(f"{name}: ptxas {registers_and_spills(root, SHAPES[shape][2])}")
         for dtype in dtypes:
             for name, root in roots.items():
-                if dtype not in VARIANTS[name][0]:
+                if dtype not in table[name][0]:
                     continue
                 print(f"{dtype} {name}: ", end="", flush=True)
-                if run(root, str(Path(__file__).resolve()), "--time", dtype).wait() != 0:
+                if run(root, str(Path(__file__).resolve()), "--time", dtype, shape).wait() != 0:
                     raise SystemExit(f"{dtype} {name} failed")
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time"]:
-        time_here(sys.argv[2])
+        time_here(sys.argv[2], sys.argv[3])
     else:
-        chosen = tuple(sys.argv[1:]) or DTYPES
+        args = [a for a in sys.argv[1:] if a != "--fb"]
+        chosen = tuple(args) or DTYPES
         if not set(chosen) <= set(DTYPES):
             raise SystemExit(f"dtypes: {DTYPES}")
-        main(chosen)
+        main(chosen, "fb" if "--fb" in sys.argv[1:] else "shipped")

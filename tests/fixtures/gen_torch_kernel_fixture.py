@@ -13,7 +13,12 @@ and FullSubNet's full-band shape (D 257, H 512, O 257).
     `jax.value_and_grad` of sum(y * dy), in both `FUSED_WGRAD` forms, float32
     and bfloat16: y, the value, dx and the ten parameters' gradients in
     torch.nn.LSTM's order and layout (weight_ih_l0, weight_hh_l0, bias_ih_l0,
-    bias_hh_l0, the same of layer 1, the Linear's weight and bias).
+    bias_hh_l0, the same of layer 1, the Linear's weight and bias), also at
+    the full-band shape (the `_fb` training cases), where each weight
+    gradient G [out, in] is stored as its product with a seeded probe,
+    G^T P [in, PROBE_COLS] (P [out, PROBE_COLS]: over the 4H gate columns
+    of the kernels' [in, 4H] layout, and the Linear's O outputs), under
+    `d_<name>@probe`: whole, they would add about 15 MB a case.
 
 Only outputs are stored (the full-band cases' weights alone would add about
 15 MB): `case_arrays` rebuilds the weights and the inputs from the case's
@@ -26,8 +31,8 @@ arrays to bfloat16 (nearest even) on both sides. This module imports JAX
 only inside `run_case`, and torch only inside `port_operands`, so the card's
 tests and chip_smoke.py load it by path where JAX is absent.
 
-Run from the repo root (CPU, a few minutes: the T 255 cases loop in
-interpret mode):
+Run from the repo root (CPU, a few minutes: the T 255 and the full-band
+training cases loop in interpret mode):
 
     JAX_PLATFORMS=cpu python tests/fixtures/gen_torch_kernel_fixture.py
 """
@@ -62,7 +67,14 @@ CASES = {
     "k1_float32_fb": ("k1", 7, 9, 257, 512, 257, "float32", 9, None),
     "k1_bfloat16_fb": ("k1", 7, 9, 257, 512, 257, "bfloat16", 9, None),
     "k5_fb": ("k5", 7, 9, 257, 512, 257, "bfloat16", 10, None),
+    # FullSubNet's training step: K2-K4 at the full-band shape, weight
+    # gradients probed (`stored`)
+    "train_float32_fused_fb": ("train", 7, 9, 257, 512, 257, "float32", 11, True),
+    "train_float32_dgates_fb": ("train", 7, 9, 257, 512, 257, "float32", 11, False),
+    "train_bfloat16_fused_fb": ("train", 7, 9, 257, 512, 257, "bfloat16", 12, True),
+    "train_bfloat16_dgates_fb": ("train", 7, 9, 257, 512, 257, "bfloat16", 12, False),
 }
+PROBE_COLS = 8  # columns of the probe a full-band case's weight gradients are stored through
 GRAD_NAMES = ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0", "weight_ih_l1",
               "weight_hh_l1", "bias_ih_l1", "bias_hh_l1", "fc_weight", "fc_bias")
 
@@ -84,6 +96,29 @@ def case_arrays(name: str):
     x = rng.uniform(0.0, 2.0, (n, d, t)).astype(np.float32)
     dy = rng.standard_normal((n, t, o)).astype(np.float32)
     return {"layers": layers}, fc, x, dy
+
+
+def probed(name: str) -> bool:
+    """Whether a training case stores its weight gradients through probes."""
+    return name.endswith("_fb") and CASES[name][0] == "train"
+
+
+def stored(name: str, arrays: dict) -> dict:
+    """The keys and arrays a case keeps: as computed, except that a probed
+    case's weight gradient d_<w> [out, in] becomes d_<w>@probe = d_<w>^T P
+    [in, PROBE_COLS], P standard normal over sqrt(out) from the case's seed
+    (float64 products, stored float32)."""
+    if not probed(name):
+        return arrays
+    rng = np.random.default_rng(1000 + CASES[name][7])
+    out = {}
+    for key, value in arrays.items():
+        if key.startswith("d_") and "weight" in key:
+            probe = rng.standard_normal((value.shape[0], PROBE_COLS)) / np.sqrt(value.shape[0])
+            out[f"{key}@probe"] = (value.astype(np.float64).T @ probe).astype(np.float32)
+        else:
+            out[key] = value
+    return out
 
 
 def torch_layout(params, fc) -> list:
@@ -146,8 +181,8 @@ def port_run(name: str, device="cpu") -> dict:
     def f32(a):
         return a.detach().float().cpu().numpy()
 
-    return {"y": f32(y), "value": f32(value), "dx": f32(grads[0]),
-            **{f"d_{g}": f32(a) for g, a in zip(GRAD_NAMES, grads[1:])}}
+    return stored(name, {"y": f32(y), "value": f32(value), "dx": f32(grads[0]),
+                         **{f"d_{g}": f32(a) for g, a in zip(GRAD_NAMES, grads[1:])}})
 
 
 def load_fixture(path: str = FIXTURE) -> dict:
@@ -206,8 +241,8 @@ def run_case(name: str) -> dict:
         finally:
             lp.FUSED_WGRAD = before
     grads = torch_layout(jax.tree_util.tree_map(f32, gp), jax.tree_util.tree_map(f32, gfc))
-    return {"y": f32(y), "value": np.float32(value), "dx": f32(gx),
-            **{f"d_{g}": a for g, a in zip(GRAD_NAMES, grads)}}
+    return stored(name, {"y": f32(y), "value": np.float32(value), "dx": f32(gx),
+                         **{f"d_{g}": a for g, a in zip(GRAD_NAMES, grads)}})
 
 
 def generate(path: str = FIXTURE) -> None:

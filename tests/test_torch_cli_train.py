@@ -25,6 +25,9 @@ from fullsubnet_plus_torch.models.fullsubnet_plus import FullSubNetPlusConfig
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 16000
 MODEL = dict(num_freqs=33, sb_num_neighbors=4, fb_model_hidden_size=16, sb_model_hidden_size=16)
+# the reference TOMLs' [model] paths of FullSubNet+ and FullSubNet
+MODEL_PATHS = {"fullsubnet_plus": "fullsubnet_plus.model.fullsubnet_plus.FullSubNet_Plus",
+               "fullsubnet": "fullsubnet.model.fullsubnet.Model"}
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +52,7 @@ def corpus(tmp_path_factory):
     return root
 
 
-def _toml(corpus, save_dir, epochs=2) -> str:
+def _toml(corpus, save_dir, epochs=2, model_path=MODEL_PATHS["fullsubnet_plus"]) -> str:
     path = os.path.join(save_dir + ".toml")
     model = "\n".join(f"{k} = {v}" for k, v in MODEL.items())
     with open(path, "w") as f:
@@ -86,7 +89,7 @@ path = "fullsubnet_plus.dataset.dataset_validation.Dataset"
 dataset_dir_list = ["{corpus}/no_reverb"]
 sr = 16000
 [model]
-path = "fullsubnet_plus.model.fullsubnet_plus.FullSubNet_Plus"
+path = "{model_path}"
 [model.args]
 {model}
 [trainer]
@@ -123,9 +126,13 @@ def _meta(save_dir, name="latest_model.npz"):
     return load_flat(os.path.join(save_dir, "checkpoints", name))
 
 
-def test_resume_continues_the_run(corpus, tmp_path):
+@pytest.mark.parametrize("model", list(MODEL_PATHS))
+def test_resume_continues_the_run(corpus, tmp_path, model):
+    """One epoch, then -R for the second, then -P warm-starts a fresh run,
+    for FullSubNet+ and for FullSubNet (whose LSTMs both train through
+    `lstm2_fc_train`)."""
     save_dir = str(tmp_path / "run")
-    config = _toml(corpus, save_dir, epochs=2)
+    config = _toml(corpus, save_dir, epochs=2, model_path=MODEL_PATHS[model])
     _train("-C", config, "--device", "cpu", "--epochs", "1")
     flat1, meta1 = _meta(save_dir)
     assert meta1["epoch"] == 1 and not os.path.exists(os.path.join(save_dir,
@@ -138,7 +145,8 @@ def test_resume_continues_the_run(corpus, tmp_path):
     assert os.path.exists(os.path.join(save_dir, "config.toml"))
     # -P, in this process: a fresh run from epoch 2's weights
     warm = str(tmp_path / "warm")
-    cli.main(["-C", _toml(corpus, warm, epochs=1), "--device", "cpu", "-P",
+    cli.main(["-C", _toml(corpus, warm, epochs=1, model_path=MODEL_PATHS[model]), "--device",
+              "cpu", "-P",
               os.path.join(save_dir, "checkpoints", "model_0002.npz")])
     assert "Preloaded" in open(os.path.join(warm, "train.log")).read()
     assert int(_meta(warm)[0]["step"]) == 2

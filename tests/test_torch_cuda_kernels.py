@@ -285,15 +285,17 @@ def test_bf16_wgrad_kernel_matches_plain_over_chunks(monkeypatch, hidden, tile):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,hidden", [(34, 64), (34, 384), (32, 512)])
+@pytest.mark.parametrize("d,hidden", [(34, 64), (34, 384), (32, 512), (257, 512)])
 def test_float32_wgrad_sweep_matches_plain_over_chunks(monkeypatch, d, hidden):
     """K3 in float32, whose reverse sweep runs its three products on the
     tensor cores as three TF32 products of split operands, against
     `lstm2_bwd_plain` with the scratch cut to 3 steps, so T = 7 runs chunks
     of 3, 3 and 1 (the sweep resumes twice from the carries in device
     memory): N = 150 is a multiple of no row tile; H 512 takes the
-    512-thread build (D 32: at D 34 its dx partials no longer fit a block).
-    K4's sweep against the plain one too; K3 equal to itself on a repeat."""
+    512-thread build (D 32: its dx k-split partials still fit a block; D
+    257, FullSubNet's full-band width: they do not, and dx is
+    output-stationary). K4's sweep against the plain one too; K3 equal to
+    itself on a repeat."""
     _need_card()
     n, t = 150, 7
     tensors, x, dy = _case(n, t, d, hidden, 2, seed=3)

@@ -141,12 +141,16 @@ def _forward(config, **kwargs):
 
 
 def _fullsubnet_train_step():
+    """FullSubNet's train step is ported (tests/test_torch_fullsubnet.py); on
+    a training mesh of several cards in one process it still refuses, as
+    FullSubNet+'s does."""
     from fullsubnet_plus_torch.models import FULLSUBNET
     from fullsubnet_plus_torch.models.fullsubnet import FullSubNetConfig
+    from fullsubnet_plus_torch.parallel.mesh import make_mesh
     from fullsubnet_plus_torch.train import loss, step
 
     return step.make_train_step(FULLSUBNET, FullSubNetConfig(), step.make_optimizer(),
-                                loss.mse_loss, device="cpu")
+                                loss.mse_loss, mesh=make_mesh(2, devices=["cpu"] * 2))
 
 
 @pytest.mark.parametrize("build,error,match", [
@@ -161,7 +165,7 @@ def _fullsubnet_train_step():
     (lambda: _forward(FullSubNetPlusConfig(**TINY, channel_attention_model="DeepTSSE"),
                       valid_frames=torch.tensor([5, 4])),
      ValueError, "masked pooling is not wired for DeepTSSE"),
-    (_fullsubnet_train_step, NotImplementedError, "Queue 2 R6"),
+    (_fullsubnet_train_step, NotImplementedError, "Queue 1 item 12"),
     # training=True is ported (drop_band); with valid_frames it still refuses
     (lambda: FullSubNetPlus(FullSubNetPlusConfig(**TINY))(
         *(torch.ones(4, 1, 33, 5) for _ in range(3)), training=True,

@@ -113,6 +113,22 @@ def test_single_process_run_is_not_distributed():
     assert pmesh.broadcast_float(0.5, cpu_mesh(2)) == 0.5
 
 
+def test_multi_rank_run_defaults_to_the_card_and_refuses_without_it(monkeypatch):
+    """`initialize_distributed` without `device` asks for the card, as every
+    entry point does: on a machine without CUDA a multi-rank call raises
+    RuntimeError before any process group, and never falls back to gloo."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal where CUDA is absent")
+
+    def no_group(*args, **kwargs):
+        raise AssertionError("a process group was started")
+
+    monkeypatch.setattr(pmesh.dist, "init_process_group", no_group)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pmesh.initialize_distributed("127.0.0.1:1", 2, 0)
+    assert not pmesh.dist.is_initialized() and pmesh.process_count() == 1
+
+
 # ---------------------------------------------------------------------------
 # drop_band with a row offset
 # ---------------------------------------------------------------------------

@@ -653,18 +653,19 @@ def test_bwd_tf32_packing_round_trips_and_walks_the_lanes(which):
         assert 8 * tiles == 40
 
 
-def _bwd_three_tf32_walk(dy, x, w, res):
+def _bwd_three_tf32_walk(dy, x, w, res, ksplit=True):
     """The float32 reverse sweep walked as the kernel walks it: per step the
     cell backward (no rounding in float32), then the three products from
     the packed fragments (`_tf32_fragment_matrix` of `pack_tf32_b`), each as
     three TF32 products of split operands summed a k-chunk of 16 at a time
     into the float32 sums (`_three_tf32`): [dh1' | dh2_carry] over all 4H
-    with dh1' added to the dh1 carry, dh1_carry, and dx as H / 32 k-parts,
-    one a warp, each over its own run of k-chunks, added in warp order from
-    zero. -> (dx [N, D, T], dg1, dg2 [T, N, 4H])."""
+    with dh1' added to the dh1 carry, dh1_carry, and dx either as H / 32
+    k-parts, one a warp, each over its own run of k-chunks, added in warp
+    order from zero (`ksplit`), or output-stationary, each n-tile over all
+    the k-chunks. -> (dx [N, D, T], dg1, dg2 [T, N, 4H])."""
     n, _, steps = x.shape
     hidden = w.u1.shape[0]
-    warps, chunks = hidden // 32, 4 * hidden // 16
+    warps, chunks = (hidden // 32 if ksplit else 1), 4 * hidden // 16
     b_w2, b_u1, b_w1 = (_tf32_fragment_matrix(ops_lstm2.pack_tf32_b(m), m.shape[0])
                         for m in (w.w2, w.u1, w.w1))
     zeros = torch.zeros(n, hidden)
@@ -686,36 +687,53 @@ def _bwd_three_tf32_walk(dy, x, w, res):
     return torch.stack(dx, dim=2), torch.stack(dg1), torch.stack(dg2)
 
 
+@pytest.mark.parametrize("ksplit", [True, False], ids=["ksplit", "output_stationary"])
 @pytest.mark.parametrize("n,t,d,h,o", [(37, 4, 34, 64, 2), (21, 3, 10, 96, 11)])
-def test_bwd_three_tf32_walk_holds_the_float32_floors(n, t, d, h, o):
+def test_bwd_three_tf32_walk_holds_the_float32_floors(n, t, d, h, o, ksplit):
     """The float32 reverse sweep walked in the kernel's fragment order (split
     operands with the tensor core's 13-bit truncation of small, per-chunk
-    partials, dx k-parts added in warp order: 2 and 3 warps here, D 10
-    padded to two n-tiles) gives `lstm2_bwd_reference`'s dx and dgates at
-    the 80 dB floor K3 and K4 are held to on the card, at two ragged folds."""
+    partials; dx in either form: k-parts added in warp order, 2 and 3 warps
+    here, or each n-tile over all 4H; D 10 padded to two n-tiles) gives
+    `lstm2_bwd_reference`'s dx and dgates at the 80 dB floor K3 and K4 are
+    held to on the card, at two ragged folds."""
     x, w = _fwd_f32_case(n, t, d, h, o)
     _, res = lt.lstm2_train_fwd_reference(x, w)
     dy = torch.randn(n, t, o, generator=torch.Generator().manual_seed(13))
     want = lt.lstm2_bwd_reference(dy, x, w, res)
-    got = _bwd_three_tf32_walk(dy, x, w, res)
+    got = _bwd_three_tf32_walk(dy, x, w, res, ksplit)
     snrs = {name: _snr_db(a, b) for name, a, b in zip(("dx", "dg1", "dg2"), want[:3], got)}
     assert all(a.shape == b.shape for a, b in zip(want[:3], got))
     assert min(snrs.values()) >= 80.0, snrs
 
 
-def test_f32_bwd_sweep_shared_memory():
-    """The float32 reverse sweep at D 34, H 384, O 2: dgates float32
-    [16][4H + 4] (98,560 bytes), the dh1 and dh2 carries (49,152), the dy
-    tile (128) and 12 dx partials [16][40] (30,720): 178,560 bytes, one CTA
-    an SM. FullSubNet's full-band shape (D 257, H 512, O 257; ROADMAP Queue 1
-    item 7) fits neither type: the 16 per-warp dx partials [16][264] alone
-    take 270,336 bytes."""
-    smem = lt.bwd_shared_memory_bytes(16, 34, 384, 2, torch.float32)
-    assert smem == 4 * 16 * 1540 + 4 * 16 * 768 + 4 * 16 * 2 + 4 * 12 * 16 * 40 == 178_560
-    assert smem <= ops_lstm2.SMEM_LIMIT < 2 * smem
-    assert lt.bwd_shared_memory_bytes(16, 257, 512, 257, torch.float32) == 483_648
-    assert lt.bwd_shared_memory_bytes(16, 257, 512, 257, torch.bfloat16) == 418_112
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_sweep_shared_memory(dtype):
+    """The reverse sweep's shared memory, both forms of dx at both shapes.
+    At the shipped sub-band shape (D 34, H 384, O 2) dx stays k-split: in
+    float32 dgates [16][4H + 4] (98,560 bytes), the dh1 and dh2 carries
+    (49,152), the dy tile (128) and 12 dx partials [16][40] (30,720):
+    178,560 bytes, one CTA an SM (bf16: 129,408). At FullSubNet's full-band
+    shape (D 257, H 512, O 257) the 16 per-warp partials [16][264] alone
+    would take 270,336 bytes, so dx is output-stationary and the block holds
+    the dgates (131,328 / 65,792), the carries (65,536) and the dy tile
+    (16,448): 213,312 bytes in float32, 147,776 in bf16, both under the
+    232,448 a block may use."""
+    size = 4 if dtype == torch.float32 else 2
+    shipped = lt.bwd_shared_memory_bytes(16, 34, 384, 2, dtype)
+    assert lt.bwd_dx_ksplit(16, 34, 384, 2, dtype)
+    assert shipped == size * 16 * (1536 + 16 // size) + 4 * 16 * (768 + 2 + 12 * 40)
+    assert shipped == {4: 178_560, 2: 129_408}[size] <= ops_lstm2.SMEM_LIMIT
+    fb = lt.bwd_shared_memory_bytes(16, 257, 512, 257, dtype)
+    assert not lt.bwd_dx_ksplit(16, 257, 512, 257, dtype)
+    assert fb == size * 16 * (2048 + 16 // size) + 4 * 16 * (1024 + 257)
+    assert fb == {4: 213_312, 2: 147_776}[size] <= ops_lstm2.SMEM_LIMIT
     assert 4 * 16 * 16 * 264 == 270_336 > ops_lstm2.SMEM_LIMIT
+    # the 512-thread k-split at D 32 (tests/test_torch_cuda_kernels.py) still fits
+    assert lt.bwd_dx_ksplit(16, 32, 512, 2, torch.float32)
+    # a dy tile of O 2048 fits in neither form: the wrappers' check refuses it
+    assert lt.bwd_shared_memory_bytes(16, 257, 512, 2048, dtype) > ops_lstm2.SMEM_LIMIT
+    assert lt.bwd_shared_memory_bytes(16, 257, 512, 257, dtype, ksplit=True) == \
+        fb + 4 * 16 * 16 * 264
 
 
 # ---------------------------------------------------------------------------
