@@ -90,7 +90,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      `overlapped_chunk`; the daemon serving a few streams of it in int8
      (zero tick failures, against the offline engine >= 60 dB);
   8. drive the training driver, `fullsubnet_plus_torch.cli.train` (its
-     parse_args and build_trainer in this process), at the full width of
+     parse_args and build_trainer in this process, `--device cuda:0`: one
+     card on any machine), at the full width of
      configs/train.toml on a seeded synthetic corpus in the DNS layout
      written into the temporary directory (72 clean utterances of 3.5-5 s,
      4 steps an epoch at batch 18, dynamic mixing with noise files and
@@ -118,11 +119,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      step walls beside the 1-rank ones; (b) `cli.train` through its rank
      flags as 2 ranks for 1 float32 epoch on phase 8's corpus: every rank
      finishes with the same loss, rank 0 alone writes files and validates
-     (K1); (c) `Enhancer(mesh=)` on phase 4's batch in float32, bf16 and
-     int8, rows over 'data' and the fold over 'freq', on 2 cards (with one,
-     a mesh naming it twice), against the 1-card Enhancer at phase 4's
-     floors with K1 / K5 once a shard on its card; prints the
-     `multi_device` JSON line;
+     (K1); (d) `make_train_step(mesh=)` on a mesh of 2 cards in this
+     process (with one card, a mesh naming it twice) from (a)'s state at
+     batch 18: rows over 'data' (2 x 1) and the sub-band fold over 'freq'
+     with its backward (1 x 2, fold_sharding naming 'freq'), float32 K2 +
+     K4 and bf16 K2 + K3 against (a)'s 1-card step within phase 6's and
+     DP_BF16_*'s limits, K2 and the backward once a step on each card or
+     fold half (counted by card), the parameters after the float32 step
+     (>= PARAM_SHARE_FLOOR within 1e-4) and after TRAIN_STEPS steps
+     against the 1-card run's, the step walls beside (a)'s; K2, K3 and K4
+     at a card's fold (N_CARD) against their plain versions and timed;
+     (e) `cli.train` without rank flags for 1 float32 epoch on phase 8's
+     corpus: `auto_mesh` over every visible card at the TOML's batch (no
+     mesh on one card), K2 + K4 once a step and K1 once a validation batch
+     on each card, its checkpoints; (c) `Enhancer(mesh=)` on phase 4's
+     batch in float32, bf16 and int8, rows over 'data' and the fold over
+     'freq', on 2 cards (with one, a mesh naming it twice), against the
+     1-card Enhancer at phase 4's floors with K1 / K5 once a shard on its
+     card; prints the `multi_device` JSON line;
  10. the model variants at full width (FullSubNet+ of configs/*.toml, seed
      42): (a) the SE, ECA, CBAM, DeepTSSE and TSSE_ATT attentions, (b)
      subband_num 2 with ECA and (c) the offline Gaussian and cumulative
@@ -232,6 +246,13 @@ TRAIN_BF16_LOSS_RTOL = 0.1  # bf16 compute against the float32 plain run
 # (the convolutions' and products' algorithms by batch size), within these
 DP_RANKS, DP_ROWS = 2, TRAIN_BATCH // 2
 DP_BF16_LOSS_RTOL, DP_BF16_GRAD_NORM_RTOL = 1e-2, 0.1
+# Phase 9 (d): the one-process training meshes, (name, [data, freq], the
+# config's fold_sharding); on either, a card sweeps half of the training fold
+TRAIN_MESHES = (("data", (2, 1), None), ("freq", (1, 2), ("data", "freq")))
+N_CARD = N_TRAIN // 2
+# (d): the share of parameters within 1e-4 of the 1-card run's after one
+# float32 step from the same state (the CPU trajectory tests' 99 %)
+PARAM_SHARE_FLOOR = 0.99
 PIPELINE_COPIES = 4  # phase 4's pipelined run: each of the 8 wavs 4 times, 4 batches
 INT8_SNR_FLOOR = 40.0
 WAVE_SNR_FLOOR = 60.0
@@ -1250,6 +1271,7 @@ def reset_launches() -> None:
     lstm2_int8.LAUNCHES.clear()
     for name in lstm2_train.LAUNCHES:
         lstm2_train.LAUNCHES[name] = 0
+    lstm2_train.LAUNCHES_BY_CARD.clear()
 
 
 def all_launches() -> dict:
@@ -1963,13 +1985,14 @@ class MemoryLoader:
         yield from self.batches
 
 
-def build_trainer(config_path: str, *flags: str):
+def build_trainer(config_path: str, *flags: str, device: str = "cuda:0"):
     """The CLI's own path in this process (parse_args, then build_trainer);
-    `.train()` is the rest of its main."""
+    `.train()` is the rest of its main. `--device cuda:0` trains on one card
+    on any machine; a bare "cuda" takes `auto_mesh` of every visible card."""
     from fullsubnet_plus_torch.cli import train as cli
     from fullsubnet_plus_torch.utils.config import load_config
 
-    args = cli.parse_args(["-C", config_path, "--device", "cuda", *flags])
+    args = cli.parse_args(["-C", config_path, "--device", device, *flags])
     return cli.build_trainer(load_config(config_path), args)
 
 
@@ -2221,10 +2244,19 @@ def state_from(saved: dict, device):
     return state.load_state_dict(saved)
 
 
-def dp_step_runs(state_of, make_step, batches, rows) -> dict:
+def card_launches() -> dict:
+    """The training kernels' launch counts by kernel and card since the last
+    reset ("lstm2_bwd cuda:1")."""
+    from fullsubnet_plus_torch.ops import lstm2_train
+
+    return dict(lstm2_train.LAUNCHES_BY_CARD)
+
+
+def dp_step_runs(state_of, make_step, batches, rows, keep_params: bool = False) -> dict:
     """One step of each dtype from the saved state on batch 0's `rows`
-    (metrics and launches), then TRAIN_STEPS float32 steps (walls, launches,
-    the parameters' digest)."""
+    (metrics and launches), then TRAIN_STEPS float32 steps (walls, the time
+    until each step returns to the host, launches, the parameters' digest); with `keep_params` the parameters after the
+    float32 step and after the steps, flat on the host."""
     import hashlib
 
     out = {}
@@ -2234,22 +2266,36 @@ def dp_step_runs(state_of, make_step, batches, rows) -> dict:
         reset_launches()
         _, m = train_step(state, batches["noisy"][0][rows], batches["clean"][0][rows])
         torch.cuda.synchronize()
-        out[tag] = {"metrics": {k: float(v) for k, v in m.items()}, "launches": all_launches()}
-    train_step, state, walls = make_step(torch.float32), state_of(), []
+        out[tag] = {"metrics": {k: float(v) for k, v in m.items()}, "launches": all_launches(),
+                    "launches_by_card": card_launches()}
+        if keep_params:
+            out[tag]["params"] = flat_params(state)
+    train_step, state, walls, hosts = make_step(torch.float32), state_of(), [], []
     reset_launches()
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = train_step(state, batches["noisy"][i][rows], batches["clean"][i][rows])
+        hosts.append((time.perf_counter() - t0) * 1e3)  # until the step returns, unsynced
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     digest = hashlib.sha256()
     for p in state.model.parameters():
         digest.update(p.detach().cpu().numpy().tobytes())
     out["steps"] = {"walls_ms": walls, "median_wall_ms": statistics.median(walls[1:]),
-                    "launches": all_launches(), "params_sha256": digest.hexdigest(),
-                    "last": {k: float(v) for k, v in m.items()}}
+                    "median_host_ms": statistics.median(hosts[1:]),
+                    "launches": all_launches(), "launches_by_card": card_launches(),
+                    "params_sha256": digest.hexdigest(),
+                    "last": {k: float(v) for k, v in m.items()},
+                    "state_devices": sorted({str(t.device) for t in (
+                        *state.model.parameters(), state.opt_state.mu, state.opt_state.nu)})}
+    if keep_params:
+        out["steps"]["params"] = flat_params(state)
     return out
+
+
+def flat_params(state) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1).cpu() for p in state.model.parameters()])
 
 
 def dp_rank_main(job_path: str, rank: str) -> None:
@@ -2361,8 +2407,10 @@ def phase_data_parallel(root: str, saved: dict, batches: dict, cards: list) -> d
         return step.make_train_step(model_def, config, optimizer, loss_fn, compute_dtype=dtype,
                                     device=cards[0], **acoustics)
 
-    one = dp_step_runs(lambda: state_from(saved, cards[0]), make_step, batches, slice(None))
-    print(f"[9] 1 rank, batch {TRAIN_BATCH}: float32 loss "
+    one = dp_step_runs(lambda: state_from(saved, cards[0]), make_step, batches, slice(None),
+                       keep_params=True)
+    print(f"[9] 1 rank, batch {TRAIN_BATCH}: float32 step returns to the host after "
+          f"{one['steps']['median_host_ms']:.1f} ms (median); float32 loss "
           f"{one['float32']['metrics']['loss']:.6f} grad norm "
           f"{one['float32']['metrics']['grad_norm']:.6f}; bf16 "
           f"{one['bfloat16']['metrics']['loss']:.6f} / "
@@ -2460,6 +2508,196 @@ def phase_cli_ranks(root: str, cards: list, one_rank: float | None = None) -> di
             fail(f"[9] CLI rank {r['rank']}: launches {r['launches']}, validation batches "
                  f"{r['validation_batches']}, primary {r['primary']}")
     return {"backend": backend, "devices": devices, "ranks": ranks, "audio_s_per_s": audio}
+
+
+def check_card_fold() -> dict:
+    """K2, K3 and K4 at a card's fold of (d) (N_CARD, T_TRAIN) in both
+    dtypes: against their plain versions at phase 2's floors, and timed
+    beside their bounds."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy, lstm, fc = train_operands(N_CARD, T_TRAIN, dtype, seed=N_CARD + 5)
+        w = lstm.packed(fc)
+        y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+        y, res = lt.lstm2_train_fwd(x, w)
+        k2 = worst((y_ref, *res_ref), (y, *res))
+        del y, res
+        ref = lt.lstm2_bwd_reference(dy, x, w, res_ref)
+        k4 = worst(ref[:3], lt.lstm2_bwd_sweep(dy, x, w, res_ref)[:3])
+        want = lt.LSTM2Grads(ref.dx, *lt.weight_grads(x, res_ref, ref.dg1, ref.dg2)[:4],
+                             ref.db1, ref.db2)
+        del ref
+        k3 = worst(want, lt.lstm2_bwd(dy, x, w, res_ref, fused=True))
+        del want, y_ref
+        ms = {"lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd(x, w), reps=3),
+              "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res_ref), reps=3),
+              "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd(dy, x, w, res_ref, fused=True),
+                                         reps=3)}
+        bounds = train_bounds(dtype, n=N_CARD)
+        for name, (snr, err) in (("lstm2_train_fwd", k2), ("lstm2_bwd", k4),
+                                 ("lstm2_bwd_wgrad", k3)):
+            out[(name, dtype)] = {"ms": ms[name], "bound_ms": bounds[name][0],
+                                  "bound_by": bounds[name][1], "min_snr_db": snr,
+                                  "max_abs_err": err}
+            print(f"[9] (d) {name} {str(dtype)[6:]} at a card's fold N={N_CARD} T={T_TRAIN}: "
+                  f"{ms[name]:.3f} ms, bound {bounds[name][0]:.3f} ms ({bounds[name][1]}); "
+                  f"against plain {snr:.1f} dB max_abs {err:.3e} (floor "
+                  f"{SNR_FLOOR[dtype]:.0f} dB)")
+            if snr < SNR_FLOOR[dtype]:
+                fail(f"[9] {name} disagrees at N={N_CARD}: {snr:.1f} dB")
+        del res_ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_by_card(fn) -> dict:
+    """One call of `fn` (which must return synchronized) under
+    torch.profiler: {card index: device busy ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    busy = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy[e.device_index] += e.self_device_time_total / 1e3
+    return dict(sorted(busy.items()))
+
+
+def param_gap(a: torch.Tensor, b: torch.Tensor) -> dict:
+    diff = (a - b).abs()
+    return {"max_abs_diff": float(diff.max()),
+            "share_within_1e-4": float((diff <= 1e-4).double().mean()),
+            "equal": bool((diff == 0).all())}
+
+
+def phase_train_mesh(saved: dict, batches: dict, cards: list, one: dict, ranks: dict) -> dict:
+    """(d) `make_train_step(mesh=)` on a mesh of two cards in one process at
+    configs/train.toml's width and batch, from (a)'s copy of phase 6's
+    state: the rows over 'data' (2 x 1) and the sub-band fold over 'freq'
+    (1 x 2, fold_sharding naming it), on 2 cards, or with one card on a mesh
+    that names it twice (the two copies of the model, or the fold's two
+    halves, then share it). Each mesh's float32 (K2 + K4) and bf16 (K2 + K3)
+    step against (a)'s 1-card step within phase 6's and DP_BF16_*'s limits,
+    K2 and the backward once a step on each card or fold half (counted by
+    card), the state on the mesh's first card, the parameters after that
+    float32 step against the 1-card step's (PARAM_SHARE_FLOOR) and after
+    TRAIN_STEPS float32 steps beside the 1-card run's, and the step walls
+    beside the 1-card and the 2-rank ones (`ranks`: (a)'s runs); then the
+    kernels at a card's fold (`check_card_fold`)."""
+    import dataclasses
+
+    from fullsubnet_plus_torch.parallel import make_mesh
+    from fullsubnet_plus_torch.train import step
+
+    torch.cuda.empty_cache()
+    model_def, config, optimizer, loss_fn, acoustics = train_setup()
+    devices = (cards * 2)[:2]
+    rank_walls = {tag: [round(r["steps"]["median_wall_ms"], 1) for r in rs]
+                  for tag, rs in ranks.items()}
+    out = {"devices": devices, "meshes": {}}
+    for name, shape, fold in TRAIN_MESHES:
+        mesh = make_mesh(*shape, devices=devices)
+        mesh_config = dataclasses.replace(config, fold_sharding=fold)
+
+        def make_step(dtype, mesh=mesh, mesh_config=mesh_config):
+            return step.make_train_step(model_def, mesh_config, optimizer, loss_fn,
+                                        compute_dtype=dtype, mesh=mesh, **acoustics)
+
+        run = dp_step_runs(lambda: state_from(saved, devices[0]), make_step, batches,
+                           slice(None), keep_params=True)
+        tag = f"mesh {shape[0]}x{shape[1]} on {devices} (fold_sharding {fold})"
+        for form, backward, loss_rtol, norm_rtol in (
+                ("float32", "lstm2_bwd", TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
+                ("bfloat16", "lstm2_bwd_wgrad", DP_BF16_LOSS_RTOL, DP_BF16_GRAD_NORM_RTOL)):
+            m, ref = run[form]["metrics"], one[form]["metrics"]
+            gaps = (rel(m["loss"], ref["loss"]), rel(m["grad_norm"], ref["grad_norm"]))
+            print(f"[9] (d) {tag} {form}: loss {m['loss']:.6f} grad norm {m['grad_norm']:.6f}, "
+                  f"against 1 card {gaps[0]:.2e} / {gaps[1]:.2e} (limits {loss_rtol:g} / "
+                  f"{norm_rtol:g}); launches by card {run[form]['launches_by_card']}")
+            if gaps[0] > loss_rtol or gaps[1] > norm_rtol or m["skipped"] != 0.0:
+                fail(f"[9] (d) {tag} {form} disagrees with the 1-card step")
+            want = {k: 0 for k in run[form]["launches"]}
+            want.update({"lstm2_train_fwd": 2, backward: 2})
+            by_card = {f"{k} {d}": devices.count(d) for k in ("lstm2_train_fwd", backward)
+                       for d in devices}
+            if run[form]["launches"] != want or run[form]["launches_by_card"] != by_card:
+                fail(f"[9] (d) {tag} {form}: launches {run[form]['launches']} by card "
+                     f"{run[form]['launches_by_card']}, expected {want}, {by_card}")
+        steps = run["steps"]
+        want = {k: 0 for k in steps["launches"]}
+        want.update({"lstm2_train_fwd": 2 * TRAIN_STEPS, "lstm2_bwd": 2 * TRAIN_STEPS})
+        by_card = {f"{k} {d}": TRAIN_STEPS * devices.count(d)
+                   for k in ("lstm2_train_fwd", "lstm2_bwd") for d in devices}
+        if steps["launches"] != want or steps["launches_by_card"] != by_card:
+            fail(f"[9] (d) {tag} float32 steps launched {steps['launches']} by card "
+                 f"{steps['launches_by_card']}")
+        if steps["state_devices"] != [devices[0]] or not np.isfinite(steps["last"]["loss"]):
+            fail(f"[9] (d) {tag}: the state lies on {steps['state_devices']}, last step "
+                 f"{steps['last']}")
+        params = {n: param_gap(r.pop("params"), o["params"])
+                  for n, r, o in (("one_step", run["float32"], one["float32"]),
+                                  (f"{TRAIN_STEPS}_steps", steps, one["steps"]))}
+        print(f"[9] (d) {tag}: the float32 parameters against the 1-card run's after its step "
+              f"from the same state {params['one_step']} and after {TRAIN_STEPS} steps "
+              f"{params[f'{TRAIN_STEPS}_steps']}; step wall median {steps['median_wall_ms']:.1f} "
+              f"ms (each {[round(w) for w in steps['walls_ms']]}) against "
+              f"{one['steps']['median_wall_ms']:.1f} on 1 card and {rank_walls} as 2 ranks (a)")
+        # an Adam step moves each parameter by about lr sign(g): from the same
+        # state the runs differ only where a gradient near 0 flips sign; a
+        # free-running trajectory is no measure (phase 6's note), so it is shown
+        if (params["one_step"]["share_within_1e-4"] < PARAM_SHARE_FLOOR
+                or not all(np.isfinite(p["max_abs_diff"]) for p in params.values())):
+            fail(f"[9] (d) {tag}: the parameters disagree with the 1-card run's: {params}")
+        train_step, state = make_step(torch.float32), state_from(saved, devices[0])
+
+        def one_step():
+            train_step(state, batches["noisy"][0], batches["clean"][0])
+            torch.cuda.synchronize()
+
+        busy = profile_by_card(one_step)
+        print(f"[9] (d) {tag}: a float32 step returns to the host after "
+              f"{steps['median_host_ms']:.1f} ms of its {steps['median_wall_ms']:.1f} ms wall "
+              f"(median); device busy by card {busy} ms (torch.profiler, one step)")
+        out["meshes"][name] = {**run, "shape": list(shape), "fold_sharding": fold,
+                               "params_vs_one_card": params, "busy_ms_by_card": busy}
+    out["card_fold"] = check_card_fold()
+    return out
+
+
+def phase_cli_mesh(root: str, corpus: dict, cards: list) -> dict:
+    """(e) `cli.train` without rank flags (`--device cuda`) for one float32
+    epoch on phase 8's `corpus`, in this process: it trains on `auto_mesh` of
+    every visible card at the TOML's batch (with one card, no mesh),
+    validates over the same cards and writes its checkpoints; K2 and K4
+    once a step on each card, K1 once a validation batch on each."""
+    from fullsubnet_plus_torch.parallel import auto_mesh
+
+    torch.cuda.empty_cache()
+    trainer = build_trainer(trainer_toml(root, corpus, "cli_mesh"), "--epochs", "1",
+                            device="cuda")
+    mesh, expect = trainer.mesh, auto_mesh(TRAIN_BATCH, devices=cards)
+    print(f"[9] (e) cli.train without rank flags on {len(cards)} visible card(s) chose "
+          f"{mesh}; validation batch {trainer.valid_batch_size}")
+    if ((mesh is None) != (expect is None)
+            or (mesh is not None and mesh.data_devices != expect.data_devices)
+            or (len(cards) >= 2 and (mesh is None or mesh.local_data < 2))):
+        fail(f"[9] (e) cli.train chose {mesh}, auto_mesh over {cards} gives {expect}")
+    launches = run_trainer(trainer, "[9] (e)")
+    by_card = card_launches()
+    out = check_trainer_run("cli mesh", trainer, launches, bf16=False,
+                            per_step=mesh.local_data if mesh else 1, phase="[9] (e)")
+    steps = out["steps"]
+    want = {f"{k} {d}": steps for k in ("lstm2_train_fwd", "lstm2_bwd")
+            for d in (mesh.data_devices if mesh else [torch.device(cards[0])])}
+    print(f"[9] (e) launches by card {by_card}")
+    if by_card != want:
+        fail(f"[9] (e) launches by card {by_card}, expected {want}")
+    return {**out, "mesh": repr(mesh), "launches_by_card": by_card}
 
 
 def phase_mesh_enhancer(root: str, lengths: list[int], cards: list) -> dict:
@@ -3058,6 +3296,9 @@ def main() -> None:
         dp = phase_data_parallel(root, train["state"], train["batches"], cards)
         dp_cli = phase_cli_ranks(root, cards,
                                  trainer["runs"]["float32_unbroken"]["audio_s_per_s"])
+        train_mesh = phase_train_mesh(train["state"], train["batches"], cards, dp["one_rank"],
+                                      dp["runs"])
+        cli_mesh = phase_cli_mesh(root, trainer["corpus"], cards)
         mesh = phase_mesh_enhancer(root, lengths, cards)
         multi = {"data_parallel": {tag: [{k: r[k] for k in ("rank", "device", "backend")}
                                          | {"float32": r["float32"]["metrics"],
@@ -3066,10 +3307,27 @@ def main() -> None:
                                          for r in ranks] for tag, ranks in dp["runs"].items()},
                  "one_rank": {"float32": dp["one_rank"]["float32"]["metrics"],
                               "bfloat16": dp["one_rank"]["bfloat16"]["metrics"],
-                              "median_step_wall_ms": dp["one_rank"]["steps"]["median_wall_ms"]},
+                              "median_step_wall_ms": dp["one_rank"]["steps"]["median_wall_ms"],
+                              "median_step_host_ms": dp["one_rank"]["steps"]["median_host_ms"]},
                  "cli": {k: dp_cli[k] for k in ("backend", "devices", "audio_s_per_s")}
                  | {"train_loss": dp_cli["ranks"][0]["train_loss"],
                     "median_step_wall_ms": [r["median_step_wall_ms"] for r in dp_cli["ranks"]]},
+                 "train_mesh": {"devices": train_mesh["devices"], **{
+                     name: {"shape": r["shape"], "fold_sharding": r["fold_sharding"],
+                            "float32": r["float32"]["metrics"],
+                            "bfloat16": r["bfloat16"]["metrics"],
+                            "launches_by_card": {f: r[f]["launches_by_card"]
+                                                 for f in ("float32", "bfloat16")},
+                            "median_step_wall_ms": r["steps"]["median_wall_ms"],
+                            "median_step_host_ms": r["steps"]["median_host_ms"],
+                            "busy_ms_by_card": r["busy_ms_by_card"],
+                            "params_vs_one_card": r["params_vs_one_card"]}
+                     for name, r in train_mesh["meshes"].items()},
+                     "card_fold": {f"{k} {str(dt)[6:]}": v
+                                   for (k, dt), v in train_mesh["card_fold"].items()}},
+                 "cli_mesh": {k: cli_mesh[k] for k in ("mesh", "steps", "train_loss",
+                                                       "median_step_wall_ms", "audio_s_per_s",
+                                                       "launches_by_card")},
                  "mesh_enhancer": mesh,
                  "pipelined_batch": pipelined}
         print(json.dumps({"multi_device": multi}))
@@ -3088,6 +3346,11 @@ def main() -> None:
                 out[f"dp_{tag}_rank{r['rank']}_float32_steps"] = r["steps"]["launches"][name]
         for r in dp_cli["ranks"]:
             out[f"cli_{dp_cli['backend']}_rank{r['rank']}"] = r["launches"][name]
+        for layout, r in train_mesh["meshes"].items():
+            for form in ("float32", "bfloat16"):
+                out[f"train_mesh_{layout}_{form}_step"] = r[form]["launches"][name]
+            out[f"train_mesh_{layout}_float32_steps"] = r["steps"]["launches"][name]
+        out["cli_mesh"] = cli_mesh["launches"][name]
         forward = {"lstm2_fwd": ("float32", "bfloat16"), "lstm2_int8_fwd": ("int8",)}
         for tag in forward.get(name, ()):
             for layout in ("data", "fold"):
@@ -3260,6 +3523,9 @@ def main() -> None:
                 "jax_fixture_min_snr_db": {dt: fsn_train["fixture_snr"].get((name, dt))
                                            for dt in ("float32", "bfloat16")},
                 "train_step_float32": fsn_train["steps"]["float32_default"]["wall_ms"]},
+            "card_fold": {"shape": {"N": N_CARD, "D": D, "H": H, "O": O, "T": T_TRAIN},
+                          **{tag: train_mesh["card_fold"][(name, dt)] for tag, dt in (
+                              ("float32", torch.float32), ("bfloat16", torch.bfloat16))}},
             **extra,
         }
 

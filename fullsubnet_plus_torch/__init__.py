@@ -13,8 +13,9 @@ models' evaluation steps (train/step.py), and the training driver: the CLI
 (cli/train.py), the Trainer with validation metrics and checkpoints in the
 JAX package's `.npz` layout (train/trainer.py, eval/, io/checkpoint.py),
 the supervisor and the dynamic-mixing input pipeline (data/), and
-multi-device runs (parallel/: data-parallel training one rank per card, a
-mesh of a process's cards for enhancement and validation). The fused
+multi-device runs (parallel/: data-parallel training over a mesh of a
+process's cards and over ranks, with the sub-band fold split over 'freq'
+cards in both directions; the same mesh for enhancement and validation). The fused
 2-layer LSTMs (the sub-band model of both, FullSubNet's full-band model)
 run through hand-written CUDA kernels: the float forward (ops/lstm2.py,
 csrc/lstm2_fwd.cu), the int8-recurrent forward, the serving default
@@ -25,6 +26,6 @@ csrc/lstm2_bwd_wgrad.cu, csrc/lstm2_bwd.cu). Every model variant the
 configs can name runs too (the six channel attentions, the norm zoo, GRU,
 bidirectional, N-layer and TCN sequence models, the complex sequence model,
 `subband_num` > 1; nn/, dsp/), with the joint-mask and residual train
-steps (train/step.py) and the multi-channel DSP (dsp/multichannel.py). What
-is not ported yet raises NotImplementedError naming its ROADMAP.md item.
+steps (train/step.py) and the multi-channel DSP (dsp/multichannel.py):
+everything the JAX package does.
 """

@@ -6,11 +6,17 @@
 
 Counterpart of fullsubnet_plus_tpu/cli/train.py with the same flags and
 files (checkpoints in the JAX package's `.npz` layout, so a run resumes in
-either package). One process trains on one device: CUDA unless `--device
-cpu` is given; a request for CUDA where there is none raises.
+either package). It trains on CUDA unless `--device cpu` is given; a
+request for CUDA where there is none raises. With `--device cuda` (the
+default) one process trains on the visible cards as the JAX CLI does on a
+host's chips (`auto_mesh`): the config's batch split over as many cards as
+divide it, the largest such count, each card with its own copy of the
+model, validation over the same cards; on one card, no mesh.
+`--device cuda:N` trains on that card alone.
 
-Data-parallel training runs one process (rank) per card, each started
-with the same flags plus its rank, the JAX package's multi-host flags:
+Data-parallel training over processes runs one process (rank) per card,
+each started with the same flags plus its rank, the JAX package's
+multi-host flags:
 
     python -m fullsubnet_plus_torch.cli.train -C cfg.toml \
         --coordinator HOST:PORT --num-hosts N --host-id R [--device cuda|cpu]
@@ -47,6 +53,16 @@ def save_dir_of(config: dict) -> str:
     return os.path.join(meta["save_dir"], meta.get("experiment_name", "")).rstrip("/")
 
 
+def mesh_devices(flag: str, card_count: int) -> list:
+    """The devices `auto_mesh` may split a one-process run's batch over, for
+    `--device flag`: every one of the `card_count` visible cards for a bare
+    "cuda", else the one device the flag names."""
+    dev = torch.device(flag)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(card_count)]
+    return [dev]
+
+
 def build_trainer(config: dict, args):
     """The Trainer that `main` runs, from a loaded config and parsed args."""
     from fullsubnet_plus_torch.data.datasets import TrainDataset, ValidationDataset
@@ -58,6 +74,7 @@ def build_trainer(config: dict, args):
     from fullsubnet_plus_torch.train.trainer import Trainer
 
     device = parallel.rank_device(args.device, args.host_id or 0)
+    distributed = parallel.check_distributed_args(args.coordinator, args.num_hosts, args.host_id)
     parallel.initialize_distributed(args.coordinator, args.num_hosts, args.host_id,
                                     device=device)
     is_primary = parallel.is_primary()
@@ -77,14 +94,20 @@ def build_trainer(config: dict, args):
     train_args = dict(config["train_dataset"]["args"])
     train_args.pop("num_workers", None)
     dl_cfg = config["train_dataset"].get("dataloader", {})
+    batch_size = dl_cfg.get("batch_size", 18)
     dataset = TrainDataset(**train_args, seed=seed, host_id=parallel.process_index(),
                            num_hosts=parallel.process_count())
-    train_loader = BatchLoader(dataset, batch_size=dl_cfg.get("batch_size", 18),
+    train_loader = BatchLoader(dataset, batch_size=batch_size,
                                num_workers=dl_cfg.get("num_workers", 4),
                                drop_last=dl_cfg.get("drop_last", True), seed=seed)
     valid_dataset = None
     if "validation_dataset" in config:
         valid_dataset = ValidationDataset(**config["validation_dataset"]["args"])
+
+    # a rank trains on its own device; one process on every card the flag allows
+    devices = [device] if distributed else mesh_devices(args.device, torch.cuda.device_count())
+    mesh = parallel.auto_mesh(batch_size, devices=devices)
+    logger.log(f"training on {mesh if mesh is not None else device}")
 
     opt_cfg = config.get("optimizer", {})
     trainer_cfg = config.get("trainer", {})
@@ -109,8 +132,7 @@ def build_trainer(config: dict, args):
         valid_num_buckets=valid_cfg.get("num_buckets", 2),
         lr=opt_cfg.get("lr", 1e-3), compute_dtype="bfloat16" if args.bf16 else None,
         remat=args.remat or train_cfg.get("remat", False), seed=seed, device=device,
-        mesh=parallel.auto_mesh(dl_cfg.get("batch_size", 18), devices=[device]),
-        is_primary=is_primary)
+        mesh=mesh, is_primary=is_primary)
     if args.resume:
         trainer.resume()
     if args.from_torch:

@@ -22,10 +22,3 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
 
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error every unported option raises, naming its ROADMAP item."""
-    return NotImplementedError(
-        f"{what} is not ported to fullsubnet_plus_torch yet "
-        f"(ROADMAP.md {item})"
-    )

@@ -13,10 +13,10 @@ Pallas kernel: the 8-block TCN (FullSubNet+'s full-band models; it ignores
 hidden_size and num_layers, as the reference does) and its "TCN-subband"
 variant (hidden_size for blocks 1-7, 384 for block 8), and every LSTM or
 GRU of another depth or direction (nn/lstm.py `RNN`). `quantized` on a
-plain form runs it in float, as JAX's does. `shard_fold` splits the kernel
-forward's fold rows over several cards: the counterpart of `fold_axes`
-(JAX nn/sequence.py:118-175), with the mesh axes resolved to cards by the
-caller (parallel/mesh.py Mesh.fold_devices).
+plain form runs it in float, as JAX's does. `shard_fold` splits the
+kernels' fold rows over several cards, forward and backward: the
+counterpart of `fold_axes` (JAX nn/sequence.py:118-175), with the mesh axes
+resolved to cards by the caller (parallel/mesh.py Mesh.fold_devices).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from fullsubnet_plus_torch.nn.lstm import LSTM2, RNN
 from fullsubnet_plus_torch.nn.tcn import tcn_stack
 from fullsubnet_plus_torch.ops.lstm2 import lstm2_fc, lstm2_fc_split, to_device
 from fullsubnet_plus_torch.ops.lstm2_int8 import lstm2_int8_fc, lstm2_int8_fc_split
-from fullsubnet_plus_torch.ops.lstm2_train import lstm2_fc_train
+from fullsubnet_plus_torch.ops.lstm2_train import lstm2_fc_train, lstm2_fc_train_split
 
 ACTIVATIONS = {
     "Tanh": torch.tanh,
@@ -87,10 +87,12 @@ class SequenceModel(nn.Module):
         self.int8_fold_weights = [to_device(self.int8_weights, d) for d in self.fold_devices]
 
     def shard_fold(self, devices) -> None:
-        """Split the LSTM forward's fold rows over `devices` (the first is
-        the module's own card) when no gradient is asked: each card sweeps
-        its own rows, the outputs gathered on the first. One device, or
-        none, undoes the split. Call before `prepare_int8`."""
+        """Split the LSTM's fold rows over `devices` (the first is the
+        module's own card): each card sweeps its own rows, the outputs
+        gathered on the first; where a gradient is asked each card also
+        runs its rows' backward, and the weight gradients are summed into
+        the module's parameters. One device, or none, undoes the split.
+        Call before `prepare_int8`."""
         if not self.fused:
             raise ValueError(f"shard_fold: a {self.kind} sequence model has no 2-layer LSTM "
                              "fold")
@@ -122,7 +124,9 @@ class SequenceModel(nn.Module):
         the 2-layer LSTM through the int8-recurrent kernel (forward only).
         Otherwise it takes the forward-only sweep when no gradient is asked
         and the differentiable one (residual-saving forward, reverse-sweep
-        backward) when one is, as the JAX package's custom VJP does."""
+        backward) when one is, as the JAX package's custom VJP does. The
+        differentiable route reads the parameters themselves, never the
+        detached operands `fold_packed` caches for the forward."""
         if self.kind in ("TCN", "TCN-subband"):
             for block in self.sequence_model:
                 x = block(x, valid=valid)
@@ -140,9 +144,9 @@ class SequenceModel(nn.Module):
             tensors = self.sequence_model.tensors(self.fc_output_layer)
             if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *tensors)):
                 if self.fold_devices:
-                    raise NotImplementedError("a fold split across cards has no backward: "
-                                              "training splits the batch over ranks instead")
-                o = lstm2_fc_train(x, *tensors)
+                    o = lstm2_fc_train_split(x, tensors, self.fold_devices)
+                else:
+                    o = lstm2_fc_train(x, *tensors)
             elif self.fold_devices:
                 o = lstm2_fc_split(x, self.fold_packed(), self.fold_devices)
             else:

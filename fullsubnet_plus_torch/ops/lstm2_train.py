@@ -33,6 +33,12 @@ dtype where a product or a store reads them, h, c and every carry stay
 float32, the bias gradient of the fused form sums the unrounded dgates and
 that of the other form the rounded ones.
 
+`lstm2_fc_train_split` runs the differentiable function over the fold's
+rows split across several cards, the counterpart of
+`stacked_lstm2_train_sharded` (:948-951): each card runs K2 and K3 / K4 on
+its slice, and autograd sums the cards' weight gradients into the
+parameters, as shard_map's transpose psums them in the JAX package.
+
 A tensor on the CPU takes the plain versions; a CUDA tensor launches the
 kernels or raises. The plain versions also admit float64 (for gradcheck).
 """
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -50,6 +57,7 @@ from fullsubnet_plus_torch.ops.lstm2 import (
     MAX_HIDDEN,
     SMEM_LIMIT,
     LSTM2Weights,
+    fold_split,
     fwd_mma_row_tile,
     fwd_mma_shared_memory_bytes,
     pack_fwd_mma,
@@ -69,8 +77,10 @@ FUSED_WGRAD: bool | None = None
 # float32 there), K3 an L2-sized scratch.
 FUSED_WGRAD_BY_DTYPE = {torch.float32: False, torch.bfloat16: True}
 
-# wrapper calls that launched their kernel, since import (or last reset)
+# wrapper calls that launched their kernel, since import (or last reset), and
+# the same by kernel and card ("lstm2_bwd cuda:1"; cleared apart)
 LAUNCHES = {"lstm2_train_fwd": 0, "lstm2_bwd": 0, "lstm2_bwd_wgrad": 0}
+LAUNCHES_BY_CARD: Counter = Counter()
 
 MMA_ROWS_PER_CTA = 16  # the reverse sweep's row tile: one m16 tile (MMA_ROWS in the .cuh)
 MMA_PAD_BYTES = 16  # pad of a dgates row in the reverse sweep's shared memory (lstm2_bwd_sweep.cuh)
@@ -324,6 +334,28 @@ def lstm2_fc_train(x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
     return LSTM2TrainFunction.apply(x, *params)
 
 
+def lstm2_fc_train_split(x: torch.Tensor, params, devices) -> torch.Tensor:
+    """`lstm2_fc_train` over the fold's rows split evenly across `devices`
+    (the first is x's card), the outputs gathered in order on x's card.
+
+    Each slice of x and each card's copy of the ten parameter tensors are
+    differentiable copies made before any kernel is queued (`fold_split`),
+    so the backward copies each card's dx and weight gradients back and
+    autograd sums the weight gradients into `params`. In the backward the
+    copies of dy to the other cards come before the first card's own
+    sweep: they are the gather's backward, made later in the forward than
+    any slice's function, and autograd runs the latest-made ready node of
+    a card first. A card named twice runs two slices, each of whose
+    gradients is added once. Where the rows do not divide over the cards
+    the whole fold runs on x's card with `fold_split`'s warning."""
+    parts = len(devices)
+    if parts > 1 and x.shape[0] % parts == 0:
+        weights = [tuple(p.to(dev, non_blocking=True) for p in params) for dev in devices]
+    else:
+        weights = [tuple(params)] * parts
+    return fold_split(lambda part, w: lstm2_fc_train(part, *w), x, weights, devices)
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
@@ -430,6 +462,7 @@ def _call(name: str, argtypes: list, x: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_CARD[f"{name} {x.device}"] += 1
 
 
 def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):

@@ -13,14 +13,16 @@ semantics and does the placement itself:
     (the local batch), the global batch is that times the ranks, and the
     train step all-reduces the flat gradient with the loss appended
     (train/step.py). `row_offset` gives the global index of a rank's first
-    row, which `drop_band` needs (dsp/unfold.py). A training mesh holds one
-    card a rank: JAX's per-host mesh over a host's chips maps onto one
-    rank per card.
-  * For the Enhancer and the eval step, a single-process mesh of several
-    cards splits a batch's rows over 'data' (`data_sharding`), each shard running on its own card with its
-    own copy of the model (`replicated`); with the model config's
-    `fold_sharding` naming 'freq', each shard's sub-band fold rows are
-    split again over the cards of its 'freq' row (`Mesh.fold_devices`).
+    row, which `drop_band` needs (dsp/unfold.py); a card's first row is
+    that plus its slice's start in `data_sharding`.
+  * Within a process, a mesh of several cards splits a batch's rows over
+    'data' (`data_sharding`), each shard running on its own card with its
+    own copy of the model (`replicated`), for the train step, the eval
+    step and the Enhancer; with the model config's `fold_sharding` naming
+    'freq', each shard's sub-band fold rows are split again over the cards
+    of its 'freq' row (`Mesh.fold_devices`), in training with a backward.
+    JAX's per-host mesh over a host's chips maps onto such a mesh, and
+    ranks that each hold one compose with it.
 
 A CPU mesh is a grid of "cpu" devices: the placements are then copies in
 one memory, which is how the tests hold the splits to one device.

@@ -29,17 +29,19 @@ reference's `Trainer` and `Residual_Trainer` losses, JAX train/step.py:
 have no non-finite select.
 
 Under a mesh (parallel/mesh.py) the train step is data-parallel with JAX's
-multi-process batch semantics, one card a rank: each rank feeds its own
-rows; the loss is the mean over the global batch and the gradient the mean
-of the ranks'. Each rank's rows keep their global row offset for
-`drop_band`. The ranks agree through ONE all_reduce of the flat gradient with the loss
-and a stop flag appended, before the norm, the clip and Adam, so the
-non-finite select decides alike and the parameters stay bit-identical on
-every rank. The counterpart of `stacked_lstm2_train_sharded` is this step:
-each rank sweeps only its own fold rows, and the all_reduce sums the
-weight gradients. A training mesh of several cards in one process, or with
-a 'freq' axis, is not ported (ROADMAP.md Queue 1 item 12). `make_bucketed_eval_step(mesh=)` splits the
-rows over this process's cards.
+batch semantics: each rank feeds its own rows, split again over its local
+'data' cards, each card with its own copy of the model; the loss is the
+mean over the global batch and the gradient the mean of the cards'. Each
+card's rows keep their global row offset for `drop_band`. A card's
+gradient is summed with the others on the process's first card in card
+order, and the ranks agree through ONE all_reduce of the flat gradient
+with the loss and a stop flag appended, before the norm, the clip and
+Adam, so the non-finite select decides alike and the parameters stay
+bit-identical on every rank. With the config's `fold_sharding` naming
+'freq', each card's sub-band fold is split again over its 'freq' cards,
+forward and backward (ops/lstm2_train.py `lstm2_fc_train_split`, the
+counterpart of `stacked_lstm2_train_sharded`). `make_bucketed_eval_step(mesh=)`
+splits the rows over this process's cards the same way.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fullsubnet_plus_torch.device import not_ported, resolve_device
+from fullsubnet_plus_torch.device import resolve_device
 from fullsubnet_plus_torch.dsp.mask import (
     build_complex_ideal_ratio_mask,
     build_ideal_ratio_mask,
@@ -255,21 +257,23 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
     in the step reads a value back to the host; the metrics ("loss",
     "grad_norm", "skipped") are device tensors.
 
-    `mesh=` (parallel.Mesh, one card a rank) makes the step data-parallel
-    across the ranks: (state, noisy, clean, stop=False) with this rank's
-    rows of the global batch; the state lies on the mesh's card and
-    `device` is not used. `stop` (this rank's preemption flag) rides in the
-    gradient all_reduce, and under a process group metrics["stop"] is the
-    number of ranks that set it, the same on every rank. A mesh of several
-    cards in one process raises NotImplementedError (ROADMAP.md Queue 1
-    item 12).
+    `mesh=` (parallel.Mesh) makes the step data-parallel over the mesh's
+    'data' cards, this process's and every rank's: (state, noisy, clean,
+    stop=False) with this rank's rows of the global batch, which split
+    evenly over its 'data' cards (one copy of the model on each, synced
+    from the state at every call; with the config's `fold_sharding` naming
+    'freq' each copy's sub-band fold splits over its 'freq' cards). The
+    state lies on the mesh's first card and is updated there; `device` is
+    not used. Every card's forward is queued before any backward, and one
+    backward over the sum of the cards' losses lets autograd run each
+    card's on that card's own thread. `stop` (this rank's preemption flag)
+    rides in the gradient all_reduce, and under a process group
+    metrics["stop"] is the number of ranks that set it, the same on every
+    rank.
     """
     if mesh is not None:
-        data_devices = _mesh_devices(mesh)
-        if mesh.local_data > 1 or mesh.shape["freq"] > 1:
-            raise not_ported(f"a training mesh of {mesh.devices.size} cards in one process "
-                             "(training runs one rank per card)", "Queue 1 item 12")
-        device = data_devices[0]
+        device = _mesh_devices(mesh)[0]
+        replicas = _model_replicas(mesh, getattr(config, "fold_sharding", None))
     device = resolve_device(device)
     _check_full_float32(compute_dtype, device)
     num_groups = config.num_groups_in_drop_band
@@ -296,17 +300,30 @@ def make_train_step(model_def, config, optimizer: Optimizer, loss_fn, *, n_fft: 
 
     def data_parallel_grads(model, noisy, clean, stop):
         """(mean flat gradient, mean loss, stop count) over the global
-        batch: this rank's gradient, then one all_reduce of [gradient |
-        loss | stop] over the ranks."""
+        batch: each card's gradient of its rows' loss, summed on the first
+        card in card order, then one all_reduce of [gradient | loss | stop]
+        over the ranks and one division by the global number of shards."""
         rows = noisy.shape[0]
-        noisy, clean = (_to_device(a, device) for a in (noisy, clean))
+        offset, total = row_offset(mesh, rows), rows * mesh.process_count
+        parts = data_sharding(mesh, rows)
+        models = replicas(model)
+        # every card's rows are on their card before any forward is queued
+        batches = [tuple(_to_device(a[part], dev) for a in (noisy, clean))
+                   for dev, part in parts]
         with torch.enable_grad():
-            loss = loss_value(model, noisy, clean,
-                              rows=(row_offset(mesh, rows), rows * mesh.process_count))
-            grads = _flatten(torch.autograd.grad(loss, list(model.parameters())))
+            losses = [loss_value(m, n, c, rows=(offset + part.start, total))
+                      for m, (n, c), (_, part) in zip(models, batches, parts)]
+            params = [list(m.parameters()) for m in models]
+            grads = torch.autograd.grad(losses, [p for ps in params for p in ps])
+        count = len(params[0])
+        grad, loss = _flatten(grads[:count]), losses[0].detach()
+        for i in range(1, len(models)):
+            grad = grad + _flatten(grads[i * count:(i + 1) * count]).to(device)
+            loss = loss + losses[i].detach().to(device)
         flag = torch.full((1,), float(bool(stop)), device=device)
-        buffer = all_reduce_sum_(torch.cat([grads, loss.detach().reshape(1), flag]), mesh)
-        return buffer[:-2] / mesh.process_count, buffer[-2] / mesh.process_count, buffer[-1]
+        buffer = all_reduce_sum_(torch.cat([grad, loss.reshape(1), flag]), mesh)
+        shards = mesh.shape["data"]
+        return buffer[:-2] / shards, buffer[-2] / shards, buffer[-1]
 
     def train_step(state: TrainState, noisy, clean, stop: bool = False):
         _check_full_float32(compute_dtype, device)

@@ -18,8 +18,12 @@ train/supervisor.py. `history` keeps each epoch's losses, scores and host
 timings (the epoch's wall, the time spent waiting on the loader, each
 step's wall, validation's eval and metric time).
 
-Under a mesh across ranks (parallel/mesh.py; one rank per card, each fed
-its own shard of the clean list) the step is data-parallel and the ranks
+Under a mesh (parallel/mesh.py) the step is data-parallel over its 'data'
+cards. In one process the Trainer also validates over the process's cards
+(the rows split over 'data', the fold over 'freq' where the config's
+`fold_sharding` names it), with `valid_batch_size` rounded up to a
+multiple of the 'data' cards, as JAX's Trainer rounds it. Across ranks
+(each fed its own shard of the clean list, each on its own cards) the ranks
 keep in step: they agree each epoch's step count (the least of theirs)
 before it starts, and a SIGTERM on any rank rides in the step's gradient
 all_reduce, so every rank stops after the same step. Only the primary
@@ -82,14 +86,21 @@ class Trainer:
                  remat: bool = False, seed: int = 0, use_tensorboard: bool = True,
                  handle_preemption: bool = True, heartbeat_interval: int = 50,
                  lr: float | None = None, device="cuda", is_primary: bool | None = None):
-        """`mesh` (parallel.Mesh, one card a rank): data-parallel training
-        over its ranks; the model lies on its card and `device` is not used.
-        `is_primary` (default: rank 0 of the mesh, or True) writes the
-        files and validates."""
+        """`mesh` (parallel.Mesh): data-parallel training over its 'data'
+        cards and ranks; the model lies on its first card and `device` is
+        not used. Without a process group, validation runs over the mesh's
+        cards too. `is_primary` (default: rank 0 of the mesh, or True)
+        writes the files and validates."""
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or bfloat16")
+        # validation's mesh: the process's cards in a one-process run; across
+        # ranks the primary validates on its first card alone
+        eval_mesh = None
         if mesh is not None:
             device = check_mesh(mesh).data_devices[0]
+            if mesh.group is None:
+                eval_mesh = mesh
+                valid_batch_size = -(-valid_batch_size // mesh.local_data) * mesh.local_data
         if is_primary is None:
             is_primary = mesh is None or mesh.process_index == 0
         self.mesh = mesh
@@ -137,7 +148,8 @@ class Trainer:
         self.eval_step = make_eval_step(model_def, model_config, self.loss_fn,
                                         device=self.device, **self.acoustics)
         self.bucketed_eval_step = make_bucketed_eval_step(
-            model_def, model_config, self.loss_fn, device=self.device, **self.acoustics)
+            model_def, model_config, self.loss_fn, mesh=eval_mesh, device=self.device,
+            **self.acoustics)
         model = model_def.module_cls(model_config).init_weights(
             torch.Generator().manual_seed(seed))
         self.state = init_train_state(model, self.optimizer, device=self.device)

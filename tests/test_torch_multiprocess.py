@@ -8,7 +8,8 @@ this process computes the JAX package's reference.
     same weights: loss within rtol 1e-5 and gradient norm within rtol 1e-4
     (gradients, not parameters after Adam, whose elements at its eps may
     flip sign); parameters bit-equal across ranks after 4 steps, a stop flag
-    set on one rank read by both.
+    set on one rank read by both. The same with 2 CPU "cards" a rank, 3
+    rows a card of a global batch of 12.
   * The Trainer across ranks: validation on rank 0 alone with the score
     broadcast, and a rank-0 failure raising on both; ranks with unequal
     batch counts run the same steps; a SIGTERM flag on one rank stops both
@@ -28,6 +29,7 @@ import socket
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +87,19 @@ for i in range(job["steps"]):
                           stop=rank == 1 and i == 2)
     out["steps"].append({k: float(v) for k, v in m.items()})
 np.save(job["params"] % rank, flat(state.model))
+
+# two "cards" a rank: each rank's rows split over its own two, summed there,
+# then the one all_reduce over the ranks
+wide = pmesh.make_mesh(2 * job["ranks"], 1, devices=["cpu"] * 2)
+model = FULLSUBNET_PLUS.module_cls(config)
+model.load_state_dict(torch.load(job["weights"]))
+wide_state = step.init_train_state(model, optimizer, device="cpu")
+wide_step = step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss,
+                                 mesh=wide, **job["acoustics"])
+wide_rows = slice(2 * rank * rows, 2 * (rank + 1) * rows)
+_, m = wide_step(wide_state, data["wide_noisy"][wide_rows], data["wide_clean"][wide_rows])
+out["wide"] = {"shape": wide.shape, "metrics": {k: float(v) for k, v in m.items()}}
+np.save(job["wide_params"] % rank, flat(wide_state.model))
 out["agreed_min"] = pmesh.agreed_min(5 + rank, mesh)
 out["broadcast"] = pmesh.broadcast_float(0.25 + rank, mesh)
 
@@ -173,12 +188,16 @@ def ranks(tmp_path_factory, params, cli_run):
     rng = np.random.default_rng(7)
     clean = (0.1 * rng.standard_normal((STEPS, ROWS * RANKS, SAMPLES))).astype(np.float32)
     noisy = clean + (0.05 * rng.standard_normal(clean.shape)).astype(np.float32)
-    np.savez(root / "batches.npz", noisy=noisy, clean=clean)
+    # two ranks of two cards: a global batch of 4 shards of ROWS rows
+    wide_noisy, wide_clean = (np.concatenate([a[0], a[1]]) for a in (noisy, clean))
+    np.savez(root / "batches.npz", noisy=noisy, clean=clean, wide_noisy=wide_noisy,
+             wide_clean=wide_clean)
     torch.save(state_dict_from_jax(params), root / "weights.pt")
     job = {"coordinator": f"127.0.0.1:{free_port()}", "ranks": RANKS, "rows": ROWS,
            "steps": STEPS, "model": TINY, "acoustics": ACOUSTICS,
            "batches": str(root / "batches.npz"), "weights": str(root / "weights.pt"),
            "params": str(root / "params_%d.npy"), "trainer_params": str(root / "trainer_%d.npy"),
+           "wide_params": str(root / "wide_%d.npy"),
            "save_dirs": [str(root / f"run{r}") for r in range(RANKS)],
            "out": str(root / "out_%d.json")}
     (root / "job.json").write_text(json.dumps(job))
@@ -190,15 +209,20 @@ def ranks(tmp_path_factory, params, cli_run):
         optimizer = jstep.make_optimizer()
         train_step = jstep.make_train_step(J_MODEL, JConfig(**TINY), optimizer, jloss.mse_loss,
                                            **ACOUSTICS)
-        state = jstep.init_train_state(jax.tree_util.tree_map(jnp.asarray, params), optimizer)
-        with jax.default_matmul_precision("highest"):
-            _, ref = train_step(state, noisy[0], clean[0])
+        def reference(batch):
+            state = jstep.init_train_state(jax.tree_util.tree_map(jnp.asarray, params),
+                                           optimizer)
+            with jax.default_matmul_precision("highest"):
+                return {k: float(v) for k, v in train_step(state, *batch)[1].items()}
+
+        with ThreadPoolExecutor(2) as pool:  # the two batch shapes compile at once
+            refs = list(pool.map(reference, ((noisy[0], clean[0]), (wide_noisy, wide_clean))))
     finally:
         logs = _wait(procs, timeout=240)
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
     outs = [json.loads((root / f"out_{r}.json").read_text()) for r in range(RANKS)]
-    return {"outs": outs, "root": root, "jax": {k: float(v) for k, v in ref.items()}}
+    return {"outs": outs, "root": root, "jax": refs[0], "jax_wide": refs[1]}
 
 
 def test_two_rank_step_matches_the_jax_global_step(ranks):
@@ -219,6 +243,22 @@ def test_two_rank_parameters_bit_equal_and_stop_flag_shared(ranks):
     first, second = ranks["outs"]
     assert first["steps"] == second["steps"]  # loss, norm, skipped and stop alike
     assert [m["stop"] for m in first["steps"]] == [0.0, 0.0, 1.0, 0.0]
+
+
+def test_ranks_of_two_cards_each_match_the_jax_global_step(ranks):
+    """2 ranks of 2 CPU "cards" each, ROWS rows a card (the cards' first
+    rows at global rows 0, 3, 6, 9): the local sum and the one all_reduce
+    compose to JAX's step on the global batch of 4 ROWS, at the tolerances
+    above, with the parameters bit-equal across the ranks."""
+    ref = ranks["jax_wide"]
+    for out in ranks["outs"]:
+        m = out["wide"]["metrics"]
+        assert out["wide"]["shape"] == {"data": 2 * RANKS, "freq": 1}
+        np.testing.assert_allclose(m["loss"], ref["loss"], rtol=1e-5)
+        np.testing.assert_allclose(m["grad_norm"], ref["grad_norm"], rtol=1e-4)
+        assert m["skipped"] == 0.0 and m["stop"] == 0.0
+    a, b = (np.load(ranks["root"] / f"wide_{r}.npy") for r in range(RANKS))
+    assert np.array_equal(a, b)
 
 
 def test_collectives_and_rank_zero_validation(ranks):

@@ -298,18 +298,24 @@ def test_bucketed_eval_step_mesh_equals_one_device(params):
 
 
 @pytest.mark.parametrize("data,freq", [(2, 1), (1, 2), (2, 2)])
-def test_training_mesh_of_several_cards_in_one_process_is_not_ported(data, freq, tmp_path):
-    """Training runs one rank per card: a mesh of several cards in one
-    process raises NotImplementedError in the step and the Trainer."""
+def test_training_mesh_of_several_cards_in_one_process(data, freq, tmp_path):
+    """A training mesh of several cards in one process: the Trainer builds
+    on it, rounds its validation batch up to the 'data' cards, splits the
+    state's sub-band fold over its 'freq' cards, and takes a finite step
+    (tests/test_torch_mesh_train.py holds the numbers to JAX's mesh step)."""
     from fullsubnet_plus_torch.train.trainer import Trainer
 
-    config = FullSubNetPlusConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        step.make_train_step(FULLSUBNET_PLUS, config, step.make_optimizer(), loss.mse_loss,
-                             mesh=cpu_mesh(data, freq), **ACOUSTICS)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        Trainer(FULLSUBNET_PLUS, config, mesh=cpu_mesh(data, freq), save_dir=str(tmp_path),
-                acoustics=ACOUSTICS, use_tensorboard=False, handle_preemption=False)
+    config = FullSubNetPlusConfig(**SMALL, fold_sharding=("data", "freq"))
+    trainer = Trainer(FULLSUBNET_PLUS, config, mesh=cpu_mesh(data, freq),
+                      save_dir=str(tmp_path), acoustics=ACOUSTICS, valid_batch_size=3,
+                      use_tensorboard=False, handle_preemption=False)
+    assert trainer.is_primary and trainer.valid_batch_size == -(-3 // data) * data
+    clean = _noisy(4, 1024, 3)
+    _, metrics = trainer.train_step(trainer.state, clean + 0.5 * _noisy(4, 1024, 4), clean)
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["skipped"]) == 0.0
+    assert int(trainer.state.step) == 1 and "stop" not in metrics
+    folds = trainer.state.model.sb_model.fold_devices
+    assert folds == ((torch.device("cpu"),) * freq if freq > 1 else ())
 
 
 def test_one_card_mesh_step_equals_the_step_without_a_mesh(params):

@@ -322,17 +322,20 @@ def test_bf16_and_remat_keep_float32_masters(params):
 
 def test_steps_refuse_what_is_not_ported_and_a_missing_card():
     config, optimizer = FullSubNetPlusConfig(**TINY), step.make_optimizer()
-    # a malformed mesh raises; a training mesh with a 'freq' axis is not ported
-    # (`mesh=` itself works: tests/test_torch_parallel.py, test_torch_multiprocess.py)
+    # a malformed mesh raises; a batch that does not divide over a mesh's 'data'
+    # cards raises at the step (the mesh itself works: tests/test_torch_mesh_train.py,
+    # test_torch_parallel.py, test_torch_multiprocess.py)
     with pytest.raises(TypeError, match="Mesh"):
         step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss, mesh=object(),
                              device="cpu")
     with pytest.raises(TypeError, match="Mesh"):
         step.make_bucketed_eval_step(FULLSUBNET_PLUS, config, loss.mse_loss, mesh=object(),
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss,
-                             mesh=make_mesh(2, 2, devices=["cpu"] * 4))
+    meshed = step.make_train_step(FULLSUBNET_PLUS, config, optimizer, loss.mse_loss,
+                                  mesh=make_mesh(2, 2, devices=["cpu"] * 4), **ACOUSTICS)
+    state = step.init_train_state(FULLSUBNET_PLUS.module_cls(config), optimizer, device="cpu")
+    with pytest.raises(ValueError, match="does not divide over the 2 'data' card"):
+        meshed(state, np.zeros((3, 1024), np.float32), np.zeros((3, 1024), np.float32))
     if not torch.cuda.is_available():  # the default device is the card
         for make in (lambda: step.make_train_step(FULLSUBNET_PLUS, config, optimizer,
                                                   loss.mse_loss),
