@@ -15,8 +15,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      forward sweeps of K1 and K2 and the float32 reverse sweeps of K3 and K4
      must have TF32 ones (HMMA.1688.F32.TF32: each float32 product as three
      TF32 products), and no bf16 FMA sweep, FMA forward or reverse sweep or
-     bf16 FMA `wgrad_kernel` may be compiled; print the float32 reverse
-     sweeps' and the weight-gradient kernels' registers and spills (ptxas);
+     bf16 FMA `wgrad_kernel` may be compiled; the reverse sweep's cluster
+     form (`sweep_cluster_kernel`, two functions) must have HMMA and, in
+     float32, TF32 HMMA instructions; print the float32 reverse sweeps',
+     the cluster form's and the weight-gradient kernels' registers and
+     spills (ptxas);
      K5's sweep `int8_sweep_kernel` must have IMMA (s8) and HMMA (bf16)
      tensor-core instructions and no IDP (`__dp4a`) one, with its registers
      and spills printed;
@@ -66,7 +69,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      configs/train.toml (batch 18 of 3.072 s, drop_band 2) on seeded
      waveforms and weights: a few steps in float32 and bfloat16 through
      K2 + K3 and in float32 through K2 + K4; every loss and gradient norm
-     finite, nothing skipped, the launch counts as expected; then the plain
+     finite, nothing skipped, the launch counts as expected, every reverse
+     sweep in the tile form; then the plain
      versions' float32 run, and at each of its steps the same step from a
      copy of its state through the kernels (float32 K2 + K3 and K2 + K4,
      bf16 K2 + K3), loss and gradient norm held to the plain step's, each
@@ -158,18 +162,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      step (loss 1e-4, gradient norm 1e-3); prints the `variants` JSON line;
  11. FullSubNet's training at full width (FSN_TOML's [model], seed 42, the
      batch of configs/train.toml: the full-band LSTM at N 18, D 257, H 512,
-     O 257, T 195, where the reverse sweep's dx is output-stationary):
-     (a) K2, K3 and K4 in float32 and bf16 against their plain versions
-     (dx, every weight and bias gradient; >= 80 / 40 dB), K3 equal on a
-     repeat, with the reverse sweep's shared memory in both forms; (b) the
+     O 257, T 195, where the reverse sweep takes its cluster form):
+     (a) the sweep's form (clusters of 16 at N 18, the tile form at the
+     shipped and sub-band folds), K2, K3 and K4 in float32 and bf16 against
+     their plain versions (dx, every weight and bias gradient; >= 80 / 40
+     dB; K4 with the tile form forced too), K4's cluster form equal to
+     itself with each cluster's rank 0 sending late, K3 equal on a repeat, each
+     sweep counted by its form, with the reverse sweep's shared memory in
+     each form; (b) the
      JAX fixture's full-band training cases; (c) the FullSubNet train step
      from the plain step's state through float32 K2 + K4, float32 K2 + K3
      and bf16 K2 + K3 (phase 6's limits; each step launching K2 and its
      backward twice: the full-band and the sub-band LSTM), the float32
-     default timed and profiled (no TF32 product); (d) one float32 epoch of
+     default timed and profiled (no TF32 product), its sweeps the cluster
+     form at the full-band fold and the tile form at the sub-band one;
+     (d) one float32 epoch of
      the trainer (the CLI's functions) on phase 8's corpus, its checkpoints
      in the JAX package's FullSubNet keys, and one more epoch profiled;
-     (e) K2, K3, K4 timed beside their plain versions, bounds and cuDNN;
+     (e) K2, K3, K4 timed beside their plain versions, bounds and cuDNN,
+     K3 and K4 also with the tile form forced;
  12. print the kernels' JSON line, the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
@@ -474,6 +485,7 @@ def phase_build() -> dict:
             check_float32_forward(lib, stem, sweeps)
         if stem in BWD_SOURCES:
             hmma[f"{stem}_float32_sweep"] = check_float32_reverse(lib, stem, sweeps)
+            hmma[f"{stem}_cluster_sweep"] = cluster_functions(lib, stem)
         hmma[stem] = sweeps
         if stem == "lstm2_bwd_wgrad":
             hmma["wgrad"] = wgrad_functions(lib)
@@ -537,6 +549,28 @@ def check_float32_reverse(lib, stem: str, sweeps: dict) -> dict:
         fail(f"{stem}: the float32 reverse sweep has no {TF32_HMMA} instructions")
     if any(f.startswith("_ZN3bwd12sweep_kernel") for f in sweeps):
         fail(f"{stem}: an FMA reverse sweep was compiled")
+    return out
+
+
+def cluster_functions(lib, stem: str) -> dict:
+    """The reverse sweep's cluster form (`bwd::sweep_cluster_kernel<T>`, 32
+    units a CTA): {function: {hmma, tf32_hmma, registers, spill bytes}},
+    printed; fails unless both instantiations (float32, bf16) have HMMA
+    instructions and the float32 one HMMA.1688.F32.TF32."""
+    hmma, tf32 = (sass_instruction_counts(lib, op) for op in ("HMMA", TF32_HMMA))
+    ptxas = ptxas_functions(lib)
+    out = {}
+    for function in (f for f in hmma if "sweep_cluster_kernel" in f):
+        regs, spill_st, spill_ld = ptxas.get(function, (None, None, None))
+        print(f"[1] {stem}: {function} has {hmma[function]} HMMA, {tf32[function]} "
+              f"{TF32_HMMA} instructions; ptxas: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads")
+        out[function] = {"hmma": hmma[function], "tf32_hmma": tf32[function], "registers": regs,
+                         "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
+    if len(out) != 2 or min(v["hmma"] for v in out.values()) == 0:
+        fail(f"{stem}: the cluster sweep's two functions lack tensor-core instructions")
+    if any(v["tf32_hmma"] == 0 for f, v in out.items() if "kernelIf" in f):
+        fail(f"{stem}: a float32 cluster sweep has no {TF32_HMMA} instructions")
     return out
 
 
@@ -1174,6 +1208,9 @@ def phase_train() -> dict:
         backward = "lstm2_bwd_wgrad" if fused else "lstm2_bwd"
         expect = {k: 0 for k in launches}
         expect.update({"lstm2_train_fwd": TRAIN_STEPS, backward: TRAIN_STEPS})
+        if dict(lt.SWEEP_FORMS) != {f"{backward} tile": TRAIN_STEPS}:
+            fail(f"train {tag}: the shipped fold's reverse sweeps took the forms "
+                 f"{dict(lt.SWEEP_FORMS)}, not the tile form once a step")
         wall = statistics.median(walls[1:])  # the first step warms up cuBLAS and cuFFT plans
         print(f"[6] train {tag}: loss {', '.join(f'{m['loss']:.6f}' for m in metrics)}; "
               f"grad norm {', '.join(f'{m['grad_norm']:.4f}' for m in metrics)}; step wall "
@@ -1272,6 +1309,7 @@ def reset_launches() -> None:
     for name in lstm2_train.LAUNCHES:
         lstm2_train.LAUNCHES[name] = 0
     lstm2_train.LAUNCHES_BY_CARD.clear()
+    lstm2_train.SWEEP_FORMS.clear()
 
 
 def all_launches() -> dict:
@@ -3064,11 +3102,21 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
     for dtype in (torch.float32, torch.bfloat16):
         forms = {form: lt.bwd_shared_memory_bytes(16, *FB, dtype, ksplit=form == "k-split")
                  for form in ("k-split", "output-stationary")}
+        forms["cluster"] = lt.bwd_cluster_shared_memory_bytes(*FB, dtype)
         print(f"[11] reverse sweep's shared memory at D {FB[0]}, H {FB[1]}, O {FB[2]}, "
-              f"{str(dtype)[6:]}: " + ", ".join(f"{k} {v:,} bytes" for k, v in forms.items())
-              + f"; the rule takes {'k-split' if lt.bwd_dx_ksplit(16, *FB, dtype) else 'output-stationary'}")
+              f"{str(dtype)[6:]}: tile form " + ", ".join(f"{k} {v:,} bytes" for k, v in forms.items())
+              + f"; the tile form takes {'k-split' if lt.bwd_dx_ksplit(16, *FB, dtype) else 'output-stationary'}")
         if lt.bwd_dx_ksplit(16, *FB, dtype) or forms["output-stationary"] > 232448:
             fail("the full-band reverse sweep does not take the output-stationary dx that fits")
+        # the form: clusters of 16 at N 18, the tile form at the shipped and sub-band folds
+        folds = {"full-band N 18": (n, *FB), "shipped N 2304": (N_TRAIN, D, H, O),
+                 "FullSubNet sub-band N 2304": (N_TRAIN, *FSN_SB)}
+        for fold, (rows, *shape) in folds.items():
+            form = lt.bwd_sweep_cluster(rows, *shape, dtype)
+            print(f"[11] {str(dtype)[6:]} {fold}: the rule takes "
+                  f"{f'clusters of {form}' if form else 'the tile form'}")
+            if form != (16 if fold.startswith("full-band") else 0):
+                fail(f"[11] the reverse sweep's form at the {fold} fold: {form}")
     errors, times = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         floor, tag = SNR_FLOOR[dtype], f"N={n} T={t} {str(dtype)[6:]}"
@@ -3077,9 +3125,21 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
         y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
         y, res = lt.lstm2_train_fwd(x, w)
         k2 = worst((y_ref, *res_ref), (y, *res))
+        lt.SWEEP_FORMS.clear()
         sweep_ref = lt.lstm2_bwd_reference(dy, x, w, res_ref)
         sweep = lt.lstm2_bwd_sweep(dy, x, w, res_ref)
         dgates = worst(sweep_ref[1:3], sweep[1:3])
+        lt.SWEEP_LATE_SENDS = 1
+        try:  # rank 0 of each cluster sends after its products: the same bits
+            late = lt.lstm2_bwd_sweep(dy, x, w, res_ref)[:3]
+            late = all(torch.equal(a, b) for a, b in zip(sweep[:3], late))
+        finally:
+            lt.SWEEP_LATE_SENDS = 0
+        lt.SWEEP_FORM = 0
+        try:  # the tile form forced, against the plain sweep
+            tile = worst(sweep_ref[:3], lt.lstm2_bwd_sweep(dy, x, w, res_ref)[:3])
+        finally:
+            lt.SWEEP_FORM = None
         del sweep_ref, sweep
         k4 = worst(lt.lstm2_bwd_plain(dy, x, w, res_ref, fused=False),
                    lt.lstm2_bwd(dy, x, w, res_ref, fused=False))
@@ -3093,11 +3153,19 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
               f"lstm2_train_fwd {k2[0]:.1f} dB max_abs {k2[1]:.3e}; lstm2_bwd (dx, the weight "
               f"gradients from its dgates, db) {k4[0]:.1f} dB max_abs {k4[1]:.3e}, its dgates "
               f"{dgates[0]:.1f} dB; lstm2_bwd_wgrad {k3[0]:.1f} dB max_abs {k3[1]:.3e}, equal "
-              f"on a repeat: {repeat}")
+              f"on a repeat: {repeat}; the tile form forced: lstm2_bwd's dx and dgates "
+              f"{tile[0]:.1f} dB; rank 0 sending late, the same bits: {late}; sweeps by "
+              f"form {dict(lt.SWEEP_FORMS)}")
         if not repeat:
             fail(f"lstm2_bwd_wgrad is not deterministic at the full-band {tag}")
+        if not late:
+            fail(f"lstm2_bwd's cluster form changes with rank 0 sending late at {tag}")
+        if dict(lt.SWEEP_FORMS) != {"lstm2_bwd cluster16": 3, "lstm2_bwd_wgrad cluster16": 2,
+                                    "lstm2_bwd tile": 1}:
+            fail(f"[11] the full-band sweeps' forms: {dict(lt.SWEEP_FORMS)}")
         for name, (snr, _) in (("lstm2_train_fwd", k2), ("lstm2_bwd", k4),
-                               ("lstm2_bwd dgates", dgates), ("lstm2_bwd_wgrad", k3)):
+                               ("lstm2_bwd dgates", dgates), ("lstm2_bwd_wgrad", k3),
+                               ("lstm2_bwd, the tile form", tile)):
             if snr < floor:
                 fail(f"{name} disagrees at the full-band {tag}: {snr:.1f} dB")
         for name, (snr, err) in (("lstm2_train_fwd", k2), ("lstm2_bwd", k4),
@@ -3108,6 +3176,13 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
               "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res), reps=3),
               "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True),
                                          reps=3)}
+        lt.SWEEP_FORM = 0
+        try:  # the tile form forced, in the same call
+            tile_ms = {"lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res), reps=3),
+                       "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True),
+                                                  reps=3)}
+        finally:
+            lt.SWEEP_FORM = None
         plain = {"lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd_reference(x, w), reps=2),
                  "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res), reps=2),
                  "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd_plain(dy, x, w, res, True),
@@ -3134,12 +3209,16 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
         bounds = train_bounds(dtype, shape=FB, n=n, t=t)
         for name in ms:
             side = "forward" if name == "lstm2_train_fwd" else "backward"
+            form = (f" (cluster form; tile form forced {tile_ms[name]:.3f} ms)"
+                    if name in tile_ms else "")
             print(f"[11] {name} {str(dtype)[6:]} full-band N={n} T={t}: kernel {ms[name]:.3f} ms"
-                  f"  plain {plain[name]:.3f} ms  cuDNN LSTM+Linear {side} "
+                  f"{form}  plain {plain[name]:.3f} ms  cuDNN LSTM+Linear {side} "
                   f"{library[name]:.3f} ms  bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
             times[(name, dtype)] = dict(ms=ms[name], plain_ms=plain[name],
                                         library_ms=library[name], bound_ms=bounds[name][0],
                                         bound_by=bounds[name][1])
+            if name in tile_ms:
+                times[(name, dtype)]["tile_form_ms"] = tile_ms[name]
         torch.cuda.empty_cache()
     return errors, times
 
@@ -3196,7 +3275,7 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
                                            phase="[11] FullSubNet", per_step=2)
     state, train_step = seeded_state(), make_step(torch.float32)
     noisy, clean = batches[0]
-    reset_launches()
+    reset_launches()  # and the sweeps' forms
     walls = []
     for noisy, clean in batches:
         torch.cuda.synchronize()
@@ -3212,12 +3291,16 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
     want.update({"lstm2_train_fwd": 2 * TRAIN_STEPS, backward: 2 * TRAIN_STEPS})
     if default_launches != want:
         fail(f"[11] FullSubNet float32 steps: launches {default_launches}, expected {want}")
+    forms = dict(lt.SWEEP_FORMS)  # the full-band sweep clustered, the sub-band one in tiles
+    if forms != {f"{backward} cluster16": TRAIN_STEPS, f"{backward} tile": TRAIN_STEPS}:
+        fail(f"[11] FullSubNet float32 steps: the reverse sweeps' forms {forms}")
     wall = statistics.median(walls[1:])
     audio_s = TRAIN_BATCH * TRAIN_SAMPLES / SR
     print(f"[11] FullSubNet float32 train step (the default form, K2 + "
           f"{'K3' if backward == 'lstm2_bwd_wgrad' else 'K4 + weight_grads'}): wall median "
           f"{wall:.1f} ms (each {', '.join(f'{w:.0f}' for w in walls)}), "
-          f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {default_launches}")
+          f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {default_launches}, sweeps by form "
+          f"{forms}")
 
     def one_step():
         train_step(state, noisy, clean)
@@ -3248,7 +3331,7 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
     return {"errors": errors, "times": times, "fixture_snr": fixture_snr,
             "steps": {"rel_gaps": gaps, "launches": {k: v for k, v in step_launches.items() if v},
                       "float32_default": {"wall_ms": wall, "audio_s_per_s": audio_s / wall * 1e3,
-                                          "launches": default_launches,
+                                          "launches": default_launches, "sweep_forms": forms,
                                           "profile": PROFILES[label]}},
             "trainer": trainer_run, "wall_s": took}
 
@@ -3491,6 +3574,7 @@ def main() -> None:
         extra = {"sweep_hmma": hmma[name]} if name in hmma else {}
         if f"{name}_float32_sweep" in hmma:
             extra["float32_sweep_functions"] = hmma[f"{name}_float32_sweep"]
+            extra["cluster_sweep_functions"] = hmma[f"{name}_cluster_sweep"]
         if name == "lstm2_bwd_wgrad":
             extra["wgrad_functions"] = hmma["wgrad"]
         fb = {tag: {**fsn_train["errors"][(name, dt)], **fsn_train["times"][(name, dt)]}

@@ -19,8 +19,10 @@
 // 1.7 ms at the tensor cores' rate).
 //
 // Design: the sweep of lstm2_bwd_sweep.cuh (one CTA per row tile of 16 for
-// all T, the tile's dgates in shared memory), run once over all steps with
-// the carries starting from zero and kept inside the block. Its products
+// all T, the tile's dgates in shared memory; at folds of a few tiles, such as
+// FullSubNet's full-band N 18, its cluster form: a cluster of 16 CTAs per
+// tile), run once over all steps with the carries starting from zero and
+// kept inside the block. Its products
 // run on the tensor cores (mma.sync, the weights packed into fragment order
 // by the wrapper; float32 as three TF32 products of split operands), and
 // each CTA's step latency bounds it: the product loops' L2 round trips for
@@ -39,8 +41,8 @@ namespace {
 template <typename T>
 int run(const void* dy, const void* g1, const void* c1, const void* g2, const void* c2,
         const void* w2p, const void* u1p, const void* w1p, const void* fcw, void* dg1,
-        void* dg2, void* dx, int n_rows, int steps, int D, int H, int O, int rows,
-        cudaStream_t stream) {
+        void* dg2, void* dx, int n_rows, int steps, int D, int H, int O, int rows, int form,
+        int late_sends, cudaStream_t stream) {
   bwd::SweepArgs<T> a;
   a.dy = static_cast<const T*>(dy);
   a.g1 = static_cast<const T*>(g1);
@@ -65,7 +67,8 @@ int run(const void* dy, const void* g1, const void* c1, const void* g2, const vo
   a.t_lo = 0;
   a.t_base = 0;
   a.resume = 0;
-  return bwd::launch_sweep<T>(a, rows, stream);
+  a.late_sends = late_sends;
+  return bwd::launch_sweep<T>(a, rows, form, stream);
 }
 
 }  // namespace
@@ -73,18 +76,21 @@ int run(const void* dy, const void* g1, const void* c1, const void* g2, const vo
 // dtype: 0 = float32, 1 = bfloat16 (dy, the residuals, the weights, dgates
 // and dx; fcw is float32). w2p, u1p, w1p: [W2; U2], U1 and W1 packed into
 // mma fragments (ops/lstm2.py: pack_tf32_b for float32, pack_mma_b for
-// bfloat16); rows is 16.
+// bfloat16); rows is 16. form: the sweep's form (0 the tile form, 16 the
+// cluster form: clusters of 16). late_sends: 1 for the cluster form's rank 0
+// to send its dgates after its own products (a test of the exchange), else 0.
 extern "C" int lstm2_bwd(const void* dy, const void* g1, const void* c1, const void* g2,
                          const void* c2, const void* w2p, const void* u1p, const void* w1p,
                          const void* fcw, void* dg1, void* dg2, void* dx, int n_rows, int steps,
-                         int D, int H, int O, int rows, int dtype, void* stream) {
+                         int D, int H, int O, int rows, int form, int late_sends, int dtype,
+                         void* stream) {
   if (!bwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, n_rows, steps, D,
-                      H, O, rows, s);
+                      H, O, rows, form, late_sends, s);
   if (dtype == 1)
     return run<__nv_bfloat16>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, n_rows,
-                              steps, D, H, O, rows, s);
+                              steps, D, H, O, rows, form, late_sends, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,7 +27,10 @@ the same name does (:679); left at None, the form follows x's dtype
 (`fused_wgrad`), as measured on the H100. Both share the reverse sweep,
 whose three products run on the tensor cores (in float32 as three TF32
 products of split operands), reading the weights packed into mma.sync
-fragment order (`pack_mma_b` in bfloat16, `pack_tf32_b` in float32). Cast
+fragment order (`pack_mma_b` in bfloat16, `pack_tf32_b` in float32), in one
+of two forms that `bwd_sweep_cluster` chooses: the tile form (a CTA a row
+tile) or, at FullSubNet's full-band folds, the cluster form (a cluster of
+CTAs a row tile, each owning a slice of the hidden units). Cast
 points follow the TPU kernels: residuals and dgates are rounded to x's
 dtype where a product or a store reads them, h, c and every carry stay
 float32, the bias gradient of the fused form sums the unrounded dgates and
@@ -78,9 +81,35 @@ FUSED_WGRAD: bool | None = None
 FUSED_WGRAD_BY_DTYPE = {torch.float32: False, torch.bfloat16: True}
 
 # wrapper calls that launched their kernel, since import (or last reset), and
-# the same by kernel and card ("lstm2_bwd cuda:1"; cleared apart)
+# the same by kernel and card ("lstm2_bwd cuda:1") and by the reverse sweep's
+# form ("lstm2_bwd cluster16", "lstm2_bwd_wgrad tile"; each cleared apart)
 LAUNCHES = {"lstm2_train_fwd": 0, "lstm2_bwd": 0, "lstm2_bwd_wgrad": 0}
 LAUNCHES_BY_CARD: Counter = Counter()
+SWEEP_FORMS: Counter = Counter()
+
+# The reverse sweep's form (csrc/lstm2_bwd_sweep.cuh): None the one
+# `bwd_sweep_cluster` chooses, 0 the tile form (`sweep_mma_kernel`: a CTA a
+# tile of 16 rows), SWEEP_CLUSTER the cluster form (`sweep_cluster_kernel`:
+# a cluster of 16 CTAs a tile, each owning 32 hidden units). Set to time
+# the forms.
+SWEEP_FORM: int | None = None
+# The cluster form's C in both dtypes (CLUSTER_SIZE in the .cuh): at
+# FullSubNet's full-band fold on the H100, clusters of 8 (64 units a CTA)
+# took longer in bf16 and do not fit a block in float32 (PERF.md).
+SWEEP_CLUSTER = 16
+CLUSTER_UNITS = 32  # hidden units a CTA of the cluster form owns (CL_UNITS)
+CLUSTER_KPARTS = 8  # k-parts of each of its products (CL_KPARTS)
+CLUSTER_MAX_O = 288  # its dy tile's widest row (CL_MAX_O)
+CLUSTER_BAR_BYTES = 8 * 16  # an 8-byte mbarrier for each of 16 owners (CL_BAR_BYTES)
+# The most rows the rule gives the cluster form: the largest fold at which
+# it measured faster than the tile form in both dtypes on the H100 (its
+# clusters run in waves of 7; in bf16 the tile form was faster at N 2112:
+# PERF.md, `scripts/time_torch_fb_train.py --folds`).
+CLUSTER_MAX_ROWS = 1536
+# 1 makes the cluster form's rank 0 send its dgates only after its own
+# products, to test that a CTA rewrites its block only once its copies have
+# read it (K4 alone; the results stay bit for bit).
+SWEEP_LATE_SENDS = 0
 
 MMA_ROWS_PER_CTA = 16  # the reverse sweep's row tile: one m16 tile (MMA_ROWS in the .cuh)
 MMA_PAD_BYTES = 16  # pad of a dgates row in the reverse sweep's shared memory (lstm2_bwd_sweep.cuh)
@@ -94,8 +123,8 @@ WGRAD_W1_TILE = (48, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_PTR] * 14 + [_INT] * 7 + [_PTR]
-_BWD_ARGTYPES = [_PTR] * 12 + [_INT] * 7 + [_PTR]
-_WGRAD_ARGTYPES = [_PTR] * 23 + [_INT] * 8 + [_PTR]
+_BWD_ARGTYPES = [_PTR] * 12 + [_INT] * 9 + [_PTR]
+_WGRAD_ARGTYPES = [_PTR] * 23 + [_INT] * 9 + [_PTR]
 
 
 class Residuals(NamedTuple):
@@ -408,6 +437,59 @@ def bwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
     return _bwd_bytes(rows, d_in, hidden, out_dim, dtype, ksplit)
 
 
+def _cluster_fc_ld(out_dim: int) -> int:
+    """A row of the cluster form's W_fc slice and dy tile (`cl_fc_ld`): O
+    rounded up to an odd number of 4-float words."""
+    ld = -(-out_dim // 4) * 4
+    return ld if (ld // 4) % 2 else ld + 4
+
+
+def bwd_cluster_shared_memory_bytes(d_in: int, hidden: int, out_dim: int,
+                                    dtype: torch.dtype = torch.float32) -> int:
+    """csrc/lstm2_bwd_sweep.cuh, the cluster form (`cluster_shared_bytes`): a
+    CTA owning U = 32 units holds an mbarrier an owner (128 bytes), the
+    tile's dgates in x's dtype as H / U owners' blocks [16][4U + pad], then
+    float32 W_fc's rows of its units [U][fc_ld] and the dy tile [16][fc_ld]
+    (fc_ld: O rounded up to an odd number of 4-float words), the products'
+    k-part partials [8][16][2U + 8] and dy W_fc^T [16][U]. D does not enter:
+    dx's columns are spread over the cluster."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    units, fc_ld = CLUSTER_UNITS, _cluster_fc_ld(out_dim)
+    return (CLUSTER_BAR_BYTES
+            + size * (hidden // units) * MMA_ROWS_PER_CTA * (4 * units + MMA_PAD_BYTES // size)
+            + 4 * ((units + MMA_ROWS_PER_CTA) * fc_ld
+                   + CLUSTER_KPARTS * MMA_ROWS_PER_CTA * (2 * units + 8)
+                   + MMA_ROWS_PER_CTA * units))
+
+
+def bwd_sweep_cluster(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch.dtype) -> int:
+    """The reverse sweep's form for a fold of n rows, by its shape alone:
+    SWEEP_CLUSTER, the cluster form (a cluster of 16 CTAs a row tile of 16,
+    each owning 32 hidden units, the dgates exchanged through distributed
+    shared memory; the clusters run in waves where the card holds fewer at
+    once), where H = 16 x 32, D <= H, O <= CLUSTER_MAX_O, n <=
+    CLUSTER_MAX_ROWS and a CTA's shared memory fits a block; else 0, the tile
+    form (a CTA a row tile), which the shipped folds (H 384) take. The launch
+    takes the form it is given: one refused raises, none falls back.
+    (csrc/lstm2_bwd_sweep.cuh's `cluster_runs` checks the shape again.)"""
+    if dtype not in _DTYPE_CODES or hidden != SWEEP_CLUSTER * CLUSTER_UNITS:
+        return 0
+    if d_in > hidden or out_dim > CLUSTER_MAX_O or n > CLUSTER_MAX_ROWS:
+        return 0
+    if bwd_cluster_shared_memory_bytes(d_in, hidden, out_dim, dtype) > SMEM_LIMIT:
+        return 0
+    return SWEEP_CLUSTER
+
+
+def sweep_form(x: torch.Tensor, w: LSTM2Weights) -> int:
+    """The form a reverse sweep of x takes: SWEEP_FORM when set, else
+    `bwd_sweep_cluster`'s."""
+    if SWEEP_FORM is not None:
+        return SWEEP_FORM
+    n, d, _ = x.shape
+    return bwd_sweep_cluster(n, d, w.u1.shape[0], w.fc_w.shape[1], x.dtype)
+
+
 def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes, row_tile) -> int:
     """Raises on what the kernels do not take; returns the row tile R,
     `row_tile(n, sm_count)`."""
@@ -451,18 +533,22 @@ def _check_residuals(name: str, x: torch.Tensor, res: Residuals, hidden: int) ->
                              f"{(steps, n, width)} {x.dtype} tensor on {x.device}")
 
 
-def _call(name: str, argtypes: list, x: torch.Tensor, *args) -> None:
+def _call(name: str, argtypes: list, x: torch.Tensor, *args, form: int | None = None) -> None:
     """Launch `name` of csrc/<name>.cu on x's device and current stream,
-    raise on a refused launch, and count the launch."""
+    raise on a refused launch, and count the launch (and, for a reverse
+    sweep, its `form`)."""
     lib = nvcc.load(name, name, argtypes)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = getattr(lib, name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                                    for a in args), stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        what = f" (the cluster form, clusters of {form})" if form else ""
+        raise RuntimeError(f"{name} launch failed{what}: CUDA error {err}")
     LAUNCHES[name] += 1
     LAUNCHES_BY_CARD[f"{name} {x.device}"] += 1
+    if form is not None:
+        SWEEP_FORMS[f"{name} {f'cluster{form}' if form else 'tile'}"] += 1
 
 
 def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
@@ -488,8 +574,9 @@ def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
 
 def _bwd_operands(name: str, dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
                   res: Residuals):
-    """Checks, the row tile, dy [N, T, O] in x's dtype, and the weights as
-    the sweep reads them: the packed mma fragments of [W2; U2], U1 and W1
+    """Checks, the row tile, the sweep's form (`sweep_form`), dy [N, T, O] in
+    x's dtype, and the weights as the sweep reads them: the packed mma
+    fragments of [W2; U2], U1 and W1
     (`pack_mma_b` in bfloat16, `pack_tf32_b` in float32; once per call:
     3.7 MB and 7.4 MB at H 384)."""
     rows = _check(name, x, w, functools.partial(bwd_shared_memory_bytes, dtype=x.dtype),
@@ -502,17 +589,18 @@ def _bwd_operands(name: str, dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
                          f"{(n, steps, out_dim)} on {x.device}")
     dy = dy.to(x.dtype).contiguous()
     pack = pack_mma_b if x.dtype == torch.bfloat16 else pack_tf32_b
-    return rows, dy, tuple(pack(m) for m in (w.w2, w.u1, w.w1))
+    return rows, sweep_form(x, w), dy, tuple(pack(m) for m in (w.w2, w.u1, w.w1))
 
 
 def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Residuals) -> SweepGrads:
-    rows, dy, weights = _bwd_operands("lstm2_bwd", dy, x, w, res)
+    rows, form, dy, weights = _bwd_operands("lstm2_bwd", dy, x, w, res)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     dg1, dg2 = torch.empty_like(res.g1), torch.empty_like(res.g2)
     dx_tnd = torch.empty(steps, n, d, dtype=x.dtype, device=x.device)
     _call("lstm2_bwd", _BWD_ARGTYPES, x, dy, res.g1, res.c1, res.g2, res.c2, *weights,
-          w.fc_w, dg1, dg2, dx_tnd, n, steps, d, hidden, out_dim, rows, _DTYPE_CODES[x.dtype])
+          w.fc_w, dg1, dg2, dx_tnd, n, steps, d, hidden, out_dim, rows, form,
+          SWEEP_LATE_SENDS, _DTYPE_CODES[x.dtype], form=form)
     # the bias sums of this form come from the rounded dgates (weight_grads)
     return SweepGrads(dx_tnd.permute(1, 2, 0), dg1, dg2, None, None)
 
@@ -547,7 +635,7 @@ def force_wgrad_tile(shape: int | None) -> int | None:
 
 def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
                       res: Residuals) -> LSTM2Grads:
-    rows, dy, weights = _bwd_operands("lstm2_bwd_wgrad", dy, x, w, res)
+    rows, form, dy, weights = _bwd_operands("lstm2_bwd_wgrad", dy, x, w, res)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     tiles = -(-n // rows)
@@ -572,7 +660,7 @@ def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
     db_part = f32(tiles, 2, 4 * hidden)  # each row tile's bias sums
     _call("lstm2_bwd_wgrad", _WGRAD_ARGTYPES, x, dy, x_tnd, res.g1, res.c1, res.h1, res.g2,
           res.c2, res.h2, *weights, w.fc_w, dx_tnd, dw1, du1, dw2, du2, db1, db2,
-          scratch_dg1, scratch_dg2, carry, db_part, n, steps, d, hidden, out_dim, rows, chunk,
-          _DTYPE_CODES[x.dtype])
+          scratch_dg1, scratch_dg2, carry, db_part, n, steps, d, hidden, out_dim, rows, form,
+          chunk, _DTYPE_CODES[x.dtype], form=form)
     return LSTM2Grads(dx_tnd.permute(1, 2, 0), dw1, du1, dw2, du2, db1, db2)
 

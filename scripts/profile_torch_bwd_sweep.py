@@ -1,5 +1,7 @@
-"""Where a step of the port's reverse sweep goes (`sweep_mma_kernel<T>`,
-fullsubnet_plus_torch/csrc/lstm2_bwd_sweep.cuh), in float32 and bf16.
+"""Where a step of the port's reverse sweep goes (its tile form
+`sweep_mma_kernel<T>` and, with `--fb`, its cluster form
+`sweep_cluster_kernel<T>`; fullsubnet_plus_torch/csrc/lstm2_bwd_sweep.cuh),
+in float32 and bf16.
 
     python3 scripts/profile_torch_bwd_sweep.py [float32] [bfloat16]   (from the repo's root)
     python3 scripts/profile_torch_bwd_sweep.py --fb [float32] [bfloat16]
@@ -19,11 +21,18 @@ K4 (`lstm2_bwd_sweep`) at T 195 with CUDA events (median of 3) at N 192
 wave on 132 SMs) and 2304 (the training fold: two waves), and prints
 microseconds per step. The residuals come from the plain forward. The
 variants that take work out compute wrong gradients; they only time.
-With `--fb`, at FullSubNet's full-band shape (D 257, H 512, O 257; dx
-output-stationary) at N 18 (two CTAs), the variants: as it is, without the
-dy W_fc^T loop (257 FMAs a row and step), without dx's products, without
-the three products and without the two cell backwards, with the
-512-thread functions' registers and spills.
+With `--fb`, at FullSubNet's full-band shape (D 257, H 512, O 257) at N
+18, where the sweep takes its cluster form (`sweep_cluster_kernel`: two
+clusters of 16 CTAs, each CTA 32 hidden units), the variants of that
+kernel's step: as it is, without its three products (each warp still
+waiting for the peers' blocks), without their weight
+loads, without the exchange of the dgates (the copies of a CTA's block
+to its peers with their mbarrier waits, and the two cluster barrier
+halves a step), without the copies alone (the cluster barrier kept),
+without the two cell backwards, without
+dy W_fc^T, and with the exchange alone left (the products, the cells and
+dy W_fc^T out: what the recurrence's synchronisation costs a step), with
+the cluster functions' registers and spills.
 Imports nothing of JAX.
 With no dtype it runs both.
 """
@@ -41,10 +50,12 @@ REPO = Path(__file__).resolve().parent.parent
 SWEEP = "csrc/lstm2_bwd_sweep.cuh"
 COMMON = "csrc/lstm2_common.cuh"
 T = 195
-# (D, H, O), the folds timed, the sweep function's thread count: the
-# shipped sub-band shape, and with --fb FullSubNet's full-band one at the
-# fold of configs/train.toml's batch (N 18: two CTAs)
-SHAPES = {"shipped": ((34, 384, 2), (192, 2112, 2304), 384), "fb": ((257, 512, 257), (18,), 512)}
+# (D, H, O), the folds timed, the sweep functions whose registers are shown:
+# the shipped sub-band shape (the tile form's 384-thread functions), and
+# with --fb FullSubNet's full-band one at the fold of configs/train.toml's
+# batch (N 18: the cluster form's functions)
+SHAPES = {"shipped": ((34, 384, 2), (192, 2112, 2304), ("sweep_mma_kernel", "Li384E")),
+          "fb": ((257, 512, 257), (18,), ("sweep_cluster_kernel",))}
 DTYPES = ("float32", "bfloat16")
 CELLS_OUT = [
     (SWEEP, "    cell_bwd<T, R>(dh, dc2, db[1]", "    if (t < -1) cell_bwd<T, R>(dh, dc2, db[1]"),
@@ -108,20 +119,46 @@ VARIANTS = {
     ]),
     "without the two cell backwards": (DTYPES, CELLS_OUT),
 }
-# FullSubNet's full-band LSTM (--fb): dx output-stationary, O 257
-FB_PRODUCTS_OUT = [
-    (SWEEP, "mma_tiles<T, 4>(acc, a_addr, a.w2p", "if (0) mma_tiles<T, 4>(acc, a_addr, a.w2p"),
-    (SWEEP, "mma_tiles<T, 4>(acc, a_addr, a.u1p", "if (0) mma_tiles<T, 4>(acc, a_addr, a.u1p"),
+# FullSubNet's full-band LSTM (--fb): the cluster form's step
+WAIT_BLOCKS = "for (int o = 0; o < C; ++o) if (o != c) mbar_wait(bars + 8 * o, ex.parity);\n"
+FB_PRODUCTS_OUT = [  # each warp still waits for every peer's block, which keeps the copies whole
+    (SWEEP, "      owned_mma<T, NT, U>(acc, a_base, a.w2p",
+     "      " + WAIT_BLOCKS + "      if (0) owned_mma<T, NT, U>(acc, a_base, a.w2p"),
+    (SWEEP, "      owned_mma<T, NT, U>(acc, a_base, a.u1p",
+     "      " + WAIT_BLOCKS + "      if (0) owned_mma<T, NT, U>(acc, a_base, a.u1p"),
+    (SWEEP, "dx_parts<T, NT, U>(ndx, a_base", "if (0) dx_parts<T, NT, U>(ndx, a_base"),
 ]
-FB_DX_OUT = [(SWEEP, "mma_tiles<T, NT>(acc, a_addr, w1p", "if (0) mma_tiles<T, NT>(acc, a_addr, w1p")]
+FB_COPIES_OUT = [  # no block sent, none awaited, no bytes armed
+    (SWEEP, "    for (int p = 1; p < C; ++p) {", "    for (int p = 1; p < 1; ++p) {"),
+    (SWEEP, "      mbar_wait(ex.bars + 8 * o, ex.parity);\n", ""),
+    (SWEEP, "    ex.arm();          // layer 1's exchange\n", ""),
+    (SWEEP, "    ex.arm();          // the next step's layer 2 exchange\n", ""),
+]
+FB_EXCHANGE_OUT = FB_COPIES_OUT + [  # the pre-loop arrive and the closing wait stay paired
+    (SWEEP, "    cluster_wait();  // every peer has read the dgates these copies overwrite\n", ""),
+    (SWEEP, "    cluster_arrive();  // this CTA has read dgates2\n", ""),
+    (SWEEP, "    cluster_arrive();  // this CTA has read dgates1\n", ""),
+]
+FB_CELLS_OUT = [
+    (SWEEP, "    cell_bwd_one<T>(dyw[r * U + lane] + dh2c, dc2,",
+     "    if (t < -1) cell_bwd_one<T>(dyw[r * U + lane] + dh2c, dc2,"),
+    (SWEEP, "    cell_bwd_one<T>(dh1, dc1,", "    if (t < -1) cell_bwd_one<T>(dh1, dc1,"),
+]
+FB_DYW_OUT = [
+    (SWEEP, "for (int o4 = 0; o4 < fc_ld / 4; ++o4) {", "for (int o4 = 0; o4 < 0; ++o4) {"),
+]
 FB_VARIANTS = {
     "as committed": (DTYPES, []),
-    "without the dy W_fc^T loop": (DTYPES, [
-        (SWEEP, "for (int o = 0; o < O; ++o) s = fmaf", "for (int o = 0; o < 0; ++o) s = fmaf"),
+    "without the three products": (DTYPES, FB_PRODUCTS_OUT),
+    "without the weight loads": (DTYPES, [
+        (SWEEP, "b[i] = __ldg(&B[((size_t)i * stride * chunks + kc) * 32]);",
+         "b[i] = make_uint4(kc * 0x10001u, i * 0x10001u + 0x3c003c00u, kc, i);"),
     ]),
-    "without dx's products": (DTYPES, FB_DX_OUT),
-    "without the three products": (DTYPES, FB_PRODUCTS_OUT + FB_DX_OUT),
-    "without the two cell backwards": (DTYPES, CELLS_OUT),
+    "without the exchange and its barriers": (DTYPES, FB_EXCHANGE_OUT),
+    "without the block copies": (DTYPES, FB_COPIES_OUT),
+    "without the two cell backwards": (DTYPES, FB_CELLS_OUT),
+    "without dy W_fc^T": (DTYPES, FB_DYW_OUT),
+    "the exchange alone": (DTYPES, FB_PRODUCTS_OUT + FB_CELLS_OUT + FB_DYW_OUT),
 }
 
 
@@ -140,15 +177,16 @@ def make_variant(root: Path, edits) -> Path:
     return root
 
 
-def registers_and_spills(root: Path, threads: int) -> str:
-    """The sweep functions' registers and spill stores at `threads` threads
-    in the ptxas report (`-Xptxas -v`) that the variant's build kept."""
+def registers_and_spills(root: Path, functions: tuple) -> str:
+    """The registers and spill stores of the sweep functions whose names
+    hold each of `functions` in the ptxas report (`-Xptxas -v`) that the
+    variant's build kept."""
     report = next((root / "fullsubnet_plus_torch" / "_build").glob("lstm2_bwd_*.ptxas.txt"))
     out, function = [], None
     for line in report.read_text().splitlines():
         if "Compiling entry function" in line:
             function = line.split("'")[1]
-        elif function and "sweep_mma_kernel" in function and f"Li{threads}" in function:
+        elif function and all(part in function for part in functions):
             dtype = "bf16" if "bfloat16" in function else "float32"
             if m := re.search(r"(\d+) bytes spill stores", line):
                 out.append(f"{dtype} {m[1]} B spill stores")

@@ -4,6 +4,7 @@ shipped training fold.
 
     python3 scripts/time_torch_fb_train.py                       (from the repo's root)
     python3 scripts/time_torch_fb_train.py --shipped             (the digest and times)
+    python3 scripts/time_torch_fb_train.py --folds               (both forms over folds)
     cd _parent && python3 ../scripts/time_torch_fb_train.py --shipped   (another checkout)
 
 Needs an NVIDIA GPU and nvcc; imports the package of the working directory
@@ -14,8 +15,16 @@ in float32 and bf16: K2 (`lstm2_train_fwd`) against
 `lstm2_train_fwd_reference`, K4 (`lstm2_bwd_sweep`) against
 `lstm2_bwd_reference` and K3 (`lstm2_bwd(fused=True)`) against
 `lstm2_bwd_plain` (least SNR over the outputs; floors 80 dB float32, 40 dB
-bf16), K3 equal to itself on a repeat; at N 18 the median of 3 CUDA-event
-timings of each beside its plain version. With `--shipped`, at N 2304, T
+bf16), K3 equal to itself on a repeat, with the reverse sweep's form (the
+cluster form at both folds); at N 18 the median of 3 CUDA-event timings of
+each beside its plain version, of the unfused backward (K4 +
+`weight_grads`, the other side of `FUSED_WGRAD_BY_DTYPE`), and of K4 and
+K3 with the tile form forced (`SWEEP_FORM` 0), in the same call. With
+`--folds`, K4 at the full-band shape, T 195, over folds from N 18 to 2112
+(132 row tiles: one tile-form CTA an SM) in both forms forced, the median
+of 3 timings of each and which is faster (what `CLUSTER_MAX_ROWS` is set
+from: the cluster form's clusters run in waves of the 7 the card holds at
+once). With `--shipped`, at N 2304, T
 195, D 34, H 384, O 2 in both dtypes: a SHA-256 of K3's and of K4's outputs
 from seeded operands (equal digests in two checkouts: the same results bit
 for bit) and the median of 5 timings of each.
@@ -88,7 +97,9 @@ def full_band(dtypes):
         k3 = min(snr(a.float(), b.float()) for a, b in zip(want, got))
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         print(f"fb N{n} T{t} {name} against the plain versions: K2 {k2:.1f} dB, K4 {k4:.1f} dB, "
-              f"K3 {k3:.1f} dB, K3 equal on a repeat: {repeat}", flush=True)
+              f"K3 {k3:.1f} dB, K3 equal on a repeat: {repeat}; sweeps by form "
+              f"{dict(lt.SWEEP_FORMS)}", flush=True)
+        lt.SWEEP_FORMS.clear()
         if min(k2, k3, k4) < FLOOR[dtype] or not repeat:
             raise SystemExit(f"a {name} training kernel disagrees with its plain version")
         if n != 18:
@@ -100,9 +111,36 @@ def full_band(dtypes):
             "K4 plain": ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res)),
             "K3": ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True)),
             "K3 plain": ms(lambda: lt.lstm2_bwd_plain(dy, x, w, res, True)),
+            "K4 + weight_grads": ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=False)),
         }
+        lt.SWEEP_FORM = 0
+        times["K4 tile form"] = ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res))
+        times["K3 tile form"] = ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True))
+        lt.SWEEP_FORM = None
         print(f"fb N{n} T{t} {name} ms: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()),
               flush=True)
+
+
+def folds(dtypes):
+    for dtype in dtypes:
+        name, faster = str(dtype)[6:], []
+        for n in (18, 112, 256, 512, 768, 1024, 1280, 1536, 2112):
+            x, dy, w = operands(n, 195, FB, dtype, seed=n)
+            _, res = lt.lstm2_train_fwd(x, w)
+            times = {}
+            for form, tag in ((lt.SWEEP_CLUSTER, "cluster form"), (0, "tile form")):
+                lt.SWEEP_FORM = form
+                times[tag] = ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res))
+            lt.SWEEP_FORM = None
+            if times["cluster form"] < times["tile form"]:
+                faster.append(n)
+            print(f"fb N{n} T195 {name} K4 ms: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+                  + f"; the rule takes {lt.bwd_sweep_cluster(n, *FB, dtype) or 'the tile form'}",
+                  flush=True)
+            del x, dy, w, res
+            torch.cuda.empty_cache()
+        print(f"fb {name}: the cluster form is faster at N {faster}", flush=True)
 
 
 def shipped(dtypes):
@@ -137,7 +175,12 @@ def main(args):
     with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
         list(pool.map(nvcc.build, ("lstm2_train_fwd", "lstm2_bwd", "lstm2_bwd_wgrad")))
     dtypes = (torch.float32, torch.bfloat16)
-    (shipped if "--shipped" in args else full_band)(dtypes)
+    if "--shipped" in args:
+        shipped(dtypes)
+    elif "--folds" in args:
+        folds(dtypes)
+    else:
+        full_band(dtypes)
 
 
 if __name__ == "__main__":

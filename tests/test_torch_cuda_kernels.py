@@ -15,7 +15,10 @@ gives the same bits at both bf16 row tiles, and K3 equals itself on a
 repeat, also over several chunks: in bf16 at every tile shape of its
 tensor-core weight gradients, and in float32; K5 equals itself on a repeat
 at both of its row tiles and runs FullSubNet's full-band shape (D 257, H
-512, O 257). chip_smoke.py repeats these checks at the model's folds.
+512, O 257). At that shape the reverse sweep takes its cluster form, held
+to the plain versions and to its tile form, over chunks, in waves of
+clusters and with one CTA's sends made late. chip_smoke.py repeats these
+checks at the model's folds.
 """
 
 import importlib.util
@@ -315,6 +318,98 @@ def test_float32_wgrad_sweep_matches_plain_over_chunks(monkeypatch, d, hidden):
                  zip(("dx", "dg1", "dg2"), sweep_ref[:3], sweep[:3])})
     assert min(snrs.values()) >= FLOOR[torch.float32], snrs
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+FB = (257, 512, 257)  # FullSubNet's full-band LSTM: D, H, O
+
+
+def _fb_case(n, t, dtype, seed):
+    tensors, x, dy = _case(n, t, *FB, seed=seed)
+    w = ops_lstm2.pack_weights(*(p.to("cuda", dtype) for p in tensors))
+    xt, dyt = torch.tensor(x).to("cuda", dtype), torch.tensor(dy).cuda()
+    return xt, dyt, w, lt.lstm2_train_fwd_reference(xt, w)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [18, 9, 7, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_sweep_matches_plain_and_tile_on_cuda(monkeypatch, dtype, n):
+    """The reverse sweep's cluster form at FullSubNet's full-band shape, T 9
+    (N 256: 16 clusters of 16, more than the H100 holds at once, so they run
+    in waves): the rule takes it (clusters of 16), K4's dx and dgates and
+    K3's gradients agree with the plain versions and with the tile form
+    forced (SWEEP_FORM 0) at the floors, each launch counted by its form, and
+    K3 equals itself on a repeat."""
+    _need_card()
+    xt, dyt, w, res = _fb_case(n, 9, dtype, seed=n)
+    assert lt.bwd_sweep_cluster(n, *FB, dtype) == 16
+    monkeypatch.setattr(lt, "SWEEP_FORMS", type(lt.SWEEP_FORMS)())
+    got = lt.lstm2_bwd_sweep(dyt, xt, w, res)
+    k3 = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    again = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    monkeypatch.setattr(lt, "SWEEP_FORM", 0)
+    tile = lt.lstm2_bwd_sweep(dyt, xt, w, res)
+    k3_tile = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    torch.cuda.synchronize()
+    assert lt.SWEEP_FORMS == {"lstm2_bwd cluster16": 1, "lstm2_bwd_wgrad cluster16": 2,
+                              "lstm2_bwd tile": 1, "lstm2_bwd_wgrad tile": 1}
+    floor = FLOOR[dtype]
+    ref = lt.lstm2_bwd_reference(dyt, xt, w, res)
+    want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
+    snrs = {f"k4_{k}": _snr(a.float(), b.float()) for k, a, b in zip(("dx", "dg1", "dg2"), ref, got)}
+    snrs.update({f"k3_{k}": _snr(a.float(), b.float()) for k, a, b in zip(want._fields, want, k3)})
+    snrs.update({f"tile_k4_{k}": _snr(a.float(), b.float())
+                 for k, a, b in zip(("dx", "dg1", "dg2"), tile, got)})
+    snrs.update({f"tile_k3_{k}": _snr(a.float(), b.float())
+                 for k, a, b in zip(want._fields, k3_tile, k3)})
+    assert min(snrs.values()) >= floor, snrs
+    assert all(torch.equal(a, b) for a, b in zip(k3, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_sweep_resumes_over_chunks(monkeypatch, dtype):
+    """K3 in the cluster form over two chunks of steps (the scratch cut to 5
+    steps, so T 9 runs 5 then 4: the second sweep resumes from the carries
+    and adds to the bias sums in device memory) against `lstm2_bwd_plain`,
+    and equal to itself on a repeat."""
+    _need_card()
+    n, t = 18, 9
+    xt, dyt, w, res = _fb_case(n, t, dtype, seed=4)
+    size = xt.element_size()
+    monkeypatch.setattr(lt, "WGRAD_SCRATCH_BYTES", 5 * 2 * n * 4 * FB[1] * size)
+    assert lt.wgrad_chunk_steps(n, FB[1], t, size) == 5
+    monkeypatch.setattr(lt, "SWEEP_FORMS", type(lt.SWEEP_FORMS)())
+    want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
+    got = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    again = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    torch.cuda.synchronize()
+    assert lt.SWEEP_FORMS == {"lstm2_bwd_wgrad cluster16": 2}
+    snrs = {name: _snr(a.float(), b.float()) for name, a, b in zip(want._fields, want, got)}
+    assert min(snrs.values()) >= FLOOR[dtype], snrs
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_sweep_late_sends(monkeypatch, dtype):
+    """K4's cluster form at N 18, T 195 with rank 0 of each cluster sending
+    its dgates only after its own products (SWEEP_LATE_SENDS), so its copies
+    still read its block when its threads reach the next cell backward:
+    they must wait for the copies (`Exchange::sent`). The outputs equal the
+    usual order's bit for bit and hold `lstm2_bwd_reference` at the floor."""
+    _need_card()
+    xt, dyt, w, res = _fb_case(18, 195, dtype, seed=5)
+    got = lt.lstm2_bwd_sweep(dyt, xt, w, res)
+    monkeypatch.setattr(lt, "SWEEP_LATE_SENDS", 1)
+    monkeypatch.setattr(lt, "SWEEP_FORMS", type(lt.SWEEP_FORMS)())
+    late = lt.lstm2_bwd_sweep(dyt, xt, w, res)
+    torch.cuda.synchronize()
+    assert lt.SWEEP_FORMS == {"lstm2_bwd cluster16": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], late[:3]))
+    ref = lt.lstm2_bwd_reference(dyt, xt, w, res)
+    snrs = {k: _snr(a.float(), b.float()) for k, a, b in zip(("dx", "dg1", "dg2"), ref, late)}
+    assert min(snrs.values()) >= FLOOR[dtype], snrs
 
 
 @pytest.mark.cuda

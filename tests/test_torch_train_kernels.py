@@ -737,6 +737,159 @@ def test_bwd_sweep_shared_memory(dtype):
 
 
 # ---------------------------------------------------------------------------
+# the reverse sweep's cluster form (csrc/lstm2_bwd_sweep.cuh, sweep_cluster_kernel)
+# ---------------------------------------------------------------------------
+
+def _cluster_columns(rank, cluster, hidden, d_in):
+    """The output columns CTA `rank` of a cluster of `cluster` computes, as
+    `sweep_cluster_kernel` assigns them (units U_c = [cU, (c + 1) U), U = H /
+    C): of [dh1' | dh2_carry] U_c and H + U_c, of dh1_carry U_c, and of dx
+    the n-tiles nt = c (mod C) of the ceil(D / 8) n-tiles, columns past D
+    cut."""
+    units = hidden // cluster
+    own = list(range(rank * units, (rank + 1) * units))
+    dx = [8 * nt + i for nt in range(rank, -(-d_in // 8), cluster) for i in range(8)
+          if 8 * nt + i < d_in]
+    return own + [hidden + j for j in own], own, dx
+
+
+def _cluster_kpart(part, cluster, hidden, kch=16):
+    """The gate columns k-part `part` of CLUSTER_KPARTS contracts over, in
+    its order, as `owned_mma` walks them: its run of the 4H / kch k-chunks in
+    owner-major order (owner o, then gate g, then chunk s of the owner's
+    strip of U / kch chunks), chunk (o, g, s) the kch columns from g H + o U
+    + s kch."""
+    units, parts, chunks = hidden // cluster, lt.CLUSTER_KPARTS, 4 * hidden // kch
+    strip = units // kch
+    cols = []
+    for q in range(part * chunks // parts, (part + 1) * chunks // parts):
+        o, g, s = q // (4 * strip), q % (4 * strip) // strip, q % strip
+        cols += range(g * hidden + o * units + s * kch, g * hidden + o * units + (s + 1) * kch)
+    return cols
+
+
+def _bwd_cluster_walk(dy, x, w, res, cluster):
+    """The float32 cluster form walked as the kernel walks it: per step and
+    CTA, the cells of its units (dy W_fc^T + the dh2 carry for layer 2, dh1'
+    + the dh1 carry for layer 1), the tile's whole dgates (the exchange),
+    then the CTA's own columns of each product (`_cluster_columns`) as
+    CLUSTER_KPARTS k-parts (`_cluster_kpart`: owner-major runs of k-chunks
+    of 16), each summed as three TF32 products of split operands with
+    per-chunk partials (`_three_tf32`), added in k-part order from zero.
+    -> (dx, dg1, dg2)."""
+    n, d_in, steps = x.shape
+    hidden = w.u1.shape[0]
+    units, parts = hidden // cluster, lt.CLUSTER_KPARTS
+    b_w2, b_u1, b_w1 = (_tf32_fragment_matrix(ops_lstm2.pack_tf32_b(m), m.shape[0])
+                        for m in (w.w2, w.u1, w.w1))
+    kparts = [_cluster_kpart(part, cluster, hidden) for part in range(parts)]
+
+    def product(dg, b, cols):
+        s = torch.zeros(n, len(cols))
+        for k in kparts:
+            s = s + _three_tf32(dg[:, k], b[k][:, cols])
+        return s
+
+    zeros = torch.zeros(n, hidden)
+    dh1, dc1, dh2, dc2 = zeros, zeros.clone(), zeros, zeros.clone()
+    dx, dg1, dg2 = [None] * steps, [None] * steps, [None] * steps
+    for t in range(steps - 1, -1, -1):
+        c2_prev = res.c2[t - 1] if t else zeros
+        dg2[t], dc2 = lt._cell_bwd(dy[:, t] @ w.fc_w.t() + dh2, res.g2[t], res.c2[t], c2_prev,
+                                   dc2)
+        dinp2 = torch.zeros(n, 2 * hidden)
+        for c in range(cluster):
+            cols, _, _ = _cluster_columns(c, cluster, hidden, d_in)
+            dinp2[:, cols] = product(dg2[t], b_w2, cols)
+        dh2 = dinp2[:, hidden:]
+        c1_prev = res.c1[t - 1] if t else zeros
+        dg1[t], dc1 = lt._cell_bwd(dinp2[:, :hidden] + dh1, res.g1[t], res.c1[t], c1_prev, dc1)
+        dh1, dx[t] = torch.zeros(n, hidden), torch.zeros(n, d_in)
+        for c in range(cluster):
+            _, own, dx_cols = _cluster_columns(c, cluster, hidden, d_in)
+            dh1[:, own] = product(dg1[t], b_u1, own)
+            dx[t][:, dx_cols] = product(dg1[t], b_w1, dx_cols)
+        assert units * cluster == hidden
+    return torch.stack(dx, dim=2), torch.stack(dg1), torch.stack(dg2)
+
+
+@pytest.mark.parametrize("n,t,d,h,o,cluster", [(37, 4, 34, 64, 2, 2), (21, 3, 10, 128, 11, 4)])
+def test_bwd_cluster_walk_holds_the_float32_floors(n, t, d, h, o, cluster):
+    """The float32 cluster form walked in the kernel's order (each CTA its
+    own 32 units' cells and its own columns of the three products, k-parts
+    of three TF32 products with per-chunk partials added in order; clusters
+    of 2 and 4, D 34 and 10 ragged over the CTAs' dx n-tiles) gives
+    `lstm2_bwd_reference`'s dx and dgates at the 80 dB floor K3 and K4 are
+    held to on the card, at two ragged folds."""
+    x, w = _fwd_f32_case(n, t, d, h, o)
+    _, res = lt.lstm2_train_fwd_reference(x, w)
+    dy = torch.randn(n, t, o, generator=torch.Generator().manual_seed(13))
+    want = lt.lstm2_bwd_reference(dy, x, w, res)
+    got = _bwd_cluster_walk(dy, x, w, res, cluster)
+    assert all(a.shape == b.shape for a, b in zip(want[:3], got))
+    snrs = {name: _snr_db(a, b) for name, a, b in zip(("dx", "dg1", "dg2"), want[:3], got)}
+    assert min(snrs.values()) >= 80.0, snrs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_sweep_cluster_rule(dtype):
+    """The reverse sweep's form (`bwd_sweep_cluster`, by shape alone): the
+    tile form (0) at the shipped training fold (N 2304, D 34, H 384, O 2), a
+    card's half of it on a 2-card mesh (N 1152) and FullSubNet's sub-band
+    fold (N 4626, D 32); clusters of 16 at FullSubNet's full-band shape (D
+    257, H 512, O 257) for N 18, 9 and 7, and in waves up to
+    CLUSTER_MAX_ROWS; the tile form past it, for a wider O, another H and D
+    > H."""
+    for n, d, h, o in ((2304, 34, 384, 2), (1152, 34, 384, 2), (4626, 32, 384, 2), (18, 34, 384, 2)):
+        assert lt.bwd_sweep_cluster(n, d, h, o, dtype) == 0
+    for n in (18, 9, 7, 113, lt.CLUSTER_MAX_ROWS):
+        assert lt.bwd_sweep_cluster(n, 257, 512, 257, dtype) == lt.SWEEP_CLUSTER == 16
+    assert lt.bwd_sweep_cluster(lt.CLUSTER_MAX_ROWS + 1, 257, 512, 257, dtype) == 0
+    assert lt.bwd_sweep_cluster(18, 257, 512, lt.CLUSTER_MAX_O + 1, dtype) == 0
+    assert lt.bwd_sweep_cluster(18, 257, 256, 257, dtype) == 0
+    assert lt.bwd_sweep_cluster(18, 513, 512, 257, dtype) == 0
+
+
+@pytest.mark.parametrize("d", [257, 34])
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_bwd_cluster_columns_have_one_owner(cluster, d):
+    """Over H = 32 C split into C = 8 or 16 CTAs of 32 units, every output
+    column of [dh1' | dh2_carry] (2H), of dh1_carry (H) and of dx (D 257: 33
+    n-tiles; D 34: 5, so most CTAs own none) has exactly one owning CTA; and
+    the k-parts of a product cover each of the 4H gate columns once, in both
+    dtypes' k-chunks (16 float32 words, 32 bf16 ones), each spanning C / 8
+    owners' blocks."""
+    hidden = lt.CLUSTER_UNITS * cluster
+    owners = [np.zeros(2 * hidden, int), np.zeros(hidden, int), np.zeros(d, int)]
+    for c in range(cluster):
+        for count, cols in zip(owners, _cluster_columns(c, cluster, hidden, d)):
+            np.add.at(count, cols, 1)
+    assert all((count == 1).all() for count in owners)
+    units = hidden // cluster
+    for kch in (16, 32):
+        kparts = [_cluster_kpart(p, cluster, hidden, kch) for p in range(lt.CLUSTER_KPARTS)]
+        assert sorted(sum(kparts, [])) == list(range(4 * hidden))
+        for k in kparts:
+            assert len({col % hidden // units for col in k}) == cluster // lt.CLUSTER_KPARTS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_cluster_shared_memory(dtype):
+    """The cluster form's shared memory at FullSubNet's full-band shape (D
+    257, H 512, O 257), clusters of 16 (32 units a CTA): an mbarrier an owner
+    (128 bytes), the dgates as 16 owners' blocks [16][4U + pad] (135,168
+    bytes in float32, 69,632 in bf16), W_fc's rows [32][260] (33,280) and the
+    dy tile [16][260] (16,640; 260: an odd number of 4-float words), the
+    k-part partials [8][16][72] (36,864) and dy W_fc^T [16][32] (2,048):
+    224,128 / 158,592 bytes, under the 232,448 a block may use."""
+    size = 4 if dtype == torch.float32 else 2
+    got = lt.bwd_cluster_shared_memory_bytes(257, 512, 257, dtype)
+    assert got == 128 + size * 16 * 16 * (128 + 16 // size) + 4 * (48 * 260 + 8 * 16 * 72 + 16 * 32)
+    assert got == {4: 224_128, 2: 158_592}[size] <= ops_lstm2.SMEM_LIMIT
+    assert lt.bwd_cluster_shared_memory_bytes(34, 512, 257, dtype) == got  # D does not enter
+
+
+# ---------------------------------------------------------------------------
 # the bf16 weight-gradient kernel's layout (csrc/lstm2_bwd_wgrad.cu, wgrad_mma_kernel)
 # ---------------------------------------------------------------------------
 
