@@ -15,10 +15,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      forward sweeps of K1 and K2 and the float32 reverse sweeps of K3 and K4
      must have TF32 ones (HMMA.1688.F32.TF32: each float32 product as three
      TF32 products), and no bf16 FMA sweep, FMA forward or reverse sweep or
-     bf16 FMA `wgrad_kernel` may be compiled; the reverse sweep's cluster
-     form (`sweep_cluster_kernel`, two functions) must have HMMA and, in
+     bf16 FMA `wgrad_kernel` may be compiled; the cluster forms of the
+     forward and reverse sweeps (`fwd::` and `bwd::sweep_cluster_kernel`,
+     two functions in each of the four libraries) must have HMMA and, in
      float32, TF32 HMMA instructions; print the float32 reverse sweeps',
-     the cluster form's and the weight-gradient kernels' registers and
+     the cluster forms' and the weight-gradient kernels' registers and
      spills (ptxas);
      K5's sweep `int8_sweep_kernel` must have IMMA (s8) and HMMA (bf16)
      tensor-core instructions and no IDP (`__dp4a`) one, with its registers
@@ -33,7 +34,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      K3 equal to itself on a repeat, the autograd Function's gradients
      through K3 against those through K4), all at a ragged shape too; K5
      equal to itself on a repeat at each fold; check that the fragments K5
-     reads unpack to the prepared int8 weights;
+     reads unpack to the prepared int8 weights; the forward sweep's form by
+     the rule at each fold (the tile form at the shipped and FullSubNet
+     sub-band folds, clusters of 16 at FullSubNet's full-band N 8 and 18),
+     then K1 at FullSubNet's full-band shape (N 8, T 37) in the cluster form
+     against its plain version and the tile form forced, equal on a repeat,
+     K2's y equal to K1's, each launch counted by its form;
   3. time each kernel, its plain version and a cuDNN LSTM + Linear (a
      yardstick only; forward for K1, K2 and K5, backward for K3 and K4; for
      K5 also K1 in bf16 at the same shape), with CUDA events, beside the
@@ -69,8 +75,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      configs/train.toml (batch 18 of 3.072 s, drop_band 2) on seeded
      waveforms and weights: a few steps in float32 and bfloat16 through
      K2 + K3 and in float32 through K2 + K4; every loss and gradient norm
-     finite, nothing skipped, the launch counts as expected, every reverse
-     sweep in the tile form; then the plain
+     finite, nothing skipped, the launch counts as expected, every forward
+     and reverse sweep in the tile form; then the plain
      versions' float32 run, and at each of its steps the same step from a
      copy of its state through the kernels (float32 K2 + K3 and K2 + K4,
      bf16 K2 + K3), loss and gradient norm held to the plain step's, each
@@ -82,13 +88,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      H 512, sub-band H 384, seed 42): K1 in float32 (>= 80 dB) and bf16
      (>= 40 dB) and K5 (>= 40 dB) at its full-band shape (D 257, H 512, O
      257) on the fold of a batch of 8 padded to 10 s (N 8, T 629) against
-     their plain versions, timed beside them, cuDNN and the bound, and the
+     their plain versions (K1 in the forward's cluster form, also against
+     the tile form forced and equal on a repeat), timed beside them, cuDNN
+     and the bound (K1 also with the tile form forced), and the
      three at its sub-band shape (D 32, H 384, O 2; N 2056, T 629) against
      their plain versions at the same floors, equal on a repeat; the
      batch of 8 wavs through `run_enhance` with a FullSubNet config
      (`full_band_crm_mask`, written into the temporary directory) in
      float32, bfloat16 and int8, two launches a batch (the full-band and
-     the sub-band LSTM), the waveforms of each dtype against the same run
+     the sub-band LSTM; K1's full-band sweep in the cluster form, its
+     sub-band one in the tile form), the waveforms of each dtype against the same run
      through the plain LSTMs (float32 >= 60 dB, bf16 and int8 >= 40 dB), a
      profile of each batch; one 30 s utterance through
      `overlapped_chunk`; the daemon serving a few streams of it in int8
@@ -166,7 +175,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      (a) the sweep's form (clusters of 16 at N 18, the tile form at the
      shipped and sub-band folds), K2, K3 and K4 in float32 and bf16 against
      their plain versions (dx, every weight and bias gradient; >= 80 / 40
-     dB; K4 with the tile form forced too), K4's cluster form equal to
+     dB; K2 and K4 with the tile form forced too; K2's y equal to K1's), K4's cluster form equal to
      itself with each cluster's rank 0 sending late, K3 equal on a repeat, each
      sweep counted by its form, with the reverse sweep's shared memory in
      each form; (b) the
@@ -174,14 +183,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      from the plain step's state through float32 K2 + K4, float32 K2 + K3
      and bf16 K2 + K3 (phase 6's limits; each step launching K2 and its
      backward twice: the full-band and the sub-band LSTM), the float32
-     default timed and profiled (no TF32 product), its sweeps the cluster
-     form at the full-band fold and the tile form at the sub-band one;
+     default timed and profiled (no TF32 product), its forward and reverse
+     sweeps the cluster form at the full-band fold and the tile form at the
+     sub-band one;
      (d) one float32 epoch of
      the trainer (the CLI's functions) on phase 8's corpus, its checkpoints
      in the JAX package's FullSubNet keys, and one more epoch profiled;
      (e) K2, K3, K4 timed beside their plain versions, bounds and cuDNN,
-     K3 and K4 also with the tile form forced;
- 12. print the kernels' JSON line, the card's name and power limit, and
+     each also with the tile form forced;
+ 12. print the kernels' JSON line (with the forward's form at each fold),
+     the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
 Imports nothing of JAX. Exits non-zero without CUDA. `python3 chip_smoke.py
@@ -483,6 +494,7 @@ def phase_build() -> dict:
             fail(f"{stem}: a bf16 instantiation of the FMA sweep was compiled")
         if stem in FWD_SOURCES:
             check_float32_forward(lib, stem, sweeps)
+            hmma[f"{stem}_cluster_sweep"] = cluster_functions(lib, stem)
         if stem in BWD_SOURCES:
             hmma[f"{stem}_float32_sweep"] = check_float32_reverse(lib, stem, sweeps)
             hmma[f"{stem}_cluster_sweep"] = cluster_functions(lib, stem)
@@ -553,7 +565,8 @@ def check_float32_reverse(lib, stem: str, sweeps: dict) -> dict:
 
 
 def cluster_functions(lib, stem: str) -> dict:
-    """The reverse sweep's cluster form (`bwd::sweep_cluster_kernel<T>`, 32
+    """A sweep's cluster form (`fwd::sweep_cluster_kernel<T, kSave>` in K1's
+    and K2's libraries, `bwd::sweep_cluster_kernel<T>` in K3's and K4's; 32
     units a CTA): {function: {hmma, tf32_hmma, registers, spill bytes}},
     printed; fails unless both instantiations (float32, bf16) have HMMA
     instructions and the float32 one HMMA.1688.F32.TF32."""
@@ -649,6 +662,78 @@ def forced_row_tile(module, rule: str, rows: int):
         yield
     finally:
         setattr(module, rule, saved)
+
+
+def fwd_form_name(n: int, shape) -> str:
+    """The forward sweep's form at fold n of `shape` (D, H, O) by the rule,
+    as FWD_SWEEP_FORMS names it (the same in both dtypes at the folds
+    reported)."""
+    from fullsubnet_plus_torch.ops import lstm2
+
+    form = lstm2.fwd_sweep_cluster(n, *shape, torch.float32)
+    return f"cluster{form}" if form else "tile"
+
+
+@contextlib.contextmanager
+def forced_fwd_form(form: int):
+    """Force the forward sweep's form (`lstm2.FWD_SWEEP_FORM`: 0 the tile
+    form, 16 the cluster form), which K1 and K2 read at call time."""
+    from fullsubnet_plus_torch.ops import lstm2
+
+    lstm2.FWD_SWEEP_FORM = form
+    try:
+        yield
+    finally:
+        lstm2.FWD_SWEEP_FORM = None
+
+
+def check_fwd_cluster() -> dict:
+    """Phase 2: the forward sweep's form by the rule (the tile form at the
+    shipped and FullSubNet sub-band folds, clusters of 16 at FullSubNet's
+    full-band folds, N 8 and 18), then K1 at the full-band shape on the
+    batch's fold (N 8) at a ragged T in the cluster form against its plain
+    version and against the tile form forced (the floors), equal on a
+    repeat, K2's y equal to K1's bit for bit, each launch counted by its
+    form. Returns {dtype: {max_abs_err, snr_db, snr_db_vs_tile, forms}}."""
+    from fullsubnet_plus_torch.ops import lstm2
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        folds = {"FullSubNet+ batch N 2056": (N_FULL, *SB, 0),
+                 "FullSubNet+ training N 2304": (N_TRAIN, *SB, 0),
+                 "FullSubNet sub-band N 2056": (N_FULL, *FSN_SB, 0),
+                 "FullSubNet full-band N 8": (N_FB, *FB, lstm2.FWD_CLUSTER),
+                 "FullSubNet full-band N 18": (N_FB_TRAIN, *FB, lstm2.FWD_CLUSTER)}
+        for fold, (n, d, h, o, want) in folds.items():
+            if lstm2.fwd_sweep_cluster(n, d, h, o, dtype) != want:
+                fail(f"[2] the forward sweep's form at the {fold} fold, {dtype}: "
+                     f"{lstm2.fwd_sweep_cluster(n, d, h, o, dtype)}, expected {want}")
+        x, w, _, _ = lstm_operands(N_FB, T_RAGGED, dtype, seed=17, shape=FB)
+        lstm2.FWD_SWEEP_FORMS.clear()
+        y, again = lstm2.lstm2_fc(x, w), lstm2.lstm2_fc(x, w)
+        y2, _ = lt.lstm2_train_fwd(x, w)
+        with forced_fwd_form(0):
+            tile = lstm2.lstm2_fc(x, w)
+        torch.cuda.synchronize()
+        forms = dict(lstm2.FWD_SWEEP_FORMS)
+        ref = lstm2.lstm2_fc_reference(x, w).float()
+        snr, err = snr_db(ref, y.float()), float((y.float() - ref).abs().max())
+        vs_tile, repeat, same = snr_db(tile.float(), y.float()), torch.equal(y, again), \
+            torch.equal(y, y2)
+        print(f"[2] lstm2_fwd {str(dtype)[6:]} at the fb_model shape N={N_FB} T={T_RAGGED} in "
+              f"the cluster form: SNR {snr:.1f} dB against the plain version, {vs_tile:.1f} dB "
+              f"against the tile form forced (floor {SNR_FLOOR[dtype]:.0f}), max_abs {err:.3e}, "
+              f"equal on a repeat {repeat}, K2's y equal {same}; forward sweeps by form {forms}")
+        if min(snr, vs_tile) < SNR_FLOOR[dtype] or not torch.isfinite(y.float()).all():
+            fail(f"[2] the forward's cluster form disagrees at N={N_FB} {dtype}")
+        if not (repeat and same):
+            fail(f"[2] the forward's cluster form: equal on a repeat {repeat}, K2's y {same}")
+        if forms != {"lstm2_fwd cluster16": 2, "lstm2_train_fwd cluster16": 1,
+                     "lstm2_fwd tile": 1}:
+            fail(f"[2] the forward sweeps' forms: {forms}")
+        out[dtype] = dict(max_abs_err=err, snr_db=snr, snr_db_vs_tile=vs_tile, forms=forms)
+    return out
 
 
 def fwd_tile_at(n: int, dtype: torch.dtype) -> int:
@@ -1160,6 +1245,7 @@ def phase_train() -> dict:
     configs/train.toml, through the kernels and through their plain
     versions; then `make_eval_step`."""
     from fullsubnet_plus_torch.models import get_model
+    from fullsubnet_plus_torch.ops import lstm2
     from fullsubnet_plus_torch.ops import lstm2_train as lt
     from fullsubnet_plus_torch.train import loss, step
     from fullsubnet_plus_torch.utils.config import load_config
@@ -1211,6 +1297,9 @@ def phase_train() -> dict:
         if dict(lt.SWEEP_FORMS) != {f"{backward} tile": TRAIN_STEPS}:
             fail(f"train {tag}: the shipped fold's reverse sweeps took the forms "
                  f"{dict(lt.SWEEP_FORMS)}, not the tile form once a step")
+        if dict(lstm2.FWD_SWEEP_FORMS) != {"lstm2_train_fwd tile": TRAIN_STEPS}:
+            fail(f"train {tag}: the shipped fold's forward sweeps took the forms "
+                 f"{dict(lstm2.FWD_SWEEP_FORMS)}, not the tile form once a step")
         wall = statistics.median(walls[1:])  # the first step warms up cuBLAS and cuFFT plans
         print(f"[6] train {tag}: loss {', '.join(f'{m['loss']:.6f}' for m in metrics)}; "
               f"grad norm {', '.join(f'{m['grad_norm']:.4f}' for m in metrics)}; step wall "
@@ -1310,6 +1399,7 @@ def reset_launches() -> None:
         lstm2_train.LAUNCHES[name] = 0
     lstm2_train.LAUNCHES_BY_CARD.clear()
     lstm2_train.SWEEP_FORMS.clear()
+    lstm2.FWD_SWEEP_FORMS.clear()
 
 
 def all_launches() -> dict:
@@ -1763,23 +1853,36 @@ def phase_fullsubnet_kernels() -> dict:
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         x, w, lstm, fc = lstm_operands(N_FB, T_FULL, dtype, seed=7, shape=FB)
-        y = lstm2.lstm2_fc(x, w).float()
+        lstm2.FWD_SWEEP_FORMS.clear()
+        y, again = lstm2.lstm2_fc(x, w), lstm2.lstm2_fc(x, w)
+        with forced_fwd_form(0):
+            tile = lstm2.lstm2_fc(x, w)
         torch.cuda.synchronize()
+        forms, repeat = dict(lstm2.FWD_SWEEP_FORMS), torch.equal(y, again)
+        y, tile = y.float(), tile.float()
         ref = lstm2.lstm2_fc_reference(x, w).float()
-        snr, err = snr_db(ref, y), float((y - ref).abs().max())
-        if not torch.isfinite(y).all() or snr < SNR_FLOOR[dtype]:
-            fail(f"lstm2_fwd at the fb_model shape {dtype}: {snr:.1f} dB or not finite")
+        snr, err, vs_tile = snr_db(ref, y), float((y - ref).abs().max()), snr_db(tile, y)
+        if not torch.isfinite(y).all() or min(snr, vs_tile) < SNR_FLOOR[dtype] or not repeat:
+            fail(f"lstm2_fwd at the fb_model shape {dtype}: {snr:.1f} dB against the plain "
+                 f"version, {vs_tile:.1f} against the tile form, equal on a repeat {repeat}")
+        if forms != {"lstm2_fwd cluster16": 2, "lstm2_fwd tile": 1}:
+            fail(f"[7] lstm2_fwd at the fb_model shape: forward sweeps by form {forms}")
         library = cudnn_lstm(lstm, fc, dtype)
         bound_ms, bound_by = lstm_bound_ms(N_FB, T_FULL, dtype, shape=FB)
-        out[dtype] = dict(ms=cuda_ms(lambda: lstm2.lstm2_fc(x, w), reps=5),
+        with forced_fwd_form(0):
+            tile_ms = cuda_ms(lambda: lstm2.lstm2_fc(x, w), reps=3)
+        out[dtype] = dict(ms=cuda_ms(lambda: lstm2.lstm2_fc(x, w), reps=5), tile_form_ms=tile_ms,
                           plain_ms=cuda_ms(lambda: lstm2.lstm2_fc_reference(x, w), reps=3),
                           library_ms=cuda_ms(lambda: library(x), reps=5), bound_ms=bound_ms,
-                          bound_by=bound_by, max_abs_err=err, snr_db=snr)
+                          bound_by=bound_by, max_abs_err=err, snr_db=snr,
+                          snr_db_vs_tile=vs_tile, form=f"cluster{lstm2.FWD_CLUSTER}")
         print(f"[7] lstm2_fwd {str(dtype)[6:]} at the fb_model shape N={N_FB} T={T_FULL} "
-              f"D={FB[0]} H={FB[1]} O={FB[2]}: SNR {snr:.1f} dB (floor "
-              f"{SNR_FLOOR[dtype]:.0f}), max_abs {err:.3e}; kernel {out[dtype]['ms']:.3f} ms  "
-              f"plain {out[dtype]['plain_ms']:.3f} ms  cuDNN LSTM+Linear "
-              f"{out[dtype]['library_ms']:.3f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+              f"D={FB[0]} H={FB[1]} O={FB[2]}, the cluster form: SNR {snr:.1f} dB (floor "
+              f"{SNR_FLOOR[dtype]:.0f}), {vs_tile:.1f} dB against the tile form forced, "
+              f"max_abs {err:.3e}, equal on a repeat; kernel {out[dtype]['ms']:.3f} ms  tile "
+              f"form forced {tile_ms:.3f} ms  plain {out[dtype]['plain_ms']:.3f} ms  cuDNN "
+              f"LSTM+Linear {out[dtype]['library_ms']:.3f} ms  bound {bound_ms:.4f} ms "
+              f"({bound_by}); forward sweeps by form {forms}")
     x, w, lstm, fc = int8_operands(N_FB, T_FULL, seed=8, shape=FB)
     y, again = lstm2_int8.lstm2_int8_fc(x, w), lstm2_int8.lstm2_int8_fc(x, w)
     torch.cuda.synchronize()
@@ -1816,6 +1919,7 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
     from fullsubnet_plus_torch.data.wav import read_wav
     from fullsubnet_plus_torch.enhance import Enhancer
     from fullsubnet_plus_torch.models import FULLSUBNET
+    from fullsubnet_plus_torch.ops import lstm2
     from fullsubnet_plus_torch.utils.config import load_config
 
     config_path, checkpoint = write_fullsubnet_inputs(root)
@@ -1834,7 +1938,7 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
 
     run("fsn_warmup", None)
     run("fsn_warmup_int8", "int8")
-    launches, rates, walls = {}, {}, {}
+    launches, rates, walls, forms = {}, {}, {}, {}
     for tag, dtype, kernel in FSN_DTYPES:
         reset_launches()
         runs = [run(f"fsn_{tag}", dtype) for _ in range(MAIN_PATH_RUNS)]
@@ -1846,11 +1950,16 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
               f"{runs[0]['audio_seconds']:.2f} audio-s a run, {MAIN_PATH_RUNS} runs: median "
               f"{rates[tag]:.1f} audio-s/s (each {', '.join(f'{r:.1f}' for r in each)}), "
               f"wall {walls[tag] * 1e3:.1f} ms; launches {launches[tag]}")
-        # one batch a run, and each batch runs both LSTMs through the kernel
+        # one batch a run, and each batch runs both LSTMs through the kernel:
+        # K1's full-band sweep in the cluster form, its sub-band one in tiles
         want = {k: 0 for k in launches[tag]}
         want[kernel] = 2 * MAIN_PATH_RUNS
         if launches[tag] != want:
             fail(f"the FullSubNet {tag} batch launched {launches[tag]}, expected {want}")
+        forms[tag] = dict(lstm2.FWD_SWEEP_FORMS)
+        if kernel == "lstm2_fwd" and forms[tag] != {"lstm2_fwd cluster16": MAIN_PATH_RUNS,
+                                                    "lstm2_fwd tile": MAIN_PATH_RUNS}:
+            fail(f"the FullSubNet {tag} batch's forward sweeps by form: {forms[tag]}")
         for i, (y, n) in enumerate(zip(outputs(f"fsn_{tag}"), lengths)):
             if y.shape != (n,) or not np.isfinite(y).all():
                 fail(f"FullSubNet {tag} output {i}: shape {y.shape}, expected ({n},)")
@@ -1903,9 +2012,9 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
     serve = phase_serve(config_path, checkpoint, streams=FSN_STREAMS, tag="[7] FullSubNet")
     if serve["launches"]["lstm2_int8_fwd"] % 2:
         fail(f"the FullSubNet daemon's launches {serve['launches']}: not two a batch")
-    return {"launches": launches, "rates": rates, "walls": walls, "wave_snr_db": wave_snr,
-            "profiles": profiles, "overlapped_chunk": {"wall_ms": long_wall * 1e3,
-                                                       "launches": long_launches},
+    return {"launches": launches, "forms": forms, "rates": rates, "walls": walls,
+            "wave_snr_db": wave_snr, "profiles": profiles,
+            "overlapped_chunk": {"wall_ms": long_wall * 1e3, "launches": long_launches},
             "serve": {k: serve[k] for k in ("launches", "audio_s_per_s",
                                             "stream_audio_s_per_s_median", "min_snr_db")}
             | {"tick_failures": serve["stats"]["tick_failures"],
@@ -3096,6 +3205,7 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
     LSTM(257, 512, 2) + Linear forward or backward (TF32 off; a yardstick).
     Returns ({(kernel, dtype): {"max_abs_err", "min_snr_db"}}, {(kernel,
     dtype): times})."""
+    from fullsubnet_plus_torch.ops import lstm2
     from fullsubnet_plus_torch.ops import lstm2_train as lt
 
     n, t = N_FB_TRAIN, T_TRAIN
@@ -3123,8 +3233,25 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
         x, dy, lstm, fc = train_operands(n, t, dtype, seed=11, shape=FB)
         w = lstm.packed(fc)
         y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+        lstm2.FWD_SWEEP_FORMS.clear()
         y, res = lt.lstm2_train_fwd(x, w)
+        y_k1 = lstm2.lstm2_fc(x, w)
+        with forced_fwd_form(0):
+            y_tile, res_tile = lt.lstm2_train_fwd(x, w)
+        torch.cuda.synchronize()
+        fwd_forms, k1_same = dict(lstm2.FWD_SWEEP_FORMS), torch.equal(y, y_k1)
         k2 = worst((y_ref, *res_ref), (y, *res))
+        k2_tile = worst((y_tile, *res_tile), (y, *res))
+        del y_k1, y_tile, res_tile
+        print(f"[11] lstm2_train_fwd {tag} in the cluster form: {k2[0]:.1f} dB against the "
+              f"plain version, {k2_tile[0]:.1f} dB against the tile form forced (y and the "
+              f"residuals), y equal to K1's: {k1_same}; forward sweeps by form {fwd_forms}")
+        if not k1_same or min(k2_tile[0], k2[0]) < floor:
+            fail(f"[11] K2's cluster form at the full-band {tag}: y equal to K1's {k1_same}, "
+                 f"{k2_tile[0]:.1f} dB against the tile form")
+        if fwd_forms != {"lstm2_train_fwd cluster16": 1, "lstm2_fwd cluster16": 1,
+                         "lstm2_train_fwd tile": 1}:
+            fail(f"[11] the full-band forward sweeps' forms: {fwd_forms}")
         lt.SWEEP_FORMS.clear()
         sweep_ref = lt.lstm2_bwd_reference(dy, x, w, res_ref)
         sweep = lt.lstm2_bwd_sweep(dy, x, w, res_ref)
@@ -3183,6 +3310,8 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
                                                   reps=3)}
         finally:
             lt.SWEEP_FORM = None
+        with forced_fwd_form(0):
+            tile_ms["lstm2_train_fwd"] = cuda_ms(lambda: lt.lstm2_train_fwd(x, w), reps=3)
         plain = {"lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd_reference(x, w), reps=2),
                  "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res), reps=2),
                  "lstm2_bwd_wgrad": cuda_ms(lambda: lt.lstm2_bwd_plain(dy, x, w, res, True),
@@ -3254,6 +3383,7 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
     form timed and profiled (no TF32 product); (d) one float32 trainer
     epoch through the CLI's functions on phase 8's corpus, and one more
     profiled."""
+    from fullsubnet_plus_torch.ops import lstm2
     from fullsubnet_plus_torch.ops import lstm2_train as lt
     from fullsubnet_plus_torch.train import step
 
@@ -3294,13 +3424,16 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
     forms = dict(lt.SWEEP_FORMS)  # the full-band sweep clustered, the sub-band one in tiles
     if forms != {f"{backward} cluster16": TRAIN_STEPS, f"{backward} tile": TRAIN_STEPS}:
         fail(f"[11] FullSubNet float32 steps: the reverse sweeps' forms {forms}")
+    fwd_forms = dict(lstm2.FWD_SWEEP_FORMS)  # K2 likewise
+    if fwd_forms != {"lstm2_train_fwd cluster16": TRAIN_STEPS, "lstm2_train_fwd tile": TRAIN_STEPS}:
+        fail(f"[11] FullSubNet float32 steps: the forward sweeps' forms {fwd_forms}")
     wall = statistics.median(walls[1:])
     audio_s = TRAIN_BATCH * TRAIN_SAMPLES / SR
     print(f"[11] FullSubNet float32 train step (the default form, K2 + "
           f"{'K3' if backward == 'lstm2_bwd_wgrad' else 'K4 + weight_grads'}): wall median "
           f"{wall:.1f} ms (each {', '.join(f'{w:.0f}' for w in walls)}), "
-          f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {default_launches}, sweeps by form "
-          f"{forms}")
+          f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {default_launches}, reverse sweeps "
+          f"by form {forms}, forward sweeps by form {fwd_forms}")
 
     def one_step():
         train_step(state, noisy, clean)
@@ -3332,6 +3465,7 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
             "steps": {"rel_gaps": gaps, "launches": {k: v for k, v in step_launches.items() if v},
                       "float32_default": {"wall_ms": wall, "audio_s_per_s": audio_s / wall * 1e3,
                                           "launches": default_launches, "sweep_forms": forms,
+                                          "fwd_sweep_forms": fwd_forms,
                                           "profile": PROFILES[label]}},
             "trainer": trainer_run, "wall_s": took}
 
@@ -3357,6 +3491,7 @@ def main() -> None:
     hmma = phase_build()
     fixture_snr = phase_check_fixture()
     errors = phase_check()
+    fwd_cluster = check_fwd_cluster()
     train_errors = phase_check_train()
     times = phase_time()
     train_times = phase_time_train()
@@ -3524,6 +3659,14 @@ def main() -> None:
         },
         "audio_s_per_s": {tag: batch["rates"][tag] for tag in ("float32", "bfloat16")},
         "sweep_hmma": hmma["lstm2_fwd"],
+        "cluster_sweep_functions": hmma["lstm2_fwd_cluster_sweep"],
+        "fwd_form_by_fold": {
+            **{fold: fwd_form_name(rows, shape) for fold, rows, shape in (
+                (f"N {N_FULL} T {T_FULL} (batch)", N_FULL, SB),
+                (f"fullsubnet_fb N {N_FB}", N_FB, FB),
+                (f"fullsubnet_sb N {N_FULL}", N_FULL, FSN_SB))},
+            **{f"fullsubnet_batch_{tag}": fsn["forms"][tag] for tag in ("float32", "bfloat16")}},
+        "fullsubnet_fb_cluster_check": {str(dt)[6:]: v for dt, v in fwd_cluster.items()},
         "jax_fixture_min_snr_db": {dt: fixture_snr[("lstm2_fwd", dt)]
                                    for dt in ("float32", "bfloat16")},
     }
@@ -3574,7 +3717,17 @@ def main() -> None:
         extra = {"sweep_hmma": hmma[name]} if name in hmma else {}
         if f"{name}_float32_sweep" in hmma:
             extra["float32_sweep_functions"] = hmma[f"{name}_float32_sweep"]
+        if f"{name}_cluster_sweep" in hmma:
             extra["cluster_sweep_functions"] = hmma[f"{name}_cluster_sweep"]
+        if name == "lstm2_train_fwd":
+            extra["fwd_form_by_fold"] = {
+                **{fold: fwd_form_name(rows, shape) for fold, rows, shape in (
+                    (f"N {N_TRAIN} T {T_TRAIN} (training)", N_TRAIN, SB),
+                    (f"N {N_CARD} (a card's half)", N_CARD, SB),
+                    (f"fullsubnet_fb_train N {N_FB_TRAIN}", N_FB_TRAIN, FB),
+                    (f"fullsubnet_sb_train N {N_TRAIN}", N_TRAIN, FSN_SB))},
+                "fullsubnet_steps_float32":
+                    fsn_train["steps"]["float32_default"]["fwd_sweep_forms"]}
         if name == "lstm2_bwd_wgrad":
             extra["wgrad_functions"] = hmma["wgrad"]
         fb = {tag: {**fsn_train["errors"][(name, dt)], **fsn_train["times"][(name, dt)]}

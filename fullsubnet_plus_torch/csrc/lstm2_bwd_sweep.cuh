@@ -101,9 +101,23 @@
 namespace bwd {
 
 using lstm2::AFrag;
+using lstm2::bulk_commit;
+using lstm2::bulk_wait_read;
 using lstm2::CHUNK_BYTES;
+using lstm2::cluster_arrive;
+using lstm2::cluster_ctarank;
+using lstm2::cluster_idx;
+using lstm2::cluster_nctarank;
+using lstm2::cluster_wait;
+using lstm2::copy_to_peer;
+using lstm2::fence_proxy_async;
 using lstm2::from_f;
 using lstm2::k_chunk;
+using lstm2::mbar_arrive_expect;
+using lstm2::mbar_init;
+using lstm2::mbar_wait;
+using lstm2::peer_address;
+using lstm2::SMEM_LIMIT;
 using lstm2::to_f;
 
 constexpr int MMA_ROWS = 16;       // the row tile: one m16 tile (MMA_ROWS_PER_CTA)
@@ -116,8 +130,6 @@ __host__ __device__ inline int dx_cols(int D) { return (D + 7) / 8 * 8; }
 template <typename T> __host__ __device__ inline int dgates_pitch(int H) {
   return 4 * H + MMA_PAD_BYTES / (int)sizeof(T);
 }
-
-constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use (sm_90)
 
 // the dgates [16][pitch] of T, then float32 the dh1 and dh2 carries [16][H],
 // the dy tile [16][O] and, in the k-split form, a dx partial per warp
@@ -543,79 +555,6 @@ template <typename T> inline bool cluster_runs(int D, int H, int O) {
          cluster_shared_bytes<T>(H, O) <= SMEM_LIMIT;
 }
 
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t cluster_nctarank() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(v));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t cluster_idx() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v));
-  return v;
-}
-
-// The cluster barrier, in halves: arrive (release: this thread's earlier
-// shared-memory reads come first) and wait (acquire: every thread of the
-// cluster has arrived).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// The same shared-memory offset in CTA `rank` of the cluster
-__device__ __forceinline__ uint32_t peer_address(uint32_t local, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
-  return remote;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// this thread's arrival on the mbarrier, and `bytes` more for it to expect
-__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// wait until the mbarrier's phase of this parity has completed; a phase
-// that never completes (a block that never arrives) traps, a CUDA error
-// for the launch's caller, rather than hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// `bytes` of this CTA's shared memory at `src` to `dst` in a peer's, by the
-// Tensor Memory Accelerator, completing on the peer's mbarrier `bar` (dst
-// and bar: shared::cluster addresses)
-__device__ __forceinline__ void copy_to_peer(uint32_t dst, uint32_t src, uint32_t bytes,
-                                             uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
 // This thread's residuals of one layer at step t: the activated gates of
 // its cell (unit j), c_t and c_{t-1} (zero past the fold's rows and before
 // t = 0)
@@ -669,7 +608,7 @@ struct Exchange {
       const uint32_t peer = (uint32_t)((c + p) % C);
       copy_to_peer(peer_address(src, peer), src, block_bytes, peer_address(bar, peer));
     }
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    bulk_commit();
   }
 
   // The dgates d of this thread's cell, rounded to T, into dg_t (rows that
@@ -686,7 +625,7 @@ struct Exchange {
       if (live) dg_t[(size_t)r * 4 * H + q * H + c * U + lane] = v;
       own[r * pitch + q * U + lane] = v;
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the block, to the copies
+    fence_proxy_async();  // the block, to the copies
     parity ^= 1u;
     __syncthreads();
     cluster_wait();  // every peer has read the dgates these copies overwrite
@@ -699,7 +638,7 @@ struct Exchange {
   __device__ __forceinline__ void sent() const {
     if (threadIdx.x != 0) return;
     if (late && c == 0) send();
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    bulk_wait_read<0>();
   }
 };
 

@@ -119,6 +119,8 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big
   mma_tf32(d, a_big, b0_big, b1_big);
 }
 
+constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may use (sm_90)
+
 // A k-chunk: the 64 bytes of an operand row that one 16-byte B word a lane
 // covers, two k-steps (of 16 bf16, of 8 float32). Both sweeps pack their
 // weights in this unit (ops/lstm2.py: pack_mma_b, pack_tf32_b).
@@ -176,5 +178,99 @@ template <> struct AFrag<float> {
     for (int e = 0; e < 4; ++e) d[e] += p[e];
   }
 };
+
+// The sweeps' cluster forms (lstm2_fwd_sweep.cuh, lstm2_bwd_sweep.cuh): a
+// cluster of CTAs a row tile, each owning a slice of the hidden units, whose
+// blocks are all-gathered through distributed shared memory by TMA bulk
+// copies that complete on the receivers' mbarriers.
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t cluster_idx() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v));
+  return v;
+}
+
+// The cluster barrier, in halves: arrive (release: this thread's earlier
+// shared-memory reads come first) and wait (acquire: every thread of the
+// cluster has arrived).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The same shared-memory offset in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_address(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// this thread's arrival on the mbarrier, and `bytes` more for it to expect
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// wait until the mbarrier's phase of this parity has completed; a phase
+// that never completes (a block that never arrives) traps, a CUDA error
+// for the launch's caller, rather than hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+// `bytes` of this CTA's shared memory at `src` to `dst` in a peer's, by the
+// Tensor Memory Accelerator, completing on the peer's mbarrier `bar` (dst
+// and bar: shared::cluster addresses)
+__device__ __forceinline__ void copy_to_peer(uint32_t dst, uint32_t src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// this thread's bulk copies issued since the last commit, as one bulk group
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read their source
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// this thread's generic-proxy writes to shared memory, visible to the bulk
+// copies it or its block issue next
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 }  // namespace lstm2

@@ -17,26 +17,36 @@
 // (7.5 MB float32, 3.7 MB bf16) sets a step's time.
 //
 // Design: the tensor-core sweep of lstm2_fwd_sweep.cuh, which the training
-// forward (lstm2_train_fwd.cu) shares, storing y only. One CTA per row tile
-// runs all T steps; every product on mma.sync from weights packed into
-// fragment order once per call: bf16 m16n8k16, R = 16 or 32 rows (one or two
-// m16 tiles sharing each weight fragment loaded from L2); float32 m16n8k8 as
-// three TF32 products of split operands, R = 16. The wrapper chooses R.
+// forward (lstm2_train_fwd.cu) shares, storing y only. Every product runs on
+// mma.sync from weights packed into fragment order once per call: bf16
+// m16n8k16, float32 m16n8k8 as three TF32 products of split operands. In
+// the tile form one CTA per row tile runs all T steps, R = 16 or 32 rows in
+// bf16 (one or two m16 tiles sharing each weight fragment loaded from L2),
+// 16 in float32. At FullSubNet's full-band fold (N 8, D 257, H 512, O 257:
+// one CTA on one SM pulling 15.4 MB of float32 fragments a step) the cluster
+// form runs instead: a cluster of 16 CTAs a tile of 16 rows, each owning 32
+// units, h1 and h2 all-gathered each step by TMA bulk copies into the
+// peers' shared memory. The wrapper chooses the form and R.
 //
-// Launch: grid ceil(N / R), block H threads, dynamic shared memory as in
-// fwd_mma_shared_memory_bytes() of ops/lstm2.py. The C entry point launches
-// on the caller's stream, allocates nothing and returns cudaGetLastError().
+// Launch: the tile form grid ceil(N / R), block H threads, dynamic shared
+// memory as in fwd_mma_shared_memory_bytes() of ops/lstm2.py; the cluster
+// form grid 16 ceil(N / 16) in clusters of 16, block 512 threads, as in
+// fwd_cluster_shared_memory_bytes(). The C entry point launches on the
+// caller's stream, allocates nothing and returns cudaGetLastError().
 
 #include "lstm2_fwd_sweep.cuh"
 
 // dtype: 0 = float32 (rows 16), 1 = bfloat16 (rows 16 or 32): the type of x
 // and out. The weights come as the packed fragments w1p, w2p, fcp and the
 // gate-interleaved biases b1p, b2p (ops/lstm2.py::pack_fwd_mma), fcb as b_fc.
+// form: the sweep's form (0 the tile form, 16 the cluster form: clusters of
+// 16, rows 16).
 extern "C" int lstm2_fwd(const void* x, const void* w1p, const void* w2p, const void* fcp,
                          const void* b1p, const void* b2p, const void* fcb, void* out,
-                         int n_rows, int steps, int D, int H, int O, int rows, int dtype,
-                         void* stream) {
+                         int n_rows, int steps, int D, int H, int O, int rows, int form,
+                         int dtype, void* stream) {
   if (!fwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
   return fwd::launch_dtype<false>(dtype, x, w1p, w2p, fcp, b1p, b2p, fcb, out, nullptr, n_rows,
-                                  steps, D, H, O, rows, static_cast<cudaStream_t>(stream));
+                                  steps, D, H, O, rows, form,
+                                  static_cast<cudaStream_t>(stream));
 }

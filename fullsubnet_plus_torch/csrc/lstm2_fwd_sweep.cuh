@@ -6,10 +6,18 @@
 // h and c stay float32; h is rounded to the weight type T before every
 // product (the TPU kernel's h.astype(mm); no rounding in float32); products
 // accumulate in float32. Both kernels run the same products in the same
-// order, so their y is equal bit for bit. One CTA per tile of R rows sweeps
-// all T steps, so the recurrence never leaves the block. The weights (7.5 MB
-// float32, 3.7 MB bf16 at D 34, H 384) do not fit in shared memory; they stay
-// in global memory, served from the 50 MB L2.
+// order, so their y is equal bit for bit. The weights (7.5 MB float32, 3.7 MB
+// bf16 at D 34, H 384) do not fit in shared memory; they stay in global
+// memory, served from the 50 MB L2. Two forms, chosen by the fold's shape
+// (`fwd_sweep_cluster` in ops/lstm2.py, the same for K1 and K2):
+//   * the tile form, `sweep_mma_kernel`: one CTA per tile of R rows sweeps
+//     all T steps, so the recurrence never leaves the block; every CTA pulls
+//     every weight fragment from L2 each step (the shipped folds);
+//   * the cluster form, `sweep_cluster_kernel` (below): a cluster of 16 CTAs
+//     per tile of 16 rows, each owning 32 hidden units and pulling only its
+//     gate columns' weights, h1 and h2 all-gathered each step through
+//     distributed shared memory (FullSubNet's full-band folds of a few
+//     tiles, where one CTA a tile would leave the card idle).
 //
 // `sweep_mma_kernel<T, MT, ...>`: every product, the fc's too, runs on the
 // tensor cores with float32 sums, with no FMA product left.
@@ -51,10 +59,24 @@
 namespace fwd {
 
 using lstm2::AFrag;
+using lstm2::bulk_commit;
+using lstm2::bulk_wait_read;
 using lstm2::CHUNK_BYTES;
+using lstm2::cluster_arrive;
+using lstm2::cluster_ctarank;
+using lstm2::cluster_idx;
+using lstm2::cluster_nctarank;
+using lstm2::cluster_wait;
+using lstm2::copy_to_peer;
+using lstm2::fence_proxy_async;
 using lstm2::from_f;
 using lstm2::k_chunk;
+using lstm2::mbar_arrive_expect;
+using lstm2::mbar_init;
+using lstm2::mbar_wait;
+using lstm2::peer_address;
 using lstm2::sigm;
+using lstm2::SMEM_LIMIT;
 
 // Where the training forward stores what the backward reads, all in the
 // weight type: activated gates g1, g2 [T, N, 4H]; c1, h1, c2, h2 [T, N, H].
@@ -383,6 +405,425 @@ int launch_mma(const void* x, const MmaWeights& wt, const void* fcb, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The cluster form, `sweep_cluster_kernel<T, kSave>`: for folds of a few row
+// tiles (FullSubNet's full-band LSTM: N 8 in a batch of 8, N 18 in training,
+// at D 257, H 512, O 257), where one CTA a tile leaves the card idle and
+// every step waits on one SM pulling all the weight fragments from L2 ([W1;
+// U1] and [W2; U2]: 15.4 MB in float32, 7.7 in bf16, a tile and step). Each
+// tile of 16 rows gets a cluster of C = H / 32 CTAs (16 at H 512); CTA rank c
+// owns the U = 32 hidden units [cU, (c + 1) U) of both layers, unit groups 4c
+// .. 4c + 3 (what warp c owns in the tile form), and reads only their 16
+// gate-interleaved n-tiles of the packed w1 and w2 (0.93 MB a step in
+// float32, 0.47 in bf16):
+//   * the products on the tensor cores as in the tile form (mma.sync,
+//     AFrag<T>), the K of each split over the CTA's warps: warp w runs
+//     k-part w % KP of unit group w / KP (its four gate n-tiles), the k-parts
+//     add their partials [KP][4][16][U + 8] in k-part order onto the bias,
+//     and thread (warp r, lane u) runs the cell of row r, unit cU + u from
+//     the sums, with its c carry in a register;
+//   * the exchange: each product contracts over all H units of h1 or h2, so
+//     each CTA keeps the tile's whole h1 and h2, owner-major: block o (the
+//     units of CTA o) is [16][U + pad] of T (the pad of 16 bytes keeps the
+//     row pitch an odd multiple of 16 bytes, so ldmatrix is free of bank
+//     conflicts; a k-chunk of 64 bytes lies in one block). After a cell a
+//     CTA writes its block, then one thread copies it whole into every
+//     peer's copy with the Tensor Memory Accelerator (cp.async.bulk
+//     shared::cta -> shared::cluster, 2,304 bytes in float32, 1,280 in
+//     bf16), each copy completing its bytes on the peer's mbarrier for that
+//     layer, step parity and owner. A k-part's h chunks run owner-major, and
+//     the warp waits for an owner's mbarrier only when its chunks reach that
+//     block;
+//   * the overlap the recurrence leaves: layer 2 at step t reads [h1_t |
+//     h2_{t-1}], so it runs its chunks over h2_{t-1} (exchanged during layer
+//     1) first and h1_t's as each owner arrives; layer 1 at t + 1 reads
+//     [x_{t+1} | h1_t], not h2_t, so h2_t's exchange runs under it; the fc of
+//     step t - 1 rides on layer 2's chunks over h2_{t-1} (the same A
+//     fragments, one more n-tile: CTA c owns the fc n-tiles c, c + C, ..,
+//     the one of index i taken by the warps of unit group i); x_{t+1} is
+//     loaded during step t (one x buffer: layer 1 has read x_t by then);
+//   * the blocks alternate by step parity, so a copy overwrites the block of
+//     step t - 2: a CTA arrives on the cluster barrier (release) once it has
+//     read h1_{t-1} and h2_{t-1} (after layer 2 of step t) and waits on it
+//     (acquire) before it sends h1_{t+1}, half a step later. A CTA writes its
+//     own block again two steps on, once its copies have read it (thread 0
+//     waits for all but its latest bulk group each step).
+// Each output word has one writer and each sum a fixed order; no atomics,
+// the same bits on every run. K1 and K2 run the same code, so their y is
+// equal bit for bit. Shared memory at D 257, H 512, C 16: the mbarriers
+// (512 bytes), the h blocks (147,456 bytes in float32, 81,920 in bf16), x
+// [16][x_cols + pad] (17,664 / 9,472), the partials (40,960) and the fc's
+// [4][KP][16][8] (8,192): 214,784 / 141,056 bytes.
+
+constexpr int CL_ROWS = 16;       // the row tile: one m16 tile
+constexpr int CL_UNITS = 32;      // hidden units a CTA owns: a lane a unit in the cells
+constexpr int CL_THREADS = 512;   // 16 warps: a warp a row in the cells
+constexpr int CL_KPARTS = 4;      // k-parts of each product: warps = 4 unit groups x 4 k-parts
+constexpr int CL_FC_TILES = 4;    // fc n-tiles a CTA may own: one a unit group's warps
+constexpr int CL_PAD_BYTES = 16;  // pad of an h block's or x's row
+constexpr int CL_PART_LD = CL_UNITS + 8;  // a gate partial's row: half-warps' stores 8 banks apart
+constexpr int CL_FC_LD = 8;       // a row of an fc partial
+constexpr int CLUSTER_SIZE = 16;  // FWD_CLUSTER in ops/lstm2.py: CTAs of a cluster, H = 16 x 32
+
+// elements of a row of an owner's h block, and of the x tile
+template <typename T> __host__ __device__ constexpr int cl_block_pitch() {
+  return CL_UNITS + CL_PAD_BYTES / (int)sizeof(T);
+}
+template <typename T> __host__ __device__ inline int cl_x_pitch(int D) {
+  return x_cols<T>(D) + CL_PAD_BYTES / (int)sizeof(T);
+}
+
+// `fwd_cluster_shared_memory_bytes` in ops/lstm2.py: an 8-byte mbarrier a
+// layer, step parity and owner; the h blocks [2 layers][2 parities][C][16]
+// [block pitch] of T; the x tile [16][x pitch] of T; float32 the partials
+// [KP][4 gates][16][CL_PART_LD] and the fc's [CL_FC_TILES][KP][16][CL_FC_LD]
+template <typename T> __host__ __device__ inline size_t cluster_shared_bytes(int D, int H) {
+  const int C = H / CL_UNITS;
+  return 8 * 4 * (size_t)C +
+         sizeof(T) * ((size_t)4 * C * CL_ROWS * cl_block_pitch<T>() +
+                      (size_t)CL_ROWS * cl_x_pitch<T>(D)) +
+         sizeof(float) * ((size_t)CL_KPARTS * 4 * CL_ROWS * CL_PART_LD +
+                          (size_t)CL_FC_TILES * CL_KPARTS * CL_ROWS * CL_FC_LD);
+}
+
+// Whether the cluster form runs at this shape: H = CLUSTER_SIZE x 32, D <= H
+// (x_{t+1} staged at most 16 words a thread), at most CL_FC_TILES fc n-tiles
+// a CTA, and a CTA's shared memory fits a block. The caller chooses the form
+// (`fwd_sweep_cluster` in ops/lstm2.py); a launch of the cluster form where
+// this is false returns an error.
+template <typename T> inline bool cluster_runs(int D, int H, int O) {
+  return H == CLUSTER_SIZE * CL_UNITS && D <= H && (O + 7) / 8 <= CL_FC_TILES * CLUSTER_SIZE &&
+         cluster_shared_bytes<T>(D, H) <= SMEM_LIMIT;
+}
+
+// acc[g] += A . B[n-tile g] for a warp's four gate n-tiles (ns words apart)
+// over its chunks v = 0 .. n - 1 in order, and, with kFc, facc += A . F for v
+// < fc_chunks (the same A fragments). Chunk v: B's and F's k-chunk kc_of(v)
+// (F's chunk v), A at a_of(v), wait(v) before A is read. Each chunk's
+// fragments load while the previous chunk's products run. B, F: this lane's
+// word of n-tile 0, k-chunk 0.
+template <typename T, bool kFc, typename KcOf, typename AOf, typename Wait>
+__device__ __forceinline__ void cl_products(float (&acc)[4][4], float (&facc)[4],
+                                            const uint4* __restrict__ B, size_t ns,
+                                            const uint4* __restrict__ F, int fc_chunks, int n,
+                                            KcOf kc_of, AOf a_of, Wait wait) {
+  uint4 b[4], f = make_uint4(0u, 0u, 0u, 0u);
+  {
+    const size_t k = (size_t)kc_of(0) * 32;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) b[g] = __ldg(B + k + g * ns);
+    if (kFc && fc_chunks > 0) f = __ldg(F);
+  }
+#pragma unroll 2
+  for (int v = 0; v < n; ++v) {
+    const int vn = min(v + 1, n - 1);
+    const size_t kn = (size_t)kc_of(vn) * 32;
+    uint4 nb[4], nf = f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) nb[g] = __ldg(B + kn + g * ns);
+    if (kFc && vn < fc_chunks) nf = __ldg(F + (size_t)vn * 32);
+    wait(v);
+    AFrag<T> a;
+    a.load(a_of(v));
+#pragma unroll
+    for (int g = 0; g < 4; ++g) a.mma(acc[g], b[g]);
+    if (kFc && v < fc_chunks) a.mma(facc, f);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) b[g] = nb[g];
+    f = nf;
+  }
+}
+
+// A warp's accumulators of one m16n8 tile into a partial of row pitch ld:
+// lane (g, q) holds rows g and g + 8, columns 2q and 2q + 1
+__device__ __forceinline__ void cl_store_tile(const float (&acc)[4], float* dst, int ld,
+                                              int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+    *reinterpret_cast<float2*>(dst + ((lane >> 2) + 8 * half) * ld + 2 * (lane & 3)) =
+        make_float2(acc[2 * half], acc[2 * half + 1]);
+}
+
+template <typename T, bool kSave>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+sweep_cluster_kernel(const T* __restrict__ x,  // [T, N, D]
+                     const MmaWeights wt, const float* __restrict__ fcb,
+                     T* __restrict__ out,  // [N, T, O]
+                     const Residuals<T> res, int n_rows, int steps, int D, int H, int O) {
+  constexpr int R = CL_ROWS, U = CL_UNITS, KP = CL_KPARTS, KC = k_chunk<T>();
+  constexpr int S = U / KC;  // k-chunks of a block row: 2 in float32, 1 in bf16
+  constexpr int BP = cl_block_pitch<T>(), PLD = CL_PART_LD;
+  constexpr int XR = R * 512 / CL_THREADS;  // x words a thread stages: D <= H <= 512
+  extern __shared__ __align__(16) unsigned char smem_cl[];
+  const int C = (int)cluster_nctarank(), c = (int)cluster_ctarank(), tile = (int)cluster_idx();
+  const int xc = x_cols<T>(D), xp = cl_x_pitch<T>(D), G = 4 * H;
+  const uint32_t block_bytes = (uint32_t)(sizeof(T) * R * BP);
+  const uint32_t bars = (uint32_t)__cvta_generic_to_shared(smem_cl);
+  T* hblk = reinterpret_cast<T*>(smem_cl + 8 * 4 * C);  // [2 layers][2 parities][C][R][BP]
+  T* xs = hblk + (size_t)4 * C * R * BP;                // [R][xp]
+  float* part = reinterpret_cast<float*>(xs + (size_t)R * xp);  // [KP][4][R][PLD]
+  float* fcpart = part + KP * 4 * R * PLD;                       // [CL_FC_TILES][KP][R][CL_FC_LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kp = warp % KP, ug = warp / KP;  // products: k-part kp of unit group ug
+  const int r = warp, unit = c * U + lane;   // cells: row r, unit cU + lane
+  const int n0 = tile * R;
+  const int rows_here = min(R, n_rows - n0);
+  const bool live = r < rows_here;
+  const int xch = xc / KC, hch = H / KC;         // k-chunks of x and of h
+  const int kc1 = xch + hch, kc2 = 2 * hch;      // of [W1; U1] and [W2; U2]
+  const int x0 = kp * xch / KP, nx = (kp + 1) * xch / KP - x0;  // this k-part's x chunks
+  const int q0 = kp * hch / KP, nh = (kp + 1) * hch / KP - q0;  // its h chunks, owner q / S
+  const size_t ns1 = (size_t)kc1 * 32, ns2 = (size_t)kc2 * 32;
+  const int nt0 = 4 * (4 * c + ug);  // the warp's first gate n-tile: unit group 4c + ug, gate i
+  const uint4* w1w = wt.w1 + nt0 * ns1 + lane;
+  const uint4* w2w = wt.w2 + nt0 * ns2 + lane;
+  const int fnt = c + C * ug;  // this warp's fc n-tile, where it exists
+  const bool has_fc = ug < CL_FC_TILES && 8 * fnt < O;
+  const uint4* fcw = wt.fc + (size_t)(has_fc ? fnt : 0) * hch * 32 + lane;
+  const uint32_t hbase = (uint32_t)__cvta_generic_to_shared(hblk);
+  const uint32_t lane_blk = (uint32_t)(((lane & 15) * BP) * (int)sizeof(T) + 16 * (lane >> 4));
+  const uint32_t xbase = (uint32_t)__cvta_generic_to_shared(xs) +
+                         (uint32_t)(((lane & 15) * xp) * (int)sizeof(T) + 16 * (lane >> 4));
+  auto blk = [&](int layer, int parity, int o) {  // bytes from hblk to a block
+    return (uint32_t)(((2 * layer + parity) * C + o) * block_bytes);
+  };
+  auto bar = [&](int layer, int parity, int o) {
+    return bars + 8u * (uint32_t)((2 * layer + parity) * C + o);
+  };
+  auto arm = [&](int layer, int parity) {  // thread 0: one block from each peer, next phase
+    for (int o = 0; o < C; ++o)
+      if (o != c) mbar_arrive_expect(bar(layer, parity, o), block_bytes);
+  };
+  auto send = [&](int layer, int parity) {  // thread 0: this CTA's block to every peer
+    const uint32_t src = hbase + blk(layer, parity, c), b = bar(layer, parity, c);
+    for (int k = 1; k < C; ++k) {
+      const uint32_t peer = (uint32_t)((c + k) % C);
+      copy_to_peer(peer_address(src, peer), src, block_bytes, peer_address(b, peer));
+    }
+    bulk_commit();
+  };
+  auto store_acc = [&](const float (&acc)[4][4]) {  // into k-part kp's partial
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      cl_store_tile(acc[g], part + ((size_t)(kp * 4 + g) * R) * PLD + 8 * ug, PLD, lane);
+  };
+  auto store_fc = [&](const float (&facc)[4]) {
+    cl_store_tile(facc, fcpart + ((size_t)(ug * KP + kp) * R) * CL_FC_LD, CL_FC_LD, lane);
+  };
+  auto fc_out = [&](int ts) {  // y_ts from the fc partials: a thread a word
+    for (int idx = tid; idx < CL_FC_TILES * R * CL_FC_LD; idx += CL_THREADS) {
+      const int i = idx / (R * CL_FC_LD), row = idx / CL_FC_LD % R, col = idx % CL_FC_LD;
+      const int o = 8 * (c + C * i) + col;
+      if (row < rows_here && o < O) {
+        const float* pp = fcpart + ((size_t)i * KP * R + row) * CL_FC_LD + col;
+        float s = pp[0];
+#pragma unroll
+        for (int k = 1; k < KP; ++k) s += pp[(size_t)k * R * CL_FC_LD];
+        out[((size_t)(n0 + row) * steps + ts) * O + o] = from_f<T>(s + fcb[o]);
+      }
+    }
+  };
+  // the cell of (row r, unit) from the partials: h into this CTA's block of
+  // (layer, parity), the residuals of a row that exists
+  float bias[2][4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int col = 32 * (4 * c + (lane >> 3)) + 8 * g + (lane & 7);  // gate-interleaved
+    bias[0][g] = wt.b1[col];
+    bias[1][g] = wt.b2[col];
+  }
+  auto cell = [&](int layer, int parity, float& cw, size_t row0, T* g_t, T* c_t, T* h_t) {
+    float act[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float s = bias[layer][g];
+#pragma unroll
+      for (int k = 0; k < KP; ++k) s += part[((size_t)(k * 4 + g) * R + r) * PLD + lane];
+      act[g] = g == 2 ? tanhf(s) : sigm(s);
+    }
+    cw = act[1] * cw + act[0] * act[2];
+    const float h = act[3] * tanhf(cw);
+    hblk[(size_t)((2 * layer + parity) * C + c) * R * BP + r * BP + lane] = from_f<T>(h);
+    if (kSave && live) {
+      const size_t row = row0 + r;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) g_t[row * G + g * H + unit] = from_f<T>(act[g]);
+      c_t[row * H + unit] = from_f<T>(cw);
+      h_t[row * H + unit] = from_f<T>(h);
+    }
+  };
+
+  {  // zero the blocks (h_{-1}, the pads), x (its pad columns and the rows past N) and the partials
+    uint32_t* words = reinterpret_cast<uint32_t*>(smem_cl + 8 * 4 * C);
+    const size_t n_words = (cluster_shared_bytes<T>(D, H) - 8 * 4 * C) / 4;
+    for (size_t i = tid; i < n_words; i += CL_THREADS) words[i] = 0u;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < 4 * C; ++i) mbar_init(bars + 8u * i, 1);
+    arm(0, 0);  // h1_0
+    arm(0, 1);  // h1_1
+    arm(1, 0);  // h2_0 (h2_1's at the end of step 0)
+  }
+  if (steps > 0) {  // x_0
+    const T* xt = x + (size_t)n0 * D;
+    for (int idx = tid; idx < rows_here * D; idx += CL_THREADS) {
+      const int rr = idx / D;
+      xs[(size_t)rr * xp + idx - rr * D] = xt[idx];
+    }
+  }
+  __syncthreads();
+  cluster_arrive();  // pairs with step 0's wait: the peers' mbarriers are set
+
+  float c1 = 0.0f, c2 = 0.0f;
+  for (int t = 0; t < steps; ++t) {
+    const int p = t & 1, pq = p ^ 1;  // this step's blocks, the last step's
+    const size_t row0 = (size_t)t * n_rows + n0;
+    {  // layer 1: [x_t | h1_{t-1}] [W1; U1], x chunks then h1 chunks, all here
+      float acc[4][4] = {}, facc[4] = {};
+      cl_products<T, false>(
+          acc, facc, w1w, ns1, nullptr, 0, nx + nh,
+          [&](int v) { return v < nx ? x0 + v : xch + q0 + v - nx; },
+          [&](int v) {
+            const int q = q0 + v - nx;
+            return v < nx ? xbase + (uint32_t)((x0 + v) * CHUNK_BYTES)
+                          : hbase + blk(0, pq, q / S) + lane_blk +
+                                (uint32_t)((q % S) * CHUNK_BYTES);
+          },
+          [](int) {});
+      store_acc(acc);
+    }
+    __syncthreads();  // layer 1's partials are in
+    T xv[XR];         // x_{t+1}, staged through registers while the cell runs
+    const bool more = t + 1 < steps;
+    const T* xt = x + ((size_t)(t + 1) * n_rows + n0) * D;
+    if (more) {
+#pragma unroll
+      for (int k = 0; k < XR; ++k) {
+        const int idx = tid + k * CL_THREADS;
+        if (idx < rows_here * D) xv[k] = xt[idx];
+      }
+      if (t + 2 < steps) {  // x_{t+2} into L2
+        const char* nxt = reinterpret_cast<const char*>(xt + (size_t)n_rows * D);
+        for (int off = tid * 128; off < rows_here * D * (int)sizeof(T); off += CL_THREADS * 128)
+          asm volatile("prefetch.L2 [%0];\n" ::"l"(nxt + off));
+      }
+    }
+    cell(0, p, c1, row0, kSave ? res.g1 : nullptr, kSave ? res.c1 : nullptr,
+         kSave ? res.h1 : nullptr);
+    if (more) {
+#pragma unroll
+      for (int k = 0; k < XR; ++k) {
+        const int idx = tid + k * CL_THREADS;
+        if (idx < rows_here * D) {
+          const int rr = idx / D;
+          xs[(size_t)rr * xp + idx - rr * D] = xv[k];
+        }
+      }
+    }
+    fence_proxy_async();  // this CTA's h1_t block, to the copies
+    __syncthreads();      // h1_t's block and x_{t+1} are in; the partials are read
+    cluster_wait();       // every peer has read the blocks of step t - 2 these copies overwrite
+    if (tid == 0) send(0, p);
+    {  // layer 2: [h1_t | h2_{t-1}] [W2; U2], h2_{t-1}'s chunks (and the fc of step
+       // t - 1) first, then h1_t's as each owner's block arrives
+      float acc[4][4] = {}, facc[4] = {};
+      const bool fc_on = has_fc && t > 0;
+      cl_products<T, true>(
+          acc, facc, w2w, ns2, fcw + (size_t)q0 * 32, fc_on ? nh : 0, 2 * nh,
+          [&](int v) { return v < nh ? hch + q0 + v : q0 + v - nh; },
+          [&](int v) {
+            const bool h2 = v < nh;
+            const int q = q0 + (h2 ? v : v - nh);
+            return hbase + (h2 ? blk(1, pq, q / S) : blk(0, p, q / S)) + lane_blk +
+                   (uint32_t)((q % S) * CHUNK_BYTES);
+          },
+          [&](int v) {
+            const bool h2 = v < nh;
+            const int q = q0 + (h2 ? v : v - nh), o = q / S;
+            if (q % S != 0 || o == c) return;
+            if (!h2)
+              mbar_wait(bar(0, p, o), (uint32_t)(t >> 1) & 1u);
+            else if (t > 0)
+              mbar_wait(bar(1, pq, o), (uint32_t)((t - 1) >> 1) & 1u);
+          });
+      store_acc(acc);
+      if (fc_on) store_fc(facc);
+    }
+    __syncthreads();  // layer 2's partials are in; every warp has waited for its blocks
+    if (tid == 0) {
+      arm(0, p);   // h1_{t+2}
+      arm(1, pq);  // h2_{t+1}
+    }
+    cluster_arrive();  // this CTA has read h1_{t-1} and h2_{t-1}
+    cell(1, p, c2, row0, kSave ? res.g2 : nullptr, kSave ? res.c2 : nullptr,
+         kSave ? res.h2 : nullptr);
+    if (t > 0) fc_out(t - 1);
+    fence_proxy_async();  // this CTA's h2_t block, to the copies
+    __syncthreads();      // h2_t's block is in; the partials are read
+    if (tid == 0) {
+      send(1, p);
+      bulk_wait_read<1>();  // the copies of h1_t (and before) have read their blocks
+    }
+  }
+  if (steps > 0) {  // the fc of the last step, once h2_{T-1} is in from every owner
+    const int pl = (steps - 1) & 1;
+    for (int q = q0; q < q0 + nh; q += S)
+      if (q / S != c) mbar_wait(bar(1, pl, q / S), (uint32_t)((steps - 1) >> 1) & 1u);
+    if (has_fc) {
+      float facc[4] = {};
+      for (int q = q0; q < q0 + nh; ++q) {
+        const uint4 f = __ldg(fcw + (size_t)q * 32);
+        AFrag<T> a;
+        a.load(hbase + blk(1, pl, q / S) + lane_blk + (uint32_t)((q % S) * CHUNK_BYTES));
+        a.mma(facc, f);
+      }
+      store_fc(facc);
+    }
+    __syncthreads();
+    fc_out(steps - 1);
+  }
+  if (tid == 0) bulk_wait_read<0>();  // this CTA's copies have read its blocks
+  cluster_wait();  // pairs with the last step's arrive
+}
+
+// Launch the cluster form: a cluster of CLUSTER_SIZE CTAs a row tile; the
+// clusters share nothing, so a fold of more tiles than the card holds at
+// once runs in waves. A shape `cluster_runs` refuses, or a launch the card
+// refuses, returns its error.
+template <typename T, bool kSave>
+int launch_cluster(const void* x, const MmaWeights& wt, const void* fcb, void* out,
+                   const Residuals<T>& res, int n_rows, int steps, int D, int H, int O,
+                   cudaStream_t stream) {
+  if (!cluster_runs<T>(D, H, O)) return (int)cudaErrorInvalidValue;
+  if (steps == 0) return (int)cudaSuccess;  // nothing to write
+  const size_t smem = cluster_shared_bytes<T>(D, H);
+  cudaError_t err = cudaFuncSetAttribute(sweep_cluster_kernel<T, kSave>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)  // 16 is past the portable 8
+    err = cudaFuncSetAttribute(sweep_cluster_kernel<T, kSave>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CLUSTER_SIZE;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_rows + CL_ROWS - 1) / CL_ROWS * CLUSTER_SIZE);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sweep_cluster_kernel<T, kSave>, static_cast<const T*>(x), wt,
+                           static_cast<const float*>(fcb), static_cast<T*>(out), res, n_rows,
+                           steps, D, H, O);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 inline bool valid_shape(int n_rows, int steps, int D, int H, int O) {
   return H % 32 == 0 && H <= 512 && n_rows > 0 && steps >= 0 && D > 0 && O > 0;
 }
@@ -394,23 +835,40 @@ template <typename T> Residuals<T> residuals_of(void* const* res) {
                       static_cast<T*>(res[3]), static_cast<T*>(res[4]), static_cast<T*>(res[5])};
 }
 
+// Launch the sweep in the form `form` gives: 0 the tile form (row tile
+// `rows`), CLUSTER_SIZE the cluster form (rows 16); any other value, or a
+// shape the cluster form does not run, is refused with an error.
+template <typename T, bool kSave>
+int launch_form(const void* x, const MmaWeights& wt, const void* fcb, void* out,
+                const Residuals<T>& res, int n_rows, int steps, int D, int H, int O, int rows,
+                int form, cudaStream_t stream) {
+  if (form == 0)
+    return launch_mma<T, kSave>(x, wt, fcb, out, res, n_rows, steps, D, H, O, rows, stream);
+  if (form == CLUSTER_SIZE && rows == CL_ROWS && wt.w1 != nullptr && wt.w2 != nullptr &&
+      wt.fc != nullptr && wt.b1 != nullptr && wt.b2 != nullptr)
+    return launch_cluster<T, kSave>(x, wt, fcb, out, res, n_rows, steps, D, H, O, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The C entry points' dispatch: dtype 0 float32, 1 bfloat16 (x, out and the
 // residuals); the weights as the packed fragments w1p, w2p, fcp and the
-// gate-interleaved biases b1p, b2p; res null without kSave.
+// gate-interleaved biases b1p, b2p; res null without kSave; form as in
+// `launch_form`.
 template <bool kSave>
 int launch_dtype(int dtype, const void* x, const void* w1p, const void* w2p, const void* fcp,
                  const void* b1p, const void* b2p, const void* fcb, void* out, void* const* res,
-                 int n_rows, int steps, int D, int H, int O, int rows, cudaStream_t stream) {
+                 int n_rows, int steps, int D, int H, int O, int rows, int form,
+                 cudaStream_t stream) {
   if (kSave != (res != nullptr)) return (int)cudaErrorInvalidValue;
   const MmaWeights wt{static_cast<const uint4*>(w1p), static_cast<const uint4*>(w2p),
                       static_cast<const uint4*>(fcp), static_cast<const float*>(b1p),
                       static_cast<const float*>(b2p)};
   if (dtype == 0)
-    return launch_mma<float, kSave>(x, wt, fcb, out, residuals_of<float>(res), n_rows, steps, D,
-                                    H, O, rows, stream);
+    return launch_form<float, kSave>(x, wt, fcb, out, residuals_of<float>(res), n_rows, steps,
+                                     D, H, O, rows, form, stream);
   if (dtype == 1)
-    return launch_mma<__nv_bfloat16, kSave>(x, wt, fcb, out, residuals_of<__nv_bfloat16>(res),
-                                            n_rows, steps, D, H, O, rows, stream);
+    return launch_form<__nv_bfloat16, kSave>(x, wt, fcb, out, residuals_of<__nv_bfloat16>(res),
+                                             n_rows, steps, D, H, O, rows, form, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,6 +19,13 @@ float32 the kernel computes each product as three TF32 products of split
 operands (a = big + small, both TF32: small.big + big.small + big.big, float32
 sums), which holds the float32 agreement floors; a single TF32 product does not.
 
+The sweep runs in one of two forms that `fwd_sweep_cluster` chooses by the
+fold's shape: the tile form (a CTA a row tile) or, at FullSubNet's
+full-band folds (H 512, a few row tiles), the cluster form (a cluster of 16
+CTAs a row tile, each owning 32 hidden units, h1 and h2 all-gathered
+through distributed shared memory). K1 and K2 (ops/lstm2_train.py) take
+the same form by the same rule, so their y is equal bit for bit.
+
 `lstm2_fc` takes the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor, or raises; it never falls back. `lstm2_fc_split`
 runs it over the fold's rows split across several cards (`fold_split`, the
@@ -41,6 +48,27 @@ from fullsubnet_plus_torch.ops import nvcc
 # kernel launches through lstm2_fc by card ("cuda:0", ...) since import (or last
 # clear); the total is sum(LAUNCHES.values())
 LAUNCHES: Counter = Counter()
+# the forward sweep's launches (K1's and K2's) by form: "lstm2_fwd cluster16",
+# "lstm2_train_fwd tile", ...
+FWD_SWEEP_FORMS: Counter = Counter()
+
+# The forward sweep's form (csrc/lstm2_fwd_sweep.cuh): None the one
+# `fwd_sweep_cluster` chooses, 0 the tile form (`sweep_mma_kernel`: a CTA a
+# tile of rows), FWD_CLUSTER the cluster form (`sweep_cluster_kernel`: a
+# cluster of 16 CTAs a tile of 16 rows, each owning 32 hidden units). Set to
+# time the forms; K1 and K2 both read it.
+FWD_SWEEP_FORM: int | None = None
+FWD_CLUSTER = 16  # CTAs of a cluster (CLUSTER_SIZE in the .cuh): H = 16 x 32
+FWD_CLUSTER_UNITS = 32  # hidden units a CTA of the cluster form owns (CL_UNITS)
+FWD_CLUSTER_KPARTS = 4  # k-parts of each of its products (CL_KPARTS)
+FWD_CLUSTER_FC_TILES = 4  # fc n-tiles a CTA of it may own (CL_FC_TILES)
+# The most rows the rule gives the cluster form: the largest fold at which
+# it measured faster than the tile form for K1 and K2 in both dtypes on the
+# H100 (its clusters run in waves of the 7 the card holds at once; in bf16
+# the tile form was as fast at N 768, in float32 from N 1280 or 1536:
+# PERF.md, `scripts/time_torch_fb_lstm.py --folds`, `time_torch_fb_train.py
+# --folds`)
+FWD_CLUSTER_MAX_ROWS = 512
 
 # The sweep's row tiles by dtype: one or two m16 tiles in bf16; one in float32,
 # where two operand buffers of 32 rows do not fit a block (PERF.md: one buffer
@@ -51,7 +79,7 @@ MAX_HIDDEN = 512  # the kernel's __launch_bounds__: one thread per hidden unit
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 class LSTM2Weights(NamedTuple):
@@ -320,6 +348,72 @@ def fwd_mma_row_tile(n: int, d_in: int, hidden: int, sm_count: int,
     return rows
 
 
+def fwd_cluster_shared_memory_bytes(d_in: int, hidden: int,
+                                    dtype: torch.dtype = torch.float32) -> int:
+    """csrc/lstm2_fwd_sweep.cuh, the cluster form (`cluster_shared_bytes`):
+    a CTA of a cluster of C = H / 32 holds an 8-byte mbarrier for each layer,
+    step parity and owner, the tile's h1 and h2 for both step parities as C
+    owners' blocks [16][32 + pad] in x's dtype (the pad 16 bytes), the x
+    tile [16][x_cols + pad], and float32 the k-part partials [4][4 gates][16]
+    [40] and the fc's [4 n-tiles][4][16][8]. O does not enter: the fc's
+    n-tiles are spread over the cluster."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    pad = FWD_MMA_PAD_BYTES // size
+    owners = hidden // FWD_CLUSTER_UNITS
+    return (8 * 4 * owners
+            + size * 16 * (4 * owners * (FWD_CLUSTER_UNITS + pad) + x_cols(d_in, dtype) + pad)
+            + 4 * (FWD_CLUSTER_KPARTS * 4 * 16 * (FWD_CLUSTER_UNITS + 8)
+                   + FWD_CLUSTER_FC_TILES * FWD_CLUSTER_KPARTS * 16 * 8))
+
+
+def fwd_sweep_cluster(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch.dtype) -> int:
+    """The forward sweep's form for a fold of n rows, by its shape alone:
+    FWD_CLUSTER, the cluster form (a cluster of 16 CTAs a row tile of 16,
+    each owning 32 hidden units, h1 and h2 all-gathered through distributed
+    shared memory; the clusters run in waves where the card holds fewer at
+    once), where H = 16 x 32, D <= H, the fc's n-tiles spread at most 4 a
+    CTA (O <= 512), n <= FWD_CLUSTER_MAX_ROWS and a CTA's shared memory fits
+    a block: FullSubNet's full-band folds; else 0, the tile form (a CTA a row
+    tile), which the shipped folds (H 384) and FullSubNet's sub-band fold
+    take. The launch takes the form it is given: one refused raises, none
+    falls back. (csrc/lstm2_fwd_sweep.cuh's `cluster_runs` checks the shape
+    again.)"""
+    if dtype not in _DTYPE_CODES or hidden != FWD_CLUSTER * FWD_CLUSTER_UNITS:
+        return 0
+    if d_in > hidden or -(-out_dim // 8) > FWD_CLUSTER_FC_TILES * FWD_CLUSTER:
+        return 0
+    if n > FWD_CLUSTER_MAX_ROWS:
+        return 0
+    fits = fwd_cluster_shared_memory_bytes(d_in, hidden, dtype) <= SMEM_LIMIT
+    return FWD_CLUSTER if fits else 0
+
+
+def fwd_sweep_form(x: torch.Tensor, w: LSTM2Weights) -> int:
+    """The form a forward sweep of x takes, K1's and K2's alike:
+    FWD_SWEEP_FORM when set, else `fwd_sweep_cluster`'s."""
+    if FWD_SWEEP_FORM is not None:
+        return FWD_SWEEP_FORM
+    n, d, _ = x.shape
+    return fwd_sweep_cluster(n, d, w.u1.shape[0], w.fc_w.shape[1], x.dtype)
+
+
+def fwd_sweep_launch(x: torch.Tensor, w: LSTM2Weights) -> tuple[int, int]:
+    """(form, row tile) of a forward sweep of x on its card, the pair K1 and
+    K2 both pass to their C entry points: `fwd_sweep_form`, and 16 for the
+    cluster form or `fwd_mma_row_tile` for the tile form."""
+    form = fwd_sweep_form(x, w)
+    if form:
+        return form, 16
+    n, d, _ = x.shape
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return form, fwd_mma_row_tile(n, d, w.u1.shape[0], sm_count, x.dtype)
+
+
+def count_form(name: str, form: int) -> None:
+    """One launch of a forward sweep (`name`) in `form`, in FWD_SWEEP_FORMS."""
+    FWD_SWEEP_FORMS[f"{name} {f'cluster{form}' if form else 'tile'}"] += 1
+
+
 def _check(x: torch.Tensor, w: LSTM2Weights) -> None:
     n, d, _ = x.shape
     hidden = w.u1.shape[0]
@@ -349,8 +443,7 @@ def _launch(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
     _check(x, w)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows = fwd_mma_row_tile(n, d, hidden, sm_count, x.dtype)
+    form, rows = fwd_sweep_launch(x, w)
     packed = pack_fwd_mma(w)
     x_tnd = x.permute(2, 0, 1).contiguous()  # [T, N, D]: a step's rows are contiguous
     out = torch.empty(n, steps, out_dim, dtype=x.dtype, device=x.device)
@@ -360,11 +453,13 @@ def _launch(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = lib.lstm2_fwd(
             *(a.data_ptr() for a in args),
-            n, steps, d, hidden, out_dim, rows, _DTYPE_CODES[x.dtype], stream,
+            n, steps, d, hidden, out_dim, rows, form, _DTYPE_CODES[x.dtype], stream,
         )
     if err != 0:
-        raise RuntimeError(f"lstm2_fwd launch failed: CUDA error {err}")
+        what = f" (the cluster form, clusters of {form})" if form else ""
+        raise RuntimeError(f"lstm2_fwd launch failed{what}: CUDA error {err}")
     LAUNCHES[str(x.device)] += 1
+    count_form("lstm2_fwd", form)
     return out
 
 

@@ -8,7 +8,8 @@ kernels:
 
   * `_residual_kernel` (:322, pallas_call at :638) -> csrc/lstm2_train_fwd.cu:
     the forward sweep of ops/lstm2.py (on the tensor cores, from the weights
-    `pack_fwd_mma` packs; in float32 as three TF32 products) that also
+    `pack_fwd_mma` packs; in float32 as three TF32 products; in the form and
+    row tile K1 takes, `fwd_sweep_launch`) that also
     stores the activated gates
     [sigma(i), sigma(f), tanh(g), sigma(o)] and c, h of both layers, in x's
     dtype, as [T, N, 4H] and [T, N, H];
@@ -60,9 +61,10 @@ from fullsubnet_plus_torch.ops.lstm2 import (
     MAX_HIDDEN,
     SMEM_LIMIT,
     LSTM2Weights,
+    count_form,
     fold_split,
-    fwd_mma_row_tile,
     fwd_mma_shared_memory_bytes,
+    fwd_sweep_launch,
     pack_fwd_mma,
     pack_mma_b,
     pack_tf32_b,
@@ -122,7 +124,7 @@ WGRAD_W1_TILE = (48, 64)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_PTR] * 14 + [_INT] * 7 + [_PTR]
+_FWD_ARGTYPES = [_PTR] * 14 + [_INT] * 8 + [_PTR]
 _BWD_ARGTYPES = [_PTR] * 12 + [_INT] * 9 + [_PTR]
 _WGRAD_ARGTYPES = [_PTR] * 23 + [_INT] * 9 + [_PTR]
 
@@ -535,8 +537,9 @@ def _check_residuals(name: str, x: torch.Tensor, res: Residuals, hidden: int) ->
 
 def _call(name: str, argtypes: list, x: torch.Tensor, *args, form: int | None = None) -> None:
     """Launch `name` of csrc/<name>.cu on x's device and current stream,
-    raise on a refused launch, and count the launch (and, for a reverse
-    sweep, its `form`)."""
+    raise on a refused launch, and count the launch and its sweep's `form`
+    (the forward's in ops/lstm2.py's FWD_SWEEP_FORMS, a reverse sweep's in
+    SWEEP_FORMS)."""
     lib = nvcc.load(name, name, argtypes)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -547,17 +550,19 @@ def _call(name: str, argtypes: list, x: torch.Tensor, *args, form: int | None = 
         raise RuntimeError(f"{name} launch failed{what}: CUDA error {err}")
     LAUNCHES[name] += 1
     LAUNCHES_BY_CARD[f"{name} {x.device}"] += 1
-    if form is not None:
+    if name == "lstm2_train_fwd":
+        count_form(name, form)
+    elif form is not None:
         SWEEP_FORMS[f"{name} {f'cluster{form}' if form else 'tile'}"] += 1
 
 
 def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
-    # K1's row tile at this N (`fwd_mma_row_tile`), so y is K1's bit for bit
-    rows = _check("lstm2_train_fwd", x, w,
-                  functools.partial(fwd_shared_memory_bytes, dtype=x.dtype),
-                  lambda n_rows, sm_count: fwd_mma_row_tile(n_rows, d, hidden, sm_count, x.dtype))
+    _check("lstm2_train_fwd", x, w, functools.partial(fwd_shared_memory_bytes, dtype=x.dtype),
+           lambda *_: 16)
+    # K1's form and row tile at this N (`fwd_sweep_launch`), so y is K1's bit for bit
+    form, rows = fwd_sweep_launch(x, w)
     packed = pack_fwd_mma(w)
     x_tnd = x.permute(2, 0, 1).contiguous()  # [T, N, D]: a step's rows are contiguous
 
@@ -568,7 +573,7 @@ def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
     res = Residuals(*(empty(steps, n, 4 * hidden if f[0] == "g" else hidden)
                       for f in Residuals._fields))
     _call("lstm2_train_fwd", _FWD_ARGTYPES, x, x_tnd, *packed, w.fc_b, out, *res, n, steps, d,
-          hidden, out_dim, rows, _DTYPE_CODES[x.dtype])
+          hidden, out_dim, rows, form, _DTYPE_CODES[x.dtype], form=form)
     return out, res
 
 

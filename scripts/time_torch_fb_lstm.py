@@ -6,6 +6,7 @@ call on one card:
 
     python3 scripts/time_torch_fb_lstm.py                        (this tree)
     cd _parent && python3 ../scripts/time_torch_fb_lstm.py       (another)
+    python3 scripts/time_torch_fb_lstm.py --folds                (K1's two forms over folds)
 
 Needs an NVIDIA GPU; imports `fullsubnet_plus_torch` from the working
 directory, and the operands, the cuDNN yardstick, the bounds and the timer
@@ -18,9 +19,17 @@ registers and spills (ptxas), then:
     `lstm2_int8_fc`, each against its plain version (SNR, max abs), equal
     on a repeat, timed beside the plain version, cuDNN's LSTM(257, 512, 2)
     + Linear(512, 257) (float32 with TF32 off, bf16 for K5: a yardstick)
-    and the bound; and the three at a ragged fold (N 5, T 37);
+    and the bound, K1 in the form the rule takes there and, in a tree with
+    the forward's cluster form, with the tile form forced too; and the
+    three at a ragged fold (N 5, T 37);
   * at the sub-band batch fold (N 2056, T 629): K1 in float32 and bf16,
     timed (this tree's shipped shape; compare it with the parent's).
+
+With `--folds`, K1 alone at the full-band shape, T 629, over folds from N 8
+to 2112 (132 row tiles: one tile-form CTA an SM) in both dtypes, in both
+forms forced (`FWD_SWEEP_FORM`), the median of 3 timings of each and which
+is faster: what `FWD_CLUSTER_MAX_ROWS` is set from (the cluster form's
+clusters run in waves of the few the card holds at once).
 
 A tree whose float32 K1 refuses the full-band shape prints the refusal and
 goes on. One warm-up, median of 5, CUDA events. Imports nothing of JAX.
@@ -65,6 +74,15 @@ def case(n, t, shape, dtype, seed, timed):
     line = (f"{tag}: SNR {smoke.snr_db(ref, out.float()):.1f} dB, max abs "
             f"{float((out.float() - ref).abs().max()):.3e}, equal on a repeat "
             f"{torch.equal(out, again)}")
+    if timed and dtype is not None and hasattr(lstm2, "FWD_SWEEP_FORM"):
+        form = lstm2.fwd_sweep_form(x, w)
+        lstm2.FWD_SWEEP_FORM = 0
+        try:
+            tile = smoke.cuda_ms(lambda: kernel(x, w), reps=5)
+        finally:
+            lstm2.FWD_SWEEP_FORM = None
+        line += (f"; the rule's form {f'clusters of {form}' if form else 'tiles'}, "
+                 f"the tile form forced {tile:.3f} ms")
     if timed:
         library = smoke.cudnn_lstm(lstm, fc, dtype or torch.bfloat16)
         bound, _ = (smoke.int8_bound_ms(n, t, shape=shape) if dtype is None
@@ -76,12 +94,43 @@ def case(n, t, shape, dtype, seed, timed):
     print(line)
 
 
+FOLDS = (8, 18, 112, 256, 512, 768, 1024, 1536, 2112)
+
+
+def folds():
+    """K1 at the full-band shape, T 629, in both forms forced over FOLDS."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name, faster = str(dtype)[6:], []
+        for n in FOLDS:
+            x, w, _, _ = smoke.lstm_operands(n, 629, dtype, n, FB)
+            times = {}
+            for form, tag in ((lstm2.FWD_CLUSTER, "cluster form"), (0, "tile form")):
+                lstm2.FWD_SWEEP_FORM = form
+                try:
+                    times[tag] = smoke.cuda_ms(lambda: lstm2.lstm2_fc(x, w), reps=3)
+                finally:
+                    lstm2.FWD_SWEEP_FORM = None
+            if times["cluster form"] < times["tile form"]:
+                faster.append(n)
+            rule = lstm2.fwd_sweep_cluster(n, *FB, dtype)
+            print(f"fb N{n} T629 {name} K1 ms: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+                  + f"; the rule takes {f'clusters of {rule}' if rule else 'the tile form'}",
+                  flush=True)
+            del x, w
+            torch.cuda.empty_cache()
+        print(f"fb {name}: K1's cluster form is faster at N {faster}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"card: {card.strip().splitlines()[0]}; tree {os.getcwd()}")
+    if "--folds" in sys.argv[1:]:
+        folds()
+        return
     for stem in ("lstm2_fwd", "lstm2_int8_fwd"):
         for function, (regs, stores, loads) in smoke.ptxas_functions(nvcc.build(stem)).items():
             print(f"  ptxas {stem}: {function[:70]}: {regs} registers, spill stores {stores} "

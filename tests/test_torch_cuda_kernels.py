@@ -15,10 +15,12 @@ gives the same bits at both bf16 row tiles, and K3 equals itself on a
 repeat, also over several chunks: in bf16 at every tile shape of its
 tensor-core weight gradients, and in float32; K5 equals itself on a repeat
 at both of its row tiles and runs FullSubNet's full-band shape (D 257, H
-512, O 257). At that shape the reverse sweep takes its cluster form, held
-to the plain versions and to its tile form, over chunks, in waves of
-clusters and with one CTA's sends made late. chip_smoke.py repeats these
-checks at the model's folds.
+512, O 257). At that shape the forward and reverse sweeps take their
+cluster forms, held to the plain versions and to their tile forms (K1 and
+K2 at several folds, in waves of clusters; K3 and K4 over chunks, in waves
+and with one CTA's sends made late), and a cluster launch at a shape the
+kernel does not run raises. chip_smoke.py repeats these checks at the
+model's folds.
 """
 
 import importlib.util
@@ -128,9 +130,9 @@ def test_float32_forward_on_tensor_cores_on_cuda(monkeypatch, n, t, h, o):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_forward_runs_the_fullsubnet_full_band_shape(dtype):
     """FullSubNet's full-band LSTM shape (D 257, H 512, O 257: x padded to
-    272 float32 or 288 bf16 columns, the 512-thread build, 33 n-tiles of the
-    fc over 16 warps) at R 16 on a small ragged fold, against the plain
-    version (float32 80 dB, bf16 40 dB), and K2's y equal to K1's."""
+    272 float32 or 288 bf16 columns, 33 n-tiles of the fc) on a small
+    ragged fold in the form the rule takes (the cluster form), against the
+    plain version (float32 80 dB, bf16 40 dB), and K2's y equal to K1's."""
     _need_card()
     lstm, linear = _modules(257, 512, 257, dtype, seed=6)
     x = torch.rand(11, 257, 9, generator=torch.Generator().manual_seed(7)).mul(2).to("cuda", dtype)
@@ -321,6 +323,64 @@ def test_float32_wgrad_sweep_matches_plain_over_chunks(monkeypatch, d, hidden):
 
 
 FB = (257, 512, 257)  # FullSubNet's full-band LSTM: D, H, O
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(8, 9), (18, 9), (112, 5), (256, 3), (7, 13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_cluster_form_matches_plain_and_tile_on_cuda(monkeypatch, dtype, n, t):
+    """The forward sweep's cluster form at FullSubNet's full-band shape (N 8
+    a batch, 18 training, 112 seven clusters, 256 sixteen: more than the
+    H100 holds at once, so they run in waves; T ragged): the rule takes it,
+    K1's y and K2's y and residuals agree with the plain versions and with
+    the tile form forced (FWD_SWEEP_FORM 0) at the floors, K2's y equals
+    K1's bit for bit, K1 equals itself on a repeat, and each launch is
+    counted by its form."""
+    _need_card()
+    assert ops_lstm2.fwd_sweep_cluster(n, *FB, dtype) == 16
+    lstm, linear = _modules(*FB, dtype, seed=n)
+    x = torch.rand(n, FB[0], t, generator=torch.Generator().manual_seed(t)).mul(2).to("cuda", dtype)
+    w = lstm.packed(linear)
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORMS", type(ops_lstm2.FWD_SWEEP_FORMS)())
+    y, again = ops_lstm2.lstm2_fc(x, w), ops_lstm2.lstm2_fc(x, w)
+    y2, res = lt.lstm2_train_fwd(x, w)
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", 0)
+    tile = ops_lstm2.lstm2_fc(x, w)
+    y2_tile, res_tile = lt.lstm2_train_fwd(x, w)
+    torch.cuda.synchronize()
+    assert ops_lstm2.FWD_SWEEP_FORMS == {"lstm2_fwd cluster16": 2, "lstm2_train_fwd cluster16": 1,
+                                         "lstm2_fwd tile": 1, "lstm2_train_fwd tile": 1}
+    assert torch.equal(y, again) and torch.equal(y, y2) and torch.equal(tile, y2_tile)
+    y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+    snrs = {"y": _snr(y_ref.float(), y.float()), "y_vs_tile": _snr(tile.float(), y.float())}
+    snrs.update({name: _snr(a.float(), b.float()) for name, a, b in zip(res._fields, res_ref, res)})
+    snrs.update({f"{name}_vs_tile": _snr(a.float(), b.float())
+                 for name, a, b in zip(res._fields, res_tile, res)})
+    assert min(snrs.values()) >= FLOOR[dtype], snrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_cluster_form_refuses_a_shape_it_does_not_run(monkeypatch, dtype):
+    """The cluster form forced at FullSubNet+'s sub-band shape (H 384, not
+    16 x 32): the kernel refuses the launch (`fwd::cluster_runs`) and K1 and
+    K2 raise, naming the form; nothing is launched or counted, and no path
+    falls back to the tile form."""
+    _need_card()
+    lstm, linear = _modules(34, 384, 2, dtype, seed=3)
+    x = torch.rand(20, 34, 4, generator=torch.Generator().manual_seed(3)).to("cuda", dtype)
+    w = lstm.packed(linear)
+    assert ops_lstm2.fwd_sweep_cluster(20, 34, 384, 2, dtype) == 0
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", 16)
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORMS", type(ops_lstm2.FWD_SWEEP_FORMS)())
+    before = (sum(ops_lstm2.LAUNCHES.values()), lt.LAUNCHES["lstm2_train_fwd"])
+    with pytest.raises(RuntimeError, match="cluster form, clusters of 16"):
+        ops_lstm2.lstm2_fc(x, w)
+    with pytest.raises(RuntimeError, match="cluster form, clusters of 16"):
+        lt.lstm2_train_fwd(x, w)
+    torch.cuda.synchronize()
+    assert (sum(ops_lstm2.LAUNCHES.values()), lt.LAUNCHES["lstm2_train_fwd"]) == before
+    assert not ops_lstm2.FWD_SWEEP_FORMS
 
 
 def _fb_case(n, t, dtype, seed):

@@ -15,6 +15,9 @@ residuals and dgates to bf16 at the same points; XLA's CPU bf16 products
 and torch's differ in sum order, which moves single roundings).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -887,6 +890,290 @@ def test_bwd_cluster_shared_memory(dtype):
     assert got == 128 + size * 16 * 16 * (128 + 16 // size) + 4 * (48 * 260 + 8 * 16 * 72 + 16 * 32)
     assert got == {4: 224_128, 2: 158_592}[size] <= ops_lstm2.SMEM_LIMIT
     assert lt.bwd_cluster_shared_memory_bytes(34, 512, 257, dtype) == got  # D does not enter
+
+
+# ---------------------------------------------------------------------------
+# the forward sweep's cluster form (csrc/lstm2_fwd_sweep.cuh, sweep_cluster_kernel)
+# ---------------------------------------------------------------------------
+
+def _fwd_cluster_kparts(d_in, hidden, kch=16):
+    """Each k-part's k-chunks of the three products in the order a warp of
+    `sweep_cluster_kernel` runs them, as row indices of the operand: layer 1
+    ([x | h1], x padded to x_cols) its run of the x chunks, then its run of
+    the h chunks (owner-major: owner o's block holds units [32o, 32o + 32));
+    layer 2 ([h1 | h2]) the same h chunks of h2 first, then of h1; the fc
+    (over h2) the same h chunks."""
+    dtype = torch.float32 if kch == 16 else torch.bfloat16
+    xc = ops_lstm2.x_cols(d_in, dtype)
+    parts, xch, hch = ops_lstm2.FWD_CLUSTER_KPARTS, xc // kch, hidden // kch
+
+    def rows(chunks, base=0):
+        return [base + kch * q + i for q in chunks for i in range(kch)]
+
+    out = []
+    for kp in range(parts):
+        xs = range(kp * xch // parts, (kp + 1) * xch // parts)
+        hs = range(kp * hch // parts, (kp + 1) * hch // parts)
+        out.append({"layer1": rows(xs) + rows(hs, xc), "layer2": rows(hs, hidden) + rows(hs),
+                    "fc": rows(hs)})
+    return out
+
+
+def _fwd_cluster_columns(rank, cluster, hidden, out_dim):
+    """The output columns CTA `rank` computes: the gates of its units [32c,
+    32c + 32) (gate-major columns g H + unit) and the fc n-tiles nt = c (mod
+    C), the one of index i taken by unit group i's warps, columns past O cut."""
+    units = ops_lstm2.FWD_CLUSTER_UNITS
+    assert hidden == cluster * units
+    gates = [g * hidden + rank * units + u for g in range(4) for u in range(units)]
+    tiles = list(range(rank, -(-out_dim // 8), cluster))
+    assert len(tiles) <= ops_lstm2.FWD_CLUSTER_FC_TILES
+    return gates, [8 * nt + i for nt in tiles for i in range(8) if 8 * nt + i < out_dim]
+
+
+def _fwd_cluster_walk(x, w, cluster):
+    """The float32 cluster form walked as the kernel walks it: per step, each
+    CTA's products over its own 16 gate-interleaved n-tiles of the packed w1
+    and w2 (`_tf32_fragment_matrix`) as FWD_CLUSTER_KPARTS k-parts in the
+    warps' chunk order (`_fwd_cluster_kparts`), each three TF32 products of
+    split operands with per-chunk partials (`_three_tf32`), added in k-part
+    order onto the bias; the cells (h not rounded); the tile's whole h1 and
+    h2 (the exchange); the fc of its n-tiles over h2 in k-parts, then + b_fc.
+    -> (y [N, T, O], g1, c1, h1, g2, c2, h2 [T, N, .])."""
+    n, d_in, steps = x.shape
+    hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
+    units = ops_lstm2.FWD_CLUSTER_UNITS
+    p, xc = ops_lstm2.pack_fwd_mma(w), ops_lstm2.x_cols(d_in, torch.float32)
+    kparts = _fwd_cluster_kparts(d_in, hidden)
+
+    def gate_major(b):  # a CTA's 128 interleaved columns 8 (4ug + g) + j -> g 32 + 8ug + j
+        return b.reshape(*b.shape[:-1], 4, 4, 8).transpose(-3, -2).reshape(*b.shape[:-1], 128)
+
+    ctas = []
+    for c in range(cluster):
+        tiles = slice(16 * c, 16 * (c + 1))  # unit groups 4c .. 4c + 3: their gate n-tiles
+        ctas.append({
+            "b1": gate_major(_tf32_fragment_matrix(p.w1[tiles], 128)),
+            "b2": gate_major(_tf32_fragment_matrix(p.w2[tiles], 128)),
+            "bias1": gate_major(p.b1[128 * c:128 * (c + 1)]),
+            "bias2": gate_major(p.b2[128 * c:128 * (c + 1)]),
+            "cols": _fwd_cluster_columns(c, cluster, hidden, out_dim)})
+    b_fc = _tf32_fragment_matrix(p.fc, out_dim)
+
+    def layer(a, which, c_state):  # every CTA's own units -> (activated gates, c, h)
+        act, c_new, h = torch.zeros(n, 4 * hidden), torch.zeros(n, hidden), torch.zeros(n, hidden)
+        for c, cta in enumerate(ctas):
+            own = slice(units * c, units * (c + 1))
+            s = cta[f"bias{which}"].expand(n, -1).clone()
+            for k in kparts:
+                rows = k[f"layer{which}"]
+                s = s + _three_tf32(a[:, rows], cta[f"b{which}"][rows])
+            pre = s.reshape(n, 4, units)
+            i, f, g, o = (torch.sigmoid(pre[:, 0]), torch.sigmoid(pre[:, 1]),
+                          torch.tanh(pre[:, 2]), torch.sigmoid(pre[:, 3]))
+            c_new[:, own] = f * c_state[:, own] + i * g
+            h[:, own] = o * torch.tanh(c_new[:, own])
+            act[:, cta["cols"][0]] = torch.stack([i, f, g, o], 1).reshape(n, -1)
+        return act, c_new, h
+
+    h1, c1, h2, c2 = (torch.zeros(n, hidden) for _ in range(4))
+    ys, saved = [], []
+    for t in range(steps):
+        g1, c1, h1 = layer(torch.cat([torch.nn.functional.pad(x[:, :, t], (0, xc - d_in)), h1], 1),
+                           1, c1)
+        g2, c2, h2 = layer(torch.cat([h1, h2], 1), 2, c2)
+        y = torch.zeros(n, out_dim)
+        for cta in ctas:
+            cols = cta["cols"][1]
+            s = torch.zeros(n, len(cols))
+            for k in kparts:
+                s = s + _three_tf32(h2[:, k["fc"]], b_fc[k["fc"]][:, cols])
+            y[:, cols] = s + w.fc_b[cols]
+        ys.append(y)
+        saved.append([g1, c1, h1, g2, c2, h2])
+    return (torch.stack(ys, 1), *(torch.stack(s) for s in zip(*saved)))
+
+
+@pytest.mark.parametrize("n,t,d,h,o,cluster", [(37, 4, 34, 64, 2, 2), (21, 3, 10, 128, 11, 4)])
+def test_fwd_cluster_walk_holds_the_float32_floors(n, t, d, h, o, cluster):
+    """The float32 cluster form walked in the kernel's order (each CTA its
+    own 32 units' gate n-tiles of the packed weights and its own fc n-tiles,
+    k-parts of three TF32 products with per-chunk partials added in order;
+    clusters of 2 and 4, D 34 and 10 padded to float32 k-chunks, O 11 over
+    two n-tiles) gives the JAX kernel's y (`stacked_lstm2`, interpret mode,
+    HIGHEST precision) and `lstm2_train_fwd_reference`'s residuals at 100 dB
+    or more, the floor the tile form's walk holds."""
+    params, fc, x, _ = _case(n, t, d, h, o)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(lp.stacked_lstm2(jax.tree_util.tree_map(jnp.asarray, params),
+                                           jnp.asarray(x), jax.tree_util.tree_map(jnp.asarray, fc),
+                                           tile_n=64, interpret=True))
+    w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, requires_grad=False))
+    y, *res = _fwd_cluster_walk(torch.tensor(x), w, cluster)
+    _, res_ref = lt.lstm2_train_fwd_reference(torch.tensor(x), w)
+    snrs = {"y": _snr_db(torch.tensor(want), y),
+            **{f: _snr_db(e, r) for f, r, e in zip(lt.Residuals._fields, res, res_ref)}}
+    assert y.shape == want.shape and all(r.shape == e.shape for r, e in zip(res, res_ref))
+    assert min(snrs.values()) >= 100.0, snrs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_sweep_cluster_rule(dtype):
+    """The forward sweep's form (`fwd_sweep_cluster`, by shape alone): the
+    tile form (0) at the shipped batch and training folds (D 34, H 384, O 2),
+    FullSubNet's sub-band fold (D 32) and a card's half of the training fold;
+    clusters of 16 at FullSubNet's full-band shape (D 257, H 512, O 257) for
+    N 7 (the JAX fixture's), 8 (a batch), 18 (training) and up to
+    FWD_CLUSTER_MAX_ROWS; the tile form past it, for another H, D > H and an
+    O whose fc n-tiles overflow 4 a CTA. FWD_SWEEP_FORM overrides the rule."""
+    for n, d, h, o in ((2056, 34, 384, 2), (2304, 34, 384, 2), (2056, 32, 384, 2),
+                       (1152, 34, 384, 2), (8, 257, 384, 257)):
+        assert ops_lstm2.fwd_sweep_cluster(n, d, h, o, dtype) == 0
+    for n in (7, 8, 18, 112, ops_lstm2.FWD_CLUSTER_MAX_ROWS):
+        assert ops_lstm2.fwd_sweep_cluster(n, 257, 512, 257, dtype) == ops_lstm2.FWD_CLUSTER == 16
+    past = ops_lstm2.FWD_CLUSTER_MAX_ROWS + 1
+    assert ops_lstm2.fwd_sweep_cluster(past, 257, 512, 257, dtype) == 0
+    assert ops_lstm2.fwd_sweep_cluster(8, 257, 256, 257, dtype) == 0
+    assert ops_lstm2.fwd_sweep_cluster(8, 513, 512, 257, dtype) == 0
+    assert ops_lstm2.fwd_sweep_cluster(8, 257, 512, 512, dtype) == 16
+    assert ops_lstm2.fwd_sweep_cluster(8, 257, 512, 513, dtype) == 0
+    assert ops_lstm2.fwd_sweep_cluster(8, 257, 512, 257, torch.float64) == 0
+    x = torch.zeros(8, 257, 1, dtype=dtype)
+    w = ops_lstm2.pack_weights(*_torch_tensors(*_case(2, 1, 257, 512, 257)[:2], dtype,
+                                               requires_grad=False))
+    assert ops_lstm2.fwd_sweep_form(x, w) == 16
+    for forced in (0, 16):
+        ops_lstm2.FWD_SWEEP_FORM = forced
+        try:
+            assert ops_lstm2.fwd_sweep_form(x, w) == forced
+        finally:
+            ops_lstm2.FWD_SWEEP_FORM = None
+
+
+class _FakeForwardLibrary:
+    """Stands in for the built K1 and K2 libraries: records each call's row
+    tile and form (the C entry points' arguments after n, steps, D, H, O) and
+    refuses the cluster form off H 512, as `fwd::cluster_runs` does."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, name, args, first_int):
+        n, steps, d, h, o, rows, form = args[first_int:first_int + 7]
+        self.calls.append((name, rows, form))
+        return 1 if form and h != 512 else 0
+
+    def lstm2_fwd(self, *args):
+        return self._record("lstm2_fwd", args, 8)
+
+    def lstm2_train_fwd(self, *args):
+        return self._record("lstm2_train_fwd", args, 14)
+
+
+@pytest.fixture
+def fake_forward(monkeypatch):
+    """K1's and K2's launch paths on CPU tensors, down to the C call, which
+    `_FakeForwardLibrary` takes: no card, no nvcc."""
+    import collections
+    import contextlib
+    import types
+
+    from fullsubnet_plus_torch.ops import nvcc
+
+    lib = _FakeForwardLibrary()
+    monkeypatch.setattr(nvcc, "load", lambda *_: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *_: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda *_: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *_: types.SimpleNamespace(multi_processor_count=132))
+    for module, name in ((ops_lstm2, "LAUNCHES"), (ops_lstm2, "FWD_SWEEP_FORMS"),
+                         (lt, "LAUNCHES_BY_CARD")):
+        monkeypatch.setattr(module, name, collections.Counter())
+    monkeypatch.setattr(lt, "LAUNCHES", dict.fromkeys(lt.LAUNCHES, 0))
+    return lib
+
+
+@pytest.mark.parametrize("n,d,h,o,dtype,want", [
+    (7, 257, 512, 257, torch.float32, (16, 16)), (18, 257, 512, 257, torch.bfloat16, (16, 16)),
+    (2304, 34, 384, 2, torch.bfloat16, (32, 0)), (2056, 34, 384, 2, torch.float32, (16, 0))])
+def test_fwd_k1_and_k2_take_the_same_form(fake_forward, monkeypatch, n, d, h, o, dtype, want):
+    """K1's `_launch` and K2's `_launch_train_fwd` pass the same (row tile,
+    form) to their C entry points, the rule's (clusters of 16, rows 16, at
+    FullSubNet's full-band folds; the tile form with `fwd_mma_row_tile`'s R
+    at the shipped folds), count each launch by form, and take a forced
+    form; a form the kernel refuses raises, naming it, with no fallback."""
+    params, fc = _case(2, 1, d, h, o)[:2]
+    w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, dtype, requires_grad=False))
+    x = torch.zeros(n, d, 2, dtype=dtype)
+    ops_lstm2._launch(x, w)
+    lt._launch_train_fwd(x, w)
+    assert fake_forward.calls == [("lstm2_fwd", *want), ("lstm2_train_fwd", *want)]
+    tag = f"cluster{want[1]}" if want[1] else "tile"
+    assert ops_lstm2.FWD_SWEEP_FORMS == {f"lstm2_fwd {tag}": 1, f"lstm2_train_fwd {tag}": 1}
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", 16 - want[1])
+    forced = [] if h == 512 else [pytest.raises(RuntimeError, match="cluster form, clusters of 16")]
+    for launch in (ops_lstm2._launch, lt._launch_train_fwd):
+        if forced:
+            with forced[0]:
+                launch(x, w)
+        else:
+            launch(x, w)
+    assert [c[2] for c in fake_forward.calls[2:]] == [16 - want[1]] * 2
+
+
+@pytest.mark.parametrize("d", [257, 34])
+@pytest.mark.parametrize("cluster", [2, 4, 16])
+def test_fwd_cluster_columns_have_one_owner(cluster, d):
+    """Over H = 32 C split into C CTAs of 32 units, every gate column (4H)
+    and every fc n-tile (at C 16 O 257: 33 n-tiles, at most 3 a CTA, and 4
+    at O 512; at C 2 and 4 a ragged O of 4C - 1 n-tiles) has exactly one
+    owning CTA; each product's k-parts cover its K (layer 1 x_cols(D) + H,
+    layer 2 2H, the fc H) once, in both dtypes' k-chunks (16 float32 words,
+    32 bf16 ones), and at C 16 each k-part's h chunks span 4 owners' blocks."""
+    hidden = ops_lstm2.FWD_CLUSTER_UNITS * cluster
+    out_dim = 257 if cluster == 16 else 32 * cluster - 3
+    gates, fc_cols = np.zeros(4 * hidden, int), np.zeros(out_dim, int)
+    for c in range(cluster):
+        own_gates, own_fc = _fwd_cluster_columns(c, cluster, hidden, out_dim)
+        np.add.at(gates, own_gates, 1)
+        np.add.at(fc_cols, own_fc, 1)
+    assert (gates == 1).all() and (fc_cols == 1).all()
+    assert len(_fwd_cluster_columns(0, 16, 512, 512)[1]) == 4 * 8
+    for kch, dtype in ((16, torch.float32), (32, torch.bfloat16)):
+        kparts = _fwd_cluster_kparts(d, hidden, kch)
+        xc = ops_lstm2.x_cols(d, dtype)
+        for which, k in (("layer1", xc + hidden), ("layer2", 2 * hidden), ("fc", hidden)):
+            assert sorted(sum((p[which] for p in kparts), [])) == list(range(k))
+        if cluster == 16:
+            for p in kparts:
+                assert len({row // ops_lstm2.FWD_CLUSTER_UNITS for row in p["fc"]}) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_cluster_shared_memory(dtype):
+    """The cluster form's shared memory at FullSubNet's full-band shape (D
+    257, H 512, O 257), clusters of 16: 64 mbarriers (512 bytes), h1 and h2
+    for both step parities as 16 owners' blocks [16][32 + pad] (147,456 bytes
+    in float32, 81,920 in bf16), the x tile [16][x_cols + pad] (17,664 /
+    9,472), the k-part partials [4][4][16][40] (40,960) and the fc's
+    [4][4][16][8] (8,192): 214,784 / 141,056 bytes, under the 232,448 a block
+    may use; the .cuh's constants are the ones reckoned with."""
+    size = 4 if dtype == torch.float32 else 2
+    got = ops_lstm2.fwd_cluster_shared_memory_bytes(257, 512, dtype)
+    xc = ops_lstm2.x_cols(257, dtype)
+    assert got == (512 + size * (4 * 16 * 16 * (32 + 16 // size) + 16 * (xc + 16 // size))
+                   + 4 * (4 * 4 * 16 * 40 + 4 * 4 * 16 * 8))
+    assert got == {4: 214_784, 2: 141_056}[size] <= ops_lstm2.SMEM_LIMIT
+    assert ops_lstm2.fwd_cluster_shared_memory_bytes(34, 512, dtype) < got
+    source = (Path(ops_lstm2.__file__).parent.parent / "csrc" / "lstm2_fwd_sweep.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\w+(?: \+ \d+)?);", source))
+    assert consts["CLUSTER_SIZE"] == str(ops_lstm2.FWD_CLUSTER)
+    assert consts["CL_UNITS"] == str(ops_lstm2.FWD_CLUSTER_UNITS)
+    assert consts["CL_KPARTS"] == str(ops_lstm2.FWD_CLUSTER_KPARTS)
+    assert consts["CL_FC_TILES"] == str(ops_lstm2.FWD_CLUSTER_FC_TILES)
+    assert consts["CL_PART_LD"] == "CL_UNITS + 8" and consts["CL_FC_LD"] == "8"
+    assert consts["CL_PAD_BYTES"] == str(ops_lstm2.FWD_MMA_PAD_BYTES)
 
 
 # ---------------------------------------------------------------------------
