@@ -21,9 +21,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      float32, TF32 HMMA instructions; print the float32 reverse sweeps',
      the cluster forms' and the weight-gradient kernels' registers and
      spills (ptxas);
-     K5's sweep `int8_sweep_kernel` must have IMMA (s8) and HMMA (bf16)
-     tensor-core instructions and no IDP (`__dp4a`) one, with its registers
-     and spills printed;
+     K5's sweeps, the tile form `int8_sweep_kernel` and the cluster form
+     `int8_sweep_cluster_kernel`, must have IMMA (s8) and HMMA (bf16)
+     tensor-core instructions and no IDP (`__dp4a`) one, with their
+     registers and spills printed;
   2. hold each kernel against the JAX kernel's outputs (the committed
      tests/fixtures/torch_kernel_fixture.npz, interpret mode on the CPU, at
      small ragged shapes; same floors) and against its plain PyTorch version
@@ -33,8 +34,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      at the training fold (same floors; K2's y equal to K1's bit for bit,
      K3 equal to itself on a repeat, the autograd Function's gradients
      through K3 against those through K4), all at a ragged shape too; K5
-     equal to itself on a repeat at each fold; check that the fragments K5
-     reads unpack to the prepared int8 weights; the forward sweep's form by
+     equal to itself on a repeat at each fold, in the tile form at all
+     three, and a digest of its output at the serving fold from the
+     operands `scripts/time_torch_fb_train.py --shipped` makes (equal to
+     another checkout's line where the bits are); check that the fragments
+     K5 reads unpack to the prepared int8 weights; the forward sweep's form by
      the rule at each fold (the tile form at the shipped and FullSubNet
      sub-band folds, clusters of 16 at FullSubNet's full-band N 8 and 18),
      then K1 at FullSubNet's full-band shape (N 8, T 37) in the cluster form
@@ -88,16 +92,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      H 512, sub-band H 384, seed 42): K1 in float32 (>= 80 dB) and bf16
      (>= 40 dB) and K5 (>= 40 dB) at its full-band shape (D 257, H 512, O
      257) on the fold of a batch of 8 padded to 10 s (N 8, T 629) against
-     their plain versions (K1 in the forward's cluster form, also against
-     the tile form forced and equal on a repeat), timed beside them, cuDNN
-     and the bound (K1 also with the tile form forced), and the
+     their plain versions (K1 in the forward's cluster form and K5 in its
+     own, each also against the tile form forced and equal on a repeat; K5
+     also on the JAX fixture's `k5_fb` case), timed beside them, cuDNN
+     and the bound (K1 and K5 also with the tile form forced), and the
      three at its sub-band shape (D 32, H 384, O 2; N 2056, T 629) against
      their plain versions at the same floors, equal on a repeat; the
      batch of 8 wavs through `run_enhance` with a FullSubNet config
      (`full_band_crm_mask`, written into the temporary directory) in
      float32, bfloat16 and int8, two launches a batch (the full-band and
-     the sub-band LSTM; K1's full-band sweep in the cluster form, its
-     sub-band one in the tile form), the waveforms of each dtype against the same run
+     the sub-band LSTM; the full-band sweep in K1's or K5's cluster form,
+     the sub-band one in the tile form), the waveforms of each dtype
+     against the same run
      through the plain LSTMs (float32 >= 60 dB, bf16 and int8 >= 40 dB), a
      profile of each batch; one 30 s utterance through
      `overlapped_chunk`; the daemon serving a few streams of it in int8
@@ -191,7 +197,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      in the JAX package's FullSubNet keys, and one more epoch profiled;
      (e) K2, K3, K4 timed beside their plain versions, bounds and cuDNN,
      each also with the tile form forced;
- 12. print the kernels' JSON line (with the forward's form at each fold),
+ 12. print the kernels' JSON line (with K1's, K2's and K5's form at each
+     fold),
      the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
@@ -298,6 +305,8 @@ FWD_SOURCES = ("lstm2_fwd", "lstm2_train_fwd")  # K1, K2: the float32 sweep on m
 BWD_SOURCES = ("lstm2_bwd_wgrad", "lstm2_bwd")  # K3, K4: the float32 reverse sweep likewise
 TF32_HMMA = "HMMA.1688.F32.TF32"  # mma.sync m16n8k8 on TF32 operands, float32 sums
 FIXTURE_GENERATOR = os.path.join(REPO, "tests", "fixtures", "gen_torch_kernel_fixture.py")
+# K5's sweeps: the tile form `int8_sweep_kernel`, the cluster form `int8_sweep_cluster_kernel`
+INT8_SWEEP = re.compile(r"int8_sweep_(cluster_)?kernel")
 # K3's weight-gradient kernels: `wgrad_kernel` (float32, FMAs), `wgrad_mma_kernel` (bf16)
 WGRAD_KERNEL = re.compile(r"wgrad_(mma_)?kernel")
 # kernel names of a matrix product or convolution that computes in TF32 (CUTLASS's
@@ -506,13 +515,15 @@ def phase_build() -> dict:
 
 def int8_functions(lib) -> dict:
     """K5's sweep runs every product on the tensor cores: each instantiation
-    of `int8_sweep_kernel` has IMMA (the s8 products) and HMMA (x W1 and the
-    fc in bf16) instructions, and the library has no IDP (`__dp4a`) one.
-    Returns {function: {imma, hmma, registers, spill bytes}} and prints them."""
+    of the tile form `int8_sweep_kernel` and the cluster form
+    `int8_sweep_cluster_kernel` has IMMA (the s8 products) and HMMA (x W1
+    and the fc in bf16) instructions, and the library has no IDP (`__dp4a`)
+    one. Returns {function: {imma, hmma, registers, spill bytes}} and prints
+    them."""
     counts = {op: sass_instruction_counts(lib, op) for op in ("IMMA", "HMMA", "IDP")}
     ptxas = ptxas_functions(lib)
     out = {}
-    for function in (f for f in counts["IMMA"] if "int8_sweep_kernel" in f):
+    for function in (f for f in counts["IMMA"] if INT8_SWEEP.search(f)):
         regs, spill_st, spill_ld = ptxas.get(function, (None, None, None))
         imma, hmma = counts["IMMA"][function], counts["HMMA"][function]
         print(f"[1] lstm2_int8_fwd: {function} has {imma} IMMA, {hmma} HMMA, "
@@ -522,6 +533,8 @@ def int8_functions(lib) -> dict:
                          "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
     if not out or min(min(v["imma"], v["hmma"]) for v in out.values()) == 0:
         fail("lstm2_int8_fwd: the int8 sweep lacks IMMA or HMMA instructions")
+    if not any("int8_sweep_cluster_kernel" in f for f in out):
+        fail("lstm2_int8_fwd: the cluster form was not compiled")
     if any(counts["IDP"].values()):
         fail("lstm2_int8_fwd: __dp4a (IDP) instructions were compiled")
     return out
@@ -674,6 +687,15 @@ def fwd_form_name(n: int, shape) -> str:
     return f"cluster{form}" if form else "tile"
 
 
+def int8_form_name(n: int, shape) -> str:
+    """K5's form at fold n of `shape` (D, H, O) by the rule, as
+    INT8_SWEEP_FORMS names it."""
+    from fullsubnet_plus_torch.ops import lstm2_int8
+
+    form = lstm2_int8.int8_sweep_cluster(n, *shape)
+    return f"cluster{form}" if form else "tile"
+
+
 @contextlib.contextmanager
 def forced_fwd_form(form: int):
     """Force the forward sweep's form (`lstm2.FWD_SWEEP_FORM`: 0 the tile
@@ -765,9 +787,13 @@ def phase_check() -> dict:
     for n, t in ((N_SERVE, T_SERVE), (N_FULL, T_FULL), (N_RAGGED, T_RAGGED)):
         x, w, lstm, _ = int8_operands(n, t, seed=n + t)
         check_prepared(lstm, w)
+        lstm2_int8.INT8_SWEEP_FORMS.clear()
         out = lstm2_int8.lstm2_int8_fc(x, w)
         again = lstm2_int8.lstm2_int8_fc(x, w)
         torch.cuda.synchronize()
+        if dict(lstm2_int8.INT8_SWEEP_FORMS) != {"lstm2_int8_fwd tile": 2}:
+            fail(f"lstm2_int8_fwd at N={n} T={t}: forms {dict(lstm2_int8.INT8_SWEEP_FORMS)}, "
+                 f"not the tile form")
         ref = lstm2_int8.lstm2_int8_fc_reference(x, w).float()
         out, repeat = out.float(), torch.equal(out, again)
         if not torch.isfinite(out).all():
@@ -781,7 +807,24 @@ def phase_check() -> dict:
         if not repeat:
             fail(f"lstm2_int8_fwd is not bit-equal on a repeat at N={n} T={t}")
         errors[("lstm2_int8_fwd", n, t)] = err
+    print(f"[2] shipped bfloat16 K5 N{N_SERVE} T{T_SERVE} digest {shipped_int8_digest()} (the "
+          f"tile form; `scripts/time_torch_fb_train.py --shipped` prints the same line for a "
+          f"checkout, equal where the results are equal bit for bit)")
     return errors
+
+
+def shipped_int8_digest() -> str:
+    """A SHA-256 (16 hex digits) of K5's output at the serving fold from
+    the operands `scripts/time_torch_fb_train.py --shipped` makes (seed 12),
+    so that this tree's digest compares with another checkout's."""
+    import hashlib
+
+    from fullsubnet_plus_torch.ops import lstm2_int8
+
+    lstm, fc, g = lstm_modules(torch.bfloat16, 12)
+    x = torch.rand(N_SERVE, D, T_SERVE, generator=g).mul_(2.0).to("cuda", torch.bfloat16)
+    y = lstm2_int8.lstm2_int8_fc(x, lstm.prepare_int8(fc))
+    return hashlib.sha256(y.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def check_prepared(lstm, w) -> None:
@@ -1400,6 +1443,7 @@ def reset_launches() -> None:
     lstm2_train.LAUNCHES_BY_CARD.clear()
     lstm2_train.SWEEP_FORMS.clear()
     lstm2.FWD_SWEEP_FORMS.clear()
+    lstm2_int8.INT8_SWEEP_FORMS.clear()
 
 
 def all_launches() -> dict:
@@ -1844,11 +1888,13 @@ def check_fullsubnet_sub_band() -> dict:
 
 def phase_fullsubnet_kernels() -> dict:
     """K1 in float32 and bf16 and K5 at FullSubNet's full-band shape (D 257,
-    H 512, O 257) on the fold of a batch of 8 padded to 10 s (N 8, T 629):
-    each against its plain version (K5 equal on a repeat), timed beside the
-    plain version, cuDNN's LSTM(257, 512, 2) + Linear(512, 257) and the bound;
-    then the three at the sub-band shape (`check_fullsubnet_sub_band`)."""
-    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
+    H 512, O 257) on the fold of a batch of 8 padded to 10 s (N 8, T 629),
+    each in its cluster form: against its plain version and the tile form
+    forced, equal on a repeat, timed beside the tile form forced, the plain
+    version, cuDNN's LSTM(257, 512, 2) + Linear(512, 257) and the bound (K5:
+    `check_int8_full_band`); then the three at the sub-band shape
+    (`check_fullsubnet_sub_band`)."""
+    from fullsubnet_plus_torch.ops import lstm2
 
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1883,26 +1929,73 @@ def phase_fullsubnet_kernels() -> dict:
               f"form forced {tile_ms:.3f} ms  plain {out[dtype]['plain_ms']:.3f} ms  cuDNN "
               f"LSTM+Linear {out[dtype]['library_ms']:.3f} ms  bound {bound_ms:.4f} ms "
               f"({bound_by}); forward sweeps by form {forms}")
+    out["int8"] = check_int8_full_band()
+    out["sub_band"] = check_fullsubnet_sub_band()
+    return out
+
+
+@contextlib.contextmanager
+def forced_int8_form(form: int):
+    """Force K5's form (`lstm2_int8.INT8_SWEEP_FORM`: 0 the tile form, 16
+    the cluster form), which its wrapper reads at call time."""
+    from fullsubnet_plus_torch.ops import lstm2_int8
+
+    lstm2_int8.INT8_SWEEP_FORM = form
+    try:
+        yield
+    finally:
+        lstm2_int8.INT8_SWEEP_FORM = None
+
+
+def check_int8_full_band() -> dict:
+    """K5 at FullSubNet's full-band shape on the fold of a batch of 8
+    padded to 10 s (N 8, T 629), in the cluster form by the rule: against
+    its plain version and against the tile form forced (>= 40 dB), equal on
+    a repeat, each launch counted by its form; the JAX fixture's `k5_fb`
+    case (N 7, T 9) through the cluster form (>= 40 dB); timed beside the
+    tile form forced, the plain version, cuDNN's bf16 LSTM(257, 512, 2) +
+    Linear(512, 257) (a yardstick: not the int8 function) and the bound."""
+    from fullsubnet_plus_torch.ops import lstm2_int8
+
     x, w, lstm, fc = int8_operands(N_FB, T_FULL, seed=8, shape=FB)
+    lstm2_int8.INT8_SWEEP_FORMS.clear()
     y, again = lstm2_int8.lstm2_int8_fc(x, w), lstm2_int8.lstm2_int8_fc(x, w)
+    with forced_int8_form(0):
+        tile = lstm2_int8.lstm2_int8_fc(x, w)
     torch.cuda.synchronize()
+    forms, repeat = dict(lstm2_int8.INT8_SWEEP_FORMS), torch.equal(y, again)
+    y, tile = y.float(), tile.float()
     ref = lstm2_int8.lstm2_int8_fc_reference(x, w).float()
-    snr, err, repeat = snr_db(ref, y.float()), float((y.float() - ref).abs().max()), \
-        torch.equal(y, again)
-    if not torch.isfinite(y.float()).all() or snr < INT8_SNR_FLOOR or not repeat:
-        fail(f"lstm2_int8_fwd at the fb_model shape: {snr:.1f} dB, equal on a repeat {repeat}")
+    snr, err, vs_tile = snr_db(ref, y), float((y - ref).abs().max()), snr_db(tile, y)
+    gen = fixture_generator()
+    lstm2_int8.INT8_SWEEP_FORMS.clear()
+    fixture_y = gen.port_run("k5_fb", "cuda")["y"]
+    fixture_forms = dict(lstm2_int8.INT8_SWEEP_FORMS)
+    vs_jax = snr_db(torch.from_numpy(gen.load_fixture()["k5_fb"]["y"]), torch.from_numpy(fixture_y))
+    if (not torch.isfinite(y).all() or min(snr, vs_tile, vs_jax) < INT8_SNR_FLOOR
+            or not repeat):
+        fail(f"lstm2_int8_fwd at the fb_model shape: {snr:.1f} dB against the plain version, "
+             f"{vs_tile:.1f} against the tile form, {vs_jax:.1f} against the JAX fixture, "
+             f"equal on a repeat {repeat}")
+    cluster = f"lstm2_int8_fwd cluster{lstm2_int8.INT8_CLUSTER}"
+    if forms != {cluster: 2, "lstm2_int8_fwd tile": 1} or fixture_forms != {cluster: 1}:
+        fail(f"[7] lstm2_int8_fwd at the fb_model shape: forms {forms}, the fixture's "
+             f"{fixture_forms}")
     library = cudnn_lstm(lstm, fc, torch.bfloat16)
     bound_ms, bound_by = int8_bound_ms(N_FB, T_FULL, shape=FB)
-    out["int8"] = dict(ms=cuda_ms(lambda: lstm2_int8.lstm2_int8_fc(x, w), reps=5),
-                       plain_ms=cuda_ms(lambda: lstm2_int8.lstm2_int8_fc_reference(x, w), reps=3),
-                       library_ms=cuda_ms(lambda: library(x), reps=5), bound_ms=bound_ms,
-                       bound_by=bound_by, max_abs_err=err, snr_db=snr)
-    print(f"[7] lstm2_int8_fwd at the fb_model shape N={N_FB} T={T_FULL}: SNR {snr:.1f} dB "
-          f"(floor {INT8_SNR_FLOOR:.0f}), max_abs {err:.3e}, equal on a repeat; kernel "
-          f"{out['int8']['ms']:.3f} ms  plain {out['int8']['plain_ms']:.3f} ms  cuDNN bf16 "
-          f"LSTM+Linear {out['int8']['library_ms']:.3f} ms (yardstick)  bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
-    out["sub_band"] = check_fullsubnet_sub_band()
+    with forced_int8_form(0):
+        tile_ms = cuda_ms(lambda: lstm2_int8.lstm2_int8_fc(x, w), reps=3)
+    out = dict(ms=cuda_ms(lambda: lstm2_int8.lstm2_int8_fc(x, w), reps=5), tile_form_ms=tile_ms,
+               plain_ms=cuda_ms(lambda: lstm2_int8.lstm2_int8_fc_reference(x, w), reps=3),
+               library_ms=cuda_ms(lambda: library(x), reps=5), bound_ms=bound_ms,
+               bound_by=bound_by, max_abs_err=err, snr_db=snr, snr_db_vs_tile=vs_tile,
+               jax_fixture_snr_db=vs_jax, form=f"cluster{lstm2_int8.INT8_CLUSTER}")
+    print(f"[7] lstm2_int8_fwd at the fb_model shape N={N_FB} T={T_FULL}, the cluster form: "
+          f"SNR {snr:.1f} dB (floor {INT8_SNR_FLOOR:.0f}), {vs_tile:.1f} dB against the tile "
+          f"form forced, max_abs {err:.3e}, equal on a repeat; the JAX fixture's k5_fb "
+          f"{vs_jax:.1f} dB; kernel {out['ms']:.3f} ms  tile form forced {tile_ms:.3f} ms  plain "
+          f"{out['plain_ms']:.3f} ms  cuDNN bf16 LSTM+Linear {out['library_ms']:.3f} ms "
+          f"(yardstick)  bound {bound_ms:.4f} ms ({bound_by}); forms {forms}")
     return out
 
 
@@ -1919,7 +2012,7 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
     from fullsubnet_plus_torch.data.wav import read_wav
     from fullsubnet_plus_torch.enhance import Enhancer
     from fullsubnet_plus_torch.models import FULLSUBNET
-    from fullsubnet_plus_torch.ops import lstm2
+    from fullsubnet_plus_torch.ops import lstm2, lstm2_int8
     from fullsubnet_plus_torch.utils.config import load_config
 
     config_path, checkpoint = write_fullsubnet_inputs(root)
@@ -1950,16 +2043,16 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
               f"{runs[0]['audio_seconds']:.2f} audio-s a run, {MAIN_PATH_RUNS} runs: median "
               f"{rates[tag]:.1f} audio-s/s (each {', '.join(f'{r:.1f}' for r in each)}), "
               f"wall {walls[tag] * 1e3:.1f} ms; launches {launches[tag]}")
-        # one batch a run, and each batch runs both LSTMs through the kernel:
-        # K1's full-band sweep in the cluster form, its sub-band one in tiles
+        # one batch a run, and each batch runs both LSTMs through the kernel
         want = {k: 0 for k in launches[tag]}
         want[kernel] = 2 * MAIN_PATH_RUNS
         if launches[tag] != want:
             fail(f"the FullSubNet {tag} batch launched {launches[tag]}, expected {want}")
-        forms[tag] = dict(lstm2.FWD_SWEEP_FORMS)
-        if kernel == "lstm2_fwd" and forms[tag] != {"lstm2_fwd cluster16": MAIN_PATH_RUNS,
-                                                    "lstm2_fwd tile": MAIN_PATH_RUNS}:
-            fail(f"the FullSubNet {tag} batch's forward sweeps by form: {forms[tag]}")
+        # the full-band LSTM in the cluster form, the sub-band one in the tile form
+        forms[tag] = dict(lstm2.FWD_SWEEP_FORMS if kernel == "lstm2_fwd"
+                          else lstm2_int8.INT8_SWEEP_FORMS)
+        if forms[tag] != {f"{kernel} cluster16": MAIN_PATH_RUNS, f"{kernel} tile": MAIN_PATH_RUNS}:
+            fail(f"the FullSubNet {tag} batch's sweeps by form: {forms[tag]}")
         for i, (y, n) in enumerate(zip(outputs(f"fsn_{tag}"), lengths)):
             if y.shape != (n,) or not np.isfinite(y).all():
                 fail(f"FullSubNet {tag} output {i}: shape {y.shape}, expected ({n},)")
@@ -3709,6 +3802,13 @@ def main() -> None:
         "serve_busy_tick_ms": serve["stats"]["busy_tick_ms"],
         "jax_fixture_min_snr_db": fixture_snr[("lstm2_int8_fwd", "bfloat16")],
         "sweep_functions": hmma["lstm2_int8_fwd"],
+        "int8_form_by_fold": {
+            **{fold: int8_form_name(rows, shape) for fold, rows, shape in (
+                (f"N {N_SERVE} T {T_SERVE} (serving)", N_SERVE, SB),
+                (f"N {N_FULL} T {T_FULL} (batch)", N_FULL, SB),
+                (f"fullsubnet_fb N {N_FB}", N_FB, FB),
+                (f"fullsubnet_sb N {N_FULL}", N_FULL, FSN_SB))},
+            "fullsubnet_batch_int8": fsn["forms"]["int8"]},
     }
     runs = train["runs"]
 

@@ -18,7 +18,18 @@
 // SM's pull of the weight fragments from L2 every step sets a step's time:
 // 1.97 MB at H 384 (U1q 0.59 and [W2q; U2q] 1.18 int8, W1 0.20 bf16).
 //
-// Design: K1's tensor-core sweep (lstm2_fwd_sweep.cuh) on int8 operands.
+// Two forms, chosen by the fold's shape (`int8_sweep_cluster` in
+// ops/lstm2_int8.py), as the forward sweep's (lstm2_fwd_sweep.cuh):
+//   * the tile form, `int8_sweep_kernel` (below): one CTA per tile of R
+//     rows sweeps all T steps; every CTA pulls every weight fragment from
+//     L2 each step (the shipped folds, H 384);
+//   * the cluster form, `int8_sweep_cluster_kernel` (after it): a cluster
+//     of 16 CTAs per tile of 16 rows, each owning 32 hidden units and
+//     pulling only its gate columns' weights, h1q and h2q all-gathered
+//     each step through distributed shared memory (FullSubNet's
+//     full-band folds of a few tiles, H 512).
+//
+// The tile form: K1's tensor-core sweep (lstm2_fwd_sweep.cuh) on int8 operands.
 // One CTA per tile of R = 16 MT rows (16 or 32, chosen by the wrapper)
 // sweeps all T steps; warp w of the H / 32 owns units 32w .. 32w + 31 in 4
 // passes of one unit group of 8. Every product runs on mma.sync: the int8
@@ -48,16 +59,31 @@
 // each: 103,424 bytes at D 34, H 384, R 16; 206,848 at R 32; 150,528 at D
 // 257, H 512, R 16.
 //
-// Launch: grid ceil(N / R), block H threads, dynamic shared memory as in
-// shared_memory_bytes() of ops/lstm2_int8.py. The C entry point launches on
-// the caller's stream, allocates nothing and returns cudaGetLastError().
+// Launch of the tile form: grid ceil(N / R), block H threads, dynamic shared
+// memory as in shared_memory_bytes() of ops/lstm2_int8.py. The C entry
+// point launches on the caller's stream, allocates nothing and returns
+// cudaGetLastError().
 
 #include "lstm2_common.cuh"
 
 namespace {
 
+using lstm2::bulk_commit;
+using lstm2::bulk_wait_read;
+using lstm2::CHUNK_BYTES;
+using lstm2::cluster_arrive;
+using lstm2::cluster_ctarank;
+using lstm2::cluster_idx;
+using lstm2::cluster_nctarank;
+using lstm2::cluster_wait;
+using lstm2::copy_to_peer;
+using lstm2::fence_proxy_async;
 using lstm2::ldmatrix_x4;
+using lstm2::mbar_arrive_expect;
+using lstm2::mbar_init;
+using lstm2::mbar_wait;
 using lstm2::mma_bf16;
+using lstm2::peer_address;
 using lstm2::sigm;
 
 constexpr int PASSES = 4;     // unit groups of 8 a warp owns: H / 32 warps x 4 x 8 = H
@@ -379,16 +405,491 @@ int launch_tile(const void* x, const Int8Weights& wt, void* out, int n_rows, int
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The cluster form, `int8_sweep_cluster_kernel`: for folds of a few row tiles
+// (FullSubNet's full-band LSTM: N 8 in a batch of 8 and in its daemon, D 257,
+// H 512, O 257), where one CTA a tile leaves the card idle and every step
+// waits on one SM pulling all the weight fragments from L2 (U1q 1.05 MB,
+// [W2q; U2q] 2.10 MB, W1 1.18 MB, the fc 0.27 MB a tile and step). The
+// design of the forward's cluster form (lstm2_fwd_sweep.cuh,
+// `fwd::sweep_cluster_kernel`) with K5's operands: each tile of 16 rows gets
+// a cluster of C = H / 32 CTAs (16 at H 512); CTA rank c owns the 32 hidden
+// units [32c, 32c + 32) of both layers, unit groups 4c .. 4c + 3, and reads
+// only their 16 gate-interleaved n-tiles of the packed u1, w1 and w2 (264 KB
+// a step):
+//   * the products on the tensor cores as in the tile form (s8 m16n8k32 with
+//     int32 sums, bf16 m16n8k16 with float32 sums), the K of each split over
+//     the CTA's warps: warp w runs k-part w % 4 of unit group w / 4 (its four
+//     gate n-tiles). Layer 1's k-parts 0 and 1 split x_t W1's chunks (float32
+//     partials), k-parts 2 and 3 h1q_{t-1} U1q's (int32 partials), so a warp
+//     holds one accumulator set; layer 2's four split [h1q | h2q] [W2q; U2q]
+//     (int32). Thread (warp r, lane u) runs the cell of row r, unit 32c + u:
+//     xw = the float32 partials in k-part order, iacc = the int32 ones (exact
+//     in any order), gates = (xw + float(iacc) s1) + b1 and float(iacc) s2 +
+//     b2 in the plain version's order and roundings, c a register;
+//   * the exchange: each product contracts over all H units of h1q or h2q,
+//     so each CTA keeps the tile's whole h1q and h2q, owner-major: owner o's
+//     h1 block is [16][h1q 32 | pad 16] bytes, its h2 block [16][h2q 32 |
+//     bf16(h2) 64 | pad 16] (the fc reads h2 before quantization); both
+//     pitches are odd multiples of 16 bytes, so ldmatrix is free of bank
+//     conflicts. An s8 chunk of 64 bytes spans two owners: its k-step 0 (b.x,
+//     b.y) reads owner 2j's block, its k-step 1 (b.z, b.w) owner 2j + 1's, so
+//     a warp waits on two owners a chunk. After a cell a CTA writes its block,
+//     then one thread copies it whole into every peer's copy with the Tensor
+//     Memory Accelerator (cp.async.bulk shared::cta -> shared::cluster, 768
+//     and 1,792 bytes), each copy completing its bytes on the peer's mbarrier
+//     for that layer, step parity and owner;
+//   * the overlap the recurrence leaves: layer 2 at step t reads [h1q_t |
+//     h2q_{t-1}], so it runs its chunks over h2q_{t-1} (exchanged during
+//     layer 1) first, with the fc of step t - 1 on the same owners' bf16(h2)
+//     (CTA c owns the fc n-tiles c, c + C, .., the one of index i taken by the
+//     warps of unit group i), and h1q_t's as each owner arrives; layer 1 at t
+//     + 1 reads [x_{t+1} | h1q_t], not h2q_t, so h2's exchange runs under it;
+//     x_{t+1} is loaded during step t;
+//   * the blocks alternate by step parity, with one cluster barrier a step,
+//     as in the forward's cluster form: a CTA arrives (release) once it has
+//     read the blocks of step t - 1 (after layer 2 of step t) and waits on it
+//     (acquire) before it sends h1q_{t+1}; it writes its own block again two
+//     steps on, once its copies have read it (thread 0 waits for all but its
+//     latest bulk group each step).
+// Each output word has one writer and each sum a fixed order; no atomics,
+// the same bits on every run. Shared memory at D 257, H 512, C 16: the
+// mbarriers (512 bytes), the h1 blocks (24,576) and h2 blocks (57,344) of
+// both parities, x [16][x_cols + 8] bf16 (9,472), the partials [4][4][16][40]
+// words (40,960) and the fc's [4][4][16][8] (8,192): 141,056 bytes.
+
+constexpr int CL_ROWS = 16;       // the row tile: one m16 tile
+constexpr int CL_UNITS = 32;      // hidden units a CTA owns: a lane a unit in the cells
+constexpr int CL_THREADS = 512;   // 16 warps: a warp a row in the cells
+constexpr int CL_KPARTS = 4;      // k-parts of each product: warps = 4 unit groups x 4 k-parts
+constexpr int CL_X_KPARTS = 2;    // layer 1's k-parts that run x W1; the rest run h1q U1q
+constexpr int CL_FC_TILES = 4;    // fc n-tiles a CTA may own: one a unit group's warps
+constexpr int CL_PART_LD = CL_UNITS + 8;  // a gate partial's row: half-warps' stores 8 banks apart
+constexpr int CL_FC_LD = 8;       // a row of an fc partial
+constexpr int CLUSTER_SIZE = 16;  // INT8_CLUSTER in ops/lstm2_int8.py: H = 16 x 32
+constexpr int CL_Q_PITCH = 48;    // bytes of an h1 block's row: h1q (32) and PAD_BYTES
+constexpr int CL_H2_PITCH = 112;  // of an h2 block's row: h2q (32), bf16(h2) (64), PAD_BYTES
+constexpr int CL_H2_BF16 = 32;    // bf16(h2)'s byte offset in an h2 block's row
+
+// bf16 elements of a row of the x tile
+__host__ __device__ inline int cl_x_pitch(int D) { return x_cols(D) + PAD_BYTES / 2; }
+
+// `int8_cluster_shared_memory_bytes` in ops/lstm2_int8.py: an 8-byte mbarrier
+// a layer, step parity and owner; the h1 and h2 blocks [2 parities][C][16]
+// [pitch]; the x tile [16][x pitch] bf16; 32-bit words the partials [KP][4
+// gates][16][CL_PART_LD] (float32 or int32) and the fc's [CL_FC_TILES][KP][16]
+// [CL_FC_LD] (float32)
+__host__ __device__ inline size_t cluster_shared_bytes(int D, int H) {
+  const int C = H / CL_UNITS;
+  return 8 * 4 * (size_t)C + 2 * (size_t)C * CL_ROWS * (CL_Q_PITCH + CL_H2_PITCH) +
+         2 * (size_t)CL_ROWS * cl_x_pitch(D) +
+         4 * ((size_t)CL_KPARTS * 4 * CL_ROWS * CL_PART_LD +
+              (size_t)CL_FC_TILES * CL_KPARTS * CL_ROWS * CL_FC_LD);
+}
+
+// Whether the cluster form runs at this shape: H = CLUSTER_SIZE x 32, D <= H
+// (x_{t+1} staged at most 16 words a thread), at most CL_FC_TILES fc n-tiles
+// a CTA, and a CTA's shared memory fits a block. The caller chooses the form
+// (`int8_sweep_cluster` in ops/lstm2_int8.py); a launch of the cluster form
+// where this is false returns an error.
+inline bool cluster_runs(int D, int H, int O) {
+  return H == CLUSTER_SIZE * CL_UNITS && D <= H && (O + 7) / 8 <= CL_FC_TILES * CLUSTER_SIZE &&
+         cluster_shared_bytes(D, H) <= lstm2::SMEM_LIMIT;
+}
+
+// acc[g] += A . B[n-tile g] (P: S8Mma or Bf16Mma) for a warp's four gate
+// n-tiles (ns words apart) over its chunks v = 0 .. n - 1 in order. Chunk v:
+// B's k-chunk kc_of(v), A's two k-steps at the shared-memory addresses a_of(v)
+// (.x, .y), wait(v) before A is read. With kFc, for v < fc_n also facc +=
+// bf16(h2) . F over owners o and o + 1 (o = fc_owner(v)), each owner one bf16
+// chunk, its A at fc_a(o) and its B F's chunk o. Each chunk's fragments load
+// while the previous chunk's products run (the loop not unrolled: 5-7 %
+// faster a step than unrolled twice on the H100, PERF.md). B, F: this lane's
+// word of n-tile 0, chunk 0.
+template <typename P, bool kFc, typename KcOf, typename AOf, typename FcOwner, typename FcA,
+          typename Wait>
+__device__ __forceinline__ void cl_products(typename P::Acc (&acc)[4][4], float (&facc)[4],
+                                            const uint4* __restrict__ B, size_t ns,
+                                            const uint4* __restrict__ F, int fc_n, int n,
+                                            KcOf kc_of, AOf a_of, FcOwner fc_owner, FcA fc_a,
+                                            Wait wait) {
+  uint4 b[4], f[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+  {
+    const size_t k = (size_t)kc_of(0) * 32;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) b[g] = __ldg(B + k + g * ns);
+    if (kFc && fc_n > 0) {
+      const int o = fc_owner(0);
+      f[0] = __ldg(F + (size_t)o * 32);
+      f[1] = __ldg(F + (size_t)(o + 1) * 32);
+    }
+  }
+#pragma unroll 1
+  for (int v = 0; v < n; ++v) {
+    const int vn = min(v + 1, n - 1);
+    const size_t kn = (size_t)kc_of(vn) * 32;
+    uint4 nb[4], nf[2] = {f[0], f[1]};
+#pragma unroll
+    for (int g = 0; g < 4; ++g) nb[g] = __ldg(B + kn + g * ns);
+    if (kFc && vn < fc_n) {
+      const int o = fc_owner(vn);
+      nf[0] = __ldg(F + (size_t)o * 32);
+      nf[1] = __ldg(F + (size_t)(o + 1) * 32);
+    }
+    wait(v);
+    uint32_t a[2][4];
+    const uint2 addr = a_of(v);
+    ldmatrix_x4(a[0], addr.x);
+    ldmatrix_x4(a[1], addr.y);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) P::mma(acc[g], a, b[g]);
+    if (kFc && v < fc_n) {
+      const int o = fc_owner(v);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t fa[2][4];
+        load_a(fa, fc_a(o + half));
+        Bf16Mma::mma(facc, fa, f[half]);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) b[g] = nb[g];
+    f[0] = nf[0];
+    f[1] = nf[1];
+  }
+}
+
+// A warp's accumulators of one m16n8 tile, as 32-bit words, into a partial of
+// row pitch ld: lane (g, q) holds rows g and g + 8, columns 2q and 2q + 1
+__device__ __forceinline__ uint32_t word_of(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t word_of(int v) { return (uint32_t)v; }
+template <typename A>
+__device__ __forceinline__ void cl_store_tile(const A (&acc)[4], uint32_t* dst, int ld, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+    *reinterpret_cast<uint2*>(dst + ((lane >> 2) + 8 * half) * ld + 2 * (lane & 3)) =
+        make_uint2(word_of(acc[2 * half]), word_of(acc[2 * half + 1]));
+}
+
+__global__ void __launch_bounds__(CL_THREADS, 1)
+int8_sweep_cluster_kernel(const __nv_bfloat16* __restrict__ x,  // [T, N, D]
+                          const Int8Weights wt, __nv_bfloat16* __restrict__ out,  // [N, T, O]
+                          int n_rows, int steps, int D, int H, int O) {
+  constexpr int R = CL_ROWS, KP = CL_KPARTS, KX = CL_X_KPARTS, PLD = CL_PART_LD;
+  constexpr int XR = R * 512 / CL_THREADS;  // x words a thread stages: D <= H <= 512
+  extern __shared__ __align__(16) unsigned char smem_cl[];
+  const int C = (int)cluster_nctarank(), c = (int)cluster_ctarank(), tile = (int)cluster_idx();
+  const int xc = x_cols(D), xp = cl_x_pitch(D);
+  const uint32_t q_bytes = R * CL_Q_PITCH, h2_bytes = R * CL_H2_PITCH;  // an h1, an h2 block
+  const uint32_t bars = (uint32_t)__cvta_generic_to_shared(smem_cl);
+  unsigned char* qblk = smem_cl + 8 * 4 * C;                  // [2 parities][C][R][CL_Q_PITCH]
+  unsigned char* h2blk = qblk + (size_t)2 * C * q_bytes;      // [2 parities][C][R][CL_H2_PITCH]
+  // [R][xp]
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(h2blk + (size_t)2 * C * h2_bytes);
+  uint32_t* part = reinterpret_cast<uint32_t*>(xs + (size_t)R * xp);  // [KP][4][R][PLD]
+  uint32_t* fcpart = part + KP * 4 * R * PLD;  // [CL_FC_TILES][KP][R][CL_FC_LD], float32
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kp = warp % KP, ug = warp / KP;  // products: k-part kp of unit group ug
+  const int r = warp;                        // cells: row r, unit 32c + lane
+  const int n0 = tile * R;
+  const int rows_here = min(R, n_rows - n0);
+  const int xch = xc / 32, hq = s8_chunks(H);  // bf16 chunks of x, s8 chunks of h (2 owners each)
+  // layer 1: k-parts 0 .. KX - 1 split x's chunks, the others h1q's; chunks l1_0 .. + l1_n
+  const bool xpart = kp < KX;
+  const int l1_0 = xpart ? kp * xch / KX : (kp - KX) * hq / (KP - KX);
+  const int l1_n = (xpart ? (kp + 1) * xch / KX : (kp - KX + 1) * hq / (KP - KX)) - l1_0;
+  // layer 2 and the fc: this k-part's s8 chunks q0 .. q0 + nh - 1 of h1q and of h2q
+  const int q0 = kp * hq / KP, nh = (kp + 1) * hq / KP - q0;
+  const size_t ns1 = (size_t)hq * 32, nsx = (size_t)xch * 32, ns2 = (size_t)2 * hq * 32;
+  const int nt0 = 4 * (4 * c + ug);  // the warp's first gate n-tile: unit group 4c + ug, gate i
+  const uint4* u1w = wt.u1 + nt0 * ns1 + lane;
+  const uint4* w1w = wt.w1 + nt0 * nsx + lane;
+  const uint4* w2w = wt.w2 + nt0 * ns2 + lane;
+  const int fnt = c + C * ug;  // this warp's fc n-tile, where it exists
+  const bool has_fc = ug < CL_FC_TILES && 8 * fnt < O;
+  const uint4* fcw = wt.fc + (size_t)(has_fc ? fnt : 0) * (H / 32) * 32 + lane;
+  const uint32_t qbase = (uint32_t)__cvta_generic_to_shared(qblk);
+  const uint32_t h2base = (uint32_t)__cvta_generic_to_shared(h2blk);
+  const uint32_t lane_q = (uint32_t)((lane & 15) * CL_Q_PITCH + 16 * (lane >> 4));
+  const uint32_t lane_h2 = (uint32_t)((lane & 15) * CL_H2_PITCH + 16 * (lane >> 4));
+  const uint32_t xbase = (uint32_t)__cvta_generic_to_shared(xs) +
+                         (uint32_t)((lane & 15) * xp * 2 + 16 * (lane >> 4));
+  auto qb = [&](int parity, int o) { return qbase + (uint32_t)(parity * C + o) * q_bytes; };
+  auto hb = [&](int parity, int o) { return h2base + (uint32_t)(parity * C + o) * h2_bytes; };
+  auto bar = [&](int layer, int parity, int o) {
+    return bars + 8u * (uint32_t)((2 * layer + parity) * C + o);
+  };
+  auto arm = [&](int layer, int parity) {  // thread 0: one block from each peer, next phase
+    for (int o = 0; o < C; ++o)
+      if (o != c) mbar_arrive_expect(bar(layer, parity, o), layer ? h2_bytes : q_bytes);
+  };
+  auto send = [&](int layer, int parity) {  // thread 0: this CTA's block to every peer
+    const uint32_t src = layer ? hb(parity, c) : qb(parity, c), b = bar(layer, parity, c);
+    for (int k = 1; k < C; ++k) {
+      const uint32_t peer = (uint32_t)((c + k) % C);
+      copy_to_peer(peer_address(src, peer), src, layer ? h2_bytes : q_bytes,
+                   peer_address(b, peer));
+    }
+    bulk_commit();
+  };
+  auto store_acc = [&](const auto& acc) {  // into k-part kp's partial
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      cl_store_tile(acc[g], part + ((size_t)(kp * 4 + g) * R) * PLD + 8 * ug, PLD, lane);
+  };
+  auto store_fc = [&](const float (&facc)[4]) {
+    cl_store_tile(facc, fcpart + ((size_t)(ug * KP + kp) * R) * CL_FC_LD, CL_FC_LD, lane);
+  };
+  auto fc_out = [&](int ts) {  // y_ts from the fc partials in k-part order: a thread a word
+    const float* fp = reinterpret_cast<const float*>(fcpart);
+    for (int idx = tid; idx < CL_FC_TILES * R * CL_FC_LD; idx += CL_THREADS) {
+      const int i = idx / (R * CL_FC_LD), row = idx / CL_FC_LD % R, col = idx % CL_FC_LD;
+      const int o = 8 * (c + C * i) + col;
+      if (row < rows_here && o < O) {
+        const float* pp = fp + ((size_t)i * KP * R + row) * CL_FC_LD + col;
+        float s = pp[0];
+#pragma unroll
+        for (int k = 1; k < KP; ++k) s += pp[(size_t)k * R * CL_FC_LD];
+        out[((size_t)(n0 + row) * steps + ts) * O + o] = __float2bfloat16_rn(s + wt.fcb[o]);
+      }
+    }
+  };
+  float scale[2][4], bias[2][4];  // of this thread's unit's gate columns (gate-interleaved)
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int col = 32 * (4 * c + (lane >> 3)) + 8 * g + (lane & 7);
+    scale[0][g] = wt.s1[col];
+    bias[0][g] = wt.b1[col];
+    scale[1][g] = wt.s2[col];
+    bias[1][g] = wt.b2[col];
+  }
+  auto pw = [&](int k, int g) { return part[((size_t)(k * 4 + g) * R + r) * PLD + lane]; };
+  // the cell of (row r, unit 32c + lane) from the gate pre-activations -> h
+  auto cell = [&](const float (&pre)[4], float& cw) {
+    const float i = sigm(pre[0]), f = sigm(pre[1]), g = tanhf(pre[2]), o = sigm(pre[3]);
+    cw = f * cw + i * g;
+    return o * tanhf(cw);
+  };
+  const uint4* no_fc = nullptr;
+  auto no_owner = [](int) { return 0; };
+  auto no_addr = [](int) { return 0u; };
+
+  {  // zero the blocks (h_{-1}, the pads), x (its pad columns and the rows past N) and the partials
+    uint32_t* words = reinterpret_cast<uint32_t*>(qblk);
+    const size_t n_words = (cluster_shared_bytes(D, H) - 8 * 4 * C) / 4;
+    for (size_t i = tid; i < n_words; i += CL_THREADS) words[i] = 0u;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < 4 * C; ++i) mbar_init(bars + 8u * i, 1);
+    arm(0, 0);  // h1q_0
+    arm(0, 1);  // h1q_1
+    arm(1, 0);  // h2_0 (h2_1's at the end of step 0)
+  }
+  if (steps > 0) {  // x_0
+    const __nv_bfloat16* xt = x + (size_t)n0 * D;
+    for (int idx = tid; idx < rows_here * D; idx += CL_THREADS) {
+      const int rr = idx / D;
+      xs[(size_t)rr * xp + idx - rr * D] = xt[idx];
+    }
+  }
+  __syncthreads();
+  cluster_arrive();  // pairs with step 0's wait: the peers' mbarriers are set
+
+  float c1 = 0.0f, c2 = 0.0f;
+  float nofacc[4] = {};
+  for (int t = 0; t < steps; ++t) {
+    const int p = t & 1, pq = p ^ 1;  // this step's blocks, the last step's
+    if (xpart) {  // layer 1: x_t W1 over this k-part's x chunks, float32 sums
+      float acc[4][4] = {};
+      cl_products<Bf16Mma, false>(
+          acc, nofacc, w1w, nsx, no_fc, 0, l1_n, [&](int v) { return l1_0 + v; },
+          [&](int v) {
+            const uint32_t a = xbase + (uint32_t)((l1_0 + v) * CHUNK_BYTES);
+            return make_uint2(a, a + 32);
+          },
+          no_owner, no_addr, [](int) {});
+      store_acc(acc);
+    } else {  // layer 1: h1q_{t-1} U1q over this k-part's s8 chunks, int32 sums, all here
+      int acc[4][4] = {};
+      cl_products<S8Mma, false>(
+          acc, nofacc, u1w, ns1, no_fc, 0, l1_n, [&](int v) { return l1_0 + v; },
+          [&](int v) {
+            const int j = l1_0 + v;
+            return make_uint2(qb(pq, 2 * j) + lane_q, qb(pq, 2 * j + 1) + lane_q);
+          },
+          no_owner, no_addr, [](int) {});
+      store_acc(acc);
+    }
+    __syncthreads();  // layer 1's partials are in
+    __nv_bfloat16 xv[XR];  // x_{t+1}, staged through registers while the cell runs
+    const bool more = t + 1 < steps;
+    const __nv_bfloat16* xt = x + ((size_t)(t + 1) * n_rows + n0) * D;
+    if (more) {
+#pragma unroll
+      for (int k = 0; k < XR; ++k) {
+        const int idx = tid + k * CL_THREADS;
+        if (idx < rows_here * D) xv[k] = xt[idx];
+      }
+      if (t + 2 < steps) {  // x_{t+2} into L2
+        const char* nxt = reinterpret_cast<const char*>(xt + (size_t)n_rows * D);
+        for (int off = tid * 128; off < rows_here * D * 2; off += CL_THREADS * 128)
+          asm volatile("prefetch.L2 [%0];\n" ::"l"(nxt + off));
+      }
+    }
+    {  // the cell of layer 1: gates = (xw + float(iacc) s1) + b1 -> h1q_t into this CTA's block
+      float pre[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float xw = __uint_as_float(pw(0, g));
+#pragma unroll
+        for (int k = 1; k < KX; ++k) xw = __fadd_rn(xw, __uint_as_float(pw(k, g)));
+        int iacc = (int)pw(KX, g);
+#pragma unroll
+        for (int k = KX + 1; k < KP; ++k) iacc += (int)pw(k, g);
+        pre[g] = __fadd_rn(__fadd_rn(xw, __fmul_rn((float)iacc, scale[0][g])), bias[0][g]);
+      }
+      const float h = cell(pre, c1);
+      qblk[(size_t)(p * C + c) * q_bytes + r * CL_Q_PITCH + lane] = quantize(h);
+    }
+    if (more) {
+#pragma unroll
+      for (int k = 0; k < XR; ++k) {
+        const int idx = tid + k * CL_THREADS;
+        if (idx < rows_here * D) {
+          const int rr = idx / D;
+          xs[(size_t)rr * xp + idx - rr * D] = xv[k];
+        }
+      }
+    }
+    fence_proxy_async();  // this CTA's h1q_t block, to the copies
+    __syncthreads();      // h1q_t's block and x_{t+1} are in; the partials are read
+    cluster_wait();       // every peer has read the blocks of step t - 2 these copies overwrite
+    if (tid == 0) send(0, p);
+    {  // layer 2: [h1q_t | h2q_{t-1}] [W2q; U2q], h2q_{t-1}'s chunks (and the fc of step
+       // t - 1 on the same owners' bf16(h2)) first, then h1q_t's as each owner arrives
+      int acc[4][4] = {};
+      float facc[4] = {};
+      const bool fc_on = has_fc && t > 0;
+      cl_products<S8Mma, true>(
+          acc, facc, w2w, ns2, fcw, fc_on ? nh : 0, 2 * nh,
+          [&](int v) { return v < nh ? hq + q0 + v : q0 + v - nh; },
+          [&](int v) {
+            const int j = q0 + (v < nh ? v : v - nh);
+            return v < nh ? make_uint2(hb(pq, 2 * j) + lane_h2, hb(pq, 2 * j + 1) + lane_h2)
+                          : make_uint2(qb(p, 2 * j) + lane_q, qb(p, 2 * j + 1) + lane_q);
+          },
+          [&](int v) { return 2 * (q0 + v); },
+          [&](int o) { return hb(pq, o) + lane_h2 + CL_H2_BF16; },
+          [&](int v) {
+            const bool h2 = v < nh;
+            const int j = q0 + (h2 ? v : v - nh);
+#pragma unroll
+            for (int o = 2 * j; o < 2 * j + 2; ++o) {
+              if (o == c) continue;
+              if (!h2)
+                mbar_wait(bar(0, p, o), (uint32_t)(t >> 1) & 1u);
+              else if (t > 0)
+                mbar_wait(bar(1, pq, o), (uint32_t)((t - 1) >> 1) & 1u);
+            }
+          });
+      store_acc(acc);
+      if (fc_on) store_fc(facc);
+    }
+    __syncthreads();  // layer 2's partials are in; every warp has waited for its blocks
+    if (tid == 0) {
+      arm(0, p);   // h1q_{t+2}
+      arm(1, pq);  // h2_{t+1}
+    }
+    cluster_arrive();  // this CTA has read h1q_{t-1} and h2_{t-1}
+    {  // the cell of layer 2: gates = float(iacc) s2 + b2 -> h2q_t, bf16(h2_t) into its block
+      float pre[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        int iacc = (int)pw(0, g);
+#pragma unroll
+        for (int k = 1; k < KP; ++k) iacc += (int)pw(k, g);
+        pre[g] = __fadd_rn(__fmul_rn((float)iacc, scale[1][g]), bias[1][g]);
+      }
+      const float h = cell(pre, c2);
+      unsigned char* row = h2blk + (size_t)(p * C + c) * h2_bytes + r * CL_H2_PITCH;
+      row[lane] = (unsigned char)quantize(h);
+      reinterpret_cast<__nv_bfloat16*>(row + CL_H2_BF16)[lane] = __float2bfloat16_rn(h);
+    }
+    if (t > 0) fc_out(t - 1);
+    fence_proxy_async();  // this CTA's h2_t block, to the copies
+    __syncthreads();      // h2_t's block is in; the partials are read
+    if (tid == 0) {
+      send(1, p);
+      bulk_wait_read<1>();  // the copies of h1q_t (and before) have read their blocks
+    }
+  }
+  if (steps > 0) {  // the fc of the last step, once h2_{T-1} is in from every owner
+    const int pl = (steps - 1) & 1;
+    for (int o = 2 * q0; o < 2 * (q0 + nh); ++o)
+      if (o != c) mbar_wait(bar(1, pl, o), (uint32_t)((steps - 1) >> 1) & 1u);
+    if (has_fc) {
+      float facc[4] = {};
+      for (int o = 2 * q0; o < 2 * (q0 + nh); ++o) {
+        const uint4 f = __ldg(fcw + (size_t)o * 32);
+        uint32_t fa[2][4];
+        load_a(fa, hb(pl, o) + lane_h2 + CL_H2_BF16);
+        Bf16Mma::mma(facc, fa, f);
+      }
+      store_fc(facc);
+    }
+    __syncthreads();
+    fc_out(steps - 1);
+  }
+  if (tid == 0) bulk_wait_read<0>();  // this CTA's copies have read its blocks
+  cluster_wait();  // pairs with the last step's arrive
+}
+
+// Launch the cluster form: a cluster of CLUSTER_SIZE CTAs a row tile; the
+// clusters share nothing, so a fold of more tiles than the card holds at
+// once runs in waves. A shape `cluster_runs` refuses, or a launch the card
+// refuses, returns its error.
+int launch_cluster(const void* x, const Int8Weights& wt, void* out, int n_rows, int steps, int D,
+                   int H, int O, cudaStream_t stream) {
+  if (!cluster_runs(D, H, O)) return (int)cudaErrorInvalidValue;
+  if (steps == 0) return (int)cudaSuccess;  // nothing to write
+  const size_t smem = cluster_shared_bytes(D, H);
+  cudaError_t err = cudaFuncSetAttribute(int8_sweep_cluster_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)  // 16 is past the portable 8
+    err = cudaFuncSetAttribute(int8_sweep_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CLUSTER_SIZE;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_rows + CL_ROWS - 1) / CL_ROWS * CLUSTER_SIZE);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, int8_sweep_cluster_kernel, static_cast<const __nv_bfloat16*>(x),
+                           wt, static_cast<__nv_bfloat16*>(out), n_rows, steps, D, H, O);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// rows: the row tile, 16 (any H) or 32 (H <= 384). The weights come as
-// pack_int8_mma's fragments (u1p, w1p, w2p, fcp) and gate-interleaved
-// scales and biases (s1, b1, s2, b2); fcb is b_fc. A refused launch returns
-// its error.
+// form: 0 the tile form, with rows its row tile, 16 (any H) or 32 (H <= 384);
+// CLUSTER_SIZE the cluster form (rows 16). The weights come as
+// pack_int8_mma's fragments (u1p, w1p, w2p, fcp) and gate-interleaved scales
+// and biases (s1, b1, s2, b2); fcb is b_fc. Any other form, a shape the
+// cluster form does not run, or a refused launch returns an error.
 extern "C" int lstm2_int8_fwd(const void* x, const void* u1p, const void* w1p, const void* w2p,
                               const void* fcp, const void* s1, const void* b1, const void* s2,
                               const void* b2, const void* fcb, void* out, int n_rows, int steps,
-                              int D, int H, int O, int rows, void* stream) {
+                              int D, int H, int O, int rows, int form, void* stream) {
   if (H % 32 != 0 || H > 512 || n_rows <= 0 || steps < 0 || D <= 0 || O <= 0)
     return (int)cudaErrorInvalidValue;
   const Int8Weights wt{static_cast<const uint4*>(u1p), static_cast<const uint4*>(w1p),
@@ -399,6 +900,9 @@ extern "C" int lstm2_int8_fwd(const void* x, const void* u1p, const void* w1p, c
   if (!wt.u1 || !wt.w1 || !wt.w2 || !wt.fc || !wt.s1 || !wt.b1 || !wt.s2 || !wt.b2 || !wt.fcb)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (form == CLUSTER_SIZE && rows == CL_ROWS)
+    return launch_cluster(x, wt, out, n_rows, steps, D, H, O, st);
+  if (form != 0) return (int)cudaErrorInvalidValue;
   if (rows == 16)
     return H <= 384 ? launch_tile<1, 384>(x, wt, out, n_rows, steps, D, H, O, st)
                     : launch_tile<1, 512>(x, wt, out, n_rows, steps, D, H, O, st);

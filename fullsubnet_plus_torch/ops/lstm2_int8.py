@@ -24,13 +24,20 @@ The kernel runs every product on the tensor cores (mma.sync: s8 m16n8k32
 with int32 sums for the int8 products, bf16 m16n8k16 with float32 sums for
 x W1 and the fc), from weights packed once into fragment order with the
 gate columns interleaved (`pack_int8_mma`, called by `LSTM2.prepare_int8`).
+Its sweep runs in one of two forms that `int8_sweep_cluster` chooses by the
+fold's shape: the tile form (a CTA a row tile) or, at FullSubNet's
+full-band folds (H 512, a few row tiles), the cluster form (a cluster of 16
+CTAs a row tile, each owning 32 hidden units, h1q and h2q all-gathered as
+int8 blocks through distributed shared memory).
 
 `lstm2_int8_fc` takes the plain version for a tensor on the CPU and
-launches the kernel for a CUDA tensor, or raises; it never falls back.
+launches the kernel for a CUDA tensor, or raises; it never falls back, not
+to the tile form when the cluster form is refused either.
 `lstm2_int8_fc_split` runs it over the fold's rows split across several
-cards, each with its own copy of the prepared weights (the counterpart of
-`stacked_lstm2_quantized_sharded`, lstm_pallas.py:1163-1168). The kernel is
-built with nvcc at first use (ops/nvcc.py).
+cards, each with its own copy of the prepared weights and its slice's form
+by the same rule (the counterpart of `stacked_lstm2_quantized_sharded`,
+lstm_pallas.py:1163-1168). The kernel is built with nvcc at first use
+(ops/nvcc.py).
 """
 
 from __future__ import annotations
@@ -57,12 +64,32 @@ H_QUANT_SCALE = 127.0
 # kernel launches through lstm2_int8_fc by card ("cuda:0", ...) since import (or last
 # clear); the total is sum(LAUNCHES.values())
 LAUNCHES: Counter = Counter()
+# the sweep's launches by form: "lstm2_int8_fwd cluster16", "lstm2_int8_fwd tile"
+INT8_SWEEP_FORMS: Counter = Counter()
+
+# The sweep's form (csrc/lstm2_int8_fwd.cu): None the one `int8_sweep_cluster`
+# chooses, 0 the tile form (`int8_sweep_kernel`: a CTA a tile of rows),
+# INT8_CLUSTER the cluster form (`int8_sweep_cluster_kernel`: a cluster of 16
+# CTAs a tile of 16 rows, each owning 32 hidden units). Set to time the forms.
+INT8_SWEEP_FORM: int | None = None
+INT8_CLUSTER = 16  # CTAs of a cluster (CLUSTER_SIZE in the .cu): H = 16 x 32
+INT8_CLUSTER_UNITS = 32  # hidden units a CTA of the cluster form owns (CL_UNITS)
+INT8_CLUSTER_KPARTS = 4  # k-parts of each of its products (CL_KPARTS)
+INT8_CLUSTER_X_KPARTS = 2  # layer 1's k-parts that run x W1; the others h1q U1q (CL_X_KPARTS)
+INT8_CLUSTER_FC_TILES = 4  # fc n-tiles a CTA of it may own (CL_FC_TILES)
+# bytes of a row of an h1 block [h1q | pad] and of an h2 block [h2q | bf16(h2) | pad]
+INT8_CLUSTER_Q_PITCH, INT8_CLUSTER_H2_PITCH = 48, 112
+# The most rows the rule gives the cluster form: the largest fold at which
+# it measured faster than the tile form on the H100 (its clusters run in
+# waves of 7 at most; at T 629, N 256 20.5 ms against 33.5, N 512 34.3
+# against 34.2: PERF.md, `scripts/time_torch_fb_lstm.py --folds`)
+INT8_CLUSTER_MAX_ROWS = 256
 
 INT8_ROWS_PER_CTA = (16, 32)  # the sweep's row tiles: one or two m16 tiles
 MAX_ROWS_32_HIDDEN = 384  # R 32 is built for blocks of up to 384 threads only
 PAD_BYTES = 16  # pad of an operand row (PAD_BYTES in csrc/lstm2_int8_fwd.cu)
 MAX_HIDDEN = 512  # the kernel's __launch_bounds__: one thread per hidden unit
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 class Int8MmaWeights(NamedTuple):
@@ -251,6 +278,52 @@ def int8_row_tile(n: int, d_in: int, hidden: int, sm_count: int) -> int:
     return rows
 
 
+def int8_cluster_shared_memory_bytes(d_in: int, hidden: int) -> int:
+    """csrc/lstm2_int8_fwd.cu, the cluster form (`cluster_shared_bytes`): a
+    CTA of a cluster of C = H / 32 holds an 8-byte mbarrier for each layer,
+    step parity and owner, the tile's h1q and h2q for both step parities as
+    C owners' blocks of 16 rows ([h1q 32 | pad 16] bytes and [h2q 32 |
+    bf16(h2) 64 | pad 16]), the x tile [16][x_cols + 8] bf16, and 32-bit
+    words the k-part partials [4][4 gates][16][40] and the fc's [4 n-tiles]
+    [4][16][8]. O does not enter: the fc's n-tiles are spread over the
+    cluster. 141,056 bytes at D 257, H 512."""
+    owners = hidden // INT8_CLUSTER_UNITS
+    return (8 * 4 * owners
+            + 2 * owners * 16 * (INT8_CLUSTER_Q_PITCH + INT8_CLUSTER_H2_PITCH)
+            + 2 * 16 * (x_cols(d_in) + PAD_BYTES // 2)
+            + 4 * (INT8_CLUSTER_KPARTS * 4 * 16 * (INT8_CLUSTER_UNITS + 8)
+                   + INT8_CLUSTER_FC_TILES * INT8_CLUSTER_KPARTS * 16 * 8))
+
+
+def int8_sweep_cluster(n: int, d_in: int, hidden: int, out_dim: int) -> int:
+    """The sweep's form for a fold of n rows, by its shape alone:
+    INT8_CLUSTER, the cluster form (a cluster of 16 CTAs a row tile of 16,
+    each owning 32 hidden units, h1q and h2q all-gathered through
+    distributed shared memory; the clusters run in waves where the card
+    holds fewer at once), where H = 16 x 32, D <= H, the fc's n-tiles spread
+    at most 4 a CTA (O <= 512), n <= INT8_CLUSTER_MAX_ROWS and a CTA's
+    shared memory fits a block: FullSubNet's full-band folds; else 0, the
+    tile form (a CTA a row tile), which the shipped folds (H 384) and
+    FullSubNet's sub-band fold take. The launch takes the form it is given:
+    one refused raises, none falls back. (csrc/lstm2_int8_fwd.cu's
+    `cluster_runs` checks the shape again.)"""
+    if hidden != INT8_CLUSTER * INT8_CLUSTER_UNITS or d_in > hidden:
+        return 0
+    if -(-out_dim // 8) > INT8_CLUSTER_FC_TILES * INT8_CLUSTER or n > INT8_CLUSTER_MAX_ROWS:
+        return 0
+    fits = int8_cluster_shared_memory_bytes(d_in, hidden) <= SMEM_LIMIT
+    return INT8_CLUSTER if fits else 0
+
+
+def int8_sweep_form(x: torch.Tensor, w: LSTM2Int8Weights) -> int:
+    """The form a sweep of x takes: INT8_SWEEP_FORM when set, else
+    `int8_sweep_cluster`'s."""
+    if INT8_SWEEP_FORM is not None:
+        return INT8_SWEEP_FORM
+    n, d, _ = x.shape
+    return int8_sweep_cluster(n, d, w.u1q.shape[0], w.fc_w.shape[1])
+
+
 def _check(x: torch.Tensor, w: LSTM2Int8Weights) -> None:
     n, d, _ = x.shape
     hidden = w.u1q.shape[0]
@@ -290,8 +363,12 @@ def _launch(x: torch.Tensor, w: LSTM2Int8Weights) -> torch.Tensor:
     if hidden % 32 or hidden > MAX_HIDDEN:
         raise ValueError(f"lstm2_int8_fc: hidden {hidden} must be a multiple of 32, "
                          f"<= {MAX_HIDDEN}")
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows = int8_row_tile(n, d, hidden, sm_count)
+    form = int8_sweep_form(x, w)
+    if form:
+        rows = 16
+    else:
+        sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+        rows = int8_row_tile(n, d, hidden, sm_count)
     x_tnd = x.permute(2, 0, 1).contiguous()  # [T, N, D]: a step's rows are contiguous
     out = torch.empty(n, steps, out_dim, dtype=torch.bfloat16, device=x.device)
     lib = _library()
@@ -299,10 +376,12 @@ def _launch(x: torch.Tensor, w: LSTM2Int8Weights) -> torch.Tensor:
     args = (x_tnd, *w.mma, w.fc_b, out)
     with torch.cuda.device(x.device):
         err = lib.lstm2_int8_fwd(*(a.data_ptr() for a in args),
-                                 n, steps, d, hidden, out_dim, rows, stream)
+                                 n, steps, d, hidden, out_dim, rows, form, stream)
     if err != 0:
-        raise RuntimeError(f"lstm2_int8_fwd launch failed: CUDA error {err}")
+        what = f" (the cluster form, clusters of {form})" if form else ""
+        raise RuntimeError(f"lstm2_int8_fwd launch failed{what}: CUDA error {err}")
     LAUNCHES[str(x.device)] += 1
+    INT8_SWEEP_FORMS[f"lstm2_int8_fwd {f'cluster{form}' if form else 'tile'}"] += 1
     return out
 
 

@@ -19,17 +19,19 @@ registers and spills (ptxas), then:
     `lstm2_int8_fc`, each against its plain version (SNR, max abs), equal
     on a repeat, timed beside the plain version, cuDNN's LSTM(257, 512, 2)
     + Linear(512, 257) (float32 with TF32 off, bf16 for K5: a yardstick)
-    and the bound, K1 in the form the rule takes there and, in a tree with
-    the forward's cluster form, with the tile form forced too; and the
+    and the bound, K1 and K5 in the form the rule takes there and, in a
+    tree with their cluster forms, with the tile form forced too; and the
     three at a ragged fold (N 5, T 37);
   * at the sub-band batch fold (N 2056, T 629): K1 in float32 and bf16,
     timed (this tree's shipped shape; compare it with the parent's).
 
-With `--folds`, K1 alone at the full-band shape, T 629, over folds from N 8
-to 2112 (132 row tiles: one tile-form CTA an SM) in both dtypes, in both
-forms forced (`FWD_SWEEP_FORM`), the median of 3 timings of each and which
-is faster: what `FWD_CLUSTER_MAX_ROWS` is set from (the cluster form's
-clusters run in waves of the few the card holds at once).
+With `--folds`, K1 (in both dtypes) and K5 at the full-band shape, T 629,
+over folds from N 8 to 2112 (132 row tiles: one tile-form CTA an SM), in
+both forms forced (`FWD_SWEEP_FORM`, `INT8_SWEEP_FORM`), the median of 3
+timings of each and which is faster: what `FWD_CLUSTER_MAX_ROWS` and
+`INT8_CLUSTER_MAX_ROWS` are set from (the cluster forms' clusters run in
+waves of the few the card holds at once). A tree without K5's cluster form
+times K1 alone.
 
 A tree whose float32 K1 refuses the full-band shape prints the refusal and
 goes on. One warm-up, median of 5, CUDA events. Imports nothing of JAX.
@@ -74,13 +76,15 @@ def case(n, t, shape, dtype, seed, timed):
     line = (f"{tag}: SNR {smoke.snr_db(ref, out.float()):.1f} dB, max abs "
             f"{float((out.float() - ref).abs().max()):.3e}, equal on a repeat "
             f"{torch.equal(out, again)}")
-    if timed and dtype is not None and hasattr(lstm2, "FWD_SWEEP_FORM"):
-        form = lstm2.fwd_sweep_form(x, w)
-        lstm2.FWD_SWEEP_FORM = 0
+    module, attr, rule = ((lstm2, "FWD_SWEEP_FORM", "fwd_sweep_form") if dtype is not None
+                          else (lstm2_int8, "INT8_SWEEP_FORM", "int8_sweep_form"))
+    if timed and hasattr(module, attr):
+        form = getattr(module, rule)(x, w)
+        setattr(module, attr, 0)
         try:
             tile = smoke.cuda_ms(lambda: kernel(x, w), reps=5)
         finally:
-            lstm2.FWD_SWEEP_FORM = None
+            setattr(module, attr, None)
         line += (f"; the rule's form {f'clusters of {form}' if form else 'tiles'}, "
                  f"the tile form forced {tile:.3f} ms")
     if timed:
@@ -98,28 +102,40 @@ FOLDS = (8, 18, 112, 256, 512, 768, 1024, 1536, 2112)
 
 
 def folds():
-    """K1 at the full-band shape, T 629, in both forms forced over FOLDS."""
-    for dtype in (torch.float32, torch.bfloat16):
-        name, faster = str(dtype)[6:], []
+    """K1 (float32, bf16) and K5 at the full-band shape, T 629, in both forms
+    forced over FOLDS."""
+    kernels = [(f"{str(dtype)[6:]} K1", dtype) for dtype in (torch.float32, torch.bfloat16)]
+    if hasattr(lstm2_int8, "INT8_SWEEP_FORM"):
+        kernels.append(("K5", None))
+    for name, dtype in kernels:
+        if dtype is None:
+            module, attr, cluster = lstm2_int8, "INT8_SWEEP_FORM", lstm2_int8.INT8_CLUSTER
+            kernel = lstm2_int8.lstm2_int8_fc
+        else:
+            module, attr, cluster = lstm2, "FWD_SWEEP_FORM", lstm2.FWD_CLUSTER
+            kernel = lstm2.lstm2_fc
+        faster = []
         for n in FOLDS:
-            x, w, _, _ = smoke.lstm_operands(n, 629, dtype, n, FB)
+            x, w, _, _ = (smoke.int8_operands(n, 629, n, FB) if dtype is None
+                          else smoke.lstm_operands(n, 629, dtype, n, FB))
             times = {}
-            for form, tag in ((lstm2.FWD_CLUSTER, "cluster form"), (0, "tile form")):
-                lstm2.FWD_SWEEP_FORM = form
+            for form, tag in ((cluster, "cluster form"), (0, "tile form")):
+                setattr(module, attr, form)
                 try:
-                    times[tag] = smoke.cuda_ms(lambda: lstm2.lstm2_fc(x, w), reps=3)
+                    times[tag] = smoke.cuda_ms(lambda: kernel(x, w), reps=3)
                 finally:
-                    lstm2.FWD_SWEEP_FORM = None
+                    setattr(module, attr, None)
             if times["cluster form"] < times["tile form"]:
                 faster.append(n)
-            rule = lstm2.fwd_sweep_cluster(n, *FB, dtype)
-            print(f"fb N{n} T629 {name} K1 ms: "
+            rule = (lstm2_int8.int8_sweep_cluster(n, *FB) if dtype is None
+                    else lstm2.fwd_sweep_cluster(n, *FB, dtype))
+            print(f"fb N{n} T629 {name} ms: "
                   + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
                   + f"; the rule takes {f'clusters of {rule}' if rule else 'the tile form'}",
                   flush=True)
             del x, w
             torch.cuda.empty_cache()
-        print(f"fb {name}: K1's cluster form is faster at N {faster}", flush=True)
+        print(f"fb {name}: the cluster form is faster at N {faster}", flush=True)
 
 
 def main():

@@ -15,11 +15,11 @@ gives the same bits at both bf16 row tiles, and K3 equals itself on a
 repeat, also over several chunks: in bf16 at every tile shape of its
 tensor-core weight gradients, and in float32; K5 equals itself on a repeat
 at both of its row tiles and runs FullSubNet's full-band shape (D 257, H
-512, O 257). At that shape the forward and reverse sweeps take their
-cluster forms, held to the plain versions and to their tile forms (K1 and
-K2 at several folds, in waves of clusters; K3 and K4 over chunks, in waves
-and with one CTA's sends made late), and a cluster launch at a shape the
-kernel does not run raises. chip_smoke.py repeats these checks at the
+512, O 257). At that shape the forward and reverse sweeps and K5 take their
+cluster forms, held to the plain versions and to their tile forms (K1, K2
+and K5 at several folds, in waves of clusters; K3 and K4 over chunks, in
+waves and with one CTA's sends made late), and a cluster launch at a shape
+the kernel does not run raises. chip_smoke.py repeats these checks at the
 model's folds.
 """
 
@@ -203,8 +203,8 @@ def test_int8_kernel_matches_plain_on_cuda(rng, monkeypatch, n, t, rows):
 @pytest.mark.cuda
 def test_int8_kernel_runs_the_fullsubnet_full_band_shape(rng):
     """FullSubNet's full-band LSTM shape (D 257, H 512, O 257: 33 n-tiles of
-    the fc over 16 warps) at R 16, on a small ragged fold, against the plain
-    version (40 dB)."""
+    the fc) on a small ragged fold, in the form the rule takes there (the
+    cluster form: 3 clusters of 16), against the plain version (40 dB)."""
     _need_card()
     x, w = _int8_case(rng, 37, 7, 257, 512, 257)
     out = ops_int8.lstm2_int8_fc(x, w).float()
@@ -381,6 +381,51 @@ def test_fwd_cluster_form_refuses_a_shape_it_does_not_run(monkeypatch, dtype):
     torch.cuda.synchronize()
     assert (sum(ops_lstm2.LAUNCHES.values()), lt.LAUNCHES["lstm2_train_fwd"]) == before
     assert not ops_lstm2.FWD_SWEEP_FORMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(8, 9), (18, 9), (7, 13), (112, 5), (256, 3)])
+def test_int8_cluster_form_matches_plain_and_tile_on_cuda(rng, monkeypatch, n, t):
+    """K5's cluster form at FullSubNet's full-band shape (N 8 a batch and the
+    daemon's 8 slots, 18 two tiles, 7 the fixture's, 112 seven clusters, 256
+    sixteen: more than the H100 holds at once, so they run in waves; T
+    ragged): the rule takes it, its y agrees with the plain version and with
+    the tile form forced (INT8_SWEEP_FORM 0) at 40 dB, equals itself on a
+    repeat, and each launch is counted by its form."""
+    _need_card()
+    assert ops_int8.int8_sweep_cluster(n, *FB) == 16
+    x, w = _int8_case(rng, n, t, *FB)
+    monkeypatch.setattr(ops_int8, "INT8_SWEEP_FORMS", type(ops_int8.INT8_SWEEP_FORMS)())
+    before = sum(ops_int8.LAUNCHES.values())
+    y, again = ops_int8.lstm2_int8_fc(x, w), ops_int8.lstm2_int8_fc(x, w)
+    monkeypatch.setattr(ops_int8, "INT8_SWEEP_FORM", 0)
+    tile = ops_int8.lstm2_int8_fc(x, w)
+    torch.cuda.synchronize()
+    assert ops_int8.INT8_SWEEP_FORMS == {"lstm2_int8_fwd cluster16": 2, "lstm2_int8_fwd tile": 1}
+    assert sum(ops_int8.LAUNCHES.values()) == before + 3
+    assert y.shape == (n, t, FB[2]) and torch.equal(y, again)
+    ref = ops_int8.lstm2_int8_fc_reference(x, w).float()
+    snrs = {"plain": _snr(ref, y.float()), "tile": _snr(tile.float(), y.float())}
+    assert min(snrs.values()) >= 40.0, snrs
+
+
+@pytest.mark.cuda
+def test_int8_cluster_form_refuses_a_shape_it_does_not_run(rng, monkeypatch):
+    """K5's cluster form forced at FullSubNet+'s sub-band shape (H 384, not
+    16 x 32): the kernel refuses the launch (`cluster_runs` in the .cu) and
+    the wrapper raises, naming the form; nothing is launched or counted, and
+    no path falls back to the tile form."""
+    _need_card()
+    x, w = _int8_case(rng, 20, 4, 34, 384, 2)
+    assert ops_int8.int8_sweep_cluster(20, 34, 384, 2) == 0
+    monkeypatch.setattr(ops_int8, "INT8_SWEEP_FORM", 16)
+    monkeypatch.setattr(ops_int8, "INT8_SWEEP_FORMS", type(ops_int8.INT8_SWEEP_FORMS)())
+    before = sum(ops_int8.LAUNCHES.values())
+    with pytest.raises(RuntimeError, match="cluster form, clusters of 16"):
+        ops_int8.lstm2_int8_fc(x, w)
+    torch.cuda.synchronize()
+    assert sum(ops_int8.LAUNCHES.values()) == before
+    assert not ops_int8.INT8_SWEEP_FORMS
 
 
 def _fb_case(n, t, dtype, seed):

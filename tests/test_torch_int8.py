@@ -387,6 +387,348 @@ def test_int8_shared_memory_fits_the_fullsubnet_full_band_shape():
     assert ops_int8.int8_row_tile(4626, 257, 512, 132) == 16
 
 
+# ---------------------------------------------------------------------------
+# the cluster form (csrc/lstm2_int8_fwd.cu, int8_sweep_cluster_kernel)
+# ---------------------------------------------------------------------------
+
+def _int8_cluster_kparts(d_in, hidden):
+    """Each k-part's chunks of the cluster form's products, as a warp of
+    `int8_sweep_cluster_kernel` runs them: layer 1 either a run of x's bf16
+    chunks (k-parts 0 .. INT8_CLUSTER_X_KPARTS - 1) or of h1q's s8 chunks
+    (the others); layer 2 its run of s8 chunks `h` over h2q, then the same
+    over h1q; the fc the bf16 chunks of the owners those s8 chunks span (s8
+    chunk j: owners 2j, 2j + 1)."""
+    parts, xparts = ops_int8.INT8_CLUSTER_KPARTS, ops_int8.INT8_CLUSTER_X_KPARTS
+    xch, hq = ops_lstm2.x_cols(d_in) // 32, hidden // 64
+    out = []
+    for kp in range(parts):
+        hs = list(range(kp * hq // parts, (kp + 1) * hq // parts))
+        if kp < xparts:
+            layer1 = ("x", list(range(kp * xch // xparts, (kp + 1) * xch // xparts)))
+        else:
+            k, rest = kp - xparts, parts - xparts
+            layer1 = ("h1q", list(range(k * hq // rest, (k + 1) * hq // rest)))
+        out.append({"layer1": layer1, "h": hs, "fc": [o for j in hs for o in (2 * j, 2 * j + 1)]})
+    return out
+
+
+def _int8_cluster_columns(rank, hidden, out_dim):
+    """CTA `rank`'s gate columns of the interleaved products, gate-major
+    [4][32] (unit 32c + u, gate g at column 32 (4c + u / 8) + 8g + u % 8),
+    and its fc n-tiles c, c + C, .. (C = H / 32)."""
+    units, cluster = ops_int8.INT8_CLUSTER_UNITS, hidden // ops_int8.INT8_CLUSTER_UNITS
+    cols = np.array([[32 * (4 * rank + u // 8) + 8 * g + u % 8 for u in range(units)]
+                     for g in range(4)])
+    return cols, list(range(rank, -(-out_dim // 8), cluster))
+
+
+def _int8_cluster_walk(x, w):
+    """The cluster form walked as the kernel walks it, tile of 16 rows by
+    tile: each CTA c of C = H / 32 its own gate columns of the packed
+    fragments (`_int8_cluster_columns`), as INT8_CLUSTER_KPARTS k-parts in
+    the warps' chunk order (`_int8_cluster_kparts`); an s8 chunk's A is the
+    two owners' int8 blocks side by side (k-step 0 owner 2j, k-step 1 owner
+    2j + 1); x W1's float32 partials k-step by k-step of 16 and added in
+    k-part order, the int32 ones summed, gates = (xw + f32(iacc) s1) + b1 and
+    f32(iacc) s2 + b2; each CTA's cell into its own blocks (h1q, h2q and
+    bf16(h2): the exchange); the fc of its n-tiles over the owners' bf16(h2)
+    blocks in k-parts, then + b_fc. The integer products run in float64,
+    exact for sums below 2^53. Returns y [N, T, O] bf16 and each step's
+    int32 sums of both layers, deinterleaved, with the plain products of
+    the same int8 rows."""
+    n, d, steps = x.shape
+    hidden, out_dim = w.u1q.shape[0], w.fc_w.shape[1]
+    units, cluster = ops_int8.INT8_CLUSTER_UNITS, hidden // ops_int8.INT8_CLUSTER_UNITS
+    m = w.mma
+    xc = ops_lstm2.x_cols(d)
+    deint = lambda a: ops_lstm2.deinterleave_gates(torch.from_numpy(a)).numpy()  # noqa: E731
+    bu1 = _s8_operand(m.u1q, 4 * hidden).astype(np.float64)
+    bw2 = _s8_operand(m.w2q, 4 * hidden).astype(np.float64)
+    bw1, bfc = _bf16_operand(m.w1, 4 * hidden), _bf16_operand(m.fc, out_dim)
+    s1, b1, s2, b2 = (v.numpy() for v in (m.s1, m.b1, m.s2, m.b2))
+    u1q, w2q = w.u1q.numpy().astype(np.float64), w.w2q.numpy().astype(np.float64)
+    kparts = _int8_cluster_kparts(d, hidden)
+    ctas = [_int8_cluster_columns(c, hidden, out_dim) for c in range(cluster)]
+    sig = lambda v: np.float32(1) / (np.float32(1) + np.exp(-v))  # noqa: E731
+
+    def cell(pre, c_state):  # pre [16, 4, 32] -> (h, c) [16, 32]
+        i, f, g, o = sig(pre[:, 0]), sig(pre[:, 1]), np.tanh(pre[:, 2]), sig(pre[:, 3])
+        c_new = f * c_state + i * g
+        return o * np.tanh(c_new), c_new
+
+    def s8_a(blocks, j):
+        return np.concatenate([blocks[2 * j], blocks[2 * j + 1]], axis=1)
+
+    def quantize(h):
+        return np.clip(np.rint(h * np.float32(127)), -127, 127).astype(np.float64)
+
+    def bf16_rows(chunks):  # rows of a bf16 operand: 32 a chunk
+        return [32 * q + i for q in chunks for i in range(32)]
+
+    y = np.zeros((n, steps, out_dim), np.float32)
+    sums = []
+    for n0 in range(0, n, 16):
+        live = min(16, n - n0)
+        zeros = np.zeros((16, units))
+        h1q, h2q = [zeros] * cluster, [zeros] * cluster  # the owners' blocks
+        c1, c2 = np.zeros((cluster, 16, units), np.float32), np.zeros((cluster, 16, units),
+                                                                       np.float32)
+        xr = np.zeros((16, xc), np.float32)
+        for t in range(steps):
+            xr[:live, :d] = x[n0:n0 + live, :, t].float().numpy()
+            i1, i2 = np.zeros((16, 4 * hidden)), np.zeros((16, 4 * hidden))
+            plain1 = np.concatenate(h1q, 1) @ u1q
+            new1 = []
+            for c, (cols, _) in enumerate(ctas):
+                cc = cols.ravel()
+                xw, iacc = None, np.zeros((16, cc.size))
+                for kp in kparts:
+                    kind, chunks = kp["layer1"]
+                    if kind == "x":
+                        rows = bf16_rows(chunks)
+                        part = _k_steps(xr[:, rows], bw1[rows][:, cc], 16)
+                        xw = part if xw is None else xw + part
+                    else:
+                        iacc = iacc + sum(s8_a(h1q, j) @ bu1[64 * j:64 * j + 64][:, cc]
+                                          for j in chunks)
+                pre = (xw + iacc.astype(np.float32) * s1[cc]) + b1[cc]
+                h, c1[c] = cell(pre.reshape(16, 4, units), c1[c])
+                new1.append(quantize(h))
+                i1[:, cc] = iacc
+            h1q = new1
+            plain2 = np.concatenate(h1q + h2q, 1) @ w2q
+            new2, h2b = [], []
+            for c, (cols, _) in enumerate(ctas):
+                cc = cols.ravel()
+                iacc = np.zeros((16, cc.size))
+                for kp in kparts:
+                    for j in kp["h"]:  # h2q_{t-1}'s chunks, then h1q_t's
+                        iacc = iacc + s8_a(h2q, j) @ bw2[64 * (hidden // 64 + j):][:64][:, cc]
+                    for j in kp["h"]:
+                        iacc = iacc + s8_a(h1q, j) @ bw2[64 * j:64 * j + 64][:, cc]
+                h, c2[c] = cell((iacc.astype(np.float32) * s2[cc] + b2[cc]).reshape(16, 4, units),
+                                c2[c])
+                new2.append(quantize(h))
+                h2b.append(_bf16_round(h))
+                i2[:, cc] = iacc
+            h2q = new2
+            for _, tiles in ctas:
+                for nt in tiles:
+                    cols_o = [o for o in range(8 * nt, 8 * nt + 8) if o < out_dim]
+                    acc = None
+                    for kp in kparts:
+                        a = np.concatenate([h2b[o] for o in kp["fc"]], axis=1)
+                        part = _k_steps(a, bfc[bf16_rows(kp["fc"])][:, cols_o], 16)
+                        acc = part if acc is None else acc + part
+                    y[n0:n0 + live, t, cols_o] = (acc + w.fc_b.numpy()[cols_o])[:live]
+            sums.append((deint(i1), plain1, deint(i2), plain2))
+    return _bf16_round(y), sums
+
+
+def _fb_int8_case(n, t, seed):
+    """FullSubNet's full-band LSTM (D 257, H 512, O 257) with numpy-seeded
+    weights (uniform in +-1/sqrt(H)), prepared for int8, and x [N, D, T] bf16
+    uniform in [0, 2) (positive with mean 1, as after the Laplace norm)."""
+    d, h, o = 257, 512, 257
+    rng = np.random.default_rng(seed)
+    lstm, linear = LSTM2(d, h), Linear(h, o)
+    with torch.no_grad():
+        for p in [*lstm.parameters(), *linear.parameters()]:
+            p.copy_(torch.from_numpy(rng.uniform(-h ** -0.5, h ** -0.5, tuple(p.shape))))
+    x = torch.from_numpy(rng.uniform(0.0, 2.0, (n, d, t)).astype(np.float32)).bfloat16()
+    return x, lstm.prepare_int8(linear)
+
+
+@pytest.mark.parametrize("n,t", [(18, 3), (7, 4)])
+def test_int8_cluster_walk_matches_the_plain_version(n, t):
+    """The cluster form walked in the kernel's order (`_int8_cluster_walk`)
+    at FullSubNet's full-band shape (D 257, H 512, O 257: 16 CTAs of 32
+    units, 9 x chunks over 2 k-parts, 33 fc n-tiles over the cluster; N 18
+    two tiles, the second ragged, and N 7): its int32 gate sums equal the
+    plain products of the same int8 rows at every step, and its y agrees
+    with `lstm2_int8_fc_reference` at >= 40 dB (the floor chip_smoke.py
+    holds the kernel to; measured on an x86 CPU: 311.5 dB at N 18 and 308.8
+    at N 7, the bf16 outputs all but identical: only x W1's and the fc's
+    float32 sum order and numpy's exp / tanh differ)."""
+    x, w = _fb_int8_case(n, t, seed=n + t)
+    y, sums = _int8_cluster_walk(x, w)
+    for i1, plain1, i2, plain2 in sums:
+        np.testing.assert_array_equal(i1, plain1)
+        np.testing.assert_array_equal(i2, plain2)
+    ref = ops_int8.lstm2_int8_fc_reference(x, w).float().numpy()
+    assert y.shape == ref.shape
+    assert _snr(ref, y) >= 40.0, _snr(ref, y)
+
+
+def test_int8_cluster_walk_matches_the_jax_fixture():
+    """The cluster form's walk on the JAX fixture's `k5_fb` case (N 7, T 9 at
+    the full-band shape: the JAX kernel `stacked_lstm2_quantized` in
+    interpret mode, tests/fixtures/gen_torch_kernel_fixture.py) at >= 40 dB,
+    the floor the card's tests hold the kernel to there (measured on an x86
+    CPU: 76.9 dB)."""
+    gen = _fixture_generator()
+    x, _, lstm, linear = gen.port_operands("k5_fb")
+    assert ops_int8.int8_sweep_cluster(x.shape[0], *gen.CASES["k5_fb"][3:6]) == 16
+    y, _ = _int8_cluster_walk(x, lstm.prepare_int8(linear))
+    want = gen.load_fixture()["k5_fb"]["y"]
+    assert y.shape == want.shape
+    assert _snr(want, y) >= 40.0, _snr(want, y)
+
+
+def _fixture_generator():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "fixtures", "gen_torch_kernel_fixture.py")
+    spec = importlib.util.spec_from_file_location("gen_torch_kernel_fixture", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("d", [257, 34])
+def test_int8_cluster_chunks_have_one_owner(d):
+    """Over H 512 split into 16 CTAs of 32 units, every gate column (4H)
+    and every fc n-tile (O 257: 33 n-tiles, at most 3 a CTA; 4 at O 512)
+    has exactly one owning CTA; each product's k-parts cover its K once
+    (layer 1 x_cols(D) + H, layer 2 2H, the fc H) and each k-part's s8
+    chunks span 4 owners' blocks."""
+    hidden, out_dim = 512, 257
+    gates, tiles = np.zeros(4 * hidden, int), np.zeros(-(-out_dim // 8), int)
+    for c in range(16):
+        cols, own = _int8_cluster_columns(c, hidden, out_dim)
+        np.add.at(gates, cols.ravel(), 1)
+        np.add.at(tiles, own, 1)
+        assert len(own) <= ops_int8.INT8_CLUSTER_FC_TILES
+    assert (gates == 1).all() and (tiles == 1).all()
+    assert len(_int8_cluster_columns(0, 512, 512)[1]) == ops_int8.INT8_CLUSTER_FC_TILES
+    kparts = _int8_cluster_kparts(d, hidden)
+    x_chunks = [q for p in kparts if p["layer1"][0] == "x" for q in p["layer1"][1]]
+    h1_chunks = [q for p in kparts if p["layer1"][0] == "h1q" for q in p["layer1"][1]]
+    assert x_chunks == list(range(ops_lstm2.x_cols(d) // 32))
+    assert h1_chunks == list(range(hidden // 64))
+    assert sum((p["h"] for p in kparts), []) == list(range(hidden // 64))
+    assert sum((p["fc"] for p in kparts), []) == list(range(16))
+    assert all(len(p["fc"]) == 4 for p in kparts)
+
+
+def test_int8_sweep_cluster_rule():
+    """The sweep's form (`int8_sweep_cluster`, by shape alone): the tile form
+    (0) at the shipped serving and batch folds (D 34, H 384, O 2),
+    FullSubNet's sub-band fold (D 32) and a card's half of a fold; clusters
+    of 16 at FullSubNet's full-band shape (D 257, H 512, O 257) for N 7 (the
+    JAX fixture's), 8 (a batch, the daemon's 8 slots), 18 and up to
+    INT8_CLUSTER_MAX_ROWS; the tile form past it, for another H, D > H and
+    an O whose fc n-tiles overflow 4 a CTA. INT8_SWEEP_FORM overrides the
+    rule."""
+    for n, d, h, o in ((2056, 34, 384, 2), (2056, 32, 384, 2), (1028, 34, 384, 2),
+                       (8, 257, 384, 257)):
+        assert ops_int8.int8_sweep_cluster(n, d, h, o) == 0
+    for n in (7, 8, 18, 112, ops_int8.INT8_CLUSTER_MAX_ROWS):
+        assert ops_int8.int8_sweep_cluster(n, 257, 512, 257) == ops_int8.INT8_CLUSTER == 16
+    assert ops_int8.int8_sweep_cluster(ops_int8.INT8_CLUSTER_MAX_ROWS + 1, 257, 512, 257) == 0
+    assert ops_int8.int8_sweep_cluster(8, 257, 256, 257) == 0
+    assert ops_int8.int8_sweep_cluster(8, 513, 512, 257) == 0
+    assert ops_int8.int8_sweep_cluster(8, 257, 512, 512) == 16
+    assert ops_int8.int8_sweep_cluster(8, 257, 512, 513) == 0
+    x, w = torch.zeros(8, 257, 1, dtype=torch.bfloat16), _fb_int8_case(1, 1, seed=0)[1]
+    assert ops_int8.int8_sweep_form(x, w) == 16
+    for forced in (0, 16):
+        ops_int8.INT8_SWEEP_FORM = forced
+        try:
+            assert ops_int8.int8_sweep_form(x, w) == forced
+        finally:
+            ops_int8.INT8_SWEEP_FORM = None
+
+
+def test_int8_cluster_shared_memory():
+    """The cluster form's shared memory at FullSubNet's full-band shape (D
+    257, H 512, O 257), clusters of 16: 64 mbarriers (512 bytes), the h1q
+    blocks [2][16][16][48] (24,576) and [h2q | bf16(h2)] blocks [2][16][16]
+    [112] (57,344), the x tile [16][288 + 8] bf16 (9,472), the k-part
+    partials [4][4][16][40] words (40,960) and the fc's [4][4][16][8]
+    (8,192): 141,056 bytes, under the 232,448 a block may use; the .cu's
+    constants are the ones reckoned with."""
+    import re
+    from pathlib import Path
+
+    got = ops_int8.int8_cluster_shared_memory_bytes(257, 512)
+    assert got == 512 + 24_576 + 57_344 + 9_472 + 40_960 + 8_192 == 141_056
+    assert got <= ops_int8.SMEM_LIMIT
+    assert ops_int8.int8_cluster_shared_memory_bytes(34, 512) < got
+    source = (Path(ops_int8.__file__).parent.parent / "csrc" / "lstm2_int8_fwd.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\w+(?: \+ \d+)?);", source))
+    assert consts["CLUSTER_SIZE"] == str(ops_int8.INT8_CLUSTER)
+    assert consts["CL_UNITS"] == str(ops_int8.INT8_CLUSTER_UNITS)
+    assert consts["CL_KPARTS"] == str(ops_int8.INT8_CLUSTER_KPARTS)
+    assert consts["CL_X_KPARTS"] == str(ops_int8.INT8_CLUSTER_X_KPARTS)
+    assert consts["CL_FC_TILES"] == str(ops_int8.INT8_CLUSTER_FC_TILES)
+    assert consts["CL_Q_PITCH"] == str(ops_int8.INT8_CLUSTER_Q_PITCH)
+    assert consts["CL_H2_PITCH"] == str(ops_int8.INT8_CLUSTER_H2_PITCH)
+    assert consts["CL_PART_LD"] == "CL_UNITS + 8" and consts["CL_FC_LD"] == "8"
+    assert consts["PAD_BYTES"] == str(ops_int8.PAD_BYTES)
+
+
+class _FakeInt8Library:
+    """Stands in for the built K5 library: records each call's row tile and
+    form (the C entry point's arguments after n, steps, D, H, O) and refuses
+    the cluster form off H 512, as `cluster_runs` in the .cu does."""
+
+    def __init__(self):
+        self.calls = []
+
+    def lstm2_int8_fwd(self, *args):
+        n, steps, d, h, o, rows, form = args[11:18]
+        self.calls.append((rows, form))
+        return 1 if form and h != 512 else 0
+
+
+@pytest.mark.parametrize("n,d,h,o,want", [
+    (8, 257, 512, 257, (16, 16)), (7, 257, 512, 257, (16, 16)), (2056, 34, 384, 2, (16, 0)),
+    (2313, 34, 384, 2, (32, 0))])
+def test_int8_launch_takes_the_rule_form(monkeypatch, n, d, h, o, want):
+    """K5's `_launch` passes the rule's (row tile, form) to its C entry point
+    (clusters of 16, rows 16, at FullSubNet's full-band folds; the tile form
+    with `int8_row_tile`'s R at the shipped folds), counts each launch by
+    form in INT8_SWEEP_FORMS, and takes a forced form; a form the kernel
+    refuses raises, naming it, with no second launch and nothing counted."""
+    import collections
+    import contextlib
+    import types
+
+    from fullsubnet_plus_torch.ops import nvcc
+
+    lib = _FakeInt8Library()
+    monkeypatch.setattr(nvcc, "load", lambda *_: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *_: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda *_: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *_: types.SimpleNamespace(multi_processor_count=132))
+    for name in ("LAUNCHES", "INT8_SWEEP_FORMS"):
+        monkeypatch.setattr(ops_int8, name, collections.Counter())
+    g = torch.Generator().manual_seed(0)
+    lstm, linear = LSTM2(d, h), Linear(h, o)
+    lstm.reset_parameters(g)
+    linear.reset_parameters(g)
+    w = lstm.prepare_int8(linear)
+    x = torch.zeros(n, d, 2, dtype=torch.bfloat16)
+    assert ops_int8._launch(x, w).shape == (n, 2, o)
+    assert lib.calls == [want]
+    tag = f"cluster{want[1]}" if want[1] else "tile"
+    assert ops_int8.INT8_SWEEP_FORMS == {f"lstm2_int8_fwd {tag}": 1}
+    monkeypatch.setattr(ops_int8, "INT8_SWEEP_FORM", 16 - want[1])
+    if h == 512:
+        ops_int8._launch(x, w)
+        assert lib.calls[1] == (16 if want[1] else lib.calls[1][0], 16 - want[1])
+        assert sum(ops_int8.INT8_SWEEP_FORMS.values()) == 2
+    else:
+        with pytest.raises(RuntimeError, match="cluster form, clusters of 16"):
+            ops_int8._launch(x, w)
+        assert lib.calls[1:] == [(16, 16)]
+        assert sum(ops_int8.LAUNCHES.values()) == sum(ops_int8.INT8_SWEEP_FORMS.values()) == 1
+
+
 @pytest.fixture(scope="module")
 def tiny_params():
     return jax.tree_util.tree_map(np.asarray, J_MODEL.init(jax.random.PRNGKey(0), JConfig(**TINY)))
