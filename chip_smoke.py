@@ -12,10 +12,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      instructions of the forward sweeps of K1 and K2, the reverse sweeps of
      K3 and K4 and K3's weight-gradient kernels (`cuobjdump -sass`): each
      bf16 sweep and the bf16 `wgrad_mma_kernel` must have them, the float32
-     forward sweeps of K1 and K2 and the float32 reverse sweeps of K3 and K4
-     must have TF32 ones (HMMA.1688.F32.TF32: each float32 product as three
-     TF32 products), and no bf16 FMA sweep, FMA forward or reverse sweep or
-     bf16 FMA `wgrad_kernel` may be compiled; the cluster forms of the
+     forward sweeps of K1 and K2, the float32 reverse sweeps of K3 and K4
+     and each float32 `wgrad_tf32_kernel` (a function a tile shape) must
+     have TF32 ones (HMMA.1688.F32.TF32: each float32 product as three TF32
+     products), and no bf16 FMA sweep, FMA forward or reverse sweep or FMA
+     `wgrad_kernel` may be compiled; the cluster forms of the
      forward and reverse sweeps (`fwd::` and `bwd::sweep_cluster_kernel`,
      two functions in each of the four libraries) must have HMMA and, in
      float32, TF32 HMMA instructions; print the float32 reverse sweeps',
@@ -48,16 +49,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      yardstick only; forward for K1, K2 and K5, backward for K3 and K4; for
      K5 also K1 in bf16 at the same shape), with CUDA events, beside the
      bound from the card's peaks (for the float32 sweeps, forward and
-     reverse, both: three TF32 products at the TF32 peak, and FMAs at the
-     float32 peak; K3's float32 weight gradients at the float32 peak); K1
+     reverse, and K3's float32 weight gradients, both: three TF32 products
+     at the TF32 peak, and FMAs at the float32 peak); K1
      and K2 at each row tile of the tensor-core forward (bf16 R 16 and 32,
      float32 R 16) and the weight packing alone, K5 at each of its row
      tiles (R 16 and 32) at the serving fold; split K3's and K4's device
      time into the reverse sweep, K3's weight-gradient
-     kernel and the rest (torch.profiler); that kernel beside its own bound
-     and, in bf16, beside the same four products as bf16 cuBLAS GEMMs over
-     all T (a yardstick) and at each candidate tile of dU1, dW2, dU2; K3
-     against K4 plus `weight_grads` in both dtypes (`FUSED_WGRAD`);
+     kernel and the rest (torch.profiler); that kernel beside its own bound,
+     beside the same four products as cuBLAS GEMMs (bf16 over all T, a
+     yardstick; float32: `weight_grads`, the unfused form's SGEMMs) and at
+     each candidate tile of dU1, dW2, dU2 in both dtypes; K3 against K4
+     plus `weight_grads` in both dtypes at the training fold and, in
+     float32, at FullSubNet's sub-band and full-band training folds too
+     (what `FUSED_WGRAD_BY_DTYPE` rests on);
   4. drive the batch path, `fullsubnet_plus_torch.cli.enhance.run_enhance`,
      on 8 wavs of 3-10 s with a seeded full-width FullSubNet+ in float32,
      bfloat16 and int8; check every output, that the kernels were launched,
@@ -116,8 +120,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      4 steps an epoch at batch 18, dynamic mixing with noise files and
      RIRs; with_reverb/ and no_reverb/ validation pairs of 3-10 s): float32
      for 2 epochs, then -R for the third, the same 3 epochs unbroken (both
-     with deterministic algorithms), bf16 for 1 epoch. Each float32 step
-     launches K2 and K4 once and K3 never, each bf16 step K2 and K3 once,
+     with deterministic algorithms), bf16 for 1 epoch. Each step launches
+     K2 and its dtype's default backward once (`FUSED_WGRAD_BY_DTYPE`: K3
+     in both) and the other never,
      each validation batch K1 once; every loss finite, no step skipped; the
      state -R resumed equal to the saved one bit for bit and epoch 3's train
      loss to the unbroken run's within TRAINER_RESUME_RTOL; best_model.npz
@@ -132,8 +137,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      one card 2 ranks sharing it (gloo, as `initialize_distributed` picks
      where ranks outnumber cards) and a 1-rank NCCL group of 18 rows,
      from a copy of phase 6's state: each rank's loss and gradient norm
-     against the 1-rank step at batch 18 (float32 K2 + K4 within phase 6's
-     limits, bf16 K2 + K3 within DP_BF16_*), K2 and K4 / K3 once a step on
+     against the 1-rank step at batch 18 (float32 within phase 6's
+     limits, bf16 within DP_BF16_*), K2 and the default backward once a step on
      every rank, the parameters bit-equal across ranks after 4 steps, the
      step walls beside the 1-rank ones; (b) `cli.train` through its rank
      flags as 2 ranks for 1 float32 epoch on phase 8's corpus: every rank
@@ -141,8 +146,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      (K1); (d) `make_train_step(mesh=)` on a mesh of 2 cards in this
      process (with one card, a mesh naming it twice) from (a)'s state at
      batch 18: rows over 'data' (2 x 1) and the sub-band fold over 'freq'
-     with its backward (1 x 2, fold_sharding naming 'freq'), float32 K2 +
-     K4 and bf16 K2 + K3 against (a)'s 1-card step within phase 6's and
+     with its backward (1 x 2, fold_sharding naming 'freq'), float32 and
+     bf16 steps through the defaults against (a)'s 1-card step within phase 6's and
      DP_BF16_*'s limits, K2 and the backward once a step on each card or
      fold half (counted by card), the parameters after the float32 step
      (>= PARAM_SHARE_FLOOR within 1e-4) and after TRAIN_STEPS steps
@@ -150,7 +155,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      at a card's fold (N_CARD) against their plain versions and timed;
      (e) `cli.train` without rank flags for 1 float32 epoch on phase 8's
      corpus: `auto_mesh` over every visible card at the TOML's batch (no
-     mesh on one card), K2 + K4 once a step and K1 once a validation batch
+     mesh on one card), K2 and the float32 default backward once a step and K1 once a validation batch
      on each card, its checkpoints; (c) `Enhancer(mesh=)` on phase 4's
      batch in float32, bf16 and int8, rows over 'data' and the fold over
      'freq', on 2 cards (with one, a mesh naming it twice), against the
@@ -307,8 +312,9 @@ TF32_HMMA = "HMMA.1688.F32.TF32"  # mma.sync m16n8k8 on TF32 operands, float32 s
 FIXTURE_GENERATOR = os.path.join(REPO, "tests", "fixtures", "gen_torch_kernel_fixture.py")
 # K5's sweeps: the tile form `int8_sweep_kernel`, the cluster form `int8_sweep_cluster_kernel`
 INT8_SWEEP = re.compile(r"int8_sweep_(cluster_)?kernel")
-# K3's weight-gradient kernels: `wgrad_kernel` (float32, FMAs), `wgrad_mma_kernel` (bf16)
-WGRAD_KERNEL = re.compile(r"wgrad_(mma_)?kernel")
+# K3's weight-gradient kernels: `wgrad_mma_kernel` (bf16), `wgrad_tf32_kernel` (float32,
+# 3xTF32); `wgrad_kernel` was the float32 FMA kernel, which must not come back
+WGRAD_KERNEL = re.compile(r"wgrad_(mma_|tf32_)?kernel")
 # kernel names of a matrix product or convolution that computes in TF32 (CUTLASS's
 # s1688 / s16816 tensor-op GEMMs take float32 operands as TF32 unless named for bf16 / f16)
 TF32_KERNEL = re.compile(r"tf32|s1688gemm(?!_bf16|_f16)|s16816gemm(?!_bf16|_f16)", re.IGNORECASE)
@@ -601,24 +607,29 @@ def cluster_functions(lib, stem: str) -> dict:
 
 
 def wgrad_functions(lib) -> dict:
-    """K3's weight-gradient functions: {function: {hmma, registers, spill
-    bytes}}; fails unless the bf16 tensor-core one has HMMA instructions and
-    no bf16 instantiation of the FMA `wgrad_kernel` was compiled."""
-    hmma = {f: n for f, n in sass_instruction_counts(lib, "HMMA").items()
-            if WGRAD_KERNEL.search(f)}
+    """K3's weight-gradient functions: {function: {hmma, tf32_hmma,
+    registers, spill bytes}}, printed; fails unless the bf16 one has HMMA
+    instructions and each float32 one (`wgrad_tf32_kernel`, a function a
+    tile shape) HMMA.1688.F32.TF32, and if any FMA `wgrad_kernel` was
+    compiled."""
+    hmma, tf32 = (sass_instruction_counts(lib, op) for op in ("HMMA", TF32_HMMA))
     ptxas = ptxas_functions(lib)
     out = {}
-    for function, n in hmma.items():
+    for function in (f for f in hmma if WGRAD_KERNEL.search(f)):
         regs, spill_st, spill_ld = ptxas.get(function, (None, None, None))
-        print(f"[1] lstm2_bwd_wgrad: {function} has {n} HMMA instructions; ptxas: {regs} "
-              f"registers, {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
-        out[function] = {"hmma": n, "registers": regs, "spill_store_bytes": spill_st,
-                         "spill_load_bytes": spill_ld}
-    mma = [n for f, n in hmma.items() if "wgrad_mma_kernel" in f]
+        print(f"[1] lstm2_bwd_wgrad: {function} has {hmma[function]} HMMA, {tf32[function]} "
+              f"{TF32_HMMA} instructions; ptxas: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads")
+        out[function] = {"hmma": hmma[function], "tf32_hmma": tf32[function], "registers": regs,
+                         "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
+    mma = [v["hmma"] for f, v in out.items() if "wgrad_mma_kernel" in f]
     if not mma or min(mma) == 0:
         fail("lstm2_bwd_wgrad: the bf16 weight gradients have no tensor-core instructions")
-    if any("wgrad_kernelI13__nv_bfloat16" in f for f in hmma):
-        fail("lstm2_bwd_wgrad: a bf16 instantiation of the FMA wgrad_kernel was compiled")
+    f32 = [v["tf32_hmma"] for f, v in out.items() if "wgrad_tf32_kernel" in f]
+    if not f32 or min(f32) == 0:
+        fail(f"lstm2_bwd_wgrad: the float32 weight gradients have no {TF32_HMMA} instructions")
+    if any("wgrad_kernel" in f for f in out):
+        fail("lstm2_bwd_wgrad: an FMA wgrad_kernel was compiled")
     return out
 
 
@@ -1010,8 +1021,9 @@ def train_bounds(dtype: torch.dtype, fma: bool = False, shape=SB, n: int = N_TRA
     (default: the training fold): operations at the peak rate of the type
     against bytes (each input read once, each output written once; h_{t-1}
     and c_{t-1} are the arrays of h and c read again). In float32 the
-    forward and reverse sweeps run each product as three TF32 products
-    (`fma`: as FMAs), and K3's weight gradients run FMAs."""
+    forward and reverse sweeps and K3's weight gradients run each product as
+    three TF32 products at the TF32 peak (`fma`: as FMAs at the float32
+    peak)."""
     D, H, O = shape  # noqa: N806 - the module's names for the shape
     size = torch.tensor([], dtype=dtype).element_size()
     rows = n * t
@@ -1024,22 +1036,24 @@ def train_bounds(dtype: torch.dtype, fma: bool = False, shape=SB, n: int = N_TRA
     sweep_s = sweep_ops_s(sweep_flops, dtype, fma)
     return {"lstm2_train_fwd": bound(sweep_s, fwd_bytes),
             "lstm2_bwd": bound(sweep_s, bwd_bytes),
-            "lstm2_bwd_wgrad": bound(sweep_s + wgrad_flops / PEAK_FLOPS[dtype], wgrad_bytes)}
+            "lstm2_bwd_wgrad": bound(sweep_s + sweep_ops_s(wgrad_flops, dtype, fma), wgrad_bytes)}
 
 
-def wgrad_bound(dtype: torch.dtype) -> tuple[float, str]:
+def wgrad_bound(dtype: torch.dtype, fma: bool = False) -> tuple[float, str]:
     """Least ms of K3's weight-gradient kernel alone at the training fold:
-    its products 2 N T (D + 3H) 4H at the type's peak, against x, h1 and h2
-    read once and the float32 accumulators read and written once a chunk
-    (the chunk's dgates come from the sweep through the L2-sized scratch)."""
+    its products 2 N T (D + 3H) 4H at the type's tensor-core peak (float32:
+    three TF32 products each at the TF32 peak; `fma`: FMAs at the float32
+    peak), against x, h1 and h2 read once and the float32 accumulators read
+    and written once a chunk (the chunk's dgates come from the sweep through
+    the scratch)."""
     from fullsubnet_plus_torch.ops import lstm2_train as lt
 
     size = torch.tensor([], dtype=dtype).element_size()
     rows = N_TRAIN * T_TRAIN
-    chunks = -(-T_TRAIN // lt.wgrad_chunk_steps(N_TRAIN, H, T_TRAIN, size))
+    chunks = -(-T_TRAIN // lt.wgrad_chunk_steps(N_TRAIN, H, T_TRAIN, dtype))
     flops = 2 * rows * (D + 3 * H) * 4 * H
     nbytes = rows * (D + 2 * H) * size + chunks * 2 * (D + 3 * H) * 4 * H * 4
-    return bound(flops / PEAK_FLOPS[dtype], nbytes)
+    return bound(sweep_ops_s(flops, dtype, fma), nbytes)
 
 
 def bf16_gemm_products(x, res, dg1, dg2):
@@ -1055,20 +1069,22 @@ def bf16_gemm_products(x, res, dg1, dg2):
     return lambda: (x_flat.t() @ g1, h1p.t() @ g1, h1.t() @ g2, h2p.t() @ g2)
 
 
-def wgrad_ms_by_tile(call) -> dict:
-    """{tile of dU1, dW2, dU2: device ms of the bf16 weight-gradient kernel
-    in one call of `call`} for each candidate shape (torch.profiler)."""
+def wgrad_ms_by_tile(call, dtype: torch.dtype) -> dict:
+    """{tile of dU1, dW2, dU2: device ms of the weight-gradient kernel in one
+    call of `call`} for each candidate shape of `dtype` (torch.profiler;
+    float32's named with its slice rows)."""
     from fullsubnet_plus_torch.ops import lstm2_train as lt
 
+    tiles = lt.WGRAD_F32_TILES if dtype == torch.float32 else lt.WGRAD_H_TILES
     out = {}
-    for shape, (rows, cols) in enumerate(lt.WGRAD_H_TILES):
-        lt.force_wgrad_tile(shape)
+    for shape, tile in enumerate(tiles):
+        lt.force_wgrad_tile(shape, dtype)
         try:
             kernels = device_ms_by_kernel(call)
         finally:
-            lt.force_wgrad_tile(None)
-        out[f"{rows}x{cols}"] = round(sum(v for k, v in kernels.items()
-                                          if WGRAD_KERNEL.search(k)), 3)
+            lt.force_wgrad_tile(None, dtype)
+        out["x".join(map(str, tile))] = round(sum(v for k, v in kernels.items()
+                                                  if WGRAD_KERNEL.search(k)), 3)
     return out
 
 
@@ -1130,13 +1146,14 @@ def phase_time_train() -> dict:
         wgrad_bound_ms, wgrad_bound_by = wgrad_bound(dtype)
         yardstick = (f"; the same four products as bf16 cuBLAS GEMMs over all T {cublas_ms:.3f} "
                      f"ms (yardstick), float32 weight_grads {outside_ms:.3f} ms"
-                     if cublas_ms is not None else f"; weight_grads {outside_ms:.3f} ms")
+                     if cublas_ms is not None else
+                     f" (as FMAs {wgrad_bound(dtype, fma=True)[0]:.3f} ms); weight_grads, the same "
+                     f"four products as float32 cuBLAS SGEMMs, {outside_ms:.3f} ms")
         print(f"[3] {str(dtype)[6:]} K3's weight-gradient kernel {k3['wgrad_kernel_ms']:.3f} ms, "
               f"bound {wgrad_bound_ms:.3f} ms ({wgrad_bound_by}){yardstick}")
-        if dtype == torch.bfloat16:
-            tile_ms = wgrad_ms_by_tile(k3_call)
-            print(f"[3] bfloat16 weight-gradient kernel by tile of dU1, dW2, dU2 (device ms, one "
-                  f"call each): {tile_ms} (the rule takes {lt.wgrad_tiles(D, H)[1]})")
+        tile_ms = wgrad_ms_by_tile(k3_call, dtype)
+        print(f"[3] {str(dtype)[6:]} weight-gradient kernel by tile of dU1, dW2, dU2 (device ms, "
+              f"one call each): {tile_ms} (the rule takes {lt.wgrad_tiles(D, H, dtype)[1]})")
         tiles = time_row_tiles(lambda: lt.lstm2_train_fwd(x, w), dtype)
         print(f"[3] lstm2_train_fwd {str(dtype)[6:]} N={N_TRAIN} T={T_TRAIN} by row tile: {tiles} "
               f"ms (the rule takes {fwd_tile_at(N_TRAIN, dtype)})")
@@ -1187,17 +1204,44 @@ def phase_time_train() -> dict:
                 times[(name, dtype)].update(row_tile_ms=tiles, row_tile=fwd_tile_at(N_TRAIN, dtype))
         times[("lstm2_bwd_wgrad", dtype)].update(
             wgrad_kernel_ms=k3["wgrad_kernel_ms"], wgrad_bound_ms=wgrad_bound_ms,
-            wgrad_bound_by=wgrad_bound_by)
-        if dtype == torch.bfloat16:
-            times[("lstm2_bwd_wgrad", dtype)].update(wgrad_tile_ms=tile_ms,
-                                                     bf16_gemm_products_ms=cublas_ms)
+            wgrad_bound_by=wgrad_bound_by, wgrad_tile_ms=tile_ms,
+            wgrad_library_ms=cublas_ms if dtype == torch.bfloat16 else outside_ms)
         times[("lstm2_bwd", dtype)]["outside_products_ms"] = outside_ms
         fused_ms, unfused_ms = ms["lstm2_bwd_wgrad"], ms["lstm2_bwd"] + outside_ms
         print(f"[3] {str(dtype)[6:]} backward forms: K3 {fused_ms:.3f} ms, K4 + weight_grads "
               f"{unfused_ms:.3f} ms; FUSED_WGRAD's default takes "
               f"{'K3' if lt.fused_wgrad(dtype) else 'K4'}")
         torch.cuda.empty_cache()
+    times[("lstm2_bwd_wgrad", torch.float32)]["backward_forms_by_fold"] = backward_forms_by_fold()
     return times
+
+
+def backward_forms_by_fold() -> dict:
+    """float32 K3 against K4 + `weight_grads` at each fold float32 training
+    runs (T 195): FullSubNet+'s training fold and FullSubNet's sub-band and
+    full-band ones, the median of 3 CUDA-event timings each; what
+    FUSED_WGRAD_BY_DTYPE[float32] rests on."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    out = {}
+    for tag, n, shape in (("fullsubnet_plus", N_TRAIN, SB), ("fullsubnet_sb", N_TRAIN, FSN_SB),
+                          ("fullsubnet_fb", N_FB_TRAIN, FB)):
+        x, dy, lstm, fc = train_operands(n, T_TRAIN, torch.float32, seed=7, shape=shape)
+        w = lstm.packed(fc)
+        _, res = lt.lstm2_train_fwd(x, w)
+        sweep = lt.lstm2_bwd_sweep(dy, x, w, res)
+        k3_ms = cuda_ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True), reps=3)
+        k4_ms = cuda_ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res), reps=3)
+        products_ms = cuda_ms(lambda: lt.weight_grads(x, res, sweep.dg1, sweep.dg2), reps=3)
+        del sweep, res
+        torch.cuda.empty_cache()
+        print(f"[3] float32 backward forms at {tag} N={n} D={shape[0]} H={shape[1]} "
+              f"O={shape[2]} T={T_TRAIN}: K3 {k3_ms:.3f} ms, K4 + weight_grads {k4_ms:.3f} + "
+              f"{products_ms:.3f} = {k4_ms + products_ms:.3f} ms; FUSED_WGRAD's default takes "
+              f"{'K3' if lt.fused_wgrad(torch.float32) else 'K4'}")
+        out[tag] = {"shape": {"N": n, "D": shape[0], "H": shape[1], "O": shape[2], "T": T_TRAIN},
+                    "k3_ms": k3_ms, "k4_ms": k4_ms, "weight_grads_ms": products_ms}
+    return out
 
 
 def train_pair(rng: np.random.Generator, n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -1223,6 +1267,14 @@ def training_kernels(fused: bool, plain: bool = False):
     finally:
         lt.FUSED_WGRAD = form
         lt.lstm2_train_fwd, lt.lstm2_bwd = kernels
+
+
+def float32_backward() -> str:
+    """The backward kernel float32 training launches by default
+    (`FUSED_WGRAD_BY_DTYPE`): K3 (`lstm2_bwd_wgrad`) or K4 (`lstm2_bwd`)."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    return "lstm2_bwd_wgrad" if lt.fused_wgrad(torch.float32) else "lstm2_bwd"
 
 
 def same_state_check(state, make_step, batches, phase: str = "[6]", per_step: int = 1) -> tuple:
@@ -2260,7 +2312,7 @@ def check_trainer_run(tag: str, trainer, launches: dict, bf16: bool,
     steps = sum(r["steps"] for r in epochs)
     valid = [r["validation"] for r in epochs]
     valid_batches = sum(v["batches"] for v in valid)
-    backward = "lstm2_bwd_wgrad" if bf16 else "lstm2_bwd"
+    backward = "lstm2_bwd_wgrad" if bf16 else float32_backward()
     want = {k: 0 for k in launches}
     want.update({"lstm2_train_fwd": per_step * steps, backward: per_step * steps,
                  "lstm2_fwd": per_step * valid_batches})
@@ -2674,7 +2726,7 @@ def phase_data_parallel(root: str, saved: dict, batches: dict, cards: list) -> d
             if r["jax_modules"]:
                 fail(f"[9] rank {r['rank']} imported {r['jax_modules']}")
             for form, backward, loss_rtol, norm_rtol in (
-                    ("float32", "lstm2_bwd", TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
+                    ("float32", float32_backward(), TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
                     ("bfloat16", "lstm2_bwd_wgrad", DP_BF16_LOSS_RTOL, DP_BF16_GRAD_NORM_RTOL)):
                 m, ref = r[form]["metrics"], one[form]["metrics"]
                 gaps = (rel(m["loss"], ref["loss"]), rel(m["grad_norm"], ref["grad_norm"]))
@@ -2688,7 +2740,7 @@ def phase_data_parallel(root: str, saved: dict, batches: dict, cards: list) -> d
                 if r[form]["launches"] != want:
                     fail(f"[9] {tag} rank {r['rank']} {form} launches {r[form]['launches']}")
             want = {k: 0 for k in r["steps"]["launches"]}
-            want.update({"lstm2_train_fwd": TRAIN_STEPS, "lstm2_bwd": TRAIN_STEPS})
+            want.update({"lstm2_train_fwd": TRAIN_STEPS, float32_backward(): TRAIN_STEPS})
             if r["steps"]["launches"] != want:
                 fail(f"[9] {tag} rank {r['rank']} float32 steps launched {r['steps']['launches']}")
         digests = {r["steps"]["params_sha256"] for r in ranks}
@@ -2709,7 +2761,8 @@ def phase_cli_ranks(root: str, cards: list, one_rank: float | None = None) -> di
     """(b) `cli.train` as the same ranks through its flags for 1 float32
     epoch on phase 8's corpus (each rank its own save_dir in its config, so
     rank 1's shows what it wrote): every rank finishes, only rank 0 wrote
-    files, the losses are equal, K2 + K4 once a step on every rank and K1
+    files, the losses are equal, K2 and the float32 default backward
+    (`float32_backward`) once a step on every rank and K1
     once a validation batch on rank 0 alone. `one_rank`: phase 8's 1-rank
     trainer audio-s/s, printed beside the ranks'."""
     corpus = {"lists": {k: os.path.join(root, "corpus", f"{k}.txt")
@@ -2741,7 +2794,7 @@ def phase_cli_ranks(root: str, cards: list, one_rank: float | None = None) -> di
         fail("[9] not rank 0 alone wrote the run's files")
     for r in ranks:
         want = {k: 0 for k in r["launches"]}
-        want.update({"lstm2_train_fwd": r["steps"], "lstm2_bwd": r["steps"],
+        want.update({"lstm2_train_fwd": r["steps"], float32_backward(): r["steps"],
                      "lstm2_fwd": r["validation_batches"]})
         if (r["launches"] != want or r["primary"] != (r["rank"] == 0) or r["jax_modules"]
                 or (r["rank"] == 0) != (r["validation_batches"] > 0)):
@@ -2821,8 +2874,8 @@ def phase_train_mesh(saved: dict, batches: dict, cards: list, one: dict, ranks: 
     state: the rows over 'data' (2 x 1) and the sub-band fold over 'freq'
     (1 x 2, fold_sharding naming it), on 2 cards, or with one card on a mesh
     that names it twice (the two copies of the model, or the fold's two
-    halves, then share it). Each mesh's float32 (K2 + K4) and bf16 (K2 + K3)
-    step against (a)'s 1-card step within phase 6's and DP_BF16_*'s limits,
+    halves, then share it). Each mesh's float32 and bf16 step (K2 and each
+    dtype's default backward) against (a)'s 1-card step within phase 6's and DP_BF16_*'s limits,
     K2 and the backward once a step on each card or fold half (counted by
     card), the state on the mesh's first card, the parameters after that
     float32 step against the 1-card step's (PARAM_SHARE_FLOOR) and after
@@ -2852,7 +2905,7 @@ def phase_train_mesh(saved: dict, batches: dict, cards: list, one: dict, ranks: 
                            slice(None), keep_params=True)
         tag = f"mesh {shape[0]}x{shape[1]} on {devices} (fold_sharding {fold})"
         for form, backward, loss_rtol, norm_rtol in (
-                ("float32", "lstm2_bwd", TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
+                ("float32", float32_backward(), TRAIN_LOSS_RTOL, TRAIN_GRAD_NORM_RTOL),
                 ("bfloat16", "lstm2_bwd_wgrad", DP_BF16_LOSS_RTOL, DP_BF16_GRAD_NORM_RTOL)):
             m, ref = run[form]["metrics"], one[form]["metrics"]
             gaps = (rel(m["loss"], ref["loss"]), rel(m["grad_norm"], ref["grad_norm"]))
@@ -2870,9 +2923,9 @@ def phase_train_mesh(saved: dict, batches: dict, cards: list, one: dict, ranks: 
                      f"{run[form]['launches_by_card']}, expected {want}, {by_card}")
         steps = run["steps"]
         want = {k: 0 for k in steps["launches"]}
-        want.update({"lstm2_train_fwd": 2 * TRAIN_STEPS, "lstm2_bwd": 2 * TRAIN_STEPS})
+        want.update({"lstm2_train_fwd": 2 * TRAIN_STEPS, float32_backward(): 2 * TRAIN_STEPS})
         by_card = {f"{k} {d}": TRAIN_STEPS * devices.count(d)
-                   for k in ("lstm2_train_fwd", "lstm2_bwd") for d in devices}
+                   for k in ("lstm2_train_fwd", float32_backward()) for d in devices}
         if steps["launches"] != want or steps["launches_by_card"] != by_card:
             fail(f"[9] (d) {tag} float32 steps launched {steps['launches']} by card "
                  f"{steps['launches_by_card']}")
@@ -2913,8 +2966,9 @@ def phase_cli_mesh(root: str, corpus: dict, cards: list) -> dict:
     """(e) `cli.train` without rank flags (`--device cuda`) for one float32
     epoch on phase 8's `corpus`, in this process: it trains on `auto_mesh` of
     every visible card at the TOML's batch (with one card, no mesh),
-    validates over the same cards and writes its checkpoints; K2 and K4
-    once a step on each card, K1 once a validation batch on each."""
+    validates over the same cards and writes its checkpoints; K2 and the
+    float32 default backward once a step on each card, K1 once a validation
+    batch on each."""
     from fullsubnet_plus_torch.parallel import auto_mesh
 
     torch.cuda.empty_cache()
@@ -2932,7 +2986,7 @@ def phase_cli_mesh(root: str, corpus: dict, cards: list) -> dict:
     out = check_trainer_run("cli mesh", trainer, launches, bf16=False,
                             per_step=mesh.local_data if mesh else 1, phase="[9] (e)")
     steps = out["steps"]
-    want = {f"{k} {d}": steps for k in ("lstm2_train_fwd", "lstm2_bwd")
+    want = {f"{k} {d}": steps for k in ("lstm2_train_fwd", float32_backward())
             for d in (mesh.data_devices if mesh else [torch.device(cards[0])])}
     print(f"[9] (e) launches by card {by_card}")
     if by_card != want:
@@ -3509,7 +3563,7 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
         if not (np.isfinite(float(m["loss"])) and float(m["skipped"]) == 0.0):
             fail(f"[11] FullSubNet float32 step: {m}")
     default_launches = all_launches()
-    backward = "lstm2_bwd_wgrad" if lt.fused_wgrad(torch.float32) else "lstm2_bwd"
+    backward = float32_backward()
     want = {k: 0 for k in default_launches}
     want.update({"lstm2_train_fwd": 2 * TRAIN_STEPS, backward: 2 * TRAIN_STEPS})
     if default_launches != want:

@@ -1,6 +1,6 @@
 // Reverse-sweep backward of the fused 2-layer LSTM with the weight
-// gradients summed inside, for Hopper (sm_90a): the training step's default
-// backward in bf16.
+// gradients summed inside, for Hopper (sm_90a): the training step's
+// backward where `fused_wgrad` (ops/lstm2_train.py) takes it.
 //
 // Replaces the TPU kernel `_make_bwd_kernel_fused` launched by `_train_bwd`
 // with FUSED_WGRAD = True (fullsubnet_plus_tpu/ops/lstm_pallas.py:472, :695,
@@ -17,13 +17,13 @@
 // again for the weight gradients) and must read the residuals and x
 // ((12H + D) elements per row and step; h_{t-1} and c_{t-1} are the same
 // arrays read again) and write dx: 8.4 GB in float32, 4.2 GB in bf16.
-// Operations bound it in both types (48.8 ms at 67 TFLOP/s in float32
-// against 2.5 ms of bytes; 3.3 ms at the tensor cores' bf16 rate against
-// 1.3 ms). The reverse sweep's three products run on mma.sync in both
-// types (in float32 as three TF32 products of split operands;
-// lstm2_bwd_sweep.cuh says what bounds it: each CTA's step latency); in
-// bf16 so do the four weight-gradient products of `wgrad_mma_kernel` below,
-// while float32 keeps FMAs in `wgrad_kernel`.
+// Operations bound it in both types (19.9 ms of three TF32 products a
+// product at the TF32 rate in float32 against 2.5 ms of bytes; 3.3 ms at
+// the tensor cores' bf16 rate against 1.3 ms). Every product runs on
+// mma.sync in both types, in float32 as three TF32 products of split
+// operands: the reverse sweep's three (lstm2_bwd_sweep.cuh says what bounds
+// it: each CTA's step latency) and the four weight-gradient products, of
+// `wgrad_mma_kernel` in bf16 and `wgrad_tf32_kernel` in float32 (below).
 //
 // Design. The TPU kernel keeps all 7.3 MB of float32 accumulators resident
 // and relies on its grid running in order; here CTAs run at once and have
@@ -40,8 +40,8 @@
 //   2. the weight-gradient kernel adds A^T dg of the chunk into the four
 //      weight gradients, each output element owned by one thread that reads
 //      it, adds the chunk's steps and rows in a fixed order, and writes it
-//      back: `wgrad_kernel` (float32, FMAs, operands widened in shared
-//      memory) or `wgrad_mma_kernel` (bf16, tensor cores; see below).
+//      back: `wgrad_mma_kernel` (bf16) or `wgrad_tf32_kernel` (float32),
+//      both on the tensor cores (see below).
 // Then `db_reduce_kernel` sums the tiles' bias rows in tile order. Kernels
 // on one stream run in order and every sum has one owner and a fixed
 // order, so the result is the same bit for bit on every run: no atomics.
@@ -54,19 +54,9 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// float32: FMA products
-// ---------------------------------------------------------------------------
-
-constexpr int TILE = 128;  // output tile of wgrad_kernel: TILE x TILE
-constexpr int NB = 16;     // rows of the contraction staged at a time
-constexpr int MICRO = 8;   // each of the 16 x 16 threads owns MICRO x MICRO outputs:
-                           // rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns alike
-                           // with tx, so its operands are four float4 loads a slice row
-
 template <typename T>
 struct WgradArgs {
-  const T* x;     // [T, N, D]; bf16: [T, N, dx_cols(D)], the pad columns zero
+  const T* x;     // [T, N, x_cols<T>(D)], the pad columns zero
   const T* h1;    // [T, N, H]
   const T* h2;    // [T, N, H]
   const T* dg1;   // scratch [chunk, N, 4H]: step t at index t - t_lo
@@ -79,110 +69,11 @@ struct WgradArgs {
   int t_hi, t_lo;
 };
 
-// Element i (of MICRO) of thread coordinate c (of 16) within a TILE
-__device__ __forceinline__ int micro(int c, int i) { return 4 * c + 64 * (i >> 2) + (i & 3); }
-
-// One thread's share of a staged tile: NB x TILE elements of A and of G
-// over 256 threads, as raw bits so that all 16 loads are in flight at once.
-template <typename T>
-struct Staged {
-  typename lstm2::Bits<T>::type a[NB * TILE / 256], g[NB * TILE / 256];
-};
-
-// C[k][c] += sum over t = t_hi .. t_lo and rows n of A_t[n][k] * G_t[n][c].
-// blockIdx.x: tile of the 4H gate columns; blockIdx.y: tile of the rows of
-// one of the four gradients (dW1's tiles first, then dU1, dW2, dU2). The
-// contraction runs over (step, NB rows) slices in a fixed order; the loads
-// of the next slice are issued before the products of the current one.
-template <typename T>
-__global__ void __launch_bounds__(256)
-wgrad_kernel(const WgradArgs<T> a) {
-  static_assert(std::is_same_v<T, float>, "bf16 weight gradients run on wgrad_mma_kernel");
-  using Raw = typename lstm2::Bits<T>::type;
-  __shared__ __align__(16) float As[NB][TILE];
-  __shared__ __align__(16) float Gs[NB][TILE];
-  const int G = 4 * a.H;
-  const int tiles_d = (a.D + TILE - 1) / TILE, tiles_h = (a.H + TILE - 1) / TILE;
-
-  int tile = blockIdx.y, which = 0;
-  if (tile >= tiles_d) {
-    tile -= tiles_d;
-    which = 1 + tile / tiles_h;
-    tile -= (which - 1) * tiles_h;
-  }
-  const int K = which == 0 ? a.D : a.H;           // rows of this gradient
-  const Raw* A = reinterpret_cast<const Raw*>(which == 0 ? a.x : (which == 3 ? a.h2 : a.h1));
-  const int shift = (which == 1 || which == 3) ? 1 : 0;  // reads h of step t - 1
-  const Raw* Gm = reinterpret_cast<const Raw*>(which < 2 ? a.dg1 : a.dg2);
-  float* C = which == 0 ? a.dw1 : (which == 1 ? a.du1 : (which == 2 ? a.dw2 : a.du2));
-  const int k0 = tile * TILE, c0 = blockIdx.x * TILE;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float acc[MICRO][MICRO];
-#pragma unroll
-  for (int i = 0; i < MICRO; ++i)
-#pragma unroll
-    for (int jj = 0; jj < MICRO; ++jj) {
-      const int k = k0 + micro(ty, i), c = c0 + micro(tx, jj);
-      acc[i][jj] = (k < K && c < G) ? C[(size_t)k * G + c] : 0.0f;
-    }
-
-  const int row_slices = (a.n_rows + NB - 1) / NB;
-  const int slices = (a.t_hi - a.t_lo + 1) * row_slices;
-  const int col = tid & (TILE - 1), n_first = tid / TILE;  // this thread's staged elements
-
-  auto load = [&](int slice, Staged<T>& st) {
-    const int t = a.t_hi - slice / row_slices, n0 = (slice % row_slices) * NB;
-    const bool a_ok = k0 + col < K && !(shift && t == 0);  // h_{-1} = 0
-    const bool g_ok = c0 + col < G;
-    const Raw* At = A + (size_t)(a_ok ? t - shift : 0) * a.n_rows * K;
-    const Raw* Gt = Gm + (size_t)(t - a.t_lo) * a.n_rows * G;
-#pragma unroll
-    for (int e = 0; e < NB * TILE / 256; ++e) {
-      const int n = n0 + n_first + (256 / TILE) * e;
-      const bool row_ok = n < a.n_rows;
-      st.a[e] = (row_ok && a_ok) ? At[(size_t)n * K + k0 + col] : Raw(0);
-      st.g[e] = (row_ok && g_ok) ? Gt[(size_t)n * G + c0 + col] : Raw(0);
-    }
-  };
-
-  Staged<T> st;
-  if (slices > 0) load(0, st);
-  for (int slice = 0; slice < slices; ++slice) {
-#pragma unroll
-    for (int e = 0; e < NB * TILE / 256; ++e) {
-      As[n_first + (256 / TILE) * e][col] = lstm2::Bits<T>::to_f(st.a[e]);
-      Gs[n_first + (256 / TILE) * e][col] = lstm2::Bits<T>::to_f(st.g[e]);
-    }
-    __syncthreads();
-    if (slice + 1 < slices) load(slice + 1, st);
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      float av[MICRO], gv[MICRO];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[n][micro(ty, 4 * half)]);
-        const float4 g4 = *reinterpret_cast<const float4*>(&Gs[n][micro(tx, 4 * half)]);
-        av[4 * half] = a4.x, av[4 * half + 1] = a4.y, av[4 * half + 2] = a4.z;
-        av[4 * half + 3] = a4.w;
-        gv[4 * half] = g4.x, gv[4 * half + 1] = g4.y, gv[4 * half + 2] = g4.z;
-        gv[4 * half + 3] = g4.w;
-      }
-#pragma unroll
-      for (int i = 0; i < MICRO; ++i)
-#pragma unroll
-        for (int jj = 0; jj < MICRO; ++jj) acc[i][jj] = fmaf(av[i], gv[jj], acc[i][jj]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < MICRO; ++i)
-#pragma unroll
-    for (int jj = 0; jj < MICRO; ++jj) {
-      const int k = k0 + micro(ty, i), c = c0 + micro(tx, jj);
-      if (k < K && c < G) C[(size_t)k * G + c] = acc[i][jj];
-    }
+// The row pitch of x as the weight-gradient kernels read it: D rounded up
+// to whole 16-byte copies (8 bf16, 4 float32); the wrapper pads x with
+// zero columns to it.
+template <typename T> __host__ __device__ constexpr int x_cols(int D) {
+  return (D + 16 / (int)sizeof(T) - 1) / (16 / (int)sizeof(T)) * (16 / (int)sizeof(T));
 }
 
 // ---------------------------------------------------------------------------
@@ -214,8 +105,8 @@ wgrad_kernel(const WgradArgs<T> a) {
 //   A row of the ring is padded by 8 bf16 (16 bytes), so the 8 rows an
 //   ldmatrix phase reads fall in 8 different bank groups. Tails are zero
 //   fill (cp.async with a source size of 0): rows n past N, columns past
-//   the row's end, and h_{-1} at t = 0. bf16 x arrives padded to
-//   dx_cols(D) columns, so its rows are 16-byte aligned like h's.
+//   the row's end, and h_{-1} at t = 0. x arrives padded to x_cols(D)
+//   columns, so its rows are 16-byte aligned like h's.
 //   Products: the contraction index is the row of both staged operands, so
 //   the A fragment (rows k, columns n) and the col B fragment (rows n,
 //   columns c) both come from ldmatrix .trans. Each warp owns a rectangle of
@@ -285,7 +176,7 @@ __device__ __forceinline__ void wgrad_mma_tile(const WgradArgs<__nv_bfloat16>& a
   constexpr int A_COPIES = WG_BK * BM / 8, G_COPIES = WG_BK * BN / 8;  // 16-byte copies a slice
   const int G = 4 * a.H;
   const int K = which == 0 ? a.D : a.H;                   // live rows of C
-  const int lda = which == 0 ? bwd::dx_cols(a.D) : a.H;  // row pitch of A in device memory
+  const int lda = which == 0 ? x_cols<bf16>(a.D) : a.H;  // row pitch of A in device memory
   const bf16* A = which == 0 ? a.x : (which == 3 ? a.h2 : a.h1);
   const int shift = (which == 1 || which == 3) ? 1 : 0;  // reads h of step t - 1
   const bf16* Gm = which < 2 ? a.dg1 : a.dg2;
@@ -427,14 +318,366 @@ int launch_wgrad_mma(const WgradArgs<__nv_bfloat16>& w, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32: the weight gradients on the tensor cores as 3xTF32
+// ---------------------------------------------------------------------------
+//
+// `wgrad_tf32_kernel`: the same sums as `wgrad_mma_kernel` from float32
+// operands, every product on mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 as
+// three TF32 products of split operands (lstm2::split_tf32, mma_3xtf32:
+// small.big + big.small + big.big, each exact in float32; only small.small,
+// about 2^-22 of a product, is dropped), float32 sums. The products are
+// 2 N T (D + 3H) 4H = 1.64 TFLOP at the training fold, three TF32 products
+// each: 9.9 ms at the TF32 peak.
+//
+// Its structure is `wgrad_mma_kernel`'s: a CTA owns a tile of one gradient
+// (the tiles of dU1, dW2 and dU2 first, then dW1's W1_ROWS x W1_COLS), a
+// ring of contraction slices of BK rows n of one step, t_hi first, n in
+// order, each warp a rectangle of MI m16 x NI n8 tiles of C whose float32
+// sums stay in registers from the read of C to the write back. What float32
+// changes:
+//   Staging: A [n][k] and G [n][c] stay float32 and n-major; x arrives
+//   padded to x_cols(D) columns (D 34 to 36, 257 to 260), so every row is
+//   16-byte aligned. A staged row is padded to a pitch of 8 (mod 32) words
+//   (f32_pitch: 72 for 48 and 64 columns, 136 for 128), which makes each
+//   fragment load free of bank conflicts. A slice reaches the ring in one
+//   of two ways (F32Tile::BULK): cp.async, 16 bytes a thread with zero fill
+//   (a source size of 0) for rows past N, h_{-1} and columns past the row;
+//   or bulk copies by the Tensor Memory Accelerator, one thread a row of A
+//   and one a row of G, completing on the slot's mbarrier, the zero rows
+//   and columns copied from a zero row in device memory.
+//   Fragments: ldmatrix moves b16 only, so each lane (g, t) = (lane / 4,
+//   lane % 4) loads its words with 32-bit shared loads: A's m16n8k8 TF32
+//   fragment of m-tile i at k-step ks is As[8 ks + t][m + g], As[8 ks +
+//   t][m + g + 8], As[8 ks + t + 4][m + g], As[8 ks + t + 4][m + g + 8]
+//   (row k of C is the row of A, the contraction index n its column), and
+//   the col B fragment of n-tile j is Gs[8 ks + t][c + g], Gs[8 ks + t +
+//   4][c + g]: lanes read word 8 t + g (mod 32) of their row pair, 32
+//   banks. Each word is split once after its load and serves the warp's NI
+//   (A) or MI (B) products.
+//   Sums: the tensor core truncates its float32 accumulation, so each
+//   slice's products (3 BK / 8 mma.sync a tile of C) go into a zeroed
+//   partial that one round-to-nearest FADD adds to the running sum, as the
+//   sweeps do (lstm2_common.cuh, AFrag<float>, where the truncation alone
+//   cost about 25 dB).
+// Every element of C has one owner that adds its steps and rows in a fixed
+// order, so K3 stays equal to itself on a repeat, as in bf16; a slice never
+// spans two steps, so the weight gradients are the same bits at any chunk.
+//
+// What bounds it (H100, training fold; PERF.md, scripts/time_torch_wgrad_
+// tiles.py and, on edited copies, scripts/profile_torch_wgrad_f32.py): each
+// of the three TF32 passes cost about 7.7 ms, so mma.sync's TF32 products
+// ran at about half the tensor cores' TF32 peak (which needs wgmma), and
+// the 108 128 x 128 tiles of dU1, dW2, dU2 leave 24 of the 132 SMs with
+// dW1's small tiles: the products alone take about 23 ms.
+// With cp.async staging the kernel took 33.7 ms (the copies added about 8,
+// the splits about 5: little of either ran under the products); bulk copies
+// take the copies off the threads: 28.2 ms. The tile rule (`wgrad_f32_tile`,
+// `wgrad_tiles` in ops/lstm2_train.py): 128 x 128, 64-row slices, bulk
+// copies (the other candidates took 31.6-37.6 ms; accumulators in shared
+// memory, 16 warps a CTA, or the three products issued kind by kind over
+// the warp's tiles took as long or longer); but where a step has fewer than
+// 64 rows (FullSubNet's full-band fold, N 18) most of a slice is zero rows,
+// which cp.async fills without reading memory: 128 x 128 with 32-row slices
+// there, 1.05 ms against 8.9 with bulk copies.
+
+// The float32 tiles of dU1, dW2 and dU2: BM rows x BN gate columns, BK
+// contraction rows a slice, WM x WN warps (dW1's 48 x 64 tile takes 3 x 2
+// of them), STAGES slices in the ring, CTAs an SM must hold, and the
+// staging: BULK copies or cp.async (WGRAD_F32_TILES in ops/lstm2_train.py,
+// same order).
+template <int SHAPE> struct F32Tile;
+template <> struct F32Tile<0> {
+  static constexpr int BM = 64, BN = 128, BK = 32, WM = 2, WN = 4, STAGES = 4, CTAS = 2;
+  static constexpr bool BULK = false;
+};
+template <> struct F32Tile<1> {
+  static constexpr int BM = 64, BN = 128, BK = 64, WM = 2, WN = 4, STAGES = 2, CTAS = 2;
+  static constexpr bool BULK = false;
+};
+template <> struct F32Tile<2> {
+  static constexpr int BM = 128, BN = 128, BK = 32, WM = 2, WN = 4, STAGES = 4, CTAS = 1;
+  static constexpr bool BULK = false;
+};
+template <> struct F32Tile<3> {
+  static constexpr int BM = 128, BN = 128, BK = 64, WM = 2, WN = 4, STAGES = 3, CTAS = 1;
+  static constexpr bool BULK = false;
+};
+template <> struct F32Tile<4> {
+  static constexpr int BM = 128, BN = 128, BK = 64, WM = 2, WN = 4, STAGES = 3, CTAS = 1;
+  static constexpr bool BULK = true;
+};
+template <> struct F32Tile<5> {
+  static constexpr int BM = 64, BN = 128, BK = 64, WM = 2, WN = 4, STAGES = 2, CTAS = 2;
+  static constexpr bool BULK = true;
+};
+constexpr int F32_TILES = 6;
+
+// The float32 tile at (D, H) on a fold of n_rows rows: `wgrad_tiles` in
+// ops/lstm2_train.py.
+inline int wgrad_f32_tile(int D, int H, int n_rows) {
+  (void)D, (void)H;
+  return n_rows < 64 ? 2 : 4;
+}
+
+// -1: the rule above; otherwise the float32 tile every launch takes (timing only)
+int g_forced_f32_tile = -1;
+
+// A staged float32 row of `cols` words padded to a pitch of 8 (mod 32)
+// words: a fragment's 32 loads (rows t and t + 4 of a k-step, 8 columns
+// from g) then hit word 8 t + g of 32 banks
+__host__ __device__ constexpr int f32_pitch(int cols) { return cols + (40 - cols % 32) % 32; }
+
+// the ring, then (BULK) an 8-byte mbarrier a slot
+template <int BM, int BN, int BK, int STAGES, bool BULK>
+constexpr int wgrad_f32_smem_bytes() {
+  return STAGES * BK * (f32_pitch(BM) + f32_pitch(BN)) * 4 + (BULK ? STAGES * 8 : 0);
+}
+
+// a zero row for the bulk copies' zero fill (rows past the chunk's, h_{-1},
+// the columns of a tile past the A row's end)
+__device__ __align__(16) float g_zero_row[128];
+
+// `bytes` (a multiple of 16) from device memory at `src` to this CTA's shared
+// memory at `dst` by the Tensor Memory Accelerator, completing on the
+// mbarrier `bar`
+__device__ __forceinline__ void bulk_copy_in(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// one float32 word's TF32 halves, as the tensor core reads them
+__device__ __forceinline__ void split_word(float v, uint32_t& big, uint32_t& small) {
+  lstm2::split_tf32(__float_as_uint(v), big, small);
+}
+
+// C[k0 .. k0 + BM)[c0 .. c0 + BN) of gradient `which` (0 dW1, 1 dU1, 2 dW2,
+// 3 dU2) += the chunk's A^T G in float32, as described above.
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, int THREADS, bool BULK>
+__device__ __forceinline__ void wgrad_tf32_tile(const WgradArgs<float>& a, int which, int k0,
+                                                int c0, const float* smem) {
+  constexpr int MI = BM / WM / 16, NI = BN / WN / 8;  // a warp's m16 and n8 tiles
+  static_assert(MI >= 1 && NI >= 1 && WM * WN <= THREADS / 32 && BK % 8 == 0, "warp tiling");
+  constexpr int LDA = f32_pitch(BM), LDG = f32_pitch(BN);  // staged row pitch, floats
+  constexpr int STAGE = BK * (LDA + LDG);                   // floats a slice
+  constexpr int A_COPIES = BK * BM / 4, G_COPIES = BK * BN / 4;  // 16-byte copies a slice
+  const int G = 4 * a.H;
+  const int K = which == 0 ? a.D : a.H;                    // live rows of C
+  const int lda = which == 0 ? x_cols<float>(a.D) : a.H;  // row pitch of A in device memory
+  const float* A = which == 0 ? a.x : (which == 3 ? a.h2 : a.h1);
+  const int shift = (which == 1 || which == 3) ? 1 : 0;  // reads h of step t - 1
+  const float* Gm = which < 2 ? a.dg1 : a.dg2;
+  float* C = which == 0 ? a.dw1 : (which == 1 ? a.du1 : (which == 2 ? a.dw2 : a.du2));
+  const uint32_t smem_u32 = (uint32_t)__cvta_generic_to_shared(smem);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / WN, wn = warp - (warp / WN) * WN;
+  const int m0 = wm * MI * 16, n0 = wn * NI * 8;  // the warp's rectangle in the tile
+  const bool live = warp < WM * WN && k0 + m0 < K && c0 + n0 < G;
+  const int g = lane >> 2, t = lane & 3;  // accumulator rows g, g + 8; columns 2t, 2t + 1
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + m0 + 16 * i + g + 8 * h, c = c0 + n0 + 8 * j + 2 * t;
+        float2 v = make_float2(0.0f, 0.0f);
+        if (live && k < K && c < G) v = *reinterpret_cast<const float2*>(C + (size_t)k * G + c);
+        acc[i][j][2 * h] = v.x;
+        acc[i][j][2 * h + 1] = v.y;
+      }
+
+  const int row_slices = (a.n_rows + BK - 1) / BK;
+  const int slices = (a.t_hi - a.t_lo + 1) * row_slices;
+  auto load = [&](int slice) {
+    const int step = a.t_hi - slice / row_slices, nb = (slice % row_slices) * BK;
+    const bool a_live = !(shift && step == 0);  // h_{-1} = 0
+    const float* At = A + (size_t)(a_live ? step - shift : 0) * a.n_rows * lda;
+    const float* Gt = Gm + (size_t)(step - a.t_lo) * a.n_rows * G;
+    const uint32_t as = smem_u32 + (slice % STAGES) * STAGE * 4, gs = as + BK * LDA * 4;
+#pragma unroll
+    for (int e = 0; e < cdiv(A_COPIES, THREADS); ++e) {
+      const int idx = tid + e * THREADS;
+      if (A_COPIES % THREADS != 0 && idx >= A_COPIES) break;
+      const int r = idx / (BM / 4), kk = 4 * (idx % (BM / 4)), n = nb + r;
+      const bool ok = a_live && n < a.n_rows && k0 + kk < lda;
+      cp_async16(as + (r * LDA + kk) * 4, ok ? At + (size_t)n * lda + k0 + kk : A, ok);
+    }
+#pragma unroll
+    for (int e = 0; e < cdiv(G_COPIES, THREADS); ++e) {
+      const int idx = tid + e * THREADS;
+      if (G_COPIES % THREADS != 0 && idx >= G_COPIES) break;
+      const int r = idx / (BN / 4), cc = 4 * (idx % (BN / 4)), n = nb + r;
+      const bool ok = n < a.n_rows && c0 + cc < G;
+      cp_async16(gs + (r * LDG + cc) * 4, ok ? Gt + (size_t)n * G + c0 + cc : Gm, ok);
+    }
+  };
+
+  // BULK: a slice staged by bulk copies of whole rows, thread r < BK
+  // copying A's row r (the part inside the row's lda columns, then zeros)
+  // and thread BK + r G's, completing on the slot's mbarrier
+  const uint32_t full = smem_u32 + STAGES * STAGE * 4;
+  const int a_cols = max(0, min(BM, lda - k0));  // A's columns inside the tile; the rest zero
+  auto load_bulk = [&](int slice) {
+    const uint32_t bar = full + 8 * (slice % STAGES);
+    const uint32_t as = smem_u32 + (slice % STAGES) * STAGE * 4, gs = as + BK * LDA * 4;
+    if (tid == 0) lstm2::mbar_arrive_expect(bar, BK * (BM + BN) * 4);
+    if (tid >= 2 * BK) return;
+    const int r = tid % BK, step = a.t_hi - slice / row_slices;
+    const int n = (slice % row_slices) * BK + r;
+    const bool ok = n < a.n_rows;
+    if (tid >= BK) {
+      const float* src = ok ? Gm + ((size_t)(step - a.t_lo) * a.n_rows + n) * G + c0 : g_zero_row;
+      bulk_copy_in(gs + r * LDG * 4, src, BN * 4, bar);
+    } else {
+      const int cols = ok && !(shift && step == 0) ? a_cols : 0;  // h_{-1} = 0
+      const uint32_t dst = as + r * LDA * 4;
+      if (cols) bulk_copy_in(dst, A + ((size_t)(step - shift) * a.n_rows + n) * lda + k0, cols * 4, bar);
+      if (cols < BM) bulk_copy_in(dst + cols * 4, g_zero_row, (BM - cols) * 4, bar);
+    }
+  };
+  if constexpr (BULK) {
+    static_assert(BM <= 128 && BN <= 128 && 2 * BK <= THREADS, "bulk staging");
+    if (tid < STAGES) lstm2::mbar_init(full + 8 * tid, 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if constexpr (BULK) {
+      if (s < slices) load_bulk(s);
+    } else {
+      if (s < slices) load(s);
+      cp_async_commit();
+    }
+  }
+  for (int s = 0; s < slices; ++s) {
+    const int next = s + STAGES - 1;  // the slice whose copies this iteration issues
+    if constexpr (BULK) {
+      __syncthreads();  // every warp is done with slice s - 1: its slot is free
+      if (next < slices) load_bulk(next);
+      lstm2::mbar_wait(full + 8 * (s % STAGES), (s / STAGES) & 1);  // slice s has landed
+    } else {
+      cp_async_wait<STAGES - 2>();  // slice s has landed (this thread's copies)
+      __syncthreads();              // ... everyone's; slice s - 1's buffer is free
+      if (next < slices) load(next);
+      cp_async_commit();
+    }
+    if (!live) continue;
+    // this lane's first A and G words of the slice: row t, columns m0 + g and n0 + g
+    const float* as = smem + (s % STAGES) * STAGE + t * LDA + m0 + g;
+    const float* gs = smem + (s % STAGES) * STAGE + BK * LDA + t * LDG + n0 + g;
+    float part[MI][NI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      // the k-step's B fragments of the warp's NI n-tiles, then one m-tile's
+      // A fragment at a time against them
+      uint32_t b_big[NI][2], b_small[NI][2];
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const float* q = gs + 8 * ks * LDG + 8 * j;
+        split_word(q[0], b_big[j][0], b_small[j][0]);
+        split_word(q[4 * LDG], b_big[j][1], b_small[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        uint32_t a_big[4], a_small[4];
+        const float* p = as + 8 * ks * LDA + 16 * i;
+        split_word(p[0], a_big[0], a_small[0]);
+        split_word(p[8], a_big[1], a_small[1]);
+        split_word(p[4 * LDA], a_big[2], a_small[2]);
+        split_word(p[4 * LDA + 8], a_big[3], a_small[3]);
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          lstm2::mma_3xtf32(part[i][j], a_big, a_small, b_big[j][0], b_big[j][1], b_small[j][0],
+                            b_small[j][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+  if constexpr (!BULK) cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + m0 + 16 * i + g + 8 * h, c = c0 + n0 + 8 * j + 2 * t;
+        if (live && k < K && c < G)
+          *reinterpret_cast<float2*>(C + (size_t)k * G + c) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+}
+
+template <int SHAPE>
+__global__ void __launch_bounds__(32 * F32Tile<SHAPE>::WM * F32Tile<SHAPE>::WN,
+                                  F32Tile<SHAPE>::CTAS)
+wgrad_tf32_kernel(const WgradArgs<float> a) {
+  using S = F32Tile<SHAPE>;
+  constexpr int THREADS = 32 * S::WM * S::WN;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const float* smem = reinterpret_cast<const float*>(wg_smem);
+  const int G = 4 * a.H;
+  const int h_rows = cdiv(a.H, S::BM), h_cols = cdiv(G, S::BN), h_blocks = 3 * h_rows * h_cols;
+  int b = blockIdx.x;
+  if (b < h_blocks) {
+    const int which = 1 + b / (h_rows * h_cols);
+    b -= (which - 1) * h_rows * h_cols;
+    wgrad_tf32_tile<S::BM, S::BN, S::BK, S::WM, S::WN, S::STAGES, THREADS, S::BULK>(
+        a, which, (b / h_cols) * S::BM, (b % h_cols) * S::BN, smem);
+  } else {
+    b -= h_blocks;
+    const int w1_cols = cdiv(G, W1_COLS);
+    wgrad_tf32_tile<W1_ROWS, W1_COLS, S::BK, 3, 2, S::STAGES, THREADS, S::BULK>(
+        a, 0, (b / w1_cols) * W1_ROWS, (b % w1_cols) * W1_COLS, smem);
+  }
+}
+
+template <int SHAPE>
+int launch_wgrad_tf32(const WgradArgs<float>& w, cudaStream_t stream) {
+  using S = F32Tile<SHAPE>;
+  constexpr int smem_h = wgrad_f32_smem_bytes<S::BM, S::BN, S::BK, S::STAGES, S::BULK>();
+  constexpr int smem_w1 = wgrad_f32_smem_bytes<W1_ROWS, W1_COLS, S::BK, S::STAGES, S::BULK>();
+  constexpr int smem = smem_h > smem_w1 ? smem_h : smem_w1;
+  static_assert(smem <= (int)lstm2::SMEM_LIMIT, "a float32 tile's ring exceeds a block");
+  const cudaError_t err = cudaFuncSetAttribute(
+      wgrad_tf32_kernel<SHAPE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = 4 * w.H;
+  const int blocks = 3 * cdiv(w.H, S::BM) * cdiv(G, S::BN) + cdiv(w.D, W1_ROWS) * cdiv(G, W1_COLS);
+  wgrad_tf32_kernel<SHAPE><<<blocks, 32 * S::WM * S::WN, smem, stream>>>(w);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_wgrad(const WgradArgs<T>& w, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, float>) {
-    const int G = 4 * w.H;
-    const dim3 grid((G + TILE - 1) / TILE,
-                    (w.D + TILE - 1) / TILE + 3 * ((w.H + TILE - 1) / TILE));
-    wgrad_kernel<float><<<grid, 256, 0, stream>>>(w);
-    return (int)cudaGetLastError();
+    switch (g_forced_f32_tile >= 0 ? g_forced_f32_tile : wgrad_f32_tile(w.D, w.H, w.n_rows)) {
+      case 0: return launch_wgrad_tf32<0>(w, stream);
+      case 1: return launch_wgrad_tf32<1>(w, stream);
+      case 2: return launch_wgrad_tf32<2>(w, stream);
+      case 3: return launch_wgrad_tf32<3>(w, stream);
+      case 4: return launch_wgrad_tf32<4>(w, stream);
+      case 5: return launch_wgrad_tf32<5>(w, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
   } else {
     switch (g_forced_tile >= 0 ? g_forced_tile : wgrad_tile(w.D, w.H)) {
       case 0: return launch_wgrad_mma<0>(w, stream);
@@ -523,8 +766,8 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
 // is 16. form: the sweep's form, as lstm2_bwd takes it (lstm2_bwd.cu).
 // chunk: the steps the scratch holds. dw1, du1, dw2,
 // du2 must arrive zeroed; carry is [4][ceil(N / rows) * rows][H] and
-// db_part [ceil(N / rows)][2][4H] float32. bfloat16 x is [T, N, dx_cols(D)]
-// (D rounded up to 8), its pad columns zero.
+// db_part [ceil(N / rows)][2][4H] float32. x is [T, N, x_cols(D)] (D
+// rounded up to 16 bytes: 4 float32, 8 bf16), its pad columns zero.
 extern "C" int lstm2_bwd_wgrad(const void* dy, const void* x, const void* g1, const void* c1,
                                const void* h1, const void* g2, const void* c2, const void* h2,
                                const void* w2p, const void* u1p, const void* w1p,
@@ -543,12 +786,16 @@ extern "C" int lstm2_bwd_wgrad(const void* dy, const void* x, const void* g1, co
   return (int)cudaErrorInvalidValue;
 }
 
-// Forces the tile of dU1, dW2 and dU2 for later bf16 launches (0 .. H_TILES - 1,
-// WGRAD_H_TILES order; -1: the rule `wgrad_tile`), to time the candidates.
-// Returns the previous setting, or -2 for a shape there is not.
-extern "C" int lstm2_bwd_wgrad_force_tile(int shape) {
-  if (shape < -1 || shape >= H_TILES) return -2;
-  const int before = g_forced_tile;
-  g_forced_tile = shape;
+// Forces the tile of dU1, dW2 and dU2 for later launches in `dtype` (0
+// float32: 0 .. F32_TILES - 1, WGRAD_F32_TILES order; 1 bfloat16: 0 ..
+// H_TILES - 1, WGRAD_H_TILES order; -1: the rule `wgrad_f32_tile` or
+// `wgrad_tile`), to time the candidates. Returns the previous setting, or -2
+// for a shape or dtype there is not.
+extern "C" int lstm2_bwd_wgrad_force_tile(int shape, int dtype) {
+  if (dtype != 0 && dtype != 1) return -2;
+  int& forced = dtype == 0 ? g_forced_f32_tile : g_forced_tile;
+  if (shape < -1 || shape >= (dtype == 0 ? F32_TILES : H_TILES)) return -2;
+  const int before = forced;
+  forced = shape;
   return before;
 }

@@ -19,9 +19,9 @@ kernels:
     package (:860-879);
   * `_make_bwd_kernel_fused` (:472, pallas_call at :752) ->
     csrc/lstm2_bwd_wgrad.cu: the same sweep with the weight gradients summed
-    inside the kernel file, so no [T, N, 4H] array of dgates is written; in
-    bfloat16 those products run on the tensor cores too, in tiles that
-    `wgrad_tiles` chooses.
+    inside the kernel file, so no [T, N, 4H] array of dgates is written;
+    those products run on the tensor cores too (in float32 as three TF32
+    products), in tiles that `wgrad_tiles` chooses.
 
 `FUSED_WGRAD` chooses between the last two, as the JAX module's switch of
 the same name does (:679); left at None, the form follows x's dtype
@@ -75,12 +75,14 @@ from fullsubnet_plus_torch.ops.lstm2 import (
 # (csrc/lstm2_bwd_wgrad.cu), False the dgates-writing sweep (csrc/lstm2_bwd.cu)
 # and `weight_grads`, None the form FUSED_WGRAD_BY_DTYPE gives x's dtype.
 FUSED_WGRAD: bool | None = None
-# Measured on the H100 at the training fold (PERF.md): bf16 K3 55 ms against
-# K4 + `weight_grads` 80; float32, with the reverse sweep on the tensor cores
-# in both, K3 166 ms against 120, whose FMA weight gradients (67 ms) lose to
-# cuBLAS's SGEMM (36 ms). K4 holds the dgates of every step (5.5 GB in
-# float32 there), K3 an L2-sized scratch.
-FUSED_WGRAD_BY_DTYPE = {torch.float32: False, torch.bfloat16: True}
+# Measured on the H100 (PERF.md): the fused form in both dtypes, the JAX
+# package's default. At the training fold bf16 K3 took 52.2 ms against K4 +
+# `weight_grads` 77.2, float32 K3 (its weight gradients as 3xTF32 on the
+# tensor cores, 28.5 ms) 107.7 against 112.8; at FullSubNet's sub-band fold
+# 107.0 against 111.7, at its full-band fold 8.9 against 8.4, so its step
+# as a whole is faster through K3 too. K4 also holds the dgates of every
+# step (5.5 GB in float32 at the training fold), K3 a scratch of a few.
+FUSED_WGRAD_BY_DTYPE = {torch.float32: True, torch.bfloat16: True}
 
 # wrapper calls that launched their kernel, since import (or last reset), and
 # the same by kernel and card ("lstm2_bwd cuda:1") and by the reverse sweep's
@@ -115,11 +117,25 @@ SWEEP_LATE_SENDS = 0
 
 MMA_ROWS_PER_CTA = 16  # the reverse sweep's row tile: one m16 tile (MMA_ROWS in the .cuh)
 MMA_PAD_BYTES = 16  # pad of a dgates row in the reverse sweep's shared memory (lstm2_bwd_sweep.cuh)
-WGRAD_SCRATCH_BYTES = 32 << 20  # dgates scratch of the fused backward: a few steps, L2-sized
-# The bf16 weight-gradient kernel's tiles (csrc/lstm2_bwd_wgrad.cu, `HTile` and
-# W1_ROWS x W1_COLS): rows of the gradient x gate columns. dU1, dW2 and dU2
-# take one of WGRAD_H_TILES (`wgrad_tiles`); dW1 (D rows) takes WGRAD_W1_TILE.
+# The dgates scratch of the fused backward by x's dtype: the steps it holds
+# (`wgrad_chunk_steps`) are swept, then summed into the weight gradients.
+# bf16: 32 MiB, L2-sized (2 steps at the training fold N 2304, H 384). float32:
+# 432 MiB, 16 steps there: float32 K3 took 126.9 ms at 1 step (195 sweep and
+# weight-gradient launches), 117.9 at 2, 113.5 at 4, 109.0 at 8 and 107.6 at
+# 16 on the H100 (PERF.md), the dgates past the L2 costing less than the
+# launches they save; FullSubNet's full-band fold (N 18, H 512) fits whole.
+WGRAD_SCRATCH_BYTES = {torch.float32: 432 << 20, torch.bfloat16: 32 << 20}
+# The weight-gradient kernels' tiles (csrc/lstm2_bwd_wgrad.cu): rows of the
+# gradient x gate columns. In bf16 (`HTile`) dU1, dW2 and dU2 take one of
+# WGRAD_H_TILES; in float32 (`F32Tile`) one of WGRAD_F32_TILES, each with the
+# contraction rows of a staged slice and how they are staged (cp.async 16
+# bytes a thread, or bulk copies of whole rows by the Tensor Memory
+# Accelerator); `wgrad_tiles` chooses. dW1 (D rows) takes WGRAD_W1_TILE
+# (W1_ROWS x W1_COLS) in both.
 WGRAD_H_TILES = ((64, 128), (128, 128))
+WGRAD_F32_TILES = ((64, 128, 32, "cp.async"), (64, 128, 64, "cp.async"),
+                   (128, 128, 32, "cp.async"), (128, 128, 64, "cp.async"),
+                   (128, 128, 64, "bulk"), (64, 128, 64, "bulk"))
 WGRAD_W1_TILE = (48, 64)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -610,32 +626,58 @@ def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Residua
     return SweepGrads(dx_tnd.permute(1, 2, 0), dg1, dg2, None, None)
 
 
-def wgrad_chunk_steps(n: int, hidden: int, steps: int, itemsize: int) -> int:
-    """Steps of dgates the fused backward keeps in its scratch at a time."""
-    return max(1, min(steps, WGRAD_SCRATCH_BYTES // (2 * n * 4 * hidden * itemsize)))
+def wgrad_chunk_steps(n: int, hidden: int, steps: int, dtype: torch.dtype) -> int:
+    """Steps of dgates the fused backward keeps in its scratch at a time
+    (WGRAD_SCRATCH_BYTES[dtype]). The weight gradients are the same bits at
+    any chunk; the bias sums are grouped by it (each sweep sums its steps
+    before adding them to the tile's row)."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    return max(1, min(steps, WGRAD_SCRATCH_BYTES[dtype] // (2 * n * 4 * hidden * itemsize)))
 
 
-def wgrad_tiles(d_in: int, hidden: int) -> tuple[tuple[int, int], tuple[int, int]]:
-    """(dW1's tile, the tile of dU1, dW2 and dU2) of the bf16 weight-gradient
-    kernel, each (rows, gate columns); `wgrad_tile` in csrc/lstm2_bwd_wgrad.cu
-    mirrors it. 64 x 128 (two CTAs an SM) was the fastest shape at the
-    training fold on the H100 in every run, 7-8 % ahead of 128 x 128 and 40 %
-    ahead of 128 x 256 (PERF.md); at H 64 it is also the one without padded
-    rows. dW1's D rows are padded to m16 tiles of 48, not to a whole tile."""
+def wgrad_tiles(d_in: int, hidden: int, dtype: torch.dtype = torch.bfloat16, n: int = 2304):
+    """(dW1's tile, the tile of dU1, dW2 and dU2) of the weight-gradient
+    kernel in `dtype` on a fold of n rows, each (rows, gate columns), the
+    float32 one with its slice rows and staging third and fourth;
+    `wgrad_tile` and `wgrad_f32_tile` in csrc/lstm2_bwd_wgrad.cu mirror it.
+    dW1's D rows are padded to m16 tiles of 48, not to a whole tile.
+
+    bf16: 64 x 128 (two CTAs an SM) was the fastest shape at the training
+    fold on the H100 in every run, 7-8 % ahead of 128 x 128 and 40 % ahead
+    of 128 x 256 (PERF.md); at H 64 it is also the one without padded rows.
+
+    float32 (the weight-gradient kernel alone, the H100, PERF.md): at the
+    sub-band folds (N 2304) 128 x 128 with 64-row slices staged by bulk
+    copies, 28.2 ms, against 33.7 by cp.async and 31.6-37.6 for the others;
+    where a step has fewer than 64 rows (FullSubNet's full-band fold, N 18)
+    a slice is mostly zero rows, which cp.async fills without reading
+    memory: 128 x 128 with 32-row slices, 1.05 ms, against 8.9 with bulk
+    copies."""
+    if dtype == torch.float32:
+        return WGRAD_W1_TILE, WGRAD_F32_TILES[2 if n < 64 else 4]
     return WGRAD_W1_TILE, WGRAD_H_TILES[0]
 
 
-def force_wgrad_tile(shape: int | None) -> int | None:
-    """Make every later bf16 K3 launch take WGRAD_H_TILES[shape] for dU1, dW2
-    and dU2 (None: the rule again), to time the candidates on the card;
-    returns the previous setting."""
+def force_wgrad_tile(shape: int | None, dtype: torch.dtype = torch.bfloat16) -> int | None:
+    """Make every later K3 launch in `dtype` take WGRAD_H_TILES[shape] (bf16)
+    or WGRAD_F32_TILES[shape] (float32) for dU1, dW2 and dU2 (None: the rule
+    again), to time the candidates on the card; returns the previous
+    setting."""
     lib = nvcc.load("lstm2_bwd_wgrad", "lstm2_bwd_wgrad", _WGRAD_ARGTYPES)
     fn = lib.lstm2_bwd_wgrad_force_tile
-    fn.argtypes, fn.restype = [_INT], _INT
-    before = fn(-1 if shape is None else shape)
+    fn.argtypes, fn.restype = [_INT, _INT], _INT
+    before = fn(-1 if shape is None else shape, _DTYPE_CODES[dtype])
     if before < -1:
-        raise ValueError(f"force_wgrad_tile: no tile shape {shape}")
+        raise ValueError(f"force_wgrad_tile: no {dtype} tile shape {shape}")
     return None if before == -1 else before
+
+
+def wgrad_x_cols(d_in: int, dtype: torch.dtype) -> int:
+    """The columns of x as the weight-gradient kernels read it (`x_cols` in
+    csrc/lstm2_bwd_wgrad.cu): D rounded up to whole 16-byte copies, 4 float32
+    or 8 bf16 (34 -> 36 / 40, 257 -> 260 / 264); the pad columns are zero."""
+    per_copy = 16 // torch.tensor([], dtype=dtype).element_size()
+    return -(-d_in // per_copy) * per_copy
 
 
 def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
@@ -644,12 +686,10 @@ def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     tiles = -(-n // rows)
-    chunk = wgrad_chunk_steps(n, hidden, steps, x.element_size())
-    if x.dtype == torch.bfloat16:  # rows padded to 8 with zeros: 16-byte copies of whole rows
-        x_tnd = x.new_zeros(steps, n, -(-d // 8) * 8)
-        x_tnd[:, :, :d] = x.permute(2, 0, 1)
-    else:
-        x_tnd = x.permute(2, 0, 1).contiguous()
+    chunk = wgrad_chunk_steps(n, hidden, steps, x.dtype)
+    # [T, N, D] with zero columns up to whole 16-byte copies of each row
+    x_tnd = x.new_zeros(steps, n, wgrad_x_cols(d, x.dtype))
+    x_tnd[:, :, :d] = x.permute(2, 0, 1)
 
     def f32(*shape, zero=False):
         return (torch.zeros if zero else torch.empty)(*shape, dtype=torch.float32,

@@ -9,7 +9,7 @@ batches and weights), run in whichever checkout this is started from.
 Needs an NVIDIA GPU and nvcc; imports the package of the working directory
 and nothing of JAX. Runs from the same state: the plain forward with the
 plain backward computed in float64 (rounded to float32 after), a reference
-closer to exact than any other; K2 + K4 (the float32 default form); each
+closer to exact than any other; K2 + K4 (FUSED_WGRAD False); each
 kernel alone (the plain forward with K4, K2 with the plain backward); the
 plain versions; and the plain versions NOISY_SEEDS times with the LSTM
 backward's outputs scaled by 1 + BWD_NOISE N(0, 1), then with the plain

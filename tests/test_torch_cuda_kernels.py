@@ -12,8 +12,9 @@ bf16 and int8 40 dB (float32 differs by sum order and expf / tanhf only; in
 bf16 single roundings of h, the residuals and the dgates flip and carry
 through the recurrence). K2's y equals K1's bit for bit, the forward sweep
 gives the same bits at both bf16 row tiles, and K3 equals itself on a
-repeat, also over several chunks: in bf16 at every tile shape of its
-tensor-core weight gradients, and in float32; K5 equals itself on a repeat
+repeat, also over several chunks, at every tile shape of its tensor-core
+weight gradients in both dtypes (float32 as 3xTF32), and its float32 weight
+gradients are the same bits at two scratch sizes; K5 equals itself on a repeat
 at both of its row tiles and runs FullSubNet's full-band shape (D 257, H
 512, O 257). At that shape the forward and reverse sweeps and K5 take their
 cluster forms, held to the plain versions and to their tile forms (K1, K2
@@ -274,8 +275,8 @@ def test_bf16_wgrad_kernel_matches_plain_over_chunks(monkeypatch, hidden, tile):
     w = ops_lstm2.pack_weights(*(p.to("cuda", torch.bfloat16) for p in tensors))
     xt, dyt = torch.tensor(x).to("cuda", torch.bfloat16), torch.tensor(dy).cuda()
     _, res = lt.lstm2_train_fwd_reference(xt, w)
-    monkeypatch.setattr(lt, "WGRAD_SCRATCH_BYTES", 3 * 2 * n * 4 * hidden * 2)
-    assert lt.wgrad_chunk_steps(n, hidden, t, 2) == 3
+    monkeypatch.setitem(lt.WGRAD_SCRATCH_BYTES, torch.bfloat16, 3 * 2 * n * 4 * hidden * 2)
+    assert lt.wgrad_chunk_steps(n, hidden, t, torch.bfloat16) == 3
     want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
     before = lt.force_wgrad_tile(tile)
     try:
@@ -290,28 +291,35 @@ def test_bf16_wgrad_kernel_matches_plain_over_chunks(monkeypatch, hidden, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", [None, *range(len(lt.WGRAD_F32_TILES))])
 @pytest.mark.parametrize("d,hidden", [(34, 64), (34, 384), (32, 512), (257, 512)])
-def test_float32_wgrad_sweep_matches_plain_over_chunks(monkeypatch, d, hidden):
-    """K3 in float32, whose reverse sweep runs its three products on the
-    tensor cores as three TF32 products of split operands, against
-    `lstm2_bwd_plain` with the scratch cut to 3 steps, so T = 7 runs chunks
-    of 3, 3 and 1 (the sweep resumes twice from the carries in device
-    memory): N = 150 is a multiple of no row tile; H 512 takes the
-    512-thread build (D 32: its dx k-split partials still fit a block; D
-    257, FullSubNet's full-band width: they do not, and dx is
-    output-stationary). K4's sweep against the plain one too; K3 equal to
-    itself on a repeat."""
+def test_float32_wgrad_sweep_matches_plain_over_chunks(monkeypatch, d, hidden, tile):
+    """K3 in float32, whose reverse sweep runs its three products and whose
+    weight-gradient kernel its four on the tensor cores as three TF32
+    products of split operands, against `lstm2_bwd_plain` with the scratch
+    cut to 3 steps, so T = 7 runs chunks of 3, 3 and 1 (the sweep resumes
+    twice from the carries in device memory), at each tile of dU1, dW2, dU2
+    (None: the rule's): N = 150 is a multiple of no row tile or slice; D 34
+    and 257 pad x to 36 and 260 columns; H 512 takes the 512-thread build
+    (D 32: its dx k-split partials still fit a block; D 257, FullSubNet's
+    full-band width: they do not, and dx is output-stationary). K4's sweep
+    against the plain one too; K3 equal to itself on a repeat."""
     _need_card()
     n, t = 150, 7
     tensors, x, dy = _case(n, t, d, hidden, 2, seed=3)
     w = ops_lstm2.pack_weights(*(p.cuda() for p in tensors))
     xt, dyt = torch.tensor(x).cuda(), torch.tensor(dy).cuda()
     _, res = lt.lstm2_train_fwd_reference(xt, w)
-    monkeypatch.setattr(lt, "WGRAD_SCRATCH_BYTES", 3 * 2 * n * 4 * hidden * 4)
-    assert lt.wgrad_chunk_steps(n, hidden, t, 4) == 3
+    monkeypatch.setitem(lt.WGRAD_SCRATCH_BYTES, torch.float32, 3 * 2 * n * 4 * hidden * 4)
+    assert lt.wgrad_chunk_steps(n, hidden, t, torch.float32) == 3
     want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
-    got = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
-    again = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    before = lt.force_wgrad_tile(tile, torch.float32)
+    try:
+        got = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+        again = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+        torch.cuda.synchronize()
+    finally:
+        lt.force_wgrad_tile(before, torch.float32)
     sweep = lt.lstm2_bwd_sweep(dyt, xt, w, res)
     sweep_ref = lt.lstm2_bwd_reference(dyt, xt, w, res)
     torch.cuda.synchronize()
@@ -320,6 +328,36 @@ def test_float32_wgrad_sweep_matches_plain_over_chunks(monkeypatch, d, hidden):
                  zip(("dx", "dg1", "dg2"), sweep_ref[:3], sweep[:3])})
     assert min(snrs.values()) >= FLOOR[torch.float32], snrs
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,hidden", [(34, 384), (257, 512)])
+def test_float32_wgrad_same_bits_at_two_scratch_sizes(monkeypatch, d, hidden):
+    """The chunk does not change the order of a weight-gradient sum (each
+    reads, adds and writes its float32 accumulators in the same order at any
+    chunk; the carries between sweeps are float32): float32 K3 with the
+    scratch holding 2 steps and 5 steps (T 9: chunks 2, 2, 2, 2, 1 and 5, 4)
+    gives dx, dW1, dU1, dW2 and dU2 bit for bit. The bias sums are summed in
+    registers over each sweep's steps before they are added to the tile's
+    row (lstm2_bwd_sweep.cuh), so their grouping follows the chunk: they
+    agree to float32 rounding (>= 100 dB)."""
+    _need_card()
+    n, t = 150, 9
+    tensors, x, dy = _case(n, t, d, hidden, 2, seed=6)
+    w = ops_lstm2.pack_weights(*(p.cuda() for p in tensors))
+    xt, dyt = torch.tensor(x).cuda(), torch.tensor(dy).cuda()
+    _, res = lt.lstm2_train_fwd_reference(xt, w)
+    outs = []
+    for steps in (2, 5):
+        monkeypatch.setitem(lt.WGRAD_SCRATCH_BYTES, torch.float32,
+                            steps * 2 * n * 4 * hidden * 4)
+        assert lt.wgrad_chunk_steps(n, hidden, t, torch.float32) == steps
+        outs.append(lt.lstm2_bwd(dyt, xt, w, res, fused=True))
+    torch.cuda.synchronize()
+    a, b = outs
+    for name in ("dx", "dw1", "du1", "dw2", "du2"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert min(_snr(a.db1, b.db1), _snr(a.db2, b.db2)) >= 100.0
 
 
 FB = (257, 512, 257)  # FullSubNet's full-band LSTM: D, H, O
@@ -482,8 +520,8 @@ def test_cluster_sweep_resumes_over_chunks(monkeypatch, dtype):
     n, t = 18, 9
     xt, dyt, w, res = _fb_case(n, t, dtype, seed=4)
     size = xt.element_size()
-    monkeypatch.setattr(lt, "WGRAD_SCRATCH_BYTES", 5 * 2 * n * 4 * FB[1] * size)
-    assert lt.wgrad_chunk_steps(n, FB[1], t, size) == 5
+    monkeypatch.setitem(lt.WGRAD_SCRATCH_BYTES, dtype, 5 * 2 * n * 4 * FB[1] * size)
+    assert lt.wgrad_chunk_steps(n, FB[1], t, dtype) == 5
     monkeypatch.setattr(lt, "SWEEP_FORMS", type(lt.SWEEP_FORMS)())
     want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
     got = lt.lstm2_bwd(dyt, xt, w, res, fused=True)

@@ -166,11 +166,12 @@ def test_weight_grad_forms_differ_only_in_the_bias_rounding():
 
 
 def test_backward_form_follows_the_dtype_unless_set(monkeypatch):
-    """FUSED_WGRAD None: bf16 takes the fused K3 and float32 K4 with
-    `weight_grads` (measured on the card); a dtype the kernels do not take
-    keeps the JAX package's fused form; True or False overrides both."""
+    """FUSED_WGRAD None: bf16 and float32 take the fused K3 (measured on the
+    card; float32 since its weight gradients run on the tensor cores), as a
+    dtype the kernels do not take keeps the JAX package's fused form; True
+    or False overrides all."""
     assert lt.FUSED_WGRAD is None
-    assert lt.fused_wgrad(torch.bfloat16) and not lt.fused_wgrad(torch.float32)
+    assert lt.fused_wgrad(torch.bfloat16) and lt.fused_wgrad(torch.float32)
     assert lt.fused_wgrad(torch.float64)
     for value in (True, False):
         monkeypatch.setattr(lt, "FUSED_WGRAD", value)
@@ -209,17 +210,20 @@ def test_rows_per_cta_and_chunking():
     """The launch geometry the wrappers compute: the reverse sweep's row
     tile, one m16 tile in both types at every fold (at N 2304 its 144 tiles
     take two waves of 132 SMs), the forward's and the reverse sweep's shared
-    memory in a block, and a dgates scratch that does not grow with T."""
+    memory in a block, and a dgates scratch that does not grow with T: 16
+    steps in float32 and 2 in bf16 at the training fold."""
     for n in (2304, 2056, 771):
         assert lt.mma_rows_per_cta(n, 132) == lt.MMA_ROWS_PER_CTA == 16
     for dtype in (torch.float32, torch.bfloat16):
         assert lt.bwd_shared_memory_bytes(16, 34, 384, 2, dtype) <= ops_lstm2.SMEM_LIMIT
     assert lt.fwd_shared_memory_bytes(16, 34, 384, 2) <= ops_lstm2.SMEM_LIMIT
     for steps in (1, 195, 10_000):
-        chunk = lt.wgrad_chunk_steps(2304, 384, steps, 4)
-        assert chunk == 1 and 2 * chunk * 2304 * 1536 * 4 <= lt.WGRAD_SCRATCH_BYTES
-    assert lt.wgrad_chunk_steps(2304, 384, 195, 2) == 2
-    assert lt.wgrad_chunk_steps(20, 16, 9, 4) == 9  # never more than T
+        chunk = lt.wgrad_chunk_steps(2304, 384, steps, torch.float32)
+        assert chunk == min(steps, 16)
+        assert 2 * chunk * 2304 * 1536 * 4 <= lt.WGRAD_SCRATCH_BYTES[torch.float32]
+    assert lt.wgrad_chunk_steps(18, 512, 195, torch.float32) == 195  # the full-band fold whole
+    assert lt.wgrad_chunk_steps(2304, 384, 195, torch.bfloat16) == 2
+    assert lt.wgrad_chunk_steps(20, 16, 9, torch.float32) == 9  # never more than T
 
 
 def _mma_weights(hidden, d_in, seed=3):
@@ -1299,13 +1303,16 @@ def _wgrad_blocks(d_in, hidden, h_tile, w1_tile):
 
 @pytest.mark.parametrize("d,hidden", [(34, 384), (34, 64), (257, 512)])
 def test_wgrad_tiles_cover_each_gradient_once(d, hidden):
-    """The CTAs of a bf16 weight-gradient launch (the tiles `wgrad_tiles`
-    picks, and each candidate) cover every element of dW1 [D, 4H] and dU1,
-    dW2, dU2 [H, 4H] exactly once; dW1's tile has 48 rows (three m16 tiles),
-    and at the training shape the grid fills a wave of the H100's 132 SMs."""
+    """The CTAs of a weight-gradient launch (the tiles `wgrad_tiles` picks
+    in each dtype, and each candidate: bf16 `WGRAD_H_TILES`, float32
+    `WGRAD_F32_TILES`) cover every element of dW1 [D, 4H] and dU1, dW2, dU2
+    [H, 4H] exactly once; dW1's tile has 48 rows (three m16 tiles), and at
+    the training shape the grid fills a wave of the H100's 132 SMs."""
     w1_tile, h_tile = lt.wgrad_tiles(d, hidden)
     assert w1_tile == (48, 64) and h_tile == lt.WGRAD_H_TILES[0] == (64, 128)
-    for shape in lt.WGRAD_H_TILES:
+    f32_w1_tile, f32_tile = lt.wgrad_tiles(d, hidden, torch.float32)
+    assert f32_w1_tile == w1_tile and f32_tile in lt.WGRAD_F32_TILES
+    for shape in (*lt.WGRAD_H_TILES, *(tile[:2] for tile in lt.WGRAD_F32_TILES)):
         blocks = _wgrad_blocks(d, hidden, shape, w1_tile)
         for name in ("dw1", "du1", "dw2", "du2"):
             rows = d if name == "dw1" else hidden
@@ -1316,4 +1323,147 @@ def test_wgrad_tiles_cover_each_gradient_once(d, hidden):
                     count[r0:r0 + r, c0:c0 + c] += 1
             assert (count == 1).all(), (shape, name)
     if (d, hidden) == (34, 384):
-        assert len(_wgrad_blocks(d, hidden, h_tile, w1_tile)) >= 132
+        for tile in (h_tile, f32_tile[:2]):
+            assert len(_wgrad_blocks(d, hidden, tile, w1_tile)) >= 132
+
+
+# ---------------------------------------------------------------------------
+# the float32 weight-gradient kernel's layout (csrc/lstm2_bwd_wgrad.cu, wgrad_tf32_kernel)
+# ---------------------------------------------------------------------------
+
+def _f32_pitch(cols: int) -> int:
+    """`f32_pitch`: a staged float32 row padded to 8 (mod 32) words."""
+    return cols + (40 - cols % 32) % 32
+
+
+def _tf32_fragment_words(pitch: int, ks: int, col0: int) -> dict:
+    """The staged-word index each lane (g, t) = (lane / 4, lane % 4) loads for
+    one m16n8k8 TF32 fragment at k-step ks, the fragment's first column col0:
+    A (m-tile at col0) a0 = [8 ks + t][col0 + g], a1 = [.][col0 + g + 8], a2 =
+    [8 ks + t + 4][col0 + g], a3 = [.][col0 + g + 8]; B (n-tile at col0) b0 =
+    [8 ks + t][col0 + g], b1 = [8 ks + t + 4][col0 + g]."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    row0, row4 = (8 * ks + t) * pitch, (8 * ks + t + 4) * pitch
+    return {"a0": row0 + col0 + g, "a1": row0 + col0 + g + 8, "a2": row4 + col0 + g,
+            "a3": row4 + col0 + g + 8, "b0": row0 + col0 + g, "b1": row4 + col0 + g}
+
+
+def _tf32_tile_walk(a_steps, g_steps, lda, k_live, bm, bn, bk, wm, wn, three=True):
+    """One CTA tile (rows 0 .. bm, gate columns 0 .. bn) of the float32
+    contraction, walked as `wgrad_tf32_tile` walks it: for each step (newest
+    first; None: h_{-1}) and slice of bk rows, the ring slot filled as its
+    16-byte cp.async copies fill it (4 words a copy; zero past N, from the
+    copy that starts at or past the row's lda columns, and for h_{-1}), rows
+    at the f32_pitch; each warp's 32-bit fragment loads, each word split
+    once (`_split_tf32`), the three TF32 products of each m16 x n8 tile
+    (small.big, big.small, big.big; with three=False big.big alone) added
+    into a zeroed float32 partial a slice, which one float32 add puts into
+    the sums; the sums written back where row < k_live."""
+    n_rows = g_steps[0].shape[0]
+    lda_s, ldg_s = _f32_pitch(bm), _f32_pitch(bn)
+    mi, ni = bm // wm // 16, bn // wn // 8
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    acc = np.zeros((wm * wn, mi, ni, 16, 8), np.float32)
+    for a_t, g_t in zip(a_steps, g_steps):
+        for nb in range(0, n_rows, bk):
+            rows = min(bk, n_rows - nb)
+            a_s, g_s = np.zeros(bk * lda_s, np.float32), np.zeros(bk * ldg_s, np.float32)
+            for kk in range(0, bm, 4):  # A's copies: 4 words each, zero from lda on
+                if a_t is not None and kk < lda:
+                    for r in range(rows):
+                        a_s[r * lda_s + kk: r * lda_s + kk + 4] = a_t[nb + r, kk:kk + 4]
+            for r in range(rows):
+                g_s[r * ldg_s: r * ldg_s + bn] = g_t[nb + r, :bn]
+            a_big, a_small = (v.numpy() for v in _split_tf32(torch.from_numpy(a_s)))
+            g_big, g_small = (v.numpy() for v in _split_tf32(torch.from_numpy(g_s)))
+            for warp in range(wm * wn):
+                m0, n0 = (warp // wn) * mi * 16, (warp % wn) * ni * 8
+                part = np.zeros((mi, ni, 16, 8), np.float32)
+                for ks in range(bk // 8):
+                    am = {h: np.zeros((mi, 16, 8), np.float32) for h in ("big", "small")}
+                    bmat = {h: np.zeros((ni, 8, 8), np.float32) for h in ("big", "small")}
+                    for half, (src_a, src_g) in (("big", (a_big, g_big)),
+                                                 ("small", (a_small, g_small))):
+                        for i in range(mi):  # A[m][k] of m16n8k8 from the lanes' words
+                            w = _tf32_fragment_words(lda_s, ks, m0 + 16 * i)
+                            am[half][i, g, t] = src_a[w["a0"]]
+                            am[half][i, g + 8, t] = src_a[w["a1"]]
+                            am[half][i, g, t + 4] = src_a[w["a2"]]
+                            am[half][i, g + 8, t + 4] = src_a[w["a3"]]
+                        for j in range(ni):  # B[k][n]
+                            w = _tf32_fragment_words(ldg_s, ks, n0 + 8 * j)
+                            bmat[half][j, t, g] = src_g[w["b0"]]
+                            bmat[half][j, t + 4, g] = src_g[w["b1"]]
+                    pairs = ((("small", "big"), ("big", "small"), ("big", "big")) if three
+                             else (("big", "big"),))
+                    for ha, hb in pairs:  # each product exact, each sum a float32 add
+                        prod = np.einsum("imk,jkn->ijmn", am[ha].astype(np.float64),
+                                         bmat[hb].astype(np.float64))
+                        part = (part + prod).astype(np.float32)
+                acc[warp] = acc[warp] + part
+    out = np.full((bm, bn), np.nan, np.float32)
+    for warp in range(wm * wn):
+        m0, n0 = (warp // wn) * mi * 16, (warp % wn) * ni * 8
+        for i in range(mi):
+            for j in range(ni):
+                out[m0 + 16 * i: m0 + 16 * i + 16, n0 + 8 * j: n0 + 8 * j + 8] = acc[warp, i, j]
+    return out[:k_live]
+
+
+@pytest.mark.parametrize("bm,bn,bk,wm,wn,k_live,lda", [
+    (48, 64, 32, 3, 2, 34, 36),     # dW1's tile: D = 34, x rows padded to 36
+    (64, 128, 64, 2, 4, 64, 64),    # a 64 x 128 tile, 64-row slices
+    (128, 128, 32, 2, 4, 96, 96),   # 128 x 128 with rows past H, 32-row slices
+])
+def test_tf32_wgrad_fragment_walk_matches_the_products(bm, bn, bk, wm, wn, k_live, lda):
+    """The float32 weight-gradient tile, walked with its 32-bit fragment
+    loads, its split and its per-slice partials, gives A^T G over two steps
+    with N = 100 (a ragged last slice), the older step's A being h_{-1} = 0,
+    and columns past the A row's lda zero-filled: >= 100 dB against float64
+    products of the float32 operands, while the same walk with one TF32
+    product (big.big) falls under the float32 floor of 80 dB."""
+    rng = np.random.default_rng(12)
+    n_rows = 100
+    a1 = rng.standard_normal((n_rows, lda)).astype(np.float32)
+    a1[:, k_live:] = 0.0  # x's pad columns are zero (the wrapper's padding)
+    g1 = rng.standard_normal((n_rows, bn)).astype(np.float32)
+    g0 = rng.standard_normal((n_rows, bn)).astype(np.float32)
+    want = a1[:, :k_live].astype(np.float64).T @ g1.astype(np.float64)
+
+    def db(got):
+        return 10 * np.log10((want ** 2).sum() / ((got - want) ** 2).sum())
+
+    got = _tf32_tile_walk([a1, None], [g1, g0], lda, k_live, bm, bn, bk, wm, wn)
+    assert db(got) >= 100.0
+    one = _tf32_tile_walk([a1, None], [g1, g0], lda, k_live, bm, bn, bk, wm, wn, three=False)
+    assert db(one) < 80.0
+
+
+@pytest.mark.parametrize("cols", [48, 64, 128])
+def test_tf32_fragment_loads_hit_32_banks(cols):
+    """At the staged pitch (`f32_pitch`: 72 words for 48 and 64 columns, 136
+    for 128) the 32 lanes' loads of each word of a TF32 fragment fall in 32
+    different banks (word % 32), at every k-step and fragment column; an
+    unpadded pitch (48, 64, 128 words) puts two or four lanes in a bank."""
+    pitch = _f32_pitch(cols)
+    assert pitch % 32 == 8 and pitch >= cols and pitch * 4 % 16 == 0
+    for bk in (32, 64):
+        for ks in range(bk // 8):
+            for col0 in range(0, cols, 8):
+                for name, words in _tf32_fragment_words(pitch, ks, col0).items():
+                    assert len(set(words % 32)) == 32, (cols, ks, col0, name)
+    unpadded = _tf32_fragment_words(cols, 0, 0)["a0"] % 32
+    assert len(set(unpadded)) <= 16
+
+
+def test_x_is_padded_to_whole_copies():
+    """x's rows as the weight-gradient kernels read them: D rounded up to
+    16-byte copies (4 float32, 8 bf16) with zero columns, so every cp.async
+    source is aligned."""
+    expect = {(34, torch.float32): 36, (257, torch.float32): 260, (32, torch.float32): 32,
+              (34, torch.bfloat16): 40, (257, torch.bfloat16): 264, (32, torch.bfloat16): 32}
+    for (d, dtype), cols in expect.items():
+        assert lt.wgrad_x_cols(d, dtype) == cols
+        assert cols * torch.tensor([], dtype=dtype).element_size() % 16 == 0
