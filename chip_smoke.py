@@ -179,7 +179,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      from a copy of the plain step's state, held to phase 6's limits, and
      one float32 TSSE_ATT step profiled (no TF32 product); (f) the
      joint-mask and residual train steps through K2 + K4 against the plain
-     step (loss 1e-4, gradient norm 1e-3); prints the `variants` JSON line;
+     step (loss 1e-4, gradient norm 1e-3); (g) the 2-D causal conv blocks
+     (`CausalConvBlock` 16 -> 32 then `CausalTransConvBlock` back, on
+     [8, 16, 257, 629]) in float32 against the CPU in eval and training
+     mode, forward and gradients (>= 80 dB), the running statistics kept,
+     profiled (no TF32 product) and timed; prints the `variants` JSON line;
  11. FullSubNet's training at full width (FSN_TOML's [model], seed 42, the
      batch of configs/train.toml: the full-band LSTM at N 18, D 257, H 512,
      O 257, T 195, where the reverse sweep takes its cluster form):
@@ -3075,6 +3079,10 @@ JOINT_ALPHA = 0.5  # (f): both steps' blend of their two losses
 # cIRM) 52-60 dB, the waveform 35.6-57.7 dB
 VARIANT_CIRM_SNR_FLOOR = 40.0
 VARIANT_WAVE_SNR_FLOOR = 30.0
+# (g): the 2-D causal conv blocks at an encoder's width on one batch of
+# configs/inference.toml: [B, C, F, T] = [8, 16, 257, 629], 16 -> 32 channels
+CAUSAL_SHAPE = (BATCH, 16, 257, T_FULL)
+CAUSAL_OUT_CHANNELS = 32
 
 
 @contextlib.contextmanager
@@ -3102,6 +3110,115 @@ def check_no_tf32(kernels: list, what: str) -> None:
     tf32 = [e.key for e in products if TF32_KERNEL.search(e.key)]
     if tf32:
         fail(f"{what} ran TF32 kernels: {tf32}")
+
+
+def card_and_limit() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def causal_conv_blocks() -> dict:
+    """(g) `CausalConvBlock` (16 -> 32, F 257 -> 128) then
+    `CausalTransConvBlock` (32 -> 16, F back to 257) in float32 on the card,
+    seeded with random BatchNorm2d statistics, against the same modules on
+    the CPU: the outputs in eval and training mode, and in training mode
+    the gradients of sum(out * w) with respect to x and every parameter, each
+    >= SNR_FLOOR (the conv biases', zero, SNR_FLOOR below the BN biases'
+    on both sides); training mode leaves the running statistics as they
+    were. The training forward and backward profiled: no TF32 product (no
+    cuDNN convolution), and timed beside the card's name and power limit."""
+    from fullsubnet_plus_torch.nn.layers import reset_parameters
+    from fullsubnet_plus_torch.nn.tcn import CausalConvBlock, CausalTransConvBlock
+
+    g = torch.Generator().manual_seed(42)
+    b, c, f, t = CAUSAL_SHAPE
+    blocks = torch.nn.ModuleList([CausalConvBlock(c, CAUSAL_OUT_CHANNELS),
+                                  CausalTransConvBlock(CAUSAL_OUT_CHANNELS, c)])
+    reset_parameters(blocks, g)
+    with torch.no_grad():
+        for block in blocks:
+            n = block.norm.weight.shape[0]
+            block.norm.weight.copy_(0.5 + torch.rand(n, generator=g))
+            block.norm.bias.copy_(torch.rand(n, generator=g) - 0.5)
+            block.norm.running_mean.copy_(0.6 * torch.rand(n, generator=g) - 0.3)
+            block.norm.running_var.copy_(0.5 + 1.5 * torch.rand(n, generator=g))
+    x = torch.randn(CAUSAL_SHAPE, generator=g)
+    w = torch.randn(CAUSAL_SHAPE, generator=g)
+    on_card = copy.deepcopy(blocks).to("cuda")
+    x_card, w_card = x.to("cuda"), w.to("cuda")
+    stats = {k: v.clone() for k, v in on_card.named_buffers()}
+
+    def run(mods, xx, training):
+        return mods[1](mods[0](xx, training=training), training=training)
+
+    def train_grads(mods, xx, ww):
+        xx = xx.clone().requires_grad_(True)
+        mods.zero_grad(set_to_none=True)
+        (run(mods, xx, True) * ww).sum().backward()
+        return {"x": xx.grad, **{k: p.grad for k, p in mods.named_parameters()}}
+
+    snrs = {}
+    with torch.no_grad():
+        for mode, training in (("eval", False), ("train", True)):
+            ref = run(blocks, x, training)
+            out = run(on_card, x_card, training)
+            if out.shape != (b, c, f, t) or not torch.isfinite(out).all():
+                fail(f"[10] the causal conv blocks gave {tuple(out.shape)}, finite "
+                     f"{bool(torch.isfinite(out).all())}, expected {CAUSAL_SHAPE}")
+            snrs[mode] = snr_db(ref, out.cpu())
+    ref_grads = train_grads(blocks, x, w)
+    grads = {k: v.cpu() for k, v in train_grads(on_card, x_card, w_card).items()}
+    # BatchNorm2d's batch mean takes a conv bias out: its gradient is zero,
+    # a sum of float32 noise, held on both sides SNR_FLOOR below the same
+    # block's BN bias gradient (the sum without the mean taken out)
+    zero = [k for k in ref_grads if k.endswith("conv.bias")]
+    grad_snrs = {k: snr_db(ref_grads[k], grads[k]) for k in ref_grads if k not in zero}
+    snrs["train_grads"] = min(grad_snrs.values())
+    snrs["zero_grads"] = min(
+        snr_db(ref_grads[k.replace("conv", "norm")], ref_grads[k.replace("conv", "norm")] + d[k])
+        for d in (ref_grads, grads) for k in zero)
+    changed = [k for k, v in on_card.named_buffers() if not torch.equal(v, stats[k])]
+    card = card_and_limit()
+    print(f"[10] causal conv blocks [{b}, {c}, {f}, {t}] -> {CAUSAL_OUT_CHANNELS} ch -> back, "
+          f"float32 on the card against the CPU: eval {snrs['eval']:.1f} dB, train "
+          f"{snrs['train']:.1f} dB, train gradients (worst of x and "
+          f"{len(grad_snrs) - 1} parameters) {snrs['train_grads']:.1f} dB (floor "
+          f"{SNR_FLOOR[torch.float32]:g}); the conv biases' zero gradients "
+          f"{snrs['zero_grads']:.1f} dB below the BN biases'")
+    print(f"[10] causal conv blocks' gradient SNR by tensor: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in grad_snrs.items()))
+    if min(snrs.values()) < SNR_FLOOR[torch.float32]:
+        fail(f"[10] the causal conv blocks disagree with the CPU: {snrs}")
+    if changed:
+        fail(f"[10] the causal conv blocks' training mode changed the buffers {changed}")
+
+    def train_step():
+        train_grads(on_card, x_card, w_card)
+        torch.cuda.synchronize()
+
+    tag = "[10] profile causal conv blocks float32 train forward + backward:"
+    check_no_tf32(profile_call(train_step, tag), "[10] the causal conv blocks")
+    with torch.no_grad():
+        ms = {mode: cuda_ms(lambda: run(on_card, x_card, training), reps=5)
+              for mode, training in (("eval", False), ("train", True))}
+    ms["train_fwd_bwd"] = cuda_ms(lambda: train_grads(on_card, x_card, w_card), reps=5)
+    # the forward's least time: the two products' float32 FMAs (each block
+    # multiplies [B F' T, 16 * 6] rows by 32 columns or back), x read and
+    # the output written once
+    flops = 2 * 2 * b * ((f - 3) // 2 + 1) * t * c * 6 * CAUSAL_OUT_CHANNELS
+    fwd_bound = bound(flops / PEAK_FLOPS[torch.float32], 2 * x.numel() * 4)
+    print(f"[10] causal conv blocks float32 on {card}: forward eval {ms['eval']:.3f} ms, "
+          f"train {ms['train']:.3f} ms, train forward + backward {ms['train_fwd_bwd']:.3f} ms; "
+          f"the forward's bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}, {flops / 1e9:.2f} "
+          f"GFLOP, {2 * x.numel() * 4 / 1e6:.1f} MB)")
+    return {"shape": list(CAUSAL_SHAPE), "out_channels": CAUSAL_OUT_CHANNELS,
+            "snr_db_vs_cpu": snrs, "ms": ms, "forward_bound_ms": fwd_bound[0],
+            "forward_bound_by": fwd_bound[1], "card": card, "profile": PROFILES[tag]}
 
 
 def variant_batch(model_config, batch, lengths, dtype, kernel, floors, tag) -> dict:
@@ -3261,7 +3378,8 @@ def phase_variants(root: str, lengths: list[int]) -> dict:
     and int8 (K5); (d) a GRU sub-band model (no LSTM kernel), timed beside
     (a)'s SE batch, and the loop norms timed at the batch's shape; (e) the
     CBAM and TSSE_ATT train steps through K2 + K4 and K2 + K3 against the
-    plain step from the same state; (f) the joint-mask and residual steps."""
+    plain step from the same state; (f) the joint-mask and residual steps;
+    (g) the 2-D causal conv blocks against the CPU."""
     import dataclasses as dc
 
     from fullsubnet_plus_torch.data.wav import read_wav
@@ -3322,10 +3440,11 @@ def phase_variants(root: str, lengths: list[int]) -> dict:
                           "[10] the TSSE_ATT float32 train step")
             train[name]["profile"] = PROFILES["[10] profile TSSE_ATT float32 train step:"]
     steps = joint_and_residual_steps()
+    causal = causal_conv_blocks()
     wall = time.perf_counter() - t_start
     print(f"phase 10 took {wall:.1f} s")
     return {"runs": runs, "loop_norms_ms": loop_norms, "train": train, "steps": steps,
-            "wall_s": wall}
+            "causal_conv": causal, "wall_s": wall}
 
 
 # Phase 11: FullSubNet's training step at full width: FSN_TOML's [model] at
@@ -3624,12 +3743,7 @@ def main() -> None:
         import fullsubnet_plus_torch  # noqa: F401
     except ImportError as exc:
         fail(f"the port is not importable from here: {exc}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_and_limit()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if torch.backends.cuda.matmul.allow_tf32:
         fail("float32 matmuls must run in full float32 (allow_tf32 is set)")
@@ -3761,7 +3875,8 @@ def main() -> None:
                  for tag, r in v_runs.items()},
         "loop_norms_ms": variants["loop_norms_ms"],
         "train": variants["train"],
-        "steps": variants["steps"], "wall_s": variants["wall_s"]}}))
+        "steps": variants["steps"], "causal_conv": variants["causal_conv"],
+        "wall_s": variants["wall_s"]}}))
 
     f32, bf16, int8 = times[torch.float32], times[torch.bfloat16], times["int8"]
     k1 = {

@@ -54,6 +54,9 @@ def build() -> Path | None:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     f32p = ctypes.POINTER(ctypes.c_float)
+    lib.mixkit_pcm16_to_float.argtypes = [ctypes.POINTER(ctypes.c_int16), ctypes.c_int64,
+                                          ctypes.c_int32, f32p]
+    lib.mixkit_pcm16_to_float.restype = ctypes.c_int64
     lib.mixkit_snr_mix.argtypes = [f32p, f32p, f32p, ctypes.c_int64, ctypes.c_float,
                                    ctypes.c_float, ctypes.c_float, ctypes.c_float]
     lib.mixkit_snr_mix.restype = ctypes.c_float
@@ -82,6 +85,22 @@ def available() -> bool:
 
 def _fptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def pcm16_to_float(samples: np.ndarray, num_channels: int = 1) -> np.ndarray:
+    """Interleaved int16 samples -> mono float32 in [-1, 1): each sample over
+    32768, the channels of a frame averaged; natively, or in numpy without
+    the library."""
+    lib = _load()
+    samples = np.ascontiguousarray(samples, dtype=np.int16)
+    frames = len(samples) // num_channels
+    if lib is None:
+        data = samples[:frames * num_channels].astype(np.float32) / 32768.0
+        return data.reshape(frames, num_channels).mean(axis=1) if num_channels > 1 else data
+    out = np.empty(frames, np.float32)
+    lib.mixkit_pcm16_to_float(samples.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), frames,
+                              num_channels, _fptr(out))
+    return out
 
 
 def snr_mix_native(clean: np.ndarray, noise: np.ndarray, snr_db: float, target_db_fs: float,

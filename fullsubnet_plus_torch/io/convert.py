@@ -106,6 +106,15 @@ def attention_table(ca: str, kind: str):
     return table + _linear(f"{ca}/fc1", f"{ca}.fc1") + _linear(f"{ca}/fc2", f"{ca}.fc2")
 
 
+def causal_block_table(name: str):
+    """A CausalConvBlock or CausalTransConvBlock of nn/tcn.py (JAX
+    nn/tcn.py:204-268): the conv's weight and bias, BatchNorm2d's weight,
+    bias and running statistics. The two blocks have the same rows: the
+    transposed weight keeps torch's [I, O, kf, kt] layout in both trees."""
+    return _plain(f"{name}/conv", f"{name}.conv") + _plain(
+        f"{name}/norm", f"{name}.norm", names=("weight", "bias", "running_mean", "running_var"))
+
+
 def key_table(sb_num_layers: int = 2, model: str = "fullsubnet_plus", attention: str = "TSSE",
               sequence_model: str = "LSTM", bidirectional: bool = False):
     """[(jax "/"-path, state_dict key, transposed)] for a FullSubNet+

@@ -4,8 +4,10 @@ an explicit `torch.Generator`.
 Counterpart of fullsubnet_plus_tpu/nn/init.py:20-50: Linear and Conv1d
 weights and biases are U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (kaiming-uniform
 with a = sqrt(5), torch's default), PReLU starts at 0.25 and GroupNorm at
-weight 1, bias 0. The forwards are plain tensor code; the convolutions
-take the forms of `conv1d` in nn/tcn.py and never reach cuDNN.
+weight 1, bias 0; BatchNorm2d (fullsubnet_plus_tpu/nn/tcn.py:195-201) at
+weight 1, bias 0, running mean 0 and variance 1. The forwards are plain
+tensor code; the convolutions take the forms of `conv1d` and `conv2d` in
+nn/tcn.py and never reach cuDNN.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import math
 
 import torch
 from torch import nn
+
+from fullsubnet_plus_torch.nn.init import kaiming_uniform, uniform_fan_in
 
 
 def uniform_(tensor: torch.Tensor, bound: float, generator: torch.Generator) -> None:
@@ -58,6 +62,26 @@ class Conv1d(nn.Module):
             uniform_(self.bias, bound, generator)
 
 
+class Conv2d(nn.Module):
+    """Holds a 2-D conv weight and bias [out]: [out, in, kf, kt] for a conv,
+    torch's ConvTranspose2d layout [in, out, kf, kt] for a transposed one.
+    Either way the fan-in is weight.shape[1] * kf * kt, as torch draws it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple,
+                 transposed: bool = False):
+        super().__init__()
+        shape = (in_channels, out_channels) if transposed else (out_channels, in_channels)
+        self.weight = nn.Parameter(torch.empty(*shape, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _, fan, kf, kt = self.weight.shape
+        fan_in = fan * kf * kt
+        with torch.no_grad():
+            self.weight.copy_(kaiming_uniform(self.weight.shape, fan_in, generator))
+            self.bias.copy_(uniform_fan_in(self.bias.shape, fan_in, generator))
+
+
 class PReLU(nn.Module):
     """nn.PReLU with one shared slope: where(x >= 0, x, a * x)."""
 
@@ -85,6 +109,25 @@ class GroupNormParams(nn.Module):
         with torch.no_grad():
             self.weight.fill_(1.0)
             self.bias.zero_()
+
+
+class BatchNorm2dParams(nn.Module):
+    """The affine parameters and running statistics of nn.BatchNorm2d(C);
+    see nn/tcn.batch_norm2d, which never updates the statistics."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:

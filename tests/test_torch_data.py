@@ -190,6 +190,19 @@ def test_native_mix_matches_numpy_path(rng):
                                fftconvolve(clean, rir)[: len(clean)], rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("channels", [1, 2])
+def test_pcm16_to_float_matches_jax(rng, mixing_path, channels):
+    """PCM16 decoding, mono and stereo, on both paths: the port's and JAX's
+    bit-equal on the same path, each within 1e-7 / 1e-6 of sample / 32768
+    averaged over the channels (tests/test_native.py's bounds)."""
+    samples = rng.integers(-32768, 32767, 1000 * channels).astype(np.int16)
+    got = native.pcm16_to_float(samples, num_channels=channels)
+    np.testing.assert_array_equal(got, jnative.pcm16_to_float(samples, num_channels=channels))
+    want = (samples.astype(np.float32) / 32768.0).reshape(-1, channels).mean(axis=1)
+    assert got.dtype == np.float32 and got.shape == (1000,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-7 if channels == 1 else 1e-6)
+
+
 def test_native_build_missing_falls_back_to_numpy(monkeypatch, capsys):
     monkeypatch.setattr(native, "_loaded", {})
     monkeypatch.setattr(native, "build", lambda: None)

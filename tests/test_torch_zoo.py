@@ -1,7 +1,8 @@
 """The port's module zoo (fullsubnet_plus_torch nn/ and dsp/) against the JAX
 package's, on the CPU: every channel attention, norm, feature norm, the
 ideal ratio mask, the recurrent and TCN sequence models, the complex
-sequence model, the multi-channel DSP and the initializers. Inputs are
+sequence model, the 2-D causal conv blocks (forward and gradients), the
+multi-channel DSP and the initializers. Inputs are
 seeded with numpy, sizes tiny; the JAX side runs at HIGHEST matmul
 precision, the port in float32. Forwards agree at >= 80 dB; the norms whose
 variance is E[x^2] - mean^2 from float32 running sums agree to a relative
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as nn_functional
 
 from fullsubnet_plus_tpu.dsp import mask as jmask
 from fullsubnet_plus_tpu.dsp import multichannel as jmc
@@ -21,11 +23,13 @@ from fullsubnet_plus_tpu.nn import attention as jatt
 from fullsubnet_plus_tpu.nn import feature_norm as jfn
 from fullsubnet_plus_tpu.nn import init as jinit
 from fullsubnet_plus_tpu.nn import sequence as jseq
+from fullsubnet_plus_tpu.nn import tcn as jtcn
 from fullsubnet_plus_torch.dsp import mask as tmask
 from fullsubnet_plus_torch.dsp import multichannel as tmc
 from fullsubnet_plus_torch.dsp import norms as tnorms
 from fullsubnet_plus_torch.io.convert import (
     attention_table,
+    causal_block_table,
     sequence_model_table,
     state_dict_from_table,
     tree_from_table,
@@ -33,6 +37,7 @@ from fullsubnet_plus_torch.io.convert import (
 from fullsubnet_plus_torch.nn import attention as tatt
 from fullsubnet_plus_torch.nn import feature_norm as tfn
 from fullsubnet_plus_torch.nn import init as tinit
+from fullsubnet_plus_torch.nn import tcn as ttcn
 from fullsubnet_plus_torch.nn.layers import reset_parameters
 from fullsubnet_plus_torch.nn.sequence import ComplexSequenceModel, SequenceModel
 
@@ -287,6 +292,129 @@ def test_multichannel_matches_jax(rng):
         assert tcfg.directional_feature_dim == jcfg.directional_feature_dim
         # LPS through a layer norm, the IPDs through the phase: 1e-4 absolute
         np.testing.assert_allclose(feats_t.numpy(), np.asarray(feats_j), atol=1e-4, rtol=0)
+
+
+# -- 2-D causal conv blocks ----------------------------------------------------
+
+def _causal_block(kind, rng, **kwargs):
+    """A seeded block (conv: 4 -> 8 channels, trans_conv: 8 -> 4) with random
+    BatchNorm2d statistics and affine, and its JAX tree through the table."""
+    module = (ttcn.CausalConvBlock(4, 8, **kwargs) if kind == "conv"
+              else ttcn.CausalTransConvBlock(8, 4, **kwargs))
+    reset_parameters(module, torch.Generator().manual_seed(3))
+    c = module.norm.weight.shape[0]
+    with torch.no_grad():
+        for name, lo, hi in (("weight", 0.5, 1.5), ("bias", -0.5, 0.5),
+                             ("running_mean", -0.3, 0.3), ("running_var", 0.5, 2.0)):
+            getattr(module.norm, name).copy_(torch.from_numpy(
+                rng.uniform(lo, hi, c).astype(np.float32)))
+    table = causal_block_table("m")
+    state = {f"m.{k}": v for k, v in module.state_dict().items()}
+    assert state.keys() == {key for _, key, _ in table}
+    params = tree_from_table(state, table)["m"]
+    back = state_dict_from_table({"m": params}, table)
+    assert all(torch.equal(back[k], state[k]) for k in state)
+    return module, params
+
+
+def _assert_close(ref, out, name, scale=1.0):
+    """>= 80 dB and max-abs <= 1e-5 * scale."""
+    ref, out = np.asarray(ref), np.asarray(out)
+    assert out.shape == ref.shape, name
+    assert _snr(ref, out) >= 80, (name, _snr(ref, out))
+    assert np.abs(ref - out).max() <= 1e-5 * scale, (name, np.abs(ref - out).max(), scale)
+
+
+CAUSAL_CASES = [
+    *(pytest.param("conv", act, tr, id=f"conv-{act}-{'train' if tr else 'eval'}")
+      for act in ("ELU", "ReLU", "Tanh", "LeakyReLU") for tr in (False, True)),
+    *(pytest.param("trans_conv", (last, pad), tr,
+                   id=f"trans-{'last' if last else 'mid'}-pad{pad[0]}-{'train' if tr else 'eval'}")
+      for last in (False, True) for pad in ((0, 0), (1, 0)) for tr in (False, True))]
+
+
+@pytest.mark.parametrize("kind,option,training", CAUSAL_CASES)
+def test_causal_conv_block_matches_jax(rng, kind, option, training):
+    """Forward and the gradients of sum(out * w) with respect to x and every
+    parameter, against JAX at HIGHEST precision; training mode (the batch's
+    statistics) leaves the running statistics untouched. A parameter's
+    gradient sums some 600-1200 products to values up to ~150, where a
+    float32 ulp is 4-15e-6, so its max-abs bound is 1e-5 relative to its
+    largest value; in training mode the conv bias's gradient is zero (the
+    batch mean takes the bias out), and both sides hold it to float32 noise."""
+    if kind == "conv":
+        x = rng.standard_normal((2, 4, 32, 20)).astype(np.float32)
+        module, params = _causal_block(kind, rng, activation=option)
+
+        def apply(p, xx):
+            return jtcn.causal_conv_block_apply(p, xx, activation=option, training=training)
+    else:
+        x = rng.standard_normal((2, 8, 15, 20)).astype(np.float32)
+        last, pad = option
+        module, params = _causal_block(kind, rng, is_last=last, output_padding=pad)
+
+        def apply(p, xx):
+            return jtcn.causal_trans_conv_block_apply(p, xx, is_last=last, output_padding=pad,
+                                                      training=training)
+    out_shape = (2, 8, 15, 20) if kind == "conv" else (2, 4, 31 + option[1][0], 20)
+    w = rng.standard_normal(out_shape).astype(np.float32)
+
+    def forward_and_grads(p, xx, ww):
+        out, vjp = jax.vjp(apply, p, xx)
+        return out, vjp(ww)
+
+    with HIGHEST:
+        ref, (ref_grads, ref_dx) = jax.jit(forward_and_grads)(params, x, w)
+    stats = {k: v.clone() for k, v in module.named_buffers()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = module(xt, training=training)
+    (out * torch.from_numpy(w)).sum().backward()
+    _assert_close(ref, out.detach(), "out")
+    _assert_close(ref_dx, xt.grad, "dx")
+    scale = np.abs(np.asarray(ref_grads["norm"]["bias"])).max()
+    for name, p in module.named_parameters():
+        group, leaf = name.split(".")
+        ref_grad = np.asarray(ref_grads[group][leaf])
+        if training and name == "conv.bias":
+            assert max(np.abs(ref_grad).max(), p.grad.abs().max()) <= 1e-5 * scale
+        else:
+            _assert_close(ref_grad, p.grad, name, max(1.0, np.abs(ref_grad).max()))
+    assert all(torch.equal(v, stats[k]) for k, v in module.named_buffers())
+
+
+@pytest.mark.parametrize("stride,padding,output_padding", [
+    ((1, 1), ((0, 0), (0, 0)), (0, 0)), ((2, 1), ((0, 0), (1, 1)), (1, 0)),
+    ((2, 3), ((1, 2), (0, 1)), (1, 2))])
+def test_conv2d_forms_match_torch_functional(rng, stride, padding, output_padding):
+    """`conv2d` and `conv_transpose2d` (taps around one matmul) against
+    torch.nn.functional's convolutions on the CPU, at strides and paddings
+    beyond the blocks' own."""
+    x = torch.from_numpy(rng.standard_normal((2, 3, 11, 9)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 3, 3, 2)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(5).astype(np.float32))
+    (f0, f1), (t0, t1) = padding
+    ref = nn_functional.conv2d(nn_functional.pad(x, (t0, t1, f0, f1)), w, b, stride=stride)
+    _assert_close(ref, ttcn.conv2d(x, w, b, stride=stride, padding=padding), "conv2d")
+    wt = torch.from_numpy(rng.standard_normal((3, 5, 3, 2)).astype(np.float32))
+    ref = nn_functional.conv_transpose2d(x, wt, b, stride=stride, output_padding=output_padding)
+    out = ttcn.conv_transpose2d(x, wt, b, stride=stride, output_padding=output_padding)
+    _assert_close(ref, out, "conv_transpose2d")
+
+
+def test_causal_conv_blocks_bf16_stay_finite(rng):
+    x = torch.from_numpy(rng.standard_normal((2, 4, 32, 20)).astype(np.float32))
+    enc, _ = _causal_block("conv", rng)
+    dec, _ = _causal_block("trans_conv", rng)
+    enc, dec = enc.to(torch.bfloat16), dec.to(torch.bfloat16)
+    y = enc(x.to(torch.bfloat16), training=True)
+    back = dec(y, training=True)
+    assert y.shape == (2, 8, 15, 20) and back.shape == (2, 4, 31, 20)
+    assert back.dtype == torch.bfloat16 and torch.isfinite(back.float()).all()
+
+
+def test_causal_conv_block_refuses_unknown_activation():
+    with pytest.raises(ValueError, match="unknown activation"):
+        ttcn.CausalConvBlock(4, 8, activation="GELU")
 
 
 # -- initializers ---------------------------------------------------------------
