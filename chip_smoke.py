@@ -19,9 +19,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      `wgrad_kernel` may be compiled; the cluster forms of the
      forward and reverse sweeps (`fwd::` and `bwd::sweep_cluster_kernel`,
      two functions in each of the four libraries) must have HMMA and, in
-     float32, TF32 HMMA instructions; print the float32 reverse sweeps',
-     the cluster forms' and the weight-gradient kernels' registers and
-     spills (ptxas);
+     float32, TF32 HMMA instructions; print the float32 reverse sweeps'
+     (`bwd::sweep_mma_kernel`, which the tile and wave forms run), the
+     cluster forms' and the weight-gradient kernels' registers and spills
+     (ptxas);
      K5's sweeps, the tile form `int8_sweep_kernel` and the cluster form
      `int8_sweep_cluster_kernel`, must have IMMA (s8) and HMMA (bf16)
      tensor-core instructions and no IDP (`__dp4a`) one, with their
@@ -61,7 +62,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      each candidate tile of dU1, dW2, dU2 in both dtypes; K3 against K4
      plus `weight_grads` in both dtypes at the training fold and, in
      float32, at FullSubNet's sub-band and full-band training folds too
-     (what `FUSED_WGRAD_BY_DTYPE` rests on);
+     (what `FUSED_WGRAD_BY_DTYPE` rests on); the reverse sweep's form by the
+     rule (the wave form) against the tile form forced, K4's sweep
+     and K3 whole, at the training fold and FullSubNet's sub-band training
+     fold in both dtypes, the two forms' dx and dgates the same bits;
   4. drive the batch path, `fullsubnet_plus_torch.cli.enhance.run_enhance`,
      on 8 wavs of 3-10 s with a seeded full-width FullSubNet+ in float32,
      bfloat16 and int8; check every output, that the kernels were launched,
@@ -84,7 +88,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      waveforms and weights: a few steps in float32 and bfloat16 through
      K2 + K3 and in float32 through K2 + K4; every loss and gradient norm
      finite, nothing skipped, the launch counts as expected, every forward
-     and reverse sweep in the tile form; then the plain
+     sweep in the tile form and every reverse sweep in the rule's form (the
+     wave form: 144 row tiles on 132 SMs), the float32 and bf16 K3
+     steps also with the tile form forced, timed beside; then the plain
      versions' float32 run, and at each of its steps the same step from a
      copy of its state through the kernels (float32 K2 + K3 and K2 + K4,
      bf16 K2 + K3), loss and gradient norm held to the plain step's, each
@@ -187,8 +193,8 @@ Phases, each fatal on failure (exit code 1, no result line):
  11. FullSubNet's training at full width (FSN_TOML's [model], seed 42, the
      batch of configs/train.toml: the full-band LSTM at N 18, D 257, H 512,
      O 257, T 195, where the reverse sweep takes its cluster form):
-     (a) the sweep's form (clusters of 16 at N 18, the tile form at the
-     shipped and sub-band folds), K2, K3 and K4 in float32 and bf16 against
+     (a) the sweep's form (clusters of 16 at N 18, the wave form at
+     the shipped and sub-band folds), K2, K3 and K4 in float32 and bf16 against
      their plain versions (dx, every weight and bias gradient; >= 80 / 40
      dB; K2 and K4 with the tile form forced too; K2's y equal to K1's), K4's cluster form equal to
      itself with each cluster's rank 0 sending late, K3 equal on a repeat, each
@@ -198,16 +204,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      from the plain step's state through float32 K2 + K4, float32 K2 + K3
      and bf16 K2 + K3 (phase 6's limits; each step launching K2 and its
      backward twice: the full-band and the sub-band LSTM), the float32
-     default timed and profiled (no TF32 product), its forward and reverse
-     sweeps the cluster form at the full-band fold and the tile form at the
-     sub-band one;
+     default timed and profiled (no TF32 product), its forward sweeps the
+     cluster form at the full-band fold and the tile form at the sub-band
+     one, its reverse sweeps the cluster form and the wave form, and
+     timed again with the sub-band sweep's tile form forced;
      (d) one float32 epoch of
      the trainer (the CLI's functions) on phase 8's corpus, its checkpoints
      in the JAX package's FullSubNet keys, and one more epoch profiled;
      (e) K2, K3, K4 timed beside their plain versions, bounds and cuDNN,
      each also with the tile form forced;
  12. print the kernels' JSON line (with K1's, K2's and K5's form at each
-     fold),
+     fold, and K3's and K4's reverse sweep's),
      the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
@@ -1054,7 +1061,9 @@ def wgrad_bound(dtype: torch.dtype, fma: bool = False) -> tuple[float, str]:
 
     size = torch.tensor([], dtype=dtype).element_size()
     rows = N_TRAIN * T_TRAIN
-    chunks = -(-T_TRAIN // lt.wgrad_chunk_steps(N_TRAIN, H, T_TRAIN, dtype))
+    wave = lt.bwd_sweep_form(N_TRAIN, D, H, O, dtype, torch.cuda.get_device_properties(
+        0).multi_processor_count) == lt.SWEEP_WAVE  # its own scratch size
+    chunks = -(-T_TRAIN // lt.wgrad_chunk_steps(N_TRAIN, H, T_TRAIN, dtype, wave))
     flops = 2 * rows * (D + 3 * H) * 4 * H
     nbytes = rows * (D + 2 * H) * size + chunks * 2 * (D + 3 * H) * 4 * H * 4
     return bound(sweep_ops_s(flops, dtype, fma), nbytes)
@@ -1217,7 +1226,59 @@ def phase_time_train() -> dict:
               f"{'K3' if lt.fused_wgrad(dtype) else 'K4'}")
         torch.cuda.empty_cache()
     times[("lstm2_bwd_wgrad", torch.float32)]["backward_forms_by_fold"] = backward_forms_by_fold()
+    forms = sweep_forms_by_fold()
+    for name in ("lstm2_bwd", "lstm2_bwd_wgrad"):
+        for dtype in (torch.float32, torch.bfloat16):
+            times[(name, dtype)]["sweep_forms_by_fold"] = {
+                tag: {k: v for k, v in by.items() if k in ("form", "same_bits", name, "tile")}
+                for tag, by in forms[dtype].items()}
     return times
+
+
+def sweep_forms_by_fold() -> dict:
+    """The reverse sweep's form by the rule (`bwd_sweep_form` on this card:
+    the wave form at the training fold) against the tile form forced,
+    at FullSubNet+'s training fold and FullSubNet's sub-band training fold
+    (N 2304, T 195) in both dtypes: K4's dx and dgates the same bits in both
+    forms; K4's sweep and K3 whole timed in turns (rule, tile, tile, rule;
+    the lower of a form's two medians of 3)."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        out[dtype] = {}
+        for tag, shape in (("fullsubnet_plus", SB), ("fullsubnet_sb", FSN_SB)):
+            x, dy, lstm, fc = train_operands(N_TRAIN, T_TRAIN, dtype, seed=5, shape=shape)
+            w = lstm.packed(fc)
+            _, res = lt.lstm2_train_fwd(x, w)
+            form = lt.bwd_sweep_form(N_TRAIN, *shape, dtype, sms)
+            got, ms = {}, {}
+            for f in (form, 0, 0, form):
+                lt.SWEEP_FORM = f
+                try:
+                    if f not in got:
+                        got[f] = lt.lstm2_bwd_sweep(dy, x, w, res)[:3]
+                    ms.setdefault(f, []).append(
+                        (cuda_ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res), reps=3),
+                         cuda_ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True), reps=3)))
+                finally:
+                    lt.SWEEP_FORM = None
+            same = all(torch.equal(a, b) for a, b in zip(got[form], got[0]))
+            del got, res
+            torch.cuda.empty_cache()
+            best = {f: (min(v[0] for v in runs), min(v[1] for v in runs)) for f, runs in ms.items()}
+            name = lt.sweep_form_name(form)
+            print(f"[3] {str(dtype)[6:]} {tag} N={N_TRAIN} D={shape[0]} T={T_TRAIN}: the rule's "
+                  f"{name} form: sweep (lstm2_bwd) {best[form][0]:.3f} ms, K3 {best[form][1]:.3f} "
+                  f"ms; the tile form forced: sweep {best[0][0]:.3f} ms, K3 {best[0][1]:.3f} ms; "
+                  f"dx and dgates the same bits in both: {same}")
+            if not same:
+                fail(f"the reverse sweep's {name} and tile forms disagree at {tag} {dtype}")
+            out[dtype][tag] = {"form": name, "same_bits": same,
+                               "lstm2_bwd": best[form][0], "lstm2_bwd_wgrad": best[form][1],
+                               "tile": {"lstm2_bwd": best[0][0], "lstm2_bwd_wgrad": best[0][1]}}
+    return out
 
 
 def backward_forms_by_fold() -> dict:
@@ -1375,27 +1436,36 @@ def phase_train() -> dict:
         model = model_def.module_cls(config).init_weights(torch.Generator().manual_seed(42))
         return step.init_train_state(model, optimizer, device="cuda")
 
-    def run(tag, dtype, fused):
-        """TRAIN_STEPS steps from the seeded state; metrics, walls, launches."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def run(tag, dtype, fused, form=None):
+        """TRAIN_STEPS steps from the seeded state; metrics, walls, launches
+        (the reverse sweep in `form` where given, else the rule's)."""
         state = seeded_state()
         train_step = make_step(dtype)
         reset_launches()
         metrics, walls = [], []
-        with training_kernels(fused):
-            for noisy, clean in batches:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = train_step(state, noisy, clean)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-                metrics.append({k: float(v) for k, v in m.items()})
+        lt.SWEEP_FORM = form
+        try:
+            with training_kernels(fused):
+                for noisy, clean in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = train_step(state, noisy, clean)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            lt.SWEEP_FORM = None
         launches = all_launches()
         backward = "lstm2_bwd_wgrad" if fused else "lstm2_bwd"
         expect = {k: 0 for k in launches}
         expect.update({"lstm2_train_fwd": TRAIN_STEPS, backward: TRAIN_STEPS})
-        if dict(lt.SWEEP_FORMS) != {f"{backward} tile": TRAIN_STEPS}:
+        name = lt.sweep_form_name(lt.bwd_sweep_form(N_TRAIN, D, H, O, dtype, sms)
+                                  if form is None else form)
+        if dict(lt.SWEEP_FORMS) != {f"{backward} {name}": TRAIN_STEPS}:
             fail(f"train {tag}: the shipped fold's reverse sweeps took the forms "
-                 f"{dict(lt.SWEEP_FORMS)}, not the tile form once a step")
+                 f"{dict(lt.SWEEP_FORMS)}, not the {name} form once a step")
         if dict(lstm2.FWD_SWEEP_FORMS) != {"lstm2_train_fwd tile": TRAIN_STEPS}:
             fail(f"train {tag}: the shipped fold's forward sweeps took the forms "
                  f"{dict(lstm2.FWD_SWEEP_FORMS)}, not the tile form once a step")
@@ -1414,11 +1484,19 @@ def phase_train() -> dict:
         if int(state.step) != TRAIN_STEPS or int(state.opt_state.count) != TRAIN_STEPS:
             fail(f"train {tag}: step {int(state.step)}, Adam count {int(state.opt_state.count)}")
         return {"state": state, "metrics": metrics, "wall_ms": wall, "launches": launches,
-                "audio_s_per_s": audio_s / wall * 1e3}
+                "audio_s_per_s": audio_s / wall * 1e3, "sweep_form": name}
 
     runs = {"float32_k3": run("float32 K2+K3", torch.float32, True),
             "bfloat16_k3": run("bfloat16 K2+K3", torch.bfloat16, True),
             "float32_k4": run("float32 K2+K4", torch.float32, False)}
+    # the same steps with the tile form forced: a comparison, not the main path
+    tile_runs = {"float32_k3": run("float32 K2+K3, the tile form forced", torch.float32, True, 0),
+                 "bfloat16_k3": run("bfloat16 K2+K3, the tile form forced", torch.bfloat16,
+                                    True, 0)}
+    for key, tile in tile_runs.items():
+        print(f"[6] {key} step wall median: the {runs[key]['sweep_form']} form "
+              f"{runs[key]['wall_ms']:.1f} ms, the tile form forced {tile['wall_ms']:.1f} ms")
+        runs[key]["tile_form_wall_ms"] = tile["wall_ms"]
     same_state_check(seeded_state(), make_step, batches)
 
     # a NaN in one noisy waveform: the update is rejected on the device
@@ -1459,7 +1537,8 @@ def phase_train() -> dict:
     kernels = profile_call(one_step, f"[6] profile float32 train step (K2 + {backward}, "
                                      f"the default form):")
     check_no_tf32(kernels, "[6] the float32 train step")
-    return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s")}
+    return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s",
+                                            "sweep_form", "tile_form_wall_ms") if f in v}
                      for k, v in runs.items()},
             "eval_launches": eval_launches,
             # phase 9 starts from a copy of the float32 K2 + K4 run's state
@@ -3484,14 +3563,18 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
               + f"; the tile form takes {'k-split' if lt.bwd_dx_ksplit(16, *FB, dtype) else 'output-stationary'}")
         if lt.bwd_dx_ksplit(16, *FB, dtype) or forms["output-stationary"] > 232448:
             fail("the full-band reverse sweep does not take the output-stationary dx that fits")
-        # the form: clusters of 16 at N 18, the tile form at the shipped and sub-band folds
+        # the form: clusters of 16 at N 18, the wave form at the shipped and
+        # sub-band folds (more row tiles than the card's SMs)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         folds = {"full-band N 18": (n, *FB), "shipped N 2304": (N_TRAIN, D, H, O),
                  "FullSubNet sub-band N 2304": (N_TRAIN, *FSN_SB)}
         for fold, (rows, *shape) in folds.items():
-            form = lt.bwd_sweep_cluster(rows, *shape, dtype)
-            print(f"[11] {str(dtype)[6:]} {fold}: the rule takes "
-                  f"{f'clusters of {form}' if form else 'the tile form'}")
-            if form != (16 if fold.startswith("full-band") else 0):
+            form = lt.bwd_sweep_form(rows, *shape, dtype, sms)
+            print(f"[11] {str(dtype)[6:]} {fold}: the rule takes the "
+                  f"{lt.sweep_form_name(form)} form")
+            want = 16 if fold.startswith("full-band") else (
+                lt.SWEEP_WAVE if -(-N_TRAIN // 16) > sms else 0)
+            if form != want:
                 fail(f"[11] the reverse sweep's form at the {fold} fold: {form}")
     errors, times = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -3618,6 +3701,25 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
     return errors, times
 
 
+@contextlib.contextmanager
+def forced_sub_band_tile_form():
+    """The reverse sweep's tile form forced wherever the rule would take the
+    wave form (FullSubNet's sub-band fold); the cluster form stays."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    rule = lt.bwd_sweep_form
+
+    def tile_for_wave(*args, **kwargs):
+        form = rule(*args, **kwargs)
+        return 0 if form == lt.SWEEP_WAVE else form
+
+    lt.bwd_sweep_form = tile_for_wave
+    try:
+        yield
+    finally:
+        lt.bwd_sweep_form = rule
+
+
 def fsn_train_setup():
     """FullSubNet (FSN_TOML's [model]) with configs/train.toml's optimizer,
     loss and acoustics, and TRAIN_STEPS seeded batches of its shape."""
@@ -3687,19 +3789,34 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
     want.update({"lstm2_train_fwd": 2 * TRAIN_STEPS, backward: 2 * TRAIN_STEPS})
     if default_launches != want:
         fail(f"[11] FullSubNet float32 steps: launches {default_launches}, expected {want}")
-    forms = dict(lt.SWEEP_FORMS)  # the full-band sweep clustered, the sub-band one in tiles
-    if forms != {f"{backward} cluster16": TRAIN_STEPS, f"{backward} tile": TRAIN_STEPS}:
+    # the full-band sweep clustered, the sub-band one in the rule's form at N 2304
+    sub_band = lt.sweep_form_name(lt.bwd_sweep_form(
+        N_TRAIN, *FSN_SB, torch.float32, torch.cuda.get_device_properties(0).multi_processor_count))
+    forms = dict(lt.SWEEP_FORMS)
+    if forms != {f"{backward} cluster16": TRAIN_STEPS, f"{backward} {sub_band}": TRAIN_STEPS}:
         fail(f"[11] FullSubNet float32 steps: the reverse sweeps' forms {forms}")
     fwd_forms = dict(lstm2.FWD_SWEEP_FORMS)  # K2 likewise
     if fwd_forms != {"lstm2_train_fwd cluster16": TRAIN_STEPS, "lstm2_train_fwd tile": TRAIN_STEPS}:
         fail(f"[11] FullSubNet float32 steps: the forward sweeps' forms {fwd_forms}")
     wall = statistics.median(walls[1:])
     audio_s = TRAIN_BATCH * TRAIN_SAMPLES / SR
+    # the same steps with the sub-band sweep's tile form forced (a comparison)
+    tile_state, tile_walls = seeded_state(), []
+    for noisy, clean in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with forced_sub_band_tile_form():
+            tile_state, _ = train_step(tile_state, noisy, clean)
+        torch.cuda.synchronize()
+        tile_walls.append((time.perf_counter() - t0) * 1e3)
+    tile_wall = statistics.median(tile_walls[1:])
+    del tile_state
     print(f"[11] FullSubNet float32 train step (the default form, K2 + "
           f"{'K3' if backward == 'lstm2_bwd_wgrad' else 'K4 + weight_grads'}): wall median "
           f"{wall:.1f} ms (each {', '.join(f'{w:.0f}' for w in walls)}), "
           f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {default_launches}, reverse sweeps "
-          f"by form {forms}, forward sweeps by form {fwd_forms}")
+          f"by form {forms}, forward sweeps by form {fwd_forms}; with the sub-band sweep's tile "
+          f"form forced {tile_wall:.1f} ms")
 
     def one_step():
         train_step(state, noisy, clean)
@@ -3730,6 +3847,7 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
     return {"errors": errors, "times": times, "fixture_snr": fixture_snr,
             "steps": {"rel_gaps": gaps, "launches": {k: v for k, v in step_launches.items() if v},
                       "float32_default": {"wall_ms": wall, "audio_s_per_s": audio_s / wall * 1e3,
+                                          "sub_band_tile_form_wall_ms": tile_wall,
                                           "launches": default_launches, "sweep_forms": forms,
                                           "fwd_sweep_forms": fwd_forms,
                                           "profile": PROFILES[label]}},
@@ -3982,12 +4100,25 @@ def main() -> None:
     runs = train["runs"]
 
     def train_kernel(name, source, replaces, launch_runs):
+        from fullsubnet_plus_torch.ops import lstm2_train as lt
+
         f32, bf16 = (train_times[(name, dt)] for dt in (torch.float32, torch.bfloat16))
         extra = {"sweep_hmma": hmma[name]} if name in hmma else {}
         if f"{name}_float32_sweep" in hmma:
             extra["float32_sweep_functions"] = hmma[f"{name}_float32_sweep"]
         if f"{name}_cluster_sweep" in hmma:
             extra["cluster_sweep_functions"] = hmma[f"{name}_cluster_sweep"]
+        if name in ("lstm2_bwd", "lstm2_bwd_wgrad"):
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            extra["sweep_form_by_fold"] = {  # the same in both dtypes at these folds
+                **{fold: lt.sweep_form_name(lt.bwd_sweep_form(rows, *shape, torch.float32, sms))
+                   for fold, rows, shape in (
+                       (f"N {N_TRAIN} T {T_TRAIN} (training)", N_TRAIN, SB),
+                       (f"N {N_CARD} (a card's half)", N_CARD, SB),
+                       (f"fullsubnet_fb_train N {N_FB_TRAIN}", N_FB_TRAIN, FB),
+                       (f"fullsubnet_sb_train N {N_TRAIN}", N_TRAIN, FSN_SB))},
+                "train_steps": {r: runs[r].get("sweep_form") for r in launch_runs},
+                "fullsubnet_steps_float32": fsn_train["steps"]["float32_default"]["sweep_forms"]}
         if name == "lstm2_train_fwd":
             extra["fwd_form_by_fold"] = {
                 **{fold: fwd_form_name(rows, shape) for fold, rows, shape in (
@@ -4019,6 +4150,7 @@ def main() -> None:
             "library": "cuDNN LSTM + Linear, "
                        + ("forward" if name == "lstm2_train_fwd" else "backward"),
             "train_step": {r: {"wall_ms": runs[r]["wall_ms"],
+                               "tile_form_wall_ms": runs[r].get("tile_form_wall_ms"),
                                "audio_s_per_s": runs[r]["audio_s_per_s"]} for r in launch_runs},
             "jax_fixture_min_snr_db": {dt: fixture_snr[(name, dt)]
                                        for dt in ("float32", "bfloat16")},
@@ -4028,7 +4160,9 @@ def main() -> None:
                 "launches_per_step": "1 a FullSubNet train step (and 1 at the sub-band shape)",
                 "jax_fixture_min_snr_db": {dt: fsn_train["fixture_snr"].get((name, dt))
                                            for dt in ("float32", "bfloat16")},
-                "train_step_float32": fsn_train["steps"]["float32_default"]["wall_ms"]},
+                "train_step_float32": fsn_train["steps"]["float32_default"]["wall_ms"],
+                "train_step_float32_sub_band_tile_form":
+                    fsn_train["steps"]["float32_default"]["sub_band_tile_form_wall_ms"]},
             "card_fold": {"shape": {"N": N_CARD, "D": D, "H": H, "O": O, "T": T_TRAIN},
                           **{tag: train_mesh["card_fold"][(name, dt)] for tag, dt in (
                               ("float32", torch.float32), ("bfloat16", torch.bfloat16))}},

@@ -19,16 +19,19 @@
 // 1.7 ms at the tensor cores' rate).
 //
 // Design: the sweep of lstm2_bwd_sweep.cuh (one CTA per row tile of 16 for
-// all T, the tile's dgates in shared memory; at folds of a few tiles, such as
-// FullSubNet's full-band N 18, its cluster form: a cluster of 16 CTAs per
-// tile), run once over all steps with the carries starting from zero and
-// kept inside the block. Its products
+// all T, the tile's dgates in shared memory; where the fold has more tiles
+// than the card has SMs, as at the training fold, its wave form: the same
+// kernel over items of a tile and a few steps, a launch a wave of a CTA an
+// SM, the carries between a tile's items in `carry`; at folds of a few
+// tiles, such as FullSubNet's full-band N 18, its cluster form: a cluster of
+// 16 CTAs per tile), run over all steps with the carries starting from zero.
+// Its products
 // run on the tensor cores (mma.sync, the weights packed into fragment order
 // by the wrapper; float32 as three TF32 products of split operands), and
 // each CTA's step latency bounds it: the product loops' L2 round trips for
 // the weight fragments and the cell backward's loads (the header's note).
-// The bf16 sweep has 54 HMMA instructions in each of its two functions, the
-// float32 one HMMA.1688.F32.TF32 (cuobjdump -sass of the built library;
+// The bf16 sweep has 114 HMMA instructions in each of its two functions, the
+// float32 one 342 HMMA.1688.F32.TF32 (cuobjdump -sass of the built library;
 // chip_smoke.py phase 1).
 //
 // The C entry point launches on the caller's stream, allocates nothing and
@@ -41,8 +44,8 @@ namespace {
 template <typename T>
 int run(const void* dy, const void* g1, const void* c1, const void* g2, const void* c2,
         const void* w2p, const void* u1p, const void* w1p, const void* fcw, void* dg1,
-        void* dg2, void* dx, int n_rows, int steps, int D, int H, int O, int rows, int form,
-        int late_sends, cudaStream_t stream) {
+        void* dg2, void* dx, void* carry, int n_rows, int steps, int D, int H, int O, int rows,
+        int form, int part_steps, int late_sends, cudaStream_t stream) {
   bwd::SweepArgs<T> a;
   a.dy = static_cast<const T*>(dy);
   a.g1 = static_cast<const T*>(g1);
@@ -56,7 +59,7 @@ int run(const void* dy, const void* g1, const void* c1, const void* g2, const vo
   a.dg1 = static_cast<T*>(dg1);
   a.dg2 = static_cast<T*>(dg2);
   a.dx = static_cast<T*>(dx);
-  a.carry = nullptr;
+  a.carry = static_cast<float*>(carry);
   a.db_part = nullptr;
   a.n_rows = n_rows;
   a.steps = steps;
@@ -68,7 +71,7 @@ int run(const void* dy, const void* g1, const void* c1, const void* g2, const vo
   a.t_base = 0;
   a.resume = 0;
   a.late_sends = late_sends;
-  return bwd::launch_sweep<T>(a, rows, form, stream);
+  return bwd::launch_sweep<T>(a, rows, form, part_steps, stream);
 }
 
 }  // namespace
@@ -76,21 +79,24 @@ int run(const void* dy, const void* g1, const void* c1, const void* g2, const vo
 // dtype: 0 = float32, 1 = bfloat16 (dy, the residuals, the weights, dgates
 // and dx; fcw is float32). w2p, u1p, w1p: [W2; U2], U1 and W1 packed into
 // mma fragments (ops/lstm2.py: pack_tf32_b for float32, pack_mma_b for
-// bfloat16); rows is 16. form: the sweep's form (0 the tile form, 16 the
-// cluster form: clusters of 16). late_sends: 1 for the cluster form's rank 0
-// to send its dgates after its own products (a test of the exchange), else 0.
+// bfloat16); rows is 16. form: the sweep's form (0 the tile form, 1 the wave
+// form, 16 the cluster form: clusters of 16). The wave form also takes carry,
+// a float32 [4][ceil(N / rows) * rows][H] scratch for the carries between a
+// tile's parts, and part_steps, the steps of a part (the other forms: null
+// and 0). late_sends: 1 for the cluster form's rank 0 to send its dgates
+// after its own products (a test of the exchange), else 0.
 extern "C" int lstm2_bwd(const void* dy, const void* g1, const void* c1, const void* g2,
                          const void* c2, const void* w2p, const void* u1p, const void* w1p,
-                         const void* fcw, void* dg1, void* dg2, void* dx, int n_rows, int steps,
-                         int D, int H, int O, int rows, int form, int late_sends, int dtype,
-                         void* stream) {
+                         const void* fcw, void* dg1, void* dg2, void* dx, void* carry,
+                         int n_rows, int steps, int D, int H, int O, int rows, int form,
+                         int part_steps, int late_sends, int dtype, void* stream) {
   if (!bwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return run<float>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, n_rows, steps, D,
-                      H, O, rows, form, late_sends, s);
+    return run<float>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, carry, n_rows,
+                      steps, D, H, O, rows, form, part_steps, late_sends, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, n_rows,
-                              steps, D, H, O, rows, form, late_sends, s);
+    return run<__nv_bfloat16>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, carry,
+                              n_rows, steps, D, H, O, rows, form, part_steps, late_sends, s);
   return (int)cudaErrorInvalidValue;
 }

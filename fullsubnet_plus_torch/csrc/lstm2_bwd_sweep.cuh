@@ -13,10 +13,23 @@
 // round() is the cast to the weight type T (none in float32); the carries
 // stay float32.
 //
-// Two forms, which the caller chooses (`bwd_sweep_cluster` in
-// ops/lstm2_train.py): the tile form at the shipped training folds, and the
-// cluster form (`sweep_cluster_kernel`, below) at FullSubNet's full-band
-// folds.
+// Three forms, which the caller chooses by the fold's shape
+// (`bwd_sweep_form` in ops/lstm2_train.py): the tile form where the card
+// holds every row tile at once, the wave form where it does not (the
+// shipped training folds: 144 tiles on 132 SMs), and the cluster form
+// (`sweep_cluster_kernel`, below) at FullSubNet's full-band folds.
+//
+// The wave form runs the tile form's kernel on the same work cut into items
+// of (row tile, part of part_steps steps): item k is tile k mod tiles over
+// part k div tiles, newest steps first, and each launch runs the next
+// min(SMs, tiles) items, a CTA an SM (`launch_mma`). An item starts from the
+// carries (and adds to the bias sums) its tile's previous part left in
+// device memory, which an earlier launch wrote, so stream order is all the
+// synchronisation there is, and each item runs the tile form's arithmetic
+// in its order: the same dx and dgates bit for bit (K3's bias sums are
+// grouped by item). At N 2304 the tile form runs 144 CTAs as a full wave of
+// 132 and a second of 12 that leaves 120 SMs idle for as long again; the
+// wave form keeps the 132 SMs busy but for the last launch.
 //
 // The tile form, `sweep_mma_kernel<T>`: one CTA per tile of R = 16 rows
 // (one m16 tile) for all its steps, H threads. Thread j runs the cell
@@ -68,33 +81,37 @@
 // partials [12][16][40] 30.7 KB); at H 512, D 257, O 257
 // (output-stationary): 147,776 and 213,312 (dgates 65.8 / 131.3 KB, dh1 and
 // dh2 32.8 KB each, the dy tile 16.4 KB).
-// cuobjdump -sass: 54 HMMA instructions in each of the two bf16 functions
-// (H <= 384 and <= 512), 162 HMMA.1688.F32.TF32 in each float32 one
-// (chip_smoke.py phase 1).
+// cuobjdump -sass: 114 HMMA instructions in each of the two bf16 functions
+// (H <= 384 and <= 512), 342 HMMA.1688.F32.TF32 in each float32 one, whose
+// 384-thread function spills 80 bytes a thread (chip_smoke.py phase 1).
 //
-// What bounds the bf16 sweep (H100 measurements, PERF.md). At the training
-// fold (N 2304, T 195: 144 CTAs, two waves on 132 SMs) it runs 1.64 TFLOP
-// in about 39 ms, 4 % of the bf16 tensor-core rate, and reads 103 GB of
-// weight fragments from L2 (3.66 MB per CTA and step). A step takes about
-// 127 us in a full wave, and 84 us for 12 CTAs alone, which is what the
-// second wave costs. In a full wave, taking the products out saves 81 us
-// (the weight loads alone 43 us) and taking the two cell backwards out
-// saves 65 us: the phases overlap only in part
-// (scripts/profile_torch_bwd_sweep.py). So each CTA's step latency bounds
-// it (the product loops' L2 round trips and the cell backward's loads of
-// the residuals), not the L2 bandwidth: R 32, with half the weight bytes,
-// made each step about twice as long.
+// What bounds the tile form (H100, PERF.md; scripts/time_torch_bwd_forms.py
+// and scripts/profile_torch_bwd_sweep.py). At the training fold (N 2304, T
+// 195) its 144 CTAs run in two waves on 132 SMs: a float32 step takes 220 us
+// in the full wave and 188 us for the 12 CTAs of the second (bf16 102-111
+// and 77-83), so the second wave costs nearly as much as the first: each
+// CTA's step latency bounds the form (its products on one SM's tensor
+// cores, the product loops' L2 round trips for the weight fragments, the
+// cell backward's loads of the residuals), and the L2's bandwidth only adds
+// a sixth to a third in a full wave. The wave form takes the second wave
+// away: 247 / 116 us a step at N 2304, 48.1 / 22.6 ms a sweep against 79.2
+// / 34.4 in the tile form.
 //
-// The float32 sweep, alike: 1.64 TFLOP (three times that in TF32 products)
-// in about 88 ms, 7.3 MB of weight words per CTA and step. A step takes
-// about 256 us in a full wave and 197 us for the 12 CTAs of the second
-// wave, 44 % of the time. In a full wave, taking the products out saves
-// 217 us (the weight loads alone 69 us, the TF32 splits 61, two of the three
-// HMMAs 73) and the cell backwards 98; the k-chunk loop unrolled once or
-// four times instead of twice took 283 and 327 us
-// (scripts/profile_torch_bwd_sweep.py).
+// Tried and dropped (PERF.md): each warp's weight fragments streamed
+// through a ring of 2 KB stages in shared memory by bulk copies (4 slots in
+// bf16, 2 in float32: what fits beside this layout), with the next step's
+// residuals prefetched into the L2: 1-9 % slower than the tile form; the
+// same ring shared by clusters of 2 CTAs (each stage read once and
+// multicast, every CTA's release gathered on an empty mbarrier): twice as
+// slow, the handshake on each stage's path; the float32 weights split into
+// their TF32 halves at packing (both halves loaded): slower; a persistent
+// grid walking the work items with per-tile flags: as the wave form but
+// for 500 bytes of spills a thread in float32 (its loop's state), 370
+// against 223 us a full-wave step.
 
 #pragma once
+
+#include <algorithm>
 
 #include "lstm2_common.cuh"
 
@@ -169,6 +186,10 @@ struct SweepArgs {
   int t_hi, t_lo, t_base;
   int resume;      // 0: carries and bias sums start from zero; 1: read them
   int dx_ksplit;   // dx's form (set by launch_mma from dx_ksplit<T>)
+  // The tile and wave forms' work items: CTA b takes item item0 + b, row
+  // tile (item0 + b) % tiles over part (item0 + b) / tiles of part_steps
+  // steps, t_hi first (the tile form: item0 0, one part of all the steps)
+  int item0, part_steps;
   int late_sends;  // the cluster form: 1 for rank 0 to send its blocks after its own
                    // products (a test of the exchange's order), else 0
 };
@@ -310,9 +331,13 @@ sweep_mma_kernel(const SweepArgs<T> a) {
   float* dxp = dys + R * O;  // k-split: [warps][R][dxc]; output-stationary: not there
 
   const int j = threadIdx.x, warp = j >> 5, lane = j & 31;
-  const int n0 = blockIdx.x * R;
+  const int tiles = (a.n_rows + R - 1) / R, item = a.item0 + blockIdx.x;
+  const int part = item / tiles, tile = item - part * tiles;
+  const int t_hi = a.t_hi - part * a.part_steps, t_lo = max(a.t_lo, t_hi - a.part_steps + 1);
+  const bool resume = a.resume || part > 0;  // a later part starts from the earlier's carries
+  const int n0 = tile * R;
   const int rows_here = min(R, a.n_rows - n0);
-  const size_t n_pad = (size_t)gridDim.x * R;
+  const size_t n_pad = (size_t)tiles * R;
   const uint32_t a_addr =
       (uint32_t)__cvta_generic_to_shared(dgs + (size_t)(lane & 15) * ld) + 16 * (lane >> 4);
 
@@ -321,7 +346,7 @@ sweep_mma_kernel(const SweepArgs<T> a) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (a.resume) {
+    if (resume) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) v[c] = a.carry[((size_t)c * n_pad + n0 + r) * H + j];
     }
@@ -331,7 +356,7 @@ sweep_mma_kernel(const SweepArgs<T> a) {
     dc2[r] = v[3];
   }
 
-  for (int t = a.t_hi; t >= a.t_lo; --t) {
+  for (int t = t_hi; t >= t_lo; --t) {
     const size_t row0 = (size_t)t * a.n_rows + n0;
     const size_t prev0 = row0 - a.n_rows;  // used only when t > 0
     const size_t dg0 = ((size_t)(t - a.t_base) * a.n_rows + n0) * G;
@@ -425,23 +450,51 @@ sweep_mma_kernel(const SweepArgs<T> a) {
     for (int l = 0; l < 2; ++l)
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        float* dst = a.db_part + ((size_t)blockIdx.x * 2 + l) * G + g * H + j;
-        *dst = a.resume ? *dst + db[l][g] : db[l][g];
+        float* dst = a.db_part + ((size_t)tile * 2 + l) * G + g * H + j;
+        *dst = resume ? *dst + db[l][g] : db[l][g];
       }
   }
 }
 
+// The tile form (part_steps 0): one launch, a CTA a row tile over all the
+// steps. The wave form (part_steps > 0; the note at the top): the tiles x
+// parts of part_steps steps as work items, part-major, in launches of as
+// many CTAs as the card holds at once, so every item's previous part ran in
+// an earlier launch.
 template <typename T, int MAX_THREADS>
 int launch_mma(const SweepArgs<T>& a, cudaStream_t stream) {
   SweepArgs<T> b = a;
   b.dx_ksplit = dx_ksplit<T>(a.D, a.H, a.O);
   const size_t smem = shared_bytes<T>(a.D, a.H, a.O);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      sweep_mma_kernel<T, MAX_THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = sweep_mma_kernel<T, MAX_THREADS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sweep_mma_kernel<T, MAX_THREADS><<<(a.n_rows + MMA_ROWS - 1) / MMA_ROWS, a.H, smem, stream>>>(b);
-  return (int)cudaGetLastError();
+  const int tiles = (a.n_rows + MMA_ROWS - 1) / MMA_ROWS, span = a.t_hi - a.t_lo + 1;
+  if (a.part_steps <= 0) {
+    b.item0 = 0;
+    b.part_steps = span;
+    kernel<<<tiles, a.H, smem, stream>>>(b);
+    return (int)cudaGetLastError();
+  }
+  if (a.carry == nullptr) return (int)cudaErrorInvalidValue;  // the parts' carries
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, a.H, smem)) !=
+          cudaSuccess)
+    return (int)err;
+  // a wave holds no more items than tiles, so an item's previous part (tiles
+  // items back) ran in an earlier launch
+  const int wave = std::min(sms * per_sm, tiles);
+  const int items = tiles * ((span + a.part_steps - 1) / a.part_steps);
+  if (wave < 1) return (int)cudaErrorInvalidConfiguration;
+  for (b.item0 = 0; b.item0 < items; b.item0 += wave) {
+    kernel<<<std::min(wave, items - b.item0), a.H, smem, stream>>>(b);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -903,14 +956,24 @@ int launch_cluster(const SweepArgs<T>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The wave form's `form` (SWEEP_WAVE in ops/lstm2_train.py)
+constexpr int WAVE_FORM = 1;
+
 // Launch one sweep over [t_lo, t_hi] in the form `form` gives: 0 the tile
-// form, CLUSTER_SIZE the cluster form (any other value is refused). rows is
-// the row tile, 16.
+// form, WAVE_FORM the wave form (items of part_steps steps, a.carry set),
+// CLUSTER_SIZE the cluster form (any other value is refused). rows is the
+// row tile, 16.
 template <typename T>
-int launch_sweep(const SweepArgs<T>& a, int rows, int form, cudaStream_t stream) {
+int launch_sweep(const SweepArgs<T>& a, int rows, int form, int part_steps,
+                 cudaStream_t stream) {
   if (rows != MMA_ROWS || a.w2p == nullptr || a.u1p == nullptr || a.w1p == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (form == 0) return a.H <= 384 ? launch_mma<T, 384>(a, stream) : launch_mma<T, 512>(a, stream);
+  if (form == 0 || form == WAVE_FORM) {
+    if ((form == WAVE_FORM) != (part_steps > 0)) return (int)cudaErrorInvalidValue;
+    SweepArgs<T> b = a;
+    b.part_steps = part_steps;
+    return a.H <= 384 ? launch_mma<T, 384>(b, stream) : launch_mma<T, 512>(b, stream);
+  }
   if (form == CLUSTER_SIZE) return launch_cluster<T>(a, stream);
   return (int)cudaErrorInvalidValue;
 }

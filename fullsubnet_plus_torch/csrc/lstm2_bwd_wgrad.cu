@@ -30,8 +30,10 @@
 // 227 KB each. So the work is cut in time, not in rows: the steps are swept
 // in chunks of `chunk` steps, newest first. For each chunk
 //   1. the sweep (lstm2_bwd_sweep.cuh, in the form the caller chooses:
-//      `sweep_mma_kernel`, one CTA per row tile of 16, or at folds of a few
-//      tiles `sweep_cluster_kernel`, a cluster of CTAs per tile) runs the
+//      `sweep_mma_kernel`, one CTA per row tile of 16, or in waves of a CTA
+//      an SM over items of a tile and a few steps where the card does not
+//      hold every tile at once, or at folds of a few tiles
+//      `sweep_cluster_kernel`, a cluster of CTAs per tile) runs the
 //      chunk's steps, reads and leaves the four carries in a [4][N][H]
 //      float32 array, writes the chunk's rounded dgates into a scratch
 //      [chunk, N, 4H] x 2 (reused by every chunk: its size does not grow
@@ -703,7 +705,7 @@ __global__ void db_reduce_kernel(const float* __restrict__ db_part, float* __res
 
 template <typename T>
 int run(const void* const* in, void* const* out, int n_rows, int steps, int D, int H, int O,
-        int rows, int form, int chunk, cudaStream_t stream) {
+        int rows, int form, int chunk, int part_steps, cudaStream_t stream) {
   bwd::SweepArgs<T> s;
   s.dy = static_cast<const T*>(in[0]);
   s.g1 = static_cast<const T*>(in[2]);
@@ -746,7 +748,7 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
     s.t_hi = w.t_hi = t_hi;
     s.t_lo = s.t_base = w.t_lo = t_lo;
     s.resume = t_hi != steps - 1;
-    int err = bwd::launch_sweep<T>(s, rows, form, stream);
+    int err = bwd::launch_sweep<T>(s, rows, form, part_steps, stream);
     if (err != 0) return err;
     err = launch_wgrad<T>(w, stream);
     if (err != 0) return err;
@@ -763,8 +765,9 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
 // and the dgates scratch; fcw and every gradient sum are float32). w2p,
 // u1p, w1p: [W2; U2], U1 and W1 packed into mma fragments
 // (ops/lstm2.py: pack_tf32_b for float32, pack_mma_b for bfloat16); rows
-// is 16. form: the sweep's form, as lstm2_bwd takes it (lstm2_bwd.cu).
-// chunk: the steps the scratch holds. dw1, du1, dw2,
+// is 16. form and part_steps: the sweep's form, as lstm2_bwd takes them
+// (lstm2_bwd.cu; the wave form's parts cut each chunk's sweep, their carries
+// in `carry`). chunk: the steps the scratch holds. dw1, du1, dw2,
 // du2 must arrive zeroed; carry is [4][ceil(N / rows) * rows][H] and
 // db_part [ceil(N / rows)][2][4H] float32. x is [T, N, x_cols(D)] (D
 // rounded up to 16 bytes: 4 float32, 8 bf16), its pad columns zero.
@@ -775,14 +778,16 @@ extern "C" int lstm2_bwd_wgrad(const void* dy, const void* x, const void* g1, co
                                void* du2, void* db1, void* db2, void* scratch_dg1,
                                void* scratch_dg2, void* carry, void* db_part, int n_rows,
                                int steps, int D, int H, int O, int rows, int form, int chunk,
-                               int dtype, void* stream) {
+                               int part_steps, int dtype, void* stream) {
   if (!bwd::valid_shape(n_rows, steps, D, H, O) || chunk < 1) return (int)cudaErrorInvalidValue;
   const void* in[12] = {dy, x, g1, c1, h1, g2, c2, h2, w2p, u1p, w1p, fcw};
   void* out[11] = {dx, dw1, du1, dw2, du2, db1, db2, scratch_dg1, scratch_dg2, carry, db_part};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(in, out, n_rows, steps, D, H, O, rows, form, chunk, s);
+  if (dtype == 0)
+    return run<float>(in, out, n_rows, steps, D, H, O, rows, form, chunk, part_steps, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(in, out, n_rows, steps, D, H, O, rows, form, chunk, s);
+    return run<__nv_bfloat16>(in, out, n_rows, steps, D, H, O, rows, form, chunk, part_steps,
+                              s);
   return (int)cudaErrorInvalidValue;
 }
 

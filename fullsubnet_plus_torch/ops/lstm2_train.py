@@ -29,9 +29,12 @@ the same name does (:679); left at None, the form follows x's dtype
 whose three products run on the tensor cores (in float32 as three TF32
 products of split operands), reading the weights packed into mma.sync
 fragment order (`pack_mma_b` in bfloat16, `pack_tf32_b` in float32), in one
-of two forms that `bwd_sweep_cluster` chooses: the tile form (a CTA a row
-tile) or, at FullSubNet's full-band folds, the cluster form (a cluster of
-CTAs a row tile, each owning a slice of the hidden units). Cast
+of three forms that `bwd_sweep_form` chooses: the tile form (a CTA a row
+tile for all its steps), the wave form (the same work cut into items of a
+row tile and a few steps, in launches of a CTA an SM, so a fold of more
+tiles than SMs leaves no SM idle for a second wave) or, at FullSubNet's
+full-band folds, the cluster form (a cluster of CTAs a row tile, each owning
+a slice of the hidden units). Cast
 points follow the TPU kernels: residuals and dgates are rounded to x's
 dtype where a product or a store reads them, h, c and every carry stay
 float32, the bias gradient of the fused form sums the unrounded dgates and
@@ -86,17 +89,22 @@ FUSED_WGRAD_BY_DTYPE = {torch.float32: True, torch.bfloat16: True}
 
 # wrapper calls that launched their kernel, since import (or last reset), and
 # the same by kernel and card ("lstm2_bwd cuda:1") and by the reverse sweep's
-# form ("lstm2_bwd cluster16", "lstm2_bwd_wgrad tile"; each cleared apart)
+# form ("lstm2_bwd cluster16", "lstm2_bwd_wgrad wave", "lstm2_bwd tile";
+# each cleared apart)
 LAUNCHES = {"lstm2_train_fwd": 0, "lstm2_bwd": 0, "lstm2_bwd_wgrad": 0}
 LAUNCHES_BY_CARD: Counter = Counter()
 SWEEP_FORMS: Counter = Counter()
 
 # The reverse sweep's form (csrc/lstm2_bwd_sweep.cuh): None the one
-# `bwd_sweep_cluster` chooses, 0 the tile form (`sweep_mma_kernel`: a CTA a
-# tile of 16 rows), SWEEP_CLUSTER the cluster form (`sweep_cluster_kernel`:
-# a cluster of 16 CTAs a tile, each owning 32 hidden units). Set to time
-# the forms.
+# `bwd_sweep_form` chooses, 0 the tile form (`sweep_mma_kernel`: a CTA a
+# tile of 16 rows over all the steps), SWEEP_WAVE the wave form (the same
+# kernel: a CTA an item of a tile and WAVE_STEPS steps, a launch a wave of
+# at most a CTA an SM), SWEEP_CLUSTER the cluster form
+# (`sweep_cluster_kernel`: a cluster of 16 CTAs a tile, each owning 32
+# hidden units). Set to time the forms; the launch takes the form it is
+# given and none falls back.
 SWEEP_FORM: int | None = None
+SWEEP_WAVE = 1  # WAVE_FORM in the .cuh
 # The cluster form's C in both dtypes (CLUSTER_SIZE in the .cuh): at
 # FullSubNet's full-band fold on the H100, clusters of 8 (64 units a CTA)
 # took longer in bf16 and do not fit a block in float32 (PERF.md).
@@ -115,6 +123,15 @@ CLUSTER_MAX_ROWS = 1536
 # read it (K4 alone; the results stay bit for bit).
 SWEEP_LATE_SENDS = 0
 
+# The wave form: the steps of a work item (a tile's carries go through
+# device memory between its items). 4 on the H100 at the training fold: the
+# sweep 50.7 / 48.8 / 48.1 / 48.1 ms in float32 at 1 / 2 / 4 / 8 steps, 25.3
+# / 23.3 / 22.5 / 22.4 in bf16 (PERF.md)
+WAVE_STEPS = 4
+# The SMs of the card the rule assumes where it is asked by shape alone (an
+# H100 SXM); the wrappers pass the card's own count
+SM_COUNT = 132
+
 MMA_ROWS_PER_CTA = 16  # the reverse sweep's row tile: one m16 tile (MMA_ROWS in the .cuh)
 MMA_PAD_BYTES = 16  # pad of a dgates row in the reverse sweep's shared memory (lstm2_bwd_sweep.cuh)
 # The dgates scratch of the fused backward by x's dtype: the steps it holds
@@ -125,6 +142,12 @@ MMA_PAD_BYTES = 16  # pad of a dgates row in the reverse sweep's shared memory (
 # 16 on the H100 (PERF.md), the dgates past the L2 costing less than the
 # launches they save; FullSubNet's full-band fold (N 18, H 512) fits whole.
 WGRAD_SCRATCH_BYTES = {torch.float32: 432 << 20, torch.bfloat16: 32 << 20}
+# The same where the sweep takes its wave form, which cuts each chunk's sweep
+# into items of WAVE_STEPS steps: longer chunks make more items, which fill
+# the waves better. 32 steps at the training fold in both dtypes: float32 K3
+# 83.2 ms at 16 steps and 78.1 at 32, bf16 50.0 at 2, 34.2 at 16 and 31.6 at
+# 32 on the H100 (PERF.md; scripts/time_torch_bwd_forms.py)
+WAVE_SCRATCH_BYTES = {torch.float32: 864 << 20, torch.bfloat16: 432 << 20}
 # The weight-gradient kernels' tiles (csrc/lstm2_bwd_wgrad.cu): rows of the
 # gradient x gate columns. In bf16 (`HTile`) dU1, dW2 and dU2 take one of
 # WGRAD_H_TILES; in float32 (`F32Tile`) one of WGRAD_F32_TILES, each with the
@@ -141,8 +164,8 @@ WGRAD_W1_TILE = (48, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_PTR] * 14 + [_INT] * 8 + [_PTR]
-_BWD_ARGTYPES = [_PTR] * 12 + [_INT] * 9 + [_PTR]
-_WGRAD_ARGTYPES = [_PTR] * 23 + [_INT] * 9 + [_PTR]
+_BWD_ARGTYPES = [_PTR] * 13 + [_INT] * 10 + [_PTR]
+_WGRAD_ARGTYPES = [_PTR] * 23 + [_INT] * 10 + [_PTR]
 
 
 class Residuals(NamedTuple):
@@ -481,15 +504,16 @@ def bwd_cluster_shared_memory_bytes(d_in: int, hidden: int, out_dim: int,
 
 
 def bwd_sweep_cluster(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch.dtype) -> int:
-    """The reverse sweep's form for a fold of n rows, by its shape alone:
-    SWEEP_CLUSTER, the cluster form (a cluster of 16 CTAs a row tile of 16,
+    """Whether a fold of n rows takes the reverse sweep's cluster form, by
+    its shape alone: SWEEP_CLUSTER (a cluster of 16 CTAs a row tile of 16,
     each owning 32 hidden units, the dgates exchanged through distributed
     shared memory; the clusters run in waves where the card holds fewer at
-    once), where H = 16 x 32, D <= H, O <= CLUSTER_MAX_O, n <=
-    CLUSTER_MAX_ROWS and a CTA's shared memory fits a block; else 0, the tile
-    form (a CTA a row tile), which the shipped folds (H 384) take. The launch
-    takes the form it is given: one refused raises, none falls back.
-    (csrc/lstm2_bwd_sweep.cuh's `cluster_runs` checks the shape again.)"""
+    once) where H = 16 x 32, D <= H, O <= CLUSTER_MAX_O, n <=
+    CLUSTER_MAX_ROWS and a CTA's shared memory fits a block; else 0, and
+    `bwd_sweep_form` chooses between the tile and wave forms, a CTA a row
+    tile (the shipped folds, H 384). The launch takes the form it is given:
+    one refused raises, none falls back. (csrc/lstm2_bwd_sweep.cuh's
+    `cluster_runs` checks the shape again.)"""
     if dtype not in _DTYPE_CODES or hidden != SWEEP_CLUSTER * CLUSTER_UNITS:
         return 0
     if d_in > hidden or out_dim > CLUSTER_MAX_O or n > CLUSTER_MAX_ROWS:
@@ -499,13 +523,32 @@ def bwd_sweep_cluster(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch
     return SWEEP_CLUSTER
 
 
+def bwd_sweep_form(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch.dtype,
+                   sm_count: int = SM_COUNT) -> int:
+    """The reverse sweep's form for a fold of n rows, by its shape and the
+    card's SMs alone: the cluster form where `bwd_sweep_cluster` takes it;
+    else SWEEP_WAVE where the fold has more row tiles of 16 than the card
+    has SMs (the tile form would leave most SMs idle for a second wave);
+    else 0, the tile form."""
+    cluster = bwd_sweep_cluster(n, d_in, hidden, out_dim, dtype)
+    if cluster:
+        return cluster
+    return SWEEP_WAVE if -(-n // MMA_ROWS_PER_CTA) > sm_count else 0
+
+
+def sweep_form_name(form: int) -> str:
+    """A form as SWEEP_FORMS names it: "tile", "wave" or "cluster16"."""
+    return {0: "tile", SWEEP_WAVE: "wave"}.get(form, f"cluster{form}")
+
+
 def sweep_form(x: torch.Tensor, w: LSTM2Weights) -> int:
     """The form a reverse sweep of x takes: SWEEP_FORM when set, else
-    `bwd_sweep_cluster`'s."""
+    `bwd_sweep_form`'s on x's card."""
     if SWEEP_FORM is not None:
         return SWEEP_FORM
     n, d, _ = x.shape
-    return bwd_sweep_cluster(n, d, w.u1.shape[0], w.fc_w.shape[1], x.dtype)
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return bwd_sweep_form(n, d, w.u1.shape[0], w.fc_w.shape[1], x.dtype, sm_count)
 
 
 def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes, row_tile) -> int:
@@ -562,14 +605,15 @@ def _call(name: str, argtypes: list, x: torch.Tensor, *args, form: int | None = 
         err = getattr(lib, name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                                    for a in args), stream)
     if err != 0:
-        what = f" (the cluster form, clusters of {form})" if form else ""
+        what = {None: "", 0: "", SWEEP_WAVE: " (the wave form)"}.get(
+            form, f" (the cluster form, clusters of {form})")
         raise RuntimeError(f"{name} launch failed{what}: CUDA error {err}")
     LAUNCHES[name] += 1
     LAUNCHES_BY_CARD[f"{name} {x.device}"] += 1
     if name == "lstm2_train_fwd":
         count_form(name, form)
     elif form is not None:
-        SWEEP_FORMS[f"{name} {f'cluster{form}' if form else 'tile'}"] += 1
+        SWEEP_FORMS[f"{name} {sweep_form_name(form)}"] += 1
 
 
 def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
@@ -619,20 +663,27 @@ def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Residua
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     dg1, dg2 = torch.empty_like(res.g1), torch.empty_like(res.g2)
     dx_tnd = torch.empty(steps, n, d, dtype=x.dtype, device=x.device)
+    wave = form == SWEEP_WAVE
+    # the wave form's carries between a tile's parts
+    carry = (torch.empty(4, -(-n // rows) * rows, hidden, dtype=torch.float32, device=x.device)
+             if wave else None)
     _call("lstm2_bwd", _BWD_ARGTYPES, x, dy, res.g1, res.c1, res.g2, res.c2, *weights,
-          w.fc_w, dg1, dg2, dx_tnd, n, steps, d, hidden, out_dim, rows, form,
-          SWEEP_LATE_SENDS, _DTYPE_CODES[x.dtype], form=form)
+          w.fc_w, dg1, dg2, dx_tnd, carry, n, steps, d, hidden, out_dim, rows, form,
+          WAVE_STEPS if wave else 0, SWEEP_LATE_SENDS, _DTYPE_CODES[x.dtype], form=form)
     # the bias sums of this form come from the rounded dgates (weight_grads)
     return SweepGrads(dx_tnd.permute(1, 2, 0), dg1, dg2, None, None)
 
 
-def wgrad_chunk_steps(n: int, hidden: int, steps: int, dtype: torch.dtype) -> int:
+def wgrad_chunk_steps(n: int, hidden: int, steps: int, dtype: torch.dtype,
+                      wave: bool = False) -> int:
     """Steps of dgates the fused backward keeps in its scratch at a time
-    (WGRAD_SCRATCH_BYTES[dtype]). The weight gradients are the same bits at
+    (WGRAD_SCRATCH_BYTES[dtype], or WAVE_SCRATCH_BYTES[dtype] where the
+    sweep takes its wave form). The weight gradients are the same bits at
     any chunk; the bias sums are grouped by it (each sweep sums its steps
     before adding them to the tile's row)."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
-    return max(1, min(steps, WGRAD_SCRATCH_BYTES[dtype] // (2 * n * 4 * hidden * itemsize)))
+    budget = (WAVE_SCRATCH_BYTES if wave else WGRAD_SCRATCH_BYTES)[dtype]
+    return max(1, min(steps, budget // (2 * n * 4 * hidden * itemsize)))
 
 
 def wgrad_tiles(d_in: int, hidden: int, dtype: torch.dtype = torch.bfloat16, n: int = 2304):
@@ -686,7 +737,7 @@ def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     tiles = -(-n // rows)
-    chunk = wgrad_chunk_steps(n, hidden, steps, x.dtype)
+    chunk = wgrad_chunk_steps(n, hidden, steps, x.dtype, wave=form == SWEEP_WAVE)
     # [T, N, D] with zero columns up to whole 16-byte copies of each row
     x_tnd = x.new_zeros(steps, n, wgrad_x_cols(d, x.dtype))
     x_tnd[:, :, :d] = x.permute(2, 0, 1)
@@ -706,6 +757,6 @@ def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
     _call("lstm2_bwd_wgrad", _WGRAD_ARGTYPES, x, dy, x_tnd, res.g1, res.c1, res.h1, res.g2,
           res.c2, res.h2, *weights, w.fc_w, dx_tnd, dw1, du1, dw2, du2, db1, db2,
           scratch_dg1, scratch_dg2, carry, db_part, n, steps, d, hidden, out_dim, rows, form,
-          chunk, _DTYPE_CODES[x.dtype], form=form)
+          chunk, WAVE_STEPS if form == SWEEP_WAVE else 0, _DTYPE_CODES[x.dtype], form=form)
     return LSTM2Grads(dx_tnd.permute(1, 2, 0), dw1, du1, dw2, du2, db1, db2)
 

@@ -1,13 +1,21 @@
-"""Where a step of the port's reverse sweep goes (its tile form
-`sweep_mma_kernel<T>` and, with `--fb`, its cluster form
+"""Where a step of the port's reverse sweep goes (its wave form: the
+launches of `sweep_mma_kernel` a CTA an SM, each CTA an item of a row tile
+and WAVE_STEPS steps; with `--tile` its tile form, the same kernel a CTA a
+row tile for all the steps; with `--fb` its cluster form
 `sweep_cluster_kernel<T>`; fullsubnet_plus_torch/csrc/lstm2_bwd_sweep.cuh),
 in float32 and bf16.
 
     python3 scripts/profile_torch_bwd_sweep.py [float32] [bfloat16]   (from the repo's root)
+    python3 scripts/profile_torch_bwd_sweep.py --tile [float32] [bfloat16]
     python3 scripts/profile_torch_bwd_sweep.py --fb [float32] [bfloat16]
 
 Needs an NVIDIA GPU and nvcc. Copies the package into a temporary directory
-once per variant and edits the copy: as it is, without the three products,
+once per variant and edits the copy. The wave form's variants (the form
+forced in each): as it is, the tile form as it is (the same tree,
+SWEEP_FORM 0), without the three products, without the weight loads (the
+products run on register values), without the two cell backwards, and in
+float32 without the TF32 splits (both halves the raw word).
+With `--tile`, the tile form's variants (forced likewise): as it is, without the three products,
 without the weight loads (the products run on register values), without
 the two cell backwards, and in float32 also without the TF32 splits (both
 halves are the raw word: the three products stay), with one TF32 product
@@ -62,7 +70,7 @@ CELLS_OUT = [
     (SWEEP, "    cell_bwd<T, R>(dh, dc1, db[0]", "    if (t < -1) cell_bwd<T, R>(dh, dc1, db[0]"),
 ]
 # variant: (the dtypes it is timed in, [(file, text, its replacement), ...])
-VARIANTS = {
+TILE_VARIANTS = {
     "as committed": (DTYPES, []),
     "without the three products": (DTYPES, [
         (SWEEP, "mma_tiles<T, 4>(acc, a_addr, a.w2p", "if (0) mma_tiles<T, 4>(acc, a_addr, a.w2p"),
@@ -118,6 +126,15 @@ VARIANTS = {
   }"""),
     ]),
     "without the two cell backwards": (DTYPES, CELLS_OUT),
+}
+# the wave form's variants; "the tile form" times the tile form on the same tree
+VARIANTS = {
+    "as committed": (DTYPES, []),
+    "the tile form": (DTYPES, []),
+    "without the three products": TILE_VARIANTS["without the three products"],
+    "without the weight loads": TILE_VARIANTS["without the weight loads"],
+    "without the two cell backwards": (DTYPES, CELLS_OUT),
+    "without the TF32 splits": (("float32",), TILE_VARIANTS["without the TF32 splits"][1]),
 }
 # FullSubNet's full-band LSTM (--fb): the cluster form's step
 WAIT_BLOCKS = "for (int o = 0; o < C; ++o) if (o != c) mbar_wait(bars + 8 * o, ex.parity);\n"
@@ -195,8 +212,9 @@ def registers_and_spills(root: Path, functions: tuple) -> str:
     return ", ".join(out)
 
 
-def time_here(dtype_name: str, shape: str) -> None:
-    """Run inside a variant's copy: K4's sweep time at each fold."""
+def time_here(dtype_name: str, shape: str, form: str) -> None:
+    """Run inside a variant's copy: K4's sweep time at each fold, in `form`
+    ("wave", "tile" or "rule")."""
     import torch
 
     from fullsubnet_plus_torch.nn.layers import Linear
@@ -204,6 +222,7 @@ def time_here(dtype_name: str, shape: str) -> None:
     from fullsubnet_plus_torch.ops import lstm2_train as lt
 
     dtype = getattr(torch, dtype_name)
+    lt.SWEEP_FORM = {"wave": lt.SWEEP_WAVE, "tile": 0}.get(form)
 
     def ms(fn, reps=3):
         fn()
@@ -237,7 +256,7 @@ def time_here(dtype_name: str, shape: str) -> None:
     print(" | ".join(cells), flush=True)
 
 
-def main(dtypes, shape) -> None:
+def main(dtypes, shape, tile: bool) -> None:
     import torch
 
     if not torch.cuda.is_available():
@@ -245,7 +264,7 @@ def main(dtypes, shape) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip())
-    table = FB_VARIANTS if shape == "fb" else VARIANTS
+    table = FB_VARIANTS if shape == "fb" else TILE_VARIANTS if tile else VARIANTS
     variants = {name: edits for name, (where, edits) in table.items()
                 if any(dt in where for dt in dtypes)}
     with tempfile.TemporaryDirectory(prefix="sweep_variants_") as tmp:
@@ -267,16 +286,19 @@ def main(dtypes, shape) -> None:
                 if dtype not in table[name][0]:
                     continue
                 print(f"{dtype} {name}: ", end="", flush=True)
-                if run(root, str(Path(__file__).resolve()), "--time", dtype, shape).wait() != 0:
+                form = ("rule" if shape == "fb" else
+                        "tile" if tile or name == "the tile form" else "wave")
+                if run(root, str(Path(__file__).resolve()), "--time", dtype, shape,
+                       form).wait() != 0:
                     raise SystemExit(f"{dtype} {name} failed")
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time"]:
-        time_here(sys.argv[2], sys.argv[3])
+        time_here(sys.argv[2], sys.argv[3], sys.argv[4])
     else:
-        args = [a for a in sys.argv[1:] if a != "--fb"]
+        args = [a for a in sys.argv[1:] if a not in ("--fb", "--tile")]
         chosen = tuple(args) or DTYPES
         if not set(chosen) <= set(DTYPES):
             raise SystemExit(f"dtypes: {DTYPES}")
-        main(chosen, "fb" if "--fb" in sys.argv[1:] else "shipped")
+        main(chosen, "fb" if "--fb" in sys.argv[1:] else "shipped", "--tile" in sys.argv[1:])

@@ -37,7 +37,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     print(torch.cuda.get_device_name(0))
-    default_scratch = dict(lt.WGRAD_SCRATCH_BYTES)
+    default_scratch = dict(lt.WGRAD_SCRATCH_BYTES), dict(lt.WAVE_SCRATCH_BYTES)
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator().manual_seed(1)
         lstm, fc = LSTM2(D, H), Linear(H, O)
@@ -49,7 +49,7 @@ def main() -> None:
         w = lstm.packed(fc)
         _, res = lt.lstm2_train_fwd(x, w)
         for mib in SCRATCH_MIB:
-            lt.WGRAD_SCRATCH_BYTES[dtype] = mib << 20
+            lt.WGRAD_SCRATCH_BYTES[dtype] = lt.WAVE_SCRATCH_BYTES[dtype] = mib << 20
             lt.lstm2_bwd(dy, x, w, res, fused=True)  # warm-up
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -63,7 +63,8 @@ def main() -> None:
                   f"{lt.wgrad_chunk_steps(N, H, T, dtype)} steps: "
                   + " | ".join(f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
                                for e in kernels[:3]))
-        lt.WGRAD_SCRATCH_BYTES.update(default_scratch)
+        lt.WGRAD_SCRATCH_BYTES.update(default_scratch[0])
+        lt.WAVE_SCRATCH_BYTES.update(default_scratch[1])
         ref = lt.lstm2_bwd_plain(dy, x, w, res, True)
         print(f"{str(dtype)[6:]} against the plain version: "
               + " ".join(f"{name} {snr_db(a.float(), b.float()):.1f} dB"

@@ -152,7 +152,8 @@ def time_here() -> None:
     dy = torch.randn(N, T, O, generator=g).cuda()
     w = lstm.packed(fc)
     _, res = lt.lstm2_train_fwd_reference(x, w)  # only K3 is built in the variant
-    lt.WGRAD_SCRATCH_BYTES[torch.float32] = SCRATCH_STEPS * 2 * N * 4 * H * 4
+    lt.WGRAD_SCRATCH_BYTES[torch.float32] = lt.WAVE_SCRATCH_BYTES[torch.float32] = \
+        SCRATCH_STEPS * 2 * N * 4 * H * 4
     cells = []
     for shape, tile in enumerate(lt.WGRAD_F32_TILES):
         lt.force_wgrad_tile(shape, torch.float32)

@@ -136,13 +136,14 @@ def report_build(lib) -> None:
 
 def check_ragged() -> None:
     n, t = 150, 7
-    default = dict(lt.WGRAD_SCRATCH_BYTES)
+    default = dict(lt.WGRAD_SCRATCH_BYTES), dict(lt.WAVE_SCRATCH_BYTES)
     for dtype, shapes in ((torch.bfloat16, ((34, 64), (34, 384))),
                           (torch.float32, ((34, 64), (34, 384), (257, 512)))):
         for d, hidden in shapes:
             x, dy, w = operands(n, t, (d, hidden, 2), dtype, seed=hidden)
             _, res = lt.lstm2_train_fwd_reference(x, w)
-            lt.WGRAD_SCRATCH_BYTES[dtype] = 3 * 2 * n * 4 * hidden * x.element_size()
+            lt.WGRAD_SCRATCH_BYTES[dtype] = lt.WAVE_SCRATCH_BYTES[dtype] = (
+                3 * 2 * n * 4 * hidden * x.element_size())
             want = lt.lstm2_bwd_plain(dy, x, w, res, fused=True)
             for tile in [None, *range(len(TILES[dtype]))]:
                 lt.force_wgrad_tile(tile, dtype)
@@ -155,7 +156,8 @@ def check_ragged() -> None:
                       f"{'rule' if tile is None else TILES[dtype][tile]}: least {least:.1f} dB, "
                       f"equal on a repeat: {same}")
             lt.force_wgrad_tile(None, dtype)
-            lt.WGRAD_SCRATCH_BYTES.update(default)
+            lt.WGRAD_SCRATCH_BYTES.update(default[0])
+            lt.WAVE_SCRATCH_BYTES.update(default[1])
 
 
 def time_bf16_tiles(x, dy, w, res) -> None:
@@ -180,9 +182,10 @@ def time_f32_tiles(x, dy, w, res) -> None:
     gives the rule's tile the same weight gradients bit for bit."""
     k3 = lambda: lt.lstm2_bwd(dy, x, w, res, fused=True)  # noqa: E731
     want = lt.lstm2_bwd_plain(dy, x, w, res, fused=True)
-    default, by_chunk = dict(lt.WGRAD_SCRATCH_BYTES), {}
+    default, by_chunk = (dict(lt.WGRAD_SCRATCH_BYTES), dict(lt.WAVE_SCRATCH_BYTES)), {}
     for steps in SCRATCH_STEPS:
-        lt.WGRAD_SCRATCH_BYTES[torch.float32] = scratch_bytes(steps, torch.float32)
+        lt.WGRAD_SCRATCH_BYTES[torch.float32] = lt.WAVE_SCRATCH_BYTES[torch.float32] = \
+            scratch_bytes(steps, torch.float32)
         for tile in [None, *range(len(lt.WGRAD_F32_TILES))]:
             lt.force_wgrad_tile(tile, torch.float32)
             got = k3()
@@ -195,7 +198,8 @@ def time_f32_tiles(x, dy, w, res) -> None:
                   f"least {least:.1f} dB against the plain version")
             del got
         lt.force_wgrad_tile(None, torch.float32)
-    lt.WGRAD_SCRATCH_BYTES.update(default)
+    lt.WGRAD_SCRATCH_BYTES.update(default[0])
+    lt.WAVE_SCRATCH_BYTES.update(default[1])
     first = by_chunk[SCRATCH_STEPS[0]]
     for steps, got in by_chunk.items():
         same = [name for name, a, b in zip(first._fields, first, got) if torch.equal(a, b)]
@@ -212,12 +216,14 @@ def backward_forms(x, dy, w, res, tag: str) -> None:
     del sweep
     k3 = lambda: lt.lstm2_bwd(dy, x, w, res, fused=True)  # noqa: E731
     if x.dtype == torch.float32:
-        default = dict(lt.WGRAD_SCRATCH_BYTES)
+        default = dict(lt.WGRAD_SCRATCH_BYTES), dict(lt.WAVE_SCRATCH_BYTES)
         k3_ms = {}
         for steps in SCRATCH_STEPS:
-            lt.WGRAD_SCRATCH_BYTES[torch.float32] = scratch_bytes(steps, torch.float32)
+            lt.WGRAD_SCRATCH_BYTES[torch.float32] = lt.WAVE_SCRATCH_BYTES[torch.float32] = \
+                scratch_bytes(steps, torch.float32)
             k3_ms[f"{steps} steps"] = round(ms(k3), 3)
-        lt.WGRAD_SCRATCH_BYTES.update(default)
+        lt.WGRAD_SCRATCH_BYTES.update(default[0])
+        lt.WAVE_SCRATCH_BYTES.update(default[1])
         k3_ms["default"] = round(ms(k3), 3)
     else:
         k3_ms = {"default": round(ms(k3), 3)}

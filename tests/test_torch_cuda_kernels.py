@@ -20,8 +20,10 @@ at both of its row tiles and runs FullSubNet's full-band shape (D 257, H
 cluster forms, held to the plain versions and to their tile forms (K1, K2
 and K5 at several folds, in waves of clusters; K3 and K4 over chunks, in
 waves and with one CTA's sends made late), and a cluster launch at a shape
-the kernel does not run raises. chip_smoke.py repeats these checks at the
-model's folds.
+the kernel does not run raises. The reverse sweep's wave form (work items
+of a row tile and a few steps, launched in waves of a CTA an SM) equals its
+tile form bit for bit. chip_smoke.py repeats these checks at the model's
+folds.
 """
 
 import importlib.util
@@ -575,3 +577,60 @@ def test_kernel_matches_jax_fixture(name):
     floor = FLOOR[getattr(torch, dtype)] if kernel != "k5" else 40.0
     snrs = {key: _snr(want[key], got[key]) for key in want}
     assert min(snrs.values()) >= floor, snrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pk", [1, 4])
+@pytest.mark.parametrize("n,d", [(40, 34), (771, 34), (2304, 34), (771, 32), (2304, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wave_sweep_matches_plain_and_tile_on_cuda(monkeypatch, dtype, n, d, pk):
+    """The reverse sweep's wave form (H 384, T 9, items of pk steps) at
+    ragged folds, at D 34 and at FullSubNet's sub-band D 32: the rule takes
+    it at N 2304 (144 row tiles on a card of fewer SMs), and it is forced at
+    the smaller folds; K4's dx and dgates against the plain sweep and K3's
+    gradients against `lstm2_bwd_plain` at the floors, K3 at two scratch
+    sizes (2 steps, so each sweep but the first resumes from the carries,
+    and all 9) with the same dx and weight gradients bit for bit, K3 and K4
+    equal to themselves on a repeat. An item runs the tile form's steps from
+    the carries in device memory, so K4's outputs and K3's dx and weight
+    gradients equal the tile form forced (SWEEP_FORM 0) bit for bit; K3's
+    bias sums, grouped by item, agree to float32 rounding."""
+    _need_card()
+    t, hidden = 9, 384
+    tensors, x, dy = _case(n, t, d, hidden, 2, seed=n + d)
+    w = ops_lstm2.pack_weights(*(p.to("cuda", dtype) for p in tensors))
+    xt, dyt = torch.tensor(x).to("cuda", dtype), torch.tensor(dy).cuda()
+    _, res = lt.lstm2_train_fwd_reference(xt, w)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (lt.bwd_sweep_form(n, d, hidden, 2, dtype, sms) == lt.SWEEP_WAVE) == (n > 16 * sms)
+    monkeypatch.setattr(lt, "SWEEP_FORM", lt.SWEEP_WAVE)
+    monkeypatch.setattr(lt, "WAVE_STEPS", pk)
+    monkeypatch.setattr(lt, "SWEEP_FORMS", type(lt.SWEEP_FORMS)())
+    got = lt.lstm2_bwd_sweep(dyt, xt, w, res)
+    again = lt.lstm2_bwd_sweep(dyt, xt, w, res)
+    k3 = []
+    for steps in (2, t, t):
+        monkeypatch.setitem(lt.WAVE_SCRATCH_BYTES, dtype,
+                            steps * 2 * n * 4 * hidden * xt.element_size())
+        assert lt.wgrad_chunk_steps(n, hidden, t, dtype, wave=True) == steps
+        k3.append(lt.lstm2_bwd(dyt, xt, w, res, fused=True))
+    monkeypatch.setattr(lt, "SWEEP_FORM", 0)
+    tile = lt.lstm2_bwd_sweep(dyt, xt, w, res)
+    k3_tile = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
+    torch.cuda.synchronize()
+    assert lt.SWEEP_FORMS == {"lstm2_bwd wave": 2, "lstm2_bwd_wgrad wave": 3,
+                              "lstm2_bwd tile": 1, "lstm2_bwd_wgrad tile": 1}
+    ref = lt.lstm2_bwd_reference(dyt, xt, w, res)
+    want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
+    snrs = {f"k4_{k}": _snr(a.float(), b.float()) for k, a, b in zip(("dx", "dg1", "dg2"), ref, got)}
+    for i, grads in enumerate(k3[:2]):
+        snrs.update({f"k3_{i}_{k}": _snr(a.float(), b.float())
+                     for k, a, b in zip(want._fields, want, grads)})
+    assert min(snrs.values()) >= FLOOR[dtype], snrs
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], tile[:3]))
+    assert all(torch.equal(a, b) for a, b in zip(k3[1], k3[2]))
+    for name in ("dx", "dw1", "du1", "dw2", "du2"):  # the bias sums are grouped by item
+        assert torch.equal(getattr(k3[0], name), getattr(k3[1], name)), name
+        assert torch.equal(getattr(k3[1], name), getattr(k3_tile, name)), name
+    assert min(_snr(k3_tile.db1, k3[1].db1), _snr(k3_tile.db2, k3[1].db2)) >= 100.0

@@ -1467,3 +1467,63 @@ def test_x_is_padded_to_whole_copies():
     for (d, dtype), cols in expect.items():
         assert lt.wgrad_x_cols(d, dtype) == cols
         assert cols * torch.tensor([], dtype=dtype).element_size() % 16 == 0
+
+
+# ---------------------------------------------------------------------------
+# the reverse sweep's wave form (csrc/lstm2_bwd_sweep.cuh)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_sweep_form_rule_and_shared_memory(dtype):
+    """The reverse sweep's form by shape and SM count (`bwd_sweep_form`, an
+    H100's 132 SMs): the wave form where the fold has more row tiles of 16
+    than the card has SMs (the shipped training fold N 2304, D 34, H 384,
+    O 2: 144 tiles; FullSubNet's sub-band training and batch folds, D 32; N
+    2113), the tile form where one wave holds them (N 2112: 132 tiles; a
+    card's half of the training fold, N 1152), and clusters of 16 at
+    FullSubNet's full-band fold (N 18, D 257, H 512, O 257). On a card of
+    144 SMs N 2304 is one wave. The wave form runs the tile form's kernel
+    and layout, whose shared memory fits a block in both dtypes, as the
+    cluster form's does."""
+    for n, d in ((2304, 34), (2304, 32), (4626, 32), (2113, 34)):
+        assert lt.bwd_sweep_form(n, d, 384, 2, dtype) == lt.SWEEP_WAVE == 1
+    for n, d in ((2112, 34), (1152, 34), (771, 34), (40, 34)):
+        assert lt.bwd_sweep_form(n, d, 384, 2, dtype) == 0
+    assert lt.bwd_sweep_form(2304, 34, 384, 2, dtype, sm_count=144) == 0
+    assert lt.bwd_sweep_form(18, 257, 512, 257, dtype) == lt.SWEEP_CLUSTER == 16
+    assert lt.bwd_sweep_form(lt.CLUSTER_MAX_ROWS + 1, 257, 512, 257, dtype) == 0
+    assert lt.SM_COUNT == 132 and lt.WAVE_STEPS >= 1
+    # the wave form's dgates scratch: 32 steps at the training fold, the tile form's 16 / 2
+    assert lt.wgrad_chunk_steps(2304, 384, 195, dtype, wave=True) == 32
+    assert lt.wgrad_chunk_steps(2304, 384, 195, dtype) == (16 if dtype == torch.float32 else 2)
+    assert lt.wgrad_chunk_steps(2304, 384, 9, dtype, wave=True) == 9  # never more than T
+    assert lt.bwd_shared_memory_bytes(16, 34, 384, 2, dtype) <= ops_lstm2.SMEM_LIMIT
+    assert lt.bwd_shared_memory_bytes(16, 32, 384, 2, dtype) <= ops_lstm2.SMEM_LIMIT
+    assert lt.bwd_cluster_shared_memory_bytes(257, 512, 257, dtype) <= ops_lstm2.SMEM_LIMIT
+    assert [lt.sweep_form_name(f) for f in (0, lt.SWEEP_WAVE, 16)] == ["tile", "wave", "cluster16"]
+
+
+@pytest.mark.parametrize("n,steps", [(2304, 195), (2304, 16), (2304, 2), (4626, 195), (40, 9)])
+@pytest.mark.parametrize("part_steps", [1, 4])
+def test_wave_schedule_runs_each_part_after_the_one_before(n, steps, part_steps):
+    """The wave form's schedule (`launch_mma` with part_steps > 0), walked
+    here as the launches walk it: work items k = 0 .. tiles x parts - 1,
+    item k the row tile k mod tiles over part k div tiles (part_steps steps,
+    newest first), in launches of W = min(132, tiles) items. Every tile's
+    parts cover its steps once and in order, and an item's previous part
+    ran in an earlier launch (stream order is the only synchronisation).
+    At the training fold the launches cost fewer steps' time than the tile
+    form's two waves."""
+    tiles = -(-n // 16)
+    parts = -(-steps // part_steps)
+    items, wave = tiles * parts, min(lt.SM_COUNT, tiles)
+    covered = {}
+    for k in range(items):
+        part, tile = divmod(k, tiles)
+        hi = steps - 1 - part * part_steps
+        covered.setdefault(tile, []).extend(range(hi, max(0, hi - part_steps + 1) - 1, -1))
+        if part:
+            assert (k - tiles) // wave < k // wave
+    assert all(v == list(range(steps - 1, -1, -1)) for v in covered.values())
+    if n == 2304 and steps == 195:
+        assert -(-items // wave) * part_steps < 2 * steps
