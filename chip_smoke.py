@@ -519,7 +519,7 @@ def phase_build() -> dict:
         if any("sweep_kernelI13__nv_bfloat16" in f for f in sweeps):
             fail(f"{stem}: a bf16 instantiation of the FMA sweep was compiled")
         if stem in FWD_SOURCES:
-            check_float32_forward(lib, stem, sweeps)
+            hmma[f"{stem}_float32_sweep"] = check_float32_forward(lib, stem, sweeps)
             hmma[f"{stem}_cluster_sweep"] = cluster_functions(lib, stem)
         if stem in BWD_SOURCES:
             hmma[f"{stem}_float32_sweep"] = check_float32_reverse(lib, stem, sweeps)
@@ -557,18 +557,27 @@ def int8_functions(lib) -> dict:
     return out
 
 
-def check_float32_forward(lib, stem: str, sweeps: dict) -> None:
+def check_float32_forward(lib, stem: str, sweeps: dict) -> dict:
     """K1's and K2's float32 sweep runs every product on the tensor cores
-    as TF32 products: each float32 instantiation of `sweep_mma_kernel` has
-    HMMA.1688.F32.TF32 instructions, and no FMA forward sweep is compiled."""
+    as TF32 products: each float32 instantiation of `sweep_mma_kernel` (the
+    tile and wave forms' kernel) has HMMA.1688.F32.TF32 instructions, and no
+    FMA forward sweep is compiled. Returns {function: {tf32_hmma,
+    registers, spill bytes}} and prints them."""
     tf32 = {f: n for f, n in sass_instruction_counts(lib, TF32_HMMA).items()
             if "sweep_mma_kernelIf" in f}
+    ptxas = ptxas_functions(lib)
+    out = {}
     for function, n in tf32.items():
-        print(f"[1] {stem}: {function} has {n} {TF32_HMMA} instructions")
+        regs, spill_st, spill_ld = ptxas.get(function, (None, None, None))
+        print(f"[1] {stem}: {function} has {n} {TF32_HMMA} instructions; ptxas: {regs} "
+              f"registers, {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+        out[function] = {"tf32_hmma": n, "registers": regs, "spill_store_bytes": spill_st,
+                         "spill_load_bytes": spill_ld}
     if not tf32 or min(tf32.values()) == 0:
         fail(f"{stem}: the float32 forward sweep has no {TF32_HMMA} instructions")
     if any(f.startswith("_ZN3fwd12sweep_kernel") for f in sweeps):
         fail(f"{stem}: an FMA forward sweep was compiled")
+    return out
 
 
 def check_float32_reverse(lib, stem: str, sweeps: dict) -> dict:
@@ -699,14 +708,33 @@ def forced_row_tile(module, rule: str, rows: int):
         setattr(module, rule, saved)
 
 
-def fwd_form_name(n: int, shape) -> str:
-    """The forward sweep's form at fold n of `shape` (D, H, O) by the rule,
-    as FWD_SWEEP_FORMS names it (the same in both dtypes at the folds
-    reported)."""
+def fwd_forms_at(n: int, shape) -> dict:
+    """The forward sweep's form and row tile at fold n of `shape` (D, H, O)
+    by the rule on this card, by dtype: {"float32": "wave R16", ...}, the
+    form as FWD_SWEEP_FORMS names it."""
     from fullsubnet_plus_torch.ops import lstm2
 
-    form = lstm2.fwd_sweep_cluster(n, *shape, torch.float32)
-    return f"cluster{form}" if form else "tile"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        form, rows = lstm2.fwd_sweep_plan(n, *shape, dtype, sms)
+        out[str(dtype)[6:]] = f"{lstm2.fwd_form_name(form)} R{rows}"
+    return out
+
+
+def fwd_rule_form(n: int, shape, dtype: torch.dtype) -> str:
+    """The forward sweep's form at fold n of `shape` in `dtype` by the rule
+    on this card, as FWD_SWEEP_FORMS names it."""
+    from fullsubnet_plus_torch.ops import lstm2
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return lstm2.fwd_form_name(lstm2.fwd_sweep_plan(n, *shape, dtype, sms)[0])
+
+
+# The forward sweep's form at the training folds (N 2304, 144 row tiles of
+# 16 on the H100's 132 SMs) that the measured rule gives, by dtype: the wave
+# form in float32, the tile form (one wave of R 32) in bf16 (PERF.md)
+TRAIN_FWD_FORM = {torch.float32: "wave", torch.bfloat16: "tile"}
 
 
 def int8_form_name(n: int, shape) -> str:
@@ -721,7 +749,8 @@ def int8_form_name(n: int, shape) -> str:
 @contextlib.contextmanager
 def forced_fwd_form(form: int):
     """Force the forward sweep's form (`lstm2.FWD_SWEEP_FORM`: 0 the tile
-    form, 16 the cluster form), which K1 and K2 read at call time."""
+    form, 1 the wave form, 16 the cluster form), which K1 and K2 read at
+    call time."""
     from fullsubnet_plus_torch.ops import lstm2
 
     lstm2.FWD_SWEEP_FORM = form
@@ -733,8 +762,9 @@ def forced_fwd_form(form: int):
 
 def check_fwd_cluster() -> dict:
     """Phase 2: the forward sweep's form by the rule (the tile form at the
-    shipped and FullSubNet sub-band folds, clusters of 16 at FullSubNet's
-    full-band folds, N 8 and 18), then K1 at the full-band shape on the
+    batch folds, the measured form of TRAIN_FWD_FORM at the training folds,
+    clusters of 16 at FullSubNet's full-band folds, N 8 and 18), then K1 at
+    the full-band shape on the
     batch's fold (N 8) at a ragged T in the cluster form against its plain
     version and against the tile form forced (the floors), equal on a
     repeat, K2's y equal to K1's bit for bit, each launch counted by its
@@ -744,15 +774,17 @@ def check_fwd_cluster() -> dict:
 
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        folds = {"FullSubNet+ batch N 2056": (N_FULL, *SB, 0),
-                 "FullSubNet+ training N 2304": (N_TRAIN, *SB, 0),
-                 "FullSubNet sub-band N 2056": (N_FULL, *FSN_SB, 0),
-                 "FullSubNet full-band N 8": (N_FB, *FB, lstm2.FWD_CLUSTER),
-                 "FullSubNet full-band N 18": (N_FB_TRAIN, *FB, lstm2.FWD_CLUSTER)}
+        folds = {"FullSubNet+ batch N 2056": (N_FULL, *SB, "tile"),
+                 "FullSubNet+ training N 2304": (N_TRAIN, *SB, TRAIN_FWD_FORM[dtype]),
+                 "FullSubNet sub-band N 2056": (N_FULL, *FSN_SB, "tile"),
+                 "FullSubNet sub-band training N 2304": (N_TRAIN, *FSN_SB,
+                                                         TRAIN_FWD_FORM[dtype]),
+                 "FullSubNet full-band N 8": (N_FB, *FB, "cluster16"),
+                 "FullSubNet full-band N 18": (N_FB_TRAIN, *FB, "cluster16")}
         for fold, (n, d, h, o, want) in folds.items():
-            if lstm2.fwd_sweep_cluster(n, d, h, o, dtype) != want:
+            if fwd_rule_form(n, (d, h, o), dtype) != want:
                 fail(f"[2] the forward sweep's form at the {fold} fold, {dtype}: "
-                     f"{lstm2.fwd_sweep_cluster(n, d, h, o, dtype)}, expected {want}")
+                     f"{fwd_rule_form(n, (d, h, o), dtype)}, expected {want}")
         x, w, _, _ = lstm_operands(N_FB, T_RAGGED, dtype, seed=17, shape=FB)
         lstm2.FWD_SWEEP_FORMS.clear()
         y, again = lstm2.lstm2_fc(x, w), lstm2.lstm2_fc(x, w)
@@ -780,11 +812,10 @@ def check_fwd_cluster() -> dict:
     return out
 
 
-def fwd_tile_at(n: int, dtype: torch.dtype) -> int:
-    from fullsubnet_plus_torch.ops import lstm2
-
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    return lstm2.fwd_mma_row_tile(n, D, H, sm_count, dtype)
+def fwd_tile_at(n: int, dtype: torch.dtype) -> str:
+    """The forward sweep's form and row tile at fold n of FullSubNet+'s
+    sub-band shape by the rule on this card: "tile R32", "wave R16"."""
+    return fwd_forms_at(n, SB)[str(dtype)[6:]]
 
 
 def phase_check() -> dict:
@@ -800,7 +831,7 @@ def phase_check() -> dict:
             if not torch.isfinite(out).all():
                 fail(f"lstm2_fwd output not finite at N={n} T={t} {dtype}")
             snr, err = snr_db(ref, out), float((out - ref).abs().max())
-            tile = f" (row tile {fwd_tile_at(n, dtype)})"
+            tile = f" (form and row tile {fwd_tile_at(n, dtype)})"
             print(f"[2] lstm2_fwd vs plain N={n} T={t} {str(dtype)[6:]}{tile}: "
                   f"max_abs {err:.3e}  SNR {snr:.1f} dB (floor {SNR_FLOOR[dtype]:.0f})")
             if snr < SNR_FLOOR[dtype]:
@@ -937,12 +968,13 @@ def phase_time() -> dict:
 
 
 def time_row_tiles(fn, dtype: torch.dtype) -> dict:
-    """{R: median ms of fn} at each row tile of the forward sweep in `dtype`."""
+    """{R: median ms of fn} at each row tile of the forward sweep's tile form
+    in `dtype`."""
     from fullsubnet_plus_torch.ops import lstm2
 
     out = {}
     for rows in lstm2.FWD_MMA_ROWS_PER_CTA[dtype]:
-        with forced_row_tile(lstm2, "fwd_mma_rows_per_cta", rows):
+        with forced_row_tile(lstm2, "fwd_mma_rows_per_cta", rows), forced_fwd_form(0):
             out[rows] = round(cuda_ms(fn, reps=3), 3)
     return out
 
@@ -1005,7 +1037,7 @@ def phase_check_train() -> dict:
             del want, got, again, y_ref, res_ref, y, res
             forms = worst(function_grads(x, dy, lstm, fc, False),
                           function_grads(x, dy, lstm, fc, True))
-            tag += f" (forward row tile {fwd_tile_at(n, dtype)})"
+            tag += f" (forward {fwd_tile_at(n, dtype)})"
             print(f"[2] training kernels vs plain {tag} (floor {floor:.0f} dB): "
                   f"lstm2_train_fwd {k2[0]:.1f} dB max_abs {k2[1]:.3e}, y equal to "
                   f"lstm2_fwd's: {same_primal}; lstm2_bwd {k4[0]:.1f} dB max_abs {k4[1]:.3e}; "
@@ -1168,8 +1200,8 @@ def phase_time_train() -> dict:
         print(f"[3] {str(dtype)[6:]} weight-gradient kernel by tile of dU1, dW2, dU2 (device ms, "
               f"one call each): {tile_ms} (the rule takes {lt.wgrad_tiles(D, H, dtype)[1]})")
         tiles = time_row_tiles(lambda: lt.lstm2_train_fwd(x, w), dtype)
-        print(f"[3] lstm2_train_fwd {str(dtype)[6:]} N={N_TRAIN} T={T_TRAIN} by row tile: {tiles} "
-              f"ms (the rule takes {fwd_tile_at(N_TRAIN, dtype)})")
+        print(f"[3] lstm2_train_fwd {str(dtype)[6:]} N={N_TRAIN} T={T_TRAIN} by row tile of the "
+              f"tile form: {tiles} ms (the rule takes {fwd_tile_at(N_TRAIN, dtype)})")
         plain = {
             "lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd_reference(x, w), reps=2),
             "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res), reps=2),
@@ -1226,6 +1258,8 @@ def phase_time_train() -> dict:
               f"{'K3' if lt.fused_wgrad(dtype) else 'K4'}")
         torch.cuda.empty_cache()
     times[("lstm2_bwd_wgrad", torch.float32)]["backward_forms_by_fold"] = backward_forms_by_fold()
+    for dtype, by_fold in fwd_forms_by_fold().items():
+        times[("lstm2_train_fwd", dtype)]["fwd_forms_by_fold"] = by_fold
     forms = sweep_forms_by_fold()
     for name in ("lstm2_bwd", "lstm2_bwd_wgrad"):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1233,6 +1267,62 @@ def phase_time_train() -> dict:
                 tag: {k: v for k, v in by.items() if k in ("form", "same_bits", name, "tile")}
                 for tag, by in forms[dtype].items()}
     return times
+
+
+def fwd_forms_by_fold() -> dict:
+    """The forward sweep's wave form against its tile form forced (at the
+    tile form's own row tile, `fwd_mma_row_tile`), whichever the rule
+    takes: K2 at FullSubNet+'s and FullSubNet's sub-band training folds (N
+    2304, T 195) and K1 at a batch of 9 utterances (N 2313, 145 row tiles, T
+    629), in both dtypes: the y (and K2's six residuals) the same bits in
+    both forms, timed in turns (wave, tile, tile, wave; the lower of a
+    form's two medians of 3), beside cuDNN's LSTM + Linear forward on the
+    same input (TF32 off; never called by the port). Returns {dtype: {fold:
+    {"rule", "wave", "tile", "library", "same_bits"}}}."""
+    from fullsubnet_plus_torch.ops import lstm2
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        out[dtype] = {}
+        for tag, kernel, n, t, shape in (("fullsubnet_plus K2", "K2", N_TRAIN, T_TRAIN, SB),
+                                         ("fullsubnet_sb K2", "K2", N_TRAIN, T_TRAIN, FSN_SB),
+                                         ("batch of 9 K1", "K1", 2313, T_FULL, SB)):
+            x, _, lstm, fc = train_operands(n, t, dtype, seed=6, shape=shape)
+            w = lstm.packed(fc)
+
+            def call():
+                if kernel == "K1":
+                    return (lstm2.lstm2_fc(x, w),)
+                y, res = lt.lstm2_train_fwd(x, w)
+                return (y, *res)
+
+            got, ms = {}, {}
+            for form in (lstm2.FWD_SWEEP_WAVE, 0, 0, lstm2.FWD_SWEEP_WAVE):
+                with forced_fwd_form(form):
+                    if form not in got:
+                        got[form] = call()
+                    ms.setdefault(form, []).append(cuda_ms(call, reps=3))
+            same = all(torch.equal(a, b) for a, b in zip(got[0], got[lstm2.FWD_SWEEP_WAVE]))
+            del got
+            torch.cuda.empty_cache()
+            library = cudnn_lstm(lstm, fc, dtype)
+            library_ms = cuda_ms(lambda: library(x), reps=3)
+            best = {f: min(v) for f, v in ms.items()}
+            rule = fwd_rule_form(n, shape, dtype)
+            print(f"[3] {kernel} {str(dtype)[6:]} {tag} N={n} D={shape[0]} T={t}: the wave form "
+                  f"{best[lstm2.FWD_SWEEP_WAVE]:.3f} ms, the tile form forced {best[0]:.3f} ms "
+                  f"(R {lstm2.fwd_mma_row_tile(n, shape[0], H, sms, dtype)}), cuDNN LSTM+Linear "
+                  f"forward {library_ms:.3f} ms; the rule takes the {rule} form; y"
+                  f"{' and the residuals' if kernel == 'K2' else ''} the same bits in both: {same}")
+            if not same:
+                fail(f"[3] the forward's wave and tile forms disagree at {tag} {dtype}")
+            out[dtype][tag] = {"rule": rule, "wave": best[lstm2.FWD_SWEEP_WAVE], "tile": best[0],
+                               "library": library_ms, "same_bits": same, "N": n, "T": t}
+            del x, w, library
+            torch.cuda.empty_cache()
+    return out
 
 
 def sweep_forms_by_fold() -> dict:
@@ -1438,14 +1528,15 @@ def phase_train() -> dict:
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def run(tag, dtype, fused, form=None):
+    def run(tag, dtype, fused, form=None, fwd_form=None):
         """TRAIN_STEPS steps from the seeded state; metrics, walls, launches
-        (the reverse sweep in `form` where given, else the rule's)."""
+        (the reverse sweep in `form` and the forward in `fwd_form` where
+        given, else the rule's)."""
         state = seeded_state()
         train_step = make_step(dtype)
         reset_launches()
         metrics, walls = [], []
-        lt.SWEEP_FORM = form
+        lt.SWEEP_FORM, lstm2.FWD_SWEEP_FORM = form, fwd_form
         try:
             with training_kernels(fused):
                 for noisy, clean in batches:
@@ -1456,7 +1547,7 @@ def phase_train() -> dict:
                     walls.append((time.perf_counter() - t0) * 1e3)
                     metrics.append({k: float(v) for k, v in m.items()})
         finally:
-            lt.SWEEP_FORM = None
+            lt.SWEEP_FORM = lstm2.FWD_SWEEP_FORM = None
         launches = all_launches()
         backward = "lstm2_bwd_wgrad" if fused else "lstm2_bwd"
         expect = {k: 0 for k in launches}
@@ -1466,11 +1557,14 @@ def phase_train() -> dict:
         if dict(lt.SWEEP_FORMS) != {f"{backward} {name}": TRAIN_STEPS}:
             fail(f"train {tag}: the shipped fold's reverse sweeps took the forms "
                  f"{dict(lt.SWEEP_FORMS)}, not the {name} form once a step")
-        if dict(lstm2.FWD_SWEEP_FORMS) != {"lstm2_train_fwd tile": TRAIN_STEPS}:
+        fwd_name = (fwd_rule_form(N_TRAIN, SB, dtype) if fwd_form is None
+                    else lstm2.fwd_form_name(fwd_form))
+        if dict(lstm2.FWD_SWEEP_FORMS) != {f"lstm2_train_fwd {fwd_name}": TRAIN_STEPS}:
             fail(f"train {tag}: the shipped fold's forward sweeps took the forms "
-                 f"{dict(lstm2.FWD_SWEEP_FORMS)}, not the tile form once a step")
+                 f"{dict(lstm2.FWD_SWEEP_FORMS)}, not the {fwd_name} form once a step")
         wall = statistics.median(walls[1:])  # the first step warms up cuBLAS and cuFFT plans
-        print(f"[6] train {tag}: loss {', '.join(f'{m['loss']:.6f}' for m in metrics)}; "
+        print(f"[6] train {tag} (forward: the {fwd_name} form, reverse sweep: the {name} form): "
+              f"loss {', '.join(f'{m['loss']:.6f}' for m in metrics)}; "
               f"grad norm {', '.join(f'{m['grad_norm']:.4f}' for m in metrics)}; step wall "
               f"median {wall:.1f} ms (each {', '.join(f'{w:.0f}' for w in walls)}), "
               f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {launches}")
@@ -1484,7 +1578,7 @@ def phase_train() -> dict:
         if int(state.step) != TRAIN_STEPS or int(state.opt_state.count) != TRAIN_STEPS:
             fail(f"train {tag}: step {int(state.step)}, Adam count {int(state.opt_state.count)}")
         return {"state": state, "metrics": metrics, "wall_ms": wall, "launches": launches,
-                "audio_s_per_s": audio_s / wall * 1e3, "sweep_form": name}
+                "audio_s_per_s": audio_s / wall * 1e3, "sweep_form": name, "fwd_form": fwd_name}
 
     runs = {"float32_k3": run("float32 K2+K3", torch.float32, True),
             "bfloat16_k3": run("bfloat16 K2+K3", torch.bfloat16, True),
@@ -1497,6 +1591,15 @@ def phase_train() -> dict:
         print(f"[6] {key} step wall median: the {runs[key]['sweep_form']} form "
               f"{runs[key]['wall_ms']:.1f} ms, the tile form forced {tile['wall_ms']:.1f} ms")
         runs[key]["tile_form_wall_ms"] = tile["wall_ms"]
+    # and with the forward's tile form forced (its rule's R; the reverse sweep the rule's)
+    for key, dtype in (("float32_k3", torch.float32), ("bfloat16_k3", torch.bfloat16)):
+        if runs[key]["fwd_form"] == "tile":
+            continue
+        tile = run(f"{str(dtype)[6:]} K2+K3, the forward's tile form forced", dtype, True,
+                   fwd_form=0)
+        print(f"[6] {key} step wall median: the forward's {runs[key]['fwd_form']} form "
+              f"{runs[key]['wall_ms']:.1f} ms, its tile form forced {tile['wall_ms']:.1f} ms")
+        runs[key]["fwd_tile_form_wall_ms"] = tile["wall_ms"]
     same_state_check(seeded_state(), make_step, batches)
 
     # a NaN in one noisy waveform: the update is rejected on the device
@@ -1534,11 +1637,13 @@ def phase_train() -> dict:
         torch.cuda.synchronize()
 
     backward = "K3" if lt.fused_wgrad(torch.float32) else "K4 + weight_grads"
-    kernels = profile_call(one_step, f"[6] profile float32 train step (K2 + {backward}, "
-                                     f"the default form):")
+    kernels = profile_call(one_step, f"[6] profile float32 train step (K2 in the "
+                                     f"{fwd_rule_form(N_TRAIN, SB, torch.float32)} form + "
+                                     f"{backward}, the default form):")
     check_no_tf32(kernels, "[6] the float32 train step")
     return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s",
-                                            "sweep_form", "tile_form_wall_ms") if f in v}
+                                            "sweep_form", "fwd_form", "tile_form_wall_ms",
+                                            "fwd_tile_form_wall_ms") if f in v}
                      for k, v in runs.items()},
             "eval_launches": eval_launches,
             # phase 9 starts from a copy of the float32 K2 + K4 run's state
@@ -3570,12 +3675,16 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
                  "FullSubNet sub-band N 2304": (N_TRAIN, *FSN_SB)}
         for fold, (rows, *shape) in folds.items():
             form = lt.bwd_sweep_form(rows, *shape, dtype, sms)
+            fwd = fwd_rule_form(rows, shape, dtype)
             print(f"[11] {str(dtype)[6:]} {fold}: the rule takes the "
-                  f"{lt.sweep_form_name(form)} form")
+                  f"{lt.sweep_form_name(form)} form for the reverse sweep, the {fwd} form for "
+                  f"the forward")
             want = 16 if fold.startswith("full-band") else (
                 lt.SWEEP_WAVE if -(-N_TRAIN // 16) > sms else 0)
             if form != want:
                 fail(f"[11] the reverse sweep's form at the {fold} fold: {form}")
+            if fwd != ("cluster16" if fold.startswith("full-band") else TRAIN_FWD_FORM[dtype]):
+                fail(f"[11] the forward sweep's form at the {fold} fold: {fwd}")
     errors, times = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         floor, tag = SNR_FLOOR[dtype], f"N={n} T={t} {str(dtype)[6:]}"
@@ -3702,6 +3811,28 @@ def check_fsn_train_kernels() -> tuple[dict, dict]:
 
 
 @contextlib.contextmanager
+def forced_sub_band_fwd_tile_form():
+    """The forward sweep's tile form (at its own row tile) forced wherever
+    the rule would take the wave form (FullSubNet's sub-band training
+    fold); the cluster form stays."""
+    from fullsubnet_plus_torch.ops import lstm2
+
+    rule = lstm2.fwd_sweep_plan
+
+    def tile_for_wave(n, d_in, hidden, out_dim, dtype, sm_count=lstm2.SM_COUNT):
+        form, rows = rule(n, d_in, hidden, out_dim, dtype, sm_count)
+        if form != lstm2.FWD_SWEEP_WAVE:
+            return form, rows
+        return 0, lstm2.fwd_mma_row_tile(n, d_in, hidden, sm_count, dtype)
+
+    lstm2.fwd_sweep_plan = tile_for_wave
+    try:
+        yield
+    finally:
+        lstm2.fwd_sweep_plan = rule
+
+
+@contextlib.contextmanager
 def forced_sub_band_tile_form():
     """The reverse sweep's tile form forced wherever the rule would take the
     wave form (FullSubNet's sub-band fold); the cluster form stays."""
@@ -3796,27 +3927,36 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
     if forms != {f"{backward} cluster16": TRAIN_STEPS, f"{backward} {sub_band}": TRAIN_STEPS}:
         fail(f"[11] FullSubNet float32 steps: the reverse sweeps' forms {forms}")
     fwd_forms = dict(lstm2.FWD_SWEEP_FORMS)  # K2 likewise
-    if fwd_forms != {"lstm2_train_fwd cluster16": TRAIN_STEPS, "lstm2_train_fwd tile": TRAIN_STEPS}:
+    sub_band_fwd = fwd_rule_form(N_TRAIN, FSN_SB, torch.float32)
+    if fwd_forms != {"lstm2_train_fwd cluster16": TRAIN_STEPS,
+                     f"lstm2_train_fwd {sub_band_fwd}": TRAIN_STEPS}:
         fail(f"[11] FullSubNet float32 steps: the forward sweeps' forms {fwd_forms}")
     wall = statistics.median(walls[1:])
     audio_s = TRAIN_BATCH * TRAIN_SAMPLES / SR
-    # the same steps with the sub-band sweep's tile form forced (a comparison)
-    tile_state, tile_walls = seeded_state(), []
-    for noisy, clean in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with forced_sub_band_tile_form():
-            tile_state, _ = train_step(tile_state, noisy, clean)
-        torch.cuda.synchronize()
-        tile_walls.append((time.perf_counter() - t0) * 1e3)
-    tile_wall = statistics.median(tile_walls[1:])
-    del tile_state
+
+    def forced_walls(forced) -> float:
+        """The same steps from the seeded state with `forced` (a comparison):
+        the median wall of the last three."""
+        forced_state, forced_walls = seeded_state(), []
+        for noisy, clean in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with forced():
+                forced_state, _ = train_step(forced_state, noisy, clean)
+            torch.cuda.synchronize()
+            forced_walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(forced_walls[1:])
+
+    tile_wall = forced_walls(forced_sub_band_tile_form)
+    fwd_tile_wall = forced_walls(forced_sub_band_fwd_tile_form)
     print(f"[11] FullSubNet float32 train step (the default form, K2 + "
-          f"{'K3' if backward == 'lstm2_bwd_wgrad' else 'K4 + weight_grads'}): wall median "
-          f"{wall:.1f} ms (each {', '.join(f'{w:.0f}' for w in walls)}), "
+          f"{'K3' if backward == 'lstm2_bwd_wgrad' else 'K4 + weight_grads'}; the sub-band "
+          f"forward in the {sub_band_fwd} form, the sub-band reverse sweep in the {sub_band} "
+          f"form): wall median {wall:.1f} ms (each {', '.join(f'{w:.0f}' for w in walls)}), "
           f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {default_launches}, reverse sweeps "
-          f"by form {forms}, forward sweeps by form {fwd_forms}; with the sub-band sweep's tile "
-          f"form forced {tile_wall:.1f} ms")
+          f"by form {forms}, forward sweeps by form {fwd_forms}; with the sub-band reverse "
+          f"sweep's tile form forced {tile_wall:.1f} ms, with the sub-band forward's tile form "
+          f"forced {fwd_tile_wall:.1f} ms")
 
     def one_step():
         train_step(state, noisy, clean)
@@ -3848,6 +3988,7 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
             "steps": {"rel_gaps": gaps, "launches": {k: v for k, v in step_launches.items() if v},
                       "float32_default": {"wall_ms": wall, "audio_s_per_s": audio_s / wall * 1e3,
                                           "sub_band_tile_form_wall_ms": tile_wall,
+                                          "sub_band_fwd_tile_form_wall_ms": fwd_tile_wall,
                                           "launches": default_launches, "sweep_forms": forms,
                                           "fwd_sweep_forms": fwd_forms,
                                           "profile": PROFILES[label]}},
@@ -4039,10 +4180,14 @@ def main() -> None:
         },
         "audio_s_per_s": {tag: batch["rates"][tag] for tag in ("float32", "bfloat16")},
         "sweep_hmma": hmma["lstm2_fwd"],
+        "float32_sweep_functions": hmma["lstm2_fwd_float32_sweep"],
         "cluster_sweep_functions": hmma["lstm2_fwd_cluster_sweep"],
+        "batch_of_9_forms": {str(dt)[6:]: train_times[("lstm2_train_fwd", dt)][
+            "fwd_forms_by_fold"]["batch of 9 K1"] for dt in (torch.float32, torch.bfloat16)},
         "fwd_form_by_fold": {
-            **{fold: fwd_form_name(rows, shape) for fold, rows, shape in (
+            **{fold: fwd_forms_at(rows, shape) for fold, rows, shape in (
                 (f"N {N_FULL} T {T_FULL} (batch)", N_FULL, SB),
+                ("N 2313 (a batch of 9)", 2313, SB),
                 (f"fullsubnet_fb N {N_FB}", N_FB, FB),
                 (f"fullsubnet_sb N {N_FULL}", N_FULL, FSN_SB))},
             **{f"fullsubnet_batch_{tag}": fsn["forms"][tag] for tag in ("float32", "bfloat16")}},
@@ -4121,11 +4266,12 @@ def main() -> None:
                 "fullsubnet_steps_float32": fsn_train["steps"]["float32_default"]["sweep_forms"]}
         if name == "lstm2_train_fwd":
             extra["fwd_form_by_fold"] = {
-                **{fold: fwd_form_name(rows, shape) for fold, rows, shape in (
+                **{fold: fwd_forms_at(rows, shape) for fold, rows, shape in (
                     (f"N {N_TRAIN} T {T_TRAIN} (training)", N_TRAIN, SB),
                     (f"N {N_CARD} (a card's half)", N_CARD, SB),
                     (f"fullsubnet_fb_train N {N_FB_TRAIN}", N_FB_TRAIN, FB),
                     (f"fullsubnet_sb_train N {N_TRAIN}", N_TRAIN, FSN_SB))},
+                "train_steps": {r: runs[r].get("fwd_form") for r in launch_runs},
                 "fullsubnet_steps_float32":
                     fsn_train["steps"]["float32_default"]["fwd_sweep_forms"]}
         if name == "lstm2_bwd_wgrad":
@@ -4151,6 +4297,7 @@ def main() -> None:
                        + ("forward" if name == "lstm2_train_fwd" else "backward"),
             "train_step": {r: {"wall_ms": runs[r]["wall_ms"],
                                "tile_form_wall_ms": runs[r].get("tile_form_wall_ms"),
+                               "fwd_tile_form_wall_ms": runs[r].get("fwd_tile_form_wall_ms"),
                                "audio_s_per_s": runs[r]["audio_s_per_s"]} for r in launch_runs},
             "jax_fixture_min_snr_db": {dt: fixture_snr[(name, dt)]
                                        for dt in ("float32", "bfloat16")},
@@ -4162,7 +4309,9 @@ def main() -> None:
                                            for dt in ("float32", "bfloat16")},
                 "train_step_float32": fsn_train["steps"]["float32_default"]["wall_ms"],
                 "train_step_float32_sub_band_tile_form":
-                    fsn_train["steps"]["float32_default"]["sub_band_tile_form_wall_ms"]},
+                    fsn_train["steps"]["float32_default"]["sub_band_tile_form_wall_ms"],
+                "train_step_float32_sub_band_fwd_tile_form":
+                    fsn_train["steps"]["float32_default"]["sub_band_fwd_tile_form_wall_ms"]},
             "card_fold": {"shape": {"N": N_CARD, "D": D, "H": H, "O": O, "T": T_TRAIN},
                           **{tag: train_mesh["card_fold"][(name, dt)] for tag, dt in (
                               ("float32", torch.float32), ("bfloat16", torch.bfloat16))}},

@@ -22,14 +22,18 @@
 // m16n8k16, float32 m16n8k8 as three TF32 products of split operands. In
 // the tile form one CTA per row tile runs all T steps, R = 16 or 32 rows in
 // bf16 (one or two m16 tiles sharing each weight fragment loaded from L2),
-// 16 in float32. At FullSubNet's full-band fold (N 8, D 257, H 512, O 257:
+// 16 in float32; where the fold has more row tiles than the card holds at
+// once, the wave form runs the same kernel over items of a tile and a few
+// steps, a launch a wave, the h and c carries between a tile's items in
+// device memory. At FullSubNet's full-band fold (N 8, D 257, H 512, O 257:
 // one CTA on one SM pulling 15.4 MB of float32 fragments a step) the cluster
 // form runs instead: a cluster of 16 CTAs a tile of 16 rows, each owning 32
 // units, h1 and h2 all-gathered each step by TMA bulk copies into the
 // peers' shared memory. The wrapper chooses the form and R.
 //
-// Launch: the tile form grid ceil(N / R), block H threads, dynamic shared
-// memory as in fwd_mma_shared_memory_bytes() of ops/lstm2.py; the cluster
+// Launch: the tile form grid ceil(N / R) (the wave form launches of at most
+// that many), block H threads, dynamic shared memory as in
+// fwd_mma_shared_memory_bytes() of ops/lstm2.py; the cluster
 // form grid 16 ceil(N / 16) in clusters of 16, block 512 threads, as in
 // fwd_cluster_shared_memory_bytes(). The C entry point launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError().
@@ -39,14 +43,17 @@
 // dtype: 0 = float32 (rows 16), 1 = bfloat16 (rows 16 or 32): the type of x
 // and out. The weights come as the packed fragments w1p, w2p, fcp and the
 // gate-interleaved biases b1p, b2p (ops/lstm2.py::pack_fwd_mma), fcb as b_fc.
-// form: the sweep's form (0 the tile form, 16 the cluster form: clusters of
-// 16, rows 16).
+// form: the sweep's form (0 the tile form, 1 the wave form, 16 the cluster
+// form: clusters of 16, rows 16). The wave form also takes carry, a
+// [ceil(N / rows)][carry_bytes] scratch for the carries between a tile's
+// parts (fwd_carry_bytes in ops/lstm2.py), and part_steps, the steps of a
+// part (the other forms: null and 0).
 extern "C" int lstm2_fwd(const void* x, const void* w1p, const void* w2p, const void* fcp,
                          const void* b1p, const void* b2p, const void* fcb, void* out,
-                         int n_rows, int steps, int D, int H, int O, int rows, int form,
-                         int dtype, void* stream) {
+                         void* carry, int n_rows, int steps, int D, int H, int O, int rows,
+                         int form, int part_steps, int dtype, void* stream) {
   if (!fwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
-  return fwd::launch_dtype<false>(dtype, x, w1p, w2p, fcp, b1p, b2p, fcb, out, nullptr, n_rows,
-                                  steps, D, H, O, rows, form,
+  return fwd::launch_dtype<false>(dtype, x, w1p, w2p, fcp, b1p, b2p, fcb, out, nullptr, carry,
+                                  n_rows, steps, D, H, O, rows, form, part_steps,
                                   static_cast<cudaStream_t>(stream));
 }

@@ -8,11 +8,27 @@
 // accumulate in float32. Both kernels run the same products in the same
 // order, so their y is equal bit for bit. The weights (7.5 MB float32, 3.7 MB
 // bf16 at D 34, H 384) do not fit in shared memory; they stay in global
-// memory, served from the 50 MB L2. Two forms, chosen by the fold's shape
-// (`fwd_sweep_cluster` in ops/lstm2.py, the same for K1 and K2):
+// memory, served from the 50 MB L2. Three forms, chosen by the fold's shape
+// and the card's SM count (`fwd_sweep_plan` in ops/lstm2.py, the same for K1
+// and K2):
 //   * the tile form, `sweep_mma_kernel`: one CTA per tile of R rows sweeps
 //     all T steps, so the recurrence never leaves the block; every CTA pulls
-//     every weight fragment from L2 each step (the shipped folds);
+//     every weight fragment from L2 each step (the folds whose row tiles
+//     the card holds at once);
+//   * the wave form: the same kernel over the same work cut into items of
+//     (row tile, part of part_steps steps). Item k is tile k mod tiles over
+//     part k div tiles, oldest steps first, and each launch runs the next
+//     min(tiles, the CTAs the card holds at once) items (`launch_mma_tile`).
+//     An item starts from the carries its tile's previous part left in
+//     device memory (`carry`: h1 and h2 as the operand buffers hold them, in
+//     T, and the c words of c1s and c2s, float32), which an earlier launch
+//     wrote, so stream order is all the synchronisation there is; it runs
+//     the fc of its own last step before it stores them, so each y word
+//     keeps one writer. Each item runs the tile form's arithmetic in its
+//     order: the same y and residuals bit for bit. At the training fold (N
+//     2304, 144 tiles of 16 on 132 SMs) the tile form's second wave of 12
+//     CTAs costs nearly a full one; the wave form keeps every SM busy but
+//     for the last launch;
 //   * the cluster form, `sweep_cluster_kernel` (below): a cluster of 16 CTAs
 //     per tile of 16 rows, each owning 32 hidden units and pulling only its
 //     gate columns' weights, h1 and h2 all-gathered each step through
@@ -49,10 +65,13 @@
 // Shared memory at D 34, H 384: 2 R operand rows of 840 bf16 or 820 float32
 // and 2 R x 384 float32 c words: 102,912 bytes (bf16) and 154,112 (float32)
 // at R 16, 205,824 (bf16) at R 32; at FullSubNet's full-band shape (D 257,
-// H 512) 150,016 (bf16) and 231,936 (float32) at R 16. Launch: grid ceil(N / R), block H threads,
-// dynamic shared memory shared_bytes_mma<T>(R, D, H).
+// H 512) 150,016 (bf16) and 231,936 (float32) at R 16. Launch: grid ceil(N / R) (the wave
+// form: launches of at most that many), block H threads, dynamic shared memory
+// shared_bytes_mma<T>(R, D, H).
 
 #pragma once
+
+#include <algorithm>
 
 #include "lstm2_common.cuh"
 
@@ -109,6 +128,12 @@ template <typename T> __host__ __device__ inline int operand_pitch(int D, int H)
 // two operand buffers [R][pitch] of T, then c1 and c2 (R * H float32 each)
 template <typename T> __host__ __device__ inline size_t shared_bytes_mma(int R, int D, int H) {
   return sizeof(T) * 2 * (size_t)R * operand_pitch<T>(D, H) + sizeof(float) * 2 * (size_t)R * H;
+}
+
+// The wave form's carries of one row tile between its parts (`fwd_carry_bytes`
+// in ops/lstm2.py): h1 and h2 [R][H] of T, then c1s and c2s [R * H] float32
+template <typename T> __host__ __device__ inline size_t carry_bytes(int R, int H) {
+  return (size_t)2 * R * H * (sizeof(T) + sizeof(float));
 }
 
 // The sweep's weights, packed once per call by ops/lstm2.py::pack_fwd_mma
@@ -270,9 +295,10 @@ __device__ __forceinline__ void fc_mma(uint32_t a_addr, uint32_t m_stride,
   }
 }
 
-// The sweep for a tile of R = 16 MT rows. Shared memory holds two operand
-// buffers [R][x | h1 | h2 | pad] of T that alternate by step parity
-// (b = t & 1):
+// The sweep for a tile of R = 16 MT rows over the steps [t_lo, t_hi] of its
+// work item (the tile form: one item of all the steps). Shared memory holds
+// two operand buffers [R][x | h1 | h2 | pad] of T that alternate by step
+// parity (b = t & 1):
 //   layer 1 reads [x_t | h1_{t-1}] from buffer b and writes h1_t into
 //     buffer b ^ 1; layer 2 reads [h1_t | h2_{t-1}] from buffer b ^ 1 and
 //     writes h2_t into buffer b, and x_{t+1} is loaded into buffer b ^ 1;
@@ -280,14 +306,19 @@ __device__ __forceinline__ void fc_mma(uint32_t a_addr, uint32_t m_stride,
 //     step t.
 // So no write lands on a word a warp may still read in the same phase, and a
 // step needs two barriers. c1 and c2 sit in shared memory, each word private
-// to its lane. Each output word has one writer and each sum a fixed order:
-// no atomics, the same bits on every run and at either R.
+// to its lane. After step t, h1_t lies in buffer (t + 1) & 1 and h2_t in
+// buffer t & 1: what an item of the wave form stores into its tile's carry
+// and the next part loads back before its first step. Each output word has
+// one writer and each sum a fixed order: no atomics, the same bits on every
+// run, at either R and in either form.
 template <typename T, int MT, bool kSave, int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 sweep_mma_kernel(const T* __restrict__ x,  // [T, N, D]
                  const MmaWeights wt, const float* __restrict__ fcb,
                  T* __restrict__ out,  // [N, T, O]
-                 const Residuals<T> res, int n_rows, int steps, int D, int H, int O) {
+                 const Residuals<T> res,
+                 unsigned char* __restrict__ carry,  // the wave form: [tiles][carry_bytes]
+                 int n_rows, int steps, int D, int H, int O, int item0, int part_steps) {
   constexpr int R = 16 * MT, KC = k_chunk<T>();
   extern __shared__ __align__(16) unsigned char smem_mma[];
   const int xc = x_cols<T>(D), ld = operand_pitch<T>(D, H);
@@ -296,7 +327,11 @@ sweep_mma_kernel(const T* __restrict__ x,  // [T, N, D]
   float* c2s = c1s + (size_t)R * H;                                 // [R * H]
 
   const int j = threadIdx.x, warp = j >> 5, lane = j & 31, warps = H >> 5;
-  const int n0 = blockIdx.x * R;
+  // the work item: row tile `tile` over part `part` of part_steps steps
+  const int tiles = (n_rows + R - 1) / R, item = item0 + blockIdx.x;
+  const int part = item / tiles, tile = item - part * tiles;
+  const int t_lo = part * part_steps, t_hi = min(steps, t_lo + part_steps) - 1;
+  const int n0 = tile * R;
   const int rows_here = min(R, n_rows - n0);
   const int kc1 = (xc + H) / KC, kc2 = 2 * H / KC, kcf = H / KC;
   const size_t ns1 = (size_t)kc1 * 32, ns2 = (size_t)kc2 * 32;  // words between n-tiles
@@ -319,6 +354,25 @@ sweep_mma_kernel(const T* __restrict__ x,  // [T, N, D]
       dst[(size_t)r * ld + idx - r * D] = xt[idx];
     }
   };
+  // h1_t, h2_t (rows in buffers (t + 1) & 1 and t & 1) and the c words
+  // between shared memory and the tile's carry, in 16-byte words (a row of
+  // h, the operand pitch and the columns xc and xc + H are whole 16-byte
+  // multiples)
+  auto carries = [&](int t, bool store) {
+    uint4* cw = reinterpret_cast<uint4*>(carry + (size_t)tile * carry_bytes<T>(R, H));
+    const int hw = H * (int)sizeof(T) / 16;  // 16-byte words of a row of h
+    for (int idx = j; idx < 2 * R * hw; idx += blockDim.x) {
+      const int layer = idx / (R * hw), r = idx / hw % R;
+      uint4* s = reinterpret_cast<uint4*>(ops + ((size_t)((t + 1 + layer) & 1) * R + r) * ld +
+                                          xc + layer * H) + idx % hw;
+      if (store) cw[idx] = *s; else *s = cw[idx];
+    }
+    uint4* cs = reinterpret_cast<uint4*>(c1s);
+    cw += 2 * R * hw;
+    for (int idx = j; idx < R * H / 2; idx += blockDim.x) {  // c1s and c2s: 2 R H words
+      if (store) cw[idx] = cs[idx]; else cs[idx] = cw[idx];
+    }
+  };
 
   {  // zero both buffers (pads, h, c) before the first x tile
     uint32_t* words = reinterpret_cast<uint32_t*>(smem_mma);
@@ -326,18 +380,19 @@ sweep_mma_kernel(const T* __restrict__ x,  // [T, N, D]
     for (size_t i = j; i < n_words; i += blockDim.x) words[i] = 0u;
   }
   __syncthreads();
-  if (steps > 0) load_x(0, ops);
+  if (t_lo > 0) carries(t_lo - 1, false);  // a later part resumes from the earlier's carries
+  if (t_lo <= t_hi) load_x(t_lo, ops + (size_t)(t_lo & 1) * R * ld);
   __syncthreads();
 
   uint4 b[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) b[i] = __ldg(w1w + i * ns1);
-  for (int t = 0; t < steps; ++t) {
+  for (int t = t_lo; t <= t_hi; ++t) {
     const int bb = t & 1;
     T* cur = ops + (size_t)bb * R * ld;
     T* nxt = ops + (size_t)(bb ^ 1) * R * ld;
     const size_t row0 = (size_t)t * n_rows + n0;  // this step's first row of the tile
-    if (t > 0)
+    if (t > t_lo)  // the fc of step t_lo - 1 ran in the item before
       fc_mma<T, MT>(a_addr[bb ^ 1] + h2_col, m_stride, wt.fc + lane, kcf, fcb, out, n0, t - 1,
                     steps, O, rows_here, warp, warps, lane);
     // layer 1: [x_t | h1_{t-1}] [W1; U1] -> h1_t
@@ -352,55 +407,91 @@ sweep_mma_kernel(const T* __restrict__ x,  // [T, N, D]
                             kSave ? res.g2 + row0 * 4 * H : nullptr,
                             kSave ? res.c2 + row0 * H : nullptr,
                             kSave ? res.h2 + row0 * H : nullptr, rows_here, H);
-    if (t + 1 < steps) load_x(t + 1, nxt);
+    if (t < t_hi) load_x(t + 1, nxt);
     __syncthreads();  // h2_t and x_{t+1} are complete
   }
-  if (steps > 0)
-    fc_mma<T, MT>(a_addr[(steps - 1) & 1] + h2_col, m_stride, wt.fc + lane, kcf, fcb, out, n0,
-                  steps - 1, steps, O, rows_here, warp, warps, lane);
+  if (t_lo <= t_hi) {
+    fc_mma<T, MT>(a_addr[t_hi & 1] + h2_col, m_stride, wt.fc + lane, kcf, fcb, out, n0, t_hi,
+                  steps, O, rows_here, warp, warps, lane);
+    if (t_hi + 1 < steps) carries(t_hi, true);  // for the tile's next part
+  }
 }
 
+// The tile form (part_steps 0): one launch, a CTA a row tile over all the
+// steps. The wave form (part_steps > 0; the note at the top): the tiles x
+// parts of part_steps steps as work items, part-major, in launches of as
+// many CTAs as the card holds at once, but no more than the tiles, so every
+// item's previous part ran in an earlier launch. carry: the wave form's
+// [tiles][carry_bytes<T>(R, H)] scratch. A shape that needs more shared
+// memory than a block has is refused.
 template <typename T, int MT, bool kSave, int MAX_THREADS>
 int launch_mma_tile(const void* x, const MmaWeights& wt, const void* fcb, void* out,
-                    const Residuals<T>& res, int n_rows, int steps, int D, int H, int O,
-                    cudaStream_t stream) {
+                    const Residuals<T>& res, void* carry, int n_rows, int steps, int D, int H,
+                    int O, int part_steps, cudaStream_t stream) {
   constexpr int R = 16 * MT;
   const size_t smem = shared_bytes_mma<T>(R, D, H);
-  const cudaError_t err = cudaFuncSetAttribute(sweep_mma_kernel<T, MT, kSave, MAX_THREADS>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = sweep_mma_kernel<T, MT, kSave, MAX_THREADS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sweep_mma_kernel<T, MT, kSave, MAX_THREADS><<<(n_rows + R - 1) / R, H, smem, stream>>>(
-      static_cast<const T*>(x), wt, static_cast<const float*>(fcb), static_cast<T*>(out), res,
-      n_rows, steps, D, H, O);
-  return (int)cudaGetLastError();
+  const T* xt = static_cast<const T*>(x);
+  const float* fb = static_cast<const float*>(fcb);
+  T* y = static_cast<T*>(out);
+  unsigned char* cw = static_cast<unsigned char*>(carry);
+  const int tiles = (n_rows + R - 1) / R;
+  if (part_steps <= 0) {
+    kernel<<<tiles, H, smem, stream>>>(xt, wt, fb, y, res, nullptr, n_rows, steps, D, H, O, 0,
+                                       std::max(steps, 1));
+    return (int)cudaGetLastError();
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, H, smem)) !=
+          cudaSuccess)
+    return (int)err;
+  // a wave holds no more items than tiles, so an item's previous part (tiles
+  // items back) ran in an earlier launch
+  const int wave = std::min(sms * per_sm, tiles);
+  const int items = tiles * ((steps + part_steps - 1) / part_steps);
+  if (wave < 1) return (int)cudaErrorInvalidConfiguration;
+  for (int item0 = 0; item0 < items; item0 += wave) {
+    kernel<<<std::min(wave, items - item0), H, smem, stream>>>(xt, wt, fb, y, res, cw, n_rows,
+                                                                steps, D, H, O, item0, part_steps);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <typename T, int MT, bool kSave>
 int launch_mma_rows(const void* x, const MmaWeights& wt, const void* fcb, void* out,
-                    const Residuals<T>& res, int n_rows, int steps, int D, int H, int O,
-                    cudaStream_t stream) {
-  return H <= 384 ? launch_mma_tile<T, MT, kSave, 384>(x, wt, fcb, out, res, n_rows, steps, D, H,
-                                                       O, stream)
-                  : launch_mma_tile<T, MT, kSave, 512>(x, wt, fcb, out, res, n_rows, steps, D, H,
-                                                       O, stream);
+                    const Residuals<T>& res, void* carry, int n_rows, int steps, int D, int H,
+                    int O, int part_steps, cudaStream_t stream) {
+  return H <= 384 ? launch_mma_tile<T, MT, kSave, 384>(x, wt, fcb, out, res, carry, n_rows, steps,
+                                                       D, H, O, part_steps, stream)
+                  : launch_mma_tile<T, MT, kSave, 512>(x, wt, fcb, out, res, carry, n_rows, steps,
+                                                       D, H, O, part_steps, stream);
 }
 
 // The sweep always takes the tensor-core kernel; rows is its row tile: 16 or
-// 32 (one or two m16 tiles) in bf16, 16 in float32. A refused launch returns
+// 32 (one or two m16 tiles) in bf16, 16 in float32; part_steps 0 for the tile
+// form, the steps of a work item for the wave form. A refused launch returns
 // its error.
 template <typename T, bool kSave>
 int launch_mma(const void* x, const MmaWeights& wt, const void* fcb, void* out,
-               const Residuals<T>& res, int n_rows, int steps, int D, int H, int O, int rows,
-               cudaStream_t stream) {
+               const Residuals<T>& res, void* carry, int n_rows, int steps, int D, int H, int O,
+               int rows, int part_steps, cudaStream_t stream) {
   if (wt.w1 == nullptr || wt.w2 == nullptr || wt.fc == nullptr || wt.b1 == nullptr ||
       wt.b2 == nullptr)
     return (int)cudaErrorInvalidValue;
   if (rows == 16)
-    return launch_mma_rows<T, 1, kSave>(x, wt, fcb, out, res, n_rows, steps, D, H, O, stream);
+    return launch_mma_rows<T, 1, kSave>(x, wt, fcb, out, res, carry, n_rows, steps, D, H, O,
+                                        part_steps, stream);
   if constexpr (sizeof(T) == 2) {
     if (rows == 32)
-      return launch_mma_rows<T, 2, kSave>(x, wt, fcb, out, res, n_rows, steps, D, H, O, stream);
+      return launch_mma_rows<T, 2, kSave>(x, wt, fcb, out, res, carry, n_rows, steps, D, H, O,
+                                          part_steps, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -835,15 +926,24 @@ template <typename T> Residuals<T> residuals_of(void* const* res) {
                       static_cast<T*>(res[3]), static_cast<T*>(res[4]), static_cast<T*>(res[5])};
 }
 
+// The wave form's `form` (FWD_SWEEP_WAVE in ops/lstm2.py)
+constexpr int WAVE_FORM = 1;
+
 // Launch the sweep in the form `form` gives: 0 the tile form (row tile
-// `rows`), CLUSTER_SIZE the cluster form (rows 16); any other value, or a
-// shape the cluster form does not run, is refused with an error.
+// `rows`), WAVE_FORM the wave form (row tile `rows`, items of part_steps
+// steps, their carries in `carry`), CLUSTER_SIZE the cluster form (rows 16);
+// any other value, a tile or cluster form given part_steps or a carry, a
+// wave form without them, or a shape the form does not run, is refused with
+// an error.
 template <typename T, bool kSave>
 int launch_form(const void* x, const MmaWeights& wt, const void* fcb, void* out,
-                const Residuals<T>& res, int n_rows, int steps, int D, int H, int O, int rows,
-                int form, cudaStream_t stream) {
-  if (form == 0)
-    return launch_mma<T, kSave>(x, wt, fcb, out, res, n_rows, steps, D, H, O, rows, stream);
+                const Residuals<T>& res, void* carry, int n_rows, int steps, int D, int H, int O,
+                int rows, int form, int part_steps, cudaStream_t stream) {
+  if ((form == WAVE_FORM) != (part_steps > 0) || (form == WAVE_FORM) != (carry != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (form == 0 || form == WAVE_FORM)
+    return launch_mma<T, kSave>(x, wt, fcb, out, res, carry, n_rows, steps, D, H, O, rows,
+                                part_steps, stream);
   if (form == CLUSTER_SIZE && rows == CL_ROWS && wt.w1 != nullptr && wt.w2 != nullptr &&
       wt.fc != nullptr && wt.b1 != nullptr && wt.b2 != nullptr)
     return launch_cluster<T, kSave>(x, wt, fcb, out, res, n_rows, steps, D, H, O, stream);
@@ -852,23 +952,24 @@ int launch_form(const void* x, const MmaWeights& wt, const void* fcb, void* out,
 
 // The C entry points' dispatch: dtype 0 float32, 1 bfloat16 (x, out and the
 // residuals); the weights as the packed fragments w1p, w2p, fcp and the
-// gate-interleaved biases b1p, b2p; res null without kSave; form as in
-// `launch_form`.
+// gate-interleaved biases b1p, b2p; res null without kSave; carry, form and
+// part_steps as in `launch_form`.
 template <bool kSave>
 int launch_dtype(int dtype, const void* x, const void* w1p, const void* w2p, const void* fcp,
                  const void* b1p, const void* b2p, const void* fcb, void* out, void* const* res,
-                 int n_rows, int steps, int D, int H, int O, int rows, int form,
-                 cudaStream_t stream) {
+                 void* carry, int n_rows, int steps, int D, int H, int O, int rows, int form,
+                 int part_steps, cudaStream_t stream) {
   if (kSave != (res != nullptr)) return (int)cudaErrorInvalidValue;
   const MmaWeights wt{static_cast<const uint4*>(w1p), static_cast<const uint4*>(w2p),
                       static_cast<const uint4*>(fcp), static_cast<const float*>(b1p),
                       static_cast<const float*>(b2p)};
   if (dtype == 0)
-    return launch_form<float, kSave>(x, wt, fcb, out, residuals_of<float>(res), n_rows, steps,
-                                     D, H, O, rows, form, stream);
+    return launch_form<float, kSave>(x, wt, fcb, out, residuals_of<float>(res), carry, n_rows,
+                                     steps, D, H, O, rows, form, part_steps, stream);
   if (dtype == 1)
     return launch_form<__nv_bfloat16, kSave>(x, wt, fcb, out, residuals_of<__nv_bfloat16>(res),
-                                             n_rows, steps, D, H, O, rows, form, stream);
+                                             carry, n_rows, steps, D, H, O, rows, form,
+                                             part_steps, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,12 +19,16 @@ float32 the kernel computes each product as three TF32 products of split
 operands (a = big + small, both TF32: small.big + big.small + big.big, float32
 sums), which holds the float32 agreement floors; a single TF32 product does not.
 
-The sweep runs in one of two forms that `fwd_sweep_cluster` chooses by the
-fold's shape: the tile form (a CTA a row tile) or, at FullSubNet's
-full-band folds (H 512, a few row tiles), the cluster form (a cluster of 16
-CTAs a row tile, each owning 32 hidden units, h1 and h2 all-gathered
-through distributed shared memory). K1 and K2 (ops/lstm2_train.py) take
-the same form by the same rule, so their y is equal bit for bit.
+The sweep runs in one of three forms that `fwd_sweep_plan` chooses by the
+fold's shape and the card's SM count: the tile form (a CTA a row tile for
+all the steps), the wave form (the same work cut into items of a row tile
+and FWD_WAVE_STEPS steps, in launches of a CTA an SM, the h and c carries
+between a tile's items in device memory, so a fold of more row tiles than
+SMs leaves no SM idle for a second wave) or, at FullSubNet's full-band
+folds (H 512, a few row tiles), the cluster form (a cluster of 16 CTAs a
+row tile, each owning 32 hidden units, h1 and h2 all-gathered through
+distributed shared memory). K1 and K2 (ops/lstm2_train.py) take the same
+form and row tile by the same rule, so their y is equal bit for bit.
 
 `lstm2_fc` takes the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor, or raises; it never falls back. `lstm2_fc_split`
@@ -49,15 +53,33 @@ from fullsubnet_plus_torch.ops import nvcc
 # clear); the total is sum(LAUNCHES.values())
 LAUNCHES: Counter = Counter()
 # the forward sweep's launches (K1's and K2's) by form: "lstm2_fwd cluster16",
-# "lstm2_train_fwd tile", ...
+# "lstm2_train_fwd wave", "lstm2_train_fwd tile", ...
 FWD_SWEEP_FORMS: Counter = Counter()
 
 # The forward sweep's form (csrc/lstm2_fwd_sweep.cuh): None the one
-# `fwd_sweep_cluster` chooses, 0 the tile form (`sweep_mma_kernel`: a CTA a
-# tile of rows), FWD_CLUSTER the cluster form (`sweep_cluster_kernel`: a
-# cluster of 16 CTAs a tile of 16 rows, each owning 32 hidden units). Set to
-# time the forms; K1 and K2 both read it.
+# `fwd_sweep_plan` chooses, 0 the tile form (`sweep_mma_kernel`: a CTA a
+# tile of rows over all the steps), FWD_SWEEP_WAVE the wave form (the same
+# kernel: a CTA an item of a tile of FWD_WAVE_ROWS rows and FWD_WAVE_STEPS
+# steps, a launch a wave of at most a CTA an SM), FWD_CLUSTER the cluster
+# form (`sweep_cluster_kernel`: a cluster of 16 CTAs a tile of 16 rows, each
+# owning 32 hidden units). Set to time the forms; K1 and K2 both read it,
+# the launch takes the form it is given and none falls back.
 FWD_SWEEP_FORM: int | None = None
+FWD_SWEEP_WAVE = 1  # WAVE_FORM in the .cuh
+# The wave form's work items: FWD_WAVE_ROWS rows (the smallest tile, the
+# most items to spread over the waves) and FWD_WAVE_STEPS steps. 4 on the
+# H100 at the training fold (N 2304, T 195): float32 K2 41.2 / 39.9 / 39.5
+# / 39.6 / 40.2 ms at 1 / 2 / 4 / 8 / 16 steps (PERF.md,
+# scripts/time_torch_fwd_tiles.py --forms)
+FWD_WAVE_ROWS = 16
+FWD_WAVE_STEPS = 4
+# Whether the rule takes the wave form, by dtype, where the fold has more
+# row tiles of FWD_WAVE_ROWS than the card has SMs (`fwd_sweep_plan`, which
+# gives the measurements)
+FWD_WAVE_BY_DTYPE = {torch.float32: True, torch.bfloat16: False}
+# The SMs of the card the rule assumes where it is asked by shape alone (an
+# H100 SXM); the wrappers pass the card's own count
+SM_COUNT = 132
 FWD_CLUSTER = 16  # CTAs of a cluster (CLUSTER_SIZE in the .cuh): H = 16 x 32
 FWD_CLUSTER_UNITS = 32  # hidden units a CTA of the cluster form owns (CL_UNITS)
 FWD_CLUSTER_KPARTS = 4  # k-parts of each of its products (CL_KPARTS)
@@ -79,7 +101,7 @@ MAX_HIDDEN = 512  # the kernel's __launch_bounds__: one thread per hidden unit
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 class LSTM2Weights(NamedTuple):
@@ -388,30 +410,98 @@ def fwd_sweep_cluster(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch
     return FWD_CLUSTER if fits else 0
 
 
-def fwd_sweep_form(x: torch.Tensor, w: LSTM2Weights) -> int:
-    """The form a forward sweep of x takes, K1's and K2's alike:
-    FWD_SWEEP_FORM when set, else `fwd_sweep_cluster`'s."""
-    if FWD_SWEEP_FORM is not None:
-        return FWD_SWEEP_FORM
-    n, d, _ = x.shape
-    return fwd_sweep_cluster(n, d, w.u1.shape[0], w.fc_w.shape[1], x.dtype)
+def fwd_carry_bytes(rows: int, hidden: int, dtype: torch.dtype) -> int:
+    """The wave form's carries of one row tile between its parts
+    (carry_bytes in csrc/lstm2_fwd_sweep.cuh): h1 and h2 [R][H] in the
+    weight dtype, as the sweep's operand buffers hold them, and c1 and c2
+    [R][H] float32. The carried c is the sweep's own float32 word, never the
+    saved residual c, which bf16 rounds."""
+    return 2 * rows * hidden * (torch.tensor([], dtype=dtype).element_size() + 4)
+
+
+def fwd_sweep_plan(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch.dtype,
+                   sm_count: int = SM_COUNT) -> tuple[int, int]:
+    """(form, row tile) of a forward sweep over a fold of n rows, by its
+    shape and the card's SMs alone: (FWD_CLUSTER, 16) where
+    `fwd_sweep_cluster` takes the cluster form; (FWD_SWEEP_WAVE,
+    FWD_WAVE_ROWS) where FWD_WAVE_BY_DTYPE[dtype] holds and the fold has
+    more row tiles of FWD_WAVE_ROWS than the card has SMs (the tile form
+    would leave most SMs idle for a second wave: the shipped training fold,
+    N 2304, 144 tiles on 132 SMs, and FullSubNet's sub-band one); else the
+    tile form (0) with `fwd_mma_row_tile`'s R. Raises where no row tile
+    fits a block. K1 and K2 both take it, so their y is equal bit for bit.
+
+    On the H100 at N 2304, T 195 (PERF.md, scripts/time_torch_fwd_tiles.py
+    --forms, chip_smoke.py phase 3): float32 K2 38.7-39.0 ms in the wave
+    form against 64.2-65.3 in two waves of R 16 (FullSubNet's D 32:
+    38.4-38.6 against 63.9-64.8); K1 at N 2313, T 629 112.5 against 195.1.
+    bf16 K2 16.2-16.6 at R 16 in waves against 16.0-16.5 in one wave of R
+    32 (8 steps an item 16.2), so bf16 keeps R 32: a full wave's bf16 step
+    of R 16, 71.7 us, is 1.5x 12 CTAs' 47.7, the weights' L2 pull that R 32
+    halves (FullSubNet's D 32 and K1 at N 2313 went either way by 2-4 %)."""
+    cluster = fwd_sweep_cluster(n, d_in, hidden, out_dim, dtype)
+    if cluster:
+        return cluster, 16
+    rows = fwd_mma_row_tile(n, d_in, hidden, sm_count, dtype)
+    if FWD_WAVE_BY_DTYPE.get(dtype) and -(-n // FWD_WAVE_ROWS) > sm_count:
+        return FWD_SWEEP_WAVE, FWD_WAVE_ROWS
+    return 0, rows
+
+
+def sm_count_of(x: torch.Tensor) -> int:
+    """The SMs of x's card; SM_COUNT for a tensor off the card (the rule
+    asked by shape alone)."""
+    if x.device.type != "cuda":
+        return SM_COUNT
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def fwd_sweep_launch(x: torch.Tensor, w: LSTM2Weights) -> tuple[int, int]:
     """(form, row tile) of a forward sweep of x on its card, the pair K1 and
-    K2 both pass to their C entry points: `fwd_sweep_form`, and 16 for the
-    cluster form or `fwd_mma_row_tile` for the tile form."""
-    form = fwd_sweep_form(x, w)
-    if form:
-        return form, 16
+    K2 both pass to their C entry points: `fwd_sweep_plan`'s, or with
+    FWD_SWEEP_FORM set that form, with 16 rows for the cluster form,
+    FWD_WAVE_ROWS for the wave form and `fwd_mma_row_tile`'s R for the tile
+    form (or any other value, which the kernel refuses)."""
     n, d, _ = x.shape
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return form, fwd_mma_row_tile(n, d, w.u1.shape[0], sm_count, x.dtype)
+    hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
+    sm_count = sm_count_of(x)
+    if FWD_SWEEP_FORM is None:
+        return fwd_sweep_plan(n, d, hidden, out_dim, x.dtype, sm_count)
+    rows = {FWD_CLUSTER: 16, FWD_SWEEP_WAVE: FWD_WAVE_ROWS}.get(FWD_SWEEP_FORM)
+    return FWD_SWEEP_FORM, rows or fwd_mma_row_tile(n, d, hidden, sm_count, x.dtype)
+
+
+def fwd_sweep_form(x: torch.Tensor, w: LSTM2Weights) -> int:
+    """The form a forward sweep of x takes, K1's and K2's alike:
+    FWD_SWEEP_FORM when set, else `fwd_sweep_plan`'s on x's card."""
+    return fwd_sweep_launch(x, w)[0]
+
+
+def fwd_form_name(form: int) -> str:
+    """A form as FWD_SWEEP_FORMS names it: "tile", "wave" or "cluster16"."""
+    return {0: "tile", FWD_SWEEP_WAVE: "wave"}.get(form, f"cluster{form}")
 
 
 def count_form(name: str, form: int) -> None:
     """One launch of a forward sweep (`name`) in `form`, in FWD_SWEEP_FORMS."""
-    FWD_SWEEP_FORMS[f"{name} {f'cluster{form}' if form else 'tile'}"] += 1
+    FWD_SWEEP_FORMS[f"{name} {fwd_form_name(form)}"] += 1
+
+
+def fwd_carry(x: torch.Tensor, form: int, rows: int, hidden: int) -> torch.Tensor | None:
+    """The wave form's carry scratch for a sweep of x ([ceil(N / rows)]
+    tiles of `fwd_carry_bytes`, uninitialised: every part writes what the
+    next reads); None in the other forms."""
+    if form != FWD_SWEEP_WAVE:
+        return None
+    tiles = -(-x.shape[0] // rows)
+    return torch.empty(tiles * fwd_carry_bytes(rows, hidden, x.dtype), dtype=torch.uint8,
+                       device=x.device)
+
+
+def form_label(form: int) -> str:
+    """A refused launch's form, for its error."""
+    return {None: "", 0: "", FWD_SWEEP_WAVE: " (the wave form)"}.get(
+        form, f" (the cluster form, clusters of {form})")
 
 
 def _check(x: torch.Tensor, w: LSTM2Weights) -> None:
@@ -447,17 +537,18 @@ def _launch(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
     packed = pack_fwd_mma(w)
     x_tnd = x.permute(2, 0, 1).contiguous()  # [T, N, D]: a step's rows are contiguous
     out = torch.empty(n, steps, out_dim, dtype=x.dtype, device=x.device)
+    carry = fwd_carry(x, form, rows, hidden)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x_tnd, *packed, w.fc_b, out)
+    args = (x_tnd, *packed, w.fc_b, out, carry)
     with torch.cuda.device(x.device):
         err = lib.lstm2_fwd(
-            *(a.data_ptr() for a in args),
-            n, steps, d, hidden, out_dim, rows, form, _DTYPE_CODES[x.dtype], stream,
+            *(None if a is None else a.data_ptr() for a in args),
+            n, steps, d, hidden, out_dim, rows, form,
+            FWD_WAVE_STEPS if carry is not None else 0, _DTYPE_CODES[x.dtype], stream,
         )
     if err != 0:
-        what = f" (the cluster form, clusters of {form})" if form else ""
-        raise RuntimeError(f"lstm2_fwd launch failed{what}: CUDA error {err}")
+        raise RuntimeError(f"lstm2_fwd launch failed{form_label(form)}: CUDA error {err}")
     LAUNCHES[str(x.device)] += 1
     count_form("lstm2_fwd", form)
     return out

@@ -9,7 +9,9 @@ kernels:
   * `_residual_kernel` (:322, pallas_call at :638) -> csrc/lstm2_train_fwd.cu:
     the forward sweep of ops/lstm2.py (on the tensor cores, from the weights
     `pack_fwd_mma` packs; in float32 as three TF32 products; in the form and
-    row tile K1 takes, `fwd_sweep_launch`) that also
+    row tile K1 takes, `fwd_sweep_launch`: at the training fold the wave
+    form, its h and c carries between a tile's items in device memory) that
+    also
     stores the activated gates
     [sigma(i), sigma(f), tanh(g), sigma(o)] and c, h of both layers, in x's
     dtype, as [T, N, 4H] and [T, N, H];
@@ -59,13 +61,15 @@ from typing import NamedTuple
 
 import torch
 
-from fullsubnet_plus_torch.ops import nvcc
+from fullsubnet_plus_torch.ops import lstm2, nvcc
 from fullsubnet_plus_torch.ops.lstm2 import (
     MAX_HIDDEN,
     SMEM_LIMIT,
     LSTM2Weights,
     count_form,
     fold_split,
+    form_label,
+    fwd_carry,
     fwd_mma_shared_memory_bytes,
     fwd_sweep_launch,
     pack_fwd_mma,
@@ -163,7 +167,7 @@ WGRAD_W1_TILE = (48, 64)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_PTR] * 14 + [_INT] * 8 + [_PTR]
+_FWD_ARGTYPES = [_PTR] * 15 + [_INT] * 9 + [_PTR]
 _BWD_ARGTYPES = [_PTR] * 13 + [_INT] * 10 + [_PTR]
 _WGRAD_ARGTYPES = [_PTR] * 23 + [_INT] * 10 + [_PTR]
 
@@ -604,10 +608,8 @@ def _call(name: str, argtypes: list, x: torch.Tensor, *args, form: int | None = 
     with torch.cuda.device(x.device):
         err = getattr(lib, name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                                    for a in args), stream)
-    if err != 0:
-        what = {None: "", 0: "", SWEEP_WAVE: " (the wave form)"}.get(
-            form, f" (the cluster form, clusters of {form})")
-        raise RuntimeError(f"{name} launch failed{what}: CUDA error {err}")
+    if err != 0:  # the reverse sweep's forms have the forward's numbers (SWEEP_WAVE 1)
+        raise RuntimeError(f"{name} launch failed{form_label(form)}: CUDA error {err}")
     LAUNCHES[name] += 1
     LAUNCHES_BY_CARD[f"{name} {x.device}"] += 1
     if name == "lstm2_train_fwd":
@@ -632,8 +634,10 @@ def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
     out = empty(n, steps, out_dim)
     res = Residuals(*(empty(steps, n, 4 * hidden if f[0] == "g" else hidden)
                       for f in Residuals._fields))
-    _call("lstm2_train_fwd", _FWD_ARGTYPES, x, x_tnd, *packed, w.fc_b, out, *res, n, steps, d,
-          hidden, out_dim, rows, form, _DTYPE_CODES[x.dtype], form=form)
+    carry = fwd_carry(x, form, rows, hidden)  # the wave form's carries between a tile's parts
+    _call("lstm2_train_fwd", _FWD_ARGTYPES, x, x_tnd, *packed, w.fc_b, out, *res, carry, n, steps,
+          d, hidden, out_dim, rows, form, lstm2.FWD_WAVE_STEPS if carry is not None else 0,
+          _DTYPE_CODES[x.dtype], form=form)
     return out, res
 
 

@@ -20,9 +20,10 @@ at both of its row tiles and runs FullSubNet's full-band shape (D 257, H
 cluster forms, held to the plain versions and to their tile forms (K1, K2
 and K5 at several folds, in waves of clusters; K3 and K4 over chunks, in
 waves and with one CTA's sends made late), and a cluster launch at a shape
-the kernel does not run raises. The reverse sweep's wave form (work items
-of a row tile and a few steps, launched in waves of a CTA an SM) equals its
-tile form bit for bit. chip_smoke.py repeats these checks at the model's
+the kernel does not run raises. The reverse and forward sweeps' wave forms
+(work items of a row tile and a few steps, launched in waves of a CTA an
+SM) equal their tile forms bit for bit, and a wave launch at a shape it
+does not run raises. chip_smoke.py repeats these checks at the model's
 folds.
 """
 
@@ -634,3 +635,76 @@ def test_wave_sweep_matches_plain_and_tile_on_cuda(monkeypatch, dtype, n, d, pk)
         assert torch.equal(getattr(k3[0], name), getattr(k3[1], name)), name
         assert torch.equal(getattr(k3[1], name), getattr(k3_tile, name)), name
     assert min(_snr(k3_tile.db1, k3[1].db1), _snr(k3_tile.db2, k3[1].db2)) >= 100.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pk", [1, 4])
+@pytest.mark.parametrize("n", [40, 771, 2304])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_wave_form_matches_plain_and_tile_on_cuda(monkeypatch, dtype, n, pk):
+    """The forward sweep's wave form (H 384, D 34, T 9, items of pk steps, so
+    at 4 the last part is ragged) at folds of 3, 49 and 144 row tiles: the
+    rule takes it at N 2304 where FWD_WAVE_BY_DTYPE holds and the card has
+    fewer SMs than tiles, and it is forced elsewhere. K1's y and K2's y and
+    six residuals equal the tile form forced (FWD_SWEEP_FORM 0, at its own
+    row tile: R 32 in bf16 at N 2304) bit for bit, and in bf16 the wave form
+    at R 32 too; they hold the floors against the plain versions; K1 equals
+    itself on a repeat and K2's y equals K1's; each launch is counted by its
+    form."""
+    _need_card()
+    t = 9
+    lstm, linear = _modules(34, 384, 2, dtype, seed=n + pk)
+    x = torch.rand(n, 34, t, generator=torch.Generator().manual_seed(n)).mul(2).to("cuda", dtype)
+    w = lstm.packed(linear)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rule_wave = ops_lstm2.FWD_WAVE_BY_DTYPE[dtype] and -(-n // 16) > sms
+    assert (ops_lstm2.fwd_sweep_plan(n, 34, 384, 2, dtype, sms)[0] == 1) == rule_wave
+    monkeypatch.setattr(ops_lstm2, "FWD_WAVE_STEPS", pk)
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORMS", type(ops_lstm2.FWD_SWEEP_FORMS)())
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", ops_lstm2.FWD_SWEEP_WAVE)
+    y, again = ops_lstm2.lstm2_fc(x, w), ops_lstm2.lstm2_fc(x, w)
+    y2, res = lt.lstm2_train_fwd(x, w)
+    waves = []
+    if dtype == torch.bfloat16:
+        monkeypatch.setattr(ops_lstm2, "FWD_WAVE_ROWS", 32)
+        waves = [ops_lstm2.lstm2_fc(x, w), lt.lstm2_train_fwd(x, w)]
+        monkeypatch.setattr(ops_lstm2, "FWD_WAVE_ROWS", 16)
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", 0)
+    tile = ops_lstm2.lstm2_fc(x, w)
+    y2_tile, res_tile = lt.lstm2_train_fwd(x, w)
+    torch.cuda.synchronize()
+    wave_k1, wave_k2 = (3, 2) if waves else (2, 1)
+    assert ops_lstm2.FWD_SWEEP_FORMS == {"lstm2_fwd wave": wave_k1, "lstm2_train_fwd wave": wave_k2,
+                                         "lstm2_fwd tile": 1, "lstm2_train_fwd tile": 1}
+    assert torch.equal(y, again) and torch.equal(y, y2) and torch.equal(y, tile)
+    assert torch.equal(y2_tile, tile)
+    assert all(torch.equal(a, b) for a, b in zip(res, res_tile))
+    if waves:
+        assert torch.equal(waves[0], y) and torch.equal(waves[1][0], y)
+        assert all(torch.equal(a, b) for a, b in zip(waves[1][1], res))
+    y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+    snrs = {"y": _snr(y_ref.float(), y.float())}
+    snrs.update({name: _snr(a.float(), b.float()) for name, a, b in zip(res._fields, res_ref, res)})
+    assert min(snrs.values()) >= FLOOR[dtype], snrs
+
+
+@pytest.mark.cuda
+def test_fwd_wave_form_refuses_a_shape_it_does_not_run(monkeypatch):
+    """The wave form forced where its row tile does not fit a block (float32
+    at D 512, H 512): K1's launch is refused by the kernel's launcher and
+    raises, naming the wave form; K2 raises at its shape check; nothing is
+    launched or counted, and nothing falls back to another form."""
+    _need_card()
+    lstm, linear = _modules(512, 512, 2, torch.float32, seed=9)
+    x = torch.rand(40, 512, 3, generator=torch.Generator().manual_seed(9)).cuda()
+    w = lstm.packed(linear)
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", ops_lstm2.FWD_SWEEP_WAVE)
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORMS", type(ops_lstm2.FWD_SWEEP_FORMS)())
+    before = (sum(ops_lstm2.LAUNCHES.values()), lt.LAUNCHES["lstm2_train_fwd"])
+    with pytest.raises(RuntimeError, match="wave form"):
+        ops_lstm2.lstm2_fc(x, w)
+    with pytest.raises(ValueError, match="more shared memory"):
+        lt.lstm2_train_fwd(x, w)
+    torch.cuda.synchronize()
+    assert (sum(ops_lstm2.LAUNCHES.values()), lt.LAUNCHES["lstm2_train_fwd"]) == before
+    assert not ops_lstm2.FWD_SWEEP_FORMS

@@ -1056,22 +1056,35 @@ def test_fwd_sweep_cluster_rule(dtype):
 
 class _FakeForwardLibrary:
     """Stands in for the built K1 and K2 libraries: records each call's row
-    tile and form (the C entry points' arguments after n, steps, D, H, O) and
-    refuses the cluster form off H 512, as `fwd::cluster_runs` does."""
+    tile and form (the C entry points' arguments after n, steps, D, H, O)
+    and, for the wave form, its steps a part and the carry's bytes; refuses
+    the cluster form off H 512, as `fwd::cluster_runs` does, a wave form
+    without its carry and part steps, and a tile or wave form whose shared
+    memory overflows a block, as `fwd::launch_form` does."""
 
     def __init__(self):
         self.calls = []
 
     def _record(self, name, args, first_int):
-        n, steps, d, h, o, rows, form = args[first_int:first_int + 7]
+        carry = args[first_int - 1]
+        n, steps, d, h, o, rows, form, part_steps, dtype = args[first_int:first_int + 9]
         self.calls.append((name, rows, form))
-        return 1 if form and h != 512 else 0
+        if form == 1:
+            self.calls[-1] += (part_steps, carry)
+            if not carry or part_steps < 1:
+                return 1
+        if form == 16:
+            return 1 if h != 512 else 0
+        size = 4 if dtype == 0 else 2
+        smem = ops_lstm2.fwd_mma_shared_memory_bytes(
+            rows, d, h, {4: torch.float32, 2: torch.bfloat16}[size])
+        return 1 if form not in (0, 1) or smem > ops_lstm2.SMEM_LIMIT else 0
 
     def lstm2_fwd(self, *args):
-        return self._record("lstm2_fwd", args, 8)
+        return self._record("lstm2_fwd", args, 9)
 
     def lstm2_train_fwd(self, *args):
-        return self._record("lstm2_train_fwd", args, 14)
+        return self._record("lstm2_train_fwd", args, 15)
 
 
 @pytest.fixture
@@ -1098,32 +1111,61 @@ def fake_forward(monkeypatch):
     return lib
 
 
+_BF16_AT_2304 = ((16, 1) if ops_lstm2.FWD_WAVE_BY_DTYPE[torch.bfloat16] else (32, 0))
+
+
 @pytest.mark.parametrize("n,d,h,o,dtype,want", [
     (7, 257, 512, 257, torch.float32, (16, 16)), (18, 257, 512, 257, torch.bfloat16, (16, 16)),
-    (2304, 34, 384, 2, torch.bfloat16, (32, 0)), (2056, 34, 384, 2, torch.float32, (16, 0))])
+    (2304, 34, 384, 2, torch.bfloat16, _BF16_AT_2304), (2056, 34, 384, 2, torch.float32, (16, 0)),
+    (2304, 32, 384, 2, torch.float32, (16, 1))])
 def test_fwd_k1_and_k2_take_the_same_form(fake_forward, monkeypatch, n, d, h, o, dtype, want):
     """K1's `_launch` and K2's `_launch_train_fwd` pass the same (row tile,
     form) to their C entry points, the rule's (clusters of 16, rows 16, at
-    FullSubNet's full-band folds; the tile form with `fwd_mma_row_tile`'s R
-    at the shipped folds), count each launch by form, and take a forced
-    form; a form the kernel refuses raises, naming it, with no fallback."""
+    FullSubNet's full-band folds; the wave form, rows 16, FWD_WAVE_STEPS
+    steps a part and a carry of a tile's h and c, past one wave of row tiles
+    where the rule takes it; else the tile form with `fwd_mma_row_tile`'s R),
+    count each launch by form, and take a forced form; a form the kernel
+    refuses raises, naming it, with no fallback."""
     params, fc = _case(2, 1, d, h, o)[:2]
     w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, dtype, requires_grad=False))
     x = torch.zeros(n, d, 2, dtype=dtype)
     ops_lstm2._launch(x, w)
     lt._launch_train_fwd(x, w)
-    assert fake_forward.calls == [("lstm2_fwd", *want), ("lstm2_train_fwd", *want)]
-    tag = f"cluster{want[1]}" if want[1] else "tile"
+    assert [c[:3] for c in fake_forward.calls] == [("lstm2_fwd", *want), ("lstm2_train_fwd", *want)]
+    if want[1] == 1:
+        assert all(c[3] == ops_lstm2.FWD_WAVE_STEPS and c[4] for c in fake_forward.calls)
+    tag = ops_lstm2.fwd_form_name(want[1])
     assert ops_lstm2.FWD_SWEEP_FORMS == {f"lstm2_fwd {tag}": 1, f"lstm2_train_fwd {tag}": 1}
-    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", 16 - want[1])
-    forced = [] if h == 512 else [pytest.raises(RuntimeError, match="cluster form, clusters of 16")]
+    forced = 0 if want[1] == 16 else 16
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", forced)
+    refused = [] if h == 512 else [pytest.raises(RuntimeError, match="cluster form, clusters of 16")]
     for launch in (ops_lstm2._launch, lt._launch_train_fwd):
-        if forced:
-            with forced[0]:
+        if refused:
+            with refused[0]:
                 launch(x, w)
         else:
             launch(x, w)
-    assert [c[2] for c in fake_forward.calls[2:]] == [16 - want[1]] * 2
+    assert [c[2] for c in fake_forward.calls[2:]] == [forced] * 2
+
+
+def test_fwd_wave_launch_refused_raises_without_fallback(fake_forward, monkeypatch):
+    """The wave form forced where its tile does not fit a block (float32 at
+    D 512, H 512: two operand buffers [16][512 + 1024 + 4] and c1, c2 are
+    262,656 bytes): K1's launch is refused and raises, naming the wave
+    form; K2's check raises before its launch; nothing is counted and no
+    other form or the plain version runs in its place."""
+    params, fc = _case(2, 1, 512, 512, 2)[:2]
+    w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, torch.float32, requires_grad=False))
+    x = torch.zeros(40, 512, 2)
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", ops_lstm2.FWD_SWEEP_WAVE)
+    assert ops_lstm2.fwd_mma_shared_memory_bytes(16, 512, 512, torch.float32) == 262_656
+    with pytest.raises(RuntimeError, match="lstm2_fwd launch failed \\(the wave form\\)"):
+        ops_lstm2._launch(x, w)
+    with pytest.raises(ValueError, match="more shared memory than a block has"):
+        lt._launch_train_fwd(x, w)
+    assert [c[:3] for c in fake_forward.calls] == [("lstm2_fwd", 16, 1)]
+    assert not ops_lstm2.FWD_SWEEP_FORMS and not sum(ops_lstm2.LAUNCHES.values())
+    assert lt.LAUNCHES["lstm2_train_fwd"] == 0
 
 
 @pytest.mark.parametrize("d", [257, 34])
@@ -1527,3 +1569,169 @@ def test_wave_schedule_runs_each_part_after_the_one_before(n, steps, part_steps)
     assert all(v == list(range(steps - 1, -1, -1)) for v in covered.values())
     if n == 2304 and steps == 195:
         assert -(-items // wave) * part_steps < 2 * steps
+
+
+# ---------------------------------------------------------------------------
+# the forward sweep's wave form (csrc/lstm2_fwd_sweep.cuh)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_sweep_plan_rule(dtype):
+    """The forward sweep's (form, row tile) by shape and SM count
+    (`fwd_sweep_plan`, an H100's 132 SMs), the pair K1 and K2 both take:
+    the wave form at 16 rows where the fold has more row tiles of 16 than
+    the card has SMs and FWD_WAVE_BY_DTYPE holds (the training fold N 2304
+    at D 34 and at FullSubNet's sub-band D 32, 144 tiles; a batch of 9
+    utterances, N 2313); the tile form with `fwd_mma_row_tile`'s R where one
+    wave holds them (the batch fold N 2056, a card's half of the training
+    fold N 1152, N 771) or on a card of 144 SMs; clusters of 16 at
+    FullSubNet's full-band folds. FWD_SWEEP_FORM forces each form, with 16
+    rows for the cluster and wave forms and the tile form's own R. The wave
+    form's carries are h1 and h2 in the weight dtype and c1, c2 float32."""
+    wave = ops_lstm2.FWD_WAVE_BY_DTYPE[dtype]
+    assert ops_lstm2.FWD_WAVE_BY_DTYPE[torch.float32]
+    for n, d in ((2304, 34), (2304, 32), (2313, 34)):
+        want = (ops_lstm2.FWD_SWEEP_WAVE, 16) if wave else (0, 32)
+        assert ops_lstm2.fwd_sweep_plan(n, d, 384, 2, dtype) == want
+    assert ops_lstm2.fwd_sweep_plan(2304, 34, 384, 2, dtype, sm_count=144) == (
+        0, ops_lstm2.fwd_mma_row_tile(2304, 34, 384, 144, dtype))
+    for n in (2056, 1152, 771, 2112):
+        assert ops_lstm2.fwd_sweep_plan(n, 34, 384, 2, dtype) == (
+            0, ops_lstm2.fwd_mma_row_tile(n, 34, 384, 132, dtype))
+    assert ops_lstm2.fwd_sweep_plan(2113, 34, 384, 2, dtype)[0] == (1 if wave else 0)
+    for n in (8, 18):
+        assert ops_lstm2.fwd_sweep_plan(n, 257, 512, 257, dtype) == (16, 16)
+    assert ops_lstm2.SM_COUNT == 132 and ops_lstm2.FWD_WAVE_STEPS >= 1
+    assert ops_lstm2.FWD_SWEEP_WAVE == lt.SWEEP_WAVE == 1 and ops_lstm2.FWD_WAVE_ROWS == 16
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert ops_lstm2.fwd_carry_bytes(16, 384, dtype) == 2 * 16 * 384 * (size + 4)
+    assert [ops_lstm2.fwd_form_name(f) for f in (0, 1, 16)] == ["tile", "wave", "cluster16"]
+    params, fc = _case(2, 1, 34, 384, 2)[:2]
+    w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, dtype, requires_grad=False))
+    x = torch.zeros(2304, 34, 1, dtype=dtype)
+    assert ops_lstm2.fwd_sweep_launch(x, w) == ops_lstm2.fwd_sweep_plan(2304, 34, 384, 2, dtype)
+    for forced, want in ((0, (0, ops_lstm2.fwd_mma_row_tile(2304, 34, 384, 132, dtype))),
+                         (1, (1, 16)), (16, (16, 16))):
+        ops_lstm2.FWD_SWEEP_FORM = forced
+        try:
+            assert ops_lstm2.fwd_sweep_launch(x, w) == want
+            assert ops_lstm2.fwd_sweep_form(x, w) == forced
+        finally:
+            ops_lstm2.FWD_SWEEP_FORM = None
+    carry = ops_lstm2.fwd_carry(x, 1, 16, 384)
+    assert carry.dtype == torch.uint8 and carry.numel() == 144 * 2 * 16 * 384 * (size + 4)
+    assert ops_lstm2.fwd_carry(x, 0, 16, 384) is None
+
+
+def _fwd_wave_schedule(n, steps, part_steps, sm_count, rows=16):
+    """The wave form's launches as `launch_mma_tile` makes them: work items
+    k = 0 .. tiles x parts - 1, item k the row tile k mod tiles over part k
+    div tiles (steps [part x part_steps, min(T, (part + 1) part_steps))),
+    in launches of W = min(SMs, tiles) items. -> [[(tile, t_lo, t_hi), ..]
+    a launch]."""
+    tiles, parts = -(-n // rows), -(-steps // part_steps)
+    items, wave = tiles * parts, min(sm_count, tiles)
+    launches = []
+    for item0 in range(0, items, wave):
+        launch = []
+        for k in range(item0, min(items, item0 + wave)):
+            part, tile = divmod(k, tiles)
+            launch.append((tile, part * part_steps, min(steps, (part + 1) * part_steps) - 1))
+        launches.append(launch)
+    return launches
+
+
+@pytest.mark.parametrize("n,steps", [(2304, 195), (2313, 629), (2304, 9), (40, 9), (771, 5)])
+@pytest.mark.parametrize("part_steps", [1, 4, 16])
+def test_fwd_wave_schedule_runs_each_part_after_the_one_before(n, steps, part_steps):
+    """The wave form's schedule on 132 SMs, oldest steps first: every tile's
+    parts cover its steps once and in order, an item's previous part ran in
+    an earlier launch (stream order is the only synchronisation), and every
+    step's y has one writer (an item runs the fc of the steps before its last
+    at the top of the next and its last one after its loop). At the training
+    fold and 4 steps an item: 54 launches, 216 steps' time against the tile
+    form's 195 of a full wave and 195 of a second."""
+    launches = _fwd_wave_schedule(n, steps, part_steps, 132)
+    covered, finished = {}, {}
+    for i, launch in enumerate(launches):
+        assert len({tile for tile, _, _ in launch}) == len(launch)
+        for tile, lo, hi in launch:
+            assert covered.get(tile, []) == list(range(lo))  # the steps before, all done
+            assert lo == 0 or finished[tile] < i
+            covered.setdefault(tile, []).extend(range(lo, hi + 1))
+            finished[tile] = i
+    assert len(covered) == -(-n // 16)
+    assert all(v == list(range(steps)) for v in covered.values())
+    if (n, steps, part_steps) == (2304, 195, 4):
+        assert len(launches) == 54 and len(launches) * part_steps == 216 < 2 * steps
+
+
+def _fwd_wave_walk(x, w, part_steps, sm_count, rows=16, carry_c=lambda c: c):
+    """The forward sweep in the wave form's schedule, a tile's rows through
+    the plain step (products in float32 from h rounded to the weight dtype,
+    c float32), each item resuming from its tile's carries: h1 and h2 as the
+    operand rows hold them (rounded) and c through `carry_c` (the kernel
+    keeps the float32 words). -> (y [N, T, O], the residuals [T, N, .], the
+    writers of each y row and step)."""
+    n, _, steps = x.shape
+    hidden, dtype = w.u1.shape[0], w.w1.dtype
+    w1, u1, w2 = w.w1.float(), w.u1.float(), w.w2.float()
+    y = torch.full((n, steps, w.fc_w.shape[1]), float("nan"))
+    res = {f: torch.full((steps, n, 4 * hidden if f[0] == "g" else hidden), float("nan"))
+           for f in lt.Residuals._fields}
+    writers, carry = torch.zeros(n, steps, dtype=torch.int64), {}
+    for launch in _fwd_wave_schedule(n, steps, part_steps, sm_count, rows):
+        stored = {}
+        for tile, lo, hi in launch:
+            rs = slice(tile * rows, min(n, (tile + 1) * rows))
+            h1, h2, c1, c2 = carry[tile] if lo else (torch.zeros(rs.stop - rs.start, hidden),) * 4
+            for t in range(lo, hi + 1):
+                gates1 = x[rs, :, t].float() @ w1 + h1 @ u1 + w.b1
+                h1, c1 = ops_lstm2.lstm_cell(gates1, c1)
+                h1 = h1.to(dtype).float()
+                gates2 = torch.cat([h1, h2], dim=-1) @ w2 + w.b2
+                h2, c2 = ops_lstm2.lstm_cell(gates2, c2)
+                h2 = h2.to(dtype).float()
+                y[rs, t] = h2 @ w.fc_w + w.fc_b
+                writers[rs, t] += 1
+                for name, v in zip(lt.Residuals._fields, (
+                        _activated(gates1), c1, h1, _activated(gates2), c2, h2)):
+                    res[name][t, rs] = v
+            stored[tile] = (h1, h2, carry_c(c1), carry_c(c2))
+        carry.update(stored)  # read only by a later launch
+    return y.to(dtype), {k: v.to(dtype) for k, v in res.items()}, writers
+
+
+def _activated(gates):
+    i, f, g, o = gates.chunk(4, dim=-1)
+    return torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)], -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("part_steps", [1, 4])
+def test_fwd_wave_walk_equals_the_tile_walk(dtype, part_steps):
+    """Walked in the wave form's schedule (3 row tiles in waves of 2, T 9,
+    so the last part is ragged at 4 steps an item), the forward gives the
+    tile form's y and residuals bit for bit when the carries are h1, h2 as
+    the operand rows hold them and c as float32, every y word written once,
+    and it agrees with `lstm2_train_fwd_reference`. Resuming from c rounded
+    to bf16, as the saved residual c is, changes the bits."""
+    n, t = 40, 9
+    params, fc, x, _ = _case(n, t, 6, 32, 2, seed=3)
+    w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, dtype, requires_grad=False))
+    x = torch.tensor(x).to(dtype)
+    y_tile, res_tile, _ = _fwd_wave_walk(x, w, t, 2)
+    y, res, writers = _fwd_wave_walk(x, w, part_steps, 2)
+    assert (writers == 1).all()
+    assert torch.equal(y, y_tile)
+    assert all(torch.equal(res[k], res_tile[k]) for k in res)
+    y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(y.float().numpy(), y_ref.float().numpy(), atol=tol, rtol=tol)
+    for name, want in zip(lt.Residuals._fields, res_ref):
+        np.testing.assert_allclose(res[name].float().numpy(), want.float().numpy(), atol=tol,
+                                   rtol=tol, err_msg=name)
+    if dtype == torch.bfloat16:
+        y_rounded, _, _ = _fwd_wave_walk(x, w, part_steps, 2,
+                                         carry_c=lambda c: c.to(dtype).float())
+        assert not torch.equal(y_rounded, y_tile)
