@@ -15,8 +15,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      forward sweeps of K1 and K2, the float32 reverse sweeps of K3 and K4
      and each float32 `wgrad_tf32_kernel` (a function a tile shape) must
      have TF32 ones (HMMA.1688.F32.TF32: each float32 product as three TF32
-     products), and no bf16 FMA sweep, FMA forward or reverse sweep or FMA
-     `wgrad_kernel` may be compiled; the cluster forms of the
+     products), the wgmma weight-gradient kernels `wgrad_wgmma_kernel`
+     (bf16) and `wgrad_wgmma_tf32_kernel` (float32) must have BF16 and
+     TF32 HGMMA (wgmma) instructions, and no bf16 FMA sweep, FMA forward or
+     reverse sweep or FMA `wgrad_kernel` may be compiled; the cluster forms of the
      forward and reverse sweeps (`fwd::` and `bwd::sweep_cluster_kernel`,
      two functions in each of the four libraries) must have HMMA and, in
      float32, TF32 HMMA instructions; print the float32 reverse sweeps'
@@ -59,7 +61,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      kernel and the rest (torch.profiler); that kernel beside its own bound,
      beside the same four products as cuBLAS GEMMs (bf16 over all T, a
      yardstick; float32: `weight_grads`, the unfused form's SGEMMs) and at
-     each candidate tile of dU1, dW2, dU2 in both dtypes; K3 against K4
+     each candidate tile of dU1, dW2, dU2 in both dtypes, each wgmma
+     kernel beside the mma.sync kernel forced in the same call; K3 against K4
      plus `weight_grads` in both dtypes at the training fold and, in
      float32, at FullSubNet's sub-band and full-band training folds too
      (what `FUSED_WGRAD_BY_DTYPE` rests on); the reverse sweep's form by the
@@ -89,8 +92,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      K2 + K3 and in float32 through K2 + K4; every loss and gradient norm
      finite, nothing skipped, the launch counts as expected, every forward
      sweep in the tile form and every reverse sweep in the rule's form (the
-     wave form: 144 row tiles on 132 SMs), the float32 and bf16 K3
-     steps also with the tile form forced, timed beside; then the plain
+     wave form: 144 row tiles on 132 SMs) and K3's weight gradients in the
+     rule's tile (the wgmma kernels), the float32 and bf16 K3 steps also
+     with the tile form forced and with the mma.sync weight gradients
+     forced, timed beside; then the plain
      versions' float32 run, and at each of its steps the same step from a
      copy of its state through the kernels (float32 K2 + K3 and K2 + K4,
      bf16 K2 + K3), loss and gradient norm held to the plain step's, each
@@ -207,7 +212,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      default timed and profiled (no TF32 product), its forward sweeps the
      cluster form at the full-band fold and the tile form at the sub-band
      one, its reverse sweeps the cluster form and the wave form, and
-     timed again with the sub-band sweep's tile form forced;
+     timed again with the sub-band sweep's tile form forced and with K3's
+     weight gradients on the mma.sync kernels forced;
      (d) one float32 epoch of
      the trainer (the CLI's functions) on phase 8's corpus, its checkpoints
      in the JAX package's FullSubNet keys, and one more epoch profiled;
@@ -323,9 +329,11 @@ TF32_HMMA = "HMMA.1688.F32.TF32"  # mma.sync m16n8k8 on TF32 operands, float32 s
 FIXTURE_GENERATOR = os.path.join(REPO, "tests", "fixtures", "gen_torch_kernel_fixture.py")
 # K5's sweeps: the tile form `int8_sweep_kernel`, the cluster form `int8_sweep_cluster_kernel`
 INT8_SWEEP = re.compile(r"int8_sweep_(cluster_)?kernel")
-# K3's weight-gradient kernels: `wgrad_mma_kernel` (bf16), `wgrad_tf32_kernel` (float32,
-# 3xTF32); `wgrad_kernel` was the float32 FMA kernel, which must not come back
-WGRAD_KERNEL = re.compile(r"wgrad_(mma_|tf32_)?kernel")
+# K3's weight-gradient kernels: on mma.sync `wgrad_mma_kernel` (bf16), `wgrad_tf32_kernel`
+# (float32, 3xTF32); on wgmma `wgrad_wgmma_kernel` (bf16), `wgrad_wgmma_tf32_kernel`
+# (float32, 3xTF32) and the reduction of their runs' partials, `wgmma_reduce_kernel`;
+# `wgrad_kernel` was the float32 FMA kernel, which must not come back
+WGRAD_KERNEL = re.compile(r"wgrad_(mma_|tf32_|wgmma_(tf32_)?)?kernel|wgmma_reduce_kernel")
 # kernel names of a matrix product or convolution that computes in TF32 (CUTLASS's
 # s1688 / s16816 tensor-op GEMMs take float32 operands as TF32 unless named for bf16 / f16)
 TF32_KERNEL = re.compile(r"tf32|s1688gemm(?!_bf16|_f16)|s16816gemm(?!_bf16|_f16)", re.IGNORECASE)
@@ -451,9 +459,10 @@ def cudnn_lstm(lstm, fc, dtype: torch.dtype):
     return run
 
 
-def sass_instruction_counts(lib, opcode: str) -> dict:
-    """{kernel function: count of `opcode` instructions} in a built library
-    (`cuobjdump -sass`, from the CUDA toolkit nvcc came from)."""
+def sass_instruction_counts(lib, opcode: str, operand_type: str = "") -> dict:
+    """{kernel function: count of `opcode` instructions (whose line also
+    names `operand_type`, e.g. ".BF16")} in a built library (`cuobjdump
+    -sass`, from the CUDA toolkit nvcc came from)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else "cuobjdump"
@@ -465,7 +474,7 @@ def sass_instruction_counts(lib, opcode: str) -> dict:
         if "Function : " in line:
             function = line.split("Function : ", 1)[1].strip()
             counts[function] = 0
-        elif function is not None and f" {opcode}" in line:
+        elif function is not None and f" {opcode}" in line and operand_type in line:
             counts[function] += 1
     return counts
 
@@ -628,20 +637,34 @@ def cluster_functions(lib, stem: str) -> dict:
 
 def wgrad_functions(lib) -> dict:
     """K3's weight-gradient functions: {function: {hmma, tf32_hmma,
-    registers, spill bytes}}, printed; fails unless the bf16 one has HMMA
-    instructions and each float32 one (`wgrad_tf32_kernel`, a function a
-    tile shape) HMMA.1688.F32.TF32, and if any FMA `wgrad_kernel` was
+    hgmma_bf16, hgmma_tf32, registers, spill bytes}}, printed; fails unless
+    the bf16 mma.sync one has HMMA instructions, each float32 mma.sync one
+    (`wgrad_tf32_kernel`, a function a tile shape) HMMA.1688.F32.TF32, each
+    bf16 `wgrad_wgmma_kernel` BF16 HGMMA (wgmma) instructions and each
+    `wgrad_wgmma_tf32_kernel` TF32 HGMMA, and if any FMA `wgrad_kernel` was
     compiled."""
     hmma, tf32 = (sass_instruction_counts(lib, op) for op in ("HMMA", TF32_HMMA))
+    hgmma_bf16, hgmma_tf32 = (sass_instruction_counts(lib, "HGMMA", kind)
+                              for kind in (".BF16", ".TF32"))
     ptxas = ptxas_functions(lib)
     out = {}
     for function in (f for f in hmma if WGRAD_KERNEL.search(f)):
         regs, spill_st, spill_ld = ptxas.get(function, (None, None, None))
         print(f"[1] lstm2_bwd_wgrad: {function} has {hmma[function]} HMMA, {tf32[function]} "
-              f"{TF32_HMMA} instructions; ptxas: {regs} registers, {spill_st} bytes spill "
+              f"{TF32_HMMA}, {hgmma_bf16[function]} BF16 HGMMA, {hgmma_tf32[function]} TF32 "
+              f"HGMMA instructions; ptxas: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads")
-        out[function] = {"hmma": hmma[function], "tf32_hmma": tf32[function], "registers": regs,
-                         "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
+        out[function] = {"hmma": hmma[function], "tf32_hmma": tf32[function],
+                         "hgmma_bf16": hgmma_bf16[function], "hgmma_tf32": hgmma_tf32[function],
+                         "registers": regs, "spill_store_bytes": spill_st,
+                         "spill_load_bytes": spill_ld}
+    wgmma = [v["hgmma_bf16"] for f, v in out.items() if "wgrad_wgmma_kernel" in f]
+    if not wgmma or min(wgmma) == 0:
+        fail("lstm2_bwd_wgrad: the bf16 wgmma weight gradients have no BF16 HGMMA instructions")
+    wgmma = [v["hgmma_tf32"] for f, v in out.items() if "wgrad_wgmma_tf32_kernel" in f]
+    if not wgmma or min(wgmma) == 0:
+        fail("lstm2_bwd_wgrad: the float32 wgmma weight gradients have no TF32 HGMMA "
+             "instructions")
     mma = [v["hmma"] for f, v in out.items() if "wgrad_mma_kernel" in f]
     if not mma or min(mma) == 0:
         fail("lstm2_bwd_wgrad: the bf16 weight gradients have no tensor-core instructions")
@@ -1155,7 +1178,8 @@ def phase_time_train() -> dict:
     time split into the reverse sweep, the weight-gradient kernel and the
     rest, that kernel beside its own bound and, in bf16, beside the same
     four products as bf16 cuBLAS GEMMs over all T (a yardstick) and at each
-    candidate tile; K3 against K4 plus `weight_grads`, the two forms
+    candidate tile, each wgmma kernel beside the mma.sync kernel forced in
+    the same call; K3 against K4 plus `weight_grads`, the two forms
     `FUSED_WGRAD` chooses between."""
     from fullsubnet_plus_torch.ops import lstm2_train as lt
 
@@ -1199,6 +1223,14 @@ def phase_time_train() -> dict:
         tile_ms = wgrad_ms_by_tile(k3_call, dtype)
         print(f"[3] {str(dtype)[6:]} weight-gradient kernel by tile of dU1, dW2, dU2 (device ms, "
               f"one call each): {tile_ms} (the rule takes {lt.wgrad_tiles(D, H, dtype)[1]})")
+        shapes = lt.WGRAD_F32_TILES if dtype == torch.float32 else lt.WGRAD_H_TILES
+        mma_label = "x".join(map(str, shapes[mma_sync_wgrad_tile(dtype, N_TRAIN)]))
+        library = (f"bf16 cuBLAS GEMMs {cublas_ms:.3f} ms" if cublas_ms is not None else
+                   f"float32 cuBLAS SGEMMs (weight_grads) {outside_ms:.3f} ms")
+        for label, wgmma_ms in ((k, v) for k, v in tile_ms.items() if "wgmma" in k):
+            print(f"[3] {str(dtype)[6:]} wgmma weight-gradient kernel {label} {wgmma_ms:.3f} ms "
+                  f"beside the mma.sync kernel {mma_label} forced in the same call "
+                  f"{tile_ms[mma_label]:.3f} ms, bound {wgrad_bound_ms:.3f} ms, {library}")
         tiles = time_row_tiles(lambda: lt.lstm2_train_fwd(x, w), dtype)
         print(f"[3] lstm2_train_fwd {str(dtype)[6:]} N={N_TRAIN} T={T_TRAIN} by row tile of the "
               f"tile form: {tiles} ms (the rule takes {fwd_tile_at(N_TRAIN, dtype)})")
@@ -1250,6 +1282,7 @@ def phase_time_train() -> dict:
         times[("lstm2_bwd_wgrad", dtype)].update(
             wgrad_kernel_ms=k3["wgrad_kernel_ms"], wgrad_bound_ms=wgrad_bound_ms,
             wgrad_bound_by=wgrad_bound_by, wgrad_tile_ms=tile_ms,
+            wgrad_mma_sync_ms=tile_ms[mma_label],
             wgrad_library_ms=cublas_ms if dtype == torch.bfloat16 else outside_ms)
         times[("lstm2_bwd", dtype)]["outside_products_ms"] = outside_ms
         fused_ms, unfused_ms = ms["lstm2_bwd_wgrad"], ms["lstm2_bwd"] + outside_ms
@@ -1528,17 +1561,19 @@ def phase_train() -> dict:
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def run(tag, dtype, fused, form=None, fwd_form=None):
+    def run(tag, dtype, fused, form=None, fwd_form=None, mma_sync_wgrad=False):
         """TRAIN_STEPS steps from the seeded state; metrics, walls, launches
         (the reverse sweep in `form` and the forward in `fwd_form` where
-        given, else the rule's)."""
+        given, else the rule's; K3's weight gradients on the mma.sync kernel
+        with `mma_sync_wgrad`, else in the rule's tile)."""
         state = seeded_state()
         train_step = make_step(dtype)
         reset_launches()
         metrics, walls = [], []
         lt.SWEEP_FORM, lstm2.FWD_SWEEP_FORM = form, fwd_form
         try:
-            with training_kernels(fused):
+            with training_kernels(fused), (forced_mma_sync_wgrad() if mma_sync_wgrad
+                                           else contextlib.nullcontext()):
                 for noisy, clean in batches:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -1557,6 +1592,15 @@ def phase_train() -> dict:
         if dict(lt.SWEEP_FORMS) != {f"{backward} {name}": TRAIN_STEPS}:
             fail(f"train {tag}: the shipped fold's reverse sweeps took the forms "
                  f"{dict(lt.SWEEP_FORMS)}, not the {name} form once a step")
+        if fused:  # K3's weight gradients in the tile the rule takes at the training fold
+            wgrad = lt.wgrad_tiles(D, H, dtype)[1]
+            if mma_sync_wgrad:
+                wgrad = (lt.WGRAD_F32_TILES if dtype == torch.float32
+                         else lt.WGRAD_H_TILES)[mma_sync_wgrad_tile(dtype, N_TRAIN)]
+            wgrad = f"lstm2_bwd_wgrad {'x'.join(map(str, wgrad))}"
+            if dict(lt.WGRAD_TILES) != {wgrad: TRAIN_STEPS}:
+                fail(f"train {tag}: K3's weight gradients took the tiles "
+                     f"{dict(lt.WGRAD_TILES)}, not {wgrad} once a step")
         fwd_name = (fwd_rule_form(N_TRAIN, SB, dtype) if fwd_form is None
                     else lstm2.fwd_form_name(fwd_form))
         if dict(lstm2.FWD_SWEEP_FORMS) != {f"lstm2_train_fwd {fwd_name}": TRAIN_STEPS}:
@@ -1578,7 +1622,8 @@ def phase_train() -> dict:
         if int(state.step) != TRAIN_STEPS or int(state.opt_state.count) != TRAIN_STEPS:
             fail(f"train {tag}: step {int(state.step)}, Adam count {int(state.opt_state.count)}")
         return {"state": state, "metrics": metrics, "wall_ms": wall, "launches": launches,
-                "audio_s_per_s": audio_s / wall * 1e3, "sweep_form": name, "fwd_form": fwd_name}
+                "audio_s_per_s": audio_s / wall * 1e3, "sweep_form": name, "fwd_form": fwd_name,
+                "wgrad_tiles": dict(lt.WGRAD_TILES)}
 
     runs = {"float32_k3": run("float32 K2+K3", torch.float32, True),
             "bfloat16_k3": run("bfloat16 K2+K3", torch.bfloat16, True),
@@ -1600,6 +1645,14 @@ def phase_train() -> dict:
         print(f"[6] {key} step wall median: the forward's {runs[key]['fwd_form']} form "
               f"{runs[key]['wall_ms']:.1f} ms, its tile form forced {tile['wall_ms']:.1f} ms")
         runs[key]["fwd_tile_form_wall_ms"] = tile["wall_ms"]
+    # and with K3's weight gradients on the mma.sync kernel the rule took before wgmma
+    for key, dtype in (("float32_k3", torch.float32), ("bfloat16_k3", torch.bfloat16)):
+        old = run(f"{str(dtype)[6:]} K2+K3, the mma.sync weight gradients forced", dtype, True,
+                  mma_sync_wgrad=True)
+        print(f"[6] {key} step wall median: K3's weight gradients in the rule's tile "
+              f"{runs[key]['wall_ms']:.1f} ms, on the mma.sync kernel forced "
+              f"{old['wall_ms']:.1f} ms")
+        runs[key]["mma_sync_wgrad_wall_ms"] = old["wall_ms"]
     same_state_check(seeded_state(), make_step, batches)
 
     # a NaN in one noisy waveform: the update is rejected on the device
@@ -1643,7 +1696,8 @@ def phase_train() -> dict:
     check_no_tf32(kernels, "[6] the float32 train step")
     return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s",
                                             "sweep_form", "fwd_form", "tile_form_wall_ms",
-                                            "fwd_tile_form_wall_ms") if f in v}
+                                            "fwd_tile_form_wall_ms", "mma_sync_wgrad_wall_ms",
+                                            "wgrad_tiles") if f in v}
                      for k, v in runs.items()},
             "eval_launches": eval_launches,
             # phase 9 starts from a copy of the float32 K2 + K4 run's state
@@ -1682,6 +1736,7 @@ def reset_launches() -> None:
         lstm2_train.LAUNCHES[name] = 0
     lstm2_train.LAUNCHES_BY_CARD.clear()
     lstm2_train.SWEEP_FORMS.clear()
+    lstm2_train.WGRAD_TILES.clear()
     lstm2.FWD_SWEEP_FORMS.clear()
     lstm2_int8.INT8_SWEEP_FORMS.clear()
 
@@ -3832,6 +3887,36 @@ def forced_sub_band_fwd_tile_form():
         lstm2.fwd_sweep_plan = rule
 
 
+def mma_sync_wgrad_tile(dtype: torch.dtype, n: int) -> int:
+    """The WGRAD_H_TILES / WGRAD_F32_TILES index of the mma.sync tile that the
+    rule took before the wgmma kernels on a fold of n rows: bf16 64 x 128;
+    float32 128 x 128 with 64-row slices by bulk copies, with 32-row
+    cp.async slices below 64 rows a step."""
+    return 0 if dtype == torch.bfloat16 else (2 if n < 64 else 4)
+
+
+@contextlib.contextmanager
+def forced_mma_sync_wgrad():
+    """K3's weight gradients on the mma.sync kernel the rule took before the
+    wgmma kernels, at each launch's fold (a comparison)."""
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    launch = lt._launch_bwd_wgrad
+
+    def old_kernel(dy, x, w, res):
+        before = lt.force_wgrad_tile(mma_sync_wgrad_tile(x.dtype, x.shape[0]), x.dtype)
+        try:
+            return launch(dy, x, w, res)
+        finally:
+            lt.force_wgrad_tile(before, x.dtype)
+
+    lt._launch_bwd_wgrad = old_kernel
+    try:
+        yield
+    finally:
+        lt._launch_bwd_wgrad = launch
+
+
 @contextlib.contextmanager
 def forced_sub_band_tile_form():
     """The reverse sweep's tile form forced wherever the rule would take the
@@ -3949,6 +4034,7 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
 
     tile_wall = forced_walls(forced_sub_band_tile_form)
     fwd_tile_wall = forced_walls(forced_sub_band_fwd_tile_form)
+    mma_wall = forced_walls(forced_mma_sync_wgrad)
     print(f"[11] FullSubNet float32 train step (the default form, K2 + "
           f"{'K3' if backward == 'lstm2_bwd_wgrad' else 'K4 + weight_grads'}; the sub-band "
           f"forward in the {sub_band_fwd} form, the sub-band reverse sweep in the {sub_band} "
@@ -3956,7 +4042,8 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
           f"{audio_s / wall * 1e3:.1f} audio-s/s; launches {default_launches}, reverse sweeps "
           f"by form {forms}, forward sweeps by form {fwd_forms}; with the sub-band reverse "
           f"sweep's tile form forced {tile_wall:.1f} ms, with the sub-band forward's tile form "
-          f"forced {fwd_tile_wall:.1f} ms")
+          f"forced {fwd_tile_wall:.1f} ms, with K3's weight gradients on the mma.sync kernels "
+          f"forced {mma_wall:.1f} ms")
 
     def one_step():
         train_step(state, noisy, clean)
@@ -3989,6 +4076,7 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
                       "float32_default": {"wall_ms": wall, "audio_s_per_s": audio_s / wall * 1e3,
                                           "sub_band_tile_form_wall_ms": tile_wall,
                                           "sub_band_fwd_tile_form_wall_ms": fwd_tile_wall,
+                                          "mma_sync_wgrad_wall_ms": mma_wall,
                                           "launches": default_launches, "sweep_forms": forms,
                                           "fwd_sweep_forms": fwd_forms,
                                           "profile": PROFILES[label]}},
@@ -4276,6 +4364,8 @@ def main() -> None:
                     fsn_train["steps"]["float32_default"]["fwd_sweep_forms"]}
         if name == "lstm2_bwd_wgrad":
             extra["wgrad_functions"] = hmma["wgrad"]
+            # the main path's K3 launches by the tile of their weight-gradient kernel
+            extra["wgrad_launches_by_tile"] = {r: runs[r].get("wgrad_tiles") for r in launch_runs}
         fb = {tag: {**fsn_train["errors"][(name, dt)], **fsn_train["times"][(name, dt)]}
               for tag, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
         return {
@@ -4298,6 +4388,7 @@ def main() -> None:
             "train_step": {r: {"wall_ms": runs[r]["wall_ms"],
                                "tile_form_wall_ms": runs[r].get("tile_form_wall_ms"),
                                "fwd_tile_form_wall_ms": runs[r].get("fwd_tile_form_wall_ms"),
+                               "mma_sync_wgrad_wall_ms": runs[r].get("mma_sync_wgrad_wall_ms"),
                                "audio_s_per_s": runs[r]["audio_s_per_s"]} for r in launch_runs},
             "jax_fixture_min_snr_db": {dt: fixture_snr[(name, dt)]
                                        for dt in ("float32", "bfloat16")},
@@ -4311,7 +4402,9 @@ def main() -> None:
                 "train_step_float32_sub_band_tile_form":
                     fsn_train["steps"]["float32_default"]["sub_band_tile_form_wall_ms"],
                 "train_step_float32_sub_band_fwd_tile_form":
-                    fsn_train["steps"]["float32_default"]["sub_band_fwd_tile_form_wall_ms"]},
+                    fsn_train["steps"]["float32_default"]["sub_band_fwd_tile_form_wall_ms"],
+                "train_step_float32_mma_sync_wgrad":
+                    fsn_train["steps"]["float32_default"]["mma_sync_wgrad_wall_ms"]},
             "card_fold": {"shape": {"N": N_CARD, "D": D, "H": H, "O": O, "T": T_TRAIN},
                           **{tag: train_mesh["card_fold"][(name, dt)] for tag, dt in (
                               ("float32", torch.float32), ("bfloat16", torch.bfloat16))}},

@@ -23,7 +23,9 @@ kernels:
     csrc/lstm2_bwd_wgrad.cu: the same sweep with the weight gradients summed
     inside the kernel file, so no [T, N, 4H] array of dgates is written;
     those products run on the tensor cores too (in float32 as three TF32
-    products), in tiles that `wgrad_tiles` chooses.
+    products), in tiles that `wgrad_tiles` chooses: on Hopper's warpgroup
+    products (wgmma) fed by TMA tensor maps, the mma.sync kernels kept as
+    forced candidates.
 
 `FUSED_WGRAD` chooses between the last two, as the JAX module's switch of
 the same name does (:679); left at None, the form follows x's dtype
@@ -98,6 +100,9 @@ FUSED_WGRAD_BY_DTYPE = {torch.float32: True, torch.bfloat16: True}
 LAUNCHES = {"lstm2_train_fwd": 0, "lstm2_bwd": 0, "lstm2_bwd_wgrad": 0}
 LAUNCHES_BY_CARD: Counter = Counter()
 SWEEP_FORMS: Counter = Counter()
+# K3's launches by the tile of its weight-gradient kernel ("lstm2_bwd_wgrad
+# 128x256x64xwgmmax2"; cleared apart)
+WGRAD_TILES: Counter = Counter()
 
 # The reverse sweep's form (csrc/lstm2_bwd_sweep.cuh): None the one
 # `bwd_sweep_form` chooses, 0 the tile form (`sweep_mma_kernel`: a CTA a
@@ -158,18 +163,25 @@ WAVE_SCRATCH_BYTES = {torch.float32: 864 << 20, torch.bfloat16: 432 << 20}
 # contraction rows of a staged slice and how they are staged (cp.async 16
 # bytes a thread, or bulk copies of whole rows by the Tensor Memory
 # Accelerator); `wgrad_tiles` chooses. dW1 (D rows) takes WGRAD_W1_TILE
-# (W1_ROWS x W1_COLS) in both.
-WGRAD_H_TILES = ((64, 128), (128, 128))
+# (W1_ROWS x W1_COLS) in both on mma.sync. The entries named "wgmma" are the
+# kernels on Hopper's warpgroup products (`wgrad_wgmma_kernel`,
+# `wgrad_wgmma_tf32_kernel`, `WgmmaTile`): (rows, gate columns, contraction
+# rows a slice, "wgmma", runs of each step's row slices); dW1 takes the same
+# tile there.
+WGRAD_H_TILES = ((64, 128), (128, 128), (128, 256, 64, "wgmma", 2))
 WGRAD_F32_TILES = ((64, 128, 32, "cp.async"), (64, 128, 64, "cp.async"),
                    (128, 128, 32, "cp.async"), (128, 128, 64, "cp.async"),
-                   (128, 128, 64, "bulk"), (64, 128, 64, "bulk"))
+                   (128, 128, 64, "bulk"), (64, 128, 64, "bulk"), (128, 128, 32, "wgmma", 1))
 WGRAD_W1_TILE = (48, 64)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_PTR] * 15 + [_INT] * 9 + [_PTR]
 _BWD_ARGTYPES = [_PTR] * 13 + [_INT] * 10 + [_PTR]
-_WGRAD_ARGTYPES = [_PTR] * 23 + [_INT] * 10 + [_PTR]
+_WGRAD_ARGTYPES = [_PTR] * 24 + [_INT] * 10 + [_PTR]
+# what `wgmma::encode_3d` (csrc/lstm2_wgmma.cuh) adds to the CUresult when a
+# tensor map fails to encode
+_ENCODE_FAILED = 1000
 
 
 class Residuals(NamedTuple):
@@ -608,6 +620,9 @@ def _call(name: str, argtypes: list, x: torch.Tensor, *args, form: int | None = 
     with torch.cuda.device(x.device):
         err = getattr(lib, name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                                    for a in args), stream)
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"{name}: a TMA tensor map failed to encode (CUresult "
+                           f"{err - _ENCODE_FAILED})")
     if err != 0:  # the reverse sweep's forms have the forward's numbers (SWEEP_WAVE 1)
         raise RuntimeError(f"{name} launch failed{form_label(form)}: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -692,25 +707,42 @@ def wgrad_chunk_steps(n: int, hidden: int, steps: int, dtype: torch.dtype,
 
 def wgrad_tiles(d_in: int, hidden: int, dtype: torch.dtype = torch.bfloat16, n: int = 2304):
     """(dW1's tile, the tile of dU1, dW2 and dU2) of the weight-gradient
-    kernel in `dtype` on a fold of n rows, each (rows, gate columns), the
-    float32 one with its slice rows and staging third and fourth;
+    kernel in `dtype` on a fold of n rows: dW1's (rows, gate columns), the
+    other as its WGRAD_H_TILES / WGRAD_F32_TILES entry;
     `wgrad_tile` and `wgrad_f32_tile` in csrc/lstm2_bwd_wgrad.cu mirror it.
-    dW1's D rows are padded to m16 tiles of 48, not to a whole tile.
+    On mma.sync dW1's D rows are padded to m16 tiles of 48, not to a whole
+    tile; on wgmma dW1 takes the same tile as the others.
 
-    bf16: 64 x 128 (two CTAs an SM) was the fastest shape at the training
-    fold on the H100 in every run, 7-8 % ahead of 128 x 128 and 40 % ahead
-    of 128 x 256 (PERF.md); at H 64 it is also the one without padded rows.
+    The wgmma kernels at every fold: on the H100 (the weight-gradient kernel
+    alone, PERF.md) at the sub-band training folds (N 2304) bf16 128 x 256
+    in two runs of row slices took 2.6-2.7 ms against 8.1 for the fastest
+    mma.sync shape (64 x 128) (128 x 128 in one run took 3.2), float32 128
+    x 128 with 32-row slices 17.7-17.9 against 28.0-28.3 for the fastest
+    mma.sync tile (128 x 128, 64-row slices staged by bulk copies); at
+    FullSubNet's full-band fold (N 18, where TMA fills a slice's missing rows
+    with zeros without reading memory) 0.19 against 0.50 in bf16 and 0.50
+    against 1.06 (128 x 128, 32-row cp.async slices) in float32."""
+    tile = WGRAD_F32_TILES[6] if dtype == torch.float32 else WGRAD_H_TILES[2]
+    return (tile[:2] if wgmma_tile(tile) else WGRAD_W1_TILE), tile
 
-    float32 (the weight-gradient kernel alone, the H100, PERF.md): at the
-    sub-band folds (N 2304) 128 x 128 with 64-row slices staged by bulk
-    copies, 28.2 ms, against 33.7 by cp.async and 31.6-37.6 for the others;
-    where a step has fewer than 64 rows (FullSubNet's full-band fold, N 18)
-    a slice is mostly zero rows, which cp.async fills without reading
-    memory: 128 x 128 with 32-row slices, 1.05 ms, against 8.9 with bulk
-    copies."""
-    if dtype == torch.float32:
-        return WGRAD_W1_TILE, WGRAD_F32_TILES[2 if n < 64 else 4]
-    return WGRAD_W1_TILE, WGRAD_H_TILES[0]
+
+def wgmma_tile(tile: tuple) -> bool:
+    """Whether a WGRAD_H_TILES / WGRAD_F32_TILES entry is a wgmma kernel's."""
+    return len(tile) == 5 and tile[3] == "wgmma"
+
+
+def wgrad_launch_tile(n: int, d_in: int, hidden: int, dtype: torch.dtype) -> tuple:
+    """The WGRAD_H_TILES / WGRAD_F32_TILES entry that the next K3 launch in
+    `dtype` at (n, D, H) takes for dU1, dW2 and dU2: forced
+    (`force_wgrad_tile`) or the rule's (`lstm2_bwd_wgrad_tile`, which
+    `wgrad_tiles` mirrors)."""
+    lib = nvcc.load("lstm2_bwd_wgrad", "lstm2_bwd_wgrad", _WGRAD_ARGTYPES)
+    fn = lib.lstm2_bwd_wgrad_tile
+    fn.argtypes, fn.restype = [_INT] * 4, _INT
+    shape = fn(n, d_in, hidden, _DTYPE_CODES[dtype])
+    if shape < 0:
+        raise ValueError(f"wgrad_launch_tile: no weight-gradient kernel in {dtype}")
+    return (WGRAD_F32_TILES if dtype == torch.float32 else WGRAD_H_TILES)[shape]
 
 
 def force_wgrad_tile(shape: int | None, dtype: torch.dtype = torch.bfloat16) -> int | None:
@@ -758,9 +790,15 @@ def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
     scratch_dg2 = torch.empty_like(scratch_dg1)
     carry = f32(4, tiles * rows, hidden)  # dh1, dc1, dh2, dc2 between chunks
     db_part = f32(tiles, 2, 4 * hidden)  # each row tile's bias sums
+    # the wgmma kernels' runs past the first sum into partials of their own
+    tile = wgrad_launch_tile(n, d, hidden, x.dtype)
+    parts = tile[4] - 1 if wgmma_tile(tile) else 0
+    wgrad_part = f32(parts, (d + 3 * hidden) * 4 * hidden) if parts else None
     _call("lstm2_bwd_wgrad", _WGRAD_ARGTYPES, x, dy, x_tnd, res.g1, res.c1, res.h1, res.g2,
           res.c2, res.h2, *weights, w.fc_w, dx_tnd, dw1, du1, dw2, du2, db1, db2,
-          scratch_dg1, scratch_dg2, carry, db_part, n, steps, d, hidden, out_dim, rows, form,
-          chunk, WAVE_STEPS if form == SWEEP_WAVE else 0, _DTYPE_CODES[x.dtype], form=form)
+          scratch_dg1, scratch_dg2, carry, db_part, wgrad_part, n, steps, d, hidden, out_dim,
+          rows, form, chunk, WAVE_STEPS if form == SWEEP_WAVE else 0, _DTYPE_CODES[x.dtype],
+          form=form)
+    WGRAD_TILES[f"lstm2_bwd_wgrad {'x'.join(map(str, tile))}"] += 1
     return LSTM2Grads(dx_tnd.permute(1, 2, 0), dw1, du1, dw2, du2, db1, db2)
 

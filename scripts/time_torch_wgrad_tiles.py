@@ -1,13 +1,15 @@
 """Build-and-check of the port's weight-gradient kernels (K3,
-csrc/lstm2_bwd_wgrad.cu: `wgrad_mma_kernel` in bf16, `wgrad_tf32_kernel` in
-float32) and their time at each tile shape and scratch size, with the two
-backward forms `FUSED_WGRAD` chooses between.
+csrc/lstm2_bwd_wgrad.cu: on mma.sync `wgrad_mma_kernel` in bf16 and
+`wgrad_tf32_kernel` in float32, on wgmma `wgrad_wgmma_kernel` and
+`wgrad_wgmma_tf32_kernel`) and their time at each tile shape and scratch
+size, with the two backward forms `FUSED_WGRAD` chooses between.
 
     python3 scripts/time_torch_wgrad_tiles.py        (from the repo's root)
 
 Needs an NVIDIA GPU. Builds K2, K3 and K4 in parallel and prints the
-weight-gradient functions' registers and spills (ptxas) and HMMA and
-HMMA.1688.F32.TF32 instructions (cuobjdump -sass); holds K3 in both dtypes at
+weight-gradient functions' registers and spills (ptxas) and HMMA,
+HMMA.1688.F32.TF32 and BF16 and TF32 HGMMA instructions (cuobjdump -sass);
+holds K3 in both dtypes at
 every tile shape of dU1, dW2, dU2 (`WGRAD_H_TILES`, `WGRAD_F32_TILES`)
 against its plain version at ragged folds (N 150, T 7, H 64 and 384, and in
 float32 D 257 H 512; the scratch cut to chunks of 3 steps) and checks that a
@@ -20,8 +22,9 @@ the same four products as bf16 cuBLAS GEMMs over all T (a yardstick the port
 never calls); and in float32 and bf16, K3 against K4 plus `weight_grads`.
 With `--folds`, at FullSubNet+'s training fold and FullSubNet's two (the
 sub-band N 2304, D 32, H 384, O 2 and the full-band N 18, D 257, H 512, O
-257; T 195): the float32 weight-gradient kernel's device time at each tile,
-and float32 K3 (at each scratch size) against K4 plus `weight_grads`. With
+257; T 195): the weight-gradient kernel's device time at each tile in both
+dtypes, and float32 K3 (at each scratch size) against K4 plus
+`weight_grads`; `--folds-only` runs that part alone. With
 `--tiles-only`, only the bf16 times at each tile (for timing edited copies
 of the package, each run from its own root). Imports nothing of JAX.
 """
@@ -50,7 +53,9 @@ N, D, H, O, T = 2304, 34, 384, 2, 195
 FOLDS = (("FullSubNet+ sub-band", N, (D, H, O)), ("FullSubNet sub-band", N, (32, 384, 2)),
          ("FullSubNet full-band", 18, (257, 512, 257)))
 SCRATCH_STEPS = (1, 2, 4, 8, 16)  # float32 scratch sizes, in steps at N 2304, H 384
-WGRAD = re.compile(r"wgrad_(mma_|tf32_)?kernel")
+# the weight-gradient kernels: mma.sync (`wgrad_mma_kernel`, `wgrad_tf32_kernel`), wgmma
+# (`wgrad_wgmma_kernel`, `wgrad_wgmma_tf32_kernel`) and the wgmma runs' reduction
+WGRAD = re.compile(r"wgrad_(mma_|tf32_|wgmma_(tf32_)?)?kernel|wgmma_reduce_kernel")
 TILES = {torch.bfloat16: lt.WGRAD_H_TILES, torch.float32: lt.WGRAD_F32_TILES}
 
 
@@ -125,13 +130,17 @@ def report_build(lib) -> None:
     for line in sass.stdout.splitlines():
         if "Function : " in line:
             function = line.split("Function : ", 1)[1].strip()
-            counts[function] = [0, 0]
+            counts[function] = [0, 0, 0, 0]
         elif function is not None and " HMMA" in line:
             counts[function][0] += 1
             counts[function][1] += "HMMA.1688.F32.TF32" in line
-    for function, (hmma, tf32) in counts.items():
+        elif function is not None and " HGMMA" in line:
+            counts[function][2] += ".BF16" in line
+            counts[function][3] += ".TF32" in line
+    for function, (hmma, tf32, hgmma_bf16, hgmma_tf32) in counts.items():
         if WGRAD.search(function) or "sweep" in function:
-            print(f"  {lib.stem}: {function} has {hmma} HMMA instructions, {tf32} TF32")
+            print(f"  {lib.stem}: {function} has {hmma} HMMA instructions, {tf32} TF32; "
+                  f"HGMMA {hgmma_bf16} BF16, {hgmma_tf32} TF32")
 
 
 def check_ragged() -> None:
@@ -261,21 +270,25 @@ def time_training_fold(tiles_only: bool) -> None:
 
 def time_folds() -> None:
     for tag, n, shape in FOLDS:
-        x, dy, w = operands(n, T, shape, torch.float32, seed=5)
-        _, res = lt.lstm2_train_fwd(x, w)
-        k3 = lambda: lt.lstm2_bwd(dy, x, w, res, fused=True)  # noqa: E731
-        tiles = {}
-        for tile in range(len(lt.WGRAD_F32_TILES)):
-            lt.force_wgrad_tile(tile, torch.float32)
-            kernels = device_ms(k3)
-            tiles["x".join(map(str, lt.WGRAD_F32_TILES[tile]))] = round(
-                sum(v for k, v in kernels.items() if WGRAD.search(k)), 3)
-        lt.force_wgrad_tile(None, torch.float32)
-        print(f"{tag} float32 weight-gradient kernel by tile (device ms, one call each, the "
-              f"rule takes {lt.wgrad_tiles(shape[0], shape[1], torch.float32, n)[1]}): {tiles}")
-        backward_forms(x, dy, w, res, f"{tag} N={n} D={shape[0]} H={shape[1]} O={shape[2]}")
-        del res
-        torch.cuda.empty_cache()
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy, w = operands(n, T, shape, dtype, seed=5)
+            _, res = lt.lstm2_train_fwd(x, w)
+            k3 = lambda: lt.lstm2_bwd(dy, x, w, res, fused=True)  # noqa: E731
+            tiles = {}
+            for tile, name in enumerate(TILES[dtype]):
+                lt.force_wgrad_tile(tile, dtype)
+                kernels = device_ms(k3)
+                tiles["x".join(map(str, name))] = round(
+                    sum(v for k, v in kernels.items() if WGRAD.search(k)), 3)
+            lt.force_wgrad_tile(None, dtype)
+            print(f"{tag} {str(dtype)[6:]} weight-gradient kernel by tile (device ms, one call "
+                  f"each, the rule takes {lt.wgrad_tiles(shape[0], shape[1], dtype, n)[1]}): "
+                  f"{tiles}")
+            if dtype == torch.float32:
+                backward_forms(x, dy, w, res, f"{tag} N={n} D={shape[0]} H={shape[1]} "
+                                              f"O={shape[2]}")
+            del res
+            torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -287,9 +300,13 @@ def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--tiles-only", action="store_true")
     parser.add_argument("--folds", action="store_true")
+    parser.add_argument("--folds-only", action="store_true")
     args = parser.parse_args()
     with ThreadPoolExecutor(3) as pool:
         libs = list(pool.map(nvcc.build, ("lstm2_bwd_wgrad", "lstm2_bwd", "lstm2_train_fwd")))
+    if args.folds_only:
+        time_folds()
+        return
     report_build(libs[0])
     if not args.tiles_only:
         check_ragged()

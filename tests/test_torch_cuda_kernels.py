@@ -13,8 +13,9 @@ bf16 single roundings of h, the residuals and the dgates flip and carry
 through the recurrence). K2's y equals K1's bit for bit, the forward sweep
 gives the same bits at both bf16 row tiles, and K3 equals itself on a
 repeat, also over several chunks, at every tile shape of its tensor-core
-weight gradients in both dtypes (float32 as 3xTF32), and its float32 weight
-gradients are the same bits at two scratch sizes; K5 equals itself on a repeat
+weight gradients in both dtypes (float32 as 3xTF32; on mma.sync and on
+wgmma), and its float32 weight gradients are the same bits at two scratch
+sizes, as are those of the wgmma kernels in both dtypes; K5 equals itself on a repeat
 at both of its row tiles and runs FullSubNet's full-band shape (D 257, H
 512, O 257). At that shape the forward and reverse sweeps and K5 take their
 cluster forms, held to the plain versions and to their tile forms (K1, K2
@@ -361,6 +362,49 @@ def test_float32_wgrad_same_bits_at_two_scratch_sizes(monkeypatch, d, hidden):
     for name in ("dx", "dw1", "du1", "dw2", "du2"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert min(_snr(a.db1, b.db1), _snr(a.db2, b.db2)) >= 100.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tile", [
+    *((torch.bfloat16, i) for i, shape in enumerate(lt.WGRAD_H_TILES) if lt.wgmma_tile(shape)),
+    *((torch.float32, i) for i, shape in enumerate(lt.WGRAD_F32_TILES) if lt.wgmma_tile(shape))])
+def test_wgmma_wgrad_same_bits_at_two_scratch_sizes(monkeypatch, dtype, tile):
+    """K3's weight gradients on wgmma (`wgrad_wgmma_kernel` in bf16,
+    `wgrad_wgmma_tf32_kernel` in float32), forced at each wgmma tile: each
+    run of row slices keeps its partial across chunks and the runs are
+    added in run order after the last, so the scratch holding 2 and 5 steps
+    (T 9: chunks 2, 2, 2, 2, 1 and 5, 4) gives dW1, dU1, dW2 and dU2 bit for
+    bit (N 150 ragged, D 34, H 384, the t = 0 step of dU1 and dU2 skipped);
+    K3 is equal on a repeat and at the dtype's floor against
+    `lstm2_bwd_plain`; the launches count the forced tile."""
+    _need_card()
+    n, t, hidden = 150, 9, 384
+    tensors, x, dy = _case(n, t, 34, hidden, 2, seed=7)
+    w = ops_lstm2.pack_weights(*(p.to("cuda", dtype) for p in tensors))
+    xt, dyt = torch.tensor(x).to("cuda", dtype), torch.tensor(dy).cuda()
+    _, res = lt.lstm2_train_fwd_reference(xt, w)
+    want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
+    size = torch.tensor([], dtype=dtype).element_size()
+    shape = (lt.WGRAD_F32_TILES if dtype == torch.float32 else lt.WGRAD_H_TILES)[tile]
+    lt.WGRAD_TILES.clear()
+    before = lt.force_wgrad_tile(tile, dtype)
+    outs = []
+    try:
+        for steps in (2, 5, 5):
+            for budget in (lt.WGRAD_SCRATCH_BYTES, lt.WAVE_SCRATCH_BYTES):
+                monkeypatch.setitem(budget, dtype, steps * 2 * n * 4 * hidden * size)
+            assert lt.wgrad_chunk_steps(n, hidden, t, dtype) == steps
+            outs.append(lt.lstm2_bwd(dyt, xt, w, res, fused=True))
+        torch.cuda.synchronize()
+    finally:
+        lt.force_wgrad_tile(before, dtype)
+    assert dict(lt.WGRAD_TILES) == {f"lstm2_bwd_wgrad {'x'.join(map(str, shape))}": 3}
+    a, b, again = outs
+    for name in ("dw1", "du1", "dw2", "du2"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert all(torch.equal(u, v) for u, v in zip(b, again))
+    snrs = {name: _snr(u.float(), v.float()) for name, u, v in zip(want._fields, want, b)}
+    assert min(snrs.values()) >= FLOOR[dtype], snrs
 
 
 FB = (257, 512, 257)  # FullSubNet's full-band LSTM: D, H, O

@@ -1345,16 +1345,18 @@ def _wgrad_blocks(d_in, hidden, h_tile, w1_tile):
 
 @pytest.mark.parametrize("d,hidden", [(34, 384), (34, 64), (257, 512)])
 def test_wgrad_tiles_cover_each_gradient_once(d, hidden):
-    """The CTAs of a weight-gradient launch (the tiles `wgrad_tiles` picks
-    in each dtype, and each candidate: bf16 `WGRAD_H_TILES`, float32
-    `WGRAD_F32_TILES`) cover every element of dW1 [D, 4H] and dU1, dW2, dU2
-    [H, 4H] exactly once; dW1's tile has 48 rows (three m16 tiles), and at
-    the training shape the grid fills a wave of the H100's 132 SMs."""
-    w1_tile, h_tile = lt.wgrad_tiles(d, hidden)
-    assert w1_tile == (48, 64) and h_tile == lt.WGRAD_H_TILES[0] == (64, 128)
-    f32_w1_tile, f32_tile = lt.wgrad_tiles(d, hidden, torch.float32)
-    assert f32_w1_tile == w1_tile and f32_tile in lt.WGRAD_F32_TILES
-    for shape in (*lt.WGRAD_H_TILES, *(tile[:2] for tile in lt.WGRAD_F32_TILES)):
+    """The CTAs of an mma.sync weight-gradient launch (each mma.sync
+    candidate, forced: bf16 `WGRAD_H_TILES`, float32 `WGRAD_F32_TILES`; the
+    rule takes the wgmma kernels, whose schedule
+    `test_wgmma_schedule_owns_each_element_once_a_run` walks) cover every
+    element of dW1 [D, 4H] and dU1, dW2, dU2 [H, 4H] exactly once; dW1's
+    tile has 48 rows (three m16 tiles), and at the training shape the grid
+    of the tiles the rule took there before the wgmma kernels fills a wave
+    of the H100's 132 SMs."""
+    w1_tile = lt.WGRAD_W1_TILE
+    assert w1_tile == (48, 64) and lt.WGRAD_H_TILES[0] == (64, 128)
+    for shape in (tile[:2] for tile in (*lt.WGRAD_H_TILES, *lt.WGRAD_F32_TILES)
+                  if not lt.wgmma_tile(tile)):
         blocks = _wgrad_blocks(d, hidden, shape, w1_tile)
         for name in ("dw1", "du1", "dw2", "du2"):
             rows = d if name == "dw1" else hidden
@@ -1365,7 +1367,7 @@ def test_wgrad_tiles_cover_each_gradient_once(d, hidden):
                     count[r0:r0 + r, c0:c0 + c] += 1
             assert (count == 1).all(), (shape, name)
     if (d, hidden) == (34, 384):
-        for tile in (h_tile, f32_tile[:2]):
+        for tile in (lt.WGRAD_H_TILES[0], lt.WGRAD_F32_TILES[4][:2]):
             assert len(_wgrad_blocks(d, hidden, tile, w1_tile)) >= 132
 
 
@@ -1498,6 +1500,325 @@ def test_tf32_fragment_loads_hit_32_banks(cols):
                     assert len(set(words % 32)) == 32, (cols, ks, col0, name)
     unpadded = _tf32_fragment_words(cols, 0, 0)["a0"] % 32
     assert len(set(unpadded)) <= 16
+
+
+# ---------------------------------------------------------------------------
+# the wgmma weight-gradient kernels (csrc/lstm2_bwd_wgrad.cu, wgrad_wgmma_kernel,
+# wgrad_wgmma_tf32_kernel; csrc/lstm2_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+WGMMA_TILES = [(dtype, tile) for dtype, tiles in ((torch.bfloat16, lt.WGRAD_H_TILES),
+                                                  (torch.float32, lt.WGRAD_F32_TILES))
+               for tile in tiles if lt.wgmma_tile(tile)]
+GRADIENTS = ("dw1", "du1", "dw2", "du2")  # `which` 0 .. 3
+
+
+def _wgmma_ctas(d_in, hidden, n, tile):
+    """The CTAs of one wgmma weight-gradient launch as `wgmma_work` maps
+    (blockIdx.x, blockIdx.y): the tiles of dU1, dW2 and dU2, then dW1's, all
+    of one shape, once for each run of each step's row slices; as (gradient,
+    first row, first gate column, live rows K, run, first row slice, row
+    slices)."""
+    bm, bn, bk, _, splits = tile
+    cols = -(-4 * hidden // bn)
+    h_tiles = -(-hidden // bm) * cols
+    blocks = 3 * h_tiles + -(-d_in // bm) * cols
+    all_slices = -(-n // bk)
+    per = -(-all_slices // splits)
+    ctas = []
+    for run in range(splits):
+        for b in range(blocks):
+            if b < 3 * h_tiles:
+                which = 1 + b // h_tiles
+                b -= (which - 1) * h_tiles
+                k = hidden
+            else:
+                which = 0
+                b -= 3 * h_tiles
+                k = d_in
+            first = run * per
+            ctas.append((GRADIENTS[which], (b // cols) * bm, (b % cols) * bn, k, run, first,
+                         max(0, min(all_slices, first + per) - first)))
+    return ctas
+
+
+@pytest.mark.parametrize("dtype,tile", WGMMA_TILES)
+@pytest.mark.parametrize("d,hidden", [(34, 384), (34, 64), (257, 512)])
+def test_wgmma_schedule_owns_each_element_once_a_run(d, hidden, dtype, tile):
+    """The wgmma kernels' CTA schedule: in every run of row slices, each
+    element of dW1 [D, 4H] and dU1, dW2, dU2 [H, 4H] has exactly one owner
+    (a CTA tile, cut to the gradient's rows and columns), no tile lies
+    wholly outside its gradient, a tile's second warpgroup is live only
+    where its 64 rows start inside the gradient, and the runs cut each
+    step's row slices into disjoint ranges that cover them (N 2304: 36
+    slices of 64 rows or 72 of 32; N 150 ragged). At the training shape the
+    grid is one wave of the H100's 132 SMs."""
+    bm, bn, bk, _, splits = tile
+    g = 4 * hidden
+    for n in (2304, 150):
+        ctas = _wgmma_ctas(d, hidden, n, tile)
+        for run in range(splits):
+            for name in GRADIENTS:
+                rows = d if name == "dw1" else hidden
+                count = np.zeros((rows, g), np.int64)
+                for grad, k0, c0, k, r, _, _ in ctas:
+                    if grad == name and r == run:
+                        assert k0 < k == rows and c0 < g
+                        live = 2 if k0 + 64 < k else 1
+                        assert min(k0 + bm, k) <= k0 + 64 * live
+                        count[k0:k0 + bm, c0:c0 + bn] += 1
+                assert (count == 1).all(), (tile, name, run)
+        ranges = sorted({(first, count) for *_, first, count in ctas})
+        covered = [s for first, count in ranges for s in range(first, first + count)]
+        assert covered == list(range(-(-n // bk)))
+    if (d, hidden) == (34, 384):
+        assert len(_wgmma_ctas(d, hidden, 2304, tile)) <= 132
+
+
+@pytest.mark.parametrize("n", [18, 63, 64, 150, 2304])
+def test_wgrad_rule_by_dtype_and_rows(n):
+    """The rule (`wgrad_tiles`, mirrored by `wgrad_tile` / `wgrad_f32_tile`
+    in the kernel's source) takes the wgmma kernels at every fold, in
+    both dtypes: they measured faster at the sub-band training folds (N
+    2304) and at FullSubNet's full-band fold (N 18) alike; bf16 128 x 256 in
+    two runs of row slices, float32 128 x 128 with 32-row slices in one,
+    dW1 in the same tile. The mma.sync tiles stay as forced candidates."""
+    for dtype, tiles, wgmma in ((torch.bfloat16, lt.WGRAD_H_TILES, 2),
+                                (torch.float32, lt.WGRAD_F32_TILES, 6)):
+        w1_tile, tile = lt.wgrad_tiles(34, 384, dtype, n)
+        assert tile == tiles[wgmma] and lt.wgmma_tile(tile) and w1_tile == tile[:2]
+        assert lt.wgrad_tiles(257, 512, dtype, n) == (w1_tile, tile)
+        assert sum(map(lt.wgmma_tile, tiles)) == 1
+    assert lt.WGRAD_H_TILES[2] == (128, 256, 64, "wgmma", 2)
+    assert lt.WGRAD_F32_TILES[6] == (128, 128, 32, "wgmma", 1)
+
+
+def _wgmma_run_sums(products, shifted, splits, chunk, fold=1):
+    """Each run's float32 sums as the wgmma kernels keep them: products[t][s]
+    is row slice s of step t (float32); the chunks sweep the steps newest
+    first, a run starts from zero on the first chunk and reads its partial
+    back on later ones, adds its slices t_hi first, slices in order, and
+    skips t = 0 where the gradient reads h_{t-1} (h_{-1} = 0). With fold > 1
+    (float32) a zeroed partial sums `fold` slices of one step before one
+    float32 add puts it into the sums."""
+    steps, slices = len(products), len(products[0])
+    per = -(-slices // splits)
+    runs = [np.zeros_like(products[0][0]) for _ in range(splits)]
+    for t_hi in range(steps - 1, -1, -chunk):
+        t_lo = max(0, t_hi - chunk + 1)
+        for run in range(splits):
+            acc = runs[run].copy()  # stored and read back exactly between chunks
+            mine = range(run * per, min(slices, run * per + per))
+            for t in range(t_hi, (1 if shifted and t_lo == 0 else t_lo) - 1, -1):
+                part = None
+                for i, s in enumerate(mine):
+                    if fold == 1:
+                        acc = (acc + products[t][s]).astype(np.float32)
+                        continue
+                    part = products[t][s] if i % fold == 0 else (part + products[t][s])
+                    if i % fold == fold - 1 or i == len(mine) - 1:
+                        acc = (acc + part).astype(np.float32)
+            runs[run] = acc
+    return runs
+
+
+def _wgmma_reduce(runs):
+    """`wgmma_reduce_kernel`: C = run 0's sums, then each later run's added in
+    run order (float32 adds)."""
+    c = runs[0].copy()
+    for part in runs[1:]:
+        c = (c + part).astype(np.float32)
+    return c
+
+
+@pytest.mark.parametrize("splits,fold", [(1, 1), (2, 1), (3, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_wgmma_runs_reduce_in_a_fixed_order(splits, fold, shifted):
+    """The model of the wgmma kernels' split partials and their reduction:
+    with each run's partial kept across chunks, the weight gradient is the
+    same bits at chunks of 1, 2, 5 and all 9 steps, equal to run 0's sums
+    plus run 1's (plus run 2's) in that order, and within float32 rounding
+    of the float64 sum (without step 0 where the gradient reads h_{t-1})."""
+    rng = np.random.default_rng(21)
+    steps, slices = 9, 5  # N 150 in 32-row slices: 5, the last ragged
+    products = [[rng.standard_normal((4, 6)).astype(np.float32) for _ in range(slices)]
+                for _ in range(steps)]
+    got = {chunk: _wgmma_reduce(_wgmma_run_sums(products, shifted, splits, chunk, fold))
+           for chunk in (1, 2, 5, steps)}
+    for chunk, c in got.items():
+        assert np.array_equal(c.view(np.int32), got[steps].view(np.int32)), chunk
+    runs = _wgmma_run_sums(products, shifted, splits, 3, fold)
+    in_order = runs[0]
+    for part in runs[1:]:
+        in_order = in_order + part
+    assert np.array_equal(got[steps], in_order)
+    want = sum(p.astype(np.float64) for t, step in enumerate(products) for p in step
+               if not (shifted and t == 0))
+    np.testing.assert_allclose(got[steps], want, rtol=1e-5, atol=1e-5)
+
+
+def _swz128(off):
+    """The 128-byte swizzle of a byte offset from a 1024-aligned base
+    (`swz128`; CU_TENSOR_MAP_SWIZZLE_128B and the B128 descriptor layout)."""
+    off = np.asarray(off)
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+def _tma_box(smem, dst, array, row0, col0, box_rows, box_cols, elem, swizzle):
+    """A TMA box [box_rows][box_cols] of `array` [rows][cols] (one step) from
+    (row0, col0) into the byte buffer `smem` at `dst`: rows and columns past
+    the array's arrive as zeros, the 128-byte swizzle on the destination."""
+    rows, cols = array.shape
+    box = np.zeros((box_rows, box_cols), array.dtype)
+    r1, c1 = min(rows, row0 + box_rows), min(cols, col0 + box_cols)
+    if r1 > row0 and c1 > col0:
+        box[:r1 - row0, :c1 - col0] = array[row0:r1, col0:c1]
+    off = (np.arange(box_rows)[:, None] * box_cols + np.arange(box_cols)[None, :]) * elem
+    off = _swz128(off) if swizzle else off
+    view = smem[dst:dst + box.nbytes].view(array.dtype)
+    view[off.ravel() // elem] = box.ravel()
+
+
+def _mn_major(smem, start, lbo, sbo, mn, k, dtype):
+    """A B128 MN-major wgmma operand (bf16) read through its descriptor:
+    element (mn, k) at start + (mn / 64) LBO + (k / 8) SBO + (k % 8) 128 +
+    (mn % 64) 2, swizzled."""
+    m, kk = np.meshgrid(np.arange(mn), np.arange(k), indexing="ij")
+    addr = start + (m // 64) * lbo + (kk // 8) * sbo + (kk % 8) * 128 + (m % 64) * 2
+    return smem.view(dtype)[_swz128(addr) // 2]
+
+
+def _k_major(smem, start, sbo, rows, k):
+    """A B128 K-major wgmma operand (32-bit TF32) read through its
+    descriptor: element (row, k) at start + (row / 8) SBO + (row % 8) 128 +
+    4 k, swizzled (a k8 step's descriptor starts 32 bytes further in)."""
+    r, kk = np.meshgrid(np.arange(rows), np.arange(k), indexing="ij")
+    addr = start + (r // 8) * sbo + (r % 8) * 128 + kk * 4
+    return smem.view(np.uint32)[_swz128(addr) // 4]
+
+
+def _bf16_bits(a):
+    """float32 values that are bf16, as bf16 bits (uint16)."""
+    return (a.view(np.uint32) >> 16).astype(np.uint16)
+
+
+def test_wgmma_bf16_tile_walk_matches_the_products():
+    """One bf16 wgmma CTA tile (128 rows k x 256 gate columns c, the second
+    c-half past 4H: H 96, so 4H 384 and the tile at c0 256 has two live
+    64-column boxes of four), walked as `wgrad_wgmma_kernel` walks it over
+    one step with N = 100 (a ragged second slice of 64 rows): each slice's
+    TMA boxes of 64 x 64 land swizzled (rows past N and columns past H
+    zero), each consumer warpgroup reads its 64 rows of A and the whole G
+    tile MN-major through descriptors (LBO 8192 between 64-wide blocks, SBO
+    1024 between 8-row groups, a k16 step 2048 bytes further in), and the
+    m64n256k16 products summed in float64 give A^T G exactly where k < H and
+    c < 4H."""
+    rng = np.random.default_rng(23)
+    n_rows, hidden, c0 = 100, 96, 256
+    g_cols = 4 * hidden
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16().float().numpy()
+
+    a, g = bf16(n_rows, hidden), bf16(n_rows, g_cols)
+    box = 64 * 128
+    acc = np.zeros((128, 256))
+    for nb in range(0, n_rows, 64):
+        smem = np.zeros(1024 + 6 * box, np.uint8)[1024:]  # a 1024-aligned stage
+        stale = rng.integers(0, 2 ** 16, 6 * box // 2, dtype=np.uint16)
+        smem.view(np.uint16)[:] = stale  # boxes not issued keep whatever was there
+        a_bits, g_bits = _bf16_bits(a), _bf16_bits(g)
+        for b in range(2):  # A's boxes, issued where they start inside the H columns
+            if 64 * b < hidden:
+                _tma_box(smem, b * box, a_bits, nb, 64 * b, 64, 64, 2, True)
+        for j in range(4):  # G's boxes, issued where they start inside 4H
+            if c0 + 64 * j < g_cols:
+                _tma_box(smem, (2 + j) * box, g_bits, nb, c0 + 64 * j, 64, 64, 2, True)
+        for wg in range(2):
+            for kk in range(4):
+                am = _mn_major(smem, wg * box + 2048 * kk, box, 1024, 64, 16, np.uint16)
+                bm = _mn_major(smem, 2 * box + 2048 * kk, box, 1024, 256, 16, np.uint16)
+                with np.errstate(invalid="ignore", over="ignore"):
+                    af = (am.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+                    bf = (bm.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+                    acc[64 * wg:64 * wg + 64] += af @ bf.T
+    want = a.astype(np.float64).T @ g[:, c0:].astype(np.float64)
+    np.testing.assert_array_equal(acc[:hidden, :g_cols - c0], want)
+
+
+def _split_bits(words):
+    """`lstm2::split_tf32` on uint32 words: big = the word rounded to TF32
+    (half of the 13 low bits added, then cleared), small = word - big in
+    float32 plus the same half; the tensor core drops each operand's 13 low
+    bits (`_tf32_operand`)."""
+    words = words.astype(np.uint32)
+    big = (words + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    small = (words.view(np.float32) - big.view(np.float32)).view(np.uint32) + np.uint32(0x1000)
+    return big, small
+
+
+def _tf32_operand(words):
+    """A TF32 operand as the tensor core reads it: the low 13 bits dropped."""
+    return (words & np.uint32(0xFFFFE000)).view(np.float32).astype(np.float64)
+
+
+def test_wgmma_tf32_tile_walk_matches_the_products():
+    """One float32 wgmma CTA tile (128 rows k x 128 gate columns, H 96 so
+    rows past 96 are zero), walked as `wgrad_wgmma_tf32_kernel` walks it over
+    one step with N = 100 (32-row slices, the last ragged): A lands in four
+    swizzled 32 x 32 boxes and G in one plain 32 x 128 box; the staging
+    warpgroup's thread c splits G[4 q + e][c] and stores each quad as 16
+    bytes K-major and swizzled into big and small (row c, 128 bytes); each
+    consumer lane loads its A words (mma.sync m16n8k8's A fragment of its
+    warp's 16 rows) and splits them; each k8 step's B is read K-major
+    through a descriptor 32 bytes further in (SBO 1024), and small.big +
+    big.small + big.big summed in float64 comes within 2^-20 of the float64
+    A^T G (>= 100 dB), where big.big alone does not reach 80 dB."""
+    rng = np.random.default_rng(24)
+    n_rows, hidden, bn = 100, 96, 128
+    a = rng.standard_normal((n_rows, hidden)).astype(np.float32)
+    g = rng.standard_normal((n_rows, bn)).astype(np.float32)
+    abox, landed = 32 * 128, 4 * 32 * 128 + 32 * 128 * 4
+    acc3, acc1 = np.zeros((128, bn)), np.zeros((128, bn))
+    lane = np.arange(32)
+    gl, tl = lane >> 2, lane & 3
+    for nb in range(0, n_rows, 32):
+        smem = np.zeros(landed + 2 * bn * 128, np.uint8)
+        for b in range(4):
+            if 32 * b < hidden:
+                _tma_box(smem, b * abox, a, nb, 32 * b, 32, 32, 4, True)
+        _tma_box(smem, 4 * abox, g, nb, 0, 32, bn, 4, False)
+        words = smem.view(np.uint32)
+        big_at, small_at = landed, landed + bn * 128
+        for c in range(bn):  # the staging thread of column c
+            for q in range(8):
+                hi, lo = _split_bits(words[(4 * abox + ((4 * q + np.arange(4)) * bn + c) * 4) // 4])
+                off = int(_swz128(c * 128 + q * 16))
+                words[(big_at + off) // 4:(big_at + off) // 4 + 4] = hi
+                words[(small_at + off) // 4:(small_at + off) // 4 + 4] = lo
+        for kk in range(4):
+            b_big = _tf32_operand(_k_major(smem, big_at + 32 * kk, 1024, bn, 8))
+            b_small = _tf32_operand(_k_major(smem, small_at + 32 * kk, 1024, bn, 8))
+            for cw in range(2):
+                for warp in range(4):
+                    kloc = 64 * cw + 16 * warp + gl  # rows k and k + 8 of the lanes
+                    a_big, a_small = np.zeros((16, 8), np.uint32), np.zeros((16, 8), np.uint32)
+                    for v, (dm, dn) in enumerate(((0, 0), (8, 0), (0, 4), (8, 4))):
+                        k, n = kloc + dm, 8 * kk + tl + dn
+                        addr = (k // 32) * abox + _swz128(n * 128 + (k % 32) * 4)
+                        hi, lo = _split_bits(words[addr // 4])
+                        a_big[gl + dm, tl + dn], a_small[gl + dm, tl + dn] = hi, lo
+                    rows = slice(64 * cw + 16 * warp, 64 * cw + 16 * warp + 16)
+                    ab, asm = _tf32_operand(a_big), _tf32_operand(a_small)
+                    acc3[rows] += asm @ b_big.T + ab @ b_small.T + ab @ b_big.T
+                    acc1[rows] += ab @ b_big.T
+    want = a.astype(np.float64).T @ g.astype(np.float64)
+
+    def db(got):
+        return 10 * np.log10((want ** 2).sum() / ((got[:hidden] - want) ** 2).sum())
+
+    assert db(acc3) >= 100.0 and db(acc1) < 80.0
+    assert not acc3[hidden:].any()  # rows past H: their A columns arrive as zeros
 
 
 def test_x_is_padded_to_whole_copies():
