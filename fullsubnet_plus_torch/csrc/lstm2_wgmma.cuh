@@ -1,7 +1,8 @@
 // Hopper's warpgroup products (wgmma) fed by the Tensor Memory Accelerator
 // (TMA tensor maps): the building blocks of K3's `wgrad_wgmma_kernel` and
-// `wgrad_wgmma_tf32_kernel` (lstm2_bwd_wgrad.cu). sm_90a only: wgmma does
-// not exist on plain sm_90.
+// `wgrad_wgmma_tf32_kernel` (lstm2_bwd_wgrad.cu) and of the bf16 reverse
+// sweep `bwd::sweep_wgmma_kernel` (lstm2_bwd_sweep.cuh). sm_90a only: wgmma
+// does not exist on plain sm_90.
 //
 // Shared-memory operand layout. Every tile is made of 128-byte rows in
 // 1024-byte atoms of 8 rows with the 128-byte swizzle: byte b of an atom
@@ -16,8 +17,10 @@
 //     stride between 64-wide blocks of M or N, SBO between groups of 8
 //     contraction rows (1024 bytes);
 //   * K-major (TF32's only layout: a row is 32 contraction values of one M
-//     or N index): SBO is the stride between groups of 8 rows (1024 bytes),
-//     LBO unused (1); a k8 step starts 32 bytes further in.
+//     or N index; in bf16, as the reverse sweep reads its weights and
+//     dgates, 64): SBO is the stride between groups of 8 rows (1024 bytes),
+//     LBO unused (1); a k8 (TF32) or k16 (bf16) step starts 32 bytes
+//     further in.
 // tests/test_torch_train_kernels.py models these address walks in numpy.
 
 #pragma once
@@ -168,6 +171,27 @@ __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t desc_a
         "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (m64n16, float32) = (scale_d ? d : 0) + A (64 x 16) B (16 x 16), bf16
+// operands read from shared memory through descriptors, both K-major
+// (imm-trans-a = imm-trans-b = 0): a row of A or B is 64 contiguous k of
+// one M or N index, 128 bytes, and a k16 step starts 32 bytes further in.
+// Register 4 j + 2 h + e of thread (warp w, lane l) of the warpgroup holds
+// d[16 w + l / 4 + 8 h][8 j + 2 (l % 4) + e]. The reverse sweep's products
+// (`bwd::sweep_wgmma_kernel`): A the weights, B a row tile's dgates.
+__device__ __forceinline__ void wgmma_bf16_n16(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

@@ -1,9 +1,9 @@
 """Where a step of the port's reverse sweep goes (its wave form: the
 launches of `sweep_mma_kernel` a CTA an SM, each CTA an item of a row tile
-and WAVE_STEPS steps; with `--tile` its tile form, the same kernel a CTA a
-row tile for all the steps; with `--fb` its cluster form
-`sweep_cluster_kernel<T>`; fullsubnet_plus_torch/csrc/lstm2_bwd_sweep.cuh),
-in float32 and bf16.
+and WAVE_STEPS steps, and in bf16 of `sweep_wgmma_kernel`; with `--tile`
+its tile form, `sweep_mma_kernel` a CTA a row tile for all the steps; with
+`--fb` its cluster form `sweep_cluster_kernel<T>`;
+fullsubnet_plus_torch/csrc/lstm2_bwd_sweep.cuh), in float32 and bf16.
 
     python3 scripts/profile_torch_bwd_sweep.py [float32] [bfloat16]   (from the repo's root)
     python3 scripts/profile_torch_bwd_sweep.py --tile [float32] [bfloat16]
@@ -14,7 +14,16 @@ once per variant and edits the copy. The wave form's variants (the form
 forced in each): as it is, the tile form as it is (the same tree,
 SWEEP_FORM 0), without the three products, without the weight loads (the
 products run on register values), without the two cell backwards, and in
-float32 without the TF32 splits (both halves the raw word).
+float32 without the TF32 splits (both halves the raw word); each on
+`sweep_mma_kernel` (forced). In bf16 also `sweep_wgmma_kernel` (the
+products on wgmma from a TMA ring of weight boxes, layer 2 a step ahead):
+as it is, with the steps in order (layer 1 and layer 2 of a step in turn,
+the weight stream in the same order: the same bits), without its
+products (the ring and the cells), without the TMA loads (the products on
+whatever the ring holds, each slot's mbarrier arrived on with no bytes),
+without the two cell backwards, the loads alone (no products, no cells),
+the products alone (no loads, no cells), and as it is with items of 8
+steps (WAVE_STEPS 8).
 With `--tile`, the tile form's variants (forced likewise): as it is, without the three products,
 without the weight loads (the products run on register values), without
 the two cell backwards, and in float32 also without the TF32 splits (both
@@ -69,7 +78,8 @@ CELLS_OUT = [
     (SWEEP, "    cell_bwd<T, R>(dh, dc2, db[1]", "    if (t < -1) cell_bwd<T, R>(dh, dc2, db[1]"),
     (SWEEP, "    cell_bwd<T, R>(dh, dc1, db[0]", "    if (t < -1) cell_bwd<T, R>(dh, dc1, db[0]"),
 ]
-# variant: (the dtypes it is timed in, [(file, text, its replacement), ...])
+# variant: (the dtypes it is timed in, [(file, text, its replacement), ...]);
+# timed on `sweep_mma_kernel` (the wave form's "wgmma:" ones on `sweep_wgmma_kernel`)
 TILE_VARIANTS = {
     "as committed": (DTYPES, []),
     "without the three products": (DTYPES, [
@@ -127,6 +137,45 @@ TILE_VARIANTS = {
     ]),
     "without the two cell backwards": (DTYPES, CELLS_OUT),
 }
+# `sweep_wgmma_kernel` (bf16): its products, its TMA loads, its cells
+WG_PRODUCTS_OUT = [
+    (SWEEP, "wgmma::wgmma_bf16_n16(acc,", "if (0) wgmma::wgmma_bf16_n16(acc,"),
+]
+WG_LOADS_OUT = [  # the slot's mbarrier arrived on with no bytes to wait for
+    (SWEEP, "issue_box(sbase + (i % WS_STAGES) * WS_BOX_BYTES, map, x, y, full + 8 * (i % WS_STAGES));",
+     "lstm2::mbar_arrive_expect(full + 8 * (i % WS_STAGES), 0);"),
+]
+WG_IN_ORDER = [  # (P2(s), P1(s)) a step: no P2 ahead, each cells2 after the P1 before
+    (SWEEP, "    bool p2 = i < p2_boxes();  // the lead P2\n    if (!p2) {\n      i -= p2_boxes();\n",
+     "    bool p2 = false;\n    {\n"),
+    (SWEEP, "const WeightStream ws{&maps, HT, KB, steps - 1};",
+     "const WeightStream ws{&maps, HT, KB, steps};"),
+    (SWEEP, """    p2(true, false);
+    for (int s = t_hi; s >= t_lo; --s) {
+      if (s > t_lo) p2(false, true);
+      p1(s, s > t_lo);
+    }""", """    for (int s = t_hi; s >= t_lo; --s) {
+      p2(true, false);
+      p1(s, false);
+    }"""),
+    (SWEEP, """  cells2(t_hi);
+  for (int s = t_hi; s >= t_lo; --s) {
+    bar_sync(WS_BAR_P2, both);  // P2(s): d h2_{s-1} and dh1'(s) are in; dgates2 is free
+    if (s > t_lo) cells2(s - 1);
+    if (s < t_hi) bar_sync(WS_BAR_P1, both);  // P1(s + 1): d h1_s is whole; dgates1 is free
+    cells1(s, s > t_lo);
+  }""", """  for (int s = t_hi; s >= t_lo; --s) {
+    if (s < t_hi) bar_sync(WS_BAR_P1, both);
+    cells2(s);
+    bar_sync(WS_BAR_P2, both);
+    cells1(s, false);
+  }"""),
+]
+WG_CELLS_OUT = [
+    (SWEEP, "    cell_bwd<bf16, R>(dh, dc2,", "    if (t < -1) cell_bwd<bf16, R>(dh, dc2,"),
+    (SWEEP, "    cell_bwd<bf16, R>(dh, dc1,", "    if (t < -1) cell_bwd<bf16, R>(dh, dc1,"),
+]
+BF16 = ("bfloat16",)
 # the wave form's variants; "the tile form" times the tile form on the same tree
 VARIANTS = {
     "as committed": (DTYPES, []),
@@ -135,7 +184,18 @@ VARIANTS = {
     "without the weight loads": TILE_VARIANTS["without the weight loads"],
     "without the two cell backwards": (DTYPES, CELLS_OUT),
     "without the TF32 splits": (("float32",), TILE_VARIANTS["without the TF32 splits"][1]),
+    "wgmma: as committed": (BF16, []),
+    "wgmma: the steps in order": (BF16, WG_IN_ORDER),
+    "wgmma: without the products": (BF16, WG_PRODUCTS_OUT),
+    "wgmma: without the TMA loads": (BF16, WG_LOADS_OUT),
+    "wgmma: without the two cell backwards": (BF16, WG_CELLS_OUT),
+    "wgmma: the loads alone": (BF16, WG_PRODUCTS_OUT + WG_CELLS_OUT),
+    "wgmma: the products alone": (BF16, WG_LOADS_OUT + WG_CELLS_OUT),
+    "wgmma: items of 8 steps": (BF16, [("ops/lstm2_train.py", "\nWAVE_STEPS = 4\n",
+                                        "\nWAVE_STEPS = 8\n")]),
 }
+# the wave-form variants timed on `sweep_wgmma_kernel`
+WGMMA_VARIANTS = {name for name in VARIANTS if name.startswith("wgmma")}
 # FullSubNet's full-band LSTM (--fb): the cluster form's step
 WAIT_BLOCKS = "for (int o = 0; o < C; ++o) if (o != c) mbar_wait(bars + 8 * o, ex.parity);\n"
 FB_PRODUCTS_OUT = [  # each warp still waits for every peer's block, which keeps the copies whole
@@ -204,7 +264,7 @@ def registers_and_spills(root: Path, functions: tuple) -> str:
         if "Compiling entry function" in line:
             function = line.split("'")[1]
         elif function and all(part in function for part in functions):
-            dtype = "bf16" if "bfloat16" in function else "float32"
+            dtype = "float32" if "kernelIf" in function else "bf16"
             if m := re.search(r"(\d+) bytes spill stores", line):
                 out.append(f"{dtype} {m[1]} B spill stores")
             elif m := re.search(r"Used (\d+) registers", line):
@@ -212,9 +272,9 @@ def registers_and_spills(root: Path, functions: tuple) -> str:
     return ", ".join(out)
 
 
-def time_here(dtype_name: str, shape: str, form: str) -> None:
+def time_here(dtype_name: str, shape: str, form: str, kernel: str) -> None:
     """Run inside a variant's copy: K4's sweep time at each fold, in `form`
-    ("wave", "tile" or "rule")."""
+    ("wave", "tile" or "rule") on `kernel` (one of SWEEP_KERNELS)."""
     import torch
 
     from fullsubnet_plus_torch.nn.layers import Linear
@@ -223,6 +283,7 @@ def time_here(dtype_name: str, shape: str, form: str) -> None:
 
     dtype = getattr(torch, dtype_name)
     lt.SWEEP_FORM = {"wave": lt.SWEEP_WAVE, "tile": 0}.get(form)
+    lt.force_sweep_kernel(kernel)
 
     def ms(fn, reps=3):
         fn()
@@ -280,7 +341,8 @@ def main(dtypes, shape, tile: bool) -> None:
         if [b.wait() for b in builds] != [0] * len(builds):
             raise SystemExit("a variant did not build")
         for name, root in roots.items():
-            print(f"{name}: ptxas {registers_and_spills(root, SHAPES[shape][2])}")
+            functions = ("sweep_wgmma_kernel",) if name in WGMMA_VARIANTS else SHAPES[shape][2]
+            print(f"{name}: ptxas {registers_and_spills(root, functions)}")
         for dtype in dtypes:
             for name, root in roots.items():
                 if dtype not in table[name][0]:
@@ -288,14 +350,15 @@ def main(dtypes, shape, tile: bool) -> None:
                 print(f"{dtype} {name}: ", end="", flush=True)
                 form = ("rule" if shape == "fb" else
                         "tile" if tile or name == "the tile form" else "wave")
+                kernel = "wgmma" if name in WGMMA_VARIANTS else "mma"
                 if run(root, str(Path(__file__).resolve()), "--time", dtype, shape,
-                       form).wait() != 0:
+                       form, kernel).wait() != 0:
                     raise SystemExit(f"{dtype} {name} failed")
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time"]:
-        time_here(sys.argv[2], sys.argv[3], sys.argv[4])
+        time_here(sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5])
     else:
         args = [a for a in sys.argv[1:] if a not in ("--fb", "--tile")]
         chosen = tuple(args) or DTYPES
