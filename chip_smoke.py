@@ -17,10 +17,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      have TF32 ones (HMMA.1688.F32.TF32: each float32 product as three TF32
      products), the wgmma weight-gradient kernels `wgrad_wgmma_kernel`
      (bf16) and `wgrad_wgmma_tf32_kernel` (float32) must have BF16 and
-     TF32 HGMMA (wgmma) instructions, as must the bf16 reverse sweep on
-     wgmma (`bwd::sweep_wgmma_kernel`, in K3's and K4's libraries, with its
-     registers and spills), and no bf16 FMA sweep, FMA forward or
-     reverse sweep or FMA `wgrad_kernel` may be compiled; the cluster forms of the
+     TF32 HGMMA (wgmma) instructions, and no bf16 FMA sweep, FMA forward or
+     reverse sweep or FMA `wgrad_kernel` may be compiled; the bf16 reverse
+     sweep's two functions (`bwd::sweep_mma_kernel`, in K3's and K4's
+     libraries) with their registers and spills, failing on more spill
+     stores than BF16_SWEEP_SPILL_STORES allows; the cluster forms of the
      forward and reverse sweeps (`fwd::` and `bwd::sweep_cluster_kernel`,
      two functions in each of the four libraries) must have HMMA and, in
      float32, TF32 HMMA instructions; print the float32 reverse sweeps'
@@ -70,12 +71,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      (what `FUSED_WGRAD_BY_DTYPE` rests on); the reverse sweep's form by the
      rule (the wave form) against the tile form forced, K4's sweep
      and K3 whole, at the training fold and FullSubNet's sub-band training
-     fold in both dtypes, the two forms' dx and dgates the same bits; at
-     the training fold the bf16 reverse sweep on `sweep_wgmma_kernel`
-     forced against `sweep_mma_kernel` (the unforced one): K4's sweep and
-     K3 timed in turns, the wgmma sweep's device time in K3, beside the
-     sweep's operations bound, K4's bound and cuDNN's backward, K4 on it
-     held to the plain sweep (>= 40 dB);
+     fold in both dtypes, the two forms' dx and dgates the same bits;
   4. drive the batch path, `fullsubnet_plus_torch.cli.enhance.run_enhance`,
      on 8 wavs of 3-10 s with a seeded full-width FullSubNet+ in float32,
      bfloat16 and int8; check every output, that the kernels were launched,
@@ -102,12 +98,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      wave form: 144 row tiles on 132 SMs) and K3's weight gradients in the
      rule's tile (the wgmma kernels), the float32 and bf16 K3 steps also
      with the tile form forced and with the mma.sync weight gradients
-     forced, and the bf16 one with the reverse sweep on
-     `sweep_wgmma_kernel` forced, timed beside; then the plain
+     forced, timed beside; then the plain
      versions' float32 run, and at each of its steps the same step from a
      copy of its state through the kernels (float32 K2 + K3 and K2 + K4,
-     bf16 K2 + K3; each bf16 step's reverse sweeps printed by form and
-     kernel), loss and gradient norm held to the plain step's, each
+     bf16 K2 + K3; each bf16 step's reverse sweeps printed by form),
+     loss and gradient norm held to the plain step's, each
      trial launching its two kernels once and the plain step none; a NaN
      batch skipped with the state unchanged bit for bit; `make_eval_step`
      (K1); profile one float32 step, list its matrix product and
@@ -229,8 +224,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      (e) K2, K3, K4 timed beside their plain versions, bounds and cuDNN,
      each also with the tile form forced;
  12. print the kernels' JSON line (with K1's, K2's and K5's form at each
-     fold, and K3's and K4's reverse sweep's; the bf16 reverse sweep on
-     wgmma listed on its own, its launches those of phase 6's forced steps),
+     fold, and K3's and K4's reverse sweep's and bf16 sweep functions),
      the card's name and power limit, and
      the `{"ok": true, ...}` line last.
 
@@ -344,6 +338,10 @@ INT8_SWEEP = re.compile(r"int8_sweep_(cluster_)?kernel")
 # (float32, 3xTF32) and the reduction of their runs' partials, `wgmma_reduce_kernel`;
 # `wgrad_kernel` was the float32 FMA kernel, which must not come back
 WGRAD_KERNEL = re.compile(r"wgrad_(mma_|tf32_|wgmma_(tf32_)?)?kernel|wgmma_reduce_kernel")
+# spill store bytes allowed to the bf16 reverse sweep's functions by threads
+# (`sweep_mma_kernel<bf16, 384 | 512>`): what ptxas gives its schedule (PERF.md); more fails
+# phase 1
+BF16_SWEEP_SPILL_STORES = {384: 264, 512: 56}
 # kernel names of a matrix product or convolution that computes in TF32 (CUTLASS's
 # s1688 / s16816 tensor-op GEMMs take float32 operands as TF32 unless named for bf16 / f16)
 TF32_KERNEL = re.compile(r"tf32|s1688gemm(?!_bf16|_f16)|s16816gemm(?!_bf16|_f16)", re.IGNORECASE)
@@ -543,7 +541,7 @@ def phase_build() -> dict:
         if stem in BWD_SOURCES:
             hmma[f"{stem}_float32_sweep"] = check_float32_reverse(lib, stem, sweeps)
             hmma[f"{stem}_cluster_sweep"] = cluster_functions(lib, stem)
-            hmma[f"{stem}_wgmma_sweep"] = wgmma_sweep_functions(lib, stem)
+            hmma[f"{stem}_bf16_sweep"] = bf16_sweep_functions(lib, stem)
         hmma[stem] = sweeps
         if stem == "lstm2_bwd_wgrad":
             hmma["wgrad"] = wgrad_functions(lib)
@@ -646,22 +644,26 @@ def cluster_functions(lib, stem: str) -> dict:
     return out
 
 
-def wgmma_sweep_functions(lib, stem: str) -> dict:
-    """The bf16 reverse sweep on wgmma in K3's and K4's libraries
-    (`bwd::sweep_wgmma_kernel`): {function: {hgmma_bf16, registers, spill
-    bytes}}, printed; fails unless the function has BF16 HGMMA (wgmma)
-    instructions."""
-    hgmma = sass_instruction_counts(lib, "HGMMA", ".BF16")
+def bf16_sweep_functions(lib, stem: str) -> dict:
+    """The bf16 reverse sweep in K3's and K4's libraries (`bwd::sweep_mma_kernel`
+    in bf16, its 384- and 512-thread functions): {function: {registers,
+    spill bytes}}, printed; fails on more spill store bytes than
+    BF16_SWEEP_SPILL_STORES allows."""
     ptxas = ptxas_functions(lib)
     out = {}
-    for function in (f for f in hgmma if "sweep_wgmma_kernel" in f):
-        regs, spill_st, spill_ld = ptxas.get(function, (None, None, None))
-        print(f"[1] {stem}: {function} has {hgmma[function]} BF16 HGMMA instructions; ptxas: "
-              f"{regs} registers, {spill_st} bytes spill stores, {spill_ld} bytes spill loads")
-        out[function] = {"hgmma_bf16": hgmma[function], "registers": regs,
-                         "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
-    if len(out) != 1 or min(v["hgmma_bf16"] for v in out.values()) == 0:
-        fail(f"{stem}: the bf16 wgmma reverse sweep lacks BF16 HGMMA instructions")
+    for function in (f for f in ptxas if f.startswith("_ZN3bwd16sweep_mma_kernelI13__nv_bfloat16")):
+        regs, spill_st, spill_ld = ptxas[function]
+        threads = next((t for t in BF16_SWEEP_SPILL_STORES if f"Li{t}E" in function), None)
+        print(f"[1] {stem}: {function} (bf16, {threads} threads) ptxas: {regs} registers, "
+              f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads (allowed: "
+              f"{BF16_SWEEP_SPILL_STORES.get(threads)} bytes spill stores)")
+        out[function] = {"threads": threads, "registers": regs, "spill_store_bytes": spill_st,
+                         "spill_load_bytes": spill_ld}
+        if threads is None or spill_st > BF16_SWEEP_SPILL_STORES[threads]:
+            fail(f"{stem}: the bf16 reverse sweep {function} spills {spill_st} bytes, more than "
+                 f"the {BF16_SWEEP_SPILL_STORES.get(threads)} allowed")
+    if len(out) != 2:
+        fail(f"{stem}: the bf16 reverse sweep's two functions were not both compiled")
     return out
 
 
@@ -1329,11 +1331,6 @@ def phase_time_train() -> dict:
             times[(name, dtype)]["sweep_forms_by_fold"] = {
                 tag: {k: v for k, v in by.items() if k in ("form", "same_bits", name, "tile")}
                 for tag, by in forms[dtype].items()}
-    by_kernel = sweep_kernels(times[("lstm2_bwd", torch.bfloat16)]["library_ms"])
-    for name in ("lstm2_bwd", "lstm2_bwd_wgrad"):
-        times[(name, torch.bfloat16)]["sweep_kernels"] = {
-            "wgmma": by_kernel[name], "mma": by_kernel["mma"][name]}
-    times["wgmma_sweep"] = by_kernel
     return times
 
 
@@ -1439,65 +1436,6 @@ def sweep_forms_by_fold() -> dict:
     return out
 
 
-def sweep_kernels(library_ms: float) -> dict:
-    """The bf16 reverse sweep on `sweep_wgmma_kernel` (forced) against
-    `sweep_mma_kernel` (every unforced sweep's kernel), in the rule's form
-    at FullSubNet+'s training fold (N 2304, T 195): K4's sweep and K3 whole
-    timed in turns (mma, wgmma, wgmma, mma; the lower of a kernel's two
-    medians of 3); the wgmma sweep's device time in one K3 call
-    (torch.profiler, its launches by name); K4's dx and dgates on it against
-    the plain sweep (>= 40 dB, else fatal); beside the sweep's operations
-    bound, K4's bound and cuDNN's backward (`library_ms`)."""
-    from fullsubnet_plus_torch.ops import lstm2_train as lt
-
-    dtype = torch.bfloat16
-    x, dy, lstm, fc = train_operands(N_TRAIN, T_TRAIN, dtype, seed=25, shape=SB)
-    w = lstm.packed(fc)
-    _, res = lt.lstm2_train_fwd(x, w)
-    got, ms, device = None, {}, {}
-    lt.SWEEP_FORMS.clear()
-    for kernel in ("mma", "wgmma", "wgmma", "mma"):
-        previous = lt.force_sweep_kernel(kernel)
-        try:
-            if kernel == "wgmma" and got is None:
-                got = lt.lstm2_bwd_sweep(dy, x, w, res)[:3]
-            ms.setdefault(kernel, []).append(
-                (cuda_ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res), reps=3),
-                 cuda_ms(lambda: lt.lstm2_bwd(dy, x, w, res, fused=True), reps=3)))
-            if kernel == "wgmma" and not device:
-                device = {k: v for k, v in device_ms_by_kernel(
-                    lambda: lt.lstm2_bwd(dy, x, w, res, fused=True)).items()
-                    if "sweep_wgmma" in k}
-        finally:
-            lt.force_sweep_kernel(previous)
-    forms = dict(lt.SWEEP_FORMS)
-    snr, max_abs = worst(lt.lstm2_bwd_reference(dy, x, w, res)[:3], got)
-    del got, res, x, dy, w
-    torch.cuda.empty_cache()
-    best = {k: (min(v[0] for v in runs), min(v[1] for v in runs)) for k, runs in ms.items()}
-    d, h, o = SB
-    sweep_bound = sweep_ops_s(2 * N_TRAIN * T_TRAIN * ((d + 3 * h) * 4 * h + h * o), dtype) * 1e3
-    k4_bound, k4_bound_by = train_bounds(dtype, shape=SB)["lstm2_bwd"]
-    device_ms = sum(device.values())
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    form = lt.sweep_form_name(lt.bwd_sweep_form(N_TRAIN, *SB, dtype, sms))
-    print(f"[3] bf16 N={N_TRAIN} D={d} T={T_TRAIN} reverse sweep by kernel (the {form} form): "
-          f"sweep_wgmma_kernel (forced) sweep {best['wgmma'][0]:.3f} ms, K3 "
-          f"{best['wgmma'][1]:.3f} ms; sweep_mma_kernel (unforced) sweep {best['mma'][0]:.3f} "
-          f"ms, K3 {best['mma'][1]:.3f} ms; the wgmma sweep's device time in one K3 call "
-          f"{device_ms:.3f} ms ({device}); bound: the sweep's products {sweep_bound:.3f} ms "
-          f"(operations), K4 {k4_bound:.3f} ms ({k4_bound_by}); cuDNN LSTM+Linear backward "
-          f"{library_ms:.3f} ms; K4's dx and dgates on wgmma {snr:.1f} dB against the plain "
-          f"sweep, max_abs {max_abs:.3e}; sweeps by form and kernel {forms}")
-    if snr < SNR_FLOOR[dtype] or device_ms <= 0.0:
-        fail(f"[3] the wgmma reverse sweep: {snr:.1f} dB, device time {device_ms:.3f} ms")
-    return {"lstm2_bwd": best["wgmma"][0], "lstm2_bwd_wgrad": best["wgmma"][1],
-            "mma": {"lstm2_bwd": best["mma"][0], "lstm2_bwd_wgrad": best["mma"][1]},
-            "device_ms_in_k3": device_ms, "sweep_bound_ms": sweep_bound,
-            "k4_bound_ms": k4_bound, "k4_bound_by": k4_bound_by, "library_ms": library_ms,
-            "max_abs_err": max_abs, "min_snr_db": snr, "forms": forms}
-
-
 def backward_forms_by_fold() -> dict:
     """float32 K3 against K4 + `weight_grads` at each fold float32 training
     runs (T 195): FullSubNet+'s training fold and FullSubNet's sub-band and
@@ -1566,7 +1504,7 @@ def same_state_check(state, make_step, batches, phase: str = "[6]", per_step: in
     K2 + K3). Each kernel step's loss and gradient norm are held to the
     plain step's from the same state: float32 within TRAIN_LOSS_RTOL and
     TRAIN_GRAD_NORM_RTOL, bf16's loss within TRAIN_BF16_LOSS_RTOL; the bf16
-    steps' reverse sweeps are printed by form and kernel. Returns (each
+    steps' reverse sweeps are printed by form. Returns (each
     form's worst loss and gradient-norm gaps, the kernel steps' launches
     summed); `phase` tags the lines. A step launches the forward and the
     backward kernel `per_step` times each (FullSubNet: 2, its full-band and
@@ -1608,8 +1546,7 @@ def same_state_check(state, make_step, batches, phase: str = "[6]", per_step: in
               f"grad norm {plain['grad_norm']:.6f}; "
               + "; ".join(f"{tag} {trials[tag]['loss']:.6f} / {trials[tag]['grad_norm']:.6f}"
                           for tag in trials)
-              + f"; the bf16 reverse sweeps by form and kernel (a form without \"/kernel\" on "
-                f"sweep_mma_kernel): {sweeps}")
+              + f"; the bf16 reverse sweeps by form: {sweeps}")
     worst = {}
     for tag, dtype, _ in forms:
         worst[tag] = (max(g[0] for g in gaps[tag]), max(g[1] for g in gaps[tag]))
@@ -1662,19 +1599,16 @@ def phase_train() -> dict:
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def run(tag, dtype, fused, form=None, fwd_form=None, mma_sync_wgrad=False,
-            sweep_kernel=None):
+    def run(tag, dtype, fused, form=None, fwd_form=None, mma_sync_wgrad=False):
         """TRAIN_STEPS steps from the seeded state; metrics, walls, launches
-        (the reverse sweep in `form` and on `sweep_kernel` and the forward in
-        `fwd_form` where given, else the rule's; K3's weight gradients on
-        the mma.sync kernel with `mma_sync_wgrad`, else in the rule's
-        tile)."""
+        (the reverse sweep in `form` and the forward in `fwd_form` where
+        given, else the rule's; K3's weight gradients on the mma.sync kernel
+        with `mma_sync_wgrad`, else in the rule's tile)."""
         state = seeded_state()
         train_step = make_step(dtype)
         reset_launches()
         metrics, walls = [], []
         lt.SWEEP_FORM, lstm2.FWD_SWEEP_FORM = form, fwd_form
-        lt.force_sweep_kernel(sweep_kernel)
         try:
             with training_kernels(fused), (forced_mma_sync_wgrad() if mma_sync_wgrad
                                            else contextlib.nullcontext()):
@@ -1687,13 +1621,12 @@ def phase_train() -> dict:
                     metrics.append({k: float(v) for k, v in m.items()})
         finally:
             lt.SWEEP_FORM = lstm2.FWD_SWEEP_FORM = None
-            lt.force_sweep_kernel(None)
         launches = all_launches()
         backward = "lstm2_bwd_wgrad" if fused else "lstm2_bwd"
         expect = {k: 0 for k in launches}
         expect.update({"lstm2_train_fwd": TRAIN_STEPS, backward: TRAIN_STEPS})
         form = lt.bwd_sweep_form(N_TRAIN, D, H, O, dtype, sms) if form is None else form
-        name = lt.sweep_form_name(form, sweep_kernel or "mma")
+        name = lt.sweep_form_name(form)
         if dict(lt.SWEEP_FORMS) != {f"{backward} {name}": TRAIN_STEPS}:
             fail(f"train {tag}: the shipped fold's reverse sweeps took the forms "
                  f"{dict(lt.SWEEP_FORMS)}, not the {name} form once a step")
@@ -1712,8 +1645,7 @@ def phase_train() -> dict:
             fail(f"train {tag}: the shipped fold's forward sweeps took the forms "
                  f"{dict(lstm2.FWD_SWEEP_FORMS)}, not the {fwd_name} form once a step")
         wall = statistics.median(walls[1:])  # the first step warms up cuBLAS and cuFFT plans
-        print(f"[6] train {tag} (forward: the {fwd_name} form, reverse sweep: the {name} form; "
-              f"a form without \"/kernel\" on sweep_mma_kernel): "
+        print(f"[6] train {tag} (forward: the {fwd_name} form, reverse sweep: the {name} form): "
               f"loss {', '.join(f'{m['loss']:.6f}' for m in metrics)}; "
               f"grad norm {', '.join(f'{m['grad_norm']:.4f}' for m in metrics)}; step wall "
               f"median {wall:.1f} ms (each {', '.join(f'{w:.0f}' for w in walls)}), "
@@ -1759,16 +1691,6 @@ def phase_train() -> dict:
               f"{runs[key]['wall_ms']:.1f} ms, on the mma.sync kernel forced "
               f"{old['wall_ms']:.1f} ms")
         runs[key]["mma_sync_wgrad_wall_ms"] = old["wall_ms"]
-    # and with the bf16 reverse sweep on the wgmma kernel, which no unforced sweep runs: these
-    # steps give its launches in the kernels line
-    wgmma = run("bfloat16 K2+K3, the wgmma sweep forced", torch.bfloat16, True,
-                sweep_kernel="wgmma")
-    print(f"[6] bfloat16_k3 step wall median: the reverse sweep on sweep_mma_kernel "
-          f"(unforced) {runs['bfloat16_k3']['wall_ms']:.1f} ms, on sweep_wgmma_kernel forced "
-          f"{wgmma['wall_ms']:.1f} ms; its sweeps {wgmma['sweep_forms']}")
-    runs["bfloat16_k3"]["wgmma_sweep_wall_ms"] = wgmma["wall_ms"]
-    runs["bfloat16_k3"]["wgmma_sweep_launches"] = sum(
-        v for k, v in wgmma["sweep_forms"].items() if k.endswith("/wgmma"))
     same_state_check(seeded_state(), make_step, batches)
 
     # a NaN in one noisy waveform: the update is rejected on the device
@@ -1813,7 +1735,6 @@ def phase_train() -> dict:
     return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s",
                                             "sweep_form", "fwd_form", "tile_form_wall_ms",
                                             "fwd_tile_form_wall_ms", "mma_sync_wgrad_wall_ms",
-                                            "wgmma_sweep_wall_ms", "wgmma_sweep_launches",
                                             "wgrad_tiles", "sweep_forms") if f in v}
                      for k, v in runs.items()},
             "eval_launches": eval_launches,
@@ -4458,8 +4379,8 @@ def main() -> None:
             extra["float32_sweep_functions"] = hmma[f"{name}_float32_sweep"]
         if f"{name}_cluster_sweep" in hmma:
             extra["cluster_sweep_functions"] = hmma[f"{name}_cluster_sweep"]
-        if f"{name}_wgmma_sweep" in hmma:
-            extra["wgmma_sweep_functions"] = hmma[f"{name}_wgmma_sweep"]
+        if f"{name}_bf16_sweep" in hmma:
+            extra["bf16_sweep_functions"] = hmma[f"{name}_bf16_sweep"]
         if name in ("lstm2_bwd", "lstm2_bwd_wgrad"):
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             extra["sweep_form_by_fold"] = {  # the same in both dtypes at these folds
@@ -4535,39 +4456,7 @@ def main() -> None:
     k3 = train_kernel("lstm2_bwd_wgrad", "lstm2_bwd_wgrad.cu", "472 (_make_bwd_kernel_fused)",
                       ("float32_k3", "bfloat16_k3"))
     k4 = train_kernel("lstm2_bwd", "lstm2_bwd.cu", "415 (_make_bwd_kernel)", ("float32_k4",))
-    # the bf16 reverse sweep on wgmma, which K3 and K4 run where it is forced (unforced, they
-    # run `sweep_mma_kernel`): phase 6's forced bf16 K2 + K3 steps launched it; its times are
-    # K4's sweep at the training fold, its bound K4's
-    ws, bf16_k4 = train_times["wgmma_sweep"], train_times[("lstm2_bwd", torch.bfloat16)]
-    k_ws = {
-        "name": "bwd::sweep_wgmma_kernel (K3's and K4's bf16 reverse sweep, forced)",
-        "route": "cuda",
-        "source": "fullsubnet_plus_torch/csrc/lstm2_bwd_sweep.cuh",
-        "replaces": "fullsubnet_plus_tpu/ops/lstm_pallas.py:433-467 (the reverse sweep of "
-                    "_make_bwd_kernel_fused :472 and _make_bwd_kernel :415)",
-        "launches": runs["bfloat16_k3"]["wgmma_sweep_launches"],
-        "launches_by_run": {"bfloat16_k3_wgmma_sweep_forced": runs["bfloat16_k3"][
-            "wgmma_sweep_launches"], "bfloat16_k3 (unforced)": sum(
-                v for k, v in runs["bfloat16_k3"]["sweep_forms"].items() if "/wgmma" in k)},
-        "max_abs_err": ws["max_abs_err"],
-        "min_snr_db": ws["min_snr_db"],
-        "ms": ws["lstm2_bwd"],
-        "plain_ms": bf16_k4["plain_ms"],
-        "bound_ms": ws["k4_bound_ms"],
-        "bound_by": ws["k4_bound_by"],
-        "library_ms": ws["library_ms"],
-        "library": "cuDNN LSTM + Linear, backward",
-        "shape": {"N": N_TRAIN, "D": D, "H": H, "O": O, "T": T_TRAIN, "dtype": "bfloat16"},
-        "sweep_mma_kernel_ms": ws["mma"]["lstm2_bwd"],
-        "k3_ms": ws["lstm2_bwd_wgrad"],
-        "k3_sweep_mma_kernel_ms": ws["mma"]["lstm2_bwd_wgrad"],
-        "device_ms_in_k3": ws["device_ms_in_k3"],
-        "products_bound_ms": ws["sweep_bound_ms"],
-        "train_step_wall_ms": runs["bfloat16_k3"]["wgmma_sweep_wall_ms"],
-        "functions": {stem: hmma[f"{stem}_wgmma_sweep"] for stem in ("lstm2_bwd",
-                                                                      "lstm2_bwd_wgrad")},
-    }
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k_ws]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -32,9 +32,7 @@
 // the weight fragments and the cell backward's loads (the header's note).
 // The bf16 sweep has 114 HMMA instructions in each of its two functions, the
 // float32 one 342 HMMA.1688.F32.TF32 (cuobjdump -sass of the built library;
-// chip_smoke.py phase 1). In bf16 the sweep also runs, forced, on Hopper's
-// warpgroup products with the weights streamed by TMA
-// (`bwd::sweep_wgmma_kernel`: measured slower, so not the rule's).
+// chip_smoke.py phase 1).
 //
 // The C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -47,20 +45,16 @@ template <typename T>
 int run(const void* dy, const void* g1, const void* c1, const void* g2, const void* c2,
         const void* w2p, const void* u1p, const void* w1p, const void* fcw, void* dg1,
         void* dg2, void* dx, void* carry, int n_rows, int steps, int D, int H, int O, int rows,
-        int form, int part_steps, int late_sends, int kernel, cudaStream_t stream) {
-  bwd::SweepMaps maps;
-  const int err = bwd::sweep_maps_for<T>(kernel, &maps, w2p, u1p, w1p, D, H);
-  if (err != 0) return err;
+        int form, int part_steps, int late_sends, cudaStream_t stream) {
   bwd::SweepArgs<T> a;
   a.dy = static_cast<const T*>(dy);
   a.g1 = static_cast<const T*>(g1);
   a.c1 = static_cast<const T*>(c1);
   a.g2 = static_cast<const T*>(g2);
   a.c2 = static_cast<const T*>(c2);
-  const bool packed = kernel == bwd::KERNEL_MMA;  // else the weights are the maps'
-  a.w2p = packed ? static_cast<const uint4*>(w2p) : nullptr;
-  a.u1p = packed ? static_cast<const uint4*>(u1p) : nullptr;
-  a.w1p = packed ? static_cast<const uint4*>(w1p) : nullptr;
+  a.w2p = static_cast<const uint4*>(w2p);
+  a.u1p = static_cast<const uint4*>(u1p);
+  a.w1p = static_cast<const uint4*>(w1p);
   a.fcw = static_cast<const float*>(fcw);
   a.dg1 = static_cast<T*>(dg1);
   a.dg2 = static_cast<T*>(dg2);
@@ -77,20 +71,15 @@ int run(const void* dy, const void* g1, const void* c1, const void* g2, const vo
   a.t_base = 0;
   a.resume = 0;
   a.late_sends = late_sends;
-  return bwd::launch_sweep<T>(a, rows, form, part_steps, kernel, packed ? nullptr : &maps,
-                              stream);
+  return bwd::launch_sweep<T>(a, rows, form, part_steps, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (dy, the residuals, the weights, dgates
-// and dx; fcw is float32). kernel: the sweep's kernel (bwd::KERNEL_MMA or
-// KERNEL_WGMMA; SWEEP_KERNELS in ops/lstm2_train.py).
-// w2p, u1p, w1p: on KERNEL_MMA [W2; U2], U1 and W1 packed into mma fragments
-// (ops/lstm2.py: pack_tf32_b for float32, pack_mma_b for bfloat16), on
-// KERNEL_WGMMA the unpacked bf16 weights [2H][4H], [H][4H], [D][4H], read
-// through TMA tensor maps encoded here (a failed encode returns 1000 + its
-// CUresult, wgmma::ENCODE_FAILED); rows is 16. form: the sweep's form (0 the tile form, 1 the wave
+// and dx; fcw is float32). w2p, u1p, w1p: [W2; U2], U1 and W1 packed into
+// mma fragments (ops/lstm2.py: pack_tf32_b for float32, pack_mma_b for
+// bfloat16); rows is 16. form: the sweep's form (0 the tile form, 1 the wave
 // form, 16 the cluster form: clusters of 16). The wave form also takes carry,
 // a float32 [4][ceil(N / rows) * rows][H] scratch for the carries between a
 // tile's parts, and part_steps, the steps of a part (the other forms: null
@@ -100,15 +89,14 @@ extern "C" int lstm2_bwd(const void* dy, const void* g1, const void* c1, const v
                          const void* c2, const void* w2p, const void* u1p, const void* w1p,
                          const void* fcw, void* dg1, void* dg2, void* dx, void* carry,
                          int n_rows, int steps, int D, int H, int O, int rows, int form,
-                         int part_steps, int late_sends, int kernel, int dtype, void* stream) {
+                         int part_steps, int late_sends, int dtype, void* stream) {
   if (!bwd::valid_shape(n_rows, steps, D, H, O)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, carry, n_rows,
-                      steps, D, H, O, rows, form, part_steps, late_sends, kernel, s);
+                      steps, D, H, O, rows, form, part_steps, late_sends, s);
   if (dtype == 1)
     return run<__nv_bfloat16>(dy, g1, c1, g2, c2, w2p, u1p, w1p, fcw, dg1, dg2, dx, carry,
-                              n_rows, steps, D, H, O, rows, form, part_steps, late_sends, kernel,
-                              s);
+                              n_rows, steps, D, H, O, rows, form, part_steps, late_sends, s);
   return (int)cudaErrorInvalidValue;
 }

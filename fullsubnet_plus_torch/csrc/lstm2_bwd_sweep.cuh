@@ -18,9 +18,7 @@
 // holds every row tile at once, the wave form where it does not (the
 // shipped training folds: 144 tiles on 132 SMs), and the cluster form
 // (`sweep_cluster_kernel`, below) at FullSubNet's full-band folds. The tile
-// and wave forms run `sweep_mma_kernel`, or in bf16, forced, the same work
-// on Hopper's warpgroup products (`sweep_wgmma_kernel`, below; the switch:
-// SWEEP_KERNEL in ops/lstm2_train.py).
+// and wave forms run `sweep_mma_kernel`.
 //
 // The wave form runs the tile form's kernel on the same work cut into items
 // of (row tile, part of part_steps steps): item k is tile k mod tiles over
@@ -110,7 +108,15 @@
 // their TF32 halves at packing (both halves loaded): slower; a persistent
 // grid walking the work items with per-tile flags: as the wave form but
 // for 500 bytes of spills a thread in float32 (its loop's state), 370
-// against 223 us a full-wave step.
+// against 223 us a full-wave step; layer 2 a step ahead in bf16 (two
+// barrier intervals a step, one layer's product beside the other layer's
+// cells, a dgates tile a layer and two d h1 buffers: 203,392 bytes), the
+// same bits: with a warp's cells and product in whole halves nothing
+// overlapped (each warp's step is its own chain of loads either way) and a
+// full-wave step took 140.9 against 117.5 us (632 bytes of spills a thread
+// against 264), with its cell rows between sixteenths of the product 190.1
+// (2,824 bytes of spills); in float32 two dgates tiles beside the carries
+// take 246,400 bytes, past a block.
 
 #pragma once
 
@@ -118,7 +124,6 @@
 #include <type_traits>
 
 #include "lstm2_common.cuh"
-#include "lstm2_wgmma.cuh"
 
 namespace bwd {
 
@@ -216,18 +221,16 @@ __device__ __forceinline__ void cell_grads(float dh, float& dc, float gi, float 
 }
 
 // The cell backward of unit j for the tile's rows: rounds the dgates to T,
-// stores them in the shared dgates (`store(r, k, value)`: row-major with
-// pitch ld in `sweep_mma_kernel`, the swizzled K-major tile in
-// `sweep_wgmma_kernel`) and (rows that exist) in dg_t, updates dc and adds
-// the unrounded dgates to db.
+// stores them in the shared dgates (row-major, pitch ld) and (rows that
+// exist) in dg_t, updates dc and adds the unrounded dgates to db.
 // (Issuing a quad's 24 loads together from raw bits, without the row
 // branch, was tried and ran a third slower: it costs registers.)
-template <typename T, int R, typename Store>
+template <typename T, int R>
 __device__ __forceinline__ void cell_bwd(const float (&dh)[R], float (&dc)[R], float (&db)[4],
                                          const T* __restrict__ g_t, const T* __restrict__ c_t,
                                          const T* __restrict__ c_prev_t,
-                                         T* __restrict__ dg_t, Store store,
-                                         int rows_here, int H, int j) {
+                                         T* __restrict__ dg_t, T* __restrict__ dgs,
+                                         int rows_here, int H, int j, int ld) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     float gi = 0.f, gf = 0.f, gg = 0.f, go = 0.f, c = 0.f, c_prev = 0.f;
@@ -247,7 +250,7 @@ __device__ __forceinline__ void cell_bwd(const float (&dh)[R], float (&dc)[R], f
       db[g] += d[g];  // a row past N has zero gates, carries and dy: adds 0
       const T rounded = from_f<T>(d[g]);
       if (r < rows_here) dg_t[(size_t)r * 4 * H + g * H + j] = rounded;
-      store(r, g * H + j, rounded);
+      dgs[(size_t)r * ld + g * H + j] = rounded;
     }
   }
 }
@@ -347,7 +350,6 @@ sweep_mma_kernel(const SweepArgs<T> a) {
   const size_t n_pad = (size_t)tiles * R;
   const uint32_t a_addr =
       (uint32_t)__cvta_generic_to_shared(dgs + (size_t)(lane & 15) * ld) + 16 * (lane >> 4);
-  const auto store = [dgs, ld](int r, int k, T v) { dgs[(size_t)r * ld + k] = v; };
 
   float dc1[R], dc2[R];
   float db[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -387,7 +389,7 @@ sweep_mma_kernel(const SweepArgs<T> a) {
 #pragma unroll
     for (int r = 0; r < R; ++r) dh[r] = dh[r] + dh2s[r * H + j];
     cell_bwd<T, R>(dh, dc2, db[1], a.g2 + row0 * G, a.c2 + row0 * H,
-                   t > 0 ? a.c2 + prev0 * H : nullptr, a.dg2 + dg0, store, rows_here, H, j);
+                   t > 0 ? a.c2 + prev0 * H : nullptr, a.dg2 + dg0, dgs, rows_here, H, j, ld);
     __syncthreads();  // dgates2 complete
 
 #pragma unroll 1
@@ -406,7 +408,7 @@ sweep_mma_kernel(const SweepArgs<T> a) {
 #pragma unroll
     for (int r = 0; r < R; ++r) dh[r] = dh1s[r * H + j];
     cell_bwd<T, R>(dh, dc1, db[0], a.g1 + row0 * G, a.c1 + row0 * H,
-                   t > 0 ? a.c1 + prev0 * H : nullptr, a.dg1 + dg0, store, rows_here, H, j);
+                   t > 0 ? a.c1 + prev0 * H : nullptr, a.dg1 + dg0, dgs, rows_here, H, j, ld);
     __syncthreads();  // dgates1 complete; every thread has read its d h1_t
 
     {
@@ -468,25 +470,29 @@ sweep_mma_kernel(const SweepArgs<T> a) {
 // steps. The wave form (part_steps > 0; the note at the top): the tiles x
 // parts of part_steps steps as work items, part-major, in launches of as
 // many CTAs as the card holds at once, so every item's previous part ran in
-// an earlier launch. `launch(ctas, b)` launches ctas CTAs of `kernel` (of
-// `threads` threads and `smem` bytes) on the items from b.item0 and returns
-// cudaGetLastError().
-template <typename T, typename Launch>
-int launch_items(const SweepArgs<T>& a, const void* kernel, int threads, size_t smem,
-                 Launch launch) {
+// an earlier launch.
+template <typename T, int MAX_THREADS>
+int launch_mma(const SweepArgs<T>& a, cudaStream_t stream) {
   SweepArgs<T> b = a;
+  b.dx_ksplit = dx_ksplit<T>(a.D, a.H, a.O);
+  const size_t smem = shared_bytes<T>(a.D, a.H, a.O);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = sweep_mma_kernel<T, MAX_THREADS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const int tiles = (a.n_rows + MMA_ROWS - 1) / MMA_ROWS, span = a.t_hi - a.t_lo + 1;
   if (a.part_steps <= 0) {
     b.item0 = 0;
     b.part_steps = span;
-    return launch(tiles, b);
+    kernel<<<tiles, a.H, smem, stream>>>(b);
+    return (int)cudaGetLastError();
   }
   if (a.carry == nullptr) return (int)cudaErrorInvalidValue;  // the parts' carries
   int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, a.H, smem)) !=
           cudaSuccess)
     return (int)err;
   // a wave holds no more items than tiles, so an item's previous part (tiles
@@ -495,26 +501,10 @@ int launch_items(const SweepArgs<T>& a, const void* kernel, int threads, size_t 
   const int items = tiles * ((span + a.part_steps - 1) / a.part_steps);
   if (wave < 1) return (int)cudaErrorInvalidConfiguration;
   for (b.item0 = 0; b.item0 < items; b.item0 += wave) {
-    const int e = launch(std::min(wave, items - b.item0), b);
-    if (e != 0) return e;
+    kernel<<<std::min(wave, items - b.item0), a.H, smem, stream>>>(b);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
-}
-
-template <typename T, int MAX_THREADS>
-int launch_mma(const SweepArgs<T>& a, cudaStream_t stream) {
-  SweepArgs<T> b = a;
-  b.dx_ksplit = dx_ksplit<T>(a.D, a.H, a.O);
-  const size_t smem = shared_bytes<T>(a.D, a.H, a.O);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kernel = sweep_mma_kernel<T, MAX_THREADS>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  return launch_items(b, (const void*)kernel, a.H, smem, [&](int ctas, const SweepArgs<T>& c) {
-    kernel<<<ctas, a.H, smem, stream>>>(c);
-    return (int)cudaGetLastError();
-  });
 }
 
 // ---------------------------------------------------------------------------
@@ -976,444 +966,25 @@ int launch_cluster(const SweepArgs<T>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// The bf16 tile and wave forms on Hopper's warpgroup products,
-// `sweep_wgmma_kernel`: the same per-step arithmetic as
-// `sweep_mma_kernel<bf16>` over the same work items (row tile of 16, part of
-// part_steps steps, `launch_items`), for H <= 384 with H % 64 == 0 and D <=
-// 64 (`wgmma_runs`; the shipped and FullSubNet's sub-band training folds).
-//
-// What it changes. `sweep_mma_kernel` runs its products on mma.sync with
-// each warp loading its packed weight fragments from L2, and between
-// barriers the same threads run the cell backwards, so the weight stream
-// stands still while the cells run (bf16, N 2304, a wave-form step: 115 us,
-// of which the products 57 and the cells 51; PERF.md). Here:
-//   * the products are transposed, out^T[c][r] = sum_k W[c][k] dg[r][k], on
-//     wgmma.mma_async.m64n16k16 (`wgmma::wgmma_bf16_n16`): A is an M-tile of
-//     64 weight rows (output columns c), B the tile's 16 rows of dgates, both
-//     K-major, the weights as they lie ([W2; U2] [2H][4H], U1 [H][4H], W1
-//     [D][4H]: no packing), float32 sums over k in order;
-//   * the weights stream by TMA (`SweepMaps`, 3-D maps of one step, boxes
-//     of 64 rows x 64 k with the 128-byte swizzle, 8 KB; W1's rows past D
-//     arrive as zeros) through a ring of WS_STAGES boxes, each completing on
-//     its mbarrier, in the order the products take them: per step [W2;
-//     U2]'s U2 half (the dh2 carry, which gates layer 2's recurrence) then
-//     its W2 half, U1, then W1 (`WeightStream`; 19 M-tiles of 24 boxes at H
-//     384: 3.65 MB);
-//   * one warpgroup (warps 0-3) runs the products: for each M-tile its 24
-//     boxes, four k16 steps a box, one commit group a box; once the next
-//     box's group is issued and a box's own has retired, its thread 0
-//     issues the box WS_STAGES further on into the freed slot (a producer
-//     warp of its own, a 17th warp, held every thread to 96 registers and
-//     spilled up to 1.1 KB); then the epilogue writes the 64 x 16
-//     accumulator (8 float32 a thread)
-//     transposed into the float32 carries dh1s / dh2s [16][H + 4] (the pad
-//     makes the stores free of bank conflicts) or, for W1's tile, rounded
-//     straight to dx (one M-tile over all k: no partials);
-//   * H threads (from warp 4 on) run the cell backwards, thread j unit j for
-//     the tile's 16 rows as in `sweep_mma_kernel` (dc carries in registers,
-//     dy W_fc^T summed in ascending o), and write the dgates rounded to bf16
-//     to dg_t and into a K-major tile in shared memory that wgmma reads: 4H
-//     / 64 blocks of [16 rows][64 k] (2 KB), row r at 128 r bytes (two
-//     1024-byte atoms), the 16-byte chunks swizzled by r % 8
-//     (`ws_dg_offset`); a k16 step's descriptor starts 32 bytes further in.
-// The cells and the products meet at named barriers (bar.arrive on the
-// side that gives, bar.sync on the side that waits; the cells fence their
-// dgates to the async proxy first): DG2 / DG1 (a layer's dgates are in),
-// P2 / P1 (a layer's products are done: their carries are in and their
-// dgates buffer is free), DH1 (the cells have read d h1_s).
-//
-// Layer 2 runs a step ahead: layer 2's recurrence is only cells2(t)
-// -> dg2(t) U2^T -> cells2(t - 1), and layer 1 needs dg2(t) W2^T and its own
-// U1 carry, so the products of one layer run while the other layer's cells
-// run. The products warpgroup takes P2(t_hi), then for s = t_hi .. t_lo:
-// P2(s - 1) (but at t_lo), P1(s); the cells cells2(t_hi), then for s:
-// cells2(s - 1) (but at t_lo), cells1(s). So P2(s - 1) runs under
-// cells1(s) and P1(s) under cells2(s - 2), and the weight stream runs on.
-// d h1_s = dh1'(s) + dh1c(s) has two writers in turn: P2(s)'s W2 epilogue
-// writes dh1'(s) (added to the carry at an item's first step) once the
-// cells have read d h1_{s+1} (DH1), and P1(s + 1)'s U1 epilogue adds dh1c(s)
-// (writes it at the item's last step: the carry out). The steps in order
-// (P2(s), cells1(s), P1(s), cells2(s - 1), W2's epilogue adding onto the U1
-// carry) give the same bits: float addition commutes, every product reads
-// the same operands and every chain sums in the same order
-// (tests/test_torch_train_kernels.py emulates both); they ran 245-284 us a
-// step against this order's 206-235 (PERF.md; the order is a variant of
-// scripts/profile_torch_bwd_sweep.py).
-//
-// Shared memory at H 384 (`wgmma_shared_bytes`, `bwd_shared_memory_bytes`
-// in ops/lstm2_train.py): the ring 10 x 8 KB, the dgates of both layers
-// 2 x 48 KB, dh1s and dh2s 2 x 24.8 KB, 10 mbarriers and 1 KB of alignment:
-// 230,992 bytes. 512 threads, at most 128 registers each.
-//
-// What bounds it (H100, bf16, N 2304, D 34, T 195; PERF.md,
-// scripts/profile_torch_bwd_sweep.py): the weight stream. Each CTA pulls
-// 3.65 MB a step, and a TMA box takes about 3.3 us from issue to landing
-// (derived from the rate and the boxes in flight), so a ring of about 9
-// boxes in flight (all the shared memory the two dgates tiles and the
-// carries leave) moves some 22 GB/s an SM: the loads
-// alone take 165-184 us a step, at 12 CTAs as in a full wave, where
-// `sweep_mma_kernel`'s direct loads of its packed fragments move the same
-// bytes in its 57 us product phase. A step took 206-235 us against its
-// 80-116; the products
-// alone 73-81 us, each m64n16k16 waiting on the one before in its
-// accumulator's chain.
-// Tried and dropped: the ring filled by cp.async from the products'
-// threads (the loads alone 280-320 us a step) and three M-tiles' chains
-// multiplied together (two slots less of ring in flight: slower). So the
-// reverse sweep runs on `sweep_mma_kernel`, and on this kernel where it is
-// forced (SWEEP_KERNEL in ops/lstm2_train.py).
-
-constexpr int WS_MMA_THREADS = 128;     // warps 0-3: the products' warpgroup
-constexpr int WS_CELLS0 = WS_MMA_THREADS;  // the cells from warp 4 on
-constexpr int WS_MAX_H = 384;
-constexpr int WS_MAX_D = 64;            // W1 is one M-tile
-constexpr int WS_BOX_BYTES = 64 * 128;  // a weight box: 64 rows x 64 k of bf16
-constexpr int WS_STAGES = 10;           // boxes in the ring
-constexpr int WS_KB_BYTES = MMA_ROWS * 128;  // a 64-k block of a dgates tile
-// the named barriers between the cells and the products (0 is __syncthreads)
-constexpr int WS_BAR_DG2 = 1, WS_BAR_P2 = 2, WS_BAR_DG1 = 3, WS_BAR_P1 = 4, WS_BAR_DH1 = 5;
-
-struct SweepMaps {
-  CUtensorMap w2, u1, w1;  // [W2; U2] [2H][4H], U1 [H][4H], W1 [D][4H] in bf16
-};
-
-// the row pitch of dh1s and dh2s (floats)
-__host__ __device__ inline int ws_dh_ld(int H) { return H + 4; }
-
-inline size_t wgmma_shared_bytes(int H) {
-  return 1024 + (size_t)WS_STAGES * WS_BOX_BYTES + 2 * (size_t)MMA_ROWS * 4 * H * 2 +
-         2 * sizeof(float) * (size_t)MMA_ROWS * ws_dh_ld(H) + WS_STAGES * 8;
-}
-
-// Whether `sweep_wgmma_kernel` runs at this shape; a launch where it does
-// not returns an error.
-template <typename T> inline bool wgmma_runs(int D, int H) {
-  return std::is_same_v<T, __nv_bfloat16> && H % 64 == 0 && H <= WS_MAX_H && D <= WS_MAX_D &&
-         wgmma_shared_bytes(H) <= SMEM_LIMIT;
-}
-
-// The weights' maps for `sweep_wgmma_kernel` from the unpacked bf16 weights:
-// 0, ENCODE_FAILED + the CUresult, or cudaErrorInvalidValue where the kernel
-// does not run.
-template <typename T>
-int encode_sweep_maps(SweepMaps* m, const void* w2, const void* u1, const void* w1, int D, int H) {
-  if (!wgmma_runs<T>(D, H) || w2 == nullptr || u1 == nullptr || w1 == nullptr)
-    return (int)cudaErrorInvalidValue;
-  constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  int err = wgmma::encode_3d(&m->w2, w2, bf16, 2, 1, 2 * H, 4 * H, 64, 64, true);
-  if (err == 0) err = wgmma::encode_3d(&m->u1, u1, bf16, 2, 1, H, 4 * H, 64, 64, true);
-  if (err == 0) err = wgmma::encode_3d(&m->w1, w1, bf16, 2, 1, D, 4 * H, 64, 64, true);
-  return err;
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-// byte offset of dgates element (r, k) in a K-major tile: block k / 64 of
-// [16][64], row r 128 bytes, its 16-byte chunks swizzled by r % 8
-__device__ __forceinline__ uint32_t ws_dg_offset(int r, int k) {
-  return (k >> 6) * WS_KB_BYTES + (r >> 3) * 1024 + (r & 7) * 128 +
-         ((((k >> 3) & 7) ^ (r & 7)) << 4) + (k & 7) * 2;
-}
-
-// One weight box (x: its first k, y: its first row) into the ring's slot at
-// dst, completing on mbarrier `full`
-__device__ __forceinline__ void issue_box(uint32_t dst, const CUtensorMap* map, int x, int y,
-                                          uint32_t full) {
-  lstm2::mbar_arrive_expect(full, WS_BOX_BYTES);
-  wgmma::tma_load_3d(dst, map, x, y, 0, full);
-}
-
-// The weight boxes of an item in the order the products take them
-// (tests/test_torch_train_kernels.py models a step's): phases P2 (the U2 half of
-// [W2; U2], then W2) and P1 (U1, then W1), each M-tile of 64 rows 4H / 64
-// boxes in k order: P2, then `pairs` of (P2, P1), then P1 (layer 2 a step
-// ahead).
-struct WeightStream {
-  const SweepMaps* maps;
-  int ht, kb, pairs;  // H / 64, the boxes of an M-tile, the (P2, P1) pairs
-
-  __device__ __forceinline__ int p2_boxes() const { return 2 * ht * kb; }
-  __device__ __forceinline__ int per_step() const { return (3 * ht + 1) * kb; }
-
-  // box i: its map and coordinates (x: first k, y: first row)
-  __device__ __forceinline__ void box(int i, const CUtensorMap*& map, int& x, int& y) const {
-    bool p2 = i < p2_boxes();  // the lead P2
-    if (!p2) {
-      i -= p2_boxes();
-      const int pair = i / per_step();
-      i -= pair * per_step();
-      p2 = pair < pairs && i < p2_boxes();
-      if (!p2 && pair < pairs) i -= p2_boxes();
-    }
-    const int m = i / kb;
-    x = 64 * (i - m * kb);
-    if (p2) {
-      map = &maps->w2;
-      y = m < ht ? 64 * (ht + m) : 64 * (m - ht);  // U2's rows H .., then W2's
-    } else {
-      map = m < ht ? &maps->u1 : &maps->w1;
-      y = m < ht ? 64 * m : 0;
-    }
-  }
-};
-
-__global__ void __launch_bounds__(WS_CELLS0 + WS_MAX_H, 1)
-sweep_wgmma_kernel(const __grid_constant__ SweepMaps maps, const SweepArgs<__nv_bfloat16> a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int R = MMA_ROWS;
-  extern __shared__ __align__(16) unsigned char smem_ws[];  // aligned to 1024 below
-  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_ws);
-  const uint32_t sbase = (raw + 1023) & ~1023u;
-  unsigned char* base = smem_ws + (sbase - raw);
-  const int D = a.D, H = a.H, O = a.O, G = 4 * a.H, KB = G / 64, LD = ws_dh_ld(H), HT = H / 64;
-  const int both = H + WS_MMA_THREADS;  // the threads of a barrier between cells and products
-  const uint32_t dg2_at = sbase + WS_STAGES * WS_BOX_BYTES, dg1_at = dg2_at + R * G * 2;
-  float* dh1s = reinterpret_cast<float*>(base + (dg1_at + R * G * 2 - sbase));  // [R][LD]
-  float* dh2s = dh1s + R * LD;                                                   // [R][LD]
-  const uint32_t full = (uint32_t)__cvta_generic_to_shared(dh2s + R * LD);
-
-  const int tid = threadIdx.x;
-  const int tiles = (a.n_rows + R - 1) / R, item = a.item0 + blockIdx.x;
-  const int part = item / tiles, tile = item - part * tiles;
-  const int t_hi = a.t_hi - part * a.part_steps, t_lo = max(a.t_lo, t_hi - a.part_steps + 1);
-  const bool resume = a.resume || part > 0;  // a later part starts from the earlier's carries
-  const int n0 = tile * R;
-  const int rows_here = min(R, a.n_rows - n0);
-  const size_t n_pad = (size_t)tiles * R;
-  if (tid == 0)
-    for (int st = 0; st < WS_STAGES; ++st) lstm2::mbar_init(full + 8 * st, 1);
-  __syncthreads();
-
-  if (tid < WS_MMA_THREADS) {  // the products, and thread 0 the weight stream
-    const int cr = 16 * (tid >> 5) + ((tid & 31) >> 2);  // accumulator rows cr, cr + 8 of a tile
-    const int rr = 2 * (tid & 3);                         // its columns (tile rows) rr + 8 j + e
-    const int steps = t_hi - t_lo + 1;
-    const WeightStream ws{&maps, HT, KB, steps - 1};
-    const int boxes = steps * ws.per_step();
-    // box i of the stream into its slot (once the box WS_STAGES before it has retired)
-    auto refill = [&](int i) {
-      if (tid != 0 || i >= boxes) return;
-      const CUtensorMap* map;
-      int x, y;
-      ws.box(i, map, x, y);
-      issue_box(sbase + (i % WS_STAGES) * WS_BOX_BYTES, map, x, y, full + 8 * (i % WS_STAGES));
-    };
-    for (int i = 0; i < WS_STAGES; ++i) refill(i);
-    int box = 0;
-    float acc[8] = {};
-    // acc = the next M-tile of weights in the stream times the dgates tile at dgs
-    auto tile_product = [&](uint32_t dgs) {
-      for (int kb = 0; kb < KB; ++kb, ++box) {
-        const int st = box % WS_STAGES;
-        lstm2::mbar_wait(full + 8 * st, (box / WS_STAGES) & 1);
-        const uint32_t wa = sbase + st * WS_BOX_BYTES, gb = dgs + kb * WS_KB_BYTES;
-        wgmma::hold(acc);
-        wgmma::fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma::wgmma_bf16_n16(acc, wgmma::desc_b128(wa + 32 * kk, 16, 1024),
-                                wgmma::desc_b128(gb + 32 * kk, 16, 1024), kb > 0 || kk > 0);
-        wgmma::commit();
-        wgmma::wait<1>();  // the previous box's products have retired: its slot is free
-        wgmma::hold(acc);
-        if (kb > 0) refill(box - 1 + WS_STAGES);
-      }
-      wgmma::wait<0>();
-      wgmma::hold(acc);
-      refill(box - 1 + WS_STAGES);
-    };
-    // the tile's sums into out[r][col0 + c] (pitch LD), added to what is there when `add`
-    auto store = [&](float* out, int col0, bool add) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float* word = out + (rr + 8 * (i >> 2) + (i & 1)) * LD + col0 + cr + 8 * ((i >> 1) & 1);
-        *word = add ? acc[i] + *word : acc[i];
-      }
-    };
-    // P2: dg2 [W2; U2]^T -> d h2 carry (overwritten), dh1' (into d h1)
-    auto p2 = [&](bool w2_add, bool wait_read) {
-      bar_sync(WS_BAR_DG2, both);
-      for (int m = 0; m < HT; ++m) {
-        tile_product(dg2_at);
-        store(dh2s, 64 * m, false);
-      }
-      if (wait_read) bar_sync(WS_BAR_DH1, both);  // the cells have read d h1 of the step before
-      for (int m = 0; m < HT; ++m) {
-        tile_product(dg2_at);
-        store(dh1s, 64 * m, w2_add);
-      }
-      bar_arrive(WS_BAR_P2, both);
-    };
-    // P1(s): dg1 U1^T -> d h1 carry, dg1 W1^T -> dx_s
-    auto p1 = [&](int s, bool u1_add) {
-      bar_sync(WS_BAR_DG1, both);
-      for (int m = 0; m < HT; ++m) {
-        tile_product(dg1_at);
-        store(dh1s, 64 * m, u1_add);
-      }
-      tile_product(dg1_at);
-      bf16* dx_t = a.dx + ((size_t)s * a.n_rows + n0) * D;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = rr + 8 * (i >> 2) + (i & 1), c = cr + 8 * ((i >> 1) & 1);
-        if (r < rows_here && c < D) dx_t[(size_t)r * D + c] = from_f<bf16>(acc[i]);
-      }
-      bar_arrive(WS_BAR_P1, both);
-    };
-    p2(true, false);
-    for (int s = t_hi; s >= t_lo; --s) {
-      if (s > t_lo) p2(false, true);
-      p1(s, s > t_lo);
-    }
-    return;
-  }
-
-  // the cell backwards: thread j, unit j
-  const int j = tid - WS_CELLS0;
-  float dc1[R], dc2[R];
-  float db[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (resume) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) v[c] = a.carry[((size_t)c * n_pad + n0 + r) * H + j];
-    }
-    dh1s[r * LD + j] = v[0];
-    dc1[r] = v[1];
-    dh2s[r * LD + j] = v[2];
-    dc2[r] = v[3];
-  }
-  auto tile_store = [](unsigned char* dgs) {
-    return [dgs](int r, int k, bf16 v) { *reinterpret_cast<bf16*>(dgs + ws_dg_offset(r, k)) = v; };
-  };
-  unsigned char* dg2s = base + (dg2_at - sbase);
-  unsigned char* dg1s = base + (dg1_at - sbase);
-  auto cells2 = [&](int t) {  // layer 2 at step t: d h2 = dy_t W_fc^T + the carry
-    const size_t row0 = (size_t)t * a.n_rows + n0, prev0 = row0 - a.n_rows;
-    const size_t dg0 = ((size_t)(t - a.t_base) * a.n_rows + n0) * G;
-    float dh[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) dh[r] = 0.0f;
-    for (int o = 0; o < O; ++o) {
-      const float w = a.fcw[j * O + o];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float y = r < rows_here ? to_f(a.dy[((size_t)(n0 + r) * a.steps + t) * O + o]) : 0.0f;
-        dh[r] = fmaf(y, w, dh[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) dh[r] = dh[r] + dh2s[r * LD + j];
-    cell_bwd<bf16, R>(dh, dc2, db[1], a.g2 + row0 * G, a.c2 + row0 * H,
-                      t > 0 ? a.c2 + prev0 * H : nullptr, a.dg2 + dg0, tile_store(dg2s),
-                      rows_here, H, j);
-    lstm2::fence_proxy_async();  // the dgates, to wgmma
-    bar_arrive(WS_BAR_DG2, both);
-  };
-  auto cells1 = [&](int t, bool tell_read) {  // layer 1 at step t from d h1_t
-    const size_t row0 = (size_t)t * a.n_rows + n0, prev0 = row0 - a.n_rows;
-    const size_t dg0 = ((size_t)(t - a.t_base) * a.n_rows + n0) * G;
-    float dh[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) dh[r] = dh1s[r * LD + j];
-    if (tell_read) bar_arrive(WS_BAR_DH1, both);
-    cell_bwd<bf16, R>(dh, dc1, db[0], a.g1 + row0 * G, a.c1 + row0 * H,
-                      t > 0 ? a.c1 + prev0 * H : nullptr, a.dg1 + dg0, tile_store(dg1s),
-                      rows_here, H, j);
-    lstm2::fence_proxy_async();
-    bar_arrive(WS_BAR_DG1, both);
-  };
-  cells2(t_hi);
-  for (int s = t_hi; s >= t_lo; --s) {
-    bar_sync(WS_BAR_P2, both);  // P2(s): d h2_{s-1} and dh1'(s) are in; dgates2 is free
-    if (s > t_lo) cells2(s - 1);
-    if (s < t_hi) bar_sync(WS_BAR_P1, both);  // P1(s + 1): d h1_s is whole; dgates1 is free
-    cells1(s, s > t_lo);
-  }
-  bar_sync(WS_BAR_P1, both);  // P1(t_lo): the d h1 carry out
-
-  if (a.carry != nullptr) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float v[4] = {dh1s[r * LD + j], dc1[r], dh2s[r * LD + j], dc2[r]};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) a.carry[((size_t)c * n_pad + n0 + r) * H + j] = v[c];
-    }
-  }
-  if (a.db_part != nullptr) {
-#pragma unroll
-    for (int l = 0; l < 2; ++l)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float* dst = a.db_part + ((size_t)tile * 2 + l) * G + g * H + j;
-        *dst = resume ? *dst + db[l][g] : db[l][g];
-      }
-  }
-}
-
-inline int launch_wgmma(const SweepArgs<__nv_bfloat16>& a, const SweepMaps& maps,
-                        cudaStream_t stream) {
-  if (!wgmma_runs<__nv_bfloat16>(a.D, a.H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = wgmma_shared_bytes(a.H);
-  const int threads = WS_CELLS0 + a.H;
-  auto kernel = sweep_wgmma_kernel;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  return launch_items(a, (const void*)kernel, threads, smem,
-                      [&](int ctas, const SweepArgs<__nv_bfloat16>& c) {
-                        kernel<<<ctas, threads, smem, stream>>>(maps, c);
-                        return (int)cudaGetLastError();
-                      });
-}
-
 // The wave form's `form` (SWEEP_WAVE in ops/lstm2_train.py)
 constexpr int WAVE_FORM = 1;
 
-// The reverse sweep's kernel (SWEEP_KERNELS in ops/lstm2_train.py):
-// `sweep_mma_kernel` (every form and dtype), `sweep_wgmma_kernel` (bf16,
-// the tile and wave forms)
-constexpr int KERNEL_MMA = 0, KERNEL_WGMMA = 1;
-
 // Launch one sweep over [t_lo, t_hi] in the form `form` gives: 0 the tile
 // form, WAVE_FORM the wave form (items of part_steps steps, a.carry set),
-// CLUSTER_SIZE the cluster form (any other value is refused), on `kernel`
-// (the wgmma kernels read `maps`, the others the packed weights). rows is
-// the row tile, 16. A kernel or form that does not run at the shape is
-// refused: nothing falls back.
+// CLUSTER_SIZE the cluster form (any other value is refused). rows is the
+// row tile, 16. A form that does not run at the shape is refused: nothing
+// falls back.
 template <typename T>
-int launch_sweep(const SweepArgs<T>& a, int rows, int form, int part_steps, int kernel,
-                 const SweepMaps* maps, cudaStream_t stream) {
+int launch_sweep(const SweepArgs<T>& a, int rows, int form, int part_steps, cudaStream_t stream) {
   if (rows != MMA_ROWS) return (int)cudaErrorInvalidValue;
-  const bool packed = a.w2p != nullptr && a.u1p != nullptr && a.w1p != nullptr;
   if (form == 0 || form == WAVE_FORM) {
     if ((form == WAVE_FORM) != (part_steps > 0)) return (int)cudaErrorInvalidValue;
     SweepArgs<T> b = a;
     b.part_steps = part_steps;
-    if (kernel == KERNEL_MMA && packed)
-      return a.H <= 384 ? launch_mma<T, 384>(b, stream) : launch_mma<T, 512>(b, stream);
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-      if (maps != nullptr && kernel == KERNEL_WGMMA) return launch_wgmma(b, *maps, stream);
-    }
-    return (int)cudaErrorInvalidValue;
+    return a.H <= 384 ? launch_mma<T, 384>(b, stream) : launch_mma<T, 512>(b, stream);
   }
-  if (form == CLUSTER_SIZE && kernel == KERNEL_MMA && packed) return launch_cluster<T>(a, stream);
+  if (form == CLUSTER_SIZE) return launch_cluster<T>(a, stream);
   return (int)cudaErrorInvalidValue;
-}
-
-// The maps a launch on `kernel` reads, encoded from the unpacked weights
-// (KERNEL_MMA: none): 0 or an error (`encode_sweep_maps`)
-template <typename T>
-int sweep_maps_for(int kernel, SweepMaps* maps, const void* w2, const void* u1, const void* w1,
-                   int D, int H) {
-  return kernel == KERNEL_MMA ? 0 : encode_sweep_maps<T>(maps, w2, u1, w1, D, H);
 }
 
 inline bool valid_shape(int n_rows, int steps, int D, int H, int O) {

@@ -1198,20 +1198,17 @@ __global__ void db_reduce_kernel(const float* __restrict__ db_part, float* __res
 
 template <typename T>
 int run(const void* const* in, void* const* out, int n_rows, int steps, int D, int H, int O,
-        int rows, int form, int chunk, int part_steps, int kernel, cudaStream_t stream) {
-  bwd::SweepMaps sweep_maps;  // the wgmma sweep's weights, encoded once a call
-  int err = bwd::sweep_maps_for<T>(kernel, &sweep_maps, in[8], in[9], in[10], D, H);
-  if (err != 0) return err;
-  const bool packed = kernel == bwd::KERNEL_MMA;
+        int rows, int form, int chunk, int part_steps, cudaStream_t stream) {
+  int err = 0;
   bwd::SweepArgs<T> s;
   s.dy = static_cast<const T*>(in[0]);
   s.g1 = static_cast<const T*>(in[2]);
   s.c1 = static_cast<const T*>(in[3]);
   s.g2 = static_cast<const T*>(in[5]);
   s.c2 = static_cast<const T*>(in[6]);
-  s.w2p = packed ? static_cast<const uint4*>(in[8]) : nullptr;
-  s.u1p = packed ? static_cast<const uint4*>(in[9]) : nullptr;
-  s.w1p = packed ? static_cast<const uint4*>(in[10]) : nullptr;
+  s.w2p = static_cast<const uint4*>(in[8]);
+  s.u1p = static_cast<const uint4*>(in[9]);
+  s.w1p = static_cast<const uint4*>(in[10]);
   s.fcw = static_cast<const float*>(in[11]);
   s.dx = static_cast<T*>(out[0]);
   s.dg1 = static_cast<T*>(out[7]);
@@ -1251,8 +1248,7 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
     s.t_lo = s.t_base = w.t_lo = t_lo;
     s.resume = t_hi != steps - 1;
     w.first = t_hi == steps - 1;
-    err = bwd::launch_sweep<T>(s, rows, form, part_steps, kernel, packed ? nullptr : &sweep_maps,
-                               stream);
+    err = bwd::launch_sweep<T>(s, rows, form, part_steps, stream);
     if (err != 0) return err;
     err = launch_wgrad<T>(w, tile, maps, stream);
     if (err != 0) return err;
@@ -1277,10 +1273,9 @@ int run(const void* const* in, void* const* out, int n_rows, int steps, int D, i
 // and the dgates scratch; fcw and every gradient sum are float32). w2p,
 // u1p, w1p: [W2; U2], U1 and W1 packed into mma fragments
 // (ops/lstm2.py: pack_tf32_b for float32, pack_mma_b for bfloat16); rows
-// is 16. form, part_steps and kernel: the sweep's form and kernel, as
-// lstm2_bwd takes them (lstm2_bwd.cu; the wave form's parts cut each chunk's
-// sweep, their carries in `carry`; on the wgmma sweep kernels w2p, u1p, w1p
-// are the unpacked bf16 weights). chunk: the steps the scratch holds. dw1, du1, dw2,
+// is 16. form and part_steps: the sweep's form, as lstm2_bwd takes it
+// (lstm2_bwd.cu; the wave form's parts cut each chunk's sweep, their
+// carries in `carry`). chunk: the steps the scratch holds. dw1, du1, dw2,
 // du2 must arrive zeroed; wgrad_part holds SPLITS - 1 float32 partials of
 // [dW1 | dU1 | dW2 | dU2] for a wgmma tile of SPLITS runs (null for one
 // run and for the mma.sync kernels); carry is [4][ceil(N / rows) * rows][H] and
@@ -1293,17 +1288,16 @@ extern "C" int lstm2_bwd_wgrad(const void* dy, const void* x, const void* g1, co
                                void* du2, void* db1, void* db2, void* scratch_dg1,
                                void* scratch_dg2, void* carry, void* db_part, void* wgrad_part,
                                int n_rows, int steps, int D, int H, int O, int rows, int form,
-                               int chunk, int part_steps, int kernel, int dtype, void* stream) {
+                               int chunk, int part_steps, int dtype, void* stream) {
   if (!bwd::valid_shape(n_rows, steps, D, H, O) || chunk < 1) return (int)cudaErrorInvalidValue;
   const void* in[12] = {dy, x, g1, c1, h1, g2, c2, h2, w2p, u1p, w1p, fcw};
   void* out[12] = {dx,  dw1,         du1,         dw2,   du2,     db1,
                    db2, scratch_dg1, scratch_dg2, carry, db_part, wgrad_part};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return run<float>(in, out, n_rows, steps, D, H, O, rows, form, chunk, part_steps, kernel, s);
+    return run<float>(in, out, n_rows, steps, D, H, O, rows, form, chunk, part_steps, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(in, out, n_rows, steps, D, H, O, rows, form, chunk, part_steps,
-                              kernel, s);
+    return run<__nv_bfloat16>(in, out, n_rows, steps, D, H, O, rows, form, chunk, part_steps, s);
   return (int)cudaErrorInvalidValue;
 }
 

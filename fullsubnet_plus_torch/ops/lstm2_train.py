@@ -33,14 +33,12 @@ the same name does (:679); left at None, the form follows x's dtype
 whose three products run on the tensor cores (in float32 as three TF32
 products of split operands), reading the weights packed into mma.sync
 fragment order (`pack_mma_b` in bfloat16, `pack_tf32_b` in float32) on
-mma.sync (in bf16 at H <= 384 also, forced, on Hopper's warpgroup products
-fed with the unpacked weights by TMA: `SWEEP_KERNEL`), in one of three
-forms that `bwd_sweep_form` chooses: the tile form (a CTA a row
-tile for all its steps), the wave form (the same work cut into items of a
-row tile and a few steps, in launches of a CTA an SM, so a fold of more
-tiles than SMs leaves no SM idle for a second wave) or, at FullSubNet's
-full-band folds, the cluster form (a cluster of CTAs a row tile, each owning
-a slice of the hidden units). Cast
+mma.sync, in one of three forms that `bwd_sweep_form` chooses: the tile
+form (a CTA a row tile for all its steps), the wave form (the same work cut
+into items of a row tile and a few steps, in launches of a CTA an SM, so a
+fold of more tiles than SMs leaves no SM idle for a second wave) or, at
+FullSubNet's full-band folds, the cluster form (a cluster of CTAs a row
+tile, each owning a slice of the hidden units). Cast
 points follow the TPU kernels: residuals and dgates are rounded to x's
 dtype where a product or a store reads them, h, c and every carry stay
 float32, the bias gradient of the fused form sums the unrounded dgates and
@@ -97,9 +95,7 @@ FUSED_WGRAD_BY_DTYPE = {torch.float32: True, torch.bfloat16: True}
 
 # wrapper calls that launched their kernel, since import (or last reset), and
 # the same by kernel and card ("lstm2_bwd cuda:1") and by the reverse sweep's
-# form and, where it is not `sweep_mma_kernel`, its kernel ("lstm2_bwd
-# cluster16", "lstm2_bwd_wgrad wave", "lstm2_bwd_wgrad wave/wgmma",
-# "lstm2_bwd tile/wgmma"; each cleared apart)
+# form ("lstm2_bwd cluster16", "lstm2_bwd_wgrad wave"; each cleared apart)
 LAUNCHES = {"lstm2_train_fwd": 0, "lstm2_bwd": 0, "lstm2_bwd_wgrad": 0}
 LAUNCHES_BY_CARD: Counter = Counter()
 SWEEP_FORMS: Counter = Counter()
@@ -134,24 +130,6 @@ CLUSTER_MAX_ROWS = 1536
 # products, to test that a CTA rewrites its block only once its copies have
 # read it (K4 alone; the results stay bit for bit).
 SWEEP_LATE_SENDS = 0
-
-# The reverse sweep's kernels (csrc/lstm2_bwd_sweep.cuh; their codes are
-# their indices, KERNEL_MMA and KERNEL_WGMMA): "mma" `sweep_mma_kernel`
-# (every form and dtype: the products on mma.sync from the packed weights),
-# "wgmma" `sweep_wgmma_kernel` (bf16, the tile and wave forms at H <= 384,
-# H % 64 == 0, D <= 64: the products on wgmma, the weights streamed by TMA,
-# layer 2 a step ahead so the weight stream runs under the cell backwards).
-SWEEP_KERNELS = ("mma", "wgmma")
-# None: every reverse sweep on "mma"; else one of SWEEP_KERNELS for every
-# reverse sweep (`force_sweep_kernel`), to time the candidates. A kernel
-# that does not run at the shape is refused; none falls back. No shape
-# takes "wgmma" unforced: on the H100 the bf16 wave-form step at N 2304
-# took 234.5 us on it against 116.4 on "mma" (205.6 against 80.5 for 12
-# CTAs alone): its TMA weight ring, about 9 boxes in flight beside the two
-# dgates tiles, streams some 22 GB/s an SM, its loads alone 165-184 us a
-# step (PERF.md; scripts/profile_torch_bwd_sweep.py).
-SWEEP_KERNEL: str | None = None
-WGMMA_STAGES = 10  # WS_STAGES: weight boxes of 64 rows x 64 k (8 KB) in the ring
 
 # The wave form: the steps of a work item (a tile's carries go through
 # device memory between its items). 4 on the H100 at the training fold: the
@@ -198,8 +176,8 @@ WGRAD_W1_TILE = (48, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_PTR] * 15 + [_INT] * 9 + [_PTR]
-_BWD_ARGTYPES = [_PTR] * 13 + [_INT] * 11 + [_PTR]
-_WGRAD_ARGTYPES = [_PTR] * 24 + [_INT] * 11 + [_PTR]
+_BWD_ARGTYPES = [_PTR] * 13 + [_INT] * 10 + [_PTR]
+_WGRAD_ARGTYPES = [_PTR] * 24 + [_INT] * 10 + [_PTR]
 # what `wgmma::encode_3d` (csrc/lstm2_wgmma.cuh) adds to the CUresult when a
 # tensor map fails to encode
 _ENCODE_FAILED = 1000
@@ -504,21 +482,12 @@ def bwd_dx_ksplit(rows: int, d_in: int, hidden: int, out_dim: int,
 
 def bwd_shared_memory_bytes(rows: int, d_in: int, hidden: int, out_dim: int,
                             dtype: torch.dtype = torch.float32,
-                            ksplit: bool | None = None, kernel: str = "mma") -> int:
+                            ksplit: bool | None = None) -> int:
     """csrc/lstm2_bwd_sweep.cuh: `sweep_mma_kernel`'s dgates in x's dtype
     [R][4H + pad] (MMA_PAD_BYTES of pad), then float32 the dh1 and dh2
     carries [R][H], the dy tile [R][O] and, in the k-split form of dx, a dx
     partial per warp [H / 32][R][ceil(D / 8) * 8]; in the form
-    `bwd_dx_ksplit` takes, or in the one `ksplit` names. On
-    `sweep_wgmma_kernel` (`kernel` "wgmma", bf16, `wgmma_shared_bytes`):
-    1024 bytes of alignment, the weight ring (WGMMA_STAGES boxes of 64 x 64 bf16), both
-    layers' dgates as K-major bf16 tiles [16][4H], the float32 dh1 and dh2
-    carries [16][H + 4] (the pad keeps the epilogue's stores free of bank
-    conflicts) and an mbarrier a ring slot; D and O do not enter (dx comes
-    from one M-tile's accumulators, dy from device memory)."""
-    if kernel != "mma":
-        return (1024 + WGMMA_STAGES * 64 * 64 * 2 + 2 * MMA_ROWS_PER_CTA * 4 * hidden * 2
-                + 2 * 4 * MMA_ROWS_PER_CTA * (hidden + 4) + WGMMA_STAGES * 8)
+    `bwd_dx_ksplit` takes, or in the one `ksplit` names."""
     if ksplit is None:
         ksplit = bwd_dx_ksplit(rows, d_in, hidden, out_dim, dtype)
     return _bwd_bytes(rows, d_in, hidden, out_dim, dtype, ksplit)
@@ -582,24 +551,9 @@ def bwd_sweep_form(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch.dt
     return SWEEP_WAVE if -(-n // MMA_ROWS_PER_CTA) > sm_count else 0
 
 
-def force_sweep_kernel(kernel: str | None) -> str | None:
-    """Make every later reverse sweep run on `kernel` (one of
-    SWEEP_KERNELS; None: "mma" again), to time the candidates on the card;
-    returns the previous setting. A launch on a
-    kernel that does not run at its shape raises."""
-    global SWEEP_KERNEL
-    if kernel is not None and kernel not in SWEEP_KERNELS:
-        raise ValueError(f"force_sweep_kernel: {kernel!r} is not one of {SWEEP_KERNELS}")
-    before, SWEEP_KERNEL = SWEEP_KERNEL, kernel
-    return before
-
-
-def sweep_form_name(form: int, kernel: str = "mma") -> str:
-    """A form and kernel as SWEEP_FORMS names them: "tile", "wave" or
-    "cluster16" on `sweep_mma_kernel`, then "/" and the kernel otherwise
-    ("wave/wgmma")."""
-    name = {0: "tile", SWEEP_WAVE: "wave"}.get(form, f"cluster{form}")
-    return name if kernel == "mma" else f"{name}/{kernel}"
+def sweep_form_name(form: int) -> str:
+    """A form as SWEEP_FORMS names it: "tile", "wave" or "cluster16"."""
+    return {0: "tile", SWEEP_WAVE: "wave"}.get(form, f"cluster{form}")
 
 
 def sweep_form(x: torch.Tensor, w: LSTM2Weights) -> int:
@@ -610,12 +564,6 @@ def sweep_form(x: torch.Tensor, w: LSTM2Weights) -> int:
     n, d, _ = x.shape
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
     return bwd_sweep_form(n, d, w.u1.shape[0], w.fc_w.shape[1], x.dtype, sm_count)
-
-
-def sweep_kernel() -> str:
-    """The kernel a reverse sweep runs on: SWEEP_KERNEL when set, else
-    "mma"."""
-    return SWEEP_KERNEL or "mma"
 
 
 def _check(name: str, x: torch.Tensor, w: LSTM2Weights, smem_bytes, row_tile) -> int:
@@ -661,12 +609,11 @@ def _check_residuals(name: str, x: torch.Tensor, res: Residuals, hidden: int) ->
                              f"{(steps, n, width)} {x.dtype} tensor on {x.device}")
 
 
-def _call(name: str, argtypes: list, x: torch.Tensor, *args, form: int | None = None,
-          kernel: str = "mma") -> None:
+def _call(name: str, argtypes: list, x: torch.Tensor, *args, form: int | None = None) -> None:
     """Launch `name` of csrc/<name>.cu on x's device and current stream,
     raise on a refused launch, and count the launch and its sweep's `form`
-    (the forward's in ops/lstm2.py's FWD_SWEEP_FORMS, a reverse sweep's with
-    its `kernel` in SWEEP_FORMS)."""
+    (the forward's in ops/lstm2.py's FWD_SWEEP_FORMS, a reverse sweep's in
+    SWEEP_FORMS)."""
     lib = nvcc.load(name, name, argtypes)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -676,14 +623,13 @@ def _call(name: str, argtypes: list, x: torch.Tensor, *args, form: int | None = 
         raise RuntimeError(f"{name}: a TMA tensor map failed to encode (CUresult "
                            f"{err - _ENCODE_FAILED})")
     if err != 0:  # the reverse sweep's forms have the forward's numbers (SWEEP_WAVE 1)
-        on = "" if kernel == "mma" else f" on the {kernel} sweep kernel"
-        raise RuntimeError(f"{name} launch failed{form_label(form)}{on}: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed{form_label(form)}: CUDA error {err}")
     LAUNCHES[name] += 1
     LAUNCHES_BY_CARD[f"{name} {x.device}"] += 1
     if name == "lstm2_train_fwd":
         count_form(name, form)
     elif form is not None:
-        SWEEP_FORMS[f"{name} {sweep_form_name(form, kernel)}"] += 1
+        SWEEP_FORMS[f"{name} {sweep_form_name(form)}"] += 1
 
 
 def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
@@ -711,16 +657,13 @@ def _launch_train_fwd(x: torch.Tensor, w: LSTM2Weights):
 
 def _bwd_operands(name: str, dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
                   res: Residuals):
-    """Checks, the row tile, the sweep's form (`sweep_form`) and kernel
-    (`sweep_kernel`), dy [N, T, O] in x's dtype, and the weights as the
-    sweep reads them: on `sweep_mma_kernel` the packed mma fragments of
-    [W2; U2], U1 and W1 (`pack_mma_b` in bfloat16, `pack_tf32_b` in float32;
-    once per call: 3.7 MB and 7.4 MB at H 384), on `sweep_wgmma_kernel`
-    the weights as they are (the kernel's TMA maps read them)."""
+    """Checks, the row tile, the sweep's form (`sweep_form`), dy [N, T, O]
+    in x's dtype, and the weights as the sweep reads them: the packed mma
+    fragments of [W2; U2], U1 and W1 (`pack_mma_b` in bfloat16, `pack_tf32_b`
+    in float32; once per call: 3.7 MB and 7.4 MB at H 384)."""
     rows = _check(name, x, w, functools.partial(bwd_shared_memory_bytes, dtype=x.dtype),
                   mma_rows_per_cta)
     form = sweep_form(x, w)
-    kernel = sweep_kernel()  # the C side refuses it where it does not run
     n, _, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     _check_residuals(name, x, res, hidden)
@@ -728,14 +671,12 @@ def _bwd_operands(name: str, dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
         raise ValueError(f"{name}: dy is {tuple(dy.shape)} on {dy.device}, expected "
                          f"{(n, steps, out_dim)} on {x.device}")
     dy = dy.to(x.dtype).contiguous()
-    if kernel != "mma":
-        return rows, form, kernel, dy, (w.w2, w.u1, w.w1)
     pack = pack_mma_b if x.dtype == torch.bfloat16 else pack_tf32_b
-    return rows, form, kernel, dy, tuple(pack(m) for m in (w.w2, w.u1, w.w1))
+    return rows, form, dy, tuple(pack(m) for m in (w.w2, w.u1, w.w1))
 
 
 def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Residuals) -> SweepGrads:
-    rows, form, kernel, dy, weights = _bwd_operands("lstm2_bwd", dy, x, w, res)
+    rows, form, dy, weights = _bwd_operands("lstm2_bwd", dy, x, w, res)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     dg1, dg2 = torch.empty_like(res.g1), torch.empty_like(res.g2)
@@ -746,8 +687,7 @@ def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights, res: Residua
              if wave else None)
     _call("lstm2_bwd", _BWD_ARGTYPES, x, dy, res.g1, res.c1, res.g2, res.c2, *weights,
           w.fc_w, dg1, dg2, dx_tnd, carry, n, steps, d, hidden, out_dim, rows, form,
-          WAVE_STEPS if wave else 0, SWEEP_LATE_SENDS, SWEEP_KERNELS.index(kernel),
-          _DTYPE_CODES[x.dtype], form=form, kernel=kernel)
+          WAVE_STEPS if wave else 0, SWEEP_LATE_SENDS, _DTYPE_CODES[x.dtype], form=form)
     # the bias sums of this form come from the rounded dgates (weight_grads)
     return SweepGrads(dx_tnd.permute(1, 2, 0), dg1, dg2, None, None)
 
@@ -828,7 +768,7 @@ def wgrad_x_cols(d_in: int, dtype: torch.dtype) -> int:
 
 def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
                       res: Residuals) -> LSTM2Grads:
-    rows, form, kernel, dy, weights = _bwd_operands("lstm2_bwd_wgrad", dy, x, w, res)
+    rows, form, dy, weights = _bwd_operands("lstm2_bwd_wgrad", dy, x, w, res)
     n, d, steps = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     tiles = -(-n // rows)
@@ -856,8 +796,8 @@ def _launch_bwd_wgrad(dy: torch.Tensor, x: torch.Tensor, w: LSTM2Weights,
     _call("lstm2_bwd_wgrad", _WGRAD_ARGTYPES, x, dy, x_tnd, res.g1, res.c1, res.h1, res.g2,
           res.c2, res.h2, *weights, w.fc_w, dx_tnd, dw1, du1, dw2, du2, db1, db2,
           scratch_dg1, scratch_dg2, carry, db_part, wgrad_part, n, steps, d, hidden, out_dim,
-          rows, form, chunk, WAVE_STEPS if form == SWEEP_WAVE else 0,
-          SWEEP_KERNELS.index(kernel), _DTYPE_CODES[x.dtype], form=form, kernel=kernel)
+          rows, form, chunk, WAVE_STEPS if form == SWEEP_WAVE else 0, _DTYPE_CODES[x.dtype],
+          form=form)
     WGRAD_TILES[f"lstm2_bwd_wgrad {'x'.join(map(str, tile))}"] += 1
     return LSTM2Grads(dx_tnd.permute(1, 2, 0), dw1, du1, dw2, du2, db1, db2)
 

@@ -1,9 +1,9 @@
 """Where a step of the port's reverse sweep goes (its wave form: the
 launches of `sweep_mma_kernel` a CTA an SM, each CTA an item of a row tile
-and WAVE_STEPS steps, and in bf16 of `sweep_wgmma_kernel`; with `--tile`
-its tile form, `sweep_mma_kernel` a CTA a row tile for all the steps; with
-`--fb` its cluster form `sweep_cluster_kernel<T>`;
-fullsubnet_plus_torch/csrc/lstm2_bwd_sweep.cuh), in float32 and bf16.
+and WAVE_STEPS steps; with `--tile` its tile form, `sweep_mma_kernel` a CTA
+a row tile for all the steps; with `--fb` its cluster form
+`sweep_cluster_kernel<T>`; fullsubnet_plus_torch/csrc/lstm2_bwd_sweep.cuh),
+in float32 and bf16.
 
     python3 scripts/profile_torch_bwd_sweep.py [float32] [bfloat16]   (from the repo's root)
     python3 scripts/profile_torch_bwd_sweep.py --tile [float32] [bfloat16]
@@ -14,16 +14,8 @@ once per variant and edits the copy. The wave form's variants (the form
 forced in each): as it is, the tile form as it is (the same tree,
 SWEEP_FORM 0), without the three products, without the weight loads (the
 products run on register values), without the two cell backwards, and in
-float32 without the TF32 splits (both halves the raw word); each on
-`sweep_mma_kernel` (forced). In bf16 also `sweep_wgmma_kernel` (the
-products on wgmma from a TMA ring of weight boxes, layer 2 a step ahead):
-as it is, with the steps in order (layer 1 and layer 2 of a step in turn,
-the weight stream in the same order: the same bits), without its
-products (the ring and the cells), without the TMA loads (the products on
-whatever the ring holds, each slot's mbarrier arrived on with no bytes),
-without the two cell backwards, the loads alone (no products, no cells),
-the products alone (no loads, no cells), and as it is with items of 8
-steps (WAVE_STEPS 8).
+float32 without the TF32 splits (both halves the raw word), and in bf16
+as it is with items of 8 steps (WAVE_STEPS 8).
 With `--tile`, the tile form's variants (forced likewise): as it is, without the three products,
 without the weight loads (the products run on register values), without
 the two cell backwards, and in float32 also without the TF32 splits (both
@@ -34,9 +26,9 @@ weight words loaded while the previous chunk's products run. It builds the
 variants' K4 libraries in parallel, prints the registers and spills of
 their 384-thread sweep functions, then, one variant after another, times
 K4 (`lstm2_bwd_sweep`) at T 195 with CUDA events (median of 3) at N 192
-(12 CTAs of 16 rows: what the second wave at N 2304 costs), 2112 (one full
-wave on 132 SMs) and 2304 (the training fold: two waves), and prints
-microseconds per step. The residuals come from the plain forward. The
+(12 CTAs of 16 rows: what the second wave at N 2304 costs, where each
+CTA's chain of steps sets the pace), 2112 (one full wave on 132 SMs) and
+2304 (the training fold: two waves), and prints microseconds per step. The residuals come from the plain forward. The
 variants that take work out compute wrong gradients; they only time.
 With `--fb`, at FullSubNet's full-band shape (D 257, H 512, O 257) at N
 18, where the sweep takes its cluster form (`sweep_cluster_kernel`: two
@@ -78,8 +70,7 @@ CELLS_OUT = [
     (SWEEP, "    cell_bwd<T, R>(dh, dc2, db[1]", "    if (t < -1) cell_bwd<T, R>(dh, dc2, db[1]"),
     (SWEEP, "    cell_bwd<T, R>(dh, dc1, db[0]", "    if (t < -1) cell_bwd<T, R>(dh, dc1, db[0]"),
 ]
-# variant: (the dtypes it is timed in, [(file, text, its replacement), ...]);
-# timed on `sweep_mma_kernel` (the wave form's "wgmma:" ones on `sweep_wgmma_kernel`)
+# variant: (the dtypes it is timed in, [(file, text, its replacement), ...])
 TILE_VARIANTS = {
     "as committed": (DTYPES, []),
     "without the three products": (DTYPES, [
@@ -137,44 +128,6 @@ TILE_VARIANTS = {
     ]),
     "without the two cell backwards": (DTYPES, CELLS_OUT),
 }
-# `sweep_wgmma_kernel` (bf16): its products, its TMA loads, its cells
-WG_PRODUCTS_OUT = [
-    (SWEEP, "wgmma::wgmma_bf16_n16(acc,", "if (0) wgmma::wgmma_bf16_n16(acc,"),
-]
-WG_LOADS_OUT = [  # the slot's mbarrier arrived on with no bytes to wait for
-    (SWEEP, "issue_box(sbase + (i % WS_STAGES) * WS_BOX_BYTES, map, x, y, full + 8 * (i % WS_STAGES));",
-     "lstm2::mbar_arrive_expect(full + 8 * (i % WS_STAGES), 0);"),
-]
-WG_IN_ORDER = [  # (P2(s), P1(s)) a step: no P2 ahead, each cells2 after the P1 before
-    (SWEEP, "    bool p2 = i < p2_boxes();  // the lead P2\n    if (!p2) {\n      i -= p2_boxes();\n",
-     "    bool p2 = false;\n    {\n"),
-    (SWEEP, "const WeightStream ws{&maps, HT, KB, steps - 1};",
-     "const WeightStream ws{&maps, HT, KB, steps};"),
-    (SWEEP, """    p2(true, false);
-    for (int s = t_hi; s >= t_lo; --s) {
-      if (s > t_lo) p2(false, true);
-      p1(s, s > t_lo);
-    }""", """    for (int s = t_hi; s >= t_lo; --s) {
-      p2(true, false);
-      p1(s, false);
-    }"""),
-    (SWEEP, """  cells2(t_hi);
-  for (int s = t_hi; s >= t_lo; --s) {
-    bar_sync(WS_BAR_P2, both);  // P2(s): d h2_{s-1} and dh1'(s) are in; dgates2 is free
-    if (s > t_lo) cells2(s - 1);
-    if (s < t_hi) bar_sync(WS_BAR_P1, both);  // P1(s + 1): d h1_s is whole; dgates1 is free
-    cells1(s, s > t_lo);
-  }""", """  for (int s = t_hi; s >= t_lo; --s) {
-    if (s < t_hi) bar_sync(WS_BAR_P1, both);
-    cells2(s);
-    bar_sync(WS_BAR_P2, both);
-    cells1(s, false);
-  }"""),
-]
-WG_CELLS_OUT = [
-    (SWEEP, "    cell_bwd<bf16, R>(dh, dc2,", "    if (t < -1) cell_bwd<bf16, R>(dh, dc2,"),
-    (SWEEP, "    cell_bwd<bf16, R>(dh, dc1,", "    if (t < -1) cell_bwd<bf16, R>(dh, dc1,"),
-]
 BF16 = ("bfloat16",)
 # the wave form's variants; "the tile form" times the tile form on the same tree
 VARIANTS = {
@@ -184,18 +137,9 @@ VARIANTS = {
     "without the weight loads": TILE_VARIANTS["without the weight loads"],
     "without the two cell backwards": (DTYPES, CELLS_OUT),
     "without the TF32 splits": (("float32",), TILE_VARIANTS["without the TF32 splits"][1]),
-    "wgmma: as committed": (BF16, []),
-    "wgmma: the steps in order": (BF16, WG_IN_ORDER),
-    "wgmma: without the products": (BF16, WG_PRODUCTS_OUT),
-    "wgmma: without the TMA loads": (BF16, WG_LOADS_OUT),
-    "wgmma: without the two cell backwards": (BF16, WG_CELLS_OUT),
-    "wgmma: the loads alone": (BF16, WG_PRODUCTS_OUT + WG_CELLS_OUT),
-    "wgmma: the products alone": (BF16, WG_LOADS_OUT + WG_CELLS_OUT),
-    "wgmma: items of 8 steps": (BF16, [("ops/lstm2_train.py", "\nWAVE_STEPS = 4\n",
-                                        "\nWAVE_STEPS = 8\n")]),
+    "items of 8 steps": (BF16, [("ops/lstm2_train.py", "\nWAVE_STEPS = 4\n",
+                                 "\nWAVE_STEPS = 8\n")]),
 }
-# the wave-form variants timed on `sweep_wgmma_kernel`
-WGMMA_VARIANTS = {name for name in VARIANTS if name.startswith("wgmma")}
 # FullSubNet's full-band LSTM (--fb): the cluster form's step
 WAIT_BLOCKS = "for (int o = 0; o < C; ++o) if (o != c) mbar_wait(bars + 8 * o, ex.parity);\n"
 FB_PRODUCTS_OUT = [  # each warp still waits for every peer's block, which keeps the copies whole
@@ -272,9 +216,9 @@ def registers_and_spills(root: Path, functions: tuple) -> str:
     return ", ".join(out)
 
 
-def time_here(dtype_name: str, shape: str, form: str, kernel: str) -> None:
+def time_here(dtype_name: str, shape: str, form: str) -> None:
     """Run inside a variant's copy: K4's sweep time at each fold, in `form`
-    ("wave", "tile" or "rule") on `kernel` (one of SWEEP_KERNELS)."""
+    ("wave", "tile" or "rule")."""
     import torch
 
     from fullsubnet_plus_torch.nn.layers import Linear
@@ -283,7 +227,6 @@ def time_here(dtype_name: str, shape: str, form: str, kernel: str) -> None:
 
     dtype = getattr(torch, dtype_name)
     lt.SWEEP_FORM = {"wave": lt.SWEEP_WAVE, "tile": 0}.get(form)
-    lt.force_sweep_kernel(kernel)
 
     def ms(fn, reps=3):
         fn()
@@ -311,7 +254,7 @@ def time_here(dtype_name: str, shape: str, form: str, kernel: str) -> None:
         w = lstm.packed(fc)
         _, res = lt.lstm2_train_fwd_reference(x, w)
         k4 = ms(lambda: lt.lstm2_bwd_sweep(dy, x, w, res))
-        cells.append(f"N {n}: {k4:.2f} ms, {k4 / T * 1e3:.1f} us a step")
+        cells.append(f"N {n}: {k4:.3f} ms, {k4 / T * 1e3:.1f} us a step")
         del x, dy, w, res
         torch.cuda.empty_cache()
     print(" | ".join(cells), flush=True)
@@ -341,8 +284,7 @@ def main(dtypes, shape, tile: bool) -> None:
         if [b.wait() for b in builds] != [0] * len(builds):
             raise SystemExit("a variant did not build")
         for name, root in roots.items():
-            functions = ("sweep_wgmma_kernel",) if name in WGMMA_VARIANTS else SHAPES[shape][2]
-            print(f"{name}: ptxas {registers_and_spills(root, functions)}")
+            print(f"{name}: ptxas {registers_and_spills(root, SHAPES[shape][2])}")
         for dtype in dtypes:
             for name, root in roots.items():
                 if dtype not in table[name][0]:
@@ -350,15 +292,14 @@ def main(dtypes, shape, tile: bool) -> None:
                 print(f"{dtype} {name}: ", end="", flush=True)
                 form = ("rule" if shape == "fb" else
                         "tile" if tile or name == "the tile form" else "wave")
-                kernel = "wgmma" if name in WGMMA_VARIANTS else "mma"
                 if run(root, str(Path(__file__).resolve()), "--time", dtype, shape,
-                       form, kernel).wait() != 0:
+                       form).wait() != 0:
                     raise SystemExit(f"{dtype} {name} failed")
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time"]:
-        time_here(sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5])
+        time_here(sys.argv[2], sys.argv[3], sys.argv[4])
     else:
         args = [a for a in sys.argv[1:] if a not in ("--fb", "--tile")]
         chosen = tuple(args) or DTYPES

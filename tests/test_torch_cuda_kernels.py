@@ -24,10 +24,8 @@ waves and with one CTA's sends made late), and a cluster launch at a shape
 the kernel does not run raises. The reverse and forward sweeps' wave forms
 (work items of a row tile and a few steps, launched in waves of a CTA an
 SM) equal their tile forms bit for bit, and a wave launch at a shape it
-does not run raises. The bf16 reverse sweep on `wgmma` (layer 2 a step
-ahead) holds the plain sweep, equals its tile form bit for bit, and
-refuses a shape it does not run. chip_smoke.py
-repeats these checks at the model's folds.
+does not run raises. chip_smoke.py repeats these checks at the model's
+folds.
 """
 
 import importlib.util
@@ -641,8 +639,7 @@ def test_wave_sweep_matches_plain_and_tile_on_cuda(monkeypatch, dtype, n, d, pk)
     equal to themselves on a repeat. An item runs the tile form's steps from
     the carries in device memory, so K4's outputs and K3's dx and weight
     gradients equal the tile form forced (SWEEP_FORM 0) bit for bit; K3's
-    bias sums, grouped by item, agree to float32 rounding. `sweep_mma_kernel`
-    forced in bf16 too (the rule's bf16 kernel at H 384 is held below)."""
+    bias sums, grouped by item, agree to float32 rounding."""
     _need_card()
     t, hidden = 9, 384
     tensors, x, dy = _case(n, t, d, hidden, 2, seed=n + d)
@@ -652,7 +649,6 @@ def test_wave_sweep_matches_plain_and_tile_on_cuda(monkeypatch, dtype, n, d, pk)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert (lt.bwd_sweep_form(n, d, hidden, 2, dtype, sms) == lt.SWEEP_WAVE) == (n > 16 * sms)
     monkeypatch.setattr(lt, "SWEEP_FORM", lt.SWEEP_WAVE)
-    monkeypatch.setattr(lt, "SWEEP_KERNEL", "mma")  # the wgmma kernel's own test is below
     monkeypatch.setattr(lt, "WAVE_STEPS", pk)
     monkeypatch.setattr(lt, "SWEEP_FORMS", type(lt.SWEEP_FORMS)())
     got = lt.lstm2_bwd_sweep(dyt, xt, w, res)
@@ -683,87 +679,6 @@ def test_wave_sweep_matches_plain_and_tile_on_cuda(monkeypatch, dtype, n, d, pk)
         assert torch.equal(getattr(k3[0], name), getattr(k3[1], name)), name
         assert torch.equal(getattr(k3[1], name), getattr(k3_tile, name)), name
     assert min(_snr(k3_tile.db1, k3[1].db1), _snr(k3_tile.db2, k3[1].db2)) >= 100.0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("pk", [4, 8])
-@pytest.mark.parametrize("n,d", [(40, 34), (771, 34), (2304, 34), (771, 32), (2304, 32)])
-def test_wgmma_sweep_matches_plain_on_cuda(monkeypatch, n, d, pk):
-    """The bf16 reverse sweep on `sweep_wgmma_kernel` (H 384, T 11, items
-    of pk steps: at 4 the last part is ragged, 3 steps) in the wave form at
-    folds of 3, 49 and 144 row tiles, at D 34 and FullSubNet's sub-band D
-    32, forced (SWEEP_KERNEL): it runs there, but measured slower than
-    `sweep_mma_kernel`, which every unforced sweep runs. K4's dx and dgates
-    against the plain sweep and K3's gradients against `lstm2_bwd_plain` at
-    the bf16 floor; K4 equal to itself on a repeat and to its tile form bit
-    for bit; K3 at two scratch sizes (2 steps,
-    each sweep but the first resuming from the carries, and all 11) with
-    the same dx and weight gradients bit for bit, and equal to its tile
-    form there; each launch counted by form and kernel."""
-    _need_card()
-    t, hidden, dtype = 11, 384, torch.bfloat16
-    tensors, x, dy = _case(n, t, d, hidden, 2, seed=n + d + 25)
-    w = ops_lstm2.pack_weights(*(p.to("cuda", dtype) for p in tensors))
-    xt, dyt = torch.tensor(x).to("cuda", dtype), torch.tensor(dy).cuda()
-    _, res = lt.lstm2_train_fwd_reference(xt, w)
-    assert lt.sweep_kernel() == "mma"
-    monkeypatch.setattr(lt, "SWEEP_KERNEL", "wgmma")
-    monkeypatch.setattr(lt, "SWEEP_FORM", lt.SWEEP_WAVE)
-    monkeypatch.setattr(lt, "WAVE_STEPS", pk)
-    monkeypatch.setattr(lt, "SWEEP_FORMS", type(lt.SWEEP_FORMS)())
-    got = lt.lstm2_bwd_sweep(dyt, xt, w, res)
-    again = lt.lstm2_bwd_sweep(dyt, xt, w, res)
-    k3 = []
-    for steps in (2, t):
-        monkeypatch.setitem(lt.WAVE_SCRATCH_BYTES, dtype,
-                            steps * 2 * n * 4 * hidden * xt.element_size())
-        assert lt.wgrad_chunk_steps(n, hidden, t, dtype, wave=True) == steps
-        k3.append(lt.lstm2_bwd(dyt, xt, w, res, fused=True))
-    monkeypatch.setattr(lt, "SWEEP_FORM", 0)
-    tile = lt.lstm2_bwd_sweep(dyt, xt, w, res)
-    k3_tile = lt.lstm2_bwd(dyt, xt, w, res, fused=True)
-    torch.cuda.synchronize()
-    assert lt.SWEEP_FORMS == {"lstm2_bwd wave/wgmma": 2, "lstm2_bwd_wgrad wave/wgmma": 2,
-                              "lstm2_bwd tile/wgmma": 1, "lstm2_bwd_wgrad tile/wgmma": 1}
-    ref = lt.lstm2_bwd_reference(dyt, xt, w, res)
-    want = lt.lstm2_bwd_plain(dyt, xt, w, res, fused=True)
-    snrs = {f"k4_{k}": _snr(a.float(), b.float()) for k, a, b in zip(("dx", "dg1", "dg2"), ref, got)}
-    for i, grads in enumerate(k3):
-        snrs.update({f"k3_{i}_{k}": _snr(a.float(), b.float())
-                     for k, a, b in zip(want._fields, want, grads)})
-    assert min(snrs.values()) >= FLOOR[dtype], snrs
-    for other in (again, tile):
-        assert all(torch.equal(a, b) for a, b in zip(got[:3], other[:3]))
-    for name in ("dx", "dw1", "du1", "dw2", "du2"):  # the bias sums are grouped by item
-        assert torch.equal(getattr(k3[0], name), getattr(k3[1], name)), name
-        assert torch.equal(getattr(k3[1], name), getattr(k3_tile, name)), name
-
-
-@pytest.mark.cuda
-def test_wgmma_sweep_refuses_what_it_cannot_take(monkeypatch):
-    """`sweep_wgmma_kernel` forced where it does not run raises and nothing
-    falls back to `sweep_mma_kernel` or the plain version: in float32, at
-    FullSubNet's full-band shape (D 257, H 512) in the tile form, in the
-    cluster form, and at D 65 (W1 past one M-tile); no launch is counted."""
-    _need_card()
-    monkeypatch.setattr(lt, "SWEEP_FORMS", type(lt.SWEEP_FORMS)())
-    monkeypatch.setattr(lt, "SWEEP_KERNEL", "wgmma")
-    cases = [(torch.float32, 40, 34, 384, 2, 0), (torch.bfloat16, 18, 257, 512, 257, 0),
-             (torch.bfloat16, 18, 257, 512, 257, lt.SWEEP_CLUSTER),
-             (torch.bfloat16, 40, 65, 384, 2, 0)]
-    for dtype, n, d, hidden, o, form in cases:
-        tensors, x, dy = _case(n, 3, d, hidden, o, seed=d)
-        w = ops_lstm2.pack_weights(*(p.to("cuda", dtype) for p in tensors))
-        xt, dyt = torch.tensor(x).to("cuda", dtype), torch.tensor(dy).cuda()
-        _, res = lt.lstm2_train_fwd_reference(xt, w)
-        monkeypatch.setattr(lt, "SWEEP_FORM", form)
-        before = dict(lt.LAUNCHES)
-        for call in (lambda: lt.lstm2_bwd_sweep(dyt, xt, w, res),
-                     lambda: lt.lstm2_bwd(dyt, xt, w, res, fused=True)):
-            with pytest.raises(RuntimeError, match="wgmma sweep kernel"):
-                call()
-        assert dict(lt.LAUNCHES) == before
-    assert not lt.SWEEP_FORMS
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ residuals and dgates to bf16 at the same points; XLA's CPU bf16 products
 and torch's differ in sum order, which moves single roundings).
 """
 
+import importlib.util
 import re
 from pathlib import Path
 
@@ -2059,116 +2060,8 @@ def test_fwd_wave_walk_equals_the_tile_walk(dtype, part_steps):
 
 
 # ---------------------------------------------------------------------------
-# the bf16 reverse sweep on wgmma (csrc/lstm2_bwd_sweep.cuh, sweep_wgmma_kernel)
+# the bf16 reverse sweep's schedule (csrc/lstm2_bwd_sweep.cuh, sweep_mma_kernel)
 # ---------------------------------------------------------------------------
-
-def _ws_dg_offset(r, k):
-    """`ws_dg_offset`: byte offset of dgates element (r, k) in the K-major
-    tile: block k / 64 of [16][64] (2 KB), row r 128 bytes in two 1024-byte
-    atoms, the 16-byte chunks swizzled by r % 8."""
-    r, k = np.asarray(r), np.asarray(k)
-    return ((k >> 6) * 2048 + (r >> 3) * 1024 + (r & 7) * 128
-            + ((((k >> 3) & 7) ^ (r & 7)) << 4) + (k & 7) * 2)
-
-
-def _k_major_bf16(smem, start, rows, k=16, sbo=1024):
-    """A B128 K-major bf16 wgmma operand read through its descriptor:
-    element (row, k) at start + (row / 8) SBO + (row % 8) 128 + 2 k,
-    swizzled (a k16 step's descriptor starts 32 bytes further in)."""
-    r, kk = np.meshgrid(np.arange(rows), np.arange(k), indexing="ij")
-    addr = start + (r // 8) * sbo + (r % 8) * 128 + kk * 2
-    bits = smem.view(np.uint16)[_swz128(addr) // 2].astype(np.uint32) << 16
-    return bits.view(np.float32).astype(np.float64)
-
-
-def test_wgmma_sweep_tile_walk_matches_the_products():
-    """One M-tile product of `sweep_wgmma_kernel` on a ragged row tile (11
-    of 16 rows live; H 64, so 4H 256 and four 64-k blocks), walked as the
-    kernel walks it: the cell backward writes each rounded dgate (r, k) at
-    `ws_dg_offset` (rows past N hold the zeros their zero inputs give), each
-    weight box of 64 rows x 64 k lands swizzled (W1's rows past D 34 as
-    zeros), and each of a box's four m64n16k16 reads A (the box) and B (the
-    dgates block) K-major through descriptors 32 bytes further in a k16
-    step, SBO 1024. The float64 sums give W dg^T exactly, rows past D zero;
-    and the accumulator fragment (register 4 j + 2 h + e of thread 32 w +
-    l: column 16 w + l / 4 + 8 h of the tile, row 8 j + 2 (l % 4) + e)
-    covers the 64 x 16 tile once."""
-    rng = np.random.default_rng(25)
-    hidden, d_in, rows_here = 64, 34, 11
-    g_cols = 4 * hidden
-
-    def bf16(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16().float().numpy()
-
-    dg = np.zeros((16, g_cols), np.float32)
-    dg[:rows_here] = bf16(rows_here, g_cols)
-    tile = np.zeros(16 * g_cols * 2, np.uint8)
-    r, k = np.meshgrid(np.arange(16), np.arange(g_cols), indexing="ij")
-    tile.view(np.uint16)[_ws_dg_offset(r, k).ravel() // 2] = _bf16_bits(dg).ravel()
-    for name, w in (("u1", bf16(hidden, g_cols)), ("w1", bf16(d_in, g_cols))):
-        acc = np.zeros((64, 16))
-        for kb in range(g_cols // 64):
-            slot = np.zeros(64 * 128, np.uint8)
-            _tma_box(slot, 0, _bf16_bits(w), 0, 64 * kb, 64, 64, 2, True)
-            for kk in range(4):
-                a = _k_major_bf16(slot, 32 * kk, 64)
-                b = _k_major_bf16(tile, 2048 * kb + 32 * kk, 16)
-                acc += a @ b.T
-        want = w.astype(np.float64) @ dg.astype(np.float64).T
-        np.testing.assert_allclose(acc[:w.shape[0]], want, rtol=1e-12, atol=1e-12, err_msg=name)
-        assert not acc[w.shape[0]:].any()
-    t, i = np.meshgrid(np.arange(128), np.arange(8), indexing="ij")
-    col = 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1)
-    row = 8 * (i >> 2) + 2 * (t & 3) + (i & 1)
-    assert sorted(zip(col.ravel(), row.ravel())) == [(c, r) for c in range(64) for r in range(16)]
-
-
-def _wgmma_phase_boxes(hidden):
-    """The weight boxes `sweep_wgmma_kernel` streams a step, in the order its
-    products take them (its `WeightStream`): {"p2": [(array, first row,
-    first k), ...], "p1": [...]} with array "w2" ([W2; U2], its U2 half
-    first, then W2), "u1" and "w1" (one M-tile); each M-tile of 64 rows is
-    4H / 64 boxes of 64 k in k order."""
-    def boxes(array, row0, m_tiles):
-        return [(array, row0 + 64 * m, k) for m in range(m_tiles) for k in range(0, 4 * hidden, 64)]
-
-    tiles = hidden // 64
-    return {"p2": boxes("w2", hidden, tiles) + boxes("w2", 0, tiles),
-            "p1": boxes("u1", 0, tiles) + boxes("w1", 0, 1)}
-
-
-@pytest.mark.parametrize("d,hidden", [(34, 384), (32, 384), (34, 64)])
-def test_wgmma_sweep_boxes_cover_the_weights_once_a_step(d, hidden):
-    """The weight boxes `sweep_wgmma_kernel` streams a step
-    (`_wgmma_phase_boxes`, the kernel's `WeightStream`): P2 the U2 half of
-    [W2; U2] first (the dh2 carry gates layer 2's recurrence), then W2; P1
-    U1, then W1's one M-tile (its rows past D zero-filled to 64); each
-    M-tile's boxes of 64 x 64 in k order. Together they cover every weight
-    once: at H 384, 19 M-tiles of 24 boxes, 3.65 MB."""
-    g_cols, tiles = 4 * hidden, hidden // 64
-    phases = _wgmma_phase_boxes(hidden)
-    shapes = {"w2": 2 * hidden, "u1": hidden, "w1": d}
-    covered = {name: np.zeros((rows, g_cols), int) for name, rows in shapes.items()}
-    zero_rows = 0
-    for array, row0, col0 in phases["p2"] + phases["p1"]:
-        rows = covered[array].shape[0]
-        assert row0 % 64 == 0 and col0 % 64 == 0 and row0 < rows
-        covered[array][row0:row0 + 64, col0:col0 + 64] += 1
-        zero_rows += max(0, row0 + 64 - rows)
-    assert all((c == 1).all() for c in covered.values())
-    assert zero_rows == (64 - d) * (g_cols // 64)
-    kb = g_cols // 64
-    p2 = phases["p2"]
-    u2_then_w2 = [hidden + 64 * m for m in range(tiles)] + [64 * m for m in range(tiles)]
-    assert [b[1] for b in p2[::kb]] == u2_then_w2
-    assert all([b[2] for b in p2[m * kb:(m + 1) * kb]] == list(range(0, g_cols, 64))
-               for m in range(2 * tiles))
-    assert [b[0] for b in phases["p1"][::kb]] == ["u1"] * tiles + ["w1"]
-    boxes = len(p2) + len(phases["p1"])
-    assert boxes == (3 * tiles + 1) * kb
-    if hidden == 384:
-        assert (boxes, boxes * 64 * 64 * 2) == (456, 3_735_552)
-
 
 def _bf16_round(a):
     """float32 -> bf16 (round to nearest even) -> float32, as __float2bfloat16_rn."""
@@ -2177,206 +2070,262 @@ def _bf16_round(a):
     return bits.view(np.float32)
 
 
-def _wgmma_sweep_emulated(dy, g1, c1, g2, c2, w2, u1, w1, fcw, part_steps, skew, rng):
-    """The reverse sweep as `sweep_wgmma_kernel` runs it (`skew`: layer 2 a
-    step ahead) or with its steps in order (the profile script's "wgmma:
-    the steps in order" variant), in float32 numpy: per row tile of 16 and wave item of part_steps steps, its cells
-    program and its products program as two coroutines that meet only at
-    the kernel's named barriers (DG2, P2, DG1, P1, DH1: one side arrives,
-    the other syncs), interleaved in a random order that the barriers
-    allow; the carries pass between a tile's items. Each product is one
-    float32 matmul of the rounded dgates, its epilogue writing (or adding,
-    acc + old) into dh1s / dh2s as the kernel's. Returns dx, dg1, dg2."""
+def _sweep_emulated(dy, g1, c1, g2, c2, w2, u1, w1, fcw, part_steps, rng):
+    """The reverse sweep as `sweep_mma_kernel` runs it in bf16, in float32
+    numpy. Per row tile of 16 and work item of part_steps steps (None: the
+    tile form, one item of every step), each of the H / 32 warps runs the
+    kernel's program as a coroutine: its cells (units 32 w .. 32 w + 31,
+    row by row) and its products (P2: [W2; U2] columns 64 w .. 64 w + 63 in
+    two passes, P1: U1 columns 32 w .. 32 w + 31 and dx's k-split partial
+    over its k-part), between the kernel's five barriers a step over one
+    dgates tile and one d h1 buffer. It yields between each read and write
+    of shared memory, and the warps are interleaved in a random order that
+    __syncthreads allows. Each product is one float32 matmul of the rounded
+    dgates, its epilogue writing (or adding, acc + old) as `store_acc`
+    does. The carries pass between a tile's items, and an item adds its
+    bias sums to the tile's. Returns dx, dg1, dg2, the bias sums
+    [tiles][2][4H] (db_part) and the carries out [4][N][H]."""
     steps, n, hidden = c1.shape
-    d_in = w1.shape[0]
-    out_dim = fcw.shape[1]
+    d_in, out_dim, gates = w1.shape[0], fcw.shape[1], 4 * hidden
+    warps, dxc, tiles = hidden // 32, -(-d_in // 8) * 8, -(-n // 16)
+    w1p = np.zeros((dxc, gates), np.float32)
+    w1p[:d_in] = w1
     dx = np.zeros((steps, n, d_in), np.float32)
-    dgs = [np.zeros((steps, n, 4 * hidden), np.float32) for _ in range(2)]
-    for n0 in range(0, n, 16):
+    dgs = [np.zeros((steps, n, gates), np.float32) for _ in range(2)]
+    db_part = np.zeros((tiles, 2, gates), np.float32)
+    carry_out = np.zeros((4, tiles * 16, hidden), np.float32)
+    part_steps = part_steps or steps
+    for tile in range(tiles):
+        n0 = 16 * tile
         live = min(16, n - n0)
         carry = [np.zeros((16, hidden), np.float32) for _ in range(4)]  # dh1, dc1, dh2, dc2
         for t_hi in range(steps - 1, -1, -part_steps):
             t_lo = max(0, t_hi - part_steps + 1)
-            sh = {"dh1": carry[0].copy(), "dh2": carry[2].copy(),
-                  "dg1": np.zeros((16, 4 * hidden), np.float32),
-                  "dg2": np.zeros((16, 4 * hidden), np.float32)}
-            dc = {1: carry[1].copy(), 2: carry[3].copy()}
+            first = t_hi == steps - 1
+            sh = {"dg": np.zeros((16, gates), np.float32),
+                  "dh1": np.zeros((16, hidden), np.float32),
+                  "dh2": np.zeros((16, hidden), np.float32),
+                  "dy": np.zeros((16, out_dim), np.float32),
+                  "dxp": np.zeros((warps, 16, dxc), np.float32)}
 
-            def res(a, t):
-                v = np.zeros((16, a.shape[2]), np.float32)
-                if t >= 0:
-                    v[:live] = a[t, n0:n0 + live]
-                return v
+            def res_row(a, t, r):
+                return a[t, n0 + r] if t >= 0 and r < live else np.zeros(a.shape[2], np.float32)
 
-            def cell(layer, dh, t):
-                g, c = (g1, c1) if layer == 1 else (g2, c2)
-                gi, gf, gg, go = np.split(res(g, t), 4, axis=1)
-                cc, c_prev = res(c, t), res(c, t - 1)
-                tanh_c = np.tanh(cc)
-                d_o = dh * tanh_c
-                d_c = dh * go * (1 - tanh_c * tanh_c) + dc[layer]
-                dc[layer] = d_c * gf
-                d = np.concatenate([d_c * gg * gi * (1 - gi), d_c * c_prev * gf * (1 - gf),
-                                    d_c * gi * (1 - gg * gg), d_o * go * (1 - go)], axis=1)
-                rounded = _bf16_round(d)
-                dgs[layer - 1][t, n0:n0 + live] = rounded[:live]
-                sh[f"dg{layer}"] = rounded
+            def warp_program(w):
+                units = np.arange(32 * w, 32 * w + 32)
+                cols = (np.arange(4)[:, None] * hidden + units).ravel()  # its units' gate columns
+                dc = {1: carry[1][:, units].copy(), 2: carry[3][:, units].copy()}
+                db = {1: np.zeros(4 * 32, np.float32), 2: np.zeros(4 * 32, np.float32)}
+                mine = np.arange(32 * w, 32 * w + 32)  # this warp's thread indices
 
-            def cells2(t):
-                dh = np.zeros((16, hidden), np.float32)
-                y = res(dy.transpose(1, 0, 2), t)
-                for o in range(out_dim):
-                    dh = dh + y[:, o:o + 1] * fcw[:, o]
-                cell(2, dh + sh["dh2"], t)
-                yield "arrive", "DG2"
+                def cell_row(layer, dh, t, r):  # this warp's units' cell backward, row r
+                    g, c = (g1, c1) if layer == 1 else (g2, c2)
+                    gi, gf, gg, go = np.split(res_row(g, t, r)[cols], 4)
+                    cc, c_prev = res_row(c, t, r)[units], res_row(c, t - 1, r)[units]
+                    tanh_c = np.tanh(cc)
+                    d_o = dh * tanh_c
+                    d_c = dh * go * (1 - tanh_c * tanh_c) + dc[layer][r]
+                    dc[layer][r] = d_c * gf
+                    d = np.concatenate([d_c * gg * gi * (1 - gi), d_c * c_prev * gf * (1 - gf),
+                                        d_c * gi * (1 - gg * gg), d_o * go * (1 - go)])
+                    db[layer] = (db[layer] + d).astype(np.float32)
+                    rounded = _bf16_round(d)
+                    if r < live:
+                        dgs[layer - 1][t, n0 + r, cols] = rounded
+                    return rounded
 
-            def cells1(t, tell):
-                dh = sh["dh1"].copy()
-                if tell:
-                    yield "arrive", "DH1"
-                cell(1, dh, t)
-                yield "arrive", "DG1"
+                def cells1_row(t, r):
+                    dh = sh["dh1"][r, units].copy()
+                    yield
+                    sh["dg"][r, cols] = cell_row(1, dh, t, r)
 
-            def cells():
-                if skew:
-                    yield from cells2(t_hi)
-                    for s in range(t_hi, t_lo - 1, -1):
-                        yield "sync", "P2"
-                        if s > t_lo:
-                            yield from cells2(s - 1)
-                        if s < t_hi:
-                            yield "sync", "P1"
-                        yield from cells1(s, s > t_lo)
-                else:
-                    for s in range(t_hi, t_lo - 1, -1):
-                        if s < t_hi:
-                            yield "sync", "P1"
-                        yield from cells2(s)
-                        yield "sync", "P2"
-                        yield from cells1(s, False)
-                yield "sync", "P1"
+                def cells2_row(t, r):
+                    dh = np.zeros(32, np.float32)
+                    for o in range(out_dim):
+                        dh = (dh + sh["dy"][r, o] * fcw[units, o]).astype(np.float32)
+                    dh = (dh + sh["dh2"][r, units]).astype(np.float32)
+                    yield
+                    sh["dg"][r, cols] = cell_row(2, dh, t, r)
 
-            def put(name, acc, add):
-                sh[name] = (acc + sh[name]).astype(np.float32) if add else acc
+                def load_dy(t):
+                    idx = np.concatenate([np.arange(j, 16 * out_dim, hidden) for j in mine])
+                    for i in idx:
+                        r, o = divmod(int(i), out_dim)
+                        sh["dy"][r, o] = dy[n0 + r, t, o] if r < live else 0.0
+                    yield
 
-            def p2(w2_add, wait_read):
-                yield "sync", "DG2"
-                acc = sh["dg2"] @ w2.T
-                put("dh2", acc[:, hidden:], False)
-                if wait_read:
-                    yield "sync", "DH1"
-                put("dh1", acc[:, :hidden], w2_add)
-                yield "arrive", "P2"
+                def put(target, at, acc, add):
+                    target[:, at] = (acc + target[:, at]).astype(np.float32) if add else acc
 
-            def p1(s, u1_add):
-                yield "sync", "DG1"
-                put("dh1", sh["dg1"] @ u1.T, u1_add)
-                dx[s, n0:n0 + live] = _bf16_round(sh["dg1"] @ w1.T)[:live]
-                yield "arrive", "P1"
+                def p2_pass(half):  # d h1_t = dh1' + the carry; d h2_{t-1}
+                    col0 = 64 * w + 32 * half
+                    acc = (sh["dg"] @ w2[col0:col0 + 32].T).astype(np.float32)
+                    yield
+                    if col0 < hidden:
+                        put(sh["dh1"], slice(col0, col0 + 32), acc, True)
+                    else:
+                        put(sh["dh2"], slice(col0 - hidden, col0 - hidden + 32), acc, False)
+                    yield
 
-            def products():
-                if skew:
-                    yield from p2(True, False)
-                    for s in range(t_hi, t_lo - 1, -1):
-                        if s > t_lo:
-                            yield from p2(False, True)
-                        yield from p1(s, s > t_lo)
-                else:
-                    for s in range(t_hi, t_lo - 1, -1):
-                        yield from p2(True, False)
-                        yield from p1(s, False)
+                def p1():  # d h1_{t-1}, and this warp's k-part of dx
+                    acc = (sh["dg"] @ u1[units].T).astype(np.float32)
+                    yield
+                    put(sh["dh1"], units, acc, False)
+                    kp = slice(w * gates // warps, (w + 1) * gates // warps)
+                    part = (sh["dg"][:, kp] @ w1p[:, kp].T).astype(np.float32)
+                    yield
+                    sh["dxp"][w] = part
+                    yield
 
-            arrived, synced = {}, {}
-            sides = {"cells": cells(), "products": products()}
-            pending = {name: next(side) for name, side in sides.items()}
-            while pending:
-                ready = [k for k, (op, bar) in pending.items()
-                         if op == "arrive" or arrived.get(bar, 0) > synced.get(bar, 0)]
-                assert ready, f"deadlock: {pending}"
-                name = ready[rng.integers(len(ready))]
-                op, bar = pending[name]
-                table = arrived if op == "arrive" else synced
-                table[bar] = table.get(bar, 0) + 1
-                try:
-                    pending[name] = next(sides[name])
-                except StopIteration:
-                    del pending[name]
-            assert arrived == synced  # every barrier generation completed
-            carry = [sh["dh1"], dc[1], sh["dh2"], dc[2]]
-    return dx, dgs[0], dgs[1]
+                def dx_sum(t):
+                    idx = np.concatenate([np.arange(j, 16 * d_in, hidden) for j in mine])
+                    for i in idx:
+                        r, col = divmod(int(i), d_in)
+                        s = np.float32(0)
+                        for p in range(warps):
+                            s = np.float32(s + sh["dxp"][p, r, col])
+                        if r < live:
+                            dx[t, n0 + r, col] = _bf16_round(np.array([s]))[0]
+                    yield
+
+                sh["dh1"][:, units] = carry[0][:, units]
+                sh["dh2"][:, units] = carry[2][:, units]
+                for s in range(t_hi, t_lo - 1, -1):
+                    yield from load_dy(s)
+                    yield "bar"
+                    for r in range(16):
+                        yield from cells2_row(s, r)
+                    yield "bar"
+                    for half in range(2):
+                        yield from p2_pass(half)
+                    yield "bar"
+                    for r in range(16):
+                        yield from cells1_row(s, r)
+                    yield "bar"
+                    yield from p1()
+                    yield "bar"
+                    yield from dx_sum(s)
+                for layer in (1, 2):  # the tile's bias sums: old + this item's, as the kernel adds
+                    old = 0 if first else db_part[tile, layer - 1, cols]
+                    db_part[tile, layer - 1, cols] = old + db[layer]
+                carry[0][:, units] = sh["dh1"][:, units]
+                carry[1][:, units] = dc[1]
+                carry[2][:, units] = sh["dh2"][:, units]
+                carry[3][:, units] = dc[2]
+
+            progs = [warp_program(w) for w in range(warps)]
+            running = set(range(warps))
+            while running:
+                at_bar = set()
+                while running - at_bar:
+                    w = int(rng.choice(sorted(running - at_bar)))
+                    try:
+                        if next(progs[w]) == "bar":
+                            at_bar.add(w)
+                    except StopIteration:
+                        running.discard(w)
+                assert at_bar in (running, set()), "a warp left while the others wait at a barrier"
+        carry_out[:, n0:n0 + 16] = carry
+    return dx, dgs[0], dgs[1], db_part, carry_out
 
 
-@pytest.mark.parametrize("part_steps", [4, 8])
-def test_wgmma_skewed_order_matches_in_order(part_steps):
-    """`sweep_wgmma_kernel`'s schedule and the steps in order emulated in
-    float32 over wave items of 4 and 8 steps (T 11: ragged last parts) on a
-    ragged fold (N 20: a tile of 4 live rows), each under three random
-    interleavings that its barriers allow: layer 2 a step ahead gives the
-    in-order schedule's dx and dgates bit for bit (each product reads the same
-    operands; d h1's two writers add in either order), neither deadlocks or
-    leaves a barrier generation open, and both hold the plain sweep
-    (`lstm2_bwd_reference` in bf16) at the bf16 floor."""
-    n, t, d, h, o = 20, 11, 34, 64, 2
-    params, fc, x, dy = _case(n, t, d, h, o, seed=25)
-    tensors = _torch_tensors(params, fc, torch.bfloat16, requires_grad=False)
-    w = ops_lstm2.pack_weights(*tensors)
-    xt = torch.tensor(x).bfloat16()
-    _, res = lt.lstm2_train_fwd_reference(xt, w)
+def _emulation_args(dy, x, w):
+    """The bf16 residuals of x from the plain forward and the weights, as
+    `_sweep_emulated`'s float32 numpy arguments, and the residuals."""
+    _, res = lt.lstm2_train_fwd_reference(x, w)
     f32 = lambda a: a.float().numpy()  # noqa: E731
-    args = (_bf16_round(dy), *(f32(a) for a in (res.g1, res.c1, res.g2, res.c2)),
-            f32(w.w2), f32(w.u1), f32(w.w1), w.fc_w.numpy())
-    rng = np.random.default_rng(part_steps)
-    runs = {skew: [_wgmma_sweep_emulated(*args, part_steps, skew, rng) for _ in range(3)]
-            for skew in (True, False)}
-    first = runs[False][0]
-    for outs in runs[True] + runs[False][1:]:
-        for a, b in zip(first, outs):
-            np.testing.assert_array_equal(a, b)
-    ref = lt.lstm2_bwd_reference(torch.tensor(dy), xt, w, res)
-    want = (ref.dx.permute(2, 0, 1), ref.dg1, ref.dg2)
-    for a, b in zip(want, first):
-        assert _snr_db(a.float(), torch.from_numpy(b)) >= 40.0
+    args = (_bf16_round(dy.float().numpy()), *(f32(a) for a in (res.g1, res.c1, res.g2, res.c2)),
+            f32(w.w2), f32(w.u1), f32(w.w1), w.fc_w.float().numpy())
+    return args, res
 
 
-@pytest.mark.parametrize("hidden", [384, 64])
-def test_wgmma_sweep_shared_memory(hidden):
-    """`sweep_wgmma_kernel`'s shared memory (`bwd_shared_memory_bytes(...,
-    kernel="wgmma")`): 1 KB of alignment, the ring of 10 boxes of 8 KB, both
-    layers' dgates tiles [16][4H] bf16, the float32 dh1 / dh2 carries [16][H
-    + 4] and an mbarrier a slot: 230,992 bytes at H 384, within a block;
-    neither D nor O enters. At H 512 it would not fit (the kernel does not
-    run there)."""
-    smem = lt.bwd_shared_memory_bytes(16, 34, hidden, 2, torch.bfloat16, kernel="wgmma")
-    assert smem == 1024 + 10 * 8192 + 2 * 16 * 4 * hidden * 2 + 2 * 4 * 16 * (hidden + 4) + 10 * 8
-    assert smem == lt.bwd_shared_memory_bytes(16, 64, hidden, 7, torch.bfloat16, kernel="wgmma")
-    assert smem <= ops_lstm2.SMEM_LIMIT
-    if hidden == 384:
-        assert smem == 230_992
-    assert lt.bwd_shared_memory_bytes(16, 34, 512, 2, torch.bfloat16,
-                                      kernel="wgmma") > ops_lstm2.SMEM_LIMIT
+@pytest.mark.parametrize("n,t", [(20, 11), (16, 8)], ids=["N20-T11", "N16-T8"])
+@pytest.mark.parametrize("part_steps", [1, 4, 8, None], ids=["wave1", "wave4", "wave8", "tile"])
+def test_bf16_sweep_schedule_emulated(n, t, part_steps):
+    """`sweep_mma_kernel`'s bf16 schedule emulated with its warps
+    interleaved at random (`_sweep_emulated`, H 256: 8 warps) on a ragged
+    fold (N 20: a second tile of 4 live rows) and a full one, in wave items
+    of 1, 4 and 8 steps (ragged last items at T 11) and in the tile form: no
+    warp leaves a barrier open, two interleavings give the same bits (no
+    read of shared memory races a write), the wave form gives the tile
+    form's dx, dgates and carries out bit for bit (the carries pass between
+    items whole; the bias sums, an item's added to the tile's, may round
+    otherwise), and dx, the dgates and the bias sums hold the plain sweep
+    (`lstm2_bwd_reference` in bf16) at the bf16 floor."""
+    params, fc, x, dy = _case(n, t, 34, 256, 2, seed=26)
+    w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, torch.bfloat16, requires_grad=False))
+    xt, dyt = torch.tensor(x).bfloat16(), torch.tensor(dy)
+    args, res = _emulation_args(dyt, xt, w)
+    got = _sweep_emulated(*args, part_steps, np.random.default_rng(1))
+    for a, b in zip(got, _sweep_emulated(*args, part_steps, np.random.default_rng(2))):
+        np.testing.assert_array_equal(a, b)
+    tile = _sweep_emulated(*args, None, np.random.default_rng(3))
+    for i in (0, 1, 2, 4):  # the bias sums alone are added an item at a time
+        np.testing.assert_array_equal(got[i], tile[i])
+    ref = lt.lstm2_bwd_reference(dyt, xt, w, res)
+    want = (ref.dx.permute(2, 0, 1), ref.dg1, ref.dg2, ref.db1, ref.db2)
+    mine = (*got[:3], got[3][:, 0].sum(0), got[3][:, 1].sum(0))
+    for a, b in zip(want, mine):
+        assert _snr_db(a.float(), torch.from_numpy(np.ascontiguousarray(b))) >= 40.0
 
 
-def test_wgmma_sweep_rule_by_dtype_and_shape(monkeypatch):
-    """The reverse sweep's kernel (`sweep_kernel`): `sweep_mma_kernel` in
-    every dtype, shape and form unless SWEEP_KERNEL forces one, since the
-    wgmma kernel measured slower on the H100; the forced kernel then at
-    every shape (the C side refuses it where it does not run, and nothing
-    falls back). `force_sweep_kernel` sets and returns the switch and
-    refuses a kernel there is not; SWEEP_FORMS names a kernel other than
-    "mma" after the form; the kernels' codes are their indices in
-    SWEEP_KERNELS (KERNEL_MMA, KERNEL_WGMMA in csrc/lstm2_bwd_sweep.cuh)."""
-    monkeypatch.setattr(lt, "SWEEP_KERNEL", None)
-    assert lt.sweep_kernel() == "mma"
-    assert lt.force_sweep_kernel("wgmma") is None and lt.SWEEP_KERNEL == "wgmma"
-    assert lt.sweep_kernel() == "wgmma"
-    assert lt.force_sweep_kernel(None) == "wgmma" and lt.SWEEP_KERNEL is None
-    assert lt.sweep_kernel() == "mma"
-    with pytest.raises(ValueError):
-        lt.force_sweep_kernel("wgmma_in_order")
-    assert lt.SWEEP_KERNEL is None
-    assert lt.SWEEP_KERNELS == ("mma", "wgmma")
-    src = (Path(lt.__file__).parent.parent / "csrc" / "lstm2_bwd_sweep.cuh").read_text()
-    assert "constexpr int KERNEL_MMA = 0, KERNEL_WGMMA = 1;" in src
-    assert [lt.sweep_form_name(f, k) for f, k in ((lt.SWEEP_WAVE, "wgmma"), (0, "wgmma"),
-                                                  (lt.SWEEP_WAVE, "mma"))] == [
-        "wave/wgmma", "tile/wgmma", "wave"]
+_FIXTURE_GEN = Path(__file__).parent / "fixtures" / "gen_torch_kernel_fixture.py"
+
+
+@pytest.mark.parametrize("part_steps", [1, 2, 4, None], ids=["wave1", "wave2", "wave4", "tile"])
+def test_bf16_sweep_schedule_emulated_holds_the_jax_fixture(part_steps):
+    """The same emulation on the JAX fixture's bf16 training case (N 50: four
+    tiles, the last of 2 live rows; T 7, D 34, H 64: two warps), the
+    residuals from the plain forward: dx and the bias gradients hold the JAX
+    kernels' (`stacked_lstm2_train` in interpret mode) at the bf16 floor, as
+    K4 does on the card."""
+    spec = importlib.util.spec_from_file_location("gen_torch_kernel_fixture", _FIXTURE_GEN)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    name = "train_bfloat16_dgates"
+    want = gen.load_fixture()[name]
+    x, dy, lstm, linear = gen.port_operands(name)
+    args, _ = _emulation_args(dy, x, lstm.packed(linear))
+    dx, _, _, db_part, _ = _sweep_emulated(*args, part_steps, np.random.default_rng(part_steps))
+    got = {"dx": dx.transpose(1, 2, 0), "d_bias_ih_l0": db_part[:, 0].sum(0),
+           "d_bias_ih_l1": db_part[:, 1].sum(0)}
+    for key, value in got.items():
+        assert _snr_db(torch.from_numpy(want[key]), torch.from_numpy(value)) >= 40.0, key
+
+
+@pytest.mark.parametrize("dtype,hidden,d,o", [
+    (torch.float32, 384, 34, 2), (torch.float32, 64, 34, 2), (torch.bfloat16, 384, 34, 2),
+    (torch.bfloat16, 384, 32, 2), (torch.bfloat16, 64, 34, 2), (torch.bfloat16, 512, 257, 257)])
+def test_reverse_sweep_shared_memory_by_hand(dtype, hidden, d, o):
+    """`sweep_mma_kernel`'s shared memory in every dtype (one dgates tile
+    [16][4H + pad], the d h1 and d h2 carries, the dy tile and, where they
+    fit, the dx partials) against the bytes written out by hand, at the
+    shipped sub-band shape, FullSubNet's sub-band (D 32) and full-band
+    shapes and a narrow one: each fits a block."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    row = size * 16 * (4 * hidden + 16 // size)  # a dgates tile
+    ksplit = lt.bwd_dx_ksplit(16, d, hidden, o, dtype)
+    partials = 4 * 16 * (hidden // 32) * (-(-d // 8) * 8) if ksplit else 0
+    assert lt.bwd_shared_memory_bytes(16, d, hidden, o, dtype) == (
+        row + 4 * 16 * (2 * hidden + o) + partials) <= ops_lstm2.SMEM_LIMIT == 232_448
+
+
+def test_reverse_sweep_has_one_kernel():
+    """The tile and wave forms run `sweep_mma_kernel` alone: the wgmma sweep
+    and its switch are gone from the source and the wrapper, the launch
+    takes no kernel code (the C entry points' int arguments match the
+    wrappers' argtypes), and SWEEP_FORMS names forms only."""
+    csrc = Path(lt.__file__).parent.parent / "csrc"
+    sweep = (csrc / "lstm2_bwd_sweep.cuh").read_text()
+    assert "sweep_wgmma_kernel" not in sweep and "KERNEL_WGMMA" not in sweep
+    assert "int launch_sweep(const SweepArgs<T>& a, int rows, int form, int part_steps, " \
+           "cudaStream_t stream)" in sweep
+    assert not any(hasattr(lt, n) for n in ("force_sweep_kernel", "SWEEP_KERNEL", "SWEEP_KERNELS"))
+    for stem, argtypes in (("lstm2_bwd", lt._BWD_ARGTYPES),
+                           ("lstm2_bwd_wgrad", lt._WGRAD_ARGTYPES)):
+        source = (csrc / f"{stem}.cu").read_text()
+        signature = source[source.index(f'extern "C" int {stem}('):]
+        signature = signature[:signature.index(")")]
+        assert signature.count("int ") - 1 == argtypes.count(lt._INT), stem
+        assert signature.count("void*") == argtypes.count(lt._PTR), stem
+    assert [lt.sweep_form_name(f) for f in (0, lt.SWEEP_WAVE, 16)] == ["tile", "wave", "cluster16"]
