@@ -21,7 +21,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      reverse sweep or FMA `wgrad_kernel` may be compiled; the bf16 reverse
      sweep's two functions (`bwd::sweep_mma_kernel`, in K3's and K4's
      libraries) with their registers and spills, failing on more spill
-     stores than BF16_SWEEP_SPILL_STORES allows; the cluster forms of the
+     stores than BF16_SWEEP_SPILL_STORES allows; the forward's bf16 pair
+     form (`fwd::sweep_pair_kernel`, two functions in each of K1's and K2's
+     libraries) with its HMMA count, registers and spills, failing on no
+     HMMA or more spill stores than PAIR_SWEEP_SPILL_STORES allows; the cluster forms of the
      forward and reverse sweeps (`fwd::` and `bwd::sweep_cluster_kernel`,
      two functions in each of the four libraries) must have HMMA and, in
      float32, TF32 HMMA instructions; print the float32 reverse sweeps'
@@ -50,7 +53,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      sub-band folds, clusters of 16 at FullSubNet's full-band N 8 and 18),
      then K1 at FullSubNet's full-band shape (N 8, T 37) in the cluster form
      against its plain version and the tile form forced, equal on a repeat,
-     K2's y equal to K1's, each launch counted by its form;
+     K2's y equal to K1's, each launch counted by its form; bf16 K1 and K2
+     in the pair form at the batch fold (one launch), the training fold
+     and FullSubNet's sub-band training fold (in waves) against the plain
+     versions (>= 40 dB), equal on a repeat, K2's y equal to K1's, y and
+     the residuals equal to the R 32 tile form forced bit for bit, and the
+     pairs the card holds at once no fewer than the rule assumes;
   3. time each kernel, its plain version and a cuDNN LSTM + Linear (a
      yardstick only; forward for K1, K2 and K5, backward for K3 and K4; for
      K5 also K1 in bf16 at the same shape), with CUDA events, beside the
@@ -71,12 +79,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      (what `FUSED_WGRAD_BY_DTYPE` rests on); the reverse sweep's form by the
      rule (the wave form) against the tile form forced, K4's sweep
      and K3 whole, at the training fold and FullSubNet's sub-band training
-     fold in both dtypes, the two forms' dx and dgates the same bits;
+     fold in both dtypes, the two forms' dx and dgates the same bits; bf16
+     K1 at the batch fold and K2 at the training fold in the pair form
+     against the parent's form (the tile form at its rule's R) in turns,
+     beside cuDNN, and at the training folds and a batch of 9 the pair
+     form beside the wave and tile forms forced, the bits compared;
   4. drive the batch path, `fullsubnet_plus_torch.cli.enhance.run_enhance`,
      on 8 wavs of 3-10 s with a seeded full-width FullSubNet+ in float32,
      bfloat16 and int8; check every output, that the kernels were launched,
      and the float32 and int8 waveforms against the same runs through the
-     plain LSTMs (>= 60 dB and >= INT8_WAVE_SNR_FLOOR); the pipelined CLI
+     plain LSTMs (>= 60 dB and >= INT8_WAVE_SNR_FLOOR), K1's sweeps in the
+     rule's form (float32 the tile form, bf16 the pair form); the pipelined CLI
      (a writer thread, batches in flight) over 4 copies of the 8 wavs, 4
      batches: its wavs equal a window of 1's byte for byte, and each
      dtype's audio-s/s and device idle share of the loop; profile one
@@ -94,7 +107,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      waveforms and weights: a few steps in float32 and bfloat16 through
      K2 + K3 and in float32 through K2 + K4; every loss and gradient norm
      finite, nothing skipped, the launch counts as expected, every forward
-     sweep in the tile form and every reverse sweep in the rule's form (the
+     sweep in the rule's form (float32 the wave form, bf16 the pair form in
+     waves) and every reverse sweep in the rule's (the
      wave form: 144 row tiles on 132 SMs) and K3's weight gradients in the
      rule's tile (the wgmma kernels), the float32 and bf16 K3 steps also
      with the tile form forced and with the mma.sync weight gradients
@@ -121,7 +135,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      (`full_band_crm_mask`, written into the temporary directory) in
      float32, bfloat16 and int8, two launches a batch (the full-band and
      the sub-band LSTM; the full-band sweep in K1's or K5's cluster form,
-     the sub-band one in the tile form), the waveforms of each dtype
+     the sub-band one in the tile form, in bf16 K1's pair form), the
+     waveforms of each dtype
      against the same run
      through the plain LSTMs (float32 >= 60 dB, bf16 and int8 >= 40 dB), a
      profile of each batch; one 30 s utterance through
@@ -214,8 +229,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      and bf16 K2 + K3 (phase 6's limits; each step launching K2 and its
      backward twice: the full-band and the sub-band LSTM), the float32
      default timed and profiled (no TF32 product), its forward sweeps the
-     cluster form at the full-band fold and the tile form at the sub-band
-     one, its reverse sweeps the cluster form and the wave form, and
+     cluster form at the full-band fold and the wave form at the sub-band
+     one (bf16's the pair form in waves), its reverse sweeps the cluster form and the wave form, and
      timed again with the sub-band sweep's tile form forced and with K3's
      weight gradients on the mma.sync kernels forced;
      (d) one float32 epoch of
@@ -342,6 +357,10 @@ WGRAD_KERNEL = re.compile(r"wgrad_(mma_|tf32_|wgmma_(tf32_)?)?kernel|wgmma_reduc
 # (`sweep_mma_kernel<bf16, 384 | 512>`): what ptxas gives its schedule (PERF.md); more fails
 # phase 1
 BF16_SWEEP_SPILL_STORES = {384: 264, 512: 56}
+# spill store bytes allowed to the forward's bf16 pair form (`sweep_pair_kernel<bf16, kSave,
+# 384 | 512>`, in K1's and K2's libraries; 384 threads at H 384): what ptxas gives it
+# (PERF.md); more fails phase 1
+PAIR_SWEEP_SPILL_STORES = {384: 0, 512: 28}
 # kernel names of a matrix product or convolution that computes in TF32 (CUTLASS's
 # s1688 / s16816 tensor-op GEMMs take float32 operands as TF32 unless named for bf16 / f16)
 TF32_KERNEL = re.compile(r"tf32|s1688gemm(?!_bf16|_f16)|s16816gemm(?!_bf16|_f16)", re.IGNORECASE)
@@ -538,6 +557,7 @@ def phase_build() -> dict:
         if stem in FWD_SOURCES:
             hmma[f"{stem}_float32_sweep"] = check_float32_forward(lib, stem, sweeps)
             hmma[f"{stem}_cluster_sweep"] = cluster_functions(lib, stem)
+            hmma[f"{stem}_pair_sweep"] = pair_functions(lib, stem, sweeps)
         if stem in BWD_SOURCES:
             hmma[f"{stem}_float32_sweep"] = check_float32_reverse(lib, stem, sweeps)
             hmma[f"{stem}_cluster_sweep"] = cluster_functions(lib, stem)
@@ -641,6 +661,33 @@ def cluster_functions(lib, stem: str) -> dict:
         fail(f"{stem}: the cluster sweep's two functions lack tensor-core instructions")
     if any(v["tf32_hmma"] == 0 for f, v in out.items() if "kernelIf" in f):
         fail(f"{stem}: a float32 cluster sweep has no {TF32_HMMA} instructions")
+    return out
+
+
+def pair_functions(lib, stem: str, hmma: dict) -> dict:
+    """The forward sweep's bf16 pair form in K1's and K2's libraries
+    (`fwd::sweep_pair_kernel`, its 384- and 512-thread functions), with
+    their HMMA counts (`hmma`: the library's sweeps'): {function: {hmma,
+    registers, spill bytes}}, printed; fails unless both were compiled with
+    HMMA instructions, or on more spill stores than PAIR_SWEEP_SPILL_STORES
+    allows."""
+    ptxas = ptxas_functions(lib)
+    out = {}
+    for function in (f for f in ptxas if "sweep_pair_kernel" in f):
+        regs, spill_st, spill_ld = ptxas[function]
+        threads = next((t for t in PAIR_SWEEP_SPILL_STORES if f"Li{t}E" in function), None)
+        print(f"[1] {stem}: {function} (bf16 pair form, {threads} threads) has "
+              f"{hmma.get(function, 0)} HMMA instructions; ptxas: {regs} registers, {spill_st} "
+              f"bytes spill stores, {spill_ld} bytes spill loads (allowed: "
+              f"{PAIR_SWEEP_SPILL_STORES.get(threads)} bytes spill stores)")
+        out[function] = {"threads": threads, "hmma": hmma.get(function, 0), "registers": regs,
+                         "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
+        if threads is None or spill_st > PAIR_SWEEP_SPILL_STORES[threads]:
+            fail(f"{stem}: the pair form's {function} spills {spill_st} bytes, more than the "
+                 f"{PAIR_SWEEP_SPILL_STORES.get(threads)} allowed")
+    if len(out) != 2 or min(v["hmma"] for v in out.values()) == 0:
+        fail(f"{stem}: the pair form's two functions were not both compiled with tensor-core "
+             f"instructions")
     return out
 
 
@@ -786,10 +833,13 @@ def fwd_rule_form(n: int, shape, dtype: torch.dtype) -> str:
     return lstm2.fwd_form_name(lstm2.fwd_sweep_plan(n, *shape, dtype, sms)[0])
 
 
-# The forward sweep's form at the training folds (N 2304, 144 row tiles of
-# 16 on the H100's 132 SMs) that the measured rule gives, by dtype: the wave
-# form in float32, the tile form (one wave of R 32) in bf16 (PERF.md)
-TRAIN_FWD_FORM = {torch.float32: "wave", torch.bfloat16: "tile"}
+# The forward sweep's form at the sub-band folds that the measured rule
+# gives, by dtype: at the batch folds (N 2056) the tile form in float32, the
+# pair form in one launch in bf16 (65 pairs); at the training folds (N 2304,
+# 144 row tiles of 16 on the H100's 132 SMs) the wave form in float32, the
+# pair form in waves in bf16 (72 pairs on the 66 the card holds; PERF.md)
+BATCH_FWD_FORM = {torch.float32: "tile", torch.bfloat16: "pair"}
+TRAIN_FWD_FORM = {torch.float32: "wave", torch.bfloat16: "pair wave"}
 
 
 def int8_form_name(n: int, shape) -> str:
@@ -816,8 +866,8 @@ def forced_fwd_form(form: int):
 
 
 def check_fwd_cluster() -> dict:
-    """Phase 2: the forward sweep's form by the rule (the tile form at the
-    batch folds, the measured form of TRAIN_FWD_FORM at the training folds,
+    """Phase 2: the forward sweep's form by the rule (the measured forms of
+    BATCH_FWD_FORM at the batch folds and TRAIN_FWD_FORM at the training folds,
     clusters of 16 at FullSubNet's full-band folds, N 8 and 18), then K1 at
     the full-band shape on the
     batch's fold (N 8) at a ragged T in the cluster form against its plain
@@ -829,9 +879,9 @@ def check_fwd_cluster() -> dict:
 
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        folds = {"FullSubNet+ batch N 2056": (N_FULL, *SB, "tile"),
+        folds = {"FullSubNet+ batch N 2056": (N_FULL, *SB, BATCH_FWD_FORM[dtype]),
                  "FullSubNet+ training N 2304": (N_TRAIN, *SB, TRAIN_FWD_FORM[dtype]),
-                 "FullSubNet sub-band N 2056": (N_FULL, *FSN_SB, "tile"),
+                 "FullSubNet sub-band N 2056": (N_FULL, *FSN_SB, BATCH_FWD_FORM[dtype]),
                  "FullSubNet sub-band training N 2304": (N_TRAIN, *FSN_SB,
                                                          TRAIN_FWD_FORM[dtype]),
                  "FullSubNet full-band N 8": (N_FB, *FB, "cluster16"),
@@ -871,6 +921,90 @@ def fwd_tile_at(n: int, dtype: torch.dtype) -> str:
     """The forward sweep's form and row tile at fold n of FullSubNet+'s
     sub-band shape by the rule on this card: "tile R32", "wave R16"."""
     return fwd_forms_at(n, SB)[str(dtype)[6:]]
+
+
+def check_fwd_pair() -> dict:
+    """Phase 2: bf16 K1 and K2 in the rule's pair form (`sweep_pair_kernel`,
+    a cluster of two CTAs a 32-row tile) at FullSubNet+'s batch fold (N
+    2056, one launch; T ragged), its training fold (N 2304, in waves) and
+    FullSubNet's sub-band training fold (D 32): K1's y equal on a repeat,
+    K2's y equal to K1's, y and the six residuals equal to the R 32 tile
+    form forced bit for bit, each at least 40 dB against the plain versions
+    (`lstm2_fc_reference`, `lstm2_train_fwd_reference`), each launch counted
+    by its form. Returns {fold: {max_abs_err, min_snr_db, form, forms}}."""
+    from fullsubnet_plus_torch.ops import lstm2
+    from fullsubnet_plus_torch.ops import lstm2_train as lt
+
+    dtype, floor, out = torch.bfloat16, SNR_FLOOR[torch.bfloat16], {}
+    for fold, n, t, shape in ((f"batch N {N_FULL}", N_FULL, T_RAGGED, SB),
+                              (f"training N {N_TRAIN}", N_TRAIN, T_TRAIN, SB),
+                              (f"FullSubNet sub-band training N {N_TRAIN}", N_TRAIN, T_RAGGED,
+                               FSN_SB)):
+        x, _, lstm, fc = train_operands(n, t, dtype, seed=n + t, shape=shape)
+        w = lstm.packed(fc)
+        rule = fwd_rule_form(n, shape, dtype)
+        lstm2.FWD_SWEEP_FORMS.clear()
+        y, again = lstm2.lstm2_fc(x, w), lstm2.lstm2_fc(x, w)
+        y2, res = lt.lstm2_train_fwd(x, w)
+        with forced_fwd_form(0), forced_row_tile(lstm2, "fwd_mma_rows_per_cta", 32):
+            y_tile = lstm2.lstm2_fc(x, w)
+            y2_tile, res_tile = lt.lstm2_train_fwd(x, w)
+        torch.cuda.synchronize()
+        forms = dict(lstm2.FWD_SWEEP_FORMS)
+        same = (torch.equal(y, again), torch.equal(y, y2), torch.equal(y, y_tile)
+                and torch.equal(y2_tile, y_tile)
+                and all(torch.equal(a, b) for a, b in zip(res, res_tile)))
+        del y_tile, y2_tile, res_tile
+        y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+        snr, err = worst((y_ref, *res_ref), (y, *res))
+        del y_ref, res_ref, res
+        print(f"[2] bf16 K1 and K2 at the {fold} T={t} D={shape[0]} in the {rule} form: least "
+              f"SNR {snr:.1f} dB against the plain versions (y and the residuals; floor "
+              f"{floor:.0f}), max_abs {err:.3e}; K1 equal on a repeat {same[0]}, K2's y equal "
+              f"to K1's {same[1]}, y and the residuals equal to the R 32 tile form forced "
+              f"{same[2]}; forward sweeps by form {forms}")
+        if rule != (BATCH_FWD_FORM if n == N_FULL else TRAIN_FWD_FORM)[dtype]:
+            fail(f"[2] the bf16 forward sweep's form at the {fold} fold: {rule}")
+        if snr < floor or not all(same):
+            fail(f"[2] the bf16 pair form at the {fold} fold: {snr:.1f} dB, equal on a repeat, "
+                 f"to K1's, to the R 32 tile form: {same}")
+        if forms != {f"lstm2_fwd {rule}": 2, f"lstm2_train_fwd {rule}": 1, "lstm2_fwd tile": 1,
+                     "lstm2_train_fwd tile": 1}:
+            fail(f"[2] the bf16 forward sweeps' forms at the {fold} fold: {forms}")
+        out[fold] = dict(max_abs_err=err, min_snr_db=snr, form=rule, forms=forms)
+        del x, y, y2
+        torch.cuda.empty_cache()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    held = {d: lstm2.fwd_pair_clusters(d, H) for d in (SB[0], FSN_SB[0])}
+    print(f"[2] pairs the card holds at once (cudaOccupancyMaxActiveClusters): {held}; the rule "
+          f"assumes {sms // lstm2.FWD_PAIR_CTAS} ({sms} SMs)")
+    if min(held.values()) < sms // lstm2.FWD_PAIR_CTAS:
+        fail(f"[2] the card holds {held} pairs at once, fewer than the rule's "
+             f"{sms // lstm2.FWD_PAIR_CTAS}: the pair form in one launch would take two waves")
+    out["pairs_held"] = held
+    return out
+
+
+def rule_against_parent(fn, n: int, shape, dtype: torch.dtype) -> dict:
+    """fn (a forward sweep at fold n of `shape`) in the rule's form against
+    the parent's form (the tile form at `fwd_mma_row_tile`'s R, the form the
+    rule gave before the pair form), timed in turns (rule, parent, parent,
+    rule; the lower of a form's two medians of 3): {rule_form, ms,
+    parent_form, parent_ms}."""
+    from fullsubnet_plus_torch.ops import lstm2
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    best = {}
+    for form in (None, 0, 0, None):
+        if form is None:
+            took = cuda_ms(fn, reps=3)
+        else:
+            with forced_fwd_form(0):
+                took = cuda_ms(fn, reps=3)
+        best[form] = min(best.get(form, np.inf), took)
+    return {"rule_form": fwd_rule_form(n, shape, dtype), "ms": best[None],
+            "parent_form": f"tile R{lstm2.fwd_mma_row_tile(n, shape[0], shape[1], sms, dtype)}",
+            "parent_ms": best[0]}
 
 
 def phase_check() -> dict:
@@ -992,9 +1126,16 @@ def phase_time() -> dict:
         times[dtype].update(row_tile_ms=time_row_tiles(lambda: lstm2.lstm2_fc(x, w), dtype),
                             row_tile=fwd_tile_at(N_FULL, dtype),
                             pack_ms=cuda_ms(lambda: lstm2.pack_fwd_mma(w), reps=5))
-        print(f"[3] lstm2_fwd {str(dtype)[6:]} N={N_FULL} T={T_FULL} by row tile: "
-              f"{times[dtype]['row_tile_ms']} ms (the rule takes {times[dtype]['row_tile']}); "
-              f"weight packing alone {times[dtype]['pack_ms']:.3f} ms")
+        print(f"[3] lstm2_fwd {str(dtype)[6:]} N={N_FULL} T={T_FULL} by row tile of the tile "
+              f"form: {times[dtype]['row_tile_ms']} ms (the rule takes "
+              f"{times[dtype]['row_tile']}); weight packing alone "
+              f"{times[dtype]['pack_ms']:.3f} ms")
+        if dtype == torch.bfloat16:
+            turns = rule_against_parent(lambda: lstm2.lstm2_fc(x, w), N_FULL, SB, dtype)
+            times[dtype]["forms_in_turns"] = turns
+            print(f"[3] lstm2_fwd bf16 N={N_FULL} T={T_FULL}: the {turns['rule_form']} form "
+                  f"{turns['ms']:.3f} ms, the parent's form ({turns['parent_form']}) "
+                  f"{turns['parent_ms']:.3f} ms, in turns; cuDNN LSTM+Linear {library_ms:.3f} ms")
     # K5 at the serving fold; beside it K1 in bf16 and cuDNN's bf16 LSTM +
     # Linear on the same input and weights (yardsticks: neither computes
     # the int8-recurrent function, which no single PyTorch call does)
@@ -1266,6 +1407,8 @@ def phase_time_train() -> dict:
         tiles = time_row_tiles(lambda: lt.lstm2_train_fwd(x, w), dtype)
         print(f"[3] lstm2_train_fwd {str(dtype)[6:]} N={N_TRAIN} T={T_TRAIN} by row tile of the "
               f"tile form: {tiles} ms (the rule takes {fwd_tile_at(N_TRAIN, dtype)})")
+        turns = (rule_against_parent(lambda: lt.lstm2_train_fwd(x, w), N_TRAIN, SB, dtype)
+                 if dtype == torch.bfloat16 else None)
         plain = {
             "lstm2_train_fwd": cuda_ms(lambda: lt.lstm2_train_fwd_reference(x, w), reps=2),
             "lstm2_bwd": cuda_ms(lambda: lt.lstm2_bwd_reference(dy, x, w, res), reps=2),
@@ -1287,6 +1430,11 @@ def phase_time_train() -> dict:
                 return torch.autograd.grad(y, wrt, dy, retain_graph=True)
 
         fwd_ms = cuda_ms(library_fwd, reps=3)
+        if turns:
+            print(f"[3] lstm2_train_fwd bf16 N={N_TRAIN} T={T_TRAIN}: the {turns['rule_form']} "
+                  f"form {turns['ms']:.3f} ms, the parent's form ({turns['parent_form']}) "
+                  f"{turns['parent_ms']:.3f} ms, in turns; cuDNN LSTM+Linear forward "
+                  f"{fwd_ms:.3f} ms")
         y_lib = library_fwd()
         bwd_ms = cuda_ms(lambda: library_bwd(y_lib), reps=3)
         del y_lib
@@ -1311,6 +1459,8 @@ def phase_time_train() -> dict:
                 times[(name, dtype)]["bound_fma_ms"] = fma_ms
             if name == "lstm2_train_fwd":
                 times[(name, dtype)].update(row_tile_ms=tiles, row_tile=fwd_tile_at(N_TRAIN, dtype))
+                if turns:
+                    times[(name, dtype)]["forms_in_turns"] = turns
         times[("lstm2_bwd_wgrad", dtype)].update(
             wgrad_kernel_ms=k3["wgrad_kernel_ms"], wgrad_bound_ms=wgrad_bound_ms,
             wgrad_bound_by=wgrad_bound_by, wgrad_tile_ms=tile_ms,
@@ -1336,14 +1486,15 @@ def phase_time_train() -> dict:
 
 def fwd_forms_by_fold() -> dict:
     """The forward sweep's wave form against its tile form forced (at the
-    tile form's own row tile, `fwd_mma_row_tile`), whichever the rule
-    takes: K2 at FullSubNet+'s and FullSubNet's sub-band training folds (N
-    2304, T 195) and K1 at a batch of 9 utterances (N 2313, 145 row tiles, T
-    629), in both dtypes: the y (and K2's six residuals) the same bits in
-    both forms, timed in turns (wave, tile, tile, wave; the lower of a
-    form's two medians of 3), beside cuDNN's LSTM + Linear forward on the
-    same input (TF32 off; never called by the port). Returns {dtype: {fold:
-    {"rule", "wave", "tile", "library", "same_bits"}}}."""
+    tile form's own row tile, `fwd_mma_row_tile`), and in bf16 the rule's
+    pair form (in waves) beside them: K2 at FullSubNet+'s and FullSubNet's
+    sub-band training folds (N 2304, T 195) and K1 at a batch of 9
+    utterances (N 2313, 145 row tiles, 73 pairs, T 629), in both dtypes: the
+    y (and K2's six residuals) the same bits in every form, timed in turns
+    (pair, wave, tile, tile, wave, pair; the lower of a form's two medians
+    of 3), beside cuDNN's LSTM + Linear forward on the same input (TF32
+    off; never called by the port). Returns {dtype: {fold: {"rule",
+    "wave", "tile", ("pair",) "library", "same_bits"}}}."""
     from fullsubnet_plus_torch.ops import lstm2
     from fullsubnet_plus_torch.ops import lstm2_train as lt
 
@@ -1364,27 +1515,36 @@ def fwd_forms_by_fold() -> dict:
                 return (y, *res)
 
             got, ms = {}, {}
-            for form in (lstm2.FWD_SWEEP_WAVE, 0, 0, lstm2.FWD_SWEEP_WAVE):
+            pair = lstm2.fwd_sweep_plan(n, *shape, dtype, sms)[0]
+            forms = [lstm2.FWD_SWEEP_WAVE, 0]
+            if pair in (lstm2.FWD_PAIR, lstm2.FWD_PAIR_WAVE):
+                forms.insert(0, pair)
+            for form in forms + forms[::-1]:
                 with forced_fwd_form(form):
                     if form not in got:
                         got[form] = call()
                     ms.setdefault(form, []).append(cuda_ms(call, reps=3))
-            same = all(torch.equal(a, b) for a, b in zip(got[0], got[lstm2.FWD_SWEEP_WAVE]))
+            same = all(torch.equal(a, b) for f in forms[1:] for a, b in zip(got[forms[0]], got[f]))
             del got
             torch.cuda.empty_cache()
             library = cudnn_lstm(lstm, fc, dtype)
             library_ms = cuda_ms(lambda: library(x), reps=3)
             best = {f: min(v) for f, v in ms.items()}
             rule = fwd_rule_form(n, shape, dtype)
-            print(f"[3] {kernel} {str(dtype)[6:]} {tag} N={n} D={shape[0]} T={t}: the wave form "
-                  f"{best[lstm2.FWD_SWEEP_WAVE]:.3f} ms, the tile form forced {best[0]:.3f} ms "
-                  f"(R {lstm2.fwd_mma_row_tile(n, shape[0], H, sms, dtype)}), cuDNN LSTM+Linear "
-                  f"forward {library_ms:.3f} ms; the rule takes the {rule} form; y"
-                  f"{' and the residuals' if kernel == 'K2' else ''} the same bits in both: {same}")
+            paired = (f"the {lstm2.fwd_form_name(forms[0])} form {best[forms[0]]:.3f} ms, "
+                      if len(forms) == 3 else "")
+            print(f"[3] {kernel} {str(dtype)[6:]} {tag} N={n} D={shape[0]} T={t}: {paired}the "
+                  f"wave form {best[lstm2.FWD_SWEEP_WAVE]:.3f} ms, the tile form forced "
+                  f"{best[0]:.3f} ms (R {lstm2.fwd_mma_row_tile(n, shape[0], H, sms, dtype)}), "
+                  f"cuDNN LSTM+Linear forward {library_ms:.3f} ms; the rule takes the {rule} "
+                  f"form; y{' and the residuals' if kernel == 'K2' else ''} the same bits in "
+                  f"every form: {same}")
             if not same:
-                fail(f"[3] the forward's wave and tile forms disagree at {tag} {dtype}")
+                fail(f"[3] the forward's forms disagree at {tag} {dtype}")
             out[dtype][tag] = {"rule": rule, "wave": best[lstm2.FWD_SWEEP_WAVE], "tile": best[0],
                                "library": library_ms, "same_bits": same, "N": n, "T": t}
+            if len(forms) == 3:
+                out[dtype][tag]["pair"] = best[forms[0]]
             del x, w, library
             torch.cuda.empty_cache()
     return out
@@ -1497,22 +1657,28 @@ def float32_backward() -> str:
     return "lstm2_bwd_wgrad" if lt.fused_wgrad(torch.float32) else "lstm2_bwd"
 
 
-def same_state_check(state, make_step, batches, phase: str = "[6]", per_step: int = 1) -> tuple:
+def same_state_check(state, make_step, batches, phase: str = "[6]", per_step: int = 1,
+                     fwd_folds=((N_TRAIN, SB),)) -> tuple:
     """Phase 6's agreement check, well posed: the plain float32 run takes its
     TRAIN_STEPS steps, and before each one the same step from a copy of its
     state runs through the kernels (float32 K2 + K3, float32 K2 + K4, bf16
     K2 + K3). Each kernel step's loss and gradient norm are held to the
     plain step's from the same state: float32 within TRAIN_LOSS_RTOL and
     TRAIN_GRAD_NORM_RTOL, bf16's loss within TRAIN_BF16_LOSS_RTOL; the bf16
-    steps' reverse sweeps are printed by form. Returns (each
+    steps' reverse sweeps are printed by form, and their forward sweeps
+    (K2's launches at `fwd_folds`, (N, shape) a launch of a step) held to
+    the rule's forms (the pair form at the sub-band folds). Returns (each
     form's worst loss and gradient-norm gaps, the kernel steps' launches
     summed); `phase` tags the lines. A step launches the forward and the
     backward kernel `per_step` times each (FullSubNet: 2, its full-band and
     sub-band LSTMs)."""
+    from fullsubnet_plus_torch.ops import lstm2
     from fullsubnet_plus_torch.ops import lstm2_train as lt
 
     forms = (("float32_k3", torch.float32, True), ("float32_k4", torch.float32, False),
              ("bfloat16_k3", torch.bfloat16, True))
+    bf16_fwd = dict(collections.Counter(f"lstm2_train_fwd {fwd_rule_form(n, shape, torch.bfloat16)}"
+                                        for n, shape in fwd_folds))
     steps = {dtype: make_step(dtype) for dtype in (torch.float32, torch.bfloat16)}
     gaps = {tag: [] for tag, _, _ in forms}
     counted = collections.Counter()
@@ -1524,6 +1690,9 @@ def same_state_check(state, make_step, batches, phase: str = "[6]", per_step: in
                 _, m = steps[dtype](copy.deepcopy(state), noisy, clean)
             if dtype == torch.bfloat16:
                 sweeps[tag] = dict(lt.SWEEP_FORMS)
+                if dict(lstm2.FWD_SWEEP_FORMS) != bf16_fwd:
+                    fail(f"{phase} train {tag} step {i}: the forward sweeps took the forms "
+                         f"{dict(lstm2.FWD_SWEEP_FORMS)}, not {bf16_fwd}")
             launches = all_launches()
             counted.update(launches)
             expect = {k: 0 for k in launches}
@@ -1546,7 +1715,7 @@ def same_state_check(state, make_step, batches, phase: str = "[6]", per_step: in
               f"grad norm {plain['grad_norm']:.6f}; "
               + "; ".join(f"{tag} {trials[tag]['loss']:.6f} / {trials[tag]['grad_norm']:.6f}"
                           for tag in trials)
-              + f"; the bf16 reverse sweeps by form: {sweeps}")
+              + f"; the bf16 reverse sweeps by form: {sweeps}, forward sweeps by form {bf16_fwd}")
     worst = {}
     for tag, dtype, _ in forms:
         worst[tag] = (max(g[0] for g in gaps[tag]), max(g[1] for g in gaps[tag]))
@@ -1661,7 +1830,8 @@ def phase_train() -> dict:
             fail(f"train {tag}: step {int(state.step)}, Adam count {int(state.opt_state.count)}")
         return {"state": state, "metrics": metrics, "wall_ms": wall, "launches": launches,
                 "audio_s_per_s": audio_s / wall * 1e3, "sweep_form": name, "fwd_form": fwd_name,
-                "wgrad_tiles": dict(lt.WGRAD_TILES), "sweep_forms": dict(lt.SWEEP_FORMS)}
+                "wgrad_tiles": dict(lt.WGRAD_TILES), "sweep_forms": dict(lt.SWEEP_FORMS),
+                "fwd_sweep_forms": dict(lstm2.FWD_SWEEP_FORMS)}
 
     runs = {"float32_k3": run("float32 K2+K3", torch.float32, True),
             "bfloat16_k3": run("bfloat16 K2+K3", torch.bfloat16, True),
@@ -1735,7 +1905,8 @@ def phase_train() -> dict:
     return {"runs": {k: {f: v[f] for f in ("metrics", "wall_ms", "launches", "audio_s_per_s",
                                             "sweep_form", "fwd_form", "tile_form_wall_ms",
                                             "fwd_tile_form_wall_ms", "mma_sync_wgrad_wall_ms",
-                                            "wgrad_tiles", "sweep_forms") if f in v}
+                                            "wgrad_tiles", "sweep_forms", "fwd_sweep_forms")
+                                  if f in v}
                      for k, v in runs.items()},
             "eval_launches": eval_launches,
             # phase 9 starts from a copy of the float32 K2 + K4 run's state
@@ -1791,6 +1962,7 @@ def phase_batch_path(root: str, lengths: list[int]) -> dict:
     from fullsubnet_plus_torch.cli import enhance as cli
     from fullsubnet_plus_torch.cli.serve import kernel_launches
     from fullsubnet_plus_torch.data.wav import read_wav
+    from fullsubnet_plus_torch.ops import lstm2
     from fullsubnet_plus_torch.utils.config import load_config
 
     config = load_config(os.path.join(REPO, "configs", "inference.toml"))
@@ -1805,13 +1977,20 @@ def phase_batch_path(root: str, lengths: list[int]) -> dict:
 
     run("warmup", None)  # CUDA context, cuBLAS and cuFFT plans; not timed
     run("warmup_int8", "int8")
-    launches, rates = {}, {}
+    launches, rates, forms = {}, {}, {}
     for tag, dtype, kernel in (("float32", None, "lstm2_fwd"),
                                ("bfloat16", "bfloat16", "lstm2_fwd"),
                                ("int8", "int8", "lstm2_int8_fwd")):
         reset_launches()
         runs = [run(tag, dtype) for _ in range(MAIN_PATH_RUNS)]
         launches[tag] = kernel_launches()
+        if kernel == "lstm2_fwd":  # each batch (N 2056) in the rule's form for its dtype
+            forms[tag] = dict(lstm2.FWD_SWEEP_FORMS)
+            want = {f"lstm2_fwd {BATCH_FWD_FORM[getattr(torch, tag)]}": launches[tag][kernel]}
+            print(f"[4] batch path {tag}: forward sweeps by form {forms[tag]}")
+            if forms[tag] != want:
+                fail(f"the {tag} batch path's forward sweeps took the forms {forms[tag]}, not "
+                     f"{want}")
         each = [r["throughput_audio_s_per_s"] for r in runs]
         rates[tag] = statistics.median(each)
         print(f"[4] batch path {tag}: {runs[0]['files']} files, {runs[0]['audio_seconds']:.2f} "
@@ -1839,7 +2018,7 @@ def phase_batch_path(root: str, lengths: list[int]) -> dict:
     for tag in ("bfloat16", "int8"):
         snr = snr_db(torch.from_numpy(kernel), torch.from_numpy(np.concatenate(outputs(tag))))
         print(f"[4] {tag} against float32 waveforms: {snr:.1f} dB (reported, no floor)")
-    return {"launches": launches, "rates": rates}
+    return {"launches": launches, "rates": rates, "fwd_forms": forms}
 
 
 def loop_device_time(fn, span: str) -> tuple:
@@ -2381,10 +2560,13 @@ def phase_fullsubnet(root: str, lengths: list[int]) -> dict:
         want[kernel] = 2 * MAIN_PATH_RUNS
         if launches[tag] != want:
             fail(f"the FullSubNet {tag} batch launched {launches[tag]}, expected {want}")
-        # the full-band LSTM in the cluster form, the sub-band one in the tile form
+        # the full-band LSTM in the cluster form, the sub-band one in the tile form (in bf16
+        # K1's pair form)
         forms[tag] = dict(lstm2.FWD_SWEEP_FORMS if kernel == "lstm2_fwd"
                           else lstm2_int8.INT8_SWEEP_FORMS)
-        if forms[tag] != {f"{kernel} cluster16": MAIN_PATH_RUNS, f"{kernel} tile": MAIN_PATH_RUNS}:
+        sub_band = BATCH_FWD_FORM[getattr(torch, tag)] if kernel == "lstm2_fwd" else "tile"
+        if forms[tag] != {f"{kernel} cluster16": MAIN_PATH_RUNS,
+                          f"{kernel} {sub_band}": MAIN_PATH_RUNS}:
             fail(f"the FullSubNet {tag} batch's sweeps by form: {forms[tag]}")
         for i, (y, n) in enumerate(zip(outputs(f"fsn_{tag}"), lengths)):
             if y.shape != (n,) or not np.isfinite(y).all():
@@ -4024,7 +4206,8 @@ def phase_fullsubnet_train(root: str, corpus: dict) -> dict:
         return step.init_train_state(model, optimizer, device="cuda")
 
     gaps, step_launches = same_state_check(seeded_state(), make_step, batches,
-                                           phase="[11] FullSubNet", per_step=2)
+                                           phase="[11] FullSubNet", per_step=2,
+                                           fwd_folds=((N_FB_TRAIN, FB), (N_TRAIN, FSN_SB)))
     state, train_step = seeded_state(), make_step(torch.float32)
     noisy, clean = batches[0]
     reset_launches()  # and the sweeps' forms
@@ -4138,6 +4321,7 @@ def main() -> None:
     fixture_snr = phase_check_fixture()
     errors = phase_check()
     fwd_cluster = check_fwd_cluster()
+    fwd_pair = check_fwd_pair()
     train_errors = phase_check_train()
     times = phase_time()
     train_times = phase_time_train()
@@ -4318,6 +4502,10 @@ def main() -> None:
                 (f"fullsubnet_sb N {N_FULL}", N_FULL, FSN_SB))},
             **{f"fullsubnet_batch_{tag}": fsn["forms"][tag] for tag in ("float32", "bfloat16")}},
         "fullsubnet_fb_cluster_check": {str(dt)[6:]: v for dt, v in fwd_cluster.items()},
+        "pair_sweep_functions": hmma["lstm2_fwd_pair_sweep"],
+        "bf16_pair_check": fwd_pair,
+        "bf16_launches_by_form": {"batch_bfloat16": batch["fwd_forms"]["bfloat16"],
+                                  "fullsubnet_batch_bfloat16": fsn["forms"]["bfloat16"]},
         "jax_fixture_min_snr_db": {dt: fixture_snr[("lstm2_fwd", dt)]
                                    for dt in ("float32", "bfloat16")},
     }
@@ -4393,6 +4581,8 @@ def main() -> None:
                 "train_steps": {r: runs[r].get("sweep_form") for r in launch_runs},
                 "fullsubnet_steps_float32": fsn_train["steps"]["float32_default"]["sweep_forms"]}
         if name == "lstm2_train_fwd":
+            extra["pair_sweep_functions"] = hmma["lstm2_train_fwd_pair_sweep"]
+            extra["launches_by_form"] = {r: runs[r]["fwd_sweep_forms"] for r in launch_runs}
             extra["fwd_form_by_fold"] = {
                 **{fold: fwd_forms_at(rows, shape) for fold, rows, shape in (
                     (f"N {N_TRAIN} T {T_TRAIN} (training)", N_TRAIN, SB),

@@ -25,7 +25,10 @@
 // 16 in float32; where the fold has more row tiles than the card holds at
 // once, the wave form runs the same kernel over items of a tile and a few
 // steps, a launch a wave, the h and c carries between a tile's items in
-// device memory. At FullSubNet's full-band fold (N 8, D 257, H 512, O 257:
+// device memory. In bf16 at the sub-band folds the pair form takes the R 32
+// tile over a cluster of two CTAs, each owning half the units and pulling
+// half the weights a step, h exchanged through distributed shared memory,
+// in one launch or in waves. At FullSubNet's full-band fold (N 8, D 257, H 512, O 257:
 // one CTA on one SM pulling 15.4 MB of float32 fragments a step) the cluster
 // form runs instead: a cluster of 16 CTAs a tile of 16 rows, each owning 32
 // units, h1 and h2 all-gathered each step by TMA bulk copies into the
@@ -33,7 +36,9 @@
 //
 // Launch: the tile form grid ceil(N / R) (the wave form launches of at most
 // that many), block H threads, dynamic shared memory as in
-// fwd_mma_shared_memory_bytes() of ops/lstm2.py; the cluster
+// fwd_mma_shared_memory_bytes() of ops/lstm2.py; the pair form grid 2
+// ceil(N / 32) (in waves: launches of at most that many) in clusters of 2,
+// block H threads, as in fwd_pair_shared_memory_bytes(); the cluster
 // form grid 16 ceil(N / 16) in clusters of 16, block 512 threads, as in
 // fwd_cluster_shared_memory_bytes(). The C entry point launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError().
@@ -43,11 +48,12 @@
 // dtype: 0 = float32 (rows 16), 1 = bfloat16 (rows 16 or 32): the type of x
 // and out. The weights come as the packed fragments w1p, w2p, fcp and the
 // gate-interleaved biases b1p, b2p (ops/lstm2.py::pack_fwd_mma), fcb as b_fc.
-// form: the sweep's form (0 the tile form, 1 the wave form, 16 the cluster
-// form: clusters of 16, rows 16). The wave form also takes carry, a
-// [ceil(N / rows)][carry_bytes] scratch for the carries between a tile's
-// parts (fwd_carry_bytes in ops/lstm2.py), and part_steps, the steps of a
-// part (the other forms: null and 0).
+// form: the sweep's form (0 the tile form, 1 the wave form, 2 the pair form
+// in one launch and 3 in waves: clusters of 2, rows 32, bf16; 16 the
+// cluster form: clusters of 16, rows 16). The forms in waves (1, 3) also
+// take carry, a [ceil(N / rows)][carry_bytes] scratch for the carries
+// between a tile's parts (fwd_carry_bytes in ops/lstm2.py), and part_steps,
+// the steps of a part (the other forms: null and 0).
 extern "C" int lstm2_fwd(const void* x, const void* w1p, const void* w2p, const void* fcp,
                          const void* b1p, const void* b2p, const void* fcb, void* out,
                          void* carry, int n_rows, int steps, int D, int H, int O, int rows,
@@ -56,4 +62,12 @@ extern "C" int lstm2_fwd(const void* x, const void* w1p, const void* w2p, const 
   return fwd::launch_dtype<false>(dtype, x, w1p, w2p, fcp, b1p, b2p, fcb, out, nullptr, carry,
                                   n_rows, steps, D, H, O, rows, form, part_steps,
                                   static_cast<cudaStream_t>(stream));
+}
+
+// The clusters of the pair form (bf16) the current card holds at once at D,
+// H (cudaOccupancyMaxActiveClusters), into *clusters: what a wave of the
+// pair form in waves holds, and what `fwd_sweep_pair` in ops/lstm2.py
+// assumes (half the SMs). Returns a CUDA error, or 0.
+extern "C" int lstm2_fwd_pair_clusters(int D, int H, int* clusters) {
+  return fwd::pair_capacity<false>(D, H, clusters);
 }

@@ -8,9 +8,9 @@
 // accumulate in float32. Both kernels run the same products in the same
 // order, so their y is equal bit for bit. The weights (7.5 MB float32, 3.7 MB
 // bf16 at D 34, H 384) do not fit in shared memory; they stay in global
-// memory, served from the 50 MB L2. Three forms, chosen by the fold's shape
-// and the card's SM count (`fwd_sweep_plan` in ops/lstm2.py, the same for K1
-// and K2):
+// memory, served from the 50 MB L2. Four forms, chosen by the fold's shape,
+// dtype and the card's SM count (`fwd_sweep_plan` in ops/lstm2.py, the same
+// for K1 and K2):
 //   * the tile form, `sweep_mma_kernel`: one CTA per tile of R rows sweeps
 //     all T steps, so the recurrence never leaves the block; every CTA pulls
 //     every weight fragment from L2 each step (the folds whose row tiles
@@ -29,6 +29,12 @@
 //     2304, 144 tiles of 16 on 132 SMs) the tile form's second wave of 12
 //     CTAs costs nearly a full one; the wave form keeps every SM busy but
 //     for the last launch;
+//   * the pair form, `sweep_pair_kernel` (bf16; below): the tile form's R 32
+//     sweep split over a cluster of two CTAs, each owning half the hidden
+//     units and pulling only their weights, h exchanged through distributed
+//     shared memory, in one launch or in waves as the wave form (the
+//     sub-band folds: twice the SMs of R 32 at R 32's L2 traffic, half R
+//     16's);
 //   * the cluster form, `sweep_cluster_kernel` (below): a cluster of 16 CTAs
 //     per tile of 16 rows, each owning 32 hidden units and pulling only its
 //     gate columns' weights, h1 and h2 all-gathered each step through
@@ -158,6 +164,14 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
+// the same bf16 pair at shared::cluster address `peer` (a word of a peer
+// CTA's shared memory, mapa)
+__device__ __forceinline__ void store_pair_peer(uint32_t peer, float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  asm volatile("st.shared::cluster.b32 [%0], %1;\n" ::"r"(peer),
+               "r"(*reinterpret_cast<const uint32_t*>(&v)) : "memory");
+}
+
 // acc[mt][i] += (A's m-tile mt) . (B's n-tile i) over all k-chunks, in k
 // order. a_addr: this lane's ldmatrix address of m-tile 0, k-chunk 0
 // (m-tiles m_stride bytes apart); B: this lane's word of n-tile 0, k-chunk 0
@@ -193,14 +207,17 @@ __device__ __forceinline__ void mma_pass(float (&acc)[MT][4][4], uint32_t a_addr
 // (g, q) = (lane / 4, lane % 4) holds in acc[mt][gate][e] the pre-activation
 // of row 16 mt + g + 8 (e / 2), unit unit0 + e % 2 (unit0 = 8u + 2q). Its c
 // words are lane-private: cs[(4 mt + e) * 32 + lane]. Writes h as T pairs (in
-// bf16 the rounded h) into hdst[row * ld + unit0] and, with kSave, the
-// residuals of the rows that exist (the activated gates at g_t[row * 4H +
-// gate * H + unit], c and h at [row * H + unit]).
-template <typename T, int MT, bool kSave>
+// bf16 the rounded h) into hdst[row * ld + unit0], with kPeer also into the
+// peer CTA's copy of that word (its shared::cluster address: this one's
+// plus to_peer), and, with kSave, the residuals of the rows that exist (the
+// activated gates at g_t[row * 4H + gate * H + unit], c and h at [row * H +
+// unit]).
+template <typename T, int MT, bool kSave, bool kPeer>
 __device__ __forceinline__ void cell_mma(const float (&acc)[MT][4][4], float* __restrict__ cs,
                                          T* __restrict__ hdst, int ld, int unit0, int lane,
                                          T* __restrict__ g_t, T* __restrict__ c_t,
-                                         T* __restrict__ h_t, int rows_here, int H) {
+                                         T* __restrict__ h_t, int rows_here, int H,
+                                         uint32_t to_peer) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -219,7 +236,10 @@ __device__ __forceinline__ void cell_mma(const float (&acc)[MT][4][4], float* __
         cw = c[p];
         h[p] = act[3][p] * tanhf(c[p]);
       }
-      store_pair(hdst + (size_t)row * ld + unit0, h[0], h[1]);
+      T* hw = hdst + (size_t)row * ld + unit0;
+      store_pair(hw, h[0], h[1]);
+      if constexpr (kPeer)
+        store_pair_peer((uint32_t)__cvta_generic_to_shared(hw) + to_peer, h[0], h[1]);
       if (kSave && row < rows_here) {
 #pragma unroll
         for (int gate = 0; gate < 4; ++gate)
@@ -230,21 +250,22 @@ __device__ __forceinline__ void cell_mma(const float (&acc)[MT][4][4], float* __
     }
 }
 
-// One layer of warp `warp`'s 32 units (unit groups 4 warp .. 4 warp + 3), in
-// passes of one unit group: its four gate n-tiles for every m-tile, then the
-// cell. Each B fragment loaded from L2 feeds all MT m-tiles.
-template <typename T, int MT, bool kSave>
+// One layer of a warp's PASSES unit groups ug0 .. ug0 + PASSES - 1 (the tile
+// form: MMA_PASSES of them, units 32 warp .. 32 warp + 31), in passes of one
+// unit group: its four gate n-tiles for every m-tile (B: the first one's
+// word), then the cell. Each B fragment loaded from L2 feeds all MT m-tiles.
+template <typename T, int MT, int PASSES, bool kSave, bool kPeer>
 __device__ __forceinline__ void layer_mma(uint32_t a_addr, uint32_t m_stride,
                                           const uint4* __restrict__ B, size_t ns, int chunks,
                                           const uint4* __restrict__ B_next, size_t ns_next,
                                           uint4 (&b)[4], const float* __restrict__ bias,
                                           float* __restrict__ cs, T* __restrict__ hdst, int ld,
-                                          int warp, int lane, T* __restrict__ g_t,
+                                          int ug0, int lane, T* __restrict__ g_t,
                                           T* __restrict__ c_t, T* __restrict__ h_t,
-                                          int rows_here, int H) {
+                                          int rows_here, int H, uint32_t to_peer) {
 #pragma unroll 1
-  for (int pass = 0; pass < MMA_PASSES; ++pass) {
-    const int ug = MMA_PASSES * warp + pass, unit0 = 8 * ug + 2 * (lane & 3);
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int ug = ug0 + pass, unit0 = 8 * ug + 2 * (lane & 3);
     float acc[MT][4][4];
 #pragma unroll
     for (int gate = 0; gate < 4; ++gate) {
@@ -255,24 +276,25 @@ __device__ __forceinline__ void layer_mma(uint32_t a_addr, uint32_t m_stride,
         acc[mt][gate][1] = acc[mt][gate][3] = bv.y;
       }
     }
-    const bool last = pass + 1 == MMA_PASSES;
+    const bool last = pass + 1 == PASSES;
     mma_pass<T, MT>(acc, a_addr, m_stride, B + 4 * pass * ns, ns, chunks,
                     last ? B_next : B + 4 * (pass + 1) * ns, last ? ns_next : ns, b);
-    cell_mma<T, MT, kSave>(acc, cs + (size_t)pass * MT * 4 * 32, hdst, ld, unit0, lane, g_t, c_t,
-                           h_t, rows_here, H);
+    cell_mma<T, MT, kSave, kPeer>(acc, cs + (size_t)pass * MT * 4 * 32, hdst, ld, unit0, lane,
+                                  g_t, c_t, h_t, rows_here, H, to_peer);
   }
 }
 
 // y_t = h2_t W_fc + b_fc for the tile's rows, from h2 in an operand buffer:
-// warp w computes n-tiles w, w + warps, .. of the O columns over all H, so
-// nothing grows with O but the number of n-tiles.
+// this warp computes n-tiles nt0, nt0 + stride, .. of the O columns over all
+// H (the tile form: warp w, stride the warps), so nothing grows with O but
+// the number of n-tiles.
 template <typename T, int MT>
 __device__ __forceinline__ void fc_mma(uint32_t a_addr, uint32_t m_stride,
                                        const uint4* __restrict__ fc, int chunks,
                                        const float* __restrict__ fcb, T* __restrict__ out, int n0,
-                                       int t, int steps, int O, int rows_here, int warp, int warps,
+                                       int t, int steps, int O, int rows_here, int nt0, int stride,
                                        int lane) {
-  for (int nt = warp; 8 * nt < O; nt += warps) {
+  for (int nt = nt0; 8 * nt < O; nt += stride) {
     float acc[MT][4] = {};
     for (int kc = 0; kc < chunks; ++kc) {
       const uint4 bv = __ldg(fc + ((size_t)nt * chunks + kc) * 32);
@@ -396,17 +418,16 @@ sweep_mma_kernel(const T* __restrict__ x,  // [T, N, D]
       fc_mma<T, MT>(a_addr[bb ^ 1] + h2_col, m_stride, wt.fc + lane, kcf, fcb, out, n0, t - 1,
                     steps, O, rows_here, warp, warps, lane);
     // layer 1: [x_t | h1_{t-1}] [W1; U1] -> h1_t
-    layer_mma<T, MT, kSave>(a_addr[bb], m_stride, w1w, ns1, kc1, w2w, ns2, b, wt.b1, c1s + cwarp,
-                            nxt + xc, ld, warp, lane, kSave ? res.g1 + row0 * 4 * H : nullptr,
-                            kSave ? res.c1 + row0 * H : nullptr,
-                            kSave ? res.h1 + row0 * H : nullptr, rows_here, H);
+    layer_mma<T, MT, MMA_PASSES, kSave, false>(
+        a_addr[bb], m_stride, w1w, ns1, kc1, w2w, ns2, b, wt.b1, c1s + cwarp, nxt + xc, ld,
+        MMA_PASSES * warp, lane, kSave ? res.g1 + row0 * 4 * H : nullptr,
+        kSave ? res.c1 + row0 * H : nullptr, kSave ? res.h1 + row0 * H : nullptr, rows_here, H, 0);
     __syncthreads();  // h1_t is complete
     // layer 2: [h1_t | h2_{t-1}] [W2; U2] -> h2_t
-    layer_mma<T, MT, kSave>(a_addr[bb ^ 1] + h1_col, m_stride, w2w, ns2, kc2, w1w, ns1, b, wt.b2,
-                            c2s + cwarp, cur + xc + H, ld, warp, lane,
-                            kSave ? res.g2 + row0 * 4 * H : nullptr,
-                            kSave ? res.c2 + row0 * H : nullptr,
-                            kSave ? res.h2 + row0 * H : nullptr, rows_here, H);
+    layer_mma<T, MT, MMA_PASSES, kSave, false>(
+        a_addr[bb ^ 1] + h1_col, m_stride, w2w, ns2, kc2, w1w, ns1, b, wt.b2, c2s + cwarp,
+        cur + xc + H, ld, MMA_PASSES * warp, lane, kSave ? res.g2 + row0 * 4 * H : nullptr,
+        kSave ? res.c2 + row0 * H : nullptr, kSave ? res.h2 + row0 * H : nullptr, rows_here, H, 0);
     if (t < t_hi) load_x(t + 1, nxt);
     __syncthreads();  // h2_t and x_{t+1} are complete
   }
@@ -493,6 +514,281 @@ int launch_mma(const void* x, const MmaWeights& wt, const void* fcb, void* out,
       return launch_mma_rows<T, 2, kSave>(x, wt, fcb, out, res, carry, n_rows, steps, D, H, O,
                                           part_steps, stream);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The pair form, `sweep_pair_kernel<T, kSave, MAX_THREADS>` (bf16): the tile
+// form's R 32 sweep (two m-tiles) split over a cluster of two CTAs, so each
+// pulls half the weights from L2 a step and a fold fills twice the SMs of
+// R 32 at the L2 traffic of R 32. CTA rank c owns the H / 2 hidden units
+// 8u .. 8u + 7 of unit groups u = (H / 16) c .. (H / 16)(c + 1) - 1 of both
+// layers, all four gates of each (their gate-interleaved n-tiles of the
+// packed w1 and w2, nothing else of them); warp w of the H / 32 owns unit
+// groups (H / 16) c + 2w and + 1, in PAIR_PASSES passes of the tile form's
+// `layer_mma`. So each warp issues as many mma.sync a step as a warp of R 16
+// (two m-tiles in two passes, not one in four) and loads half its weight
+// fragments.
+//   * Both CTAs keep the tile's whole operand rows [x | h1 | h2] in the
+//     tile form's two parity buffers (each product contracts over all H
+//     units), and c1 and c2 of their own units. After a layer's cells each
+//     lane writes its h pairs into its own buffer and into the peer's
+//     (st.shared::cluster, 12 KB a layer and step at H 384), and a cluster
+//     barrier (release / acquire) takes the place of each of the tile form's
+//     two __syncthreads: the two CTAs run in lockstep phases, so the
+//     tile form's buffer discipline holds across the pair. Each CTA loads
+//     x_{t+1} into its own buffer.
+//   * Every (row, unit) gate sum runs the R 32 tile form's mma.sync chain in
+//     its k order, and the fc's n-tile nt runs on rank nt % 2 (warp nt / 2
+//     mod the warps) with the tile form's chain, so y and every residual are
+//     the R 32 tile form's bit for bit; each CTA stores only its own units'
+//     residuals and its own fc columns, so each word has one writer.
+//   * The wave form (PAIR_WAVE_FORM): the same kernel over items of (row
+//     tile, part of part_steps steps) as `launch_mma_tile` orders them, a
+//     cluster an item, in launches of as many clusters as the card holds at
+//     once (cudaOccupancyMaxActiveClusters; the GPCs may hold fewer pairs
+//     than half the SMs) but no more than the tiles. The tile's carry is the
+//     tile form's (`carry_bytes`): each CTA stores its own half of each h
+//     row and its own c words (rank c's at [2 R H (T)] + c R H floats) and
+//     loads whole h rows back.
+// Shared memory at D 34, H 384: two operand buffers [32][840] bf16 and c1,
+// c2 [32][192] float32, 156,672 bytes (D 32: 152,576). Launch: grid 2 x the
+// tiles (the wave form: 2 x at most that many), clusters of 2, block H
+// threads, dynamic shared memory pair_shared_bytes<T>(D, H).
+
+constexpr int PAIR_CTAS = 2;    // FWD_PAIR_CTAS in ops/lstm2.py: CTAs of a cluster
+constexpr int PAIR_MT = 2;      // m-tiles of a pair's row tile: FWD_PAIR_ROWS = 32 rows
+constexpr int PAIR_PASSES = 2;  // unit groups of 8 a warp owns: H / 32 warps x 2 x 8 = H / 2
+
+// `fwd_pair_shared_memory_bytes` in ops/lstm2.py: the tile form's two
+// operand buffers at R 32, and c1, c2 of a CTA's H / 2 units
+template <typename T> __host__ __device__ inline size_t pair_shared_bytes(int D, int H) {
+  constexpr int R = 16 * PAIR_MT;
+  return sizeof(T) * 2 * (size_t)R * operand_pitch<T>(D, H) +
+         sizeof(float) * 2 * (size_t)R * (H / PAIR_CTAS);
+}
+
+// Whether the pair form runs at this shape: bf16, H a multiple of 32 (H / 2
+// whole unit groups for whole warps) up to 512, and a CTA's shared memory
+// fits a block. The caller chooses the form (`fwd_sweep_pair` in
+// ops/lstm2.py); a launch of the pair form where this is false returns an
+// error.
+template <typename T> inline bool pair_runs(int D, int H) {
+  return sizeof(T) == 2 && H % 32 == 0 && H <= 512 && pair_shared_bytes<T>(D, H) <= SMEM_LIMIT;
+}
+
+// the cluster barrier whole: this thread's earlier writes (its stores into
+// the peer's shared memory too) are seen by every thread of the cluster
+// after it
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+template <typename T, bool kSave, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+sweep_pair_kernel(const T* __restrict__ x,  // [T, N, D]
+                  const MmaWeights wt, const float* __restrict__ fcb,
+                  T* __restrict__ out,  // [N, T, O]
+                  const Residuals<T> res,
+                  unsigned char* __restrict__ carry,  // the wave form: [tiles][carry_bytes]
+                  int n_rows, int steps, int D, int H, int O, int item0, int part_steps) {
+  constexpr int MT = PAIR_MT, R = 16 * MT, KC = k_chunk<T>();
+  extern __shared__ __align__(16) unsigned char smem_pair[];
+  const int xc = x_cols<T>(D), ld = operand_pitch<T>(D, H), HU = H / PAIR_CTAS;
+  T* ops = reinterpret_cast<T*>(smem_pair);                          // [2][R][ld]
+  float* c1s = reinterpret_cast<float*>(ops + 2 * (size_t)R * ld);  // [R * HU]
+  float* c2s = c1s + (size_t)R * HU;                                // [R * HU]
+
+  const int c = (int)cluster_ctarank();
+  const int j = threadIdx.x, warp = j >> 5, lane = j & 31, warps = H >> 5;
+  // the work item: row tile `tile` over part `part` of part_steps steps
+  const int tiles = (n_rows + R - 1) / R, item = item0 + (int)cluster_idx();
+  const int part = item / tiles, tile = item - part * tiles;
+  const int t_lo = part * part_steps, t_hi = min(steps, t_lo + part_steps) - 1;
+  const int n0 = tile * R;
+  const int rows_here = min(R, n_rows - n0);
+  const int kc1 = (xc + H) / KC, kc2 = 2 * H / KC, kcf = H / KC;
+  const size_t ns1 = (size_t)kc1 * 32, ns2 = (size_t)kc2 * 32;  // words between n-tiles
+  const uint32_t m_stride = sizeof(T) * 16 * ld;  // bytes between m-tiles
+  uint32_t a_addr[2];  // this lane's ldmatrix address in each buffer, column 0
+#pragma unroll
+  for (int bb = 0; bb < 2; ++bb)
+    a_addr[bb] = (uint32_t)__cvta_generic_to_shared(ops + ((size_t)bb * R + (lane & 15)) * ld) +
+                 16 * (lane >> 4);
+  // the warp's unit groups and first n-tile (its first unit group, gate i) of each layer
+  const int ug0 = (H / 16) * c + PAIR_PASSES * warp;
+  const uint4* w1w = wt.w1 + (size_t)4 * ug0 * ns1 + lane;
+  const uint4* w2w = wt.w2 + (size_t)4 * ug0 * ns2 + lane;
+  const size_t cwarp = (size_t)warp * PAIR_PASSES * MT * 4 * 32;  // the warp's c words
+  const uint32_t h1_col = sizeof(T) * xc, h2_col = sizeof(T) * (xc + H);  // bytes
+  // a word of the operand buffers in the peer's shared memory: its address
+  // here plus to_peer
+  const uint32_t ops_here = (uint32_t)__cvta_generic_to_shared(ops);
+  const uint32_t to_peer = peer_address(ops_here, (uint32_t)(c ^ 1)) - ops_here;
+
+  auto load_x = [&](int t, T* dst) {  // x_t into dst's x columns; rows past N stay zero
+    const T* xt = x + ((size_t)t * n_rows + n0) * D;
+    for (int idx = j; idx < rows_here * D; idx += blockDim.x) {
+      const int r = idx / D;
+      dst[(size_t)r * ld + idx - r * D] = xt[idx];
+    }
+  };
+  // h1_t, h2_t (rows in buffers (t + 1) & 1 and t & 1) and this CTA's c
+  // words between shared memory and the tile's carry, in 16-byte words: a
+  // store writes this CTA's half of each h row, a load reads whole rows
+  auto carries = [&](int t, bool store) {
+    uint4* cw = reinterpret_cast<uint4*>(carry + (size_t)tile * carry_bytes<T>(R, H));
+    const int hw = H * (int)sizeof(T) / 16;  // 16-byte words of a row of h
+    const int span = store ? hw / PAIR_CTAS : hw, first = store ? c * span : 0;
+    for (int idx = j; idx < 2 * R * span; idx += blockDim.x) {
+      const int layer = idx / (R * span), r = idx / span % R, word = first + idx % span;
+      uint4* s = reinterpret_cast<uint4*>(ops + ((size_t)((t + 1 + layer) & 1) * R + r) * ld +
+                                          xc + layer * H) + word;
+      uint4* g = cw + (size_t)(layer * R + r) * hw + word;
+      if (store) *g = *s; else *s = *g;
+    }
+    uint4* cs = reinterpret_cast<uint4*>(c1s);
+    cw += 2 * R * hw + (size_t)c * R * HU / 2;  // this CTA's c1s and c2s: 2 R HU floats
+    for (int idx = j; idx < R * HU / 2; idx += blockDim.x) {
+      if (store) cw[idx] = cs[idx]; else cs[idx] = cw[idx];
+    }
+  };
+
+  {  // zero both buffers (pads, h, c) before the first x tile
+    uint32_t* words = reinterpret_cast<uint32_t*>(smem_pair);
+    const size_t n_words = pair_shared_bytes<T>(D, H) / 4;
+    for (size_t i = j; i < n_words; i += blockDim.x) words[i] = 0u;
+  }
+  __syncthreads();
+  if (t_lo > 0) carries(t_lo - 1, false);  // a later part resumes from the earlier's carries
+  if (t_lo <= t_hi) load_x(t_lo, ops + (size_t)(t_lo & 1) * R * ld);
+  cluster_sync();  // both CTAs run and have set their buffers before any h crosses
+
+  uint4 b[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b[i] = __ldg(w1w + i * ns1);
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int bb = t & 1;
+    T* cur = ops + (size_t)bb * R * ld;
+    T* nxt = ops + (size_t)(bb ^ 1) * R * ld;
+    const size_t row0 = (size_t)t * n_rows + n0;  // this step's first row of the tile
+    if (t > t_lo)  // the fc of step t_lo - 1 ran in the item before
+      fc_mma<T, MT>(a_addr[bb ^ 1] + h2_col, m_stride, wt.fc + lane, kcf, fcb, out, n0, t - 1,
+                    steps, O, rows_here, PAIR_CTAS * warp + c, PAIR_CTAS * warps, lane);
+    // layer 1: [x_t | h1_{t-1}] [W1; U1] -> this CTA's units of h1_t, in both CTAs
+    layer_mma<T, MT, PAIR_PASSES, kSave, true>(
+        a_addr[bb], m_stride, w1w, ns1, kc1, w2w, ns2, b, wt.b1, c1s + cwarp, nxt + xc, ld, ug0,
+        lane, kSave ? res.g1 + row0 * 4 * H : nullptr, kSave ? res.c1 + row0 * H : nullptr,
+        kSave ? res.h1 + row0 * H : nullptr, rows_here, H, to_peer);
+    cluster_sync();  // h1_t is complete in both CTAs
+    // layer 2: [h1_t | h2_{t-1}] [W2; U2] -> this CTA's units of h2_t, in both CTAs
+    layer_mma<T, MT, PAIR_PASSES, kSave, true>(
+        a_addr[bb ^ 1] + h1_col, m_stride, w2w, ns2, kc2, w1w, ns1, b, wt.b2, c2s + cwarp,
+        cur + xc + H, ld, ug0, lane, kSave ? res.g2 + row0 * 4 * H : nullptr,
+        kSave ? res.c2 + row0 * H : nullptr, kSave ? res.h2 + row0 * H : nullptr, rows_here, H,
+        to_peer);
+    if (t < t_hi) load_x(t + 1, nxt);
+    cluster_sync();  // h2_t (in both CTAs) and x_{t+1} are complete
+  }
+  if (t_lo <= t_hi) {  // nothing crosses any more: the rest is this CTA's own
+    fc_mma<T, MT>(a_addr[t_hi & 1] + h2_col, m_stride, wt.fc + lane, kcf, fcb, out, n0, t_hi,
+                  steps, O, rows_here, PAIR_CTAS * warp + c, PAIR_CTAS * warps, lane);
+    if (t_hi + 1 < steps) carries(t_hi, true);  // for the tile's next part
+  }
+}
+
+// The pair form in one launch (part_steps 0: a cluster a row tile over all
+// the steps) or in waves (part_steps > 0, carry the [tiles][carry_bytes<T>(32,
+// H)] scratch: items part-major in launches of min(the clusters the card
+// holds at once, tiles) clusters). A shape `pair_runs` refuses, or a launch
+// the card refuses, returns its error.
+template <typename T, bool kSave, int MAX_THREADS>
+struct PairLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = {};
+  cudaError_t err;
+  // the kernel's shared memory set, and a launch of `tiles` clusters of
+  // PAIR_CTAS CTAs of H threads
+  PairLaunch(int D, int H, int tiles, cudaStream_t stream) {
+    const size_t smem = pair_shared_bytes<T>(D, H);
+    err = cudaFuncSetAttribute(sweep_pair_kernel<T, kSave, MAX_THREADS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = PAIR_CTAS;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(PAIR_CTAS * tiles);
+    cfg.blockDim = dim3(H);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  // the clusters of this launch the card holds at once
+  cudaError_t capacity(int* clusters) const {
+    return err != cudaSuccess ? err
+                              : cudaOccupancyMaxActiveClusters(
+                                    clusters, sweep_pair_kernel<T, kSave, MAX_THREADS>, &cfg);
+  }
+};
+
+template <typename T, bool kSave, int MAX_THREADS>
+int launch_pair_threads(const void* x, const MmaWeights& wt, const void* fcb, void* out,
+                        const Residuals<T>& res, void* carry, int n_rows, int steps, int D,
+                        int H, int O, int part_steps, cudaStream_t stream) {
+  auto kernel = sweep_pair_kernel<T, kSave, MAX_THREADS>;
+  const int tiles = (n_rows + 16 * PAIR_MT - 1) / (16 * PAIR_MT);
+  PairLaunch<T, kSave, MAX_THREADS> launch(D, H, tiles, stream);
+  cudaLaunchConfig_t& cfg = launch.cfg;
+  cudaError_t err = launch.err;
+  if (err != cudaSuccess) return (int)err;
+  const T* xt = static_cast<const T*>(x);
+  const float* fb = static_cast<const float*>(fcb);
+  T* y = static_cast<T*>(out);
+  unsigned char* cw = static_cast<unsigned char*>(carry);
+  if (part_steps <= 0) {
+    err = cudaLaunchKernelEx(&cfg, kernel, xt, wt, fb, y, res, static_cast<unsigned char*>(nullptr),
+                             n_rows, steps, D, H, O, 0, std::max(steps, 1));
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  }
+  int clusters = 0;
+  if ((err = launch.capacity(&clusters)) != cudaSuccess) return (int)err;
+  // a wave holds no more items than tiles, so an item's previous part (tiles
+  // items back) ran in an earlier launch
+  const int wave = std::min(clusters, tiles);
+  const int items = tiles * ((steps + part_steps - 1) / part_steps);
+  if (wave < 1) return (int)cudaErrorInvalidConfiguration;
+  for (int item0 = 0; item0 < items; item0 += wave) {
+    cfg.gridDim = dim3(PAIR_CTAS * std::min(wave, items - item0));
+    if ((err = cudaLaunchKernelEx(&cfg, kernel, xt, wt, fb, y, res, cw, n_rows, steps, D, H, O,
+                                  item0, part_steps)) != cudaSuccess)
+      return (int)err;
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The clusters of the pair form (bf16, the kernel with or without kSave)
+// the card holds at once at this shape, into *clusters; a shape `pair_runs`
+// refuses returns an error.
+template <bool kSave> int pair_capacity(int D, int H, int* clusters) {
+  using T = __nv_bfloat16;
+  if (!pair_runs<T>(D, H)) return (int)cudaErrorInvalidValue;
+  return H <= 384 ? (int)PairLaunch<T, kSave, 384>(D, H, 1, nullptr).capacity(clusters)
+                  : (int)PairLaunch<T, kSave, 512>(D, H, 1, nullptr).capacity(clusters);
+}
+
+template <typename T, bool kSave>
+int launch_pair(const void* x, const MmaWeights& wt, const void* fcb, void* out,
+                const Residuals<T>& res, void* carry, int n_rows, int steps, int D, int H, int O,
+                int part_steps, cudaStream_t stream) {
+  if (!pair_runs<T>(D, H)) return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2)
+    return H <= 384 ? launch_pair_threads<T, kSave, 384>(x, wt, fcb, out, res, carry, n_rows,
+                                                         steps, D, H, O, part_steps, stream)
+                    : launch_pair_threads<T, kSave, 512>(x, wt, fcb, out, res, carry, n_rows,
+                                                         steps, D, H, O, part_steps, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -926,24 +1222,34 @@ template <typename T> Residuals<T> residuals_of(void* const* res) {
                       static_cast<T*>(res[3]), static_cast<T*>(res[4]), static_cast<T*>(res[5])};
 }
 
-// The wave form's `form` (FWD_SWEEP_WAVE in ops/lstm2.py)
+// The forms' `form` values (ops/lstm2.py): FWD_SWEEP_WAVE, FWD_PAIR and
+// FWD_PAIR_WAVE (0 is the tile form, CLUSTER_SIZE the cluster form)
 constexpr int WAVE_FORM = 1;
+constexpr int PAIR_FORM = 2;
+constexpr int PAIR_WAVE_FORM = 3;
 
 // Launch the sweep in the form `form` gives: 0 the tile form (row tile
 // `rows`), WAVE_FORM the wave form (row tile `rows`, items of part_steps
-// steps, their carries in `carry`), CLUSTER_SIZE the cluster form (rows 16);
-// any other value, a tile or cluster form given part_steps or a carry, a
-// wave form without them, or a shape the form does not run, is refused with
+// steps, their carries in `carry`), PAIR_FORM the pair form (rows 32) in
+// one launch, PAIR_WAVE_FORM the pair form in waves (rows 32, part_steps
+// and carry as the wave form's), CLUSTER_SIZE the cluster form (rows 16);
+// any other value, a form in one launch given part_steps or a carry, a form
+// in waves without them, or a shape the form does not run, is refused with
 // an error.
 template <typename T, bool kSave>
 int launch_form(const void* x, const MmaWeights& wt, const void* fcb, void* out,
                 const Residuals<T>& res, void* carry, int n_rows, int steps, int D, int H, int O,
                 int rows, int form, int part_steps, cudaStream_t stream) {
-  if ((form == WAVE_FORM) != (part_steps > 0) || (form == WAVE_FORM) != (carry != nullptr))
-    return (int)cudaErrorInvalidValue;
+  const bool waves = form == WAVE_FORM || form == PAIR_WAVE_FORM;
+  if (waves != (part_steps > 0) || waves != (carry != nullptr)) return (int)cudaErrorInvalidValue;
   if (form == 0 || form == WAVE_FORM)
     return launch_mma<T, kSave>(x, wt, fcb, out, res, carry, n_rows, steps, D, H, O, rows,
                                 part_steps, stream);
+  if ((form == PAIR_FORM || form == PAIR_WAVE_FORM) && rows == 16 * PAIR_MT &&
+      wt.w1 != nullptr && wt.w2 != nullptr && wt.fc != nullptr && wt.b1 != nullptr &&
+      wt.b2 != nullptr)
+    return launch_pair<T, kSave>(x, wt, fcb, out, res, carry, n_rows, steps, D, H, O, part_steps,
+                                 stream);
   if (form == CLUSTER_SIZE && rows == CL_ROWS && wt.w1 != nullptr && wt.w2 != nullptr &&
       wt.fc != nullptr && wt.b1 != nullptr && wt.b2 != nullptr)
     return launch_cluster<T, kSave>(x, wt, fcb, out, res, n_rows, steps, D, H, O, stream);

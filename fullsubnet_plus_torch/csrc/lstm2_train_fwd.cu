@@ -29,10 +29,12 @@
 // the same kernel over items of a tile and a few steps, in launches of a
 // CTA an SM, the carries between a tile's items in device memory (c from
 // the float32 words the sweep carries, never from the saved residual c,
-// which is rounded in bf16); in the cluster form
-// (FullSubNet's full-band fold, N 18, D 257, H 512, O 257) a cluster of 16
-// CTAs sweeps a tile of 16 rows and each thread stores the residuals of its
-// own cell. The residuals are laid out [T, N, .] so the backward, which
+// which is rounded in bf16); in the pair form (bf16 at the sub-band folds,
+// in one launch or in waves) a cluster of two CTAs sweeps a tile of 32 rows
+// and each CTA stores the residuals of its own half of the units; in the
+// cluster form (FullSubNet's full-band fold, N 18, D 257, H 512, O 257) a
+// cluster of 16 CTAs sweeps a tile of 16 rows and each thread stores the
+// residuals of its own cell. The residuals are laid out [T, N, .] so the backward, which
 // walks the steps in reverse, reads a step's row tile as contiguous rows.
 // Weights stay in global memory (L2).
 //

@@ -19,15 +19,18 @@ float32 the kernel computes each product as three TF32 products of split
 operands (a = big + small, both TF32: small.big + big.small + big.big, float32
 sums), which holds the float32 agreement floors; a single TF32 product does not.
 
-The sweep runs in one of three forms that `fwd_sweep_plan` chooses by the
-fold's shape and the card's SM count: the tile form (a CTA a row tile for
-all the steps), the wave form (the same work cut into items of a row tile
-and FWD_WAVE_STEPS steps, in launches of a CTA an SM, the h and c carries
-between a tile's items in device memory, so a fold of more row tiles than
-SMs leaves no SM idle for a second wave) or, at FullSubNet's full-band
-folds (H 512, a few row tiles), the cluster form (a cluster of 16 CTAs a
-row tile, each owning 32 hidden units, h1 and h2 all-gathered through
-distributed shared memory). K1 and K2 (ops/lstm2_train.py) take the same
+The sweep runs in one of four forms that `fwd_sweep_plan` chooses by the
+fold's shape, dtype and the card's SM count: the tile form (a CTA a row
+tile for all the steps), the wave form (the same work cut into items of a
+row tile and FWD_WAVE_STEPS steps, in launches of a CTA an SM, the h and c
+carries between a tile's items in device memory, so a fold of more row
+tiles than SMs leaves no SM idle for a second wave), in bf16 the pair form
+(the tile form's 32-row tile over a cluster of two CTAs, each owning half
+the hidden units and pulling only their weights, h exchanged through
+distributed shared memory; in one launch, or in waves as the wave form)
+or, at FullSubNet's full-band folds (H 512, a few row tiles), the cluster
+form (a cluster of 16 CTAs a row tile, each owning 32 hidden units, h1 and
+h2 all-gathered through distributed shared memory). K1 and K2 (ops/lstm2_train.py) take the same
 form and row tile by the same rule, so their y is equal bit for bit.
 
 `lstm2_fc` takes the plain version for a tensor on the CPU and launches the
@@ -60,12 +63,21 @@ FWD_SWEEP_FORMS: Counter = Counter()
 # `fwd_sweep_plan` chooses, 0 the tile form (`sweep_mma_kernel`: a CTA a
 # tile of rows over all the steps), FWD_SWEEP_WAVE the wave form (the same
 # kernel: a CTA an item of a tile of FWD_WAVE_ROWS rows and FWD_WAVE_STEPS
-# steps, a launch a wave of at most a CTA an SM), FWD_CLUSTER the cluster
-# form (`sweep_cluster_kernel`: a cluster of 16 CTAs a tile of 16 rows, each
-# owning 32 hidden units). Set to time the forms; K1 and K2 both read it,
-# the launch takes the form it is given and none falls back.
+# steps, a launch a wave of at most a CTA an SM), FWD_PAIR the pair form
+# (`sweep_pair_kernel`, bf16: a cluster of FWD_PAIR_CTAS CTAs a tile of
+# FWD_PAIR_ROWS rows, each owning half the hidden units, in one launch),
+# FWD_PAIR_WAVE the pair form in waves (items of a tile and FWD_WAVE_STEPS
+# steps, a launch as many clusters as the card holds at once), FWD_CLUSTER
+# the cluster form (`sweep_cluster_kernel`: a cluster of 16 CTAs a tile of
+# 16 rows, each owning 32 hidden units). Set to time the forms; K1 and K2
+# both read it, the launch takes the form it is given and none falls back.
 FWD_SWEEP_FORM: int | None = None
 FWD_SWEEP_WAVE = 1  # WAVE_FORM in the .cuh
+FWD_PAIR = 2  # PAIR_FORM in the .cuh
+FWD_PAIR_WAVE = 3  # PAIR_WAVE_FORM in the .cuh
+FWD_PAIR_CTAS = 2  # CTAs of a pair's cluster (PAIR_CTAS)
+FWD_PAIR_ROWS = 32  # the pair form's row tile: two m16 tiles (PAIR_MT)
+FWD_PAIR_PASSES = 2  # unit groups of 8 a warp of the pair form owns (PAIR_PASSES)
 # The wave form's work items: FWD_WAVE_ROWS rows (the smallest tile, the
 # most items to spread over the waves) and FWD_WAVE_STEPS steps. 4 on the
 # H100 at the training fold (N 2304, T 195): float32 K2 41.2 / 39.9 / 39.5
@@ -410,6 +422,38 @@ def fwd_sweep_cluster(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch
     return FWD_CLUSTER if fits else 0
 
 
+def fwd_pair_shared_memory_bytes(d_in: int, hidden: int,
+                                 dtype: torch.dtype = torch.bfloat16) -> int:
+    """csrc/lstm2_fwd_sweep.cuh, the pair form (`pair_shared_bytes`): a CTA
+    of a pair holds the tile form's two operand buffers at R 32 (the whole
+    operand rows [x | h1 | h2 | pad]) and c1, c2 of its H / 2 units,
+    float32. At D 34, H 384: 156,672 bytes; at D 32 (FullSubNet's
+    sub-band): 152,576."""
+    rows = FWD_PAIR_ROWS
+    size = torch.tensor([], dtype=dtype).element_size()
+    pitch = x_cols(d_in, dtype) + 2 * hidden + FWD_MMA_PAD_BYTES // size
+    return 2 * size * rows * pitch + 2 * 4 * rows * (hidden // FWD_PAIR_CTAS)
+
+
+def fwd_sweep_pair(n: int, d_in: int, hidden: int, dtype: torch.dtype,
+                   sm_count: int = SM_COUNT) -> int:
+    """The pair form for a fold of n rows, by its shape and the card's SMs:
+    FWD_PAIR (one launch: a cluster of two CTAs a 32-row tile) where the
+    card holds every tile's pair at once (half its SMs), FWD_PAIR_WAVE (the
+    same clusters in waves over items of a tile and FWD_WAVE_STEPS steps)
+    where it does not; 0 where the pair form does not run: another dtype
+    than bf16, H not a multiple of 32 or past MAX_HIDDEN, or a CTA's shared
+    memory past a block (`pair_runs` in the .cuh checks again).
+    `fwd_sweep_plan` takes it wherever it runs but at the cluster form's
+    folds."""
+    if dtype != torch.bfloat16 or hidden % 32 or hidden > MAX_HIDDEN:
+        return 0
+    if fwd_pair_shared_memory_bytes(d_in, hidden, dtype) > SMEM_LIMIT:
+        return 0
+    tiles = -(-n // FWD_PAIR_ROWS)
+    return FWD_PAIR if tiles <= sm_count // FWD_PAIR_CTAS else FWD_PAIR_WAVE
+
+
 def fwd_carry_bytes(rows: int, hidden: int, dtype: torch.dtype) -> int:
     """The wave form's carries of one row tile between its parts
     (carry_bytes in csrc/lstm2_fwd_sweep.cuh): h1 and h2 [R][H] in the
@@ -422,26 +466,43 @@ def fwd_carry_bytes(rows: int, hidden: int, dtype: torch.dtype) -> int:
 def fwd_sweep_plan(n: int, d_in: int, hidden: int, out_dim: int, dtype: torch.dtype,
                    sm_count: int = SM_COUNT) -> tuple[int, int]:
     """(form, row tile) of a forward sweep over a fold of n rows, by its
-    shape and the card's SMs alone: (FWD_CLUSTER, 16) where
-    `fwd_sweep_cluster` takes the cluster form; (FWD_SWEEP_WAVE,
-    FWD_WAVE_ROWS) where FWD_WAVE_BY_DTYPE[dtype] holds and the fold has
-    more row tiles of FWD_WAVE_ROWS than the card has SMs (the tile form
-    would leave most SMs idle for a second wave: the shipped training fold,
-    N 2304, 144 tiles on 132 SMs, and FullSubNet's sub-band one); else the
-    tile form (0) with `fwd_mma_row_tile`'s R. Raises where no row tile
-    fits a block. K1 and K2 both take it, so their y is equal bit for bit.
+    shape, dtype and the card's SMs alone: (FWD_CLUSTER, 16) where
+    `fwd_sweep_cluster` takes the cluster form; (FWD_PAIR or FWD_PAIR_WAVE,
+    FWD_PAIR_ROWS) wherever `fwd_sweep_pair` runs the pair form (bf16:
+    every fold of the sub-band shapes); (FWD_SWEEP_WAVE, FWD_WAVE_ROWS)
+    where FWD_WAVE_BY_DTYPE[dtype] holds and the fold has more row tiles of
+    FWD_WAVE_ROWS than the card has SMs (the tile form would leave most SMs
+    idle for a second wave: the shipped training fold, N 2304, 144 tiles on
+    132 SMs, and FullSubNet's sub-band one); else the tile form (0) with
+    `fwd_mma_row_tile`'s R. Raises where no row tile fits a block. K1 and K2
+    both take it, so their y is equal bit for bit.
 
-    On the H100 at N 2304, T 195 (PERF.md, scripts/time_torch_fwd_tiles.py
+    bf16 on the H100 (PERF.md, scripts/time_torch_fwd_tiles.py --pair, the
+    pair form against the form this rule gave before it, in one call): K1
+    at N 2056, T 629 24.6 ms in the pair form against 37.0 at R 16 (D 32:
+    23.8 / 36.6), cuDNN's LSTM + Linear 31.8 (30.1); K2 at N 2304, T 195,
+    72 pairs on the 66 the card holds, in waves 13.0 against 16.1 at R 32
+    (D 32: 12.7 / 15.8), cuDNN 11.3 (11.4); K1 at N 2313 in waves 29.2
+    against 38.2; N 1152 K2 7.9 / 10.2; N 771 K1 22.2 / 28.9, K2 7.7 /
+    9.8; N 1542 K1 23.8 / 35.7; N 514 20.5 / 28.3; N 257 20.1 / 26.6; N
+    192 K2 7.3 / 8.9: faster at every fold, so bf16 takes it wherever it
+    runs. Earlier, for the tile and wave forms:
+
+    on the H100 at N 2304, T 195 (PERF.md, scripts/time_torch_fwd_tiles.py
     --forms, chip_smoke.py phase 3): float32 K2 38.7-39.0 ms in the wave
     form against 64.2-65.3 in two waves of R 16 (FullSubNet's D 32:
     38.4-38.6 against 63.9-64.8); K1 at N 2313, T 629 112.5 against 195.1.
     bf16 K2 16.2-16.6 at R 16 in waves against 16.0-16.5 in one wave of R
-    32 (8 steps an item 16.2), so bf16 keeps R 32: a full wave's bf16 step
-    of R 16, 71.7 us, is 1.5x 12 CTAs' 47.7, the weights' L2 pull that R 32
-    halves (FullSubNet's D 32 and K1 at N 2313 went either way by 2-4 %)."""
+    32 (8 steps an item 16.2): a full wave's bf16 step of R 16, 71.7 us,
+    is 1.5x 12 CTAs' 47.7, the weights' L2 pull that R 32 halves
+    (FullSubNet's D 32 and K1 at N 2313 went either way by 2-4 %), and
+    which the pair form halves at R 16's SM count."""
     cluster = fwd_sweep_cluster(n, d_in, hidden, out_dim, dtype)
     if cluster:
         return cluster, 16
+    pair = fwd_sweep_pair(n, d_in, hidden, dtype, sm_count)
+    if pair:
+        return pair, FWD_PAIR_ROWS
     rows = fwd_mma_row_tile(n, d_in, hidden, sm_count, dtype)
     if FWD_WAVE_BY_DTYPE.get(dtype) and -(-n // FWD_WAVE_ROWS) > sm_count:
         return FWD_SWEEP_WAVE, FWD_WAVE_ROWS
@@ -460,14 +521,16 @@ def fwd_sweep_launch(x: torch.Tensor, w: LSTM2Weights) -> tuple[int, int]:
     """(form, row tile) of a forward sweep of x on its card, the pair K1 and
     K2 both pass to their C entry points: `fwd_sweep_plan`'s, or with
     FWD_SWEEP_FORM set that form, with 16 rows for the cluster form,
-    FWD_WAVE_ROWS for the wave form and `fwd_mma_row_tile`'s R for the tile
-    form (or any other value, which the kernel refuses)."""
+    FWD_WAVE_ROWS for the wave form, FWD_PAIR_ROWS for the pair forms and
+    `fwd_mma_row_tile`'s R for the tile form (or any other value, which the
+    kernel refuses)."""
     n, d, _ = x.shape
     hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
     sm_count = sm_count_of(x)
     if FWD_SWEEP_FORM is None:
         return fwd_sweep_plan(n, d, hidden, out_dim, x.dtype, sm_count)
-    rows = {FWD_CLUSTER: 16, FWD_SWEEP_WAVE: FWD_WAVE_ROWS}.get(FWD_SWEEP_FORM)
+    rows = {FWD_CLUSTER: 16, FWD_SWEEP_WAVE: FWD_WAVE_ROWS, FWD_PAIR: FWD_PAIR_ROWS,
+            FWD_PAIR_WAVE: FWD_PAIR_ROWS}.get(FWD_SWEEP_FORM)
     return FWD_SWEEP_FORM, rows or fwd_mma_row_tile(n, d, hidden, sm_count, x.dtype)
 
 
@@ -478,8 +541,10 @@ def fwd_sweep_form(x: torch.Tensor, w: LSTM2Weights) -> int:
 
 
 def fwd_form_name(form: int) -> str:
-    """A form as FWD_SWEEP_FORMS names it: "tile", "wave" or "cluster16"."""
-    return {0: "tile", FWD_SWEEP_WAVE: "wave"}.get(form, f"cluster{form}")
+    """A form as FWD_SWEEP_FORMS names it: "tile", "wave", "pair", "pair
+    wave" or "cluster16"."""
+    return {0: "tile", FWD_SWEEP_WAVE: "wave", FWD_PAIR: "pair",
+            FWD_PAIR_WAVE: "pair wave"}.get(form, f"cluster{form}")
 
 
 def count_form(name: str, form: int) -> None:
@@ -488,10 +553,11 @@ def count_form(name: str, form: int) -> None:
 
 
 def fwd_carry(x: torch.Tensor, form: int, rows: int, hidden: int) -> torch.Tensor | None:
-    """The wave form's carry scratch for a sweep of x ([ceil(N / rows)]
-    tiles of `fwd_carry_bytes`, uninitialised: every part writes what the
-    next reads); None in the other forms."""
-    if form != FWD_SWEEP_WAVE:
+    """The carry scratch of a form in waves (the wave form, the pair form in
+    waves) for a sweep of x ([ceil(N / rows)] tiles of `fwd_carry_bytes`,
+    uninitialised: every part writes what the next reads); None in the
+    other forms."""
+    if form not in (FWD_SWEEP_WAVE, FWD_PAIR_WAVE):
         return None
     tiles = -(-x.shape[0] // rows)
     return torch.empty(tiles * fwd_carry_bytes(rows, hidden, x.dtype), dtype=torch.uint8,
@@ -500,7 +566,8 @@ def fwd_carry(x: torch.Tensor, form: int, rows: int, hidden: int) -> torch.Tenso
 
 def form_label(form: int) -> str:
     """A refused launch's form, for its error."""
-    return {None: "", 0: "", FWD_SWEEP_WAVE: " (the wave form)"}.get(
+    return {None: "", 0: "", FWD_SWEEP_WAVE: " (the wave form)",
+            FWD_PAIR: " (the pair form)", FWD_PAIR_WAVE: " (the pair form in waves)"}.get(
         form, f" (the cluster form, clusters of {form})")
 
 
@@ -552,6 +619,21 @@ def _launch(x: torch.Tensor, w: LSTM2Weights) -> torch.Tensor:
     LAUNCHES[str(x.device)] += 1
     count_form("lstm2_fwd", form)
     return out
+
+
+def fwd_pair_clusters(d_in: int, hidden: int) -> int:
+    """The clusters of the pair form (bf16) the current card holds at once
+    at D, H (`cudaOccupancyMaxActiveClusters` through K1's library): what a
+    launch of the pair form in waves holds. `fwd_sweep_pair` assumes half
+    the card's SMs. Raises on a shape the pair form does not run."""
+    fn = _library().lstm2_fwd_pair_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    clusters = ctypes.c_int(0)
+    err = fn(d_in, hidden, ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"lstm2_fwd_pair_clusters: CUDA error {err}")
+    return clusters.value
 
 
 def _library():

@@ -5,7 +5,7 @@ tile and in each form (the tile form, a CTA a row tile for all the steps,
 and the wave form, launches of a CTA an SM over items of a row tile and
 FWD_WAVE_STEPS steps).
 
-    python3 scripts/time_torch_fwd_tiles.py [--forms]   (from the repo's root)
+    python3 scripts/time_torch_fwd_tiles.py [--forms | --pair]   (from the repo's root)
 
 Needs an NVIDIA GPU. Builds the five kernels in parallel and prints the
 forward sweeps' registers and spills (ptxas); in each dtype holds K1 and K2
@@ -23,6 +23,13 @@ training fold (N 2304, D 32), with the forms' bits compared; the wave form
 at 1, 2, 4, 8 and 16 steps an item at N 2304; K1 at N 2313 (a batch of 9
 utterances, 145 tiles) and T 629 in both forms; and cuDNN's LSTM + Linear
 forward at N 2304, T 195 (TF32 off; a yardstick the port never calls).
+With `--pair` it builds K1 and K2 alone and times instead bf16 K1 and K2
+in the pair form (a cluster of two CTAs a 32-row tile; in waves past the
+pairs the card holds at once, which it prints) against the parent's form
+(the tile form at the rule's R) in turns, beside cuDNN, at the batch and
+training folds of D 34 and D 32 and at smaller folds (`PAIR_FOLDS`), each
+fold's bits compared with the R 32 tile form's: what the rule
+(`fwd_sweep_plan`) rests on.
 Prints the card's name and power limit first. Imports nothing of JAX.
 """
 
@@ -213,9 +220,76 @@ def forms(rule) -> None:
             torch.cuda.empty_cache()
 
 
+# The bf16 folds `--pair` times: (kernel, N, D, T); D 34 is FullSubNet+'s
+# sub-band LSTM, D 32 FullSubNet's. N 2056 a batch of 8 utterances of 10 s
+# (T 629), N 2304 the training fold (T 195), N 1152 a card's half of it,
+# N 2313 a batch of 9, and smaller batches down to one utterance (N 257)
+PAIR_FOLDS = (("K1", 2056, 34, 629), ("K1", 2056, 32, 629), ("K2", 2304, 34, 195),
+              ("K2", 2304, 32, 195), ("K1", 2313, 34, 629), ("K2", 1152, 34, 195),
+              ("K1", 771, 34, 629), ("K2", 771, 34, 195), ("K1", 1542, 34, 629),
+              ("K1", 514, 34, 629), ("K1", 257, 34, 629), ("K2", 192, 34, 195))
+
+
+def pair_forms(rule) -> None:
+    """bf16 K1 and K2 in the pair form (in one launch where the card holds
+    the fold's pairs at once, else in waves of FWD_WAVE_STEPS steps an
+    item) against the parent's form (the tile form at `fwd_mma_row_tile`'s
+    R, what the rule gave before the pair form) in turns (pair, parent,
+    parent, pair; the lower of a form's two medians of 3), with the R 32
+    tile form's bits compared and cuDNN's LSTM + Linear forward beside, at
+    PAIR_FOLDS."""
+    dtype = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"pair clusters the card holds at once: D 34 {lstm2.fwd_pair_clusters(34, 384)}, "
+          f"D 32 {lstm2.fwd_pair_clusters(32, 384)} ({sms} SMs)")
+    nets = {}
+    for d in (34, 32):
+        g = torch.Generator().manual_seed(d)
+        lstm, fc = LSTM2(d, 384), Linear(384, 2)
+        lstm.reset_parameters(g)
+        fc.reset_parameters(g)
+        nets[d] = (lstm.to("cuda", dtype), fc.to("cuda", dtype), g)
+    for kernel, n, d, t in PAIR_FOLDS:
+        lstm, fc, g = nets[d]
+        w = lstm.packed(fc)
+        x = torch.rand(n, d, t, generator=g).mul(2).to("cuda", dtype)
+        pair = lstm2.fwd_sweep_pair(n, d, 384, dtype, sms)
+        parent_rows = lstm2.fwd_mma_row_tile(n, d, 384, sms, dtype)
+
+        def call():
+            return ((lstm2.lstm2_fc(x, w),) if kernel == "K1"
+                    else (lambda y, res: (y, *res))(*lt.lstm2_train_fwd(x, w)))
+
+        form(pair)
+        got = call()
+        form(0, 32)
+        same = all(torch.equal(a, b) for a, b in zip(got, call()))
+        lstm2.fwd_mma_rows_per_cta = rule
+        del got
+        got = in_turns({"pair": lambda: timed(pair, None, call),
+                        "parent": lambda: timed(0, parent_rows, call)})
+        form(None)
+        lstm2.fwd_mma_rows_per_cta = rule
+        library = cudnn_fwd_ms(lstm, fc, x)
+        print(f"{kernel} bf16 N {n} D {d} T {t}: the pair form ({lstm2.fwd_form_name(pair)}) "
+              f"{got['pair']:.3f} ms ({got['pair'] / t * 1e3:.1f} us a step), the parent's form "
+              f"(tile R {parent_rows}) {got['parent']:.3f} ms ({got['parent'] / t * 1e3:.1f} us a "
+              f"step), cuDNN LSTM+Linear forward {library:.3f} ms; the same bits as the R 32 tile "
+              f"form: {same}; the rule takes the "
+              f"{lstm2.fwd_form_name(lstm2.fwd_sweep_plan(n, d, 384, 2, dtype, sms)[0])} form",
+              flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
 def main():
     smi = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
     print(subprocess.run(smi, capture_output=True, text=True).stdout.strip())
+    if "--pair" in sys.argv[1:]:
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(nvcc.build, SOURCES[:2]))
+        pair_forms(lstm2.fwd_mma_rows_per_cta)
+        return
     t0 = time.time()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         libs = list(pool.map(nvcc.build, SOURCES))

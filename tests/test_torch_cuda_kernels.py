@@ -24,8 +24,10 @@ waves and with one CTA's sends made late), and a cluster launch at a shape
 the kernel does not run raises. The reverse and forward sweeps' wave forms
 (work items of a row tile and a few steps, launched in waves of a CTA an
 SM) equal their tile forms bit for bit, and a wave launch at a shape it
-does not run raises. chip_smoke.py repeats these checks at the model's
-folds.
+does not run raises. The forward's bf16 pair form (a cluster of two CTAs a
+32-row tile, in one launch and in waves) equals the R 32 tile form bit for
+bit in K1 and K2, and a pair launch at a shape it does not run raises.
+chip_smoke.py repeats these checks at the model's folds.
 """
 
 import importlib.util
@@ -749,6 +751,75 @@ def test_fwd_wave_form_refuses_a_shape_it_does_not_run(monkeypatch):
         ops_lstm2.lstm2_fc(x, w)
     with pytest.raises(ValueError, match="more shared memory"):
         lt.lstm2_train_fwd(x, w)
+    torch.cuda.synchronize()
+    assert (sum(ops_lstm2.LAUNCHES.values()), lt.LAUNCHES["lstm2_train_fwd"]) == before
+    assert not ops_lstm2.FWD_SWEEP_FORMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,d,h,o,pk", [
+    (40, 9, 34, 384, 2, 1), (771, 9, 34, 384, 2, 4), (2304, 9, 34, 384, 2, 4),
+    (2304, 7, 32, 384, 2, 4), (50, 9, 34, 64, 11, 2), (70, 5, 34, 512, 11, 4)])
+def test_fwd_pair_form_matches_plain_and_tile_on_cuda(monkeypatch, n, t, d, h, o, pk):
+    """The forward sweep's bf16 pair form (a cluster of two CTAs a 32-row
+    tile, each owning half the units) in one launch and in waves (items of
+    pk steps, so the last part may be ragged; at N 2304, 72 pairs, more
+    than a wave holds) at D 34 and FullSubNet's D 32, H 384, 64 (two warps a
+    CTA) and 512 (O 11: the fc's two n-tiles on both ranks): K1's y and K2's
+    y and six residuals equal the R 32 tile form forced bit for bit in both,
+    they hold 40 dB against the plain versions, K1 equals itself on a repeat
+    and K2's y equals K1's; each launch is counted by its form."""
+    _need_card()
+    dtype = torch.bfloat16
+    lstm, linear = _modules(d, h, o, dtype, seed=n + h)
+    x = torch.rand(n, d, t, generator=torch.Generator().manual_seed(n)).mul(2).to("cuda", dtype)
+    w = lstm.packed(linear)
+    monkeypatch.setattr(ops_lstm2, "FWD_WAVE_STEPS", pk)
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORMS", type(ops_lstm2.FWD_SWEEP_FORMS)())
+    runs = {}
+    for form in (ops_lstm2.FWD_PAIR, ops_lstm2.FWD_PAIR_WAVE):
+        monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", form)
+        runs[form] = (ops_lstm2.lstm2_fc(x, w), ops_lstm2.lstm2_fc(x, w), lt.lstm2_train_fwd(x, w))
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", 0)
+    monkeypatch.setattr(ops_lstm2, "fwd_mma_rows_per_cta", lambda *_: 32)
+    tile = ops_lstm2.lstm2_fc(x, w)
+    y2_tile, res_tile = lt.lstm2_train_fwd(x, w)
+    torch.cuda.synchronize()
+    assert ops_lstm2.FWD_SWEEP_FORMS == {
+        "lstm2_fwd pair": 2, "lstm2_train_fwd pair": 1, "lstm2_fwd pair wave": 2,
+        "lstm2_train_fwd pair wave": 1, "lstm2_fwd tile": 1, "lstm2_train_fwd tile": 1}
+    assert torch.equal(y2_tile, tile)
+    for form, (y, again, (y2, res)) in runs.items():
+        assert torch.equal(y, again) and torch.equal(y, y2) and torch.equal(y, tile), form
+        assert all(torch.equal(a, b) for a, b in zip(res, res_tile)), form
+    y, _, (_, res) = runs[ops_lstm2.FWD_PAIR_WAVE]
+    y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+    snrs = {"y": _snr(y_ref.float(), y.float())}
+    snrs.update({name: _snr(a.float(), b.float()) for name, a, b in zip(res._fields, res_ref, res)})
+    assert min(snrs.values()) >= FLOOR[dtype], snrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,h", [(torch.float32, 34, 384), (torch.bfloat16, 257, 512)])
+def test_fwd_pair_form_refuses_a_shape_it_does_not_run(monkeypatch, dtype, d, h):
+    """The pair form forced where it does not run (float32, which it was
+    not built for; bf16 at D 257, H 512, whose two operand buffers of 32
+    rows and c words take 234,496 bytes, past a block): K1's and K2's
+    launches are refused by the kernel's launcher and raise, naming the pair
+    form, in one launch and in waves; nothing is launched or counted, and
+    nothing falls back to another form."""
+    _need_card()
+    lstm, linear = _modules(d, h, 2, dtype, seed=3)
+    x = torch.rand(40, d, 3, generator=torch.Generator().manual_seed(3)).to("cuda", dtype)
+    w = lstm.packed(linear)
+    assert ops_lstm2.fwd_sweep_pair(40, d, h, dtype) == 0
+    monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORMS", type(ops_lstm2.FWD_SWEEP_FORMS)())
+    before = (sum(ops_lstm2.LAUNCHES.values()), lt.LAUNCHES["lstm2_train_fwd"])
+    for form in (ops_lstm2.FWD_PAIR, ops_lstm2.FWD_PAIR_WAVE):
+        monkeypatch.setattr(ops_lstm2, "FWD_SWEEP_FORM", form)
+        for launch in (ops_lstm2.lstm2_fc, lt.lstm2_train_fwd):
+            with pytest.raises(RuntimeError, match="pair form"):
+                launch(x, w)
     torch.cuda.synchronize()
     assert (sum(ops_lstm2.LAUNCHES.values()), lt.LAUNCHES["lstm2_train_fwd"]) == before
     assert not ops_lstm2.FWD_SWEEP_FORMS

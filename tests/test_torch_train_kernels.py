@@ -1058,10 +1058,12 @@ def test_fwd_sweep_cluster_rule(dtype):
 class _FakeForwardLibrary:
     """Stands in for the built K1 and K2 libraries: records each call's row
     tile and form (the C entry points' arguments after n, steps, D, H, O)
-    and, for the wave form, its steps a part and the carry's bytes; refuses
-    the cluster form off H 512, as `fwd::cluster_runs` does, a wave form
-    without its carry and part steps, and a tile or wave form whose shared
-    memory overflows a block, as `fwd::launch_form` does."""
+    and, for a form in waves (the wave form, the pair form in waves), its
+    steps a part and the carry's bytes; refuses the cluster form off H 512,
+    as `fwd::cluster_runs` does, the pair forms off bf16, off 32 rows or
+    past a block, as `fwd::pair_runs` does, a form in waves without its
+    carry and part steps, and a tile or wave form whose shared memory
+    overflows a block, as `fwd::launch_form` does."""
 
     def __init__(self):
         self.calls = []
@@ -1070,10 +1072,13 @@ class _FakeForwardLibrary:
         carry = args[first_int - 1]
         n, steps, d, h, o, rows, form, part_steps, dtype = args[first_int:first_int + 9]
         self.calls.append((name, rows, form))
-        if form == 1:
+        if form in (1, 3):
             self.calls[-1] += (part_steps, carry)
             if not carry or part_steps < 1:
                 return 1
+        if form in (2, 3):
+            fits = ops_lstm2.fwd_pair_shared_memory_bytes(d, h) <= ops_lstm2.SMEM_LIMIT
+            return 0 if dtype == 1 and rows == 32 and fits else 1
         if form == 16:
             return 1 if h != 512 else 0
         size = 4 if dtype == 0 else 2
@@ -1112,28 +1117,29 @@ def fake_forward(monkeypatch):
     return lib
 
 
-_BF16_AT_2304 = ((16, 1) if ops_lstm2.FWD_WAVE_BY_DTYPE[torch.bfloat16] else (32, 0))
-
-
 @pytest.mark.parametrize("n,d,h,o,dtype,want", [
     (7, 257, 512, 257, torch.float32, (16, 16)), (18, 257, 512, 257, torch.bfloat16, (16, 16)),
-    (2304, 34, 384, 2, torch.bfloat16, _BF16_AT_2304), (2056, 34, 384, 2, torch.float32, (16, 0)),
+    (2304, 34, 384, 2, torch.bfloat16, (32, 3)), (2056, 34, 384, 2, torch.bfloat16, (32, 2)),
+    (2056, 32, 384, 2, torch.bfloat16, (32, 2)), (2056, 34, 384, 2, torch.float32, (16, 0)),
     (2304, 32, 384, 2, torch.float32, (16, 1))])
 def test_fwd_k1_and_k2_take_the_same_form(fake_forward, monkeypatch, n, d, h, o, dtype, want):
     """K1's `_launch` and K2's `_launch_train_fwd` pass the same (row tile,
     form) to their C entry points, the rule's (clusters of 16, rows 16, at
-    FullSubNet's full-band folds; the wave form, rows 16, FWD_WAVE_STEPS
-    steps a part and a carry of a tile's h and c, past one wave of row tiles
-    where the rule takes it; else the tile form with `fwd_mma_row_tile`'s R),
-    count each launch by form, and take a forced form; a form the kernel
-    refuses raises, naming it, with no fallback."""
+    FullSubNet's full-band folds; in bf16 at the sub-band folds the pair
+    form, rows 32, in one launch where the card holds the fold's pairs (N
+    2056 at D 34 and 32: 65 pairs) and in waves past them (N 2304: 72); in
+    float32 the wave form, rows 16, past one wave of row tiles; else the
+    tile form with `fwd_mma_row_tile`'s R; a form in waves with
+    FWD_WAVE_STEPS steps a part and a carry of a tile's h and c), count
+    each launch by form, and take a forced form; a form the kernel refuses
+    raises, naming it, with no fallback."""
     params, fc = _case(2, 1, d, h, o)[:2]
     w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, dtype, requires_grad=False))
     x = torch.zeros(n, d, 2, dtype=dtype)
     ops_lstm2._launch(x, w)
     lt._launch_train_fwd(x, w)
     assert [c[:3] for c in fake_forward.calls] == [("lstm2_fwd", *want), ("lstm2_train_fwd", *want)]
-    if want[1] == 1:
+    if want[1] in (ops_lstm2.FWD_SWEEP_WAVE, ops_lstm2.FWD_PAIR_WAVE):
         assert all(c[3] == ops_lstm2.FWD_WAVE_STEPS and c[4] for c in fake_forward.calls)
     tag = ops_lstm2.fwd_form_name(want[1])
     assert ops_lstm2.FWD_SWEEP_FORMS == {f"lstm2_fwd {tag}": 1, f"lstm2_train_fwd {tag}": 1}
@@ -1221,6 +1227,222 @@ def test_fwd_cluster_shared_memory(dtype):
     assert consts["CL_FC_TILES"] == str(ops_lstm2.FWD_CLUSTER_FC_TILES)
     assert consts["CL_PART_LD"] == "CL_UNITS + 8" and consts["CL_FC_LD"] == "8"
     assert consts["CL_PAD_BYTES"] == str(ops_lstm2.FWD_MMA_PAD_BYTES)
+
+
+# ---------------------------------------------------------------------------
+# the forward sweep's bf16 pair form (csrc/lstm2_fwd_sweep.cuh, sweep_pair_kernel)
+# ---------------------------------------------------------------------------
+
+def _fwd_pair_owners(hidden, ctas):
+    """{(CTA rank, warp, pass): unit group of 8} of the bf16 forward sweep
+    over a 32-row tile split over `ctas` CTAs: one, the R 32 tile form
+    (`sweep_mma_kernel`: warp w of the H / 32 owns unit groups 4w .. 4w + 3
+    in MMA_PASSES passes); two, the pair form (`sweep_pair_kernel`: rank c's
+    warp w owns (H / 16) c + 2w and + 1 in FWD_PAIR_PASSES passes)."""
+    passes = 4 // ctas
+    per_cta = hidden // 8 // ctas
+    return {(c, warp, p): per_cta * c + passes * warp + p
+            for c in range(ctas) for warp in range(hidden // 32) for p in range(passes)}
+
+
+def _chain(acc, a, b):
+    """A gate or fc sum as a tensor-core accumulator runs it: onto acc (the
+    bias, or zero for the fc), the products of each k-step of 16 in k order,
+    each k-step's 16 bf16 products summed exactly (in float64: they and their
+    sums are exact at these magnitudes) and added in float32. Each column's
+    sum reads its own operands alone, as an accumulator's does."""
+    for k in range(0, a.shape[1], 16):
+        acc = acc + (a[:, k:k + 16].double() @ b[k:k + 16].double()).float()
+    return acc
+
+
+def _fwd_pair_walk(x, w, ctas, part_steps=None, wave=None):
+    """The bf16 forward sweep over 32-row tiles as the R 32 tile form (ctas
+    1) or the pair form (ctas 2) runs it: each CTA keeps its own operand
+    rows [x | h1 | h2] (x padded to x_cols) and the c words of its own
+    units; per step and layer each (CTA, warp, pass) of `_fwd_pair_owners`
+    runs its unit group's four gate n-tiles of the packed fragments
+    (`_fragment_matrix`) as `_chain`s from the interleaved bias, its cell,
+    its residuals (rows that exist), and writes its h (bf16) into every
+    CTA's operand rows, the exchange; the fc's n-tile nt on rank nt mod
+    ctas. With part_steps, the wave form's items (tile, part), part-major, in
+    launches of `wave` items; an item stores its tile's carries (each rank
+    its own half of every h row and its own c words) and the next part
+    loads whole h rows. -> (y [N, T, O], residuals {name: [T, N, .]}, the
+    writes of each y word and each residual word)."""
+    n, d, steps = x.shape
+    hidden, out_dim = w.u1.shape[0], w.fc_w.shape[1]
+    p, xc = ops_lstm2.pack_fwd_mma(w), ops_lstm2.x_cols(d)
+    b = (_fragment_matrix(p.w1, 4 * hidden), _fragment_matrix(p.w2, 4 * hidden))
+    bias, bfc = (p.b1, p.b2), _fragment_matrix(p.fc, out_dim)
+    rows, owners, span = ops_lstm2.FWD_PAIR_ROWS, _fwd_pair_owners(hidden, ctas), hidden // ctas
+    tiles = -(-n // rows)
+    part_steps = part_steps or steps
+    items, wave = tiles * -(-steps // part_steps), wave or tiles
+    y = torch.full((n, steps, out_dim), float("nan"))
+    res = {f: torch.full((steps, n, 4 * hidden if f[0] == "g" else hidden), float("nan"))
+           for f in lt.Residuals._fields}
+    writes = {"y": torch.zeros(n, steps, out_dim, dtype=torch.int64),
+              **{f: torch.zeros(v.shape, dtype=torch.int64) for f, v in res.items()}}
+    carry = {}
+
+    def save(name, t, r0, live, cols, v):
+        res[name][t, r0:r0 + live, cols] = v[:live].to(torch.bfloat16).float()
+        writes[name][t, r0:r0 + live, cols] += 1
+
+    for item0 in range(0, items, wave):
+        stored = {}
+        for item in range(item0, min(items, item0 + wave)):
+            part, tile = divmod(item, tiles)
+            t_lo, t_hi = part * part_steps, min(steps, (part + 1) * part_steps) - 1
+            r0 = tile * rows
+            live = min(rows, n - r0)
+            ops = [torch.zeros(rows, xc + 2 * hidden) for _ in range(ctas)]
+            cs = [torch.zeros(2, rows, hidden) for _ in range(ctas)]
+            if t_lo:  # whole h rows, this rank's c words
+                h_rows, c_words = carry[tile]
+                for c in range(ctas):
+                    ops[c][:, xc:] = h_rows
+                    cs[c] = c_words[c].clone()
+            for t in range(t_lo, t_hi + 1):
+                for c in range(ctas):
+                    ops[c][:live, :d] = x[r0:r0 + live, :, t].float()
+                for layer in range(2):
+                    a_cols = slice(0, xc + hidden) if layer == 0 else slice(xc, xc + 2 * hidden)
+                    col0 = xc + layer * hidden
+                    new_h = []
+                    for (c, _, _), ug in owners.items():
+                        gcols, units = slice(32 * ug, 32 * ug + 32), slice(8 * ug, 8 * ug + 8)
+                        acc = _chain(bias[layer][gcols].expand(rows, -1), ops[c][:, a_cols],
+                                     b[layer][:, gcols])
+                        pre = acc.reshape(rows, 4, 8)
+                        i, f, g, o = (torch.sigmoid(pre[:, 0]), torch.sigmoid(pre[:, 1]),
+                                      torch.tanh(pre[:, 2]), torch.sigmoid(pre[:, 3]))
+                        cn = f * cs[c][layer][:, units] + i * g
+                        cs[c][layer][:, units] = cn
+                        h = (o * torch.tanh(cn)).to(torch.bfloat16).float()
+                        new_h.append((units, h))
+                        for gate, act in enumerate((i, f, g, o)):
+                            save(f"g{layer + 1}", t, r0, live,
+                                 slice(gate * hidden + 8 * ug, gate * hidden + 8 * ug + 8), act)
+                        save(f"c{layer + 1}", t, r0, live, units, cn)
+                        save(f"h{layer + 1}", t, r0, live, units, h)
+                    for units, h in new_h:  # the exchange: into every CTA's rows
+                        for dst in range(ctas):
+                            ops[dst][:, col0 + units.start:col0 + units.stop] = h
+                    assert all(torch.equal(ops[0][:, col0:col0 + hidden], o[:, col0:col0 + hidden])
+                               for o in ops[1:])
+                for nt in range(-(-out_dim // 8)):
+                    cols = slice(8 * nt, min(out_dim, 8 * nt + 8))
+                    acc = _chain(torch.zeros(rows, cols.stop - cols.start),
+                                 ops[nt % ctas][:, xc + hidden:], bfc[:, cols])
+                    y[r0:r0 + live, t, cols] = (acc + w.fc_b[cols])[:live].to(torch.bfloat16).float()
+                    writes["y"][r0:r0 + live, t, cols] += 1
+            if t_hi + 1 < steps:  # each rank its own half of every h row, and its c words
+                h_rows = torch.full((rows, 2 * hidden), float("nan"))
+                for c in range(ctas):
+                    for layer in range(2):
+                        own = slice(layer * hidden + c * span, layer * hidden + (c + 1) * span)
+                        h_rows[:, own] = ops[c][:, xc + own.start:xc + own.stop]
+                stored[tile] = (h_rows, [cw.clone() for cw in cs])
+        carry.update(stored)  # read only by a later launch
+    return y, res, writes
+
+
+@pytest.mark.parametrize("hidden,d,out_dim", [(384, 34, 2), (384, 32, 2), (512, 34, 11),
+                                              (64, 10, 11)])
+def test_fwd_pair_columns_have_one_owner(hidden, d, out_dim):
+    """In the pair form every gate column (4H, gate-interleaved n-tiles) and
+    every h column of both layers has exactly one owner (CTA rank, warp,
+    pass), rank c's units are the contiguous half [c H / 2, (c + 1) H / 2)
+    of each h row, the owners run the R 32 tile form's unit groups each
+    once, each h half reaches both CTAs (its owner writes it into its own
+    rows and its peer's), the carries' h words are split between the ranks
+    along the same halves (a 16-byte word never spans two owners), and
+    each fc n-tile (O 2: one, on rank 0; O 11: two, one a rank) has one
+    owner; the operand rows every CTA keeps are layer 1's K (x_cols(D) +
+    H) and layer 2's (2 H) whole."""
+    owners = _fwd_pair_owners(hidden, 2)
+    assert len(owners) == hidden // 8 and len(set(owners.values())) == hidden // 8
+    assert sorted(owners.values()) == sorted(_fwd_pair_owners(hidden, 1).values())
+    gates, units = np.zeros(4 * hidden, int), np.zeros(hidden, int)
+    received, by_rank = np.zeros((2, hidden), int), {0: set(), 1: set()}
+    for (rank, warp, p), ug in owners.items():
+        assert 0 <= warp < hidden // 32 and 0 <= p < ops_lstm2.FWD_PAIR_PASSES
+        gates[32 * ug:32 * ug + 32] += 1
+        units[8 * ug:8 * ug + 8] += 1
+        by_rank[rank].update(range(8 * ug, 8 * ug + 8))
+        for dst in (rank, rank ^ 1):
+            received[dst, 8 * ug:8 * ug + 8] += 1
+    assert (gates == 1).all() and (units == 1).all() and (received == 1).all()
+    half = hidden // ops_lstm2.FWD_PAIR_CTAS
+    assert [sorted(by_rank[c]) for c in (0, 1)] == [list(range(half)), list(range(half, hidden))]
+    words = hidden * 2 // 16  # 16-byte words of a bf16 h row
+    assert words % 2 == 0 and all(
+        {(8 * k + u) // half for u in range(8)} == {k // (words // 2)} for k in range(words))
+    fc_owners = [(nt % 2, nt // 2 % (hidden // 32)) for nt in range(-(-out_dim // 8))]
+    assert len(set(fc_owners)) == len(fc_owners) and fc_owners[0] == (0, 0)
+    assert {r for r, _ in fc_owners} == ({0} if out_dim <= 8 else {0, 1})
+    xc = ops_lstm2.x_cols(d)
+    assert (xc + hidden) % 32 == 0 and 2 * hidden % 32 == 0  # whole k-chunks of bf16
+
+
+def test_fwd_pair_shared_memory():
+    """The pair form's shared memory (`fwd_pair_shared_memory_bytes`, the
+    .cuh's pair_shared_bytes): two operand buffers [32][x_cols + 2H + 8]
+    bf16 and c1, c2 of a CTA's H / 2 units, float32: 156,672 bytes at D 34,
+    152,576 at FullSubNet's sub-band D 32 (the R 32 tile form: 205,824 at D
+    34), within a block wherever the rule gives it (every bf16 fold of the
+    sub-band shapes; at H 512, D 34: 205,824); past a block at D 257, H 512
+    (234,496), where the rule does not give it; never in float32. The
+    .cuh's constants are the ones reckoned with."""
+    assert ops_lstm2.fwd_pair_shared_memory_bytes(34, 384) == 2 * 2 * 32 * 840 + 2 * 4 * 32 * 192
+    assert ops_lstm2.fwd_pair_shared_memory_bytes(34, 384) == 156_672
+    assert ops_lstm2.fwd_pair_shared_memory_bytes(32, 384) == 152_576
+    assert ops_lstm2.fwd_mma_shared_memory_bytes(32, 34, 384) == 205_824
+    assert ops_lstm2.fwd_pair_shared_memory_bytes(34, 512) == 205_824 <= ops_lstm2.SMEM_LIMIT
+    assert ops_lstm2.fwd_pair_shared_memory_bytes(257, 512) == 234_496 > ops_lstm2.SMEM_LIMIT
+    for n, d in ((2056, 34), (2304, 34), (2056, 32), (2304, 32), (1152, 34), (771, 34), (7, 34)):
+        form, rows = ops_lstm2.fwd_sweep_plan(n, d, 384, 2, torch.bfloat16)
+        assert form in (ops_lstm2.FWD_PAIR, ops_lstm2.FWD_PAIR_WAVE) and rows == 32
+        assert ops_lstm2.fwd_pair_shared_memory_bytes(d, 384) <= ops_lstm2.SMEM_LIMIT
+    assert ops_lstm2.fwd_sweep_pair(8, 257, 512, torch.bfloat16) == 0
+    assert ops_lstm2.fwd_sweep_pair(2056, 34, 384, torch.float32) == 0
+    assert ops_lstm2.fwd_sweep_pair(2056, 34, 384, torch.bfloat16) == ops_lstm2.FWD_PAIR
+    assert ops_lstm2.fwd_sweep_pair(2304, 34, 384, torch.bfloat16) == ops_lstm2.FWD_PAIR_WAVE
+    source = (Path(ops_lstm2.__file__).parent.parent / "csrc" / "lstm2_fwd_sweep.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\w+);", source))
+    assert consts["PAIR_CTAS"] == str(ops_lstm2.FWD_PAIR_CTAS)
+    assert int(consts["PAIR_MT"]) * 16 == ops_lstm2.FWD_PAIR_ROWS
+    assert consts["PAIR_PASSES"] == str(ops_lstm2.FWD_PAIR_PASSES)
+    assert (consts["WAVE_FORM"], consts["PAIR_FORM"], consts["PAIR_WAVE_FORM"]) == tuple(
+        str(f) for f in (ops_lstm2.FWD_SWEEP_WAVE, ops_lstm2.FWD_PAIR, ops_lstm2.FWD_PAIR_WAVE))
+
+
+@pytest.mark.parametrize("part_steps,wave", [(None, None), (2, 2), (1, 2)],
+                         ids=["one launch", "waves of 2-step items", "waves of 1-step items"])
+def test_fwd_pair_walk_equals_the_r32_tile_walk(part_steps, wave):
+    """The pair form walked as the kernel walks it (two CTAs, each its own
+    half of the units' gate n-tiles and c words and its own copy of the
+    operand rows, h exchanged after each layer, the fc's two n-tiles one a
+    rank; H 64: two warps a CTA; D 10 padded to 32 columns; N 70: three
+    tiles, the last ragged), in one launch and in the wave form's schedule
+    (items of 2 and 1 steps in launches of 2 clusters, the last part of 2
+    ragged, each resuming from carries whose h halves its tile's two ranks
+    stored), gives the R 32 tile form's walk (one CTA owning every unit
+    group) bit for bit, every y and residual word written once, and holds
+    40 dB against `lstm2_fc_reference` and `lstm2_train_fwd_reference`."""
+    n, t = 70, 5
+    x, w = _fwd_case(n, t, 10, 64, 11)
+    y_tile, res_tile, _ = _fwd_pair_walk(x, w, 1)
+    y, res, writes = _fwd_pair_walk(x, w, 2, part_steps, wave)
+    assert all((v == 1).all() for v in writes.values())
+    assert torch.equal(y, y_tile) and all(torch.equal(res[k], res_tile[k]) for k in res)
+    y_ref, res_ref = lt.lstm2_train_fwd_reference(x, w)
+    assert torch.equal(y_ref, ops_lstm2.lstm2_fc_reference(x, w))
+    snrs = {"y": _snr_db(y_ref.float(), y),
+            **{f: _snr_db(e.float(), res[f]) for f, e in zip(lt.Residuals._fields, res_ref)}}
+    assert min(snrs.values()) >= 40.0, snrs
 
 
 # ---------------------------------------------------------------------------
@@ -1900,40 +2122,49 @@ def test_wave_schedule_runs_each_part_after_the_one_before(n, steps, part_steps)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwd_sweep_plan_rule(dtype):
     """The forward sweep's (form, row tile) by shape and SM count
-    (`fwd_sweep_plan`, an H100's 132 SMs), the pair K1 and K2 both take:
-    the wave form at 16 rows where the fold has more row tiles of 16 than
-    the card has SMs and FWD_WAVE_BY_DTYPE holds (the training fold N 2304
-    at D 34 and at FullSubNet's sub-band D 32, 144 tiles; a batch of 9
-    utterances, N 2313); the tile form with `fwd_mma_row_tile`'s R where one
-    wave holds them (the batch fold N 2056, a card's half of the training
-    fold N 1152, N 771) or on a card of 144 SMs; clusters of 16 at
-    FullSubNet's full-band folds. FWD_SWEEP_FORM forces each form, with 16
-    rows for the cluster and wave forms and the tile form's own R. The wave
-    form's carries are h1 and h2 in the weight dtype and c1, c2 float32."""
-    wave = ops_lstm2.FWD_WAVE_BY_DTYPE[dtype]
+    (`fwd_sweep_plan`, an H100's 132 SMs), the pair K1 and K2 both take. In
+    bf16 (`fwd_sweep_pair`) the pair form at 32 rows at every sub-band
+    fold: in one launch where the card holds the fold's pairs (half its
+    SMs: the batch fold N 2056, 65 pairs, a card's half of the training
+    fold N 1152, N 771, N 2112, 66 pairs; N 2304 on a card of 144 SMs) and
+    in waves past them (the training fold N 2304 at D 34 and at
+    FullSubNet's sub-band D 32, 72 pairs; a batch of 9 utterances, N 2313;
+    N 2113). In float32 the wave form at 16 rows where the fold has more
+    row tiles of 16 than the card has SMs (FWD_WAVE_BY_DTYPE: N 2304, 2313,
+    2113), the tile form with `fwd_mma_row_tile`'s R where one wave holds
+    them or on a card of 144 SMs. Clusters of 16 at FullSubNet's full-band
+    folds in both. FWD_SWEEP_FORM forces each form, with 16 rows for the
+    cluster and wave forms, 32 for the pair forms and the tile form's own
+    R. The carries of a form in waves are h1 and h2 in the weight dtype and
+    c1, c2 float32."""
+    pair = dtype == torch.bfloat16
     assert ops_lstm2.FWD_WAVE_BY_DTYPE[torch.float32]
     for n, d in ((2304, 34), (2304, 32), (2313, 34)):
-        want = (ops_lstm2.FWD_SWEEP_WAVE, 16) if wave else (0, 32)
+        want = (ops_lstm2.FWD_PAIR_WAVE, 32) if pair else (ops_lstm2.FWD_SWEEP_WAVE, 16)
         assert ops_lstm2.fwd_sweep_plan(n, d, 384, 2, dtype) == want
     assert ops_lstm2.fwd_sweep_plan(2304, 34, 384, 2, dtype, sm_count=144) == (
-        0, ops_lstm2.fwd_mma_row_tile(2304, 34, 384, 144, dtype))
+        (ops_lstm2.FWD_PAIR, 32) if pair
+        else (0, ops_lstm2.fwd_mma_row_tile(2304, 34, 384, 144, dtype)))
     for n in (2056, 1152, 771, 2112):
         assert ops_lstm2.fwd_sweep_plan(n, 34, 384, 2, dtype) == (
-            0, ops_lstm2.fwd_mma_row_tile(n, 34, 384, 132, dtype))
-    assert ops_lstm2.fwd_sweep_plan(2113, 34, 384, 2, dtype)[0] == (1 if wave else 0)
+            (ops_lstm2.FWD_PAIR, 32) if pair
+            else (0, ops_lstm2.fwd_mma_row_tile(n, 34, 384, 132, dtype)))
+    assert ops_lstm2.fwd_sweep_plan(2113, 34, 384, 2, dtype)[0] == (3 if pair else 1)
     for n in (8, 18):
         assert ops_lstm2.fwd_sweep_plan(n, 257, 512, 257, dtype) == (16, 16)
     assert ops_lstm2.SM_COUNT == 132 and ops_lstm2.FWD_WAVE_STEPS >= 1
     assert ops_lstm2.FWD_SWEEP_WAVE == lt.SWEEP_WAVE == 1 and ops_lstm2.FWD_WAVE_ROWS == 16
+    assert (ops_lstm2.FWD_PAIR, ops_lstm2.FWD_PAIR_WAVE, ops_lstm2.FWD_PAIR_ROWS) == (2, 3, 32)
     size = torch.tensor([], dtype=dtype).element_size()
     assert ops_lstm2.fwd_carry_bytes(16, 384, dtype) == 2 * 16 * 384 * (size + 4)
-    assert [ops_lstm2.fwd_form_name(f) for f in (0, 1, 16)] == ["tile", "wave", "cluster16"]
+    assert [ops_lstm2.fwd_form_name(f) for f in (0, 1, 2, 3, 16)] == [
+        "tile", "wave", "pair", "pair wave", "cluster16"]
     params, fc = _case(2, 1, 34, 384, 2)[:2]
     w = ops_lstm2.pack_weights(*_torch_tensors(params, fc, dtype, requires_grad=False))
     x = torch.zeros(2304, 34, 1, dtype=dtype)
     assert ops_lstm2.fwd_sweep_launch(x, w) == ops_lstm2.fwd_sweep_plan(2304, 34, 384, 2, dtype)
     for forced, want in ((0, (0, ops_lstm2.fwd_mma_row_tile(2304, 34, 384, 132, dtype))),
-                         (1, (1, 16)), (16, (16, 16))):
+                         (1, (1, 16)), (2, (2, 32)), (3, (3, 32)), (16, (16, 16))):
         ops_lstm2.FWD_SWEEP_FORM = forced
         try:
             assert ops_lstm2.fwd_sweep_launch(x, w) == want
@@ -1942,7 +2173,10 @@ def test_fwd_sweep_plan_rule(dtype):
             ops_lstm2.FWD_SWEEP_FORM = None
     carry = ops_lstm2.fwd_carry(x, 1, 16, 384)
     assert carry.dtype == torch.uint8 and carry.numel() == 144 * 2 * 16 * 384 * (size + 4)
+    carry = ops_lstm2.fwd_carry(x, ops_lstm2.FWD_PAIR_WAVE, 32, 384)
+    assert carry.dtype == torch.uint8 and carry.numel() == 72 * 2 * 32 * 384 * (size + 4)
     assert ops_lstm2.fwd_carry(x, 0, 16, 384) is None
+    assert ops_lstm2.fwd_carry(x, ops_lstm2.FWD_PAIR, 32, 384) is None
 
 
 def _fwd_wave_schedule(n, steps, part_steps, sm_count, rows=16):
